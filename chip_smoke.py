@@ -11,20 +11,32 @@ Phases (any failure makes the run exit non-zero and print no result):
 2. build: every CUDA source under ``kube_sqs_autoscaler_tpu_torch/csrc``
    (one ``nvcc`` each, in parallel) into ``build/kernels/``;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes and at the ragged, GQA and windowed shapes, and
-   timed beside its plain version, the equivalent PyTorch library call
-   and the least time the card could take (its bound);
-4. main path: the worker binary's code path in-process, at the built-in
-   GPT's full width in bf16, in generate and classify mode; every message
-   must be answered once and deleted, and every kernel of the path must
-   have launched (the launch counts are zeroed just before each mode and
-   read just after); plus an f32 prefill whose logits must match the
+   the main paths' shapes and at the ragged, GQA, windowed, non-causal and
+   shifted rectangular shapes, and timed beside its plain version, the
+   equivalent PyTorch library call and the least time the card could take
+   (its bound): the serving forward (``flash_fwd``), and the training
+   forward with the lse (``flash_fwd_lse``) and its two backward halves
+   (``flash_bwd_dq``, ``flash_bwd_dkv``);
+4. serving path: the worker binary's code path in-process, at the
+   built-in GPT's full width in bf16, in generate and classify mode; every
+   message must be answered once and deleted, and every kernel of the path
+   must have launched (the launch counts are zeroed just before each mode
+   and read just after); plus an f32 prefill whose logits must match the
    dense-attention path;
 5. throughput and profile: warm ``--demo 64`` rates in each mode, and
    ``torch.profiler`` over one batch in each mode (device busy share and
    the kernels that take the time);
-6. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-7. the last line, ``{"ok": true, "device": {...}}``.
+6. training: an f32 loss and gradient at the flagship train width through
+   the kernels against the dense-attention path; the trainer binary's code
+   path in-process at the flagship config (GPT, d_model 1024, 16 heads,
+   8 layers, d_ff 4096, vocab 8192, B=8, S=2048) in bf16 for 10
+   ``--overfit`` steps, whose losses must be finite and fall and whose
+   lse-forward, dq and dk/dv launch counts must each be ``n_layers x
+   steps`` (and twice that for the forward under ``--remat``); its steady
+   step time, tokens/s, MFU and peak memory; ``torch.profiler`` over one
+   step;
+7. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+8. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
@@ -34,10 +46,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
 import traceback
+from functools import partial
 
 # published peaks of one H100 SXM (NVIDIA data sheet; dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -49,6 +63,23 @@ TOL_REASON = {
                 "running max where the plain version uses the row max",
     "float32": "the same fp32 arithmetic summed in another order",
 }
+# the training kernels' outputs (gradients summed over up to 2048 keys or
+# 4 x 2048 rows) reach magnitudes of several units, where one bf16 step is
+# 2^-8 of the magnitude: their error is held to TOL times max(1, max|want|)
+TRAIN_TOL_REASON = {
+    "bfloat16": "bf16 results: one rounding step is 2^-8 of the magnitude, "
+                "and p and ds round to bf16 before their products on both "
+                "sides, from fp32 values summed in another order",
+    "float32": "the same fp32 arithmetic summed in another order over up to "
+               "8192 terms",
+}
+TRAIN_SHAPE = (8, 16, 2048, 64)  # (B, H, S, D) of the flagship train config
+TRAIN_ARGS = ["--d-model", "1024", "--n-heads", "16", "--n-layers", "8",
+              "--d-ff", "4096", "--vocab-size", "8192", "--seq-len", "2048",
+              "--batch-size", "8", "--device", "cuda"]
+TRAIN_LAYERS = 8
+TRAIN_STEPS = 10
+EVAL_EVERY = 5
 MAIN_SHAPES = [(8, 8, 512, 64), (8, 8, 1024, 64)]  # generate, classify
 GENERATE_ARGS = ["--demo", "16", "--batch-size", "8", "--seq-len", "512",
                  "--generate-tokens", "32", "--result-queue-url",
@@ -138,23 +169,37 @@ def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_bound_ms(shape, kv_heads, dtype_name, causal=True, window=None):
-    """The least time the card could take for the kernel's work: q, k, v
-    read once and out written once over the memory rate, or the two
-    products' multiply-adds over the peak rate of the inputs' type,
-    whichever is longer; the products count only the live (row, key)
-    pairs of this mask."""
+# per kernel: (q-shaped tensors moved, k-shaped tensors moved, fp32 row
+# vectors moved, products of D multiply-adds per live (row, key) pair)
+BOUND_TERMS = {
+    "fwd": (2, 2, 0, 2),      # q, out; k, v; QK^T and PV
+    "fwd_lse": (2, 2, 1, 2),  # and the lse
+    "dq": (3, 2, 2, 3),       # q, dout, dq; k, v; lse, delta; S, dP, dS K
+    "dkv": (2, 4, 2, 4),      # q, dout; k, v, dk, dv; lse, delta; S, dP,
+                              # P^T dO, dS^T Q
+}
+
+
+def flash_bound_ms(shape, kv_heads, dtype_name, causal=True, window=None,
+                   kind="fwd"):
+    """The least time the card could take for the kernel's work: each
+    input read once and each output written once over the memory rate,
+    or the products' multiply-adds (2 FLOPs each) over the peak rate of
+    the inputs' type, whichever is longer; the products count only the
+    live (row, key) pairs of this mask."""
     batch, heads, seq, dim = shape
     size = 2 if dtype_name == "bfloat16" else 4
-    moved = (2 * batch * heads * seq * dim
-             + 2 * batch * kv_heads * seq * dim) * size
+    n_q, n_kv, n_rows, n_products = BOUND_TERMS[kind]
+    moved = (n_q * batch * heads * seq * dim * size
+             + n_kv * batch * kv_heads * seq * dim * size
+             + n_rows * batch * heads * seq * 4)
     if not causal:
         pairs = seq * seq
     elif window is None:
         pairs = seq * (seq + 1) // 2
     else:
         pairs = sum(min(r + 1, window) for r in range(seq))
-    ops = 4 * batch * heads * dim * pairs
+    ops = 2 * n_products * batch * heads * dim * pairs
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -278,6 +323,26 @@ def throughput_phase(torch) -> dict:
     return out
 
 
+def device_breakdown(prof):
+    """``(kernels, copies)`` of a profile, each a list of ``(device ms,
+    count, name)``, kernels sorted by time.  Device rows only: operator
+    rows repeat their kernels' time.  Copies are listed apart: the trace
+    may also hold copies made before the window."""
+    kernels, copies = [], []
+    for event in prof.key_averages():
+        if not str(event.device_type).endswith("CUDA"):
+            continue
+        device_us = getattr(event, "self_device_time_total", None)
+        if device_us is None:
+            device_us = event.self_cuda_time_total
+        if device_us > 0:
+            row = (device_us / 1e3, event.count, event.key)
+            is_copy = event.key.startswith(("Memcpy", "Memset"))
+            (copies if is_copy else kernels).append(row)
+    kernels.sort(reverse=True)
+    return kernels, copies
+
+
 def profile_phase(torch) -> dict:
     """Where one warm batch's time goes: ``torch.profiler`` around the
     worker's serve loop (weights already on the card) for one batch of 8
@@ -308,21 +373,7 @@ def profile_phase(torch) -> dict:
                                       torch.device("cuda"))
             torch.cuda.synchronize()
         wall_ms = summary["elapsed_s"] * 1e3
-        kernels, copies = [], []
-        for event in prof.key_averages():
-            # device rows only: operator rows repeat their kernels' time
-            if not str(event.device_type).endswith("CUDA"):
-                continue
-            device_us = getattr(event, "self_device_time_total", None)
-            if device_us is None:
-                device_us = event.self_cuda_time_total
-            if device_us > 0:
-                row = (device_us / 1e3, event.count, event.key)
-                # copies are listed apart: the trace may also hold the
-                # weights' host-to-device copies, made before the window
-                is_copy = event.key.startswith(("Memcpy", "Memset"))
-                (copies if is_copy else kernels).append(row)
-        kernels.sort(reverse=True)
+        kernels, copies = device_breakdown(prof)
         busy_ms = sum(ms for ms, _, _ in kernels)
         copy_ms = sum(ms for ms, _, _ in copies)
         flash_ms = sum(ms for ms, _, key in kernels if "flash_fwd" in key)
@@ -370,6 +421,335 @@ def f32_prefill_phase(torch, flash, smoke: Smoke) -> dict:
     return {"max_abs_err": err}
 
 
+def scaled_err(got, want) -> tuple[float, float]:
+    """``(max |got - want|, that over max(1, max |want|))``."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(1.0, want.float().abs().max().item())
+
+
+def train_inputs(torch, b, h, hkv, sq, sk, d, dtype, strided, seed):
+    """q, k, v, dout on the card; ``strided`` takes q, k, v as head views
+    of one fused [B, S, 3 * H * D] projection and dout as a head view of a
+    [B, S, H * D] gradient, as the model's backward hands them over."""
+    if strided:
+        q, k, v = make_qkv(torch, b, h, hkv, sq, d, dtype, True, seed)
+    else:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        q = torch.randn((b, h, sq, d), generator=g, device="cuda").to(dtype)
+        k = torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype)
+        v = torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    dout = torch.randn((b, sq, h * d), generator=g, device="cuda").to(dtype)
+    dout = dout.reshape(b, sq, h, d).transpose(1, 2)
+    return q, k, v, dout
+
+
+def train_kernel_phase(torch, flash, smoke: Smoke) -> dict:
+    """The lse forward and both backward halves against their plain
+    versions at every listed case, then timed at the train shape."""
+    import torch.nn.functional as F
+
+    cases = [
+        # (label, B, H, H_kv, S_q, S_k, D, causal, window, q_shift,
+        #  strided, dlse)
+        ("train", *TRAIN_SHAPE[:2], TRAIN_SHAPE[1], TRAIN_SHAPE[2],
+         TRAIN_SHAPE[2], TRAIN_SHAPE[3], True, None, 0, True, False),
+        ("gqa-h8-kv2-d128", 2, 8, 2, 512, 512, 128, True, None, 0, False,
+         False),
+        ("window128", 2, 8, 8, 1024, 1024, 64, True, 128, 0, False, False),
+        ("non-causal", 2, 8, 8, 512, 512, 64, False, None, 0, False, False),
+        ("rect-sq512-sk1024-shift512-dlse", 2, 8, 8, 512, 1024, 64, True,
+         None, 512, False, True),
+        ("window200-shift512-gqa-d128", 2, 4, 2, 256, 768, 128, True, 200,
+         512, False, True),
+        ("ragged-s1000", 2, 8, 8, 1000, 1000, 64, True, None, 0, False,
+         False),
+        ("ragged-s48", 2, 8, 8, 48, 48, 64, True, None, 0, False, False),
+    ]
+    errs = {name: 0.0 for name in ("flash_fwd_lse", "flash_bwd_dq",
+                                   "flash_bwd_dkv")}
+    for seed, (label, b, h, hkv, sq, sk, d, causal, window, shift, strided,
+               with_dlse) in enumerate(cases):
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            q, k, v, dout = train_inputs(torch, b, h, hkv, sq, sk, d, dtype,
+                                         strided, 100 + seed)
+            opts = dict(causal=causal, window=window, q_shift=shift)
+            out, lse = flash.flash_fwd(q, k, v, need_lse=True, **opts)
+            want_out, want_lse = flash.flash_fwd_reference(q, k, v, **opts)
+            dlse = None
+            if with_dlse:
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                dlse = torch.randn(lse.shape, generator=g, device="cuda")
+            delta = flash.attention_delta(want_out, dout, dlse)
+            args = (q, k, v, dout, want_lse, delta)
+            dq = flash.flash_bwd_dq(*args, **opts)
+            dk, dv = flash.flash_bwd_dkv(*args, **opts)
+            want_dq = flash.flash_bwd_dq_reference(*args, **opts)
+            want_dk, want_dv = flash.flash_bwd_dkv_reference(*args, **opts)
+            torch.cuda.synchronize()
+            tol = TOL[dtype_name]
+            results = {
+                "flash_fwd_lse": [scaled_err(out, want_out),
+                                  scaled_err(lse, want_lse)],
+                "flash_bwd_dq": [scaled_err(dq, want_dq)],
+                "flash_bwd_dkv": [scaled_err(dk, want_dk),
+                                  scaled_err(dv, want_dv)],
+            }
+            shapes_ok = (dk.shape == k.shape and dv.shape == v.shape
+                         and dq.shape == q.shape and lse.shape == q.shape[:3])
+            for name, pairs in results.items():
+                finite = all(bool(torch.isfinite(t).all().item()) for t in (
+                    (out, lse) if name == "flash_fwd_lse" else
+                    (dq,) if name == "flash_bwd_dq" else (dk, dv)))
+                worst = max(scaled for _, scaled in pairs)
+                raw = max(err for err, _ in pairs)
+                smoke.check(
+                    finite and shapes_ok and worst <= tol,
+                    f"{name} {label} {dtype_name} B={b} H={h} H_kv={hkv} "
+                    f"S_q={sq} S_k={sk} D={d} causal={causal} "
+                    f"window={window} q_shift={shift} dlse={with_dlse}: "
+                    f"max|d|={raw:.3e}, /max(1,|want|)={worst:.3e} "
+                    f"tol={tol:g} ({TRAIN_TOL_REASON[dtype_name]})",
+                )
+                if dtype_name == "bfloat16" and label == "train":
+                    errs[name] = raw
+
+    b, h, s, d = TRAIN_SHAPE
+    q, k, v, dout = train_inputs(torch, b, h, h, s, s, d, torch.bfloat16,
+                                 True, 99)
+    out, lse = flash.flash_fwd_reference(q, k, v)
+    delta = flash.attention_delta(out, dout)
+    args = (q, k, v, dout, lse, delta)
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, dout))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qc, kc, vc))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def sdpa_backward():
+        torch.autograd.grad(sdpa_out, (qg, kg, vg), doc, retain_graph=True)
+
+    sdpa_bwd_ms = time_ms(torch, sdpa_backward)
+    timings = {
+        "flash_fwd_lse": dict(
+            kernel_ms=time_ms(torch, lambda: flash.flash_fwd(
+                q, k, v, need_lse=True)),
+            plain_ms=time_ms(torch, lambda: flash.flash_fwd_reference(
+                q, k, v)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True)),
+            library_call="F.scaled_dot_product_attention forward",
+            kind="fwd_lse"),
+        "flash_bwd_dq": dict(
+            kernel_ms=time_ms(torch, lambda: flash.flash_bwd_dq(*args)),
+            plain_ms=time_ms(torch, lambda: flash.flash_bwd_dq_reference(
+                *args)),
+            library_ms=sdpa_bwd_ms,
+            library_call="F.scaled_dot_product_attention backward alone "
+                         "(dq, dk and dv together)",
+            kind="dq"),
+        "flash_bwd_dkv": dict(
+            kernel_ms=time_ms(torch, lambda: flash.flash_bwd_dkv(*args)),
+            plain_ms=time_ms(torch, lambda: flash.flash_bwd_dkv_reference(
+                *args)),
+            library_ms=sdpa_bwd_ms,
+            library_call="F.scaled_dot_product_attention backward alone "
+                         "(dq, dk and dv together)",
+            kind="dkv"),
+    }
+    for name, t in timings.items():
+        t["bound_ms"], t["bound_by"] = flash_bound_ms(
+            TRAIN_SHAPE, h, "bfloat16", kind=t.pop("kind"))
+        print(f"time {name} bf16 {TRAIN_SHAPE}: kernel {t['kernel_ms']:.4f} "
+              f"ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms ({t['library_call']}), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+    pair = timings["flash_bwd_dq"]["kernel_ms"] + \
+        timings["flash_bwd_dkv"]["kernel_ms"]
+    print(f"time backward pair bf16 {TRAIN_SHAPE}: dq + dk/dv kernels "
+          f"{pair:.4f} ms, SDPA backward {sdpa_bwd_ms:.4f} ms "
+          f"({pair / sdpa_bwd_ms:.1f}x)", flush=True)
+    return {"errs": errs, "timings": timings}
+
+
+def f32_train_phase(torch, flash, smoke: Smoke) -> dict:
+    """The loss and every gradient of the training objective at the
+    flagship width (2 layers, B=2, S=2048, fp32) through the kernels
+    against the same through dense attention."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import train
+    from kube_sqs_autoscaler_tpu_torch.workloads.model import (
+        ModelConfig, _dense_attention, init_params,
+    )
+
+    config = ModelConfig(vocab_size=8192, d_model=1024, n_heads=16,
+                         n_layers=2, d_ff=4096, max_seq_len=2048,
+                         dtype=torch.float32)
+    state = train.train_state(
+        init_params(config, torch.Generator().manual_seed(0), "cuda"),
+        train.TrainConfig())
+    g = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, config.vocab_size, (2, 2048), generator=g,
+                           device="cuda")
+    results = {}
+    for name, attend in (("kernels", flash.flash_attention),
+                         ("dense", _dense_attention)):
+        before = (flash.lse_launches, flash.dq_launches, flash.dkv_launches)
+        loss = partial(train.loss_fn, config=config, attention_fn=attend)
+        results[name] = train.value_and_grad(loss, state["params"], tokens)
+        launched = [now - then for now, then in zip(
+            (flash.lse_launches, flash.dq_launches, flash.dkv_launches),
+            before)]
+        want = [config.n_layers] * 3 if name == "kernels" else [0] * 3
+        smoke.check(launched == want, f"f32 train step through {name}: "
+                    f"lse/dq/dkv launches {launched}")
+    (loss_k, grads_k), (loss_d, grads_d) = results["kernels"], results["dense"]
+    rel = abs(loss_k.item() - loss_d.item()) / abs(loss_d.item())
+    smoke.check(rel <= 1e-5, f"f32 train loss, kernels {loss_k.item():.7f} vs "
+                f"dense {loss_d.item():.7f}: rel {rel:.3e} tol=1e-5 (fp32 "
+                "sums in another order)")
+    worst = 0.0
+    leaves_k = train.param_leaves(grads_k)
+    leaves_d = train.param_leaves(grads_d)
+    for got, want in zip(leaves_k, leaves_d):
+        worst = max(worst, (got - want).abs().max().item()
+                    / want.abs().max().item())
+    smoke.check(worst <= 1e-4, f"f32 train grads, kernels vs dense, "
+                f"{len(leaves_k)} tensors: worst max|d| / max|want| = "
+                f"{worst:.3e} tol=1e-4 (fp32 sums in another order through "
+                "two layers, and the softmax backward recomputed from the "
+                "lse where the dense path differentiates its softmax)")
+    return {"loss_rel_err": rel, "grad_rel_err": worst}
+
+
+def counts(flash) -> dict:
+    return {"flash_fwd": flash.kernel_launches,
+            "flash_fwd_lse": flash.lse_launches,
+            "flash_bwd_dq": flash.dq_launches,
+            "flash_bwd_dkv": flash.dkv_launches}
+
+
+def zero_counts(flash) -> None:
+    flash.kernel_launches = flash.lse_launches = 0
+    flash.dq_launches = flash.dkv_launches = 0
+
+
+def train_path_phase(torch, flash, smoke: Smoke, power: str) -> dict:
+    """The trainer binary's code path in-process at the flagship config in
+    bf16: 10 ``--overfit`` steps with a held-out eval every 5, then 2
+    steps under ``--remat``; launch counts zeroed just before each run and
+    read just after."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import trainer
+
+    out = {}
+    for run, extra, steps in (
+            ("train", ["--eval-every", str(EVAL_EVERY), "--eval-batches",
+                       "1"], TRAIN_STEPS),
+            ("remat", ["--remat"], 2)):
+        argv = [*TRAIN_ARGS, "--steps", str(steps), "--log-every", "1",
+                "--overfit", *extra]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(flash)
+        summary = trainer.main(argv)
+        torch.cuda.synchronize()
+        launched = counts(flash)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = summary["losses"]
+        smoke.check(len(losses) == steps and all(map(math.isfinite, losses))
+                    and losses[-1] < losses[0],
+                    f"{run}: {steps} losses, finite and falling: "
+                    f"{[round(x, 4) for x in losses]}")
+        smoke.check(summary["final_step"] == steps,
+                    f"{run}: final_step {summary['final_step']}")
+        per_step = TRAIN_LAYERS * steps
+        want = {
+            "flash_fwd": TRAIN_LAYERS * (steps // EVAL_EVERY)
+            if run == "train" else 0,
+            "flash_fwd_lse": per_step * (2 if run == "remat" else 1),
+            "flash_bwd_dq": per_step,
+            "flash_bwd_dkv": per_step,
+        }
+        smoke.check(launched == want, f"{run}: launches {launched}, want "
+                    f"{want} (n_layers x steps; the forward twice under "
+                    f"remat; the no-lse forward in eval passes only)")
+        step_ms = 1e3 / summary["steps_per_s"]
+        mfu = summary["mfu"]
+        print(f"{run}: steady step {step_ms:.3f} ms over {steps - 1} steps, "
+              f"{summary['tokens_per_s']:.1f} tokens/s, MFU "
+              f"{'not known' if mfu is None else f'{100 * mfu:.2f}%'} of "
+              f"the H100 bf16 dense peak (card: {power}), peak memory "
+              f"{peak_gib:.3f} GiB", flush=True)
+        out[run] = {"losses": losses, "launches": launched,
+                    "step_ms": step_ms, "tokens_per_s":
+                    summary["tokens_per_s"], "mfu": mfu,
+                    "peak_gib": peak_gib}
+    return out
+
+
+def train_profile_phase(torch) -> dict:
+    """Where one warm flagship train step's time goes: ``torch.profiler``
+    over one step after two warm ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kube_sqs_autoscaler_tpu_torch.workloads import trainer
+    from kube_sqs_autoscaler_tpu_torch.workloads.data import (
+        synthetic_token_stream,
+    )
+
+    run = trainer.setup(trainer.build_parser().parse_args(TRAIN_ARGS))
+    state, step_fn = run["state"], run["step_fn"]
+    tokens = torch.from_numpy(next(synthetic_token_stream(
+        8192, TRAIN_SHAPE[0], TRAIN_SHAPE[2], seed=0))).cuda()
+    for _ in range(2):
+        state, loss = step_fn(state, tokens)
+    float(loss)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        state, loss = step_fn(state, tokens)
+        float(loss)
+        wall_ms = (time.perf_counter() - start) * 1e3
+    kernels, copies = device_breakdown(prof)
+    busy_ms = sum(ms for ms, _, _ in kernels)
+    by_name = {name: sum(ms for ms, _, key in kernels if name in key)
+               for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                            "flash_bwd_dkv_kernel")}
+    print(f"profile train step (profiler on): wall {wall_ms:.3f} ms, kernels "
+          f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in by_name.items())
+          + f", attention kernels {100 * sum(by_name.values()) / busy_ms:.1f}%"
+          f" of busy, copies {sum(ms for ms, _, _ in copies):.3f} ms",
+          flush=True)
+    for ms, count, key in kernels[:12]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {key[:100]}", flush=True)
+    return {"wall_ms": wall_ms, "kernel_busy_ms": busy_ms, **by_name,
+            "top": [(ms, count, key[:100]) for ms, count, key in kernels[:12]]}
+
+
+def kernel_entry(name, source, replaces, replaces_fn, launches, by_path,
+                 err, timing, shape) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"kube_sqs_autoscaler_tpu_torch/csrc/{source}",
+        "replaces": f"kube_sqs_autoscaler_tpu/workloads/flash.py:{replaces}",
+        "replaces_fn": replaces_fn,
+        "launches": launches,
+        "launches_by_path": by_path,
+        "max_abs_err": err,
+        "tol": TOL["bfloat16"],
+        "shape": list(shape),
+        "ms": timing["kernel_ms"],
+        "kernel_ms": timing["kernel_ms"],
+        "plain_ms": timing["plain_ms"],
+        "library_ms": timing["library_ms"],
+        "library_call": timing.get("library_call",
+                                   "F.scaled_dot_product_attention forward"),
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -383,39 +763,53 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smoke = Smoke()
     info = smoke.phase("device", device_phase, torch)
+    power = info["nvidia_smi"] if info else "unknown"
     smoke.phase("build", build_phase, kernels)
     kern = smoke.phase("kernels", kernel_phase, torch, flash, smoke)
+    train_kern = smoke.phase("train kernels", train_kernel_phase, torch,
+                             flash, smoke)
     path = smoke.phase("main path", main_path_phase, torch, flash, smoke)
     smoke.phase("f32 prefill", f32_prefill_phase, torch, flash, smoke)
     rates = smoke.phase("throughput", throughput_phase, torch)
     prof = smoke.phase("profile", profile_phase, torch)
-    if smoke.failures or not (info and kern and path and rates and prof):
+    f32_train = smoke.phase("f32 train step", f32_train_phase, torch, flash,
+                            smoke)
+    train_path = smoke.phase("train path", train_path_phase, torch, flash,
+                             smoke, power)
+    train_prof = smoke.phase("train profile", train_profile_phase, torch)
+    if smoke.failures or not (info and kern and train_kern and path and rates
+                              and prof and f32_train and train_path
+                              and train_prof):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
         return 1
-    timing = kern["timings"][MAIN_SHAPES[0]]
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "kube_sqs_autoscaler_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "kube_sqs_autoscaler_tpu/workloads/flash.py:159",
-        "replaces_fn": "_fwd_kernel",
-        "launches": sum(m["launches"] for m in path.values()),
-        "launches_by_mode": {m: v["launches"] for m, v in path.items()},
-        "max_abs_err": kern["main_err"],
-        "tol": TOL["bfloat16"],
-        "shape": list(MAIN_SHAPES[0]),
-        "ms": timing["kernel_ms"],
-        "kernel_ms": timing["kernel_ms"],
-        "plain_ms": timing["plain_ms"],
-        "library_ms": timing["library_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "at_other_shapes": {
-            "x".join(map(str, shape)): t for shape, t in
-            kern["timings"].items() if shape != MAIN_SHAPES[0]
-        },
-    }]}), flush=True)
+    timing = dict(kern["timings"][MAIN_SHAPES[0]])
+    fwd = kernel_entry(
+        "flash_fwd", "flash_fwd.cu", 159, "_fwd_kernel (need_lse=False)",
+        sum(m["launches"] for m in path.values())
+        + train_path["train"]["launches"]["flash_fwd"],
+        {**{f"serve-{m}": v["launches"] for m, v in path.items()},
+         **{f"train-{r}": v["launches"]["flash_fwd"]
+            for r, v in train_path.items()}},
+        kern["main_err"], timing, MAIN_SHAPES[0])
+    fwd["at_other_shapes"] = {
+        "x".join(map(str, shape)): t for shape, t in
+        kern["timings"].items() if shape != MAIN_SHAPES[0]
+    }
+    entries = [fwd]
+    for name, source, line, fn in (
+            ("flash_fwd_lse", "flash_fwd.cu", 159,
+             "_fwd_kernel (need_lse=True, lse written at :247-251)"),
+            ("flash_bwd_dq", "flash_bwd.cu", 324, "_bwd_dq_kernel"),
+            ("flash_bwd_dkv", "flash_bwd.cu", 380, "_bwd_dkv_kernel")):
+        entries.append(kernel_entry(
+            name, source, line, fn,
+            train_path["train"]["launches"][name],
+            {f"train-{r}": v["launches"][name]
+             for r, v in train_path.items()},
+            train_kern["errs"][name], train_kern["timings"][name],
+            TRAIN_SHAPE))
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"],
     }}), flush=True)

@@ -1,14 +1,24 @@
 // Flash-attention forward for Hopper (sm_90a): causal or full attention on
-// [B, H, S, D], GQA k/v ([B, H_kv, S, D]), optional sliding window.
+// q [B, H, S_q, D] against k/v [B, H_kv, S_k, D] (GQA), optional sliding
+// window, optional per-row logsumexp.
 //
 // Replaces the TPU kernel kube_sqs_autoscaler_tpu/workloads/flash.py:_fwd_kernel
-// in its no-lse mode (_fwd_call(need_lse=False)), the prompt pass of the
-// serving worker (classify forward and generate prefill).
+// in both modes: without the lse (_fwd_call(need_lse=False)), the prompt
+// pass of the serving worker, and with it (need_lse=True, _flash_fwd and
+// _flash_lse), every training forward, whose backward reads the lse.  The
+// lse is fp32 [B, H, S_q] (the TPU's [.., 128] lane replication is a
+// Mosaic tiling artefact), written as run_max + log(run_sum) at the end of
+// the row.  q_shift >= 0 places q row 0 at that causal position relative to
+// k column 0 (row i attends columns <= i + q_shift), as for the rectangular
+// hops of ring attention; the serving calls pass S_q == S_k, q_shift 0 and
+// no lse pointer.
 //
 // What bounds it on this card: at the serving shapes (S <= 1024, D = 64) the
 // bytes it must move (q, k, v read once, out written once) take longer at
 // 3.35 TB/s than the causal score and PV products take at the bf16
-// tensor-core rate, so the floor is the memory.  This first version does not
+// tensor-core rate, so the floor is the memory; at the training shape
+// (S = 2048) the products take longer, so the floor is the operations.
+// This first version does not
 // reach that floor: it runs the products as scalar fp32 FMAs, not on the
 // tensor cores, so it is bound by its own FMA and shared-memory issue rate.
 // What the design does about the bytes: one block owns a 64-row q tile of one
@@ -65,9 +75,10 @@ struct Strides {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides qs,
-                 Strides ks, Strides vs, int H, int groups, int S, int causal,
-                 int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
+                 int H, int groups, int S_q, int S_k, int causal, int window,
+                 int q_shift, float scale) {
   constexpr int kStride = D + 1;         // padded rows: no bank conflicts
   constexpr int kPStride = kBlockK + 1;
   constexpr int kDimsPerLane = D / kLanesPerRow;
@@ -93,16 +104,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < kBlockQ * D; e += kThreads) {
     const int r = e / D, d = e % D;
     const int gr = q_start + r;
-    q_tile[r * kStride + d] = gr < S ? to_float(q_base[gr * qs.s + d]) : 0.f;
+    q_tile[r * kStride + d] = gr < S_q ? to_float(q_base[gr * qs.s + d]) : 0.f;
   }
 
-  // live K/V tiles: up to this q tile's last row under causality, and from
-  // the tile holding its first row's oldest in-window key
-  const int q_last = min(q_start + kBlockQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
+  // live K/V tiles: up to this q tile's last row's causal position, and
+  // from the tile holding its first row's oldest in-window key
+  const int q_last = min(q_start + kBlockQ, S_q) - 1;
+  const int k_end = causal ? min(q_last + q_shift + 1, S_k) : S_k;
   int k_begin = 0;
-  if (window > 0 && q_start - window + 1 > 0) {
-    k_begin = ((q_start - window + 1) / kBlockK) * kBlockK;
+  if (window > 0 && q_start + q_shift - window + 1 > 0) {
+    k_begin = ((q_start + q_shift - window + 1) / kBlockK) * kBlockK;
   }
   const float mask_value = window > 0 ? -1e30f : -INFINITY;
 
@@ -117,7 +128,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBlockK * D; e += kThreads) {
       const int r = e / D, d = e % D;
       const int gk = kt + r;
-      const bool in = gk < S;
+      const bool in = gk < S_k;
       k_tile[r * kStride + d] = in ? to_float(k_base[gk * ks.s + d]) : 0.f;
       v_tile[r * kStride + d] = in ? to_float(v_base[gk * vs.s + d]) : 0.f;
     }
@@ -140,10 +151,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = kt + lane + j * kLanesPerRow;
       float x = s[j] * scale;
       if (causal) {
-        if (col > q_row) x = mask_value;
-        if (window > 0 && col <= q_row - window) x = mask_value;
+        if (col > q_row + q_shift) x = mask_value;
+        if (window > 0 && col <= q_row + q_shift - window) x = mask_value;
       }
-      if (col >= S) x = mask_value;
+      if (col >= S_k) x = mask_value;
       s[j] = x;
       block_max = fmaxf(block_max, x);
     }
@@ -178,20 +189,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  if (q_row < S) {
-    T* o_row = o + ((static_cast<long long>(b) * H + h) * S + q_row) * D;
+  if (q_row < S_q) {
+    const long long row_index =
+        (static_cast<long long>(b) * H + h) * S_q + q_row;
+    T* o_row = o + row_index * D;
 #pragma unroll
     for (int i = 0; i < kDimsPerLane; ++i) {
       o_row[lane + i * kLanesPerRow] = from_float<T>(acc[i] / run_sum);
     }
+    // the backward's softmax residual (flash.py:247-251)
+    if (lse != nullptr && lane == 0) lse[row_index] = run_max + logf(run_sum);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int H_kv, int S, Strides qs, Strides ks,
-                   Strides vs, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   float* lse, int B, int H, int H_kv, int S_q, int S_k,
+                   Strides qs, Strides ks, Strides vs, int causal, int window,
+                   int q_shift, float scale, cudaStream_t stream) {
   const size_t smem =
       (3 * kBlockQ * (D + 1) + kBlockQ * (kBlockK + 1)) * sizeof(float);
   auto kernel = flash_fwd_kernel<T, D>;
@@ -199,30 +214,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
+  const dim3 grid((S_q + kBlockQ - 1) / kBlockQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, H, H / H_kv,
-      S, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, qs, ks, vs, H,
+      H / H_kv, S_q, S_k, causal, window, q_shift, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int H_kv, int S, int D, long long q_sb, long long q_sh,
-             long long q_ss, long long k_sb, long long k_sh, long long k_ss,
-             long long v_sb, long long v_sh, long long v_ss, int causal,
-             int window, float scale, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             void* lse, int B, int H, int H_kv, int S_q, int S_k, int D,
+             long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+             long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+             long long v_ss, int causal, int window, int q_shift,
+             float scale, void* stream) {
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, H_kv, S, qs, ks, vs, causal,
-                           window, scale, st);
+      return launch<T, 64>(q, k, v, o, l, B, H, H_kv, S_q, S_k, qs, ks, vs,
+                           causal, window, q_shift, scale, st);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, H_kv, S, qs, ks, vs, causal,
-                            window, scale, st);
+      return launch<T, 128>(q, k, v, o, l, B, H, H_kv, S_q, S_k, qs, ks, vs,
+                            causal, window, q_shift, scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -230,31 +247,35 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// Plain C entry points for ctypes.  Pointers are device pointers; strides
-// are in elements; window <= 0 means none.  Each returns cudaGetLastError()
-// after the launch (0 = launched).
+// Plain C entry points for ctypes.  Pointers are device pointers (lse may
+// be null: no lse is written); strides are in elements; window <= 0 means
+// none; q_shift only moves the causal diagonal and the window.  Each
+// returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* o, int B, int H, int H_kv, int S, int D,
-                              long long q_sb, long long q_sh, long long q_ss,
-                              long long k_sb, long long k_sh, long long k_ss,
-                              long long v_sb, long long v_sh, long long v_ss,
-                              int causal, int window, float scale,
+                              void* o, void* lse, int B, int H, int H_kv,
+                              int S_q, int S_k, int D, long long q_sb,
+                              long long q_sh, long long q_ss, long long k_sb,
+                              long long k_sh, long long k_ss, long long v_sb,
+                              long long v_sh, long long v_ss, int causal,
+                              int window, int q_shift, float scale,
                               void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, H, H_kv, S, D, q_sb, q_sh,
-                                 q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-                                 causal, window, scale, stream);
+  return dispatch<__nv_bfloat16>(q, k, v, o, lse, B, H, H_kv, S_q, S_k, D,
+                                 q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
+                                 v_sh, v_ss, causal, window, q_shift, scale,
+                                 stream);
 }
 
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
-                             void* o, int B, int H, int H_kv, int S, int D,
-                             long long q_sb, long long q_sh, long long q_ss,
-                             long long k_sb, long long k_sh, long long k_ss,
-                             long long v_sb, long long v_sh, long long v_ss,
-                             int causal, int window, float scale,
+                             void* o, void* lse, int B, int H, int H_kv,
+                             int S_q, int S_k, int D, long long q_sb,
+                             long long q_sh, long long q_ss, long long k_sb,
+                             long long k_sh, long long k_ss, long long v_sb,
+                             long long v_sh, long long v_ss, int causal,
+                             int window, int q_shift, float scale,
                              void* stream) {
-  return dispatch<float>(q, k, v, o, B, H, H_kv, S, D, q_sb, q_sh, q_ss,
-                         k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, causal, window,
-                         scale, stream);
+  return dispatch<float>(q, k, v, o, lse, B, H, H_kv, S_q, S_k, D, q_sb,
+                         q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                         causal, window, q_shift, scale, stream);
 }
 
 extern "C" const char* flash_fwd_error_string(int err) {

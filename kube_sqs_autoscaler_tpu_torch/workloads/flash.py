@@ -1,22 +1,35 @@
-"""Flash attention: the worker's prompt-pass attention as a CUDA kernel.
+"""Flash attention: the attention of the worker and the trainer as CUDA
+kernels.
 
 Counterpart of ``kube_sqs_autoscaler_tpu/workloads/flash.py``.  The JAX
 package computes causal (or full) attention with an online softmax over
-K/V blocks in a Pallas TPU kernel (``_fwd_kernel``); here the same function
-is the hand-written Hopper kernel ``csrc/flash_fwd.cu``, built and loaded
-by :mod:`.kernels`, bound through ``ctypes``.
+K/V blocks in a Pallas TPU kernel (``_fwd_kernel``) and differentiates it
+with two more (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) under a
+``custom_vjp``.  Here the same functions are the hand-written Hopper
+kernels ``csrc/flash_fwd.cu`` (with and without the per-row logsumexp) and
+``csrc/flash_bwd.cu`` (dq; dk with dv), built and loaded by :mod:`.kernels`,
+bound through ``ctypes``, and tied together by a
+:class:`torch.autograd.Function`.
 
-- :func:`flash_attention` launches the kernel for CUDA tensors, or raises
-  when it cannot take them; it never falls back.  For CPU tensors it runs
-  :func:`flash_attention_reference`, the plain PyTorch version with the
-  same masks, which the CPU tests hold against the JAX kernel and
-  ``chip_smoke.py`` holds the CUDA kernel against on the card.
-- :func:`attention_fn_for` picks the prompt-pass attention: the kernel on
-  the card at every prompt length (the JAX package's TPU crossover
-  ``FLASH_MIN_SEQ`` does not carry over), the dense path on the CPU, as
-  the reference picks dense off the TPU.
-- :data:`kernel_launches` counts launches, so a run can show that the
-  main path went through the kernel.
+- :func:`flash_attention` and :func:`flash_attention_lse` launch the
+  kernels for CUDA tensors, or raise when they cannot take them; they
+  never fall back.  Where a gradient is needed they run the lse forward and
+  record the backward kernels; under ``torch.no_grad()`` the plain forward
+  runs.  For CPU tensors the same autograd wiring runs the plain PyTorch
+  versions (:func:`flash_attention_lse_reference`,
+  :func:`flash_bwd_dq_reference`, :func:`flash_bwd_dkv_reference`), which
+  the CPU tests hold against the JAX kernels and ``chip_smoke.py`` holds
+  the CUDA kernels against on the card.
+- :func:`attention_fn_for` picks the attention: the kernels on the card at
+  every length (the JAX package's TPU crossover ``FLASH_MIN_SEQ`` does not
+  carry over), the dense path on the CPU, as the reference picks dense off
+  the TPU.
+- :data:`kernel_launches`, :data:`lse_launches`, :data:`dq_launches` and
+  :data:`dkv_launches` count launches, so a run can show that its path
+  went through each kernel.
+
+Ragged lengths (not a multiple of the kernels' 64-row tiles) are masked
+inside every kernel, forward and backward.
 """
 
 from __future__ import annotations
@@ -32,45 +45,95 @@ SUPPORTED_HEAD_DIMS = (64, 128)
 SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 
 kernel_launches = 0
-"""Launches of the CUDA kernel since import (or since a caller reset it);
-incremented where the kernel is launched and nowhere else."""
+"""Launches of the forward kernel without the lse (the serving prompt pass
+and every forward under ``torch.no_grad()``) since import, or since a
+caller reset it; incremented where the kernel is launched and nowhere
+else."""
+lse_launches = 0
+"""Launches of the forward kernel with the lse (every forward that records
+a gradient, and :func:`flash_attention_lse`)."""
+dq_launches = 0
+"""Launches of the dq backward kernel."""
+dkv_launches = 0
+"""Launches of the dk/dv backward kernel."""
 
-_bound: dict[torch.dtype, object] = {}
+MERGE_NEG_INF = -1e9
+"""Initial / not-covered lse value for :func:`merge_attention_partials`:
+large-negative and finite, so ``-inf - -inf`` NaNs never arise in the
+merge or its gradient (``exp(-1e9 - x)`` underflows to exactly 0)."""
+
+_bound: dict[tuple[str, torch.dtype], tuple] = {}
 _count_lock = threading.Lock()  # worker pools launch from several threads
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
-def _kernel_fn(dtype: torch.dtype):
-    """The ctypes entry point for ``dtype``, building the library on
-    first use."""
-    fn = _bound.get(dtype)
-    if fn is None:
-        from .kernels import load
-
-        lib = load("flash_fwd")
-        for name in ("flash_fwd_bf16", "flash_fwd_f32"):
-            entry = getattr(lib, name)
-            entry.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                + [ctypes.c_longlong] * 9
-                + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-            )
-            entry.restype = ctypes.c_int
-        lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
-        _bound[torch.bfloat16] = (lib.flash_fwd_bf16, lib)
-        _bound[torch.float32] = (lib.flash_fwd_f32, lib)
-        fn = _bound[dtype]
-    return fn
+def _count(name: str) -> None:
+    with _count_lock:
+        globals()[name] += 1
 
 
-def _check(q, k, v, causal: bool, window: int | None) -> None:
+def _entry(kernel: str, dtype: torch.dtype):
+    """``(ctypes entry point, error-string function)`` of ``kernel``
+    (``flash_fwd``, ``flash_bwd_dq`` or ``flash_bwd_dkv``) for ``dtype``,
+    building its library on first use.  The argtypes are exact: ``c_void_p`` for every
+    pointer (a null lse included) and the stream, ``c_longlong`` for every
+    stride, so ctypes never truncates one."""
+    found = _bound.get((kernel, dtype))
+    if found is not None:
+        return found
+    from .kernels import load
+
+    source = "flash_fwd" if kernel == "flash_fwd" else "flash_bwd"
+    lib = load(source)
+    if kernel == "flash_fwd":
+        # q, k, v, o, lse; B, H, H_kv, S_q, S_k, D; 3 strides each of q, k, v
+        argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+            + [ctypes.c_longlong] * 9
+    elif kernel == "flash_bwd_dq":
+        # q, k, v, dout, lse, delta, dq; sizes; strides of q, k, v, dout
+        argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+            + [ctypes.c_longlong] * 12
+    else:
+        # q, k, v, dout, lse, delta, dk, dv; sizes; strides of q, k, v, dout
+        argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+            + [ctypes.c_longlong] * 12
+    # causal, window, q_shift, scale, stream
+    argtypes += [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    errors = getattr(lib, f"{source}_error_string")
+    errors.argtypes = [ctypes.c_int]
+    errors.restype = ctypes.c_char_p
+    for suffix_dtype, suffix in _SUFFIX.items():
+        fn = getattr(lib, f"{kernel}_{suffix}")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[(kernel, suffix_dtype)] = (fn, errors)
+    return _bound[(kernel, dtype)]
+
+
+def _launch(kernel: str, dtype: torch.dtype, device: torch.device, *args):
+    fn, errors = _entry(kernel, dtype)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel} launch failed: {errors(err).decode()}"
+        )
+
+
+def _check(q, k, v, causal: bool, window: int | None,
+           q_shift: int | None = None) -> None:
+    """Shapes and options every entry point takes.  ``q_shift=None``
+    requires q and k/v of one length; an int allows rectangular q against
+    k/v and must be >= 0 under ``causal`` (every row sees a key)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B, H, S, D], got {tuple(t.shape)}")
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     batch, heads, seq, dim = q.shape
-    if k.shape[0] != batch or k.shape[2] != seq or k.shape[3] != dim:
+    if (k.shape[0] != batch or k.shape[3] != dim
+            or (q_shift is None and k.shape[2] != seq)):
         raise ValueError(
             f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)} in "
             "batch, sequence or head dim"
@@ -79,6 +142,8 @@ def _check(q, k, v, causal: bool, window: int | None) -> None:
         raise ValueError(
             f"query heads {heads} not divisible by kv heads {k.shape[1]}"
         )
+    if causal and q_shift is not None and q_shift < 0:
+        raise ValueError(f"q_shift={q_shift} must be >= 0 under causal")
     if window is not None:
         if not causal:
             raise ValueError("window requires causal attention")
@@ -86,11 +151,83 @@ def _check(q, k, v, causal: bool, window: int | None) -> None:
             raise ValueError(f"window={window} must be >= 1")
 
 
+def _check_cuda(*tensors: torch.Tensor) -> None:
+    """The kernels' contract: one CUDA device, bf16 or f32 of one dtype,
+    a supported head dim, the last dim contiguous."""
+    first = tensors[0]
+    if not (first.is_cuda and all(t.device == first.device for t in tensors)):
+        raise ValueError(
+            "q, k, v must lie on one CUDA device, got "
+            + ", ".join(str(t.device) for t in tensors)
+        )
+    if first.dtype not in SUPPORTED_DTYPES or any(
+            t.dtype != first.dtype for t in tensors):
+        raise ValueError(
+            "the kernels take bf16 or f32 tensors of one dtype, got "
+            + ", ".join(str(t.dtype) for t in tensors)
+        )
+    if first.shape[-1] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(
+            f"head dim {first.shape[-1]} not supported by the kernels "
+            f"(supported: {SUPPORTED_HEAD_DIMS})"
+        )
+    for t in tensors:
+        if t.stride(-1) != 1:
+            raise ValueError("q, k, v (and dout) must be contiguous in their "
+                             "last dim")
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _visible(q_len: int, k_len: int, causal: bool, window: int | None,
+             q_shift: int, device) -> torch.Tensor | None:
+    """``[S_q, S_k]`` bool: which keys each row sees (``None``: all)."""
+    if not causal:
+        return None
+    rows = torch.arange(q_len, device=device)[:, None] + q_shift
+    cols = torch.arange(k_len, device=device)[None, :]
+    keep = rows >= cols
+    if window is not None:
+        keep = keep & (cols > rows - window)
+    return keep
+
+
+def _scores(q, k, causal, window, q_shift, mask_value) -> torch.Tensor:
+    """fp32 ``[B, H, S_q, S_k]`` scores (scaled after the product), masked
+    with ``mask_value``; GQA k repeats for query head ``h // groups``."""
+    k = repeat_kv(k, q.shape[1] // k.shape[1])
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+        1.0 / q.shape[-1] ** 0.5
+    )
+    keep = _visible(q.shape[2], k.shape[2], causal, window, q_shift, q.device)
+    if keep is not None:
+        scores = scores.masked_fill(~keep, mask_value)
+    return scores
+
+
+def flash_fwd_reference(q, k, v, *, causal=True, window=None, q_shift=0):
+    """The forward kernel's plain version, on any device: ``(out, lse)``
+    (see :func:`flash_attention_reference` for the arithmetic)."""
+    scores = _scores(q, k, causal, window, q_shift,
+                     float("-inf") if window is None else -1e30)
+    row_max = scores.amax(dim=-1, keepdim=True)
+    probs = torch.exp(scores - row_max)
+    if window is not None:
+        probs = probs * (row_max > -1e29)
+    row_sum = probs.sum(dim=-1, keepdim=True)
+    v = repeat_kv(v, q.shape[1] // v.shape[1])
+    out = torch.matmul(probs.to(v.dtype).float(), v.float()) / row_sum
+    lse = (row_max + torch.log(row_sum))[..., 0]
+    return out.to(q.dtype), lse
+
+
 def flash_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: int | None = None,
 ) -> torch.Tensor:
-    """The plain PyTorch version of the kernel, on any device.
+    """The plain PyTorch version of the forward kernel, on any device.
 
     fp32 scores (scaled after the product), the kernel's masks (-inf
     without a window; -1e30 plus the live-row guard with one), the
@@ -98,27 +235,212 @@ def flash_attention_reference(
     product and divided by their fp32 sum after it.  GQA k/v repeat
     query head ``h``'s kv head ``h // groups``."""
     _check(q, k, v, causal, window)
-    groups = q.shape[1] // k.shape[1]
-    if groups > 1:
-        k = repeat_kv(k, groups)
-        v = repeat_kv(v, groups)
-    seq = q.shape[2]
+    return flash_fwd_reference(q, k, v, causal=causal, window=window)[0]
+
+
+def flash_attention_lse_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, q_shift: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the lse forward: ``(out, lse)`` with the fp32
+    per-row logsumexp ``max + log(sum)``; row ``i`` sees keys
+    ``<= i + q_shift`` under ``causal``."""
+    _check(q, k, v, causal, None, q_shift)
+    return flash_fwd_reference(q, k, v, causal=causal, q_shift=q_shift)
+
+
+def _probs_and_ds(q, k, v, dout, lse, delta, causal, window, q_shift):
+    """The backward's recompute from the lse: fp32 ``p = exp(s - lse)``
+    (0 where masked) and ``ds = p * (dp - delta) * scale``, both
+    ``[B, H, S_q, S_k]``."""
     scale = 1.0 / q.shape[-1] ** 0.5
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if causal:
-        rows = torch.arange(seq, device=q.device)[:, None]
-        cols = torch.arange(seq, device=q.device)[None, :]
-        mask_value = float("-inf") if window is None else -1e30
-        keep = rows >= cols
-        if window is not None:
-            keep = keep & (cols > rows - window)
-        scores = scores.masked_fill(~keep, mask_value)
-    row_max = scores.amax(dim=-1, keepdim=True)
-    probs = torch.exp(scores - row_max)
-    if window is not None:
-        probs = probs * (row_max > -1e29)
-    out = torch.matmul(probs.to(v.dtype).float(), v.float())
-    return (out / probs.sum(dim=-1, keepdim=True)).to(q.dtype)
+    scores = _scores(q, k, causal, window, q_shift, float("-inf"))
+    probs = torch.exp(scores - lse[..., None])
+    v = repeat_kv(v, q.shape[1] // v.shape[1])
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    return probs, probs * (dp - delta[..., None]) * scale
+
+
+def _group_sum(t: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """``[B, H, S, D] -> [B, H_kv, S, D]``: sum each kv head's group."""
+    batch, heads, seq, dim = t.shape
+    return t.reshape(batch, kv_heads, heads // kv_heads, seq, dim).sum(2)
+
+
+def flash_bwd_dq_reference(q, k, v, dout, lse, delta, *, causal=True,
+                           window=None, q_shift=0) -> torch.Tensor:
+    """The plain version of the dq kernel: ``dq = ds.to(k.dtype) @ k``,
+    ``ds`` recomputed from the lse (``_bwd_dq_kernel``'s formula), the
+    product in fp32, the result in q's dtype."""
+    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, window, q_shift)
+    k_full = repeat_kv(k, q.shape[1] // k.shape[1])
+    dq = torch.matmul(ds.to(k.dtype).float(), k_full.float())
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, *, causal=True,
+                            window=None, q_shift=0):
+    """The plain version of the dk/dv kernel (``_bwd_dkv_kernel``'s
+    formula): ``dv = p.to(dout.dtype)^T @ dout`` and
+    ``dk = ds.to(q.dtype)^T @ q``, summed over each kv head's query-head
+    group in fp32, compact ``[B, H_kv, S_k, D]`` in k's and v's dtype."""
+    probs, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, window,
+                              q_shift)
+    dv = torch.matmul(probs.to(dout.dtype).float().transpose(-1, -2),
+                      dout.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    kv_heads = k.shape[1]
+    return (_group_sum(dk, kv_heads).to(k.dtype),
+            _group_sum(dv, kv_heads).to(v.dtype))
+
+
+def _strides(*tensors: torch.Tensor) -> list[int]:
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def flash_fwd(q, k, v, *, causal: bool = True, window: int | None = None,
+              q_shift: int = 0, need_lse: bool = False):
+    """The forward kernel's wrapper: ``(out, lse)``, ``lse`` ``None``
+    unless ``need_lse``.  CUDA tensors launch the kernel (counted in
+    :data:`lse_launches` or :data:`kernel_launches`); CPU tensors run
+    :func:`flash_fwd_reference`.  Takes no gradient (see
+    :func:`flash_attention`)."""
+    _check(q, k, v, causal, window, q_shift)
+    if _on_cpu(q, k, v):
+        out, lse = flash_fwd_reference(q, k, v, causal=causal, window=window,
+                                       q_shift=q_shift)
+        return out, (lse if need_lse else None)
+    _check_cuda(q, k, v)
+    batch, heads, q_len, dim = q.shape
+    out = torch.empty((batch, heads, q_len, dim), dtype=q.dtype,
+                      device=q.device)
+    lse = torch.empty((batch, heads, q_len), dtype=torch.float32,
+                      device=q.device) if need_lse else None
+    _launch(
+        "flash_fwd", q.dtype, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        batch, heads, k.shape[1], q_len, k.shape[2], dim,
+        *_strides(q, k, v),
+        int(causal), -1 if window is None else int(window), int(q_shift),
+        1.0 / dim ** 0.5,
+    )
+    _count("lse_launches" if need_lse else "kernel_launches")
+    return out, lse
+
+
+def attention_delta(out: torch.Tensor, dout: torch.Tensor,
+                    dlse: torch.Tensor | None = None) -> torch.Tensor:
+    """The backward's row term ``Delta = rowsum(dO * O) - dlse``, fp32
+    ``[B, H, S_q]``, contiguous (a plain tensor op, as on the TPU: an lse
+    cotangent shifts Delta, flash.py:465-471)."""
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def _check_bwd(q, k, v, dout, lse, delta):
+    if dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
+    _check_cuda(q, k, v, dout)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != q.shape[:3] or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(
+                f"{name} must be contiguous fp32 {tuple(q.shape[:3])} on "
+                f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal=True, window=None,
+                 q_shift=0) -> torch.Tensor:
+    """dq of flash attention from the forward's lse and ``Delta``
+    (:func:`attention_delta`): the dq kernel for CUDA tensors, its plain
+    version for CPU tensors.  ``dq`` is contiguous, in q's dtype."""
+    _check(q, k, v, causal, window, q_shift)
+    if _on_cpu(q, k, v, dout, lse, delta):
+        return flash_bwd_dq_reference(q, k, v, dout, lse, delta,
+                                      causal=causal, window=window,
+                                      q_shift=q_shift)
+    _check_bwd(q, k, v, dout, lse, delta)
+    batch, heads, q_len, dim = q.shape
+    dq = torch.empty((batch, heads, q_len, dim), dtype=q.dtype,
+                     device=q.device)
+    _launch(
+        "flash_bwd_dq", q.dtype, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        batch, heads, k.shape[1], q_len, k.shape[2], dim,
+        *_strides(q, k, v, dout),
+        int(causal), -1 if window is None else int(window), int(q_shift),
+        1.0 / dim ** 0.5,
+    )
+    _count("dq_launches")
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal=True, window=None,
+                  q_shift=0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compact dk, dv of flash attention (each kv head's query-head group
+    summed): the dk/dv kernel for CUDA tensors, its plain version for CPU
+    tensors.  Both are contiguous ``[B, H_kv, S_k, D]`` in k's dtype."""
+    _check(q, k, v, causal, window, q_shift)
+    if _on_cpu(q, k, v, dout, lse, delta):
+        return flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                       causal=causal, window=window,
+                                       q_shift=q_shift)
+    _check_bwd(q, k, v, dout, lse, delta)
+    batch, heads, q_len, dim = q.shape
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch(
+        "flash_bwd_dkv", q.dtype, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        batch, heads, k.shape[1], q_len, k.shape[2], dim,
+        *_strides(q, k, v, dout),
+        int(causal), -1 if window is None else int(window), int(q_shift),
+        1.0 / dim ** 0.5,
+    )
+    _count("dkv_launches")
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of ``_flash`` / ``_flash_lse`` and their vjps:
+    forward with the lse, backward through the dq and dk/dv kernels (the
+    plain versions for CPU tensors).  Returns ``(out, lse)``; both are
+    differentiable, and an lse cotangent shifts ``Delta``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_shift):
+        out, lse = flash_fwd(q, k, v, causal=causal, window=window,
+                             q_shift=q_shift, need_lse=True)
+        # q, k, v are usually head views of the fused QKV projection: saved
+        # as they are, never copied
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.options = (causal, window, q_shift)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_shift = ctx.options
+        if dout is None:  # only the lse was used
+            dout = torch.zeros_like(out)
+        elif dout.stride(-1) != 1:  # the kernels need a contiguous last dim
+            dout = dout.contiguous()
+        delta = attention_delta(out, dout, dlse)
+        options = dict(causal=causal, window=window, q_shift=q_shift)
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, **options)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, **options)
+        return dq, dk, dv, None, None, None
+
+
+def _records_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def flash_attention(
@@ -128,51 +450,41 @@ def flash_attention(
     """Flash attention on ``[B, H, S, D]``; ``k``/``v`` may be compact GQA
     ``[B, H_kv, S, D]`` with ``H % H_kv == 0``.  ``window`` (requires
     ``causal``) keeps row ``r``'s keys ``r - window + 1 .. r``.
+    Differentiable: where a gradient is recorded, the lse forward runs and
+    the backward launches the dq and dk/dv kernels.
 
-    CUDA tensors launch the kernel (bf16 or f32, ``D`` in
+    CUDA tensors launch the kernels (bf16 or f32, ``D`` in
     :data:`SUPPORTED_HEAD_DIMS`, last dim contiguous; any other input
-    raises).  CPU tensors run :func:`flash_attention_reference`."""
-    global kernel_launches
+    raises).  CPU tensors run the plain versions."""
     _check(q, k, v, causal, window)
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal, window=window)
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(
-            f"q, k, v must lie on one CUDA device, got {q.device}, "
-            f"{k.device}, {v.device}"
-        )
-    if q.dtype not in SUPPORTED_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(
-            f"the kernel takes bf16 or f32 q/k/v of one dtype, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}"
-        )
-    batch, heads, seq, dim = q.shape
-    if dim not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(
-            f"head dim {dim} not supported by the kernel "
-            f"(supported: {SUPPORTED_HEAD_DIMS})"
-        )
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} must be contiguous in its last dim")
-    fn, lib = _kernel_fn(q.dtype)
-    out = torch.empty((batch, heads, seq, dim), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            batch, heads, k.shape[1], seq, dim,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), -1 if window is None else int(window),
-            1.0 / dim ** 0.5, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_fwd launch failed: {lib.flash_fwd_error_string(err).decode()}"
-        )
-    with _count_lock:
-        kernel_launches += 1
-    return out
+    if _records_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, 0)[0]
+    return flash_fwd(q, k, v, causal=causal, window=window)[0]
+
+
+def flash_attention_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, q_shift: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention` that also returns the fp32 per-row
+    logsumexp ``[B, H, S_q]``, differentiable in both outputs.  ``q`` may
+    be shorter or longer than ``k``/``v``; ``q_shift >= 0`` places q row 0
+    at that causal position (row ``i`` sees keys ``<= i + q_shift``), so
+    rectangular blocks of a larger problem merge exactly with
+    :func:`merge_attention_partials`."""
+    _check(q, k, v, causal, None, q_shift)
+    return _FlashAttention.apply(q, k, v, causal, None, q_shift)
+
+
+def merge_attention_partials(acc_out, acc_lse, out, lse):
+    """Fold one ``(out, lse)`` attention partial into fp32 accumulators:
+    with ``L = logaddexp(acc_lse, lse)`` the merged output is
+    ``acc_out * e^(acc_lse - L) + out * e^(lse - L)``.  Start from
+    ``acc_out = 0``, ``acc_lse = MERGE_NEG_INF``."""
+    new_lse = torch.logaddexp(acc_lse, lse)
+    w_acc = torch.exp(acc_lse - new_lse)[..., None]
+    w_new = torch.exp(lse - new_lse)[..., None]
+    return acc_out * w_acc + out.float() * w_new, new_lse
 
 
 # GQA marker the attention dispatchers check: the kernel takes compact

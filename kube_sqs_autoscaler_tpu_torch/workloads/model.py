@@ -30,6 +30,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclass(frozen=True)
@@ -192,8 +193,15 @@ def forward_hidden(
     tokens: torch.Tensor,
     config: ModelConfig,
     attention_fn=None,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Final layernormed hidden states ``[batch, seq, d_model]``."""
+    """Final layernormed hidden states ``[batch, seq, d_model]``.
+
+    ``remat=True`` wraps each block in
+    :func:`torch.utils.checkpoint.checkpoint` (the reference's
+    ``jax.checkpoint``): the backward recomputes the block's activations
+    instead of keeping them, with the same values and a lower peak
+    memory."""
     seq = tokens.shape[1]
     if seq > config.max_seq_len:
         raise ValueError(
@@ -202,7 +210,11 @@ def forward_hidden(
     x = embed_tokens(params["embed"], tokens) + params["pos_embed"][:seq]
     attend = attention_fn or _dense_attention
     for layer in params["layers"]:
-        x = _block(x, layer, config, attend)
+        if remat:
+            x = checkpoint(_block, x, layer, config, attend,
+                           use_reentrant=False)
+        else:
+            x = _block(x, layer, config, attend)
     return _layer_norm(x, params["final_ln_scale"], params["final_ln_bias"])
 
 

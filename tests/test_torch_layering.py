@@ -68,6 +68,8 @@ import torch
 from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
 from kube_sqs_autoscaler_tpu_torch.workloads import decode, model, service
 from kube_sqs_autoscaler_tpu_torch.workloads import __main__, worker  # noqa
+from kube_sqs_autoscaler_tpu_torch.workloads import data, perf, train  # noqa
+from kube_sqs_autoscaler_tpu_torch.workloads import trainer  # noqa
 
 cfg = model.ModelConfig(vocab_size=64, d_model=64, n_heads=1, n_layers=1,
                         d_ff=64, max_seq_len=32, dtype=torch.float32)
@@ -81,6 +83,9 @@ w = service.QueueWorker(jobs, params, cfg,
                         service.ServiceConfig(queue_url="q", seq_len=8),
                         device="cpu")
 assert w.run_once() == 1
+state = train.train_state(params, train.TrainConfig())
+step = train.make_train_step(cfg, train.TrainConfig(), "cpu")
+assert step(state, ids)[0]["step"] == 1
 assert not any(n.split(".")[0] in {banned} and sys.modules[n] is not None
                for n in sys.modules)
 print("ok")
