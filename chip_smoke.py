@@ -9,7 +9,12 @@ Phases (any failure makes the run exit non-zero and print no result):
 1. device: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
 2. build: every CUDA source under ``kube_sqs_autoscaler_tpu_torch/csrc``
-   (one ``nvcc`` each, in parallel) into ``build/kernels/``;
+   (one ``nvcc`` each, in parallel) into ``build/kernels/``; then the
+   backward library's SASS (``cuobjdump -sass``): the bf16 dq and dk/dv
+   kernels must run on the tensor cores (``HMMA``/``HGMMA``) and the f32
+   ones must not; and every backward kernel's registers, local memory
+   (spills) and shared memory (``cudaFuncGetAttributes``), where the bf16
+   D=64 kernels must use no local memory;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes and at the ragged, GQA, windowed, non-causal and
    shifted rectangular shapes, and timed beside its plain version, the
@@ -47,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -135,7 +141,69 @@ def build_phase(kernels) -> dict:
     for name, path in paths.items():
         print(f"built {name} -> {path}", flush=True)
     print(f"build_s {seconds:.3f}", flush=True)
-    return {"build_s": seconds}
+    return {"build_s": seconds, "paths": paths}
+
+
+def sass_instantiation(function: str) -> tuple[str, str, int] | None:
+    """``(kernel, dtype, head dim)`` of a backward kernel's mangled name
+    (``flash_bwd_dq_kernel<__nv_bfloat16, 64>`` and the like), else
+    ``None``."""
+    found = re.search(
+        r"(flash_bwd_(?:dq|dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E", function)
+    if not found:
+        return None
+    kernel, dtype, dim = found.groups()
+    return (kernel.removesuffix("_kernel"),
+            "bf16" if dtype.endswith("bfloat16") else "f32", int(dim))
+
+
+def sass_phase(kernels, build: dict, smoke: Smoke) -> dict:
+    """The backward library's machine code (``cuobjdump -sass``): count
+    the tensor-core instructions (``HMMA``, ``HGMMA``) in each kernel."""
+    sass = subprocess.run(
+        [kernels.toolkit_binary("cuobjdump"), "-sass",
+         str(build["paths"]["flash_bwd"])],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts: dict[tuple[str, str, int], int] = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = sass_instantiation(line.split("Function :", 1)[1])
+            if current is not None:
+                counts[current] = 0
+        elif current is not None and re.search(r"\bH(G)?MMA\.", line):
+            counts[current] += 1
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        for dtype in ("bf16", "f32"):
+            for dim in (64, 128):
+                n = counts.get((kernel, dtype, dim))
+                want = "> 0" if dtype == "bf16" else "0"
+                smoke.check(
+                    n is not None and (n > 0 if dtype == "bf16" else n == 0),
+                    f"SASS {kernel} {dtype} D={dim}: {n} HMMA/HGMMA "
+                    f"instructions, want {want} (bf16 on the tensor cores, "
+                    f"f32 scalar)")
+    return {f"{k} {d} {dim}": n for (k, d, dim), n in counts.items()}
+
+
+def resources_phase(flash, smoke: Smoke) -> dict:
+    """Registers, local memory and shared memory of every backward
+    kernel; local memory in the bf16 D=64 kernels (the train shape's)
+    means spills and fails the run."""
+    out = {}
+    for r in flash.flash_bwd_resources():
+        key = (r["kernel"], r["dtype"], r["head_dim"])
+        out[key] = r
+        print(f"resources {r['kernel']} {r['dtype']} D={r['head_dim']}: "
+              f"{r['registers']} registers, {r['local_bytes']} bytes local "
+              f"(spills), {r['static_smem_bytes']} static + "
+              f"{r['dynamic_smem_bytes']} dynamic bytes shared", flush=True)
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        r = out.get((kernel, "bf16", 64))
+        smoke.check(r is not None and r["local_bytes"] == 0,
+                    f"{kernel} bf16 D=64 uses no local memory (no spills): "
+                    f"{None if r is None else r['local_bytes']} bytes")
+    return out
 
 
 def make_qkv(torch, batch, heads, kv_heads, seq, dim, dtype, strided, seed):
@@ -180,26 +248,32 @@ BOUND_TERMS = {
 }
 
 
-def flash_bound_ms(shape, kv_heads, dtype_name, causal=True, window=None,
-                   kind="fwd"):
-    """The least time the card could take for the kernel's work: each
-    input read once and each output written once over the memory rate,
-    or the products' multiply-adds (2 FLOPs each) over the peak rate of
-    the inputs' type, whichever is longer; the products count only the
-    live (row, key) pairs of this mask."""
+def flash_ops(shape, causal=True, window=None, kind="fwd") -> int:
+    """The kernel's products in FLOPs: 2 per multiply-add, counting only
+    the live (row, key) pairs of this mask."""
     batch, heads, seq, dim = shape
-    size = 2 if dtype_name == "bfloat16" else 4
-    n_q, n_kv, n_rows, n_products = BOUND_TERMS[kind]
-    moved = (n_q * batch * heads * seq * dim * size
-             + n_kv * batch * kv_heads * seq * dim * size
-             + n_rows * batch * heads * seq * 4)
     if not causal:
         pairs = seq * seq
     elif window is None:
         pairs = seq * (seq + 1) // 2
     else:
         pairs = sum(min(r + 1, window) for r in range(seq))
-    ops = 2 * n_products * batch * heads * dim * pairs
+    return 2 * BOUND_TERMS[kind][3] * batch * heads * dim * pairs
+
+
+def flash_bound_ms(shape, kv_heads, dtype_name, causal=True, window=None,
+                   kind="fwd"):
+    """The least time the card could take for the kernel's work: each
+    input read once and each output written once over the memory rate,
+    or the products (:func:`flash_ops`) over the peak rate of the inputs'
+    type, whichever is longer."""
+    batch, heads, seq, dim = shape
+    size = 2 if dtype_name == "bfloat16" else 4
+    n_q, n_kv, n_rows, _ = BOUND_TERMS[kind]
+    moved = (n_q * batch * heads * seq * dim * size
+             + n_kv * batch * kv_heads * seq * dim * size
+             + n_rows * batch * heads * seq * 4)
+    ops = flash_ops(shape, causal, window, kind)
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -465,6 +539,9 @@ def train_kernel_phase(torch, flash, smoke: Smoke) -> dict:
         ("ragged-s1000", 2, 8, 8, 1000, 1000, 64, True, None, 0, False,
          False),
         ("ragged-s48", 2, 8, 8, 48, 48, 64, True, None, 0, False, False),
+        ("ragged-s7", 2, 8, 8, 7, 7, 64, True, None, 0, False, False),
+        ("gqa-h8-kv2-d128-s2048", 2, 8, 2, 2048, 2048, 128, True, None, 0,
+         False, False),
     ]
     errs = {name: 0.0 for name in ("flash_fwd_lse", "flash_bwd_dq",
                                    "flash_bwd_dkv")}
@@ -557,12 +634,14 @@ def train_kernel_phase(torch, flash, smoke: Smoke) -> dict:
             kind="dkv"),
     }
     for name, t in timings.items():
+        kind = t.pop("kind")
         t["bound_ms"], t["bound_by"] = flash_bound_ms(
-            TRAIN_SHAPE, h, "bfloat16", kind=t.pop("kind"))
+            TRAIN_SHAPE, h, "bfloat16", kind=kind)
+        t["tflops"] = flash_ops(TRAIN_SHAPE, kind=kind) / t["kernel_ms"] / 1e9
         print(f"time {name} bf16 {TRAIN_SHAPE}: kernel {t['kernel_ms']:.4f} "
-              f"ms, plain {t['plain_ms']:.4f} ms, library "
-              f"{t['library_ms']:.4f} ms ({t['library_call']}), bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+              f"ms ({t['tflops']:.1f} TFLOP/s), plain {t['plain_ms']:.4f} "
+              f"ms, library {t['library_ms']:.4f} ms ({t['library_call']}), "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
     pair = timings["flash_bwd_dq"]["kernel_ms"] + \
         timings["flash_bwd_dkv"]["kernel_ms"]
     print(f"time backward pair bf16 {TRAIN_SHAPE}: dq + dk/dv kernels "
@@ -764,7 +843,9 @@ def main() -> int:
     smoke = Smoke()
     info = smoke.phase("device", device_phase, torch)
     power = info["nvidia_smi"] if info else "unknown"
-    smoke.phase("build", build_phase, kernels)
+    build = smoke.phase("build", build_phase, kernels)
+    sass = build and smoke.phase("sass", sass_phase, kernels, build, smoke)
+    resources = smoke.phase("resources", resources_phase, flash, smoke)
     kern = smoke.phase("kernels", kernel_phase, torch, flash, smoke)
     train_kern = smoke.phase("train kernels", train_kernel_phase, torch,
                              flash, smoke)
@@ -777,9 +858,9 @@ def main() -> int:
     train_path = smoke.phase("train path", train_path_phase, torch, flash,
                              smoke, power)
     train_prof = smoke.phase("train profile", train_profile_phase, torch)
-    if smoke.failures or not (info and kern and train_kern and path and rates
-                              and prof and f32_train and train_path
-                              and train_prof):
+    if smoke.failures or not (info and sass and resources and kern
+                              and train_kern and path and rates and prof
+                              and f32_train and train_path and train_prof):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
         return 1
@@ -802,13 +883,21 @@ def main() -> int:
              "_fwd_kernel (need_lse=True, lse written at :247-251)"),
             ("flash_bwd_dq", "flash_bwd.cu", 324, "_bwd_dq_kernel"),
             ("flash_bwd_dkv", "flash_bwd.cu", 380, "_bwd_dkv_kernel")):
-        entries.append(kernel_entry(
+        entry = kernel_entry(
             name, source, line, fn,
             train_path["train"]["launches"][name],
             {f"train-{r}": v["launches"][name]
              for r, v in train_path.items()},
             train_kern["errs"][name], train_kern["timings"][name],
-            TRAIN_SHAPE))
+            TRAIN_SHAPE)
+        if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            # the instantiation the train shape runs: bf16, D = 64
+            used = resources[(name, "bf16", TRAIN_SHAPE[3])]
+            entry["registers"] = used["registers"]
+            entry["spill_bytes"] = used["local_bytes"]
+            entry["tflops"] = train_kern["timings"][name]["tflops"]
+            entry["hmma_instructions"] = sass[f"{name} bf16 {TRAIN_SHAPE[3]}"]
+        entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"],

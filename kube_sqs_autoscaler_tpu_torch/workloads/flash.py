@@ -340,6 +340,28 @@ def attention_delta(out: torch.Tensor, dout: torch.Tensor,
     return delta.contiguous()
 
 
+def check_row_alignment(name: str, element_size: int, storage_offset: int,
+                        strides, base_address: int = 0) -> None:
+    """Raise ``ValueError`` unless every row of a ``[B, H, S, D]`` tensor
+    starts on a 16-byte boundary, as the bf16 backward kernels' 16-byte
+    ``cp.async`` copies need: its first element (``storage_offset``
+    elements past ``base_address``, its storage's address) and each of its
+    ``strides`` (in elements) must be whole multiples of 16 bytes.  A
+    misaligned input is refused, never copied."""
+    bad = []
+    if (base_address + storage_offset * element_size) % 16:
+        bad.append(f"first element at byte offset "
+                   f"{storage_offset * element_size} of a storage at "
+                   f"{base_address:#x}")
+    bad += [f"stride {s} ({s * element_size} bytes)" for s in strides
+            if (s * element_size) % 16]
+    if bad:
+        raise ValueError(
+            f"{name} rows must start on 16-byte boundaries for the bf16 "
+            f"backward kernels: {', '.join(bad)}"
+        )
+
+
 def _check_bwd(q, k, v, dout, lse, delta):
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
@@ -351,13 +373,21 @@ def _check_bwd(q, k, v, dout, lse, delta):
                 f"{name} must be contiguous fp32 {tuple(q.shape[:3])} on "
                 f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+            # a dim of size 1 never steps by its stride
+            strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+            check_row_alignment(name, t.element_size(), t.storage_offset(),
+                                strides, t.untyped_storage().data_ptr())
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal=True, window=None,
                  q_shift=0) -> torch.Tensor:
     """dq of flash attention from the forward's lse and ``Delta``
     (:func:`attention_delta`): the dq kernel for CUDA tensors, its plain
-    version for CPU tensors.  ``dq`` is contiguous, in q's dtype."""
+    version for CPU tensors.  ``dq`` is contiguous, in q's dtype.  bf16
+    inputs run on the tensor cores and need 16-byte-aligned rows
+    (:func:`check_row_alignment`); f32 inputs run the scalar fp32 kernel."""
     _check(q, k, v, causal, window, q_shift)
     if _on_cpu(q, k, v, dout, lse, delta):
         return flash_bwd_dq_reference(q, k, v, dout, lse, delta,
@@ -384,7 +414,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal=True, window=None,
                   q_shift=0) -> tuple[torch.Tensor, torch.Tensor]:
     """Compact dk, dv of flash attention (each kv head's query-head group
     summed): the dk/dv kernel for CUDA tensors, its plain version for CPU
-    tensors.  Both are contiguous ``[B, H_kv, S_k, D]`` in k's dtype."""
+    tensors.  Both are contiguous ``[B, H_kv, S_k, D]`` in k's dtype.  The
+    inputs' contract is :func:`flash_bwd_dq`'s."""
     _check(q, k, v, causal, window, q_shift)
     if _on_cpu(q, k, v, dout, lse, delta):
         return flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
@@ -405,6 +436,40 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal=True, window=None,
     )
     _count("dkv_launches")
     return dk, dv
+
+
+def flash_bwd_resources() -> list[dict]:
+    """What the compiler gave every dq and dk/dv instantiation
+    (``cudaFuncGetAttributes``): one dict per kernel, dtype and head dim
+    with ``registers`` a thread, ``local_bytes`` a thread (above 0 means
+    spills), ``static_smem_bytes`` and the ``dynamic_smem_bytes`` its
+    launch asks for.  Builds the library on first use; needs a card."""
+    from .kernels import load
+
+    lib = load("flash_bwd")
+    lib.flash_bwd_kernel_count.argtypes = []
+    lib.flash_bwd_kernel_count.restype = ctypes.c_int
+    fn = lib.flash_bwd_kernel_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)] \
+        + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    errors = lib.flash_bwd_error_string
+    errors.argtypes = [ctypes.c_int]
+    errors.restype = ctypes.c_char_p
+    out = []
+    for which in range(lib.flash_bwd_kernel_count()):
+        name = ctypes.c_char_p()
+        values = [ctypes.c_int() for _ in range(4)]
+        err = fn(which, ctypes.byref(name), *map(ctypes.byref, values))
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes failed: "
+                               f"{errors(err).decode()}")
+        kernel, dtype, dim = name.value.decode().split()
+        out.append(dict(
+            kernel=kernel, dtype=dtype, head_dim=int(dim),
+            **dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                        "dynamic_smem_bytes"), (x.value for x in values)))))
+    return out
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -454,8 +519,9 @@ def flash_attention(
     the backward launches the dq and dk/dv kernels.
 
     CUDA tensors launch the kernels (bf16 or f32, ``D`` in
-    :data:`SUPPORTED_HEAD_DIMS`, last dim contiguous; any other input
-    raises).  CPU tensors run the plain versions."""
+    :data:`SUPPORTED_HEAD_DIMS`, last dim contiguous, bf16 rows 16-byte
+    aligned for the backward; any other input raises).  CPU tensors run the
+    plain versions."""
     _check(q, k, v, causal, window)
     if _records_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window, 0)[0]

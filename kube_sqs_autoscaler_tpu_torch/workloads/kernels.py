@@ -4,8 +4,8 @@ Each source under ``kube_sqs_autoscaler_tpu_torch/csrc/`` is compiled by
 ``nvcc`` into its own shared library with a plain C interface and loaded
 with :mod:`ctypes` (no PyTorch headers, so a build takes seconds).  The
 library lands in ``build/kernels/`` at the root of the checkout, named by
-a hash of its source and flags, so an edited source is never served from
-a stale build.
+a hash of its source, every header beside it (``csrc/*.cuh``) and the
+flags, so an edited source or header is never served from a stale build.
 
 Nothing is built when this module is imported: :func:`load` builds on
 first use, and :func:`build_all` builds every source at once, one
@@ -33,29 +33,32 @@ _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def toolkit_binary(tool: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH,
+    else in /usr/local/cuda/bin."""
+    found = shutil.which(tool)
     if found:
         return found
-    default = Path("/usr/local/cuda/bin/nvcc")
+    default = Path("/usr/local/cuda/bin") / tool
     if default.exists():
         return str(default)
     raise RuntimeError(
-        "nvcc not found: the CUDA kernels build only where the CUDA "
+        f"{tool} not found: the CUDA kernels build only where the CUDA "
         "toolkit is installed (PATH or /usr/local/cuda/bin)"
     )
 
 
 def _library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def sources() -> list[str]:
-    """Names of every kernel source (``csrc/<name>.cu``)."""
+    """Names of every kernel source (``csrc/<name>.cu``; headers are not
+    sources)."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
@@ -69,7 +72,7 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     todo = {name: path for name, path in paths.items() if not path.exists()}
     if not todo:
         return paths
-    nvcc = _nvcc()
+    nvcc = toolkit_binary()
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")

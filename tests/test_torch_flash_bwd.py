@@ -189,6 +189,47 @@ def test_backward_wrappers_never_run_the_plain_version_off_the_cpu():
             fn(q, q, q, q, stat, stat)
 
 
+def _train_head_views():
+    # q, k, v as the model hands them over: head views of the fused
+    # [B, S, 3 * H * D] projection at the train shape's widths (row stride
+    # 3072), cut to a short sequence
+    b, s, h, d = 2, 8, 16, 64
+    fused = torch.zeros((b, s, 3 * h * d), dtype=torch.bfloat16)
+    return [t.reshape(b, s, h, d).transpose(1, 2) for t in fused.chunk(3, -1)]
+
+
+ALIGNMENT_CASES = {
+    "fused-q": (lambda: _train_head_views()[0], None),
+    "fused-k": (lambda: _train_head_views()[1], None),
+    "fused-v": (lambda: _train_head_views()[2], None),
+    "contiguous": (lambda: torch.zeros((2, 4, 16, 64), dtype=torch.bfloat16),
+                   None),
+    "odd-offset": (
+        lambda: torch.zeros(2 * 4 * 16 * 64 + 1,
+                            dtype=torch.bfloat16)[1:].view(2, 4, 16, 64),
+        "first element"),
+    "row-stride-65": (
+        lambda: torch.zeros((2, 4, 16, 65), dtype=torch.bfloat16)[..., :64],
+        "stride 65"),
+}
+
+
+@pytest.mark.parametrize("case", list(ALIGNMENT_CASES))
+def test_bf16_row_alignment_check(case):
+    make, rejected = ALIGNMENT_CASES[case]
+    t = make()
+
+    def check():
+        flash.check_row_alignment("q", t.element_size(), t.storage_offset(),
+                                  t.stride()[:3])
+
+    if rejected is None:
+        check()
+    else:
+        with pytest.raises(ValueError, match=rejected):
+            check()
+
+
 def test_lse_rejects_a_negative_causal_shift():
     q, k, v = to_torch(arrays([(1, 2, 16, 32)] * 3, seed=6), "float32")
     with pytest.raises(ValueError, match="q_shift"):
