@@ -9,19 +9,22 @@ Phases (any failure makes the run exit non-zero and print no result):
 1. device: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
 2. build: every CUDA source under ``kube_sqs_autoscaler_tpu_torch/csrc``
-   (one ``nvcc`` each, in parallel) into ``build/kernels/``; then the
-   backward library's SASS (``cuobjdump -sass``): the bf16 dq and dk/dv
+   (one ``nvcc`` each, in parallel) into ``build/kernels/``; then both
+   libraries' SASS (``cuobjdump -sass``): the bf16 forward, dq and dk/dv
    kernels must run on the tensor cores (``HMMA``/``HGMMA``) and the f32
-   ones must not; and every backward kernel's registers, local memory
-   (spills) and shared memory (``cudaFuncGetAttributes``), where the bf16
-   D=64 kernels must use no local memory;
+   ones must not; and every kernel's registers, local memory (spills) and
+   shared memory (``cudaFuncGetAttributes``), where the bf16 D=64 kernels
+   must use no local memory;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes and at the ragged, GQA, windowed, non-causal and
    shifted rectangular shapes, and timed beside its plain version, the
    equivalent PyTorch library call and the least time the card could take
-   (its bound): the serving forward (``flash_fwd``), and the training
-   forward with the lse (``flash_fwd_lse``) and its two backward halves
-   (``flash_bwd_dq``, ``flash_bwd_dkv``);
+   (its bound): the serving forward (``flash_fwd``, also at the train
+   shape, where the eval passes run it), and the training forward with
+   the lse (``flash_fwd_lse``) and its two backward halves
+   (``flash_bwd_dq``, ``flash_bwd_dkv``), the backward also fed from the
+   forward kernel's own output and lse; a misaligned bf16 input must be
+   refused with ``ValueError``;
 4. serving path: the worker binary's code path in-process, at the
    built-in GPT's full width in bf16, in generate and classify mode; every
    message must be answered once and deleted, and every kernel of the path
@@ -144,12 +147,17 @@ def build_phase(kernels) -> dict:
     return {"build_s": seconds, "paths": paths}
 
 
+SASS_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SOURCES = ("flash_fwd", "flash_bwd")
+
+
 def sass_instantiation(function: str) -> tuple[str, str, int] | None:
-    """``(kernel, dtype, head dim)`` of a backward kernel's mangled name
-    (``flash_bwd_dq_kernel<__nv_bfloat16, 64>`` and the like), else
-    ``None``."""
+    """``(kernel, dtype, head dim)`` of a flash kernel's mangled name
+    (``flash_fwd_kernel<__nv_bfloat16, 64>``,
+    ``flash_bwd_dq_kernel<float, 128>`` and the like), else ``None``."""
     found = re.search(
-        r"(flash_bwd_(?:dq|dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E", function)
+        r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
+        function)
     if not found:
         return None
     kernel, dtype, dim = found.groups()
@@ -157,13 +165,9 @@ def sass_instantiation(function: str) -> tuple[str, str, int] | None:
             "bf16" if dtype.endswith("bfloat16") else "f32", int(dim))
 
 
-def sass_phase(kernels, build: dict, smoke: Smoke) -> dict:
-    """The backward library's machine code (``cuobjdump -sass``): count
-    the tensor-core instructions (``HMMA``, ``HGMMA``) in each kernel."""
-    sass = subprocess.run(
-        [kernels.toolkit_binary("cuobjdump"), "-sass",
-         str(build["paths"]["flash_bwd"])],
-        capture_output=True, text=True, timeout=300, check=True).stdout
+def sass_counts(sass: str) -> dict[tuple[str, str, int], int]:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``) in each flash kernel
+    instantiation of ``cuobjdump -sass`` output."""
     counts: dict[tuple[str, str, int], int] = {}
     current = None
     for line in sass.splitlines():
@@ -173,7 +177,19 @@ def sass_phase(kernels, build: dict, smoke: Smoke) -> dict:
                 counts[current] = 0
         elif current is not None and re.search(r"\bH(G)?MMA\.", line):
             counts[current] += 1
-    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+    return counts
+
+
+def sass_phase(kernels, build: dict, smoke: Smoke) -> dict:
+    """Both libraries' machine code (``cuobjdump -sass``): the bf16
+    kernels must use the tensor cores and the f32 ones must not."""
+    counts: dict[tuple[str, str, int], int] = {}
+    for source in SOURCES:
+        counts.update(sass_counts(subprocess.run(
+            [kernels.toolkit_binary("cuobjdump"), "-sass",
+             str(build["paths"][source])],
+            capture_output=True, text=True, timeout=300, check=True).stdout))
+    for kernel in SASS_KERNELS:
         for dtype in ("bf16", "f32"):
             for dim in (64, 128):
                 n = counts.get((kernel, dtype, dim))
@@ -187,18 +203,19 @@ def sass_phase(kernels, build: dict, smoke: Smoke) -> dict:
 
 
 def resources_phase(flash, smoke: Smoke) -> dict:
-    """Registers, local memory and shared memory of every backward
-    kernel; local memory in the bf16 D=64 kernels (the train shape's)
-    means spills and fails the run."""
+    """Registers, local memory and shared memory of every kernel; local
+    memory in the bf16 D=64 kernels (the main paths') means spills and
+    fails the run."""
     out = {}
-    for r in flash.flash_bwd_resources():
-        key = (r["kernel"], r["dtype"], r["head_dim"])
-        out[key] = r
-        print(f"resources {r['kernel']} {r['dtype']} D={r['head_dim']}: "
-              f"{r['registers']} registers, {r['local_bytes']} bytes local "
-              f"(spills), {r['static_smem_bytes']} static + "
-              f"{r['dynamic_smem_bytes']} dynamic bytes shared", flush=True)
-    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for source in SOURCES:
+        for r in flash.kernel_resources(source):
+            out[(r["kernel"], r["dtype"], r["head_dim"])] = r
+            print(f"resources {r['kernel']} {r['dtype']} D={r['head_dim']}: "
+                  f"{r['registers']} registers, {r['local_bytes']} bytes "
+                  f"local (spills), {r['static_smem_bytes']} static + "
+                  f"{r['dynamic_smem_bytes']} dynamic bytes shared",
+                  flush=True)
+    for kernel in SASS_KERNELS:
         r = out.get((kernel, "bf16", 64))
         smoke.check(r is not None and r["local_bytes"] == 0,
                     f"{kernel} bf16 D=64 uses no local memory (no spills): "
@@ -287,6 +304,8 @@ def kernel_phase(torch, flash, smoke: Smoke) -> dict:
         ("generate-prefill", 8, 8, 8, 512, 64, None, True),
         ("classify", 8, 8, 8, 1024, 64, None, True),
         ("ragged-s48", 8, 8, 8, 48, 64, None, False),
+        ("ragged-s7", 8, 8, 8, 7, 64, None, True),
+        ("ragged-s1000", 8, 8, 8, 1000, 64, None, True),
         ("bucket-s16", 8, 8, 8, 16, 64, None, True),
         ("gqa-h8-kv2-d128", 2, 8, 2, 512, 128, None, False),
         ("window128-s1024", 2, 8, 8, 1024, 64, 128, False),
@@ -315,6 +334,21 @@ def kernel_phase(torch, flash, smoke: Smoke) -> dict:
                                                        "classify"):
                 main_err = max(main_err, err)
 
+    # the bf16 kernels' 16-byte copies need aligned rows: refused, not
+    # copied, before any launch
+    storage = torch.zeros(8 * 64 * 64 + 1, dtype=torch.bfloat16,
+                          device="cuda")
+    odd = storage[1:].view(1, 8, 64, 64)
+    before = flash.kernel_launches
+    try:
+        flash.flash_fwd(odd, odd, odd)
+        refused = False
+    except ValueError as exc:
+        refused = "16-byte" in str(exc)
+    smoke.check(refused and flash.kernel_launches == before,
+                "flash_fwd refuses a bf16 input whose rows are not 16-byte "
+                "aligned with ValueError, before any launch")
+
     timings = {}
     for shape in MAIN_SHAPES:
         b, h, s, d = shape
@@ -326,12 +360,14 @@ def kernel_phase(torch, flash, smoke: Smoke) -> dict:
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qc, kc, vc, is_causal=True))
         bound_ms, bound_by = flash_bound_ms(shape, h, "bfloat16")
+        tflops = flash_ops(shape) / kernel_ms / 1e9
         timings[shape] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
                               library_ms=library_ms, bound_ms=bound_ms,
-                              bound_by=bound_by)
-        print(f"time flash_fwd bf16 {shape}: kernel {kernel_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+                              bound_by=bound_by, tflops=tflops)
+        print(f"time flash_fwd bf16 {shape}: kernel {kernel_ms:.4f} ms "
+              f"({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
     return {"cases": results, "main_err": main_err, "timings": timings}
 
 
@@ -591,6 +627,25 @@ def train_kernel_phase(torch, flash, smoke: Smoke) -> dict:
                 )
                 if dtype_name == "bfloat16" and label == "train":
                     errs[name] = raw
+            if dtype_name == "bfloat16" and label == "train":
+                # the backward fed from the forward kernel's own out and
+                # lse, against the plain backward fed from the plain ones
+                own = (q, k, v, dout, lse, flash.attention_delta(out, dout))
+                own_dq = flash.flash_bwd_dq(*own, **opts)
+                own_dk, own_dv = flash.flash_bwd_dkv(*own, **opts)
+                fed = {"flash_bwd_dq": [scaled_err(own_dq, want_dq)],
+                       "flash_bwd_dkv": [scaled_err(own_dk, want_dk),
+                                         scaled_err(own_dv, want_dv)]}
+                torch.cuda.synchronize()
+                for name, pairs in fed.items():
+                    worst = max(scaled for _, scaled in pairs)
+                    smoke.check(
+                        worst <= tol,
+                        f"{name} {label} bf16 from the forward kernel's own "
+                        f"out and lse vs the plain backward from the plain "
+                        f"forward's: max|d|={max(e for e, _ in pairs):.3e}, "
+                        f"/max(1,|want|)={worst:.3e} tol={tol:g} "
+                        f"({TRAIN_TOL_REASON[dtype_name]})")
 
     b, h, s, d = TRAIN_SHAPE
     q, k, v, dout = train_inputs(torch, b, h, h, s, s, d, torch.bfloat16,
@@ -607,6 +662,14 @@ def train_kernel_phase(torch, flash, smoke: Smoke) -> dict:
 
     sdpa_bwd_ms = time_ms(torch, sdpa_backward)
     timings = {
+        "flash_fwd": dict(
+            kernel_ms=time_ms(torch, lambda: flash.flash_fwd(q, k, v)),
+            plain_ms=time_ms(torch, lambda: flash.flash_fwd_reference(
+                q, k, v)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True)),
+            library_call="F.scaled_dot_product_attention forward",
+            kind="fwd"),
         "flash_fwd_lse": dict(
             kernel_ms=time_ms(torch, lambda: flash.flash_fwd(
                 q, k, v, need_lse=True)),
@@ -877,6 +940,9 @@ def main() -> int:
         "x".join(map(str, shape)): t for shape, t in
         kern["timings"].items() if shape != MAIN_SHAPES[0]
     }
+    fwd["at_other_shapes"]["x".join(map(str, TRAIN_SHAPE))] = \
+        train_kern["timings"]["flash_fwd"]
+    fwd["tflops"] = timing["tflops"]
     entries = [fwd]
     for name, source, line, fn in (
             ("flash_fwd_lse", "flash_fwd.cu", 159,
@@ -890,14 +956,15 @@ def main() -> int:
              for r, v in train_path.items()},
             train_kern["errs"][name], train_kern["timings"][name],
             TRAIN_SHAPE)
-        if name in ("flash_bwd_dq", "flash_bwd_dkv"):
-            # the instantiation the train shape runs: bf16, D = 64
-            used = resources[(name, "bf16", TRAIN_SHAPE[3])]
-            entry["registers"] = used["registers"]
-            entry["spill_bytes"] = used["local_bytes"]
-            entry["tflops"] = train_kern["timings"][name]["tflops"]
-            entry["hmma_instructions"] = sass[f"{name} bf16 {TRAIN_SHAPE[3]}"]
+        entry["tflops"] = train_kern["timings"][name]["tflops"]
         entries.append(entry)
+    for entry in entries:
+        # the instantiation the main paths run: bf16, D = 64
+        kernel = entry["name"].removesuffix("_lse")
+        used = resources[(kernel, "bf16", TRAIN_SHAPE[3])]
+        entry["registers"] = used["registers"]
+        entry["spill_bytes"] = used["local_bytes"]
+        entry["hmma_instructions"] = sass[f"{kernel} bf16 {TRAIN_SHAPE[3]}"]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"],

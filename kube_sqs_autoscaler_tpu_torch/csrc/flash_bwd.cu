@@ -86,60 +86,15 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "flash_common.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
+using namespace flash;
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
 constexpr float kLog2e = 1.4426950408889634f;
-
-struct Strides {
-  long long b, h, s;  // in elements; the last dim is contiguous
-};
-
-struct Problem {
-  int H, H_kv, groups, S_q, S_k, causal, window, q_shift;
-  float scale;
-};
-
-// Whether q row r sees key c: inside both lengths, and under causality at
-// or before the row's position r + q_shift and inside its window
-__device__ __forceinline__ bool visible(int r, int c, const Problem& p) {
-  if (r >= p.S_q || c >= p.S_k) return false;
-  if (p.causal) {
-    const int pos = r + p.q_shift;
-    if (c > pos) return false;
-    if (p.window > 0 && c <= pos - p.window) return false;
-  }
-  return true;
-}
-
-// Whether every (row, key) pair of the tile at rows q0.., keys k0.. is
-// visible, so no element needs the mask
-__device__ __forceinline__ bool tile_is_full(int q0, int k0,
-                                             const Problem& p) {
-  if (q0 + kBlockQ > p.S_q || k0 + kBlockK > p.S_k) return false;
-  if (!p.causal) return true;
-  if (k0 + kBlockK - 1 > q0 + p.q_shift) return false;
-  return p.window <= 0 || k0 > q0 + kBlockQ - 1 + p.q_shift - p.window;
-}
-
-// Live keys [begin, end) of the q tile at q_start, begin a tile boundary
-__device__ __forceinline__ void live_keys(int q_start, const Problem& p,
-                                          int& begin, int& end) {
-  const int q_last = min(q_start + kBlockQ, p.S_q) - 1;
-  begin = 0;
-  end = p.S_k;
-  if (p.causal) {
-    end = min(q_last + p.q_shift + 1, p.S_k);
-    if (p.window > 0) {
-      begin = max(q_start + p.q_shift - p.window + 1, 0) / kBlockK * kBlockK;
-    }
-  }
-}
 
 // Live rows [begin, end) of the key tile at k_start: from the tile holding
 // the first row that sees key k_start, up to the last row whose window
@@ -856,11 +811,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-Problem make_problem(int H, int H_kv, int S_q, int S_k, int causal,
-                     int window, int q_shift, float scale) {
-  return Problem{H, H_kv, H / H_kv, S_q, S_k, causal, window, q_shift, scale};
-}
-
 template <typename T>
 int dq_dispatch(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
@@ -912,12 +862,6 @@ int dkv_dispatch(const void* q, const void* k, const void* v,
 }
 
 // Every instantiation, for flash_bwd_kernel_attributes
-struct KernelInfo {
-  const char* name;
-  cudaError_t (*attributes)(cudaFuncAttributes*);
-  int dynamic_smem;
-};
-
 template <typename T, int D>
 cudaError_t dq_attributes(cudaFuncAttributes* a) {
   return cudaFuncGetAttributes(a, flash_bwd_dq_kernel<T, D>);
@@ -992,28 +936,4 @@ extern "C" const char* flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-extern "C" int flash_bwd_kernel_count() {
-  return static_cast<int>(sizeof(kKernels) / sizeof(kKernels[0]));
-}
-
-// The compiled resources of instantiation `which` (0 .. count - 1): its
-// name ("<kernel> <dtype> <D>"), registers a thread, local memory a thread
-// (spills), static shared memory, and the dynamic shared memory its launch
-// asks for, all in bytes.  Returns a cudaError_t (0 = filled in).
-extern "C" int flash_bwd_kernel_attributes(int which, const char** name,
-                                           int* registers, int* local_bytes,
-                                           int* static_smem,
-                                           int* dynamic_smem) {
-  if (which < 0 || which >= flash_bwd_kernel_count()) {
-    return cudaErrorInvalidValue;
-  }
-  cudaFuncAttributes a;
-  const cudaError_t err = kKernels[which].attributes(&a);
-  if (err != cudaSuccess) return err;
-  *name = kKernels[which].name;
-  *registers = a.numRegs;
-  *local_bytes = static_cast<int>(a.localSizeBytes);
-  *static_smem = static_cast<int>(a.sharedSizeBytes);
-  *dynamic_smem = kKernels[which].dynamic_smem;
-  return cudaSuccess;
-}
+FLASH_KERNEL_ATTRIBUTE_ENTRIES(flash_bwd, kKernels)

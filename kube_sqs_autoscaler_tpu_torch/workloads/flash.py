@@ -65,6 +65,20 @@ merge or its gradient (``exp(-1e9 - x)`` underflows to exactly 0)."""
 _bound: dict[tuple[str, torch.dtype], tuple] = {}
 _count_lock = threading.Lock()  # worker pools launch from several threads
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# each entry point's leading arguments; every one ends with causal, window,
+# q_shift, scale and the stream
+_ARGTYPES = {
+    # q, k, v, o, lse; B, H, H_kv, S_q, S_k, D; 3 strides each of q, k, v
+    "flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    + [ctypes.c_longlong] * 9,
+    # q, k, v, dout, lse, delta, dq; sizes; strides of q, k, v, dout
+    "flash_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    + [ctypes.c_longlong] * 12,
+    # q, k, v, dout, lse, delta, dk, dv; sizes; strides of q, k, v, dout
+    "flash_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    + [ctypes.c_longlong] * 12,
+}
+_ARGTYPES_TAIL = [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _count(name: str) -> None:
@@ -72,39 +86,34 @@ def _count(name: str) -> None:
         globals()[name] += 1
 
 
+def _source(kernel: str) -> str:
+    return "flash_fwd" if kernel == "flash_fwd" else "flash_bwd"
+
+
+def _errors(lib: ctypes.CDLL, source: str):
+    errors = getattr(lib, f"{source}_error_string")
+    errors.argtypes = [ctypes.c_int]
+    errors.restype = ctypes.c_char_p
+    return errors
+
+
 def _entry(kernel: str, dtype: torch.dtype):
     """``(ctypes entry point, error-string function)`` of ``kernel``
     (``flash_fwd``, ``flash_bwd_dq`` or ``flash_bwd_dkv``) for ``dtype``,
-    building its library on first use.  The argtypes are exact: ``c_void_p`` for every
-    pointer (a null lse included) and the stream, ``c_longlong`` for every
-    stride, so ctypes never truncates one."""
+    building its library on first use.  The argtypes are exact:
+    ``c_void_p`` for every pointer (a null lse included) and the stream,
+    ``c_longlong`` for every stride, so ctypes never truncates one."""
     found = _bound.get((kernel, dtype))
     if found is not None:
         return found
     from .kernels import load
 
-    source = "flash_fwd" if kernel == "flash_fwd" else "flash_bwd"
+    source = _source(kernel)
     lib = load(source)
-    if kernel == "flash_fwd":
-        # q, k, v, o, lse; B, H, H_kv, S_q, S_k, D; 3 strides each of q, k, v
-        argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-            + [ctypes.c_longlong] * 9
-    elif kernel == "flash_bwd_dq":
-        # q, k, v, dout, lse, delta, dq; sizes; strides of q, k, v, dout
-        argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
-            + [ctypes.c_longlong] * 12
-    else:
-        # q, k, v, dout, lse, delta, dk, dv; sizes; strides of q, k, v, dout
-        argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
-            + [ctypes.c_longlong] * 12
-    # causal, window, q_shift, scale, stream
-    argtypes += [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    errors = getattr(lib, f"{source}_error_string")
-    errors.argtypes = [ctypes.c_int]
-    errors.restype = ctypes.c_char_p
+    errors = _errors(lib, source)
     for suffix_dtype, suffix in _SUFFIX.items():
         fn = getattr(lib, f"{kernel}_{suffix}")
-        fn.argtypes = argtypes
+        fn.argtypes = _ARGTYPES[kernel] + _ARGTYPES_TAIL
         fn.restype = ctypes.c_int
         _bound[(kernel, suffix_dtype)] = (fn, errors)
     return _bound[(kernel, dtype)]
@@ -302,8 +311,10 @@ def flash_fwd(q, k, v, *, causal: bool = True, window: int | None = None,
               q_shift: int = 0, need_lse: bool = False):
     """The forward kernel's wrapper: ``(out, lse)``, ``lse`` ``None``
     unless ``need_lse``.  CUDA tensors launch the kernel (counted in
-    :data:`lse_launches` or :data:`kernel_launches`); CPU tensors run
-    :func:`flash_fwd_reference`.  Takes no gradient (see
+    :data:`lse_launches` or :data:`kernel_launches`): bf16 runs on the
+    tensor cores and needs 16-byte-aligned rows
+    (:func:`check_rows_aligned`), f32 runs the scalar fp32 kernel.  CPU
+    tensors run :func:`flash_fwd_reference`.  Takes no gradient (see
     :func:`flash_attention`)."""
     _check(q, k, v, causal, window, q_shift)
     if _on_cpu(q, k, v):
@@ -311,6 +322,8 @@ def flash_fwd(q, k, v, *, causal: bool = True, window: int | None = None,
                                        q_shift=q_shift)
         return out, (lse if need_lse else None)
     _check_cuda(q, k, v)
+    if q.dtype == torch.bfloat16:
+        check_rows_aligned(q=q, k=k, v=v)
     batch, heads, q_len, dim = q.shape
     out = torch.empty((batch, heads, q_len, dim), dtype=q.dtype,
                       device=q.device)
@@ -343,7 +356,7 @@ def attention_delta(out: torch.Tensor, dout: torch.Tensor,
 def check_row_alignment(name: str, element_size: int, storage_offset: int,
                         strides, base_address: int = 0) -> None:
     """Raise ``ValueError`` unless every row of a ``[B, H, S, D]`` tensor
-    starts on a 16-byte boundary, as the bf16 backward kernels' 16-byte
+    starts on a 16-byte boundary, as the bf16 kernels' 16-byte
     ``cp.async`` copies need: its first element (``storage_offset``
     elements past ``base_address``, its storage's address) and each of its
     ``strides`` (in elements) must be whole multiples of 16 bytes.  A
@@ -358,8 +371,19 @@ def check_row_alignment(name: str, element_size: int, storage_offset: int,
     if bad:
         raise ValueError(
             f"{name} rows must start on 16-byte boundaries for the bf16 "
-            f"backward kernels: {', '.join(bad)}"
+            f"kernels: {', '.join(bad)}"
         )
+
+
+def check_rows_aligned(**tensors: torch.Tensor) -> None:
+    """:func:`check_row_alignment` for each named ``[B, H, S, D]`` tensor:
+    the bf16 kernels' contract, checked before every bf16 launch, forward
+    and backward."""
+    for name, t in tensors.items():
+        # a dim of size 1 never steps by its stride
+        strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        check_row_alignment(name, t.element_size(), t.storage_offset(),
+                            strides, t.untyped_storage().data_ptr())
 
 
 def _check_bwd(q, k, v, dout, lse, delta):
@@ -374,11 +398,7 @@ def _check_bwd(q, k, v, dout, lse, delta):
                 f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-            # a dim of size 1 never steps by its stride
-            strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-            check_row_alignment(name, t.element_size(), t.storage_offset(),
-                                strides, t.untyped_storage().data_ptr())
+        check_rows_aligned(q=q, k=k, v=v, dout=dout)
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal=True, window=None,
@@ -387,7 +407,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal=True, window=None,
     (:func:`attention_delta`): the dq kernel for CUDA tensors, its plain
     version for CPU tensors.  ``dq`` is contiguous, in q's dtype.  bf16
     inputs run on the tensor cores and need 16-byte-aligned rows
-    (:func:`check_row_alignment`); f32 inputs run the scalar fp32 kernel."""
+    (:func:`check_rows_aligned`); f32 inputs run the scalar fp32 kernel."""
     _check(q, k, v, causal, window, q_shift)
     if _on_cpu(q, k, v, dout, lse, delta):
         return flash_bwd_dq_reference(q, k, v, dout, lse, delta,
@@ -438,26 +458,26 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal=True, window=None,
     return dk, dv
 
 
-def flash_bwd_resources() -> list[dict]:
-    """What the compiler gave every dq and dk/dv instantiation
-    (``cudaFuncGetAttributes``): one dict per kernel, dtype and head dim
+def kernel_resources(source: str) -> list[dict]:
+    """What the compiler gave every kernel instantiation of
+    ``csrc/<source>.cu`` (``flash_fwd`` or ``flash_bwd``;
+    ``cudaFuncGetAttributes``): one dict per kernel, dtype and head dim
     with ``registers`` a thread, ``local_bytes`` a thread (above 0 means
     spills), ``static_smem_bytes`` and the ``dynamic_smem_bytes`` its
     launch asks for.  Builds the library on first use; needs a card."""
     from .kernels import load
 
-    lib = load("flash_bwd")
-    lib.flash_bwd_kernel_count.argtypes = []
-    lib.flash_bwd_kernel_count.restype = ctypes.c_int
-    fn = lib.flash_bwd_kernel_attributes
+    lib = load(source)
+    count = getattr(lib, f"{source}_kernel_count")
+    count.argtypes = []
+    count.restype = ctypes.c_int
+    fn = getattr(lib, f"{source}_kernel_attributes")
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)] \
         + [ctypes.POINTER(ctypes.c_int)] * 4
     fn.restype = ctypes.c_int
-    errors = lib.flash_bwd_error_string
-    errors.argtypes = [ctypes.c_int]
-    errors.restype = ctypes.c_char_p
+    errors = _errors(lib, source)
     out = []
-    for which in range(lib.flash_bwd_kernel_count()):
+    for which in range(count()):
         name = ctypes.c_char_p()
         values = [ctypes.c_int() for _ in range(4)]
         err = fn(which, ctypes.byref(name), *map(ctypes.byref, values))
@@ -520,7 +540,7 @@ def flash_attention(
 
     CUDA tensors launch the kernels (bf16 or f32, ``D`` in
     :data:`SUPPORTED_HEAD_DIMS`, last dim contiguous, bf16 rows 16-byte
-    aligned for the backward; any other input raises).  CPU tensors run the
+    aligned; any other input raises).  CPU tensors run the
     plain versions."""
     _check(q, k, v, causal, window)
     if _records_grad(q, k, v):

@@ -133,3 +133,11 @@ def test_importing_the_kernel_modules_builds_nothing():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_rows_aligned_ignores_the_stride_of_a_size_one_dim():
+    # a single batch and head never step by their strides, so a view whose
+    # unused strides are odd still has every row aligned
+    t = torch.zeros((1, 1, 16, 72), dtype=torch.bfloat16)[..., :64]
+    t = t.as_strided(t.shape, (3, 5, 72, 1))
+    flash.check_rows_aligned(q=t)

@@ -223,11 +223,21 @@ def test_bf16_row_alignment_check(case):
         flash.check_row_alignment("q", t.element_size(), t.storage_offset(),
                                   t.stride()[:3])
 
+    # the same contract through the helper every bf16 launch calls, forward
+    # and backward: the bad tensor is refused under its own name
+    aligned = torch.zeros((2, 4, 16, 64), dtype=torch.bfloat16)
+
+    def check_named():
+        flash.check_rows_aligned(q=aligned, k=t, v=aligned)
+
     if rejected is None:
         check()
+        check_named()
     else:
         with pytest.raises(ValueError, match=rejected):
             check()
+        with pytest.raises(ValueError, match=f"^k rows .*{rejected}"):
+            check_named()
 
 
 def test_lse_rejects_a_negative_causal_shift():
