@@ -19,8 +19,9 @@ Phases (any failure makes the run exit non-zero and print no result):
    the main paths' shapes and at the ragged, GQA, windowed, non-causal and
    shifted rectangular shapes, and timed beside its plain version, the
    equivalent PyTorch library call and the least time the card could take
-   (its bound): the serving forward (``flash_fwd``, also at the train
-   shape, where the eval passes run it), and the training forward with
+   (its bound): the serving forward (``flash_fwd``, also at the
+   continuous engine's refill sizes 1 and 3 and at the train shape, where
+   the eval passes run it), and the training forward with
    the lse (``flash_fwd_lse``) and its two backward halves
    (``flash_bwd_dq``, ``flash_bwd_dkv``), the backward also fed from the
    forward kernel's own output and lse; a misaligned bf16 input must be
@@ -31,10 +32,21 @@ Phases (any failure makes the run exit non-zero and print no result):
    must have launched (the launch counts are zeroed just before each mode
    and read just after); plus an f32 prefill whose logits must match the
    dense-attention path;
-5. throughput and profile: warm ``--demo 64`` rates in each mode, and
-   ``torch.profiler`` over one batch in each mode (device busy share and
-   the kernels that take the time);
-6. training: an f32 loss and gradient at the flagship train width through
+5. continuous: the binary's ``--demo 64`` of the generate cell through the
+   batch worker and ``--continuous`` at decode blocks 1 and 8, whose bf16
+   replies must be identical, with ``4 x inserts`` forward launches and no
+   lse launch; the block-8 worker driven cycle by cycle (at most one
+   decode dispatch and one host wait a cycle; the share of settles that
+   found the next block still running); and the batcher in f32 at full
+   width over 24 ragged prompts submitted a few at a time at blocks 1 and
+   8, each request against ``generate`` for its prompt alone up to the
+   first near-tie;
+6. throughput and profile: warm ``--demo 64`` rates in each mode (the
+   continuous engine's with its mean time to first token), and
+   ``torch.profiler`` over one batch in each mode and over a 16-message
+   continuous drain at blocks 1 and 8 (device busy share and the kernels
+   that take the time);
+7. training: an f32 loss and gradient at the flagship train width through
    the kernels against the dense-attention path; the trainer binary's code
    path in-process at the flagship config (GPT, d_model 1024, 16 heads,
    8 layers, d_ff 4096, vocab 8192, B=8, S=2048) in bf16 for 10
@@ -43,8 +55,8 @@ Phases (any failure makes the run exit non-zero and print no result):
    steps`` (and twice that for the forward under ``--remat``); its steady
    step time, tokens/s, MFU and peak memory; ``torch.profiler`` over one
    step;
-7. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-8. the last line, ``{"ok": true, "device": {...}}``.
+8. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+9. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
@@ -61,6 +73,8 @@ import sys
 import time
 import traceback
 from functools import partial
+
+import numpy as np
 
 # published peaks of one H100 SXM (NVIDIA data sheet; dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -95,6 +109,14 @@ GENERATE_ARGS = ["--demo", "16", "--batch-size", "8", "--seq-len", "512",
                  "demo://replies"]
 CLASSIFY_ARGS = ["--demo", "16", "--batch-size", "8", "--seq-len", "1024",
                  "--result-queue-url", "demo://replies"]
+# the generate cell's traffic through the batch worker, then through the
+# continuous engine's rolling slots at decode blocks 1 and 8
+SERVE_MODES = (("generate", GENERATE_ARGS),
+               ("continuous-b1", [*GENERATE_ARGS, "--continuous",
+                                  "--decode-block", "1"]),
+               ("continuous-b8", [*GENERATE_ARGS, "--continuous",
+                                  "--decode-block", "8"]))
+MARGIN = 1e-4  # greedy tokens are compared up to the first near-tie
 
 
 class Smoke:
@@ -303,6 +325,8 @@ def kernel_phase(torch, flash, smoke: Smoke) -> dict:
         # (label, batch, heads, kv_heads, seq, dim, window, strided)
         ("generate-prefill", 8, 8, 8, 512, 64, None, True),
         ("classify", 8, 8, 8, 1024, 64, None, True),
+        ("refill-1", 1, 8, 8, 512, 64, None, True),
+        ("refill-3", 3, 8, 8, 512, 64, None, True),
         ("ragged-s48", 8, 8, 8, 48, 64, None, False),
         ("ragged-s7", 8, 8, 8, 7, 64, None, True),
         ("ragged-s1000", 8, 8, 8, 1000, 64, None, True),
@@ -413,23 +437,31 @@ def main_path_phase(torch, flash, smoke: Smoke) -> dict:
 
 
 def throughput_phase(torch) -> dict:
-    """Warm end-to-end rates: the binary's ``--demo 64`` in each mode,
+    """Warm end-to-end rates on one host clock: the binary's ``--demo 64``
+    in each mode, the continuous engine at decode blocks 1 and 8 included,
     after the main path has paid the one-time costs (library load, cuBLAS
-    set-up)."""
+    set-up).  The batch worker's first tokens reach the host with its
+    whole batch, so its time to first token is its mean cycle."""
     from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import main as worker
 
     out = {}
-    for mode, args in (("generate", GENERATE_ARGS),
-                       ("classify", CLASSIFY_ARGS)):
-        args = list(args)
-        args[args.index("--demo") + 1] = "64"
-        summary = worker([*args, "--device", "cuda"])
+    for mode, args in (*SERVE_MODES, ("classify", CLASSIFY_ARGS)):
+        summary = worker([*demo64(args), "--device", "cuda"])
+        cycle = summary["cycle"]
         out[mode] = {k: summary[k] for k in (
-            "msgs_per_s", "tokens_per_s", "elapsed_s", "processed")}
-        out[mode]["cycle_p50_s"] = summary["cycle"]["p50_s"]
+            "msgs_per_s", "tokens_per_s", "elapsed_s", "processed",
+            "block_utilization")}
+        out[mode]["cycle_p50_s"] = cycle["p50_s"]
+        ttft = ""
+        if mode != "classify":
+            out[mode]["ttft_mean_s"] = summary["ttft_mean_s"] or \
+                cycle["mean_s"]
+            ttft = f", mean TTFT {out[mode]['ttft_mean_s'] * 1e3:.3f} ms"
         print(f"warm {mode} --demo 64: {summary['msgs_per_s']:.3f} msgs/s, "
-              f"{summary['tokens_per_s']:.3f} generated tokens/s, cycle p50 "
-              f"{summary['cycle']['p50_s'] * 1e3:.3f} ms", flush=True)
+              f"{summary['tokens_per_s']:.3f} generated tokens/s{ttft}, "
+              f"cycle p50 {cycle['p50_s'] * 1e3:.3f} ms over "
+              f"{cycle['count']} cycles, block utilization "
+              f"{summary['block_utilization']}", flush=True)
     return out
 
 
@@ -496,6 +528,238 @@ def profile_phase(torch) -> dict:
             print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
         out[mode] = {"wall_ms": wall_ms, "kernel_busy_ms": busy_ms,
                      "copy_ms": copy_ms, "flash_ms": flash_ms}
+    return out
+
+
+def demo64(args: list[str]) -> list[str]:
+    args = list(args)
+    args[args.index("--demo") + 1] = "64"
+    return args
+
+
+def continuous_phase(torch, flash, smoke: Smoke) -> dict:
+    """The worker binary's ``--demo 64`` at the generate cell's shape in
+    bf16 through the batch worker and the continuous engine at decode
+    blocks 1 and 8: every refill admits 8 rows of 512 tokens and every
+    decode runs over one [8, 8, 544, 64] cache, so the replies must be
+    identical across the three; launch counts zeroed just before each run
+    and read just after."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import main as worker
+
+    out, replies = {}, {}
+    demo = 64
+    for mode, args in SERVE_MODES:
+        zero_counts(flash)
+        summary = worker([*demo64(args), "--device", "cuda"])
+        launched = counts(flash)
+        torch.cuda.synchronize()
+        attrs = summary["queue_attributes"]
+        replies[mode] = {rid: json.dumps(body) for rid, body in
+                         summary["replies"].items()}
+        smoke.check(summary["processed"] == demo
+                    and len(replies[mode]) == demo
+                    and summary["duplicate_replies"] == 0,
+                    f"{mode}: processed {summary['processed']} of {demo}, "
+                    f"{len(replies[mode])} distinct replies, "
+                    f"{summary['duplicate_replies']} duplicates")
+        smoke.check(attrs["ApproximateNumberOfMessages"] == "0"
+                    and attrs["ApproximateNumberOfMessagesNotVisible"] == "0",
+                    f"{mode}: every input deleted ({attrs})")
+        smoke.check(all(len(r.get("tokens", ())) == 32
+                        and all(0 <= t < 8192 for t in r["tokens"])
+                        for r in summary["replies"].values()),
+                    f"{mode}: every reply holds 32 tokens in the vocabulary")
+        inserts = summary["insert_dispatches"]
+        if mode != "generate":
+            smoke.check(
+                inserts == demo // 8
+                and launched["flash_fwd"] == 4 * inserts
+                and launched["flash_fwd_lse"] == 0,
+                f"{mode}: {inserts} inserts of 8 rows, flash_fwd launches "
+                f"{launched['flash_fwd']} = 4 layers x inserts, lse "
+                f"launches {launched['flash_fwd_lse']}")
+        out[mode] = {"launches": launched["flash_fwd"],
+                     "insert_dispatches": inserts,
+                     "decode_dispatches": summary["decode_dispatches"],
+                     "host_transfers": summary["host_transfers"]}
+        print(f"{mode}: launches {launched}, inserts {inserts}, decode "
+              f"dispatches {summary['decode_dispatches']}, host transfers "
+              f"{summary['host_transfers']}", flush=True)
+    for mode in ("continuous-b1", "continuous-b8"):
+        same = replies[mode] == replies["generate"]
+        smoke.check(same, f"{mode}: the {len(replies[mode])} replies are "
+                    "identical to the batch worker's (bf16, greedy)")
+    return out
+
+
+def demo_setup(torch, argv: list[str], decode_block: int = 1):
+    """The worker binary's built-in config, seeded weights and service
+    config for ``argv``, on the card."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary
+    from kube_sqs_autoscaler_tpu_torch.workloads.model import init_params
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import ServiceConfig
+
+    args = binary.build_parser().parse_args(argv)
+    config = binary.builtin_config(args.seq_len, args.generate_tokens)
+    params = init_params(config, torch.Generator().manual_seed(0), "cuda")
+    service_config = ServiceConfig(
+        queue_url="", batch_size=args.batch_size, seq_len=args.seq_len,
+        generate_tokens=args.generate_tokens,
+        result_queue_url=args.result_queue_url, decode_block=decode_block,
+    )
+    return config, params, service_config
+
+
+def block_cycles_phase(torch, smoke: Smoke) -> dict:
+    """The continuous worker's cycles at decode block 8, driven one by
+    one over the demo traffic: each may launch at most one decode and
+    wait at most once for the host; and the share of block settles at
+    which the block dispatched that cycle was still running."""
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousWorker,
+    )
+
+    config, params, service_config = demo_setup(torch, GENERATE_ARGS, 8)
+    service_config.queue_url = "demo://queue"
+    service_config.result_queue_url = ""
+    rng = np.random.default_rng(0)
+    queue = FakeMessageQueue()
+    for _ in range(64):
+        queue.send_message(service_config.queue_url, json.dumps(
+            rng.integers(0, config.vocab_size, 512).tolist()))
+    worker = ContinuousWorker(queue, params, config, service_config,
+                              device="cuda")
+    batcher = worker.batcher
+    worst = [0, 0]
+    cycles = 0
+    while worker.processed < 64 and cycles < 1000:
+        before = (batcher.decode_dispatches, batcher.host_transfers)
+        worker.run_once()
+        cycles += 1
+        worst = [max(worst[0], batcher.decode_dispatches - before[0]),
+                 max(worst[1], batcher.host_transfers - before[1])]
+    smoke.check(worker.processed == 64 and worst[0] <= 1 and worst[1] <= 1,
+                f"block 8: {worker.processed} of 64 served in {cycles} "
+                f"cycles, at most {worst[0]} decode dispatch and "
+                f"{worst[1]} host transfer a cycle (want <= 1 each)")
+    share = batcher.overlapped_settles / max(1, batcher.block_settles)
+    print(f"block 8: {batcher.overlapped_settles} of {batcher.block_settles} "
+          f"block settles found the next block still running "
+          f"({100 * share:.1f}%), block utilization "
+          f"{batcher.block_tokens / batcher.block_capacity:.4f}", flush=True)
+    return {"cycles": cycles, "overlapped_settles": batcher.overlapped_settles,
+            "block_settles": batcher.block_settles, "overlap_share": share}
+
+
+def greedy_margins(torch, params, config, prompt, tokens):
+    """The top-two margin of the logits that chose each of ``tokens``
+    (one dense-attention forward over the prompt and its continuation)."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.model import forward
+
+    seq = torch.cat([prompt, tokens])[None]
+    logits = forward(params, seq, config)[0, len(prompt) - 1:-1]
+    top = logits.topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu().numpy()
+
+
+def staggered_phase(torch, flash, smoke: Smoke) -> dict:
+    """The continuous batcher at the built-in GPT's full width in f32:
+    24 prompts of ragged lengths (7 to 512) submitted a few at a time, so
+    slots refill while others decode, at decode blocks 1 and 8; each
+    request against the port's ``generate`` for its prompt alone, up to
+    the first position where the tokens' top-two margin is below 1e-4."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import decode
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import builtin_config
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousBatcher,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.model import init_params
+
+    config = dataclasses.replace(builtin_config(512, 32), dtype=torch.float32)
+    params = init_params(config, torch.Generator().manual_seed(0), "cuda")
+    rng = np.random.default_rng(5)
+    lengths = np.linspace(7, 512, 24).round().astype(int)
+    requests = [rng.integers(0, config.vocab_size, n) for n in lengths]
+    want, near_tie = [], []
+    with torch.inference_mode():
+        for ids in requests:
+            prompt = torch.from_numpy(ids).cuda()
+            tokens = decode.generate(params, prompt[None], 32, config,
+                                     attention_fn=flash.flash_attention)[0]
+            margins = greedy_margins(torch, params, config, prompt, tokens)
+            low = np.flatnonzero(margins < MARGIN)
+            want.append(tokens.cpu().numpy())
+            near_tie.append(int(low[0]) if low.size else None)
+    out = {}
+    for block in (1, 8):
+        batcher = ContinuousBatcher(params, config, 8, 512, 32,
+                                    decode_block=block, device="cuda")
+        before = flash.kernel_launches
+        waiting, got, cycle = list(enumerate(requests)), {}, 0
+        while (waiting or batcher.active) and cycle < 5000:
+            free = len(batcher.free_slots)
+            if waiting and free and cycle % 3 == 0:
+                take = min(free, 3)
+                batcher.submit_many([(ids, i) for i, ids in waiting[:take]])
+                waiting = waiting[take:]
+            for i, tokens in batcher.step():
+                got[i] = tokens
+            cycle += 1
+        bad = []
+        for i, tokens in got.items():
+            upto = 32 if near_tie[i] is None else near_tie[i]
+            if not np.array_equal(tokens[:upto], want[i][:upto]):
+                bad.append(i)
+        launched = flash.kernel_launches - before
+        ties = {i: p for i, p in enumerate(near_tie) if p is not None}
+        smoke.check(
+            len(got) == 24 and not bad
+            and launched == 4 * batcher.insert_dispatches,
+            f"f32 staggered block {block}: {len(got)} of 24 requests in "
+            f"{cycle} cycles and {batcher.insert_dispatches} inserts "
+            f"({launched} flash_fwd launches); tokens equal to generate "
+            f"alone up to the first near-tie (margin < {MARGIN:g}): "
+            f"mismatched {bad}; near-ties (request: position) {ties}")
+        out[block] = {"cycles": cycle, "mismatched": bad,
+                      "inserts": batcher.insert_dispatches}
+    out["near_ties"] = near_tie
+    return out
+
+
+def serve_profile_phase(torch) -> dict:
+    """Where the continuous engine's time goes: ``torch.profiler`` around
+    a 16-message drain at decode blocks 1 and 8 (weights already on the
+    card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary
+
+    out = {}
+    for block in (1, 8):
+        config, params, service_config = demo_setup(torch, GENERATE_ARGS,
+                                                    block)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            summary = binary.run_demo(16, params, config, service_config,
+                                      torch.device("cuda"), continuous=True)
+            torch.cuda.synchronize()
+        wall_ms = summary["elapsed_s"] * 1e3
+        kernels, copies = device_breakdown(prof)
+        busy_ms = sum(ms for ms, _, _ in kernels)
+        flash_ms = sum(ms for ms, _, key in kernels if "flash_fwd" in key)
+        print(f"profile continuous block {block} (16 messages, profiler on): "
+              f"wall {wall_ms:.3f} ms, kernels busy {busy_ms:.3f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}%), flash_fwd {flash_ms:.3f} ms, "
+              f"copies {sum(ms for ms, _, _ in copies):.3f} ms "
+              f"(x{sum(count for _, count, _ in copies)})", flush=True)
+        for ms, count, key in kernels[:8]:
+            print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
+        out[block] = {"wall_ms": wall_ms, "kernel_busy_ms": busy_ms,
+                      "flash_ms": flash_ms,
+                      "top": [(ms, count, key[:90])
+                              for ms, count, key in kernels[:8]]}
     return out
 
 
@@ -913,17 +1177,24 @@ def main() -> int:
     train_kern = smoke.phase("train kernels", train_kernel_phase, torch,
                              flash, smoke)
     path = smoke.phase("main path", main_path_phase, torch, flash, smoke)
+    serve = smoke.phase("continuous", continuous_phase, torch, flash, smoke)
+    cycles = smoke.phase("block cycles", block_cycles_phase, torch, smoke)
+    stagger = smoke.phase("f32 staggered", staggered_phase, torch, flash,
+                          smoke)
     smoke.phase("f32 prefill", f32_prefill_phase, torch, flash, smoke)
     rates = smoke.phase("throughput", throughput_phase, torch)
     prof = smoke.phase("profile", profile_phase, torch)
+    serve_prof = smoke.phase("continuous profile", serve_profile_phase, torch)
     f32_train = smoke.phase("f32 train step", f32_train_phase, torch, flash,
                             smoke)
     train_path = smoke.phase("train path", train_path_phase, torch, flash,
                              smoke, power)
     train_prof = smoke.phase("train profile", train_profile_phase, torch)
     if smoke.failures or not (info and sass and resources and kern
-                              and train_kern and path and rates and prof
-                              and f32_train and train_path and train_prof):
+                              and train_kern and path and serve and cycles
+                              and stagger and rates and prof
+                              and serve_prof and f32_train and train_path
+                              and train_prof):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
         return 1
@@ -931,8 +1202,12 @@ def main() -> int:
     fwd = kernel_entry(
         "flash_fwd", "flash_fwd.cu", 159, "_fwd_kernel (need_lse=False)",
         sum(m["launches"] for m in path.values())
+        + sum(serve[m]["launches"] for m in ("continuous-b1",
+                                             "continuous-b8"))
         + train_path["train"]["launches"]["flash_fwd"],
         {**{f"serve-{m}": v["launches"] for m, v in path.items()},
+         **{f"serve-{m}": serve[m]["launches"]
+            for m in ("continuous-b1", "continuous-b8")},
          **{f"train-{r}": v["launches"]["flash_fwd"]
             for r, v in train_path.items()}},
         kern["main_err"], timing, MAIN_SHAPES[0])

@@ -9,6 +9,8 @@
 - :mod:`.kernels` — builds and loads the CUDA sources under ``csrc/``.
 - :mod:`.decode` — KV-cache prefill, decode step, sampling and generate.
 - :mod:`.service` — the queue worker (classify and generate modes).
+- :mod:`.continuous` — continuous batching: the rolling-slot batcher and
+  its queue worker.
 - :mod:`.worker` — the in-process work-queue worker and pool.
 - :mod:`.train` — the objective, AdamW with its schedule and clip, grad
   accumulation and the single-device train step.

@@ -6,6 +6,8 @@ fills a cache pre-allocated at ``max_seq_len`` (:func:`prefill`; its
 attention is the seam, the flash kernel on the card), then each generated
 token runs the single-position path against the cache
 (:func:`decode_step`), and :func:`generate` loops the two.
+:func:`block_decode` advances the continuous batcher's slots a block of
+tokens at a time with their liveness on the device.
 
 Unlike the reference's pure functions, the port writes the cache **in
 place**: :func:`prefill` fills a fresh cache and :func:`decode_step`
@@ -162,17 +164,35 @@ def _decode_impl(
     return logits, cache
 
 
+def _write_rows(
+    buf: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
+    new: torch.Tensor,
+) -> None:
+    """``buf[rows, :, pos] = new`` in place, except that a row at or past
+    the end of the buffer writes nothing: the reference's scatter drops an
+    out-of-range update.  The index is clamped into the buffer and such a
+    row rewrites the value already there, so no index ever leaves the
+    buffer (on the card one would be a device-side assert) and nothing
+    waits for the device."""
+    last = buf.shape[2] - 1
+    at = pos.clamp(max=last)
+    past_end = (pos > last)[:, None, None]
+    buf[rows, :, at] = torch.where(past_end, buf[rows, :, at], new)
+
+
 def decode_step(
     params: dict, cache: dict, tokens: torch.Tensor, config: ModelConfig
 ) -> tuple[torch.Tensor, dict]:
     """One step: feed ``tokens`` (int ``[batch]``, row ``b``'s token for
     position ``cache["length"][b]``), return (fp32 logits ``[batch,
     vocab]`` for each row's next position, the same cache updated in
-    place)."""
+    place).  A row at or past ``max_seq_len`` (an idle serving slot that
+    keeps stepping) writes no k/v and reads the last position embedding,
+    as in the reference."""
 
     def write_and_attend(q, k, v, layer_cache, rows, pos):
-        layer_cache["k"][rows, :, pos] = k[:, :, 0]
-        layer_cache["v"][rows, :, pos] = v[:, :, 0]
+        _write_rows(layer_cache["k"], rows, pos, k[:, :, 0])
+        _write_rows(layer_cache["v"], rows, pos, v[:, :, 0])
         return _cached_attention(q, layer_cache["k"], layer_cache["v"], pos)
 
     return _decode_impl(params, cache, tokens, config, write_and_attend)
@@ -278,3 +298,54 @@ def generate(
             done = done | (token == eos_id)
         produced.append(token)
     return torch.stack(produced, dim=1)
+
+
+def block_decode(
+    params: dict,
+    cache: dict,
+    current: torch.Tensor,
+    done: torch.Tensor,
+    remaining: torch.Tensor,
+    keys: list,
+    config: ModelConfig,
+    *,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    eos_id: int | None = None,
+):
+    """Advance every live row up to ``block = len(keys)`` tokens: a Python
+    loop of :func:`decode_step` with the per-row liveness kept on the
+    device, so the host waits once per block, not per token (the
+    reference's ``lax.scan``).
+
+    Per-row state (``[batch]`` tensors the caller owns across calls):
+    ``current`` the next input token, ``done`` the row emitted ``eos_id``
+    or holds no request, ``remaining`` the tokens it may still emit.  A
+    row is live at a step iff ``~done & (remaining > 0)``.  Live rows run
+    exactly the single-step computation; frozen rows compute too (one
+    batch shape) but neither emit nor spend budget, and their ``length``
+    is put back, so their stray k/v write lands on a dead position.
+    ``keys`` holds one sampling generator per step (``None`` entries when
+    greedy).
+
+    Liveness only falls, so each row's kept tokens are a prefix of the
+    block: returns ``(cache, current, done, remaining, tokens [block,
+    batch], counts [batch])`` where ``tokens[:counts[b], b]`` are row
+    ``b``'s.  No step reads a device value on the host."""
+    pad = eos_id if eos_id is not None else 0
+    emitted, lives = [], []
+    for key in keys:
+        live = ~done & (remaining > 0)
+        length = cache["length"]
+        logits, cache = decode_step(params, cache, current, config)
+        nxt = _pick(logits, key, temperature, top_k, top_p)
+        emitted.append(torch.where(live, nxt, pad))
+        if eos_id is not None:
+            done = done | (live & (nxt == eos_id))
+        remaining = torch.where(live, remaining - 1, remaining)
+        current = torch.where(live, nxt, current)
+        cache["length"] = torch.where(live, cache["length"], length)
+        lives.append(live)
+    counts = torch.stack(lives).sum(dim=0)
+    return cache, current, done, remaining, torch.stack(emitted), counts

@@ -12,7 +12,9 @@ inputs.  Two modes:
   of that many continuation tokens per body (:mod:`.decode`).
 
 On the card both modes run their prompt pass through the CUDA flash
-kernel (:func:`.flash.attention_fn_for`).  Reply bytes match the
+kernel (:func:`.flash.attention_fn_for`).  The rolling-slot generate
+worker is :class:`.continuous.ContinuousWorker`, which reads
+``decode_block`` and ``request_ttl_s`` here.  Reply bytes match the
 reference worker's for the same traffic and weights (greedy).
 
 Not ported yet: the int8 KV cache (``quantized_kv``) and device tracing
@@ -150,6 +152,13 @@ class ServiceConfig:
     top_p: float = 1.0
     eos_id: int | None = None
     quantized_kv: bool = False  # not ported yet: raises
+    # continuous serving only: tokens the engine advances per decode
+    # dispatch (decode.block_decode); 1 = the single-step engine
+    decode_block: int = 1
+    # continuous serving only: > 0 answers a request already older than
+    # this many seconds on arrival (its SentTimestamp) with an "expired"
+    # error reply instead of decoding it; 0 = off
+    request_ttl_s: float = 0.0
     # publish one JSON result per input message to this queue (after
     # compute, before deleting the input: at-least-once)
     result_queue_url: str = ""
@@ -161,6 +170,15 @@ class ServiceConfig:
         if not 0.0 < self.top_p <= 1.0:
             raise ValueError(
                 f"top_p={self.top_p} must be in (0, 1] (1.0 = off)"
+            )
+        if self.decode_block < 1:
+            raise ValueError(
+                f"decode_block={self.decode_block} must be >= 1"
+            )
+        if self.request_ttl_s < 0:
+            raise ValueError(
+                f"request_ttl_s={self.request_ttl_s} must be >= 0 "
+                "(0 = off)"
             )
         if self.quantized_kv:
             raise ValueError(

@@ -3,8 +3,8 @@
 An AST scan of every module of ``kube_sqs_autoscaler_tpu_torch`` and of
 ``chip_smoke.py`` finds no such import, and a subprocess in which ``jax``,
 ``jaxlib`` and ``kube_sqs_autoscaler_tpu`` cannot be imported still
-imports the port and runs a tiny forward, generate and worker cycle on
-the CPU.
+imports the port and runs a tiny forward, generate, worker cycle,
+continuous-worker drain and train step on the CPU.
 """
 
 import ast
@@ -68,6 +68,7 @@ import torch
 from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
 from kube_sqs_autoscaler_tpu_torch.workloads import decode, model, service
 from kube_sqs_autoscaler_tpu_torch.workloads import __main__, worker  # noqa
+from kube_sqs_autoscaler_tpu_torch.workloads import continuous
 from kube_sqs_autoscaler_tpu_torch.workloads import data, perf, train  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import trainer  # noqa
 
@@ -83,6 +84,13 @@ w = service.QueueWorker(jobs, params, cfg,
                         service.ServiceConfig(queue_url="q", seq_len=8),
                         device="cpu")
 assert w.run_once() == 1
+jobs.send_message("q", json.dumps([1, 2, 3]))
+cw = continuous.ContinuousWorker(
+    jobs, params, cfg,
+    service.ServiceConfig(queue_url="q", seq_len=8, generate_tokens=3,
+                          decode_block=2),
+    device="cpu")
+assert cw.drain(total=1) == 1
 state = train.train_state(params, train.TrainConfig())
 step = train.make_train_step(cfg, train.TrainConfig(), "cpu")
 assert step(state, ids)[0]["step"] == 1
