@@ -36,7 +36,8 @@ Phases (any failure makes the run exit non-zero and print no result):
    batch worker and ``--continuous`` at decode blocks 1 and 8, whose bf16
    replies must be identical, with ``4 x inserts`` forward launches and no
    lse launch; the block-8 worker driven cycle by cycle (at most one
-   decode dispatch and one host wait a cycle; the share of settles that
+   decode dispatch a cycle, and at most one host transfer for the block
+   plus one for each insert settled that cycle; the share of settles that
    found the next block still running); and the batcher in f32 at full
    width over 24 ragged prompts submitted a few at a time at blocks 1 and
    8, each request against ``generate`` for its prompt alone up to the
@@ -46,7 +47,27 @@ Phases (any failure makes the run exit non-zero and print no result):
    ``torch.profiler`` over one batch in each mode and over a 16-message
    continuous drain at blocks 1 and 8 (device busy share and the kernels
    that take the time);
-7. training: an f32 loss and gradient at the flagship train width through
+7. sqs: a local SQS endpoint (the JSON protocol over the port's in-memory
+   queue, on 127.0.0.1) loaded with the ``--demo 64`` bodies; the worker
+   binary started as a child process with ``--sqs-queue-url
+   --result-queue-url --metrics-port``, continuous at decode block 8 and
+   then the batch worker: all 64 answered once and deleted, every call
+   signed, the reply bytes equal to the in-memory demo run's, ``/metrics``
+   scraped mid-run; and a ``QueueWorker`` with ``profile_dir`` whose trace
+   must name ``flash_fwd``;
+8. fleet: the deterministic ``WorkerPool`` episode (``FakeClock``,
+   ``--demo 64`` traffic, min 1, max 3, a busy replica killed and another
+   hung) in bf16 (spawns, re-dispatch, the hang watchdog, the drain back
+   to min, every request answered once, the params shared, ``4 x
+   inserts`` forward launches; peak memory beside one replica's) and in
+   f32 (each reply against ``generate`` alone up to the first near-tie);
+   the binary's ``--fleet-max-replicas 3`` on the real clock (rates, mean
+   TTFT, replica trajectory, busy share); ``python -m
+   kube_sqs_autoscaler_tpu_torch.fleet`` must exit 0;
+9. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
+   through dense attention with no kernel launch, its loss falling; the
+   forward wrapper called directly at D = 16 must raise ``ValueError``;
+10. training: an f32 loss and gradient at the flagship train width through
    the kernels against the dense-attention path; the trainer binary's code
    path in-process at the flagship config (GPT, d_model 1024, 16 heads,
    8 layers, d_ff 4096, vocab 8192, B=8, S=2048) in bf16 for 10
@@ -55,8 +76,8 @@ Phases (any failure makes the run exit non-zero and print no result):
    steps`` (and twice that for the forward under ``--remat``); its steady
    step time, tokens/s, MFU and peak memory; ``torch.profiler`` over one
    step;
-8. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-9. the last line, ``{"ok": true, "device": {...}}``.
+11. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+12. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
@@ -67,12 +88,17 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
+import socket
 import subprocess
 import sys
+import threading
 import time
 import traceback
+import urllib.request
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 
@@ -132,12 +158,16 @@ class Smoke:
         """Run one phase; an exception fails the run (after the other
         phases have run) and is printed, never swallowed."""
         print(f"== {name}", flush=True)
+        start = time.perf_counter()
         try:
             return fn(*args)
         except Exception:
             traceback.print_exc()
             self.failures.append(f"phase {name} raised")
             return None
+        finally:
+            print(f"-- {name}: {time.perf_counter() - start:.3f} s",
+                  flush=True)
 
 
 def device_phase(torch) -> dict:
@@ -581,7 +611,8 @@ def continuous_phase(torch, flash, smoke: Smoke) -> dict:
         out[mode] = {"launches": launched["flash_fwd"],
                      "insert_dispatches": inserts,
                      "decode_dispatches": summary["decode_dispatches"],
-                     "host_transfers": summary["host_transfers"]}
+                     "host_transfers": summary["host_transfers"],
+                     "replies": replies[mode]}
         print(f"{mode}: launches {launched}, inserts {inserts}, decode "
               f"dispatches {summary['decode_dispatches']}, host transfers "
               f"{summary['host_transfers']}", flush=True)
@@ -590,6 +621,13 @@ def continuous_phase(torch, flash, smoke: Smoke) -> dict:
         smoke.check(same, f"{mode}: the {len(replies[mode])} replies are "
                     "identical to the batch worker's (bf16, greedy)")
     return out
+
+
+def demo_bodies(n: int = 64, vocab: int = 8192, seq_len: int = 512):
+    """The binary's ``--demo n`` bodies (seed 0), as JSON strings."""
+    rng = np.random.default_rng(0)
+    return [json.dumps(rng.integers(0, vocab, seq_len).tolist())
+            for _ in range(n)]
 
 
 def demo_setup(torch, argv: list[str], decode_block: int = 1):
@@ -613,8 +651,10 @@ def demo_setup(torch, argv: list[str], decode_block: int = 1):
 def block_cycles_phase(torch, smoke: Smoke) -> dict:
     """The continuous worker's cycles at decode block 8, driven one by
     one over the demo traffic: each may launch at most one decode and
-    wait at most once for the host; and the share of block settles at
-    which the block dispatched that cycle was still running."""
+    count at most one host transfer for the block plus one for each
+    insert whose first tokens it settled (the reference's odometer; the
+    port waits once for both); and the share of block settles at which
+    the block dispatched that cycle was still running."""
     from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
     from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
         ContinuousWorker,
@@ -623,26 +663,34 @@ def block_cycles_phase(torch, smoke: Smoke) -> dict:
     config, params, service_config = demo_setup(torch, GENERATE_ARGS, 8)
     service_config.queue_url = "demo://queue"
     service_config.result_queue_url = ""
-    rng = np.random.default_rng(0)
     queue = FakeMessageQueue()
-    for _ in range(64):
-        queue.send_message(service_config.queue_url, json.dumps(
-            rng.integers(0, config.vocab_size, 512).tolist()))
+    for body in demo_bodies(64):
+        queue.send_message(service_config.queue_url, body)
     worker = ContinuousWorker(queue, params, config, service_config,
                               device="cuda")
     batcher = worker.batcher
-    worst = [0, 0]
+    worst_dispatches, over = 0, []
     cycles = 0
     while worker.processed < 64 and cycles < 1000:
-        before = (batcher.decode_dispatches, batcher.host_transfers)
+        before = (batcher.decode_dispatches, batcher.host_transfers,
+                  batcher.insert_dispatches)
         worker.run_once()
         cycles += 1
-        worst = [max(worst[0], batcher.decode_dispatches - before[0]),
-                 max(worst[1], batcher.host_transfers - before[1])]
-    smoke.check(worker.processed == 64 and worst[0] <= 1 and worst[1] <= 1,
+        # a cycle's refill runs before its step, which settles its firsts
+        settled = batcher.insert_dispatches - before[2]
+        transfers = batcher.host_transfers - before[1]
+        worst_dispatches = max(worst_dispatches,
+                               batcher.decode_dispatches - before[0])
+        if transfers > 1 + settled:
+            over.append((cycles, transfers, settled))
+    smoke.check(worker.processed == 64 and worst_dispatches <= 1 and not over,
                 f"block 8: {worker.processed} of 64 served in {cycles} "
-                f"cycles, at most {worst[0]} decode dispatch and "
-                f"{worst[1]} host transfer a cycle (want <= 1 each)")
+                f"cycles, at most {worst_dispatches} decode dispatch a cycle "
+                f"(want <= 1); cycles counting more host transfers than 1 + "
+                f"the inserts settled (cycle, transfers, settled): {over}; "
+                f"{batcher.host_transfers} transfers for "
+                f"{batcher.insert_dispatches} inserts and "
+                f"{batcher.decode_dispatches} blocks")
     share = batcher.overlapped_settles / max(1, batcher.block_settles)
     print(f"block 8: {batcher.overlapped_settles} of {batcher.block_settles} "
           f"block settles found the next block still running "
@@ -1132,6 +1180,673 @@ def train_profile_phase(torch) -> dict:
             "top": [(ms, count, key[:100]) for ms, count, key in kernels[:12]]}
 
 
+class SqsEmulator:
+    """A local SQS endpoint on 127.0.0.1: the JSON protocol
+    (``AmazonSQS.SendMessage``, ``ReceiveMessage``, ``DeleteMessage``,
+    ``ChangeMessageVisibility``, ``GetQueueAttributes``) over the port's
+    ``FakeMessageQueue``, one queue per ``QueueUrl``.  A receive returns up
+    to ``MaxNumberOfMessages`` at once and never blocks (``WaitTimeSeconds``
+    is ignored).  Counts the calls that came without a SigV4 signature."""
+
+    def __init__(self) -> None:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.queues: dict = {}
+        self.unsigned = 0
+        self.calls: dict[str, int] = {}
+        emulator = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self) -> None:  # noqa: N802 (http.server API)
+                length = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                action = self.headers.get("X-Amz-Target", "")
+                if not self.headers.get("Authorization", "").startswith(
+                        "AWS4-HMAC-SHA256 "):
+                    emulator.unsigned += 1
+                status, reply = emulator.handle(
+                    action.removeprefix("AmazonSQS."), body)
+                data = json.dumps(reply).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/x-amz-json-1.0")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args) -> None:
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def queue(self, name: str):
+        """``(url, FakeMessageQueue)`` of the queue at ``/<name>``."""
+        from kube_sqs_autoscaler_tpu_torch.metrics.fake import (
+            FakeMessageQueue,
+        )
+
+        url = f"{self.url}/{name}"
+        return url, self.queues.setdefault(url, FakeMessageQueue())
+
+    def handle(self, action: str, body: dict) -> tuple[int, dict]:
+        self.calls[action] = self.calls.get(action, 0) + 1
+        url = body.get("QueueUrl", "")
+        queue = self.queues.get(url)
+        if queue is None:
+            return 400, {"__type": "com.amazonaws.sqs#QueueDoesNotExist"}
+        if action == "SendMessage":
+            return 200, {"MessageId": queue.send_message(
+                url, body["MessageBody"])}
+        if action == "ReceiveMessage":
+            return 200, {"Messages": queue.receive_messages(
+                url, max_messages=int(body.get("MaxNumberOfMessages", 1)))}
+        if action == "DeleteMessage":
+            queue.delete_message(url, body["ReceiptHandle"])
+            return 200, {}
+        if action == "ChangeMessageVisibility":
+            queue.change_message_visibility(
+                url, body["ReceiptHandle"], body["VisibilityTimeout"])
+            return 200, {}
+        if action == "GetQueueAttributes":
+            return 200, {"Attributes": queue.get_queue_attributes(
+                url, body.get("AttributeNames", ()))}
+        return 400, {"__type": "com.amazonaws.sqs#InvalidAction"}
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+# The worker binary in a child process with the flash launch counts printed
+# at exit: SIGTERM (how a Deployment stops a replica) ends its serve loop.
+SQS_CHILD = """
+import json, signal, sys
+from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary, flash
+
+def stop(signum, frame):
+    raise SystemExit(0)
+
+signal.signal(signal.SIGTERM, stop)
+try:
+    binary.main(sys.argv[1:])
+finally:
+    print("LAUNCHES " + json.dumps({
+        "flash_fwd": flash.kernel_launches, "flash_fwd_lse": flash.lse_launches,
+        "flash_bwd_dq": flash.dq_launches, "flash_bwd_dkv": flash.dkv_launches,
+    }), flush=True)
+"""
+# placeholder credentials: with them in the environment the client never
+# probes the instance-metadata endpoint
+LOCAL_AWS_ENV = {"AWS_ACCESS_KEY_ID": "AKIDLOCALEMULATOR",
+                 "AWS_SECRET_ACCESS_KEY": "local-emulator-secret"}
+ROOT = Path(__file__).resolve().parent
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def drain_raw(queue, url: str) -> dict[str, list[str]]:
+    """Every visible message body of ``queue``, deleted as read, grouped
+    by its ``request_id``."""
+    out: dict[str, list[str]] = {}
+    while True:
+        batch = queue.receive_messages(url, max_messages=64)
+        if not batch:
+            return out
+        for message in batch:
+            queue.delete_message(url, message["ReceiptHandle"])
+            rid = json.loads(message["Body"]).get("request_id", "")
+            out.setdefault(rid, []).append(message["Body"])
+
+
+def stop_child(child, timeout: float = 60.0) -> str:
+    """SIGTERM, then SIGKILL after ``timeout``; returns its output."""
+    if child.poll() is None:
+        child.terminate()
+    try:
+        out, _ = child.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        out, _ = child.communicate()
+    return out or ""
+
+
+class SqsRun:
+    """The worker binary on its own emulator: 64 demo bodies loaded, the
+    binary started as a child process, and a watcher thread that scrapes
+    ``/metrics`` once two batches are answered and notes when all 64 are
+    answered and deleted.  :meth:`finish` then terminates the child and
+    checks the run."""
+
+    def __init__(self, mode: str, extra: list[str]) -> None:
+        self.mode, self.extra = mode, extra
+        self.emulator = SqsEmulator()
+        self.jobs_url, self.jobs = self.emulator.queue("000000000000/jobs")
+        self.replies_url, self.replies = self.emulator.queue(
+            "000000000000/replies")
+        self.sent = [self.jobs.send_message(self.jobs_url, body)
+                     for body in demo_bodies(64)]
+        self.port = free_port()
+        argv = ["--sqs-queue-url", self.jobs_url, "--aws-region",
+                "us-east-1", "--batch-size", "8", "--seq-len", "512",
+                "--generate-tokens", "32", "--result-queue-url",
+                self.replies_url, "--metrics-port", str(self.port),
+                "--device", "cuda", *extra]
+        self.scrape, self.first_reply_s, self.done_s = "", None, None
+        self.start = time.perf_counter()
+        self.child = subprocess.Popen(
+            [sys.executable, "-c", SQS_CHILD, *argv], cwd=ROOT,
+            env={**os.environ, **LOCAL_AWS_ENV}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.watcher = threading.Thread(target=self._watch, daemon=True)
+        self.watcher.start()
+
+    def _watch(self) -> None:
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and self.child.poll() is None:
+            answered = int(self.replies.get_queue_attributes(
+                self.replies_url, ())["ApproximateNumberOfMessages"])
+            attrs = self.jobs.get_queue_attributes(self.jobs_url, ())
+            if answered and self.first_reply_s is None:
+                self.first_reply_s = time.perf_counter() - self.start
+            if answered >= 16 and not self.scrape:
+                # two batches in: the batch worker's first cycle span has
+                # closed, the continuous engine has settled TTFT samples
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{self.port}/metrics",
+                        timeout=10) as r:
+                    self.scrape = r.read().decode()
+            if (answered >= 64 and attrs["ApproximateNumberOfMessages"] == "0"
+                    and attrs["ApproximateNumberOfMessagesNotVisible"] == "0"):
+                self.done_s = time.perf_counter() - self.start
+                return
+            time.sleep(0.02)
+
+    def finish(self, smoke: Smoke, want: dict[str, str]) -> dict:
+        mode = self.mode
+        try:
+            self.watcher.join(timeout=330)
+            output = stop_child(self.child)
+            attrs = self.jobs.get_queue_attributes(self.jobs_url, ())
+            got = drain_raw(self.replies, self.replies_url)
+        finally:
+            if self.child.poll() is None:
+                stop_child(self.child, timeout=10)
+            self.emulator.close()
+        log = ROOT / "build" / "chip_smoke" / f"sqs-{mode}.log"
+        log.parent.mkdir(parents=True, exist_ok=True)
+        log.write_text(output)
+        found = [line for line in output.splitlines()
+                 if line.startswith("LAUNCHES ")]
+        launched = json.loads(found[-1].split(" ", 1)[1]) if found else {}
+        duplicates = sum(len(bodies) - 1 for bodies in got.values())
+        raw = {rid: bodies[0] for rid, bodies in got.items()}
+        smoke.check(self.done_s is not None and self.child.returncode == 0
+                    and bool(launched),
+                    f"sqs {mode}: the binary answered 64 in {self.done_s} s "
+                    f"(first reply at {self.first_reply_s} s, process start "
+                    f"included) and exited {self.child.returncode} on "
+                    f"SIGTERM (log: {log.relative_to(ROOT)}; its end: "
+                    f"{output[-1500:] if self.done_s is None else '...'})")
+        smoke.check(sorted(raw) == sorted(self.sent) and duplicates == 0
+                    and attrs["ApproximateNumberOfMessages"] == "0"
+                    and attrs["ApproximateNumberOfMessagesNotVisible"] == "0",
+                    f"sqs {mode}: {len(raw)} of {len(self.sent)} requests "
+                    f"answered, {duplicates} duplicates, every input deleted "
+                    f"({attrs})")
+        same = sum(raw.get(rid) == body for rid, body in want.items())
+        smoke.check(same == 64 and len(want) == 64,
+                    f"sqs {mode}: {same} of 64 reply bodies byte-identical "
+                    f"to the in-memory --demo 64 run's (bf16, greedy)")
+        calls = self.emulator.calls
+        smoke.check(self.emulator.unsigned == 0,
+                    f"sqs {mode}: every call SigV4-signed "
+                    f"({self.emulator.unsigned} unsigned); calls {calls}")
+        families = ["worker_cycle_seconds_count"]
+        if "--continuous" in self.extra:
+            families += ["tokens_per_second", "time_to_first_token_seconds",
+                         "active_slots", "decode_block_utilization",
+                         'ttft_seconds_bucket{le="+Inf"}']
+        missing = [f for f in families
+                   if f"kube_sqs_autoscaler_workload_{f}" not in self.scrape]
+        smoke.check(not missing, f"sqs {mode}: /metrics scraped mid-run "
+                    f"({len(self.scrape)} bytes), missing families {missing}")
+        smoke.check(launched.get("flash_fwd", 0) > 0
+                    and launched.get("flash_fwd_lse") == 0,
+                    f"sqs {mode}: launches {launched}")
+        return {"launches": launched.get("flash_fwd", 0),
+                "done_s": self.done_s, "first_reply_s": self.first_reply_s,
+                "calls": calls}
+
+
+def profiled_worker_run(torch, smoke: Smoke) -> dict:
+    """A ``QueueWorker`` with ``profile_dir`` set serving one batch of 8
+    demo messages from its ``run_forever`` loop: its first cycle is
+    traced, and the trace must exist and name the ``flash_fwd`` kernel."""
+    import shutil
+
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import QueueWorker
+
+    config, params, service_config = demo_setup(torch, GENERATE_ARGS)
+    trace_dir = ROOT / "build" / "traces" / "queue-worker"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    service_config = dataclasses.replace(
+        service_config, queue_url="demo://queue", result_queue_url="",
+        profile_dir=str(trace_dir), profile_cycles=1, idle_sleep_s=0.01)
+    queue = FakeMessageQueue()
+    for body in demo_bodies(8):
+        queue.send_message(service_config.queue_url, body)
+    worker = QueueWorker(queue, params, config, service_config,
+                         device="cuda")
+
+    def watch():
+        deadline = time.monotonic() + 120
+        while worker.processed < 8 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        worker.stop()
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    worker.run_forever()
+    watcher.join()
+    traces = sorted(trace_dir.glob("trace-*.json"))
+    text = traces[0].read_text() if traces else ""
+    named = text.count("flash_fwd_kernel")
+    smoke.check(worker.processed == 8 and len(traces) == 1 and named > 0,
+                f"profiled QueueWorker: {worker.processed} of 8 served, "
+                f"{len(traces)} trace file(s) of {len(text)} bytes naming "
+                f"flash_fwd_kernel {named} times")
+    return {"trace_bytes": len(text), "flash_fwd_mentions": named}
+
+
+def sqs_phase(torch, flash, smoke: Smoke, serve: dict) -> dict:
+    """The worker binary against a real HTTP queue, the continuous engine
+    at decode block 8 and the batch worker side by side (each child on its
+    own emulator), each byte-identical to its in-memory ``--demo 64`` run;
+    meanwhile the batch worker's profiler in this process."""
+    runs = {mode: SqsRun(mode, extra) for mode, extra in (
+        ("continuous-b8", ["--continuous", "--decode-block", "8"]),
+        ("generate", []))}
+    out = {}
+    try:
+        out["profile"] = profiled_worker_run(torch, smoke)
+    finally:
+        for mode, run in runs.items():
+            out[mode] = run.finish(smoke, serve[mode]["replies"])
+    return out
+
+
+FLEET_QUEUE = "fleet://jobs"
+FLEET_RESULTS = "fleet://replies"
+# (cycle, replica): kill replica 1 and hang replica 2 while both are busy
+FLEET_KILL = (8, 1)
+FLEET_HANG = (11, 2)
+
+
+def flat_params(params) -> list:
+    if isinstance(params, dict):
+        return [t for v in params.values() for t in flat_params(v)]
+    if isinstance(params, (list, tuple)):
+        return [t for v in params for t in flat_params(v)]
+    return [params]
+
+
+def fleet_episode(torch, params, config, device="cuda") -> dict:
+    """The deterministic fleet episode on one ``FakeClock``: the
+    ``--demo 64`` traffic, ``WorkerPool.serving(min=1, max=3)`` at
+    ``--batch-size 8 --seq-len 512 --generate-tokens 32 --decode-block
+    8``, the binary's control loop (poll 0.1 s, up at 2 x 8 messages,
+    down at 8, cooldowns 0.2 and 0.4 s), two fleet cycles a poll, and a
+    fault plan that kills replica 1 and hangs replica 2 while they hold
+    requests.  Runs until every request is answered and the fleet is back
+    at min."""
+    from kube_sqs_autoscaler_tpu_torch.core import (
+        ControlLoop, FakeClock, LoopConfig, PolicyConfig,
+    )
+    from kube_sqs_autoscaler_tpu_torch.fleet import (
+        DRAINING, FleetDriver, WorkerPool,
+    )
+    from kube_sqs_autoscaler_tpu_torch.metrics import QueueMetricSource
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.sim.faults import FleetFaultPlan
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import ServiceConfig
+
+    clock = FakeClock()
+    queue = FakeMessageQueue(visibility_timeout=30.0, now_fn=clock.now)
+    results = FakeMessageQueue(now_fn=clock.now)
+    sent = [queue.send_message(FLEET_QUEUE, body)
+            for body in demo_bodies(64, config.vocab_size)]
+    service_config = ServiceConfig(
+        queue_url=FLEET_QUEUE, batch_size=8, seq_len=512, generate_tokens=32,
+        decode_block=8, result_queue_url=FLEET_RESULTS)
+    pool = WorkerPool.serving(queue, params, config, service_config,
+                              result_queue=results, min=1, max=3,
+                              clock=clock, device=device)
+    loop = ControlLoop(
+        pool,
+        QueueMetricSource(queue, FLEET_QUEUE, ("ApproximateNumberOfMessages",)),
+        LoopConfig(poll_interval=0.1, policy=PolicyConfig(
+            scale_up_messages=2 * 8, scale_down_messages=8,
+            scale_up_cooldown=0.2, scale_down_cooldown=0.4)),
+        clock=clock)
+    plan = FleetFaultPlan(kills=(FLEET_KILL,), hangs=(FLEET_HANG,))
+    busy_at_fault = {}
+
+    class Recorded:
+        """The plan, noting how many requests each target holds when its
+        fault lands."""
+
+        def apply(self, cycle, target):
+            for at, index in (FLEET_KILL, FLEET_HANG):
+                if at == cycle:
+                    busy_at_fault[index] = \
+                        target._member(index).worker.batcher.active
+            plan.apply(cycle, target)
+
+    driver = FleetDriver(pool, loop, cycle_dt=0.05, fault_plan=Recorded())
+    stats = driver.run(max_cycles=3000, until=lambda: (
+        pool.processed >= len(sent) and pool.idle
+        and pool.replicas == pool.min
+        and not any(r.state == DRAINING for r in pool.members)))
+    return {"pool": pool, "stats": stats, "sent": sent,
+            "replies": drain_raw(results, FLEET_RESULTS),
+            "busy_at_fault": busy_at_fault, "queue": queue}
+
+
+def check_fleet_episode(torch, smoke: Smoke, label: str, run: dict,
+                        params) -> dict:
+    """The episode's milestones: spawn, a kill with re-dispatch, a hang
+    the watchdog declares dead, a drain back to min, every request
+    answered once, the params shared."""
+    pool, stats, sent = run["pool"], run["stats"], run["sent"]
+    names = [e.name for e in pool.events]
+    kills = {e.args["replica"]: e.args for e in pool.events
+             if e.name == "replica-kill"}
+    killed, hung = kills.get(FLEET_KILL[1], {}), kills.get(FLEET_HANG[1], {})
+    smoke.check(names.count("replica-spawn") >= 3
+                and max(stats["replica_trajectory"], default=0) >= 2,
+                f"fleet {label}: {names.count('replica-spawn')} spawns, "
+                f"trajectory {stats['replica_trajectory']}")
+    smoke.check(killed.get("cause") == "killed"
+                and killed.get("redispatched", 0) > 0,
+                f"fleet {label}: replica {FLEET_KILL[1]} killed at cycle "
+                f"{FLEET_KILL[0]} holding {run['busy_at_fault'].get(1)} "
+                f"requests: {killed}")
+    smoke.check(hung.get("cause") == "hung",
+                f"fleet {label}: replica {FLEET_HANG[1]} hung at cycle "
+                f"{FLEET_HANG[0]} holding {run['busy_at_fault'].get(2)} "
+                f"requests, declared dead by the watchdog: {hung}")
+    smoke.check("replica-drain-done" in names and pool.replicas == pool.min,
+                f"fleet {label}: drained back to min {pool.min} "
+                f"(serving {pool.replicas}, {names.count('replica-drain-done')}"
+                f" drains done) in {stats['cycles']} cycles, "
+                f"{stats['ticks']} ticks")
+    duplicates = sum(len(b) - 1 for b in run["replies"].values())
+    attrs = run["queue"].get_queue_attributes(FLEET_QUEUE, ())
+    smoke.check(sorted(run["replies"]) == sorted(sent) and duplicates == 0
+                and attrs["ApproximateNumberOfMessages"] == "0"
+                and attrs["ApproximateNumberOfMessagesNotVisible"] == "0",
+                f"fleet {label}: {len(run['replies'])} of {len(sent)} "
+                f"requests answered, reply request_ids == sent MessageIds: "
+                f"{sorted(run['replies']) == sorted(sent)}, {duplicates} "
+                f"duplicates ({pool.duplicates_suppressed} suppressed, "
+                f"{pool.redispatched_total} re-dispatched), queue {attrs}")
+    ptrs = [t.data_ptr() for t in flat_params(params)]
+    shared = all([t.data_ptr() for t in flat_params(r.worker.batcher.params)]
+                 == ptrs for r in pool.members)
+    smoke.check(shared, f"fleet {label}: all {len(pool.members)} replicas' "
+                f"params share the pool's {len(ptrs)} data_ptrs")
+    batchers = [r.worker.batcher for r in pool.members]
+    return {"events": names, "trajectory": stats["replica_trajectory"],
+            "cycles": stats["cycles"], "ticks": stats["ticks"],
+            "members": len(pool.members),
+            "overlapped_settles": sum(b.overlapped_settles for b in batchers),
+            "block_settles": sum(b.block_settles for b in batchers),
+            "redispatched": pool.redispatched_total,
+            "duplicates_suppressed": pool.duplicates_suppressed,
+            "inserts": sum(r.worker.batcher.insert_dispatches
+                           for r in pool.members)}
+
+
+def fleet_phase(torch, flash, smoke: Smoke, serve: dict) -> dict:
+    """The pool on the card: (a) the deterministic episode in bf16, its
+    launches zeroed just before and read just after, with its peak memory
+    beside one replica's; (b) the same episode in f32, each reply against
+    ``generate`` for its prompt alone up to the first near-tie; (c) the
+    binary's ``--fleet-max-replicas 3`` on the real clock, timed, then
+    again under ``torch.profiler``; (d) ``python -m
+    kube_sqs_autoscaler_tpu_torch.fleet``, in its own process beside (a)
+    and (b), collected before (c) so it does not share (c)'s clock."""
+    out = {}
+    demo = subprocess.Popen(
+        [sys.executable, "-m", "kube_sqs_autoscaler_tpu_torch.fleet"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out.update(fleet_episodes(torch, flash, smoke, serve))
+    finally:
+        demo_out = stop_child(demo, timeout=300) if demo.poll() is None \
+            else demo.communicate()[0]
+    last = (demo_out.strip().splitlines() or ["{}"])[-1]
+    try:
+        result = json.loads(last)
+    except json.JSONDecodeError:
+        result = {}
+    smoke.check(demo.returncode == 0 and result.get("ok") is True
+                and result.get("device", "").startswith("cuda"),
+                f"python -m kube_sqs_autoscaler_tpu_torch.fleet exited "
+                f"{demo.returncode}: {last[:400]}")
+    out["demo"] = result
+    out["binary"] = fleet_binary_run(torch, flash, smoke, serve)
+    return out
+
+
+def fleet_episodes(torch, flash, smoke: Smoke, serve: dict) -> dict:
+    """Parts (a) and (b) of :func:`fleet_phase`."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import decode
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        builtin_config,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousWorker,
+    )
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.model import init_params
+
+    out = {}
+    # (a) bf16, with one replica's peak memory first for comparison
+    config, params, service_config = demo_setup(torch, GENERATE_ARGS, 8)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params_mb = sum(t.numel() * t.element_size()
+                    for t in flat_params(params)) / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    queue = FakeMessageQueue()
+    for body in demo_bodies(8):
+        queue.send_message("demo://queue", body)
+    single = ContinuousWorker(
+        queue, params, config,
+        dataclasses.replace(service_config, queue_url="demo://queue",
+                            result_queue_url=""), device="cuda")
+    single.drain(total=8)
+    torch.cuda.synchronize()
+    single_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    cache_mb = sum(t.numel() * t.element_size()
+                   for t in flat_params(single.batcher.cache)) / 2 ** 20
+    del single
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(flash)
+    start = time.perf_counter()
+    run = fleet_episode(torch, params, config)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launched = counts(flash)
+    fleet_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    summary = check_fleet_episode(torch, smoke, "bf16", run, params)
+    inserts = summary["inserts"]
+    smoke.check(launched["flash_fwd"] == 4 * inserts
+                and launched["flash_fwd_lse"] == 0,
+                f"fleet bf16: flash_fwd launches {launched['flash_fwd']} = 4 "
+                f"layers x {inserts} inserts over all members, lse "
+                f"{launched['flash_fwd_lse']}")
+    single_replies = serve["continuous-b8"]["replies"]
+    same = sum(bodies[0] == single_replies.get(rid)
+               for rid, bodies in run["replies"].items())
+    print(f"fleet bf16: {same} of 64 replies byte-identical to the single "
+          f"continuous-b8 worker's (refill sizes vary under re-dispatch); "
+          f"{summary['members']} members, events {summary['events']}; "
+          f"{summary['overlapped_settles']} of {summary['block_settles']} "
+          f"block settles found the next block still running; "
+          f"{elapsed:.3f} s of wall for {summary['cycles']} cycles", flush=True)
+    print(f"fleet bf16 memory: params {params_mb:.3f} MiB (one copy), one "
+          f"replica's KV cache {cache_mb:.3f} MiB; peak above the params: "
+          f"one replica {single_mb:.3f} MiB, the fleet "
+          f"({summary['members']} members, retired ones keep their caches) "
+          f"{fleet_mb:.3f} MiB", flush=True)
+    out["bf16"] = {**summary, "launches": launched["flash_fwd"],
+                   "same_as_single": same, "wall_s": elapsed,
+                   "params_mib": params_mb, "cache_mib": cache_mb,
+                   "single_peak_mib": single_mb, "fleet_peak_mib": fleet_mb}
+    del run, params
+
+    # (b) f32: each reply against generate for its prompt alone
+    config32 = dataclasses.replace(builtin_config(512, 32),
+                                   dtype=torch.float32)
+    params32 = init_params(config32, torch.Generator().manual_seed(0), "cuda")
+    run = fleet_episode(torch, params32, config32)
+    summary32 = check_fleet_episode(torch, smoke, "f32", run, params32)
+    bodies = dict(zip(run["sent"], demo_bodies(64)))
+    bad, ties = [], {}
+    start = time.perf_counter()
+    with torch.inference_mode():
+        for rid, prompt_json in bodies.items():
+            prompt = torch.tensor(json.loads(prompt_json), device="cuda")
+            want = decode.generate(params32, prompt[None], 32, config32,
+                                   attention_fn=flash.flash_attention)[0]
+            margins = greedy_margins(torch, params32, config32, prompt, want)
+            low = np.flatnonzero(margins < MARGIN)
+            upto = int(low[0]) if low.size else 32
+            if low.size:
+                ties[rid] = upto
+            got = json.loads(run["replies"].get(rid, ["{}"])[0])
+            if got.get("tokens", [])[:upto] != want.cpu().tolist()[:upto]:
+                bad.append(rid)
+    smoke.check(not bad and len(run["replies"]) == 64,
+                f"fleet f32: {64 - len(bad)} of 64 replies equal generate "
+                f"alone up to the first near-tie (margin < {MARGIN:g}); "
+                f"mismatched {bad}; near-ties (request: position) {ties} "
+                f"({time.perf_counter() - start:.3f} s for the 64 generate "
+                f"calls)")
+    out["f32"] = {**summary32, "mismatched": bad, "near_ties": ties}
+    return out
+
+
+def fleet_binary_run(torch, flash, smoke: Smoke, serve: dict) -> dict:
+    """Part (c) of :func:`fleet_phase`: the binary's closed loop on the
+    real clock, timed, then again under ``torch.profiler`` (device
+    activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        main as worker,
+    )
+
+    single_replies = serve["continuous-b8"]["replies"]
+    argv = [*demo64(GENERATE_ARGS), "--continuous", "--decode-block", "8",
+            "--fleet-max-replicas", "3", "--device", "cuda"]
+    zero_counts(flash)
+    binary = worker(argv)
+    torch.cuda.synchronize()
+    launched = counts(flash)
+    smoke.check(binary["processed"] == 64 and len(binary["replies"]) == 64
+                and binary["duplicate_replies"] == 0
+                and launched["flash_fwd"] == 4 * binary["insert_dispatches"]
+                and launched["flash_fwd_lse"] == 0,
+                f"fleet binary: {binary['processed']} of 64 processed, "
+                f"{len(binary['replies'])} replies, "
+                f"{binary['duplicate_replies']} duplicates, flash_fwd "
+                f"launches {launched['flash_fwd']} = 4 x "
+                f"{binary['insert_dispatches']} inserts, lse "
+                f"{launched['flash_fwd_lse']}")
+    same = sum(json.dumps(body) == single_replies.get(rid)
+               for rid, body in binary["replies"].items())
+    # device activity only: the episode launches tens of thousands of
+    # kernels, and recording their host operators too makes the trace's
+    # post-processing take longer than the episode many times over
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiled = worker(argv)
+        torch.cuda.synchronize()
+    kernels, copies = device_breakdown(prof)
+    busy_ms = sum(ms for ms, _, _ in kernels)
+    copy_ms = sum(ms for ms, _, _ in copies)
+    wall_ms = profiled["elapsed_s"] * 1e3
+    flash_ms = sum(ms for ms, _, key in kernels if "flash_fwd" in key)
+    ttft = binary["ttft_mean_s"]
+    print(f"fleet binary --demo 64 --fleet-max-replicas 3 (real clock): "
+          f"{binary['msgs_per_s']:.3f} msgs/s, {binary['tokens_per_s']:.3f} "
+          f"generated tokens/s, mean TTFT "
+          f"{'none' if ttft is None else f'{ttft * 1e3:.3f} ms'}, replica "
+          f"trajectory {binary['replica_trajectory']} over "
+          f"{binary['ticks']} ticks, {binary['elapsed_s']:.3f} s; {same} of "
+          f"64 replies byte-identical to the single worker's; "
+          f"{binary['overlapped_settles']} of {binary['block_settles']} block "
+          f"settles found the next block still running", flush=True)
+    print(f"profile fleet binary (profiler on): wall {wall_ms:.3f} ms, "
+          f"kernels busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"flash_fwd {flash_ms:.3f} ms, copies {copy_ms:.3f} ms, trajectory "
+          f"{profiled['replica_trajectory']}", flush=True)
+    for ms, count, key in kernels[:8]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
+    out = {k: binary[k] for k in (
+        "msgs_per_s", "tokens_per_s", "ttft_mean_s", "replica_trajectory",
+        "ticks", "elapsed_s", "insert_dispatches", "redispatched",
+        "overlapped_settles", "block_settles")}
+    out.update(launches=launched["flash_fwd"], same_as_single=same,
+               busy_share=busy_ms / wall_ms, busy_ms=busy_ms,
+               profiled_wall_ms=wall_ms, flash_ms=flash_ms)
+    return out
+
+
+def odd_head_dim_phase(torch, flash, smoke: Smoke) -> dict:
+    """A head dim the kernels do not take (D = 16): the trainer runs it
+    through dense attention with no kernel launch, and the kernel wrapper
+    called directly refuses it."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import trainer
+
+    argv = ["--d-model", "64", "--n-heads", "4", "--n-layers", "2",
+            "--d-ff", "128", "--vocab-size", "256", "--seq-len", "64",
+            "--batch-size", "4", "--steps", "5", "--log-every", "1",
+            "--overfit", "--device", "cuda"]
+    zero_counts(flash)
+    summary = trainer.main(argv)
+    torch.cuda.synchronize()
+    launched = counts(flash)
+    losses = summary["losses"]
+    smoke.check(len(losses) == 5 and all(map(math.isfinite, losses))
+                and losses[-1] < losses[0] and not any(launched.values()),
+                f"odd head dim: trainer --d-model 64 --n-heads 4 (D=16), 5 "
+                f"steps, losses {[round(x, 4) for x in losses]}, launches "
+                f"{launched} (want all 0: dense attention)")
+    q = torch.randn(1, 4, 64, 16, device="cuda", dtype=torch.bfloat16)
+    try:
+        flash.flash_attention(q, q, q)
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    smoke.check(bool(refused) and not any(counts(flash).values()),
+                f"odd head dim: flash_attention at D=16 raises ValueError "
+                f"({refused[:120]}) before any launch")
+    return {"losses": losses, "launches": launched}
+
+
 def kernel_entry(name, source, replaces, replaces_fn, launches, by_path,
                  err, timing, shape) -> dict:
     return {
@@ -1185,6 +1900,10 @@ def main() -> int:
     rates = smoke.phase("throughput", throughput_phase, torch)
     prof = smoke.phase("profile", profile_phase, torch)
     serve_prof = smoke.phase("continuous profile", serve_profile_phase, torch)
+    sqs = serve and smoke.phase("sqs", sqs_phase, torch, flash, smoke, serve)
+    fleet = serve and smoke.phase("fleet", fleet_phase, torch, flash, smoke,
+                                  serve)
+    odd = smoke.phase("odd head dim", odd_head_dim_phase, torch, flash, smoke)
     f32_train = smoke.phase("f32 train step", f32_train_phase, torch, flash,
                             smoke)
     train_path = smoke.phase("train path", train_path_phase, torch, flash,
@@ -1193,24 +1912,28 @@ def main() -> int:
     if smoke.failures or not (info and sass and resources and kern
                               and train_kern and path and serve and cycles
                               and stagger and rates and prof
-                              and serve_prof and f32_train and train_path
-                              and train_prof):
+                              and serve_prof and sqs and fleet and odd
+                              and f32_train and train_path and train_prof):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
         return 1
     timing = dict(kern["timings"][MAIN_SHAPES[0]])
+    by_path = {
+        **{f"serve-{m}": v["launches"] for m, v in path.items()},
+        **{f"serve-{m}": serve[m]["launches"]
+           for m in ("continuous-b1", "continuous-b8")},
+        # the binary on the SQS emulator, continuous and batch
+        "serve-sqs": sum(sqs[m]["launches"]
+                         for m in ("continuous-b8", "generate")),
+        # the bf16 fleet episode and the binary's --fleet-max-replicas
+        "serve-fleet": fleet["bf16"]["launches"]
+        + fleet["binary"]["launches"],
+        **{f"train-{r}": v["launches"]["flash_fwd"]
+           for r, v in train_path.items()},
+    }
     fwd = kernel_entry(
         "flash_fwd", "flash_fwd.cu", 159, "_fwd_kernel (need_lse=False)",
-        sum(m["launches"] for m in path.values())
-        + sum(serve[m]["launches"] for m in ("continuous-b1",
-                                             "continuous-b8"))
-        + train_path["train"]["launches"]["flash_fwd"],
-        {**{f"serve-{m}": v["launches"] for m, v in path.items()},
-         **{f"serve-{m}": serve[m]["launches"]
-            for m in ("continuous-b1", "continuous-b8")},
-         **{f"train-{r}": v["launches"]["flash_fwd"]
-            for r, v in train_path.items()}},
-        kern["main_err"], timing, MAIN_SHAPES[0])
+        sum(by_path.values()), by_path, kern["main_err"], timing, MAIN_SHAPES[0])
     fwd["at_other_shapes"] = {
         "x".join(map(str, shape)): t for shape, t in
         kern["timings"].items() if shape != MAIN_SHAPES[0]

@@ -1,2 +1,2 @@
-"""Utilities the port keeps its own copies of: logging setup and span
-timing."""
+"""Utilities the port keeps its own copies of: logging setup, span timing
+and device traces, and AWS request signing."""

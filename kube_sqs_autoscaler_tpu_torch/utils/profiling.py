@@ -1,18 +1,51 @@
-"""Wall-clock span timing for the worker's serve cycles.
+"""Opt-in profiling: device traces and wall-clock span timing.
 
-The port's copy of ``SpanTimer`` from the JAX package's
-``utils/profiling.py``: named spans on a monotonic clock with summary
-percentiles, dependency-free.  (The JAX package's ``maybe_trace`` device
-trace has no counterpart here yet.)
+The port's copy of ``kube_sqs_autoscaler_tpu/utils/profiling.py``:
+
+- :func:`maybe_trace` — a context manager that records a region with
+  ``torch.profiler`` (the card's kernels and copies when the device is a
+  CUDA card, the host's operators always) and writes it as a Chrome trace
+  under a directory, and is a free no-op without one.  Workers enable it
+  with ``ServiceConfig(profile_dir=...)``.
+- :class:`SpanTimer` — named wall-clock spans on a monotonic clock with
+  summary percentiles, dependency-free.
+
+``maybe_trace`` imports torch inside the context manager, so importing
+this module imports no torch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
+
+
+@contextlib.contextmanager
+def maybe_trace(profile_dir: str | None, device=None):
+    """``with maybe_trace(dir, device):`` — a ``torch.profiler`` trace of
+    the block when ``dir`` is set, written when the block exits as
+    ``dir/trace-<pid>-<ms>.json`` (open it in ``chrome://tracing`` or
+    Perfetto).  CUDA activity is recorded when ``device`` is a CUDA
+    device.  ``None``/empty disables tracing with zero overhead."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"trace-{os.getpid()}-{int(time.time() * 1e3)}.json"
+    ))
 
 
 @dataclass

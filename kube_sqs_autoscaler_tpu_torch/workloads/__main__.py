@@ -2,17 +2,29 @@
 
 Counterpart of ``python -m kube_sqs_autoscaler_tpu.workloads``: one
 queue-draining GPT inference worker, the process a scaled Deployment
-replica runs.  ``--demo N`` self-feeds an in-memory queue with N random
-messages (the same bodies as the reference binary's demo), drains it
-through :class:`~.service.QueueWorker` (or, with ``--continuous``, the
-rolling-slot :class:`~.continuous.ContinuousWorker`) and exits.
+replica runs.
+
+- ``--sqs-queue-url URL [--aws-region R]`` serves that SQS queue until
+  the process is stopped, through :class:`~.service.QueueWorker` (or,
+  with ``--continuous``, the rolling-slot
+  :class:`~.continuous.ContinuousWorker`); with ``--result-queue-url``
+  the same client publishes one reply per message.  Credentials come
+  from the standard AWS chain (environment, shared file, instance role).
+- ``--demo N`` self-feeds an in-memory queue with N random messages (the
+  same bodies as the reference binary's demo), drains it and exits.  With
+  ``--fleet-max-replicas`` (and ``--continuous``) a
+  :class:`~..core.loop.ControlLoop` autoscales a
+  :class:`~..fleet.WorkerPool` of continuous replicas over that queue on
+  the real clock.
+- ``--metrics-port P`` serves ``/metrics`` (the serve-cycle latency
+  summary; the continuous worker's serving gauges and TTFT histogram; the
+  fleet's replica gauges) and ``/healthz``.
 
 The worker runs on the card (``--device cuda``, the default) and exits
 with an error when there is none; ``--device cpu`` runs it on the CPU.
 Weights are the built-in GPT config's, drawn from a seeded generator.
-
 Flags of the reference binary whose paths are not ported yet are not
-accepted; without ``--demo`` there is no queue client yet.
+accepted.
 """
 
 from __future__ import annotations
@@ -32,11 +44,15 @@ from .continuous import ContinuousWorker
 from .model import ModelConfig, init_params
 from .service import QueueWorker, ServiceConfig, collect_replies
 
+log = logging.getLogger("worker")
+
 DEMO_QUEUE = "demo://queue"
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="kube-sqs-autoscaler-torch-worker")
+    parser.add_argument("--sqs-queue-url", default="", help="The sqs queue url")
+    parser.add_argument("--aws-region", default="", help="Your AWS region")
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--seq-len", type=int, default=64)
     parser.add_argument(
@@ -86,6 +102,24 @@ def build_parser() -> argparse.ArgumentParser:
              "instead of decoding it (0 = off; requires --continuous)",
     )
     parser.add_argument(
+        "--metrics-port", type=int, default=0,
+        help="serve /metrics with serve-cycle latency summaries "
+             "(p50/p99/max from the worker's SpanTimer; 0 = disabled)",
+    )
+    parser.add_argument(
+        "--fleet-max-replicas", type=int, default=0, metavar="N",
+        help="autoscale a POOL of continuous workers between "
+             "--fleet-min-replicas and N with the control loop: replicas "
+             "share the params and the engine, drain gracefully on "
+             "scale-down, and survive worker death via supervised "
+             "re-dispatch (0 = single worker; requires --continuous and "
+             "--demo)",
+    )
+    parser.add_argument(
+        "--fleet-min-replicas", type=int, default=1, metavar="N",
+        help="lower replica bound for --fleet-max-replicas",
+    )
+    parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="where the model runs (default cuda; no card is an error, "
              "never a quiet CPU run)",
@@ -106,18 +140,11 @@ def builtin_config(seq_len: int, generate_tokens: int) -> ModelConfig:
     )
 
 
-def run_demo(
-    demo: int,
-    params: dict,
-    model_config: ModelConfig,
-    service_config: ServiceConfig,
-    device: torch.device,
-    continuous: bool = False,
-) -> dict:
-    """Feed ``demo`` random bodies through a :class:`QueueWorker` (or,
-    with ``continuous``, drain them through a :class:`ContinuousWorker`)
-    and collect the replies; returns the run's counts and rates."""
-    log = logging.getLogger("worker")
+def demo_queue(demo: int, model_config: ModelConfig,
+               service_config: ServiceConfig) -> FakeMessageQueue:
+    """An in-memory queue holding the demo's ``demo`` random bodies of
+    ``seq_len`` token ids (seed 0, the reference binary's bodies); points
+    ``service_config`` at it."""
     queue = FakeMessageQueue()
     rng = np.random.default_rng(0)
     for _ in range(demo):
@@ -125,10 +152,47 @@ def run_demo(
                            service_config.seq_len).tolist()
         queue.send_message(DEMO_QUEUE, json.dumps(ids))
     service_config.queue_url = DEMO_QUEUE
+    return queue
+
+
+def serve_metrics(port: int, source):
+    """Start ``/metrics`` for a worker or a fleet pool (``port`` 0 =
+    disabled, returns None): a worker's serve-cycle SpanTimer; a
+    continuous worker's serving gauges and TTFT histogram, or a pool's
+    replica gauges and every replica's TTFT samples, refreshed every
+    cycle."""
+    if not port:
+        return None
+    from ..obs import ObservabilityServer, WorkloadMetrics
+
+    metrics = WorkloadMetrics()
+    if hasattr(source, "timer"):
+        metrics.attach_timer("worker", source.timer)
+    if hasattr(source, "attach_metrics"):
+        source.attach_metrics(metrics)
+    server = ObservabilityServer(metrics, port=port)
+    server.start()
+    return server
+
+
+def run_demo(
+    demo: int,
+    params: dict,
+    model_config: ModelConfig,
+    service_config: ServiceConfig,
+    device: torch.device,
+    continuous: bool = False,
+    metrics_port: int = 0,
+) -> dict:
+    """Feed ``demo`` random bodies through a :class:`QueueWorker` (or,
+    with ``continuous``, drain them through a :class:`ContinuousWorker`)
+    and collect the replies; returns the run's counts and rates."""
+    queue = demo_queue(demo, model_config, service_config)
     result_queue = FakeMessageQueue() if service_config.result_queue_url else None
     if continuous:
         worker = ContinuousWorker(queue, params, model_config, service_config,
                                   result_queue=result_queue, device=device)
+        server = serve_metrics(metrics_port, worker)
         start = time.perf_counter()
         worker.drain(total=demo)
         elapsed = time.perf_counter() - start
@@ -148,6 +212,7 @@ def run_demo(
     else:
         worker = QueueWorker(queue, params, model_config, service_config,
                              result_queue=result_queue, device=device)
+        server = serve_metrics(metrics_port, worker)
         start = time.perf_counter()
         while worker.processed < demo:
             with worker.timer.span("cycle"):
@@ -157,6 +222,8 @@ def run_demo(
         engine = dict.fromkeys((
             "decode_dispatches", "insert_dispatches", "host_transfers",
             "block_utilization", "ttft_mean_s"))
+    if server is not None:
+        server.stop()
     log.info(
         "Processed %d messages in %.2fs (%.1f msg/s%s) on %s",
         worker.processed, elapsed, worker.processed / elapsed,
@@ -184,7 +251,121 @@ def run_demo(
     }
 
 
-def main(argv=None) -> dict:
+def run_fleet_demo(
+    demo: int,
+    params: dict,
+    model_config: ModelConfig,
+    service_config: ServiceConfig,
+    device: torch.device,
+    min_replicas: int,
+    max_replicas: int,
+    metrics_port: int = 0,
+) -> dict:
+    """The closed loop in one process, on the real clock: a
+    :class:`~..core.loop.ControlLoop` autoscales a
+    :class:`~..fleet.WorkerPool` of continuous replicas between
+    ``min_replicas`` and ``max_replicas`` over the demo queue until every
+    message is answered; returns the run's counts and rates."""
+    from ..core.loop import ControlLoop, LoopConfig
+    from ..core.policy import PolicyConfig
+    from ..fleet import FleetDriver, WorkerPool
+    from ..metrics.queue import QueueMetricSource
+
+    queue = demo_queue(demo, model_config, service_config)
+    result_queue = FakeMessageQueue() if service_config.result_queue_url else None
+    pool = WorkerPool.serving(
+        queue, params, model_config, service_config,
+        result_queue=result_queue, min=min_replicas, max=max_replicas,
+        device=device,
+    )
+    server = serve_metrics(metrics_port, pool)
+    batch = service_config.batch_size
+    loop = ControlLoop(
+        pool,
+        QueueMetricSource(queue, service_config.queue_url,
+                          ("ApproximateNumberOfMessages",)),
+        LoopConfig(
+            poll_interval=0.1,
+            policy=PolicyConfig(
+                scale_up_messages=2 * batch, scale_down_messages=batch,
+                scale_up_cooldown=0.2, scale_down_cooldown=0.4,
+            ),
+        ),
+    )
+    driver = FleetDriver(pool, loop)
+    start = time.perf_counter()
+    stats = driver.run(until=lambda: pool.processed >= demo and pool.idle)
+    elapsed = time.perf_counter() - start
+    pool.stop_all()
+    if server is not None:
+        server.stop()
+    batchers = [r.worker.batcher for r in pool.members]
+    generated = sum(b.tokens_emitted for b in batchers)
+    ttft_count = sum(b.ttft_count for b in batchers)
+    log.info(
+        "Fleet processed %d messages in %.2fs (%.1f msg/s, %d ticks, "
+        "replicas %s, redispatched %d, duplicate replies suppressed %d)",
+        pool.processed, elapsed, pool.processed / elapsed, stats["ticks"],
+        stats["replica_trajectory"] or [1], pool.redispatched_total,
+        pool.duplicates_suppressed,
+    )
+    replies, duplicates = {}, 0
+    if result_queue is not None:
+        replies, duplicates = collect_replies(
+            result_queue, service_config.result_queue_url
+        )
+    return {
+        "device": str(device),
+        "processed": pool.processed,
+        "elapsed_s": elapsed,
+        "msgs_per_s": pool.processed / elapsed,
+        "generated_tokens": generated,
+        "tokens_per_s": generated / elapsed,
+        "ttft_mean_s": (sum(b.ttft_sum for b in batchers) / ttft_count
+                        if ttft_count else None),
+        "insert_dispatches": sum(b.insert_dispatches for b in batchers),
+        # block settles that found the next block still running, and all
+        "overlapped_settles": sum(b.overlapped_settles for b in batchers),
+        "block_settles": sum(b.block_settles for b in batchers),
+        "replica_trajectory": stats["replica_trajectory"],
+        "ticks": stats["ticks"],
+        "redispatched": pool.redispatched_total,
+        "duplicates_suppressed": pool.duplicates_suppressed,
+        "replies": replies,
+        "duplicate_replies": duplicates,
+        "queue_attributes": queue.get_queue_attributes(DEMO_QUEUE, ()),
+    }
+
+
+def serve_sqs(args, params: dict, model_config: ModelConfig,
+              service_config: ServiceConfig, device: torch.device) -> None:
+    """Serve ``--sqs-queue-url`` until the worker is stopped.  AWS SQS
+    addresses queues per call by url, so the same client publishes replies
+    when ``--result-queue-url`` is set."""
+    from ..metrics.sqs_aws import AwsSqsService
+
+    queue = AwsSqsService(region=args.aws_region)
+    result_queue = queue if args.result_queue_url else None
+    if args.continuous:
+        worker = ContinuousWorker(queue, params, model_config, service_config,
+                                  result_queue=result_queue, device=device)
+    else:
+        worker = QueueWorker(queue, params, model_config, service_config,
+                             result_queue=result_queue, device=device)
+    server = serve_metrics(args.metrics_port, worker)
+    log.info("Starting %sworker on %s",
+             "continuous " if args.continuous else "", args.sqs_queue_url)
+    try:
+        worker.run_forever()
+    finally:
+        if server is not None:
+            server.stop()
+
+
+def main(argv=None) -> dict | None:
+    """Parse ``argv``, check the flags (a usage error exits before any
+    model is built), then run the demo (returning its summary) or serve
+    the SQS queue until stopped (returning None)."""
     configure_logging()
     args = build_parser().parse_args(argv)
     if args.generate_tokens < 0:
@@ -201,27 +382,54 @@ def main(argv=None) -> dict:
         raise SystemExit("--request-ttl requires --continuous")
     if args.continuous and args.generate_tokens < 1:
         raise SystemExit("--continuous requires --generate-tokens >= 1")
+    if args.fleet_max_replicas:
+        if not args.continuous:
+            raise SystemExit("--fleet-max-replicas requires --continuous")
+        if not 1 <= args.fleet_min_replicas <= args.fleet_max_replicas:
+            raise SystemExit(
+                f"need 1 <= --fleet-min-replicas "
+                f"({args.fleet_min_replicas}) <= --fleet-max-replicas "
+                f"({args.fleet_max_replicas})"
+            )
+        if not args.demo:
+            raise SystemExit(
+                "--fleet-max-replicas currently requires --demo (the "
+                "in-process fleet autoscales over the demo's in-memory "
+                "queue; SQS-backed fleets are one process per replica, "
+                "scaled by the autoscaler itself)"
+            )
+    if not args.demo and not args.sqs_queue_url:
+        raise SystemExit(
+            "error: pass --sqs-queue-url URL to serve a queue, or --demo N "
+            "to drain N random messages from a local in-memory queue"
+        )
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(f"error: {err}") from None
-    if not args.demo:
-        raise SystemExit(
-            "error: only --demo N is ported so far (the PyTorch worker has "
-            "no SQS client yet)"
-        )
     model_config = builtin_config(args.seq_len, args.generate_tokens)
     params = init_params(model_config, torch.Generator().manual_seed(0), device)
     service_config = ServiceConfig(
-        queue_url="", batch_size=args.batch_size, seq_len=args.seq_len,
+        queue_url=args.sqs_queue_url, batch_size=args.batch_size,
+        seq_len=args.seq_len,
         generate_tokens=args.generate_tokens, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p,
         result_queue_url=args.result_queue_url,
         eos_id=None if args.eos_id < 0 else args.eos_id,
         decode_block=args.decode_block, request_ttl_s=args.request_ttl,
     )
+    if not args.demo:
+        serve_sqs(args, params, model_config, service_config, device)
+        return None
+    if args.fleet_max_replicas:
+        return run_fleet_demo(
+            args.demo, params, model_config, service_config, device,
+            args.fleet_min_replicas, args.fleet_max_replicas,
+            metrics_port=args.metrics_port,
+        )
     return run_demo(args.demo, params, model_config, service_config, device,
-                    continuous=args.continuous)
+                    continuous=args.continuous,
+                    metrics_port=args.metrics_port)
 
 
 if __name__ == "__main__":

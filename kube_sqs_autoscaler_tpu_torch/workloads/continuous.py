@@ -20,6 +20,9 @@ included: the batcher changes scheduling, never results.
   :func:`.decode.block_decode` with the liveness on the device, and block
   N+1 is dispatched before block N is read, so the host's settle, reply
   and refill for block N overlap the device's work on block N+1.
+- **Fleet seams**: :meth:`ContinuousBatcher.adopt_engine` lets a new fleet
+  replica share a donor's params and engine, and the worker's settle
+  reports whether it answered (the fleet's reply dedup overrides it).
 
 Where the reference donates its state to jitted programs, the port
 mutates the slot cache and the per-row state (``current``, ``done``,
@@ -29,6 +32,10 @@ wait.  Every device result the host reads is copied into pinned host
 memory as soon as it is produced, with an event behind the copy
 (:class:`_HostCopy`): the host waits for that event, never for the whole
 stream, which would also wait for the block dispatched after it.
+
+The worker reports its serving gauges and TTFT histogram to a
+:class:`~..obs.prometheus.WorkloadMetrics` registry
+(:meth:`ContinuousWorker.attach_metrics`), from host counters only.
 
 Not ported yet (the batcher raises ``ValueError``): the llama family, a
 mesh, the int8 KV cache, the shared prefix cache, speculative and beam
@@ -178,6 +185,13 @@ class ContinuousBatcher:
     (kept tokens / dispatched block positions of busy slots), and
     ``overlapped_settles`` / ``block_settles`` (settles at which the block
     dispatched that cycle was still running).
+
+    ``host_transfers`` is the reference's odometer: one per insert whose
+    first tokens a settle reads, one per decode step read at
+    ``decode_block == 1`` and one per settled block.  At ``decode_block >
+    1`` the port waits fewer times than it counts: a cycle's first tokens
+    were copied after the pending block on the one stream, so the host
+    waits once for both.
     """
 
     def __init__(
@@ -244,20 +258,31 @@ class ContinuousBatcher:
         self.top_p = top_p
         self.eos_id = eos_id
         self.decode_block = decode_block
-        self._attention_fn = attention_fn_for(prompt_len, self.device)
+        # the engine a fleet replica adopts from its donor (adopt_engine):
+        # the prompt-pass attention and the insert and decode steps
+        self._attention_fn = attention_fn_for(prompt_len, self.device,
+                                              config.head_dim)
+        self._insert_many = _insert_rows_impl
+        if decode_block > 1:
+            self._block_fn = block_decode
+        else:
+            self._decode = decode_step
         # serving stats
         self.tokens_emitted = 0
         self.ttft_sum = 0.0
         self.ttft_count = 0
         self.last_ttft_s: float | None = None
         self.ttft_samples: deque[float] = deque(maxlen=4096)
+        # (label, seconds) TTFT samples not yet in a metrics registry's
+        # histogram (drain_ttft_histograms); label None is engine-wide
+        self._pending_ttft_obs: deque[tuple[str | None, float]] = deque()
         self.block_tokens = 0
         self.block_capacity = 0
         self.block_settles = 0
         self.overlapped_settles = 0
         # the serving contract these pin: a refill costs one insert
         # dispatch and no host wait however many requests it admits; a
-        # block cycle one decode dispatch and at most one host wait
+        # block cycle one decode dispatch
         self.decode_dispatches = 0
         self.insert_dispatches = 0
         self.host_transfers = 0
@@ -284,6 +309,45 @@ class ContinuousBatcher:
             sampling_keys(sample_seed, self.device) if temperature > 0.0
             else itertools.repeat(None)
         )
+
+    def adopt_engine(self, source: "ContinuousBatcher") -> None:
+        """Share ``source``'s engine: its prompt-pass attention and its
+        insert and decode steps.  They close over the serving knobs only,
+        never over a batcher's rolling state, so a fleet replica built
+        with the donor's knobs, params and config runs the donor's engine
+        and pays only for its own KV cache.  Raises ``ValueError`` when a
+        knob differs or ``params`` / ``config`` are not the donor's very
+        objects."""
+        mine, theirs = self._engine_key(), source._engine_key()
+        if mine != theirs:
+            raise ValueError(
+                f"engine mismatch: {mine} != {theirs} (a replica must be "
+                "constructed with the donor's exact serving knobs)"
+            )
+        if self.config is not source.config or self.params is not source.params:
+            raise ValueError(
+                "adopt_engine requires the donor's exact params/config "
+                "objects (the engine runs over them)"
+            )
+        self._attention_fn = source._attention_fn
+        self._insert_many = source._insert_many
+        if self.decode_block > 1:
+            self._block_fn = source._block_fn
+        else:
+            self._decode = source._decode
+
+    def _engine_key(self) -> tuple:
+        """The serving knobs the engine depends on."""
+        return (
+            len(self.slots), self.prompt_len, self.generate_tokens,
+            self.temperature, self.top_k, self.top_p, self.eos_id,
+            self.decode_block, str(self.device),
+        )
+
+    def _invalidate_admission_cache(self) -> None:
+        """Hook for planes that memoize admission availability (the
+        sharded plane, once ported); a no-op here, where ``free_slots`` is
+        an uncached scan."""
 
     @property
     def free_slots(self) -> list[int]:
@@ -329,7 +393,7 @@ class ContinuousBatcher:
         prompts = np.stack([ids for ids, _ in padded])
         lengths = np.asarray([n for _, n in padded], np.int64)
         with torch.inference_mode():
-            firsts = _insert_rows_impl(
+            firsts = self._insert_many(
                 self.params, self.cache, self._current, self._done,
                 self._remaining, _to_device(np.asarray(rows), self.device),
                 _to_device(prompts, self.device),
@@ -344,6 +408,7 @@ class ContinuousBatcher:
                 busy=True, budget=self.generate_tokens, payload=payload,
                 submitted_at=now,
             )
+        self._invalidate_admission_cache()
         return rows
 
     def _emit(self, slot: _Slot, token: int) -> None:
@@ -354,14 +419,14 @@ class ContinuousBatcher:
         if self.eos_id is not None and token == self.eos_id:
             slot.done = True
 
-    def _settle_pending_firsts(self) -> int:
+    def _settle_pending_firsts(self) -> None:
         """Emit the deferred first tokens and record time to first token;
-        returns the number of host copies waited for."""
+        counts one host transfer per insert read, as the reference does."""
         if not self._pending_firsts:
-            return 0
+            return
         pending, self._pending_firsts = self._pending_firsts, []
+        self.host_transfers += len(pending)
         self._record_firsts([(copy.wait()[0], rows) for copy, rows in pending])
-        return len(pending)
 
     def _record_firsts(self, pending_host: list) -> None:
         now = time.perf_counter()
@@ -377,6 +442,7 @@ class ContinuousBatcher:
                 self.ttft_count += 1
                 self.last_ttft_s = ttft
                 self.ttft_samples.append(ttft)
+                self._pending_ttft_obs.append((None, ttft))
 
     def _needs_decode(self, slot: _Slot) -> bool:
         return slot.busy and not slot.done and len(slot.produced) < slot.budget
@@ -395,6 +461,8 @@ class ContinuousBatcher:
                     )
                 finished.append((slot.payload, np.asarray(tokens, np.int32)))
                 self.slots[row] = _Slot()
+        if finished:
+            self._invalidate_admission_cache()
         return finished
 
     def step(self) -> list[tuple[Any, np.ndarray]]:
@@ -411,12 +479,12 @@ class ContinuousBatcher:
     def _step_single(self) -> list[tuple[Any, np.ndarray]]:
         """One token per dispatch, read by the host at once: the
         reference's baseline engine."""
-        self.host_transfers += self._settle_pending_firsts()
+        self._settle_pending_firsts()
         # rows whose budget is one token (or that hit eos) need no step
         needs = [self._needs_decode(s) for s in self.slots]
         if any(needs):
             with torch.inference_mode():
-                logits, self.cache = decode_step(
+                logits, self.cache = self._decode(
                     self.params, self.cache, self._current, self.config
                 )
                 nxt = _pick(logits, next(self._keys), self.temperature,
@@ -440,13 +508,15 @@ class ContinuousBatcher:
         The on-device ``done``/``remaining`` make the dispatch independent
         of block N's outcome: rows that finished in it stay frozen, and
         rows admitted since were folded in by the insert ahead of it on
-        the stream.  The host waits once a cycle: the pending first tokens
-        were copied after block N, so their wait covers it."""
+        the stream.  The counter adds one per insert settled and one for
+        block N, as the reference's does; the host waits once a cycle,
+        because the pending first tokens were copied after block N and
+        their wait covers it."""
         new_block = None
         busy = self.active
         with torch.inference_mode():
             (self.cache, self._current, self._done, self._remaining,
-             tokens, counts) = block_decode(
+             tokens, counts) = self._block_fn(
                 self.params, self.cache, self._current, self._done,
                 self._remaining, self._block_keys(), self.config,
                 temperature=self.temperature, top_k=self.top_k,
@@ -454,13 +524,12 @@ class ContinuousBatcher:
             )
             new_block = (_HostCopy(tokens, counts), busy)
         self.decode_dispatches += 1
+        self._settle_pending_firsts()
         pending, self._pending_block = self._pending_block, new_block
-        waited = self._settle_pending_firsts()
-        if waited or pending is not None:
-            self.host_transfers += 1
         if pending is not None:
             copy, dispatched_busy = pending
             toks_host, counts_host = copy.wait()
+            self.host_transfers += 1
             self.block_capacity += self.decode_block * dispatched_busy
             self.block_tokens += int(counts_host.sum())
             for row, slot in enumerate(self.slots):
@@ -476,6 +545,24 @@ class ContinuousBatcher:
             if not new_block[0].ready():
                 self.overlapped_settles += 1
         return self._finish_ready()
+
+
+def drain_ttft_histograms(batcher, metrics) -> None:
+    """Move a batcher's pending TTFT samples into the cumulative
+    ``ttft_seconds`` histogram of ``metrics``.  A module function because
+    two consumers drain on their own cadence: the worker's own
+    :meth:`ContinuousWorker._update_metrics` and the fleet pool's, which
+    drains every replica into one family (cumulative histograms merge
+    across replicas, unlabeled gauges would not)."""
+    pending = getattr(batcher, "_pending_ttft_obs", None)
+    while pending:
+        _, seconds = pending.popleft()
+        metrics.observe_histogram(
+            "ttft_seconds", seconds,
+            "Seconds from request admission to its first generated token "
+            "being host-visible (cumulative histogram over the worker's "
+            "lifetime).",
+        )
 
 
 class ContinuousWorker:
@@ -541,12 +628,25 @@ class ContinuousWorker:
         self._stop = threading.Event()
         self._running = False
         self._poll_backoff = 0
+        # optional WorkloadMetrics registry (attach_metrics); the gauges
+        # refresh once per engine cycle
+        self.metrics = None
+        self._served_since: float | None = None
+
+    @property
+    def shed(self) -> int:
+        """Requests shed over the worker's lifetime, all reasons summed."""
+        return sum(self.shed_by_reason.values())
 
     def _settle(self, message: dict, tokens: np.ndarray | None, *,
-                error: str | None = None) -> None:
+                error: str | None = None, counted: bool = True) -> bool:
         """Reply (when configured), then delete one finished message.
         ``tokens=None`` answers with ``error`` (default "malformed body")
-        instead of a result."""
+        instead of a result.  ``counted=False`` marks a settle that does
+        not ride :meth:`run_once`'s completion count (TTL sheds and
+        malformed drops); the fleet's override keys its duplicate
+        accounting on it.  Returns whether this call answered the request
+        (the fleet's override returns False for a duplicate it consumed)."""
         if self.config.result_queue_url:
             if tokens is None:
                 payload = {"error": error or "malformed body"}
@@ -561,6 +661,7 @@ class ContinuousWorker:
         self.queue.delete_message(
             self.config.queue_url, message["ReceiptHandle"]
         )
+        return True
 
     def _refill(self) -> int:
         """Receive up to the free-slot count and prefill the messages in;
@@ -602,7 +703,7 @@ class ContinuousWorker:
                 continue
             ids = self._parse_for_admit(message)
             if ids is None:
-                self._settle(message, None)
+                self._settle(message, None, counted=False)
                 continue
             admit.append((ids, message))
         if admit:
@@ -615,8 +716,8 @@ class ContinuousWorker:
         was shed."""
         if not self._expired(message):
             return False
-        self._settle(message, None, error="expired")
-        self.shed_by_reason["ttl"] += 1
+        if self._settle(message, None, error="expired", counted=False):
+            self.shed_by_reason["ttl"] += 1
         return True
 
     def _expired(self, message: dict) -> bool:
@@ -630,9 +731,59 @@ class ContinuousWorker:
             return False
         return self._now() - sent > ttl
 
+    def attach_metrics(self, metrics) -> None:
+        """Report the serving gauges (tokens/s, time to first token,
+        active slots, block utilization), the shed counters and the TTFT
+        histogram to a :class:`~..obs.prometheus.WorkloadMetrics`
+        registry, refreshed every engine cycle."""
+        self.metrics = metrics
+        self._update_metrics()
+
+    def _update_metrics(self) -> None:
+        """Write this cycle's numbers into the registry.  Host counters
+        only: the registry renders on a server thread, which must never
+        touch a device tensor."""
+        if self.metrics is None:
+            return
+        batcher = self.batcher
+        elapsed = (
+            time.perf_counter() - self._served_since
+            if self._served_since is not None else 0.0
+        )
+        self.metrics.set_serving_gauges(
+            tokens_per_second=(
+                batcher.tokens_emitted / elapsed if elapsed > 0 else 0.0
+            ),
+            time_to_first_token_seconds=(
+                batcher.ttft_sum / batcher.ttft_count
+                if batcher.ttft_count else 0.0
+            ),
+            active_slots=batcher.active,
+            decode_block_utilization=(
+                batcher.block_tokens / batcher.block_capacity
+                if batcher.block_capacity else 0.0
+            ),
+        )
+        shed_help = (
+            "Requests shed at admission, by reason: ttl = older than "
+            "--request-ttl on arrival (explicit expired reply).  The "
+            "unlabeled series is their sum."
+        )
+        self.metrics.set_gauge(
+            "requests_shed_total", self.shed, shed_help, kind="counter",
+        )
+        for reason, count in sorted(self.shed_by_reason.items()):
+            self.metrics.set_gauge(
+                "requests_shed_total", count, shed_help,
+                labels=(("reason", reason),), kind="counter",
+            )
+        drain_ttft_histograms(batcher, self.metrics)
+
     def run_once(self) -> int:
         """One engine cycle: refill free slots, advance the batch, settle
         finished requests.  Returns the messages completed."""
+        if self._served_since is None:
+            self._served_since = time.perf_counter()
         self._refill()
         done = self.batcher.step()
         for message, tokens in done:
@@ -640,6 +791,7 @@ class ContinuousWorker:
         if done:
             self._poll_backoff = 0  # a slot just freed: poll right away
         self.processed += len(done)
+        self._update_metrics()
         return len(done)
 
     def stop(self) -> None:

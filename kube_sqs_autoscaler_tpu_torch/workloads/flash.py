@@ -22,8 +22,8 @@ bound through ``ctypes``, and tied together by a
   the CUDA kernels against on the card.
 - :func:`attention_fn_for` picks the attention: the kernels on the card at
   every length (the JAX package's TPU crossover ``FLASH_MIN_SEQ`` does not
-  carry over), the dense path on the CPU, as the reference picks dense off
-  the TPU.
+  carry over) for the head dims they take, the dense path on the CPU and
+  for any other head dim, as the reference picks dense off the TPU.
 - :data:`kernel_launches`, :data:`lse_launches`, :data:`dq_launches` and
   :data:`dkv_launches` count launches, so a run can show that its path
   went through each kernel.
@@ -578,13 +578,18 @@ def merge_attention_partials(acc_out, acc_lse, out, lse):
 flash_attention.gqa_native = True
 
 
-def attention_fn_for(seq_len: int, device: str | torch.device = "cuda"):
-    """The prompt-pass attention for ``device``: the kernel-backed
-    :func:`flash_attention` on CUDA at every ``seq_len`` (the kernel masks
-    its own ragged edge), :func:`.model._dense_attention` on the CPU.
+def attention_fn_for(seq_len: int, device: str | torch.device,
+                     head_dim: int):
+    """The prompt-pass attention for ``device`` and ``head_dim``: the
+    kernel-backed :func:`flash_attention` on CUDA at every ``seq_len`` (the
+    kernel masks its own ragged edge) when ``head_dim`` is one the kernels
+    take (:data:`SUPPORTED_HEAD_DIMS`), else :func:`.model._dense_attention`
+    — on the CPU, and on CUDA outside the kernels' contract, as the
+    reference picks dense whenever its kernel is not the right call.
     ``seq_len`` is kept for the reference's call shape."""
     del seq_len
-    if torch.device(device).type == "cuda":
+    if (torch.device(device).type == "cuda"
+            and head_dim in SUPPORTED_HEAD_DIMS):
         return flash_attention
     return _dense_attention
 

@@ -17,8 +17,10 @@ worker is :class:`.continuous.ContinuousWorker`, which reads
 ``decode_block`` and ``request_ttl_s`` here.  Reply bytes match the
 reference worker's for the same traffic and weights (greedy).
 
-Not ported yet: the int8 KV cache (``quantized_kv``) and device tracing
-(``profile_dir``); both raise at construction.
+``ServiceConfig.profile_dir`` traces the batch worker's first
+``profile_cycles`` serve cycles with ``torch.profiler``
+(:func:`..utils.profiling.maybe_trace`).  Not ported yet: the int8 KV
+cache (``quantized_kv``), which raises at construction.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..utils.profiling import SpanTimer
+from ..utils.profiling import SpanTimer, maybe_trace
 from .decode import generate
 from .flash import attention_fn_for
 from .model import ModelConfig, forward
@@ -162,7 +164,11 @@ class ServiceConfig:
     # publish one JSON result per input message to this queue (after
     # compute, before deleting the input: at-least-once)
     result_queue_url: str = ""
-    profile_dir: str = ""  # not ported yet: raises
+    # set to a directory to write a torch.profiler trace of the first
+    # profile_cycles serve cycles (utils/profiling.maybe_trace), flushed
+    # as soon as the window closes; empty = no tracing, no overhead
+    profile_dir: str = ""
+    profile_cycles: int = 20
 
     def __post_init__(self) -> None:
         if self.top_k < 0:
@@ -183,11 +189,6 @@ class ServiceConfig:
         if self.quantized_kv:
             raise ValueError(
                 "quantized_kv (the int8 KV cache) is not yet ported to the "
-                "PyTorch worker"
-            )
-        if self.profile_dir:
-            raise ValueError(
-                "profile_dir (device tracing) is not yet ported to the "
                 "PyTorch worker"
             )
 
@@ -286,7 +287,8 @@ class QueueWorker:
             [m["Body"] for m in messages]
         )
         config = self.config
-        attention_fn = attention_fn_for(tokens.shape[1], self.device)
+        attention_fn = attention_fn_for(tokens.shape[1], self.device,
+                                        self.model_config.head_dim)
         # the host copy below waits for the device, so deletion happens
         # strictly after compute succeeds (at-least-once processing)
         with torch.inference_mode():
@@ -334,8 +336,25 @@ class QueueWorker:
 
     def run_forever(self) -> None:
         """Serve until stopped; a failed cycle logs, backs off and
-        retries (its messages reappear after the visibility timeout)."""
+        retries (its messages reappear after the visibility timeout).
+        With ``profile_dir`` set, the first ``profile_cycles`` cycles run
+        under :func:`..utils.profiling.maybe_trace`; a profiler failure is
+        logged and the worker serves on unprofiled."""
+        if self.config.profile_dir:
+            try:
+                with maybe_trace(self.config.profile_dir, self.device):
+                    self._serve(max_cycles=self.config.profile_cycles)
+            except Exception as err:
+                log.error("Profiling failed (continuing unprofiled): %s", err)
+        self._serve()
+
+    def _serve(self, max_cycles: int | None = None) -> None:
+        """The serve loop body; ``max_cycles`` bounds it (None = forever)."""
+        cycles = 0
         while not self._stop.is_set():
+            if max_cycles is not None and cycles >= max_cycles:
+                return
+            cycles += 1
             try:
                 with self.timer.span("cycle"):
                     idle = self.run_once() == 0

@@ -283,14 +283,15 @@ def make_train_step(model_config: ModelConfig, train_config: TrainConfig,
                     device: str | torch.device = "cuda", attention_fn=None):
     """``step_fn(state, tokens) -> (state, loss)``: one optimizer step on
     ``[B, S]`` tokens, updating ``state`` in place.  The attention is
-    ``flash.attention_fn_for(S, device)`` — the CUDA kernels, forward and
-    backward, on the card; dense on the CPU — unless ``attention_fn`` is
+    ``flash.attention_fn_for(S, device, head_dim)`` — the CUDA kernels,
+    forward and backward, on the card at the head dims they take; dense on
+    the CPU and at any other head dim — unless ``attention_fn`` is
     given.  ``loss`` is a detached fp32 scalar on the device (reading it
     is the caller's sync point)."""
     from .flash import attention_fn_for
 
-    attend = attention_fn or attention_fn_for(model_config.max_seq_len,
-                                              device)
+    attend = attention_fn or attention_fn_for(
+        model_config.max_seq_len, device, model_config.head_dim)
 
     def loss(params, tokens):
         return loss_fn(params, tokens, model_config, attend,

@@ -130,7 +130,8 @@ def train(args) -> dict:
              f"{param_count(state['params']):,}", device)
 
     eval_data = None
-    eval_attention = attention_fn_for(args.seq_len, device)
+    eval_attention = attention_fn_for(args.seq_len, device,
+                                      model_config.head_dim)
     if args.eval_every > 0:
         # a fixed held-out set from a disjoint seed domain of the source
         eval_stream = synthetic_token_stream(

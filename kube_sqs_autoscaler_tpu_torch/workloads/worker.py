@@ -56,7 +56,8 @@ class InferenceWorker:
         with torch.inference_mode():
             logits = forward(
                 self.params, tokens, self.config,
-                attention_fn_for(tokens.shape[1], self.device),
+                attention_fn_for(tokens.shape[1], self.device,
+                                 self.config.head_dim),
             )
             # the host copy waits for the device
             next_tokens = torch.argmax(logits[:, -1, :], dim=-1).cpu()

@@ -85,9 +85,11 @@ def test_gqa_adapt_and_windowed_match_the_native_paths():
 
 def test_attention_fn_for_picks_the_kernel_on_cuda_and_dense_on_cpu():
     for seq in (16, 48, 512, 4096):
-        assert flash.attention_fn_for(seq, "cuda") is flash.flash_attention
-        assert flash.attention_fn_for(seq, "cpu") is _dense_attention
-    assert flash.attention_fn_for(64, torch.device("cuda", 0)) is \
+        for dim in flash.SUPPORTED_HEAD_DIMS:
+            assert flash.attention_fn_for(seq, "cuda", dim) is \
+                flash.flash_attention
+            assert flash.attention_fn_for(seq, "cpu", dim) is _dense_attention
+    assert flash.attention_fn_for(64, torch.device("cuda", 0), 64) is \
         flash.flash_attention
 
 

@@ -1,10 +1,14 @@
 """The port stands alone: no ``jax`` and nothing of the JAX package.
 
-An AST scan of every module of ``kube_sqs_autoscaler_tpu_torch`` and of
-``chip_smoke.py`` finds no such import, and a subprocess in which ``jax``,
-``jaxlib`` and ``kube_sqs_autoscaler_tpu`` cannot be imported still
-imports the port and runs a tiny forward, generate, worker cycle,
-continuous-worker drain and train step on the CPU.
+An AST scan of every module of ``kube_sqs_autoscaler_tpu_torch`` (its
+``core``, ``fleet``, ``metrics``, ``obs``, ``sim``, ``utils`` and
+``workloads`` subpackages) and of ``chip_smoke.py`` finds no such import,
+and a subprocess in which ``jax``, ``jaxlib`` and
+``kube_sqs_autoscaler_tpu`` cannot be imported still imports the port and
+runs a tiny forward, generate, worker cycle, continuous-worker drain,
+fleet episode with its control loop and train step on the CPU.  The
+control-plane subpackages import no torch at all, so importing the fleet
+starts no CUDA work and builds no kernel.
 """
 
 import ast
@@ -33,8 +37,13 @@ def absolute_imports(path: Path) -> list[str]:
     return names
 
 
+SUBPACKAGES = ("core", "fleet", "metrics", "obs", "sim", "utils",
+               "workloads")
+
+
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert {path.parent.name for path in files} >= set(SUBPACKAGES)
     assert len(files) > 10
     offenders = {
         str(path.relative_to(ROOT)): name
@@ -71,6 +80,10 @@ from kube_sqs_autoscaler_tpu_torch.workloads import __main__, worker  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import continuous
 from kube_sqs_autoscaler_tpu_torch.workloads import data, perf, train  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import trainer  # noqa
+from kube_sqs_autoscaler_tpu_torch import core, fleet, metrics, obs, sim
+from kube_sqs_autoscaler_tpu_torch.fleet import __main__ as fleet_main  # noqa
+from kube_sqs_autoscaler_tpu_torch.metrics import sqs_aws  # noqa
+from kube_sqs_autoscaler_tpu_torch.utils import profiling, sigv4  # noqa
 
 cfg = model.ModelConfig(vocab_size=64, d_model=64, n_heads=1, n_layers=1,
                         d_ff=64, max_seq_len=32, dtype=torch.float32)
@@ -91,6 +104,23 @@ cw = continuous.ContinuousWorker(
                           decode_block=2),
     device="cpu")
 assert cw.drain(total=1) == 1
+for _ in range(3):
+    jobs.send_message("q", json.dumps([1, 2, 3]))
+pool = fleet.WorkerPool.serving(
+    jobs, params, cfg,
+    service.ServiceConfig(queue_url="q", seq_len=8, generate_tokens=3,
+                          batch_size=1),
+    min=1, max=2, clock=core.FakeClock(), device="cpu")
+loop = core.ControlLoop(
+    pool, metrics.QueueMetricSource(jobs, "q", ("ApproximateNumberOfMessages",)),
+    core.LoopConfig(poll_interval=1.0, policy=core.PolicyConfig(
+        scale_up_messages=2, scale_up_cooldown=0.0)),
+    clock=pool.clock)
+stats = fleet.FleetDriver(pool, loop, cycle_dt=0.5).run(until_processed=3)
+assert stats["processed"] == 3 and max(stats["replica_trajectory"]) == 2
+registry = obs.WorkloadMetrics()
+pool.attach_metrics(registry)
+assert "fleet_replica_state" in registry.render()
 state = train.train_state(params, train.TrainConfig())
 step = train.make_train_step(cfg, train.TrainConfig(), "cpu")
 assert step(state, ids)[0]["step"] == 1
@@ -107,3 +137,20 @@ def test_port_runs_with_jax_and_the_jax_package_unimportable():
                          env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_the_control_plane_imports_no_torch():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "from kube_sqs_autoscaler_tpu_torch import core, fleet, obs, sim\n"
+        "from kube_sqs_autoscaler_tpu_torch import metrics\n"
+        "from kube_sqs_autoscaler_tpu_torch.fleet import __main__\n"
+        "from kube_sqs_autoscaler_tpu_torch.utils import profiling, sigv4\n"
+        "print(sorted(m for m in set(sys.modules) - before\n"
+        "             if m.split('.')[0] in ('torch', 'jax')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -110,8 +110,9 @@ def test_host_helpers_match_reference():
 def test_unported_options_raise_at_construction():
     with pytest.raises(ValueError, match="not yet ported"):
         service.ServiceConfig(queue_url=URL, quantized_kv=True)
-    with pytest.raises(ValueError, match="not yet ported"):
-        service.ServiceConfig(queue_url=URL, profile_dir="/tmp/trace")
+    # device tracing is ported: the option is accepted, as in the reference
+    traced = service.ServiceConfig(queue_url=URL, profile_dir="traces")
+    assert (traced.profile_dir, traced.profile_cycles) == ("traces", 20)
     with pytest.raises(ValueError, match="top_k"):
         service.ServiceConfig(queue_url=URL, top_k=-1)
 
