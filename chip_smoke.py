@@ -20,8 +20,10 @@ Phases (any failure makes the run exit non-zero and print no result):
    shifted rectangular shapes, and timed beside its plain version, the
    equivalent PyTorch library call and the least time the card could take
    (its bound): the serving forward (``flash_fwd``, also at the
-   continuous engine's refill sizes 1 and 3 and at the train shape, where
-   the eval passes run it), and the training forward with
+   continuous engine's refill sizes 1 and 3, at the sharded plane's
+   refill of 32 rows and its resume inserts of 1 and 8 rows of 544 tokens,
+   and at the train shape, where the eval passes run it), and the
+   training forward with
    the lse (``flash_fwd_lse``) and its two backward halves
    (``flash_bwd_dq``, ``flash_bwd_dkv``), the backward also fed from the
    forward kernel's own output and lse; a misaligned bf16 input must be
@@ -64,10 +66,26 @@ Phases (any failure makes the run exit non-zero and print no result):
    the binary's ``--fleet-max-replicas 3`` on the real clock (rates, mean
    TTFT, replica trajectory, busy share); ``python -m
    kube_sqs_autoscaler_tpu_torch.fleet`` must exit 0;
-9. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
+9. shards: the sharded serving plane at the generate cell's width, 8
+   slots a shard: a one-shard plane (``sharded=True``) whose 64 bf16
+   replies must equal the block-8 worker's byte for byte; the binary's
+   ``--demo 64 --continuous --decode-block 8 --shards 4`` (every message
+   answered once, ``4 x inserts`` forward launches, no lse, one gang
+   dispatch a settled block) and the same plane driven cycle by cycle
+   (exactly one gang dispatch a busy cycle, at most one host transfer a
+   cycle; its peak memory); a 4-shard f32 plane over the staggered
+   requests against ``generate`` up to the first near-tie; a
+   ``FakeClock`` chaos episode of ``ShardedWorkerPool.serving(min=1,
+   max=4)`` under the control loop, in bf16 and f32, with a poisoned, a
+   wedged and a mask-corrupted shard (exactly once, one quarantine of each
+   cause, rows evacuated through a resume insert at [M, 8, 544, 64],
+   every quarantined shard probed and readmitted, f32 replies against
+   ``generate``); warm rates of one block-8 worker, the plane and the
+   3-replica fleet one after another, and a profiled plane drain;
+10. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
    through dense attention with no kernel launch, its loss falling; the
    forward wrapper called directly at D = 16 must raise ``ValueError``;
-10. training: an f32 loss and gradient at the flagship train width through
+11. training: an f32 loss and gradient at the flagship train width through
    the kernels against the dense-attention path; the trainer binary's code
    path in-process at the flagship config (GPT, d_model 1024, 16 heads,
    8 layers, d_ff 4096, vocab 8192, B=8, S=2048) in bf16 for 10
@@ -76,8 +94,8 @@ Phases (any failure makes the run exit non-zero and print no result):
    steps`` (and twice that for the forward under ``--remat``); its steady
    step time, tokens/s, MFU and peak memory; ``torch.profiler`` over one
    step;
-11. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-12. the last line, ``{"ok": true, "device": {...}}``.
+12. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+13. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
@@ -130,6 +148,9 @@ TRAIN_LAYERS = 8
 TRAIN_STEPS = 10
 EVAL_EVERY = 5
 MAIN_SHAPES = [(8, 8, 512, 64), (8, 8, 1024, 64)]  # generate, classify
+# the sharded plane's prompt passes: a refill of 4 shards x 8 slots, and
+# resume inserts of 1 and 8 evacuated rows (512 prompt + 32 produced)
+PLANE_SHAPES = [(32, 8, 512, 64), (1, 8, 544, 64), (8, 8, 544, 64)]
 GENERATE_ARGS = ["--demo", "16", "--batch-size", "8", "--seq-len", "512",
                  "--generate-tokens", "32", "--result-queue-url",
                  "demo://replies"]
@@ -357,6 +378,11 @@ def kernel_phase(torch, flash, smoke: Smoke) -> dict:
         ("classify", 8, 8, 8, 1024, 64, None, True),
         ("refill-1", 1, 8, 8, 512, 64, None, True),
         ("refill-3", 3, 8, 8, 512, 64, None, True),
+        # the sharded plane: a refill over 4 shards of 8, and the resume
+        # insert of evacuated rows (prompt + produced, 512 + 32)
+        ("plane-refill-32", 32, 8, 8, 512, 64, None, True),
+        ("resume-1", 1, 8, 8, 544, 64, None, True),
+        ("resume-8", 8, 8, 8, 544, 64, None, True),
         ("ragged-s48", 8, 8, 8, 48, 64, None, False),
         ("ragged-s7", 8, 8, 8, 7, 64, None, True),
         ("ragged-s1000", 8, 8, 8, 1000, 64, None, True),
@@ -404,7 +430,7 @@ def kernel_phase(torch, flash, smoke: Smoke) -> dict:
                 "aligned with ValueError, before any launch")
 
     timings = {}
-    for shape in MAIN_SHAPES:
+    for shape in (*MAIN_SHAPES, *PLANE_SHAPES):
         b, h, s, d = shape
         q, k, v = make_qkv(torch, b, h, h, s, d, torch.bfloat16, True, 99)
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
@@ -772,6 +798,9 @@ def staggered_phase(torch, flash, smoke: Smoke) -> dict:
         out[block] = {"cycles": cycle, "mismatched": bad,
                       "inserts": batcher.insert_dispatches}
     out["near_ties"] = near_tie
+    # the shards phase runs the same requests through a 4-shard plane
+    out["inputs"] = {"config": config, "params": params,
+                     "requests": requests, "want": want}
     return out
 
 
@@ -1815,6 +1844,439 @@ def fleet_binary_run(torch, flash, smoke: Smoke, serve: dict) -> dict:
     return out
 
 
+# The sharded plane (shards phase): 4 engine shards of 8 slots behind one
+# admission plane, one gang decode dispatch a cycle
+SHARDS_ARGS = [*GENERATE_ARGS, "--continuous", "--decode-block", "8",
+               "--shards", "4"]
+CHAOS_QUEUE = "chaos://jobs"
+CHAOS_RESULTS = "chaos://replies"
+# the chaos episode's traffic (8 bodies at the start, then 4 a cycle up to
+# 128, so a backlog outlasts every fault and probe), its faults as
+# FleetFaultPlan entries ((start, end, shard) windows and one (cycle,
+# shard) mask corruption) and the pool's probe delay in cycles
+CHAOS_TOTAL, CHAOS_FIRST, CHAOS_PER_CYCLE = 128, 8, 4
+CHAOS_POISON = (7, 11, 1)
+CHAOS_WEDGE = (14, 20, 2)
+CHAOS_MASK = (20, 3)
+CHAOS_PROBE_AFTER = 4
+RESUME_SEQ = 512 + 32  # a resumed row's prompt: 512 + what it produced
+
+
+class recorded_shapes:
+    """Within the block, the q shape of every ``flash_fwd`` call (the
+    wrapper itself still launches and counts)."""
+
+    def __init__(self, flash) -> None:
+        self.flash, self.shapes = flash, []
+
+    def __enter__(self) -> list:
+        original = self.original = self.flash.flash_fwd
+
+        def record(q, k, v, **kw):
+            self.shapes.append(tuple(q.shape))
+            return original(q, k, v, **kw)
+
+        self.flash.flash_fwd = record
+        return self.shapes
+
+    def __exit__(self, *exc) -> None:
+        self.flash.flash_fwd = self.original
+
+
+def plane_worker(torch, params, config, service_config, shards, **kw):
+    """A continuous worker over the sharded plane, the ``--demo 64``
+    bodies queued."""
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousWorker,
+    )
+
+    queue = FakeMessageQueue()
+    for body in demo_bodies(64):
+        queue.send_message("demo://queue", body)
+    service_config = dataclasses.replace(
+        service_config, queue_url="demo://queue", shards=shards,
+        result_queue_url="demo://replies" if "result_queue" in kw else "")
+    return queue, ContinuousWorker(queue, params, config, service_config,
+                                   device="cuda", **kw)
+
+
+def shards_phase(torch, flash, smoke: Smoke, serve: dict, stagger: dict,
+                 fleet: dict) -> dict:
+    """The sharded serving plane on the card: (a) a one-shard plane
+    (``sharded=True``) against the block-8 worker, byte for byte; (b) the
+    binary's ``--shards 4`` and the same plane driven cycle by cycle; (c)
+    a 4-shard f32 plane over the staggered requests against ``generate``;
+    (d) the chaos episode in bf16 and f32; (e) warm rates beside one
+    worker and the 3-replica fleet, and a profiled plane drain."""
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        main as worker,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.shard_plane import (
+        ShardedBatcher,
+    )
+
+    out = {}
+    single = serve["continuous-b8"]["replies"]
+    config, params, service_config = demo_setup(torch, GENERATE_ARGS, 8)
+
+    # (a) S = 1: the block-8 worker's shapes, so its replies exactly
+    results = FakeMessageQueue()
+    _, one = plane_worker(torch, params, config, service_config, 1,
+                          result_queue=results, sharded=True)
+    zero_counts(flash)
+    one.drain(total=64)
+    torch.cuda.synchronize()
+    launched = counts(flash)
+    replies = {rid: bodies[0] for rid, bodies in
+               drain_raw(results, "demo://replies").items()}
+    inserts = one.batcher.insert_dispatches
+    smoke.check(isinstance(one.batcher, ShardedBatcher)
+                and one.batcher.shards == 1 and replies == single
+                and launched["flash_fwd"] == 4 * inserts
+                and launched["flash_fwd_lse"] == 0,
+                f"shards S=1 plane (sharded=True) bf16 block 8: "
+                f"{sum(replies.get(r) == b for r, b in single.items())} of "
+                f"{len(single)} replies byte-identical to the block-8 "
+                f"worker's; flash_fwd launches {launched['flash_fwd']} = 4 x "
+                f"{inserts} inserts, lse {launched['flash_fwd_lse']}")
+    out["s1"] = {"launches": launched["flash_fwd"], "inserts": inserts,
+                 "identical": sum(replies.get(r) == b
+                                  for r, b in single.items())}
+    del one
+
+    # (b) the binary's --shards 4, then the same plane cycle by cycle
+    zero_counts(flash)
+    summary = worker([*demo64(SHARDS_ARGS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launched = counts(flash)
+    attrs = summary["queue_attributes"]
+    inserts = summary["insert_dispatches"]
+    smoke.check(summary["processed"] == 64 and len(summary["replies"]) == 64
+                and summary["duplicate_replies"] == 0
+                and attrs["ApproximateNumberOfMessages"] == "0"
+                and attrs["ApproximateNumberOfMessagesNotVisible"] == "0",
+                f"shards binary --shards 4: processed {summary['processed']} "
+                f"of 64, {len(summary['replies'])} replies, "
+                f"{summary['duplicate_replies']} duplicates, queue {attrs}")
+    smoke.check(launched["flash_fwd"] == 4 * inserts
+                and launched["flash_fwd_lse"] == 0
+                and summary["gang_cycles"] == summary["decode_dispatches"]
+                and summary["summary_transfers"] == summary["block_settles"],
+                f"shards binary: flash_fwd launches {launched['flash_fwd']} = "
+                f"4 x {inserts} inserts, lse {launched['flash_fwd_lse']}; "
+                f"{summary['gang_cycles']} gang cycles = "
+                f"{summary['decode_dispatches']} decode dispatches; "
+                f"{summary['summary_transfers']} summary transfers = "
+                f"{summary['block_settles']} settled blocks")
+    same = sum(json.dumps(body) == single.get(rid)
+               for rid, body in summary["replies"].items())
+    print(f"shards binary: {same} of 64 replies byte-identical to the single "
+          f"block-8 worker's (not gated: the plane's [32, 512] decode GEMMs "
+          f"may take other cuBLAS kernels than [8, 512]); "
+          f"{summary['host_transfers']} host transfers", flush=True)
+    out["binary"] = {"launches": launched["flash_fwd"], "inserts": inserts,
+                     "same_as_single": same,
+                     **{k: summary[k] for k in (
+                         "decode_dispatches", "gang_cycles",
+                         "host_transfers", "summary_transfers",
+                         "block_settles", "overlapped_settles")}}
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, plane = plane_worker(torch, params, config, service_config, 4)
+    batcher = plane.batcher
+    cycles, busy_cycles, bad_dispatch, over = 0, 0, [], []
+    while plane.processed < 64 and cycles < 1000:
+        before = (batcher.decode_dispatches, batcher.host_transfers,
+                  batcher.insert_dispatches, batcher.active)
+        plane.run_once()
+        cycles += 1
+        busy = before[3] > 0 or batcher.insert_dispatches > before[2]
+        busy_cycles += busy
+        if batcher.decode_dispatches - before[0] != int(busy):
+            bad_dispatch.append(cycles)
+        if batcher.host_transfers - before[1] > 1:
+            over.append(cycles)
+    torch.cuda.synchronize()
+    plane_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    cache_mb = sum(t.numel() * t.element_size()
+                   for t in flat_params(batcher.cache)) / 2 ** 20
+    smoke.check(plane.processed == 64 and not bad_dispatch and not over,
+                f"shards cycles: {plane.processed} of 64 in {cycles} cycles, "
+                f"{busy_cycles} busy; cycles without exactly one gang "
+                f"dispatch when busy (none when idle): {bad_dispatch}; "
+                f"cycles with more than one host transfer: {over} "
+                f"({batcher.host_transfers} transfers, "
+                f"{batcher.summary_transfers} summaries, "
+                f"{batcher.gang_cycles} gang cycles)")
+    single_mb = (fleet or {}).get("bf16", {}).get("single_peak_mib")
+    print(f"shards memory: the 4 x 8 plane's KV cache {cache_mb:.3f} MiB, "
+          f"peak above the params {plane_mb:.3f} MiB (one 8-slot replica "
+          f"{'not measured' if single_mb is None else f'{single_mb:.3f}'} "
+          f"MiB in the fleet phase)", flush=True)
+    out["cycles"] = {"cycles": cycles, "busy_cycles": busy_cycles,
+                     "host_transfers": batcher.host_transfers,
+                     "overlapped_settles": batcher.overlapped_settles,
+                     "block_settles": batcher.block_settles,
+                     "plane_peak_mib": plane_mb, "cache_mib": cache_mb,
+                     "single_peak_mib": single_mb}
+    del plane, batcher
+
+    # (c) f32, S = 4: the staggered requests, a few at a time
+    inputs = stagger["inputs"]
+    requests, want = inputs["requests"], inputs["want"]
+    f32 = ShardedBatcher(inputs["params"], inputs["config"], shards=4,
+                         shard_slots=8, prompt_len=512, generate_tokens=32,
+                         decode_block=8, device="cuda")
+    waiting, got, cycle = list(enumerate(requests)), {}, 0
+    while (waiting or f32.active) and cycle < 5000:
+        free = len(f32.free_slots)
+        if waiting and free and cycle % 2 == 0:
+            take = min(free, 3)
+            f32.submit_many([(ids, i) for i, ids in waiting[:take]])
+            waiting = waiting[take:]
+        for i, tokens in f32.step():
+            got[i] = tokens
+        cycle += 1
+    ties = stagger["near_ties"]
+    bad = [i for i, tokens in got.items()
+           if not np.array_equal(tokens[:ties[i] or 32],
+                                 want[i][:ties[i] or 32])]
+    smoke.check(len(got) == 24 and not bad,
+                f"shards f32 S=4 staggered: {len(got)} of 24 in {cycle} "
+                f"cycles, {f32.insert_dispatches} inserts, "
+                f"{f32.gang_cycles} gang cycles; equal to generate alone up "
+                f"to the first near-tie: mismatched {bad}")
+    out["f32_staggered"] = {"cycles": cycle, "mismatched": bad}
+    del f32
+
+    # (d) the chaos episode under the control loop, bf16 then f32
+    out["chaos"] = {}
+    for label in ("bf16", "f32"):
+        if label == "f32":
+            params, config = inputs["params"], inputs["config"]
+        zero_counts(flash)
+        run = chaos_episode(torch, flash, params, config)
+        torch.cuda.synchronize()
+        run["launches"] = counts(flash)
+        out["chaos"][label] = check_chaos(torch, flash, smoke, label, run,
+                                          params, config, single)
+    del params
+
+    # (e) warm rates, one after another: one block-8 worker, the plane,
+    # the 3-replica fleet; then the plane's binary under the profiler
+    rates = {}
+    for name, argv in (
+            ("single-b8", [*GENERATE_ARGS, "--continuous", "--decode-block",
+                           "8"]),
+            ("shards-4", SHARDS_ARGS),
+            ("fleet-3", [*GENERATE_ARGS, "--continuous", "--decode-block",
+                         "8", "--fleet-max-replicas", "3"])):
+        summary = worker([*demo64(argv), "--device", "cuda"])
+        rates[name] = {k: summary.get(k) for k in (
+            "msgs_per_s", "tokens_per_s", "ttft_mean_s", "elapsed_s",
+            "overlapped_settles", "block_settles")}
+        ttft = summary.get("ttft_mean_s")
+        print(f"warm {name} --demo 64: {summary['msgs_per_s']:.3f} msgs/s, "
+              f"{summary['tokens_per_s']:.3f} generated tokens/s, mean TTFT "
+              f"{'none' if ttft is None else f'{ttft * 1e3:.3f} ms'}, "
+              f"{summary['elapsed_s']:.3f} s", flush=True)
+    out["rates"] = rates
+    out["profile"] = plane_profile(torch, worker)
+    return out
+
+
+def chaos_episode(torch, flash, params, config) -> dict:
+    """``ShardedWorkerPool.serving(min=1, max=4)`` over 4 shards of 8 slots
+    under the binary's control loop (poll 0.1 s, up at 16 messages, down at
+    8, cooldowns 0.2 / 0.4 s), two cycles a poll on a ``FakeClock``; the
+    traffic arrives over the first cycles, and a fault plan poisons shard
+    1's logits, wedges shard 2 and corrupts shard 3's device mask.  Runs
+    until every request is answered, no shard is quarantined or probing
+    and the plane is back at min."""
+    from kube_sqs_autoscaler_tpu_torch.core import (
+        ControlLoop, FakeClock, LoopConfig, PolicyConfig,
+    )
+    from kube_sqs_autoscaler_tpu_torch.fleet import (
+        PROBING, QUARANTINED, FleetDriver, ShardedWorkerPool,
+    )
+    from kube_sqs_autoscaler_tpu_torch.metrics import QueueMetricSource
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.sim.faults import FleetFaultPlan
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import ServiceConfig
+
+    clock = FakeClock()
+    queue = FakeMessageQueue(visibility_timeout=30.0, now_fn=clock.now)
+    results = FakeMessageQueue(now_fn=clock.now)
+    bodies = demo_bodies(CHAOS_TOTAL, config.vocab_size)
+    sent = [queue.send_message(CHAOS_QUEUE, body)
+            for body in bodies[:CHAOS_FIRST]]
+    waiting = bodies[CHAOS_FIRST:]
+    service_config = ServiceConfig(
+        queue_url=CHAOS_QUEUE, batch_size=8, seq_len=512, generate_tokens=32,
+        decode_block=8, result_queue_url=CHAOS_RESULTS, shards=4)
+    pool = ShardedWorkerPool.serving(
+        queue, params, config, service_config, result_queue=results, min=1,
+        max=4, clock=clock, now_fn=clock.now,
+        probe_after_cycles=CHAOS_PROBE_AFTER, device="cuda")
+    loop = ControlLoop(
+        pool,
+        QueueMetricSource(queue, CHAOS_QUEUE, ("ApproximateNumberOfMessages",)),
+        LoopConfig(poll_interval=0.1, policy=PolicyConfig(
+            scale_up_messages=2 * 8, scale_down_messages=8,
+            scale_up_cooldown=0.2, scale_down_cooldown=0.4)),
+        clock=clock)
+    faults = FleetFaultPlan(shard_poisons=(CHAOS_POISON,),
+                            shard_wedges=(CHAOS_WEDGE,),
+                            shard_mask_corruptions=(CHAOS_MASK,))
+
+    class Arrivals:
+        """The plan, after this cycle's arrivals."""
+
+        def apply(self, cycle, target):
+            for _ in range(min(CHAOS_PER_CYCLE, len(waiting))):
+                sent.append(queue.send_message(CHAOS_QUEUE, waiting.pop(0)))
+            faults.apply(cycle, target)
+
+    driver = FleetDriver(pool, loop, cycle_dt=0.05, fault_plan=Arrivals())
+    start = time.perf_counter()
+    with recorded_shapes(flash) as shapes:
+        stats = driver.run(max_cycles=3000, until=lambda: (
+            len(sent) == CHAOS_TOTAL and pool.processed >= CHAOS_TOTAL
+            and pool.idle and pool.replicas == pool.min
+            and not any(st in (QUARANTINED, PROBING)
+                        for st in pool.shard_states)))
+    return {"pool": pool, "stats": stats, "sent": sent, "queue": queue,
+            "bodies": dict(zip(sent, bodies)), "shapes": shapes,
+            "replies": drain_raw(results, CHAOS_RESULTS),
+            "wall_s": time.perf_counter() - start}
+
+
+def check_chaos(torch, flash, smoke: Smoke, label: str, run: dict, params,
+                config, single: dict) -> dict:
+    """The chaos episode's gates: exactly once, one quarantine of each
+    cause, rows evacuated through a resume insert at [M, 8, 544, 64],
+    every quarantined shard probed and readmitted, 4 x inserts launches;
+    in f32 each reply against ``generate`` up to the first near-tie."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import decode
+
+    pool, stats, sent = run["pool"], run["stats"], run["sent"]
+    batcher = pool.worker.batcher
+    duplicates = sum(len(b) - 1 for b in run["replies"].values())
+    attrs = run["queue"].get_queue_attributes(CHAOS_QUEUE, ())
+    smoke.check(sorted(run["replies"]) == sorted(sent)
+                and len(sent) == CHAOS_TOTAL and duplicates == 0
+                and attrs["ApproximateNumberOfMessages"] == "0"
+                and attrs["ApproximateNumberOfMessagesNotVisible"] == "0",
+                f"chaos {label}: {len(run['replies'])} of {len(sent)} "
+                f"requests answered, {duplicates} duplicates "
+                f"({pool.duplicates_suppressed} suppressed, "
+                f"{pool.released_total} released to the queue), queue "
+                f"{attrs}, {stats['cycles']} cycles, trajectory "
+                f"{stats['replica_trajectory']}")
+    quarantines = [e.args for e in pool.events
+                   if e.name == "shard-quarantine"]
+    causes = sorted(q["cause"] for q in quarantines)
+    smoke.check(causes == ["mask-mismatch", "no-progress", "poisoned-logits"],
+                f"chaos {label}: one quarantine of each cause: {quarantines}")
+    resumes = [s for s in run["shapes"] if s[2] == RESUME_SEQ]
+    smoke.check(pool.rows_evacuated_total > 0 and resumes
+                and all(s[1:] == (8, RESUME_SEQ, 64) for s in resumes),
+                f"chaos {label}: {pool.rows_evacuated_total} rows evacuated; "
+                f"resume-insert flash_fwd launches at {sorted(set(resumes))} "
+                f"(want [M, 8, {RESUME_SEQ}, 64])")
+    order = [(e.name, e.args.get("shard")) for e in pool.events]
+    unhealed = [q["shard"] for q in quarantines
+                if ("shard-probe", q["shard"]) not in order
+                or ("shard-readmit", q["shard"]) not in order]
+    smoke.check(not unhealed
+                and pool.readmitted_total == len(quarantines) == 3,
+                f"chaos {label}: every quarantined shard probed and "
+                f"readmitted ({pool.readmitted_total} readmitted; not healed: "
+                f"{unhealed}); final states {pool.shard_states}")
+    launched = run["launches"]
+    smoke.check(launched["flash_fwd"] == 4 * batcher.insert_dispatches
+                and launched["flash_fwd_lse"] == 0,
+                f"chaos {label}: flash_fwd launches {launched['flash_fwd']} "
+                f"= 4 x {batcher.insert_dispatches} inserts, lse "
+                f"{launched['flash_fwd_lse']}")
+    summary = {"cycles": stats["cycles"], "ticks": stats["ticks"],
+               "trajectory": stats["replica_trajectory"],
+               "quarantines": quarantines,
+               "evacuated": pool.rows_evacuated_total,
+               "released": pool.released_total,
+               "readmitted": pool.readmitted_total,
+               "resume_shapes": sorted(set(resumes)),
+               "inserts": batcher.insert_dispatches,
+               "gang_cycles": batcher.gang_cycles,
+               "launches": launched["flash_fwd"], "wall_s": run["wall_s"]}
+    if label == "bf16":
+        same = sum(bodies[0] == single.get(rid)
+                   for rid, bodies in run["replies"].items())
+        print(f"chaos bf16: {same} of the 64 requests the single worker "
+              f"also served have byte-identical replies (not gated); "
+              f"events {[e.name for e in pool.events]}; "
+              f"{run['wall_s']:.3f} s", flush=True)
+        return {**summary, "same_as_single": same}
+    # f32: batches of 16 prompts of 512 tokens through generate, each row
+    # against its reply up to the first near-tie
+    bad, ties = [], {}
+    rids = list(run["bodies"])
+    with torch.inference_mode():
+        for at in range(0, len(rids), 16):
+            chunk = rids[at:at + 16]
+            prompts = torch.tensor([json.loads(run["bodies"][r])
+                                    for r in chunk], device="cuda")
+            want = decode.generate(params, prompts, 32, config,
+                                   attention_fn=flash.flash_attention)
+            for rid, prompt, tokens in zip(chunk, prompts, want):
+                margins = greedy_margins(torch, params, config, prompt,
+                                         tokens)
+                low = np.flatnonzero(margins < MARGIN)
+                upto = int(low[0]) if low.size else 32
+                if low.size:
+                    ties[rid] = upto
+                got = json.loads(run["replies"].get(rid, ["{}"])[0])
+                if got.get("tokens", [])[:upto] != tokens.cpu().tolist()[:upto]:
+                    bad.append(rid)
+    smoke.check(not bad, f"chaos f32: {len(rids) - len(bad)} of {len(rids)} "
+                f"replies equal generate up to the first near-tie (margin < "
+                f"{MARGIN:g}); mismatched {bad}; near-ties {ties}")
+    return {**summary, "mismatched": bad, "near_ties": ties}
+
+
+def plane_profile(torch, worker) -> dict:
+    """``torch.profiler`` (device activity only) over the binary's
+    ``--demo 64 --shards 4`` drain: the busy share, and the share of block
+    settles that found the next block still running."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        summary = worker([*demo64(SHARDS_ARGS), "--device", "cuda"])
+        torch.cuda.synchronize()
+    kernels, copies = device_breakdown(prof)
+    busy_ms = sum(ms for ms, _, _ in kernels)
+    copy_ms = sum(ms for ms, _, _ in copies)
+    wall_ms = summary["elapsed_s"] * 1e3
+    flash_ms = sum(ms for ms, _, key in kernels if "flash_fwd" in key)
+    overlap = summary["overlapped_settles"] / max(1, summary["block_settles"])
+    print(f"profile shards binary --demo 64 --shards 4 (profiler on): wall "
+          f"{wall_ms:.3f} ms, kernels busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), flash_fwd {flash_ms:.3f} ms, "
+          f"copies {copy_ms:.3f} ms; {summary['overlapped_settles']} of "
+          f"{summary['block_settles']} block settles found the next block "
+          f"still running ({100 * overlap:.1f}%)", flush=True)
+    for ms, count, key in kernels[:8]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share":
+            busy_ms / wall_ms, "flash_ms": flash_ms, "copy_ms": copy_ms,
+            "overlap_share": overlap,
+            "top": [(ms, count, key[:90]) for ms, count, key in kernels[:8]]}
+
+
 def odd_head_dim_phase(torch, flash, smoke: Smoke) -> dict:
     """A head dim the kernels do not take (D = 16): the trainer runs it
     through dense attention with no kernel launch, and the kernel wrapper
@@ -1903,6 +2365,8 @@ def main() -> int:
     sqs = serve and smoke.phase("sqs", sqs_phase, torch, flash, smoke, serve)
     fleet = serve and smoke.phase("fleet", fleet_phase, torch, flash, smoke,
                                   serve)
+    shards = serve and stagger and smoke.phase(
+        "shards", shards_phase, torch, flash, smoke, serve, stagger, fleet)
     odd = smoke.phase("odd head dim", odd_head_dim_phase, torch, flash, smoke)
     f32_train = smoke.phase("f32 train step", f32_train_phase, torch, flash,
                             smoke)
@@ -1912,7 +2376,8 @@ def main() -> int:
     if smoke.failures or not (info and sass and resources and kern
                               and train_kern and path and serve and cycles
                               and stagger and rates and prof
-                              and serve_prof and sqs and fleet and odd
+                              and serve_prof and sqs and fleet and shards
+                              and odd
                               and f32_train and train_path and train_prof):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
@@ -1928,6 +2393,10 @@ def main() -> int:
         # the bf16 fleet episode and the binary's --fleet-max-replicas
         "serve-fleet": fleet["bf16"]["launches"]
         + fleet["binary"]["launches"],
+        # the sharded plane: S = 1, the binary's --shards 4, the bf16
+        # chaos episode (its resume inserts included)
+        "serve-shards": shards["s1"]["launches"]
+        + shards["binary"]["launches"] + shards["chaos"]["bf16"]["launches"],
         **{f"train-{r}": v["launches"]["flash_fwd"]
            for r, v in train_path.items()},
     }

@@ -672,8 +672,7 @@ class FleetDriver:
     ``loop=None`` drives the pool alone.  ``cycle_dt > 0`` advances a
     :class:`~..core.clock.FakeClock` that much per cycle (the
     deterministic mode); ``0`` reads real time.  ``fault_plan`` applies a
-    :class:`~..sim.faults.FleetFaultPlan`'s kills and hangs at their
-    cycles.
+    :class:`~..sim.faults.FleetFaultPlan`'s faults at their cycles.
     """
 
     def __init__(

@@ -5,8 +5,8 @@ The port's copy of ``WorkloadMetrics`` from
 histograms and span-timer summaries in the Prometheus text format 0.0.4,
 standard library only.  Thread-safe: the worker's cycle thread writes,
 the HTTP handler threads render.  Every value here is a host number the
-worker wrote; rendering never touches a device tensor.  The per-shard and
-per-tenant gauge families wait for the paths that set them.
+worker wrote; rendering never touches a device tensor.  The per-tenant
+gauge family waits for the tenancy path.
 """
 
 from __future__ import annotations
@@ -170,6 +170,48 @@ class WorkloadMetrics:
             "decode_block_utilization", decode_block_utilization,
             "Kept tokens per dispatched block-decode position "
             "(accepted/block-size; 0 until a block runs).",
+        )
+
+    def set_shard_gauges(
+        self,
+        shard: int,
+        *,
+        active: bool,
+        active_slots: int,
+        tokens_per_second: float,
+        health: int = 0,
+    ) -> None:
+        """The sharded serving plane's per-shard gauge family (one labeled
+        series per engine shard, refreshed every plane cycle by
+        :class:`~..fleet.sharded.ShardedWorkerPool`).  ``health`` is the
+        quarantine state machine's code (0 = healthy, 1 = probing, 2 =
+        quarantined: ``fleet.SHARD_HEALTH_CODES``)."""
+        labels = (("shard", str(shard)),)
+        self.set_gauge(
+            "shard_health", health,
+            "Shard health per the quarantine state machine "
+            "(0=healthy, 1=probing half-open, 2=quarantined).",
+            labels=labels,
+        )
+        self.set_gauge(
+            "shard_active", 1.0 if active else 0.0,
+            "Shard participates in admission (1 — serving, or probing "
+            "half-open with one slot; shard_health discriminates) or is "
+            "draining/inactive/quarantined (0). Flipped by the scale "
+            "path's device-side mask.",
+            labels=labels,
+        )
+        self.set_gauge(
+            "shard_active_slots", active_slots,
+            "Decode slots of this shard currently holding an in-flight "
+            "request.",
+            labels=labels,
+        )
+        self.set_gauge(
+            "shard_tokens_per_second", tokens_per_second,
+            "Generated tokens per second attributed to this shard over "
+            "the plane's serving lifetime.",
+            labels=labels,
         )
 
     def set_build_info(self, version: str, **labels: str) -> None:

@@ -11,11 +11,14 @@ replica runs.
   the same client publishes one reply per message.  Credentials come
   from the standard AWS chain (environment, shared file, instance role).
 - ``--demo N`` self-feeds an in-memory queue with N random messages (the
-  same bodies as the reference binary's demo), drains it and exits.  With
+  same bodies as the reference binary's demo), drains it and exits.
+- ``--shards S`` (with ``--continuous``) stacks S engine shards of
+  ``--batch-size`` slots behind one admission plane, gang-stepped in one
+  decode dispatch a cycle (:class:`~.shard_plane.ShardedBatcher`).  With
   ``--fleet-max-replicas`` (and ``--continuous``) a
   :class:`~..core.loop.ControlLoop` autoscales a
   :class:`~..fleet.WorkerPool` of continuous replicas over that queue on
-  the real clock.
+  the real clock (with ``--shards``, each replica is a plane).
 - ``--metrics-port P`` serves ``/metrics`` (the serve-cycle latency
   summary; the continuous worker's serving gauges and TTFT histogram; the
   fleet's replica gauges) and ``/healthz``.
@@ -94,6 +97,14 @@ def build_parser() -> argparse.ArgumentParser:
              "per decode dispatch, with the eos/budget masks on the device "
              "and the next block dispatched before the last one is read; "
              "greedy results equal --decode-block 1 (requires --continuous)",
+    )
+    parser.add_argument(
+        "--shards", type=int, default=1, metavar="S",
+        help="sharded serving plane: stack S gang-stepped engine shards of "
+             "--batch-size slots each behind one admission plane; all "
+             "shards advance in one decode dispatch a cycle, refills go to "
+             "the freest shard first, and greedy outputs equal S independent "
+             "workers' (requires --continuous)",
     )
     parser.add_argument(
         "--request-ttl", type=float, default=0.0, metavar="SECONDS",
@@ -202,6 +213,10 @@ def run_demo(
             "decode_dispatches": batcher.decode_dispatches,
             "insert_dispatches": batcher.insert_dispatches,
             "host_transfers": batcher.host_transfers,
+            "block_settles": batcher.block_settles,
+            "overlapped_settles": batcher.overlapped_settles,
+            "gang_cycles": getattr(batcher, "gang_cycles", None),
+            "summary_transfers": getattr(batcher, "summary_transfers", None),
             "block_utilization": (
                 batcher.block_tokens / batcher.block_capacity
                 if batcher.block_capacity else None
@@ -221,7 +236,8 @@ def run_demo(
         generated = worker.generated_tokens
         engine = dict.fromkeys((
             "decode_dispatches", "insert_dispatches", "host_transfers",
-            "block_utilization", "ttft_mean_s"))
+            "block_settles", "overlapped_settles", "gang_cycles",
+            "summary_transfers", "block_utilization", "ttft_mean_s"))
     if server is not None:
         server.stop()
     log.info(
@@ -382,6 +398,10 @@ def main(argv=None) -> dict | None:
         raise SystemExit("--request-ttl requires --continuous")
     if args.continuous and args.generate_tokens < 1:
         raise SystemExit("--continuous requires --generate-tokens >= 1")
+    if args.shards < 1:
+        raise SystemExit(f"--shards {args.shards} must be >= 1")
+    if args.shards > 1 and not args.continuous:
+        raise SystemExit("--shards requires --continuous")
     if args.fleet_max_replicas:
         if not args.continuous:
             raise SystemExit("--fleet-max-replicas requires --continuous")
@@ -417,6 +437,7 @@ def main(argv=None) -> dict | None:
         result_queue_url=args.result_queue_url,
         eos_id=None if args.eos_id < 0 else args.eos_id,
         decode_block=args.decode_block, request_ttl_s=args.request_ttl,
+        shards=args.shards,
     )
     if not args.demo:
         serve_sqs(args, params, model_config, service_config, device)

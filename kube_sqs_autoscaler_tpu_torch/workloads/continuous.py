@@ -23,6 +23,14 @@ included: the batcher changes scheduling, never results.
 - **Fleet seams**: :meth:`ContinuousBatcher.adopt_engine` lets a new fleet
   replica share a donor's params and engine, and the worker's settle
   reports whether it answered (the fleet's reply dedup overrides it).
+- **Sharded-plane seams**: :meth:`ContinuousBatcher.submit_resume`
+  re-admits evacuated requests mid-flight (one ``[M, prompt_len +
+  generate_tokens]`` insert with per-row budgets),
+  :meth:`ContinuousBatcher.request_decode_block` and
+  :meth:`ContinuousBatcher.set_slot_limit` are the live engine knobs, and
+  :class:`ContinuousWorker` builds a :class:`~.shard_plane.ShardedBatcher`
+  when ``ServiceConfig.shards > 1`` (or ``sharded=True``) and moves a
+  quarantined shard's rows off it (:meth:`ContinuousWorker.evacuate_shard`).
 
 Where the reference donates its state to jitted programs, the port
 mutates the slot cache and the per-row state (``current``, ``done``,
@@ -39,7 +47,7 @@ The worker reports its serving gauges and TTFT histogram to a
 
 Not ported yet (the batcher raises ``ValueError``): the llama family, a
 mesh, the int8 KV cache, the shared prefix cache, speculative and beam
-slots, and tenancy.
+slots, and tenancy (with the overload ladder's ``_quiesce_rows``).
 """
 
 from __future__ import annotations
@@ -142,13 +150,16 @@ def _insert_rows_impl(
     top_k: int = 0,
     top_p: float = 1.0,
     eos_id: int | None = None,
+    budgets: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Batched admission: prefill ``prompts`` (``[M, P]``, right-padded,
     real lengths ``lengths``) as one batch, copy them into slot ``rows``
     of ``cache``, and fold each row's length, pending token (``current``),
     ``done`` (set where the first token is ``eos_id``) and ``remaining``
     (``budget - 1``: the first token spends one) into the state, all in
-    place.  Returns the first tokens ``[M]``, still on the device."""
+    place.  ``budgets`` (``[M]``) replaces ``budget - 1`` with each row's
+    own remaining budget: the resume insert's rows are mid-request.
+    Returns the first tokens ``[M]``, still on the device."""
     logits, rows_cache = _rows_prefill(params, prompts, lengths, config,
                                        attention_fn)
     _splice_rows_layers(cache, rows_cache, rows, prompts.shape[1])
@@ -156,7 +167,7 @@ def _insert_rows_impl(
     firsts = _pick(logits, key, temperature, top_k, top_p)
     current[rows] = firsts
     done[rows] = firsts == eos_id if eos_id is not None else False
-    remaining[rows] = budget - 1
+    remaining[rows] = budgets if budgets is not None else budget - 1
     return firsts
 
 
@@ -191,7 +202,8 @@ class ContinuousBatcher:
     ``decode_block == 1`` and one per settled block.  At ``decode_block >
     1`` the port waits fewer times than it counts: a cycle's first tokens
     were copied after the pending block on the one stream, so the host
-    waits once for both.
+    waits once for both.  ``free_slot_scans`` counts the admission-order
+    scans (:attr:`free_slots`).
     """
 
     def __init__(
@@ -258,6 +270,16 @@ class ContinuousBatcher:
         self.top_p = top_p
         self.eos_id = eos_id
         self.decode_block = decode_block
+        # the engine that was built: the live decode_block knob
+        # (request_decode_block) moves only a block engine, which takes any
+        # block >= 1 (the sharded plane's always does)
+        self._block_engine = decode_block > 1
+        # a staged decode_block change, landed at the re-dispatch boundary
+        self._pending_decode_block: int | None = None
+        # admission cap (per shard on the sharded plane): free_slots offers
+        # at most slot_limit - busy rows; None = unlimited
+        self.slot_limit: int | None = None
+        self.free_slot_scans = 0
         # the engine a fleet replica adopts from its donor (adopt_engine):
         # the prompt-pass attention and the insert and decode steps
         self._attention_fn = attention_fn_for(prompt_len, self.device,
@@ -331,10 +353,17 @@ class ContinuousBatcher:
             )
         self._attention_fn = source._attention_fn
         self._insert_many = source._insert_many
-        if self.decode_block > 1:
+        # whichever decode step both sides built (a live decode_block
+        # change can leave a block engine at block 1)
+        if hasattr(source, "_block_fn") and hasattr(self, "_block_fn"):
             self._block_fn = source._block_fn
-        else:
+        elif hasattr(source, "_decode") and hasattr(self, "_decode"):
             self._decode = source._decode
+        else:
+            raise ValueError(
+                "engine mismatch: donor and replica were built on different "
+                "decode paths (block vs single-step)"
+            )
 
     def _engine_key(self) -> tuple:
         """The serving knobs the engine depends on."""
@@ -344,14 +373,73 @@ class ContinuousBatcher:
             self.decode_block, str(self.device),
         )
 
+    def request_decode_block(self, block: int) -> bool:
+        """Stage a live decode-block change.  It lands inside a later
+        :meth:`step` at the re-dispatch boundary: that step dispatches
+        nothing, so the block in flight settles at the old size, and the
+        next step dispatches at the new one.  An idle engine swaps at once.
+        Block engines only (built with ``decode_block > 1``, or the sharded
+        plane).  Returns False when ``block`` is already the live or staged
+        size."""
+        if not self._block_engine:
+            raise ValueError(
+                "decode_block is a live knob only on the block/gang decode "
+                "engine (construct with decode_block > 1, or the sharded "
+                "plane)"
+            )
+        block = int(block)
+        if block < 1:
+            raise ValueError(f"decode_block={block} must be >= 1")
+        current = (self._pending_decode_block
+                   if self._pending_decode_block is not None
+                   else self.decode_block)
+        if block == current:
+            return False
+        if self._pending_block is None and self.active == 0:
+            self.decode_block = block
+            self._pending_decode_block = None
+            return True
+        self._pending_decode_block = block
+        return True
+
+    def _apply_pending_decode_block(self) -> None:
+        """Land a staged block change; the step bodies call it once nothing
+        is in flight."""
+        if self._pending_decode_block is None:
+            return
+        self.decode_block = self._pending_decode_block
+        self._pending_decode_block = None
+
+    def set_slot_limit(self, limit: int | None) -> None:
+        """Cap admission at ``limit`` busy rows (per shard on the sharded
+        plane); ``None`` = unlimited.  Rows above a lowered limit decode to
+        completion; a raised limit offers the parked rows at the next
+        refill."""
+        if limit is not None:
+            limit = int(limit)
+            per_shard = getattr(self, "shard_slots", len(self.slots))
+            if not 1 <= limit <= per_shard:
+                raise ValueError(
+                    f"slot_limit={limit} must be in [1, {per_shard}] "
+                    "(or None = unlimited)"
+                )
+        self.slot_limit = limit
+        self._invalidate_admission_cache()
+
     def _invalidate_admission_cache(self) -> None:
-        """Hook for planes that memoize admission availability (the
-        sharded plane, once ported); a no-op here, where ``free_slots`` is
-        an uncached scan."""
+        """Called at every change of which rows may be admitted (slot
+        assignment and release, mask and probe flips, the slot limit): the
+        sharded plane memoizes its availability scan; a no-op here, where
+        ``free_slots`` is an uncached scan."""
 
     @property
     def free_slots(self) -> list[int]:
-        return [i for i, s in enumerate(self.slots) if not s.busy]
+        self.free_slot_scans += 1
+        rows = [i for i, s in enumerate(self.slots) if not s.busy]
+        if self.slot_limit is not None:
+            busy = len(self.slots) - len(rows)
+            rows = rows[: max(0, self.slot_limit - busy)]
+        return rows
 
     def _free_slot_count(self) -> int:
         """Admission capacity as a bare count (what a refill sizes its
@@ -401,12 +489,89 @@ class ContinuousBatcher:
                 self.config, self.generate_tokens, self._attention_fn,
                 self.temperature, self.top_k, self.top_p, self.eos_id,
             )
-            self._pending_firsts.append((_HostCopy(firsts), list(rows)))
+            self._defer_firsts(firsts, rows)
         self.insert_dispatches += 1
         for row, (_, payload) in zip(rows, requests):
             self.slots[row] = _Slot(
                 busy=True, budget=self.generate_tokens, payload=payload,
                 submitted_at=now,
+            )
+        self._invalidate_admission_cache()
+        return rows
+
+    def _defer_firsts(self, firsts: torch.Tensor, rows: list[int]) -> None:
+        """Hold an insert's first tokens until the next :meth:`step`: here
+        each insert's are copied to the host at once, behind their own
+        event (the sharded plane copies a cycle's together)."""
+        self._pending_firsts.append((_HostCopy(firsts), list(rows)))
+
+    @property
+    def resume_len(self) -> int:
+        """The resume insert's prompt bucket: a resumed row prefills its
+        prompt and what it had produced, at most ``prompt_len +
+        generate_tokens`` tokens."""
+        return self.prompt_len + self.generate_tokens
+
+    def submit_resume(self, resumes: list[tuple]) -> list[int]:
+        """Re-admit evacuated mid-flight requests into free slots; returns
+        their slot rows.
+
+        Each resume is ``(token_ids, payload, produced, budget,
+        submitted_at)``: the original prompt, the payload, the tokens
+        already produced (the reply keeps them), the original budget and
+        admission time.  The batch prefills prompt + produced as one
+        ``[M, resume_len]`` insert through the same insert and attention
+        as :meth:`submit_many` (the CUDA flash forward on the card), with
+        each row's unspent budget, so a greedy row continues as if never
+        interrupted.  Its time to first token is not recorded again."""
+        if not resumes:
+            return []
+        free = self.free_slots
+        if len(resumes) > len(free):
+            raise RuntimeError(
+                f"no free slot for {len(resumes)} resumed request(s) "
+                f"({len(free)} free); release the rest to the queue"
+            )
+        rows = free[: len(resumes)]
+        prompts = np.zeros((len(resumes), self.resume_len), np.int64)
+        lengths = np.zeros((len(resumes),), np.int64)
+        budgets = np.zeros((len(resumes),), np.int64)
+        for i, (ids, _, produced, budget, _) in enumerate(resumes):
+            prior = np.asarray(ids, np.int64).reshape(-1)[: self.prompt_len]
+            full = np.concatenate([prior, np.asarray(produced, np.int64)])
+            if not 0 <= len(produced) < budget:
+                raise ValueError(
+                    f"resumed row produced {len(produced)} of budget "
+                    f"{budget} tokens: a complete request settles, it does "
+                    "not resume"
+                )
+            if full.size > self.resume_len:
+                raise ValueError(
+                    f"resume prompt of {full.size} tokens exceeds the "
+                    f"resume bucket ({self.resume_len})"
+                )
+            prompts[i, : full.size] = full
+            lengths[i] = max(1, full.size)
+            # the insert's first token spends one of the remaining budget
+            budgets[i] = budget - len(produced) - 1
+        with torch.inference_mode():
+            firsts = self._insert_many(
+                self.params, self.cache, self._current, self._done,
+                self._remaining, _to_device(np.asarray(rows), self.device),
+                _to_device(prompts, self.device),
+                _to_device(lengths, self.device), next(self._keys),
+                self.config, self.generate_tokens, self._attention_fn,
+                self.temperature, self.top_k, self.top_p, self.eos_id,
+                budgets=_to_device(budgets, self.device),
+            )
+            self._defer_firsts(firsts, rows)
+        self.insert_dispatches += 1
+        for row, (_, payload, produced, budget, submitted_at) in zip(
+                rows, resumes):
+            self.slots[row] = _Slot(
+                busy=True, budget=budget, payload=payload,
+                produced=list(produced), submitted_at=submitted_at,
+                ttft_done=bool(produced),
             )
         self._invalidate_admission_cache()
         return rows
@@ -435,6 +600,7 @@ class ContinuousBatcher:
                 slot = self.slots[row]
                 self._emit(slot, int(token))
                 if slot.ttft_done:
+                    # a resumed row: its first life recorded the TTFT
                     continue
                 slot.ttft_done = True
                 ttft = now - slot.submitted_at
@@ -443,6 +609,10 @@ class ContinuousBatcher:
                 self.last_ttft_s = ttft
                 self.ttft_samples.append(ttft)
                 self._pending_ttft_obs.append((None, ttft))
+                self._note_ttft(row, ttft)
+
+    def _note_ttft(self, row: int, ttft: float) -> None:
+        """Per-row TTFT hook: the sharded plane files it by shard."""
 
     def _needs_decode(self, slot: _Slot) -> bool:
         return slot.busy and not slot.done and len(slot.produced) < slot.budget
@@ -472,7 +642,9 @@ class ContinuousBatcher:
         when nothing is busy."""
         if self.active == 0:
             return []
-        if self.decode_block > 1:
+        if self._block_engine:
+            # the built engine, not the live size: the decode_block knob
+            # can take a block engine to 1
             return self._step_block()
         return self._step_single()
 
@@ -511,19 +683,22 @@ class ContinuousBatcher:
         the stream.  The counter adds one per insert settled and one for
         block N, as the reference's does; the host waits once a cycle,
         because the pending first tokens were copied after block N and
-        their wait covers it."""
+        their wait covers it.  A staged decode-block change skips the
+        dispatch: the block in flight settles at the old size and the
+        change lands."""
         new_block = None
         busy = self.active
-        with torch.inference_mode():
-            (self.cache, self._current, self._done, self._remaining,
-             tokens, counts) = self._block_fn(
-                self.params, self.cache, self._current, self._done,
-                self._remaining, self._block_keys(), self.config,
-                temperature=self.temperature, top_k=self.top_k,
-                top_p=self.top_p, eos_id=self.eos_id,
-            )
-            new_block = (_HostCopy(tokens, counts), busy)
-        self.decode_dispatches += 1
+        if self._pending_decode_block is None:
+            with torch.inference_mode():
+                (self.cache, self._current, self._done, self._remaining,
+                 tokens, counts) = self._block_fn(
+                    self.params, self.cache, self._current, self._done,
+                    self._remaining, self._block_keys(), self.config,
+                    temperature=self.temperature, top_k=self.top_k,
+                    top_p=self.top_p, eos_id=self.eos_id,
+                )
+                new_block = (_HostCopy(tokens, counts), busy)
+            self.decode_dispatches += 1
         self._settle_pending_firsts()
         pending, self._pending_block = self._pending_block, new_block
         if pending is not None:
@@ -542,8 +717,10 @@ class ContinuousBatcher:
                         break
                     self._emit(slot, int(token))
             self.block_settles += 1
-            if not new_block[0].ready():
+            if new_block is not None and not new_block[0].ready():
                 self.overlapped_settles += 1
+        if self._pending_block is None:
+            self._apply_pending_decode_block()
         return self._finish_ready()
 
 
@@ -589,6 +766,7 @@ class ContinuousWorker:
         *,
         result_queue=None,
         now_fn=None,
+        sharded: bool | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
         if service_config.generate_tokens < 1:
@@ -606,9 +784,7 @@ class ContinuousWorker:
         self.queue = queue
         self.config = service_config
         self.result_queue = result_queue
-        self.batcher = ContinuousBatcher(
-            params, model_config,
-            batch_size=service_config.batch_size,
+        knobs = dict(
             prompt_len=service_config.seq_len,
             generate_tokens=service_config.generate_tokens,
             temperature=service_config.temperature,
@@ -619,6 +795,24 @@ class ContinuousWorker:
             decode_block=service_config.decode_block,
             device=device,
         )
+        if sharded is None:
+            sharded = service_config.shards > 1
+        if sharded:
+            # the sharded plane: `shards` gang-stepped engine shards of
+            # batch_size slots each behind this worker's admission, one
+            # decode dispatch a cycle.  sharded=True builds it even at one
+            # shard (a ShardedWorkerPool pinned to one shard).
+            from .shard_plane import ShardedBatcher
+
+            self.batcher: ContinuousBatcher = ShardedBatcher(
+                params, model_config, shards=service_config.shards,
+                shard_slots=service_config.batch_size, **knobs,
+            )
+        else:
+            self.batcher = ContinuousBatcher(
+                params, model_config, batch_size=service_config.batch_size,
+                **knobs,
+            )
         self.processed = 0
         self.refill_cycles = 0  # liveness: bumped by every refill pass
         self._now = now_fn or time.time
@@ -730,6 +924,46 @@ class ContinuousWorker:
         if sent is None:
             return False
         return self._now() - sent > ttl
+
+    def evacuate_shard(self, shard: int) -> tuple[int, int]:
+        """Move a quarantined shard's unfinished rows off it: re-admit
+        prompt + produced onto healthy shards as one resume insert, and
+        hand back to the queue (``change_message_visibility(0)``) what
+        finds no healthy free slot or no longer parses.  Returns
+        ``(evacuated, released)``.  The caller masks the shard out of
+        admission first, so no resumed row routes back onto it.  Sharded
+        plane only."""
+        taken = self.batcher.take_shard_inflight(shard)
+        capacity = len(self.batcher.free_slots)
+        resumes, handback = [], []
+        for payload, produced, budget, submitted_at in taken:
+            ids = parse_request_body(payload["Body"])
+            fits = (
+                ids is not None
+                and len(resumes) < capacity
+                and min(ids.size, self.batcher.prompt_len) + len(produced)
+                <= self.batcher.resume_len
+            )
+            if fits:
+                resumes.append((ids, payload, produced, budget,
+                                submitted_at))
+            else:
+                handback.append(payload)
+        if resumes:
+            self.batcher.submit_resume(resumes)
+        nack = getattr(self.queue, "change_message_visibility", None)
+        if handback and nack is None:
+            log.warning(
+                "Queue has no change_message_visibility; %d released "
+                "request(s) will redeliver only after the visibility "
+                "timeout", len(handback),
+            )
+        for payload in handback:
+            # back through the queue: a survivor decodes it from the
+            # prompt; the reply registry still dedups a racing redelivery
+            if nack is not None:
+                nack(self.config.queue_url, payload["ReceiptHandle"], 0)
+        return len(resumes), len(handback)
 
     def attach_metrics(self, metrics) -> None:
         """Report the serving gauges (tokens/s, time to first token,

@@ -7,7 +7,9 @@ attention is the seam, the flash kernel on the card), then each generated
 token runs the single-position path against the cache
 (:func:`decode_step`), and :func:`generate` loops the two.
 :func:`block_decode` advances the continuous batcher's slots a block of
-tokens at a time with their liveness on the device.
+tokens at a time with their liveness on the device, and
+:func:`gang_block_decode` does it for the sharded plane's ``S`` engine
+shards in one call.
 
 Unlike the reference's pure functions, the port writes the cache **in
 place**: :func:`prefill` fills a fresh cache and :func:`decode_step`
@@ -313,6 +315,9 @@ def block_decode(
     top_k: int = 0,
     top_p: float = 1.0,
     eos_id: int | None = None,
+    freeze: torch.Tensor | None = None,
+    corrupt: torch.Tensor | None = None,
+    health: bool = False,
 ):
     """Advance every live row up to ``block = len(keys)`` tokens: a Python
     loop of :func:`decode_step` with the per-row liveness kept on the
@@ -332,14 +337,36 @@ def block_decode(
     Liveness only falls, so each row's kept tokens are a prefix of the
     block: returns ``(cache, current, done, remaining, tokens [block,
     batch], counts [batch])`` where ``tokens[:counts[b], b]`` are row
-    ``b``'s.  No step reads a device value on the host."""
+    ``b``'s.  No step reads a device value on the host.
+
+    The sharded plane's fault seams (unused, the loop is the same ops):
+
+    - ``freeze`` (bool ``[batch]``): those rows are not live for the whole
+      block, the wedged-shard fault;
+    - ``corrupt`` (bool ``[batch]``): those rows' logits become NaN before
+      the pick, the poisoned-logits fault.  Their pick reads zero logits
+      instead, so a sampled pick never hands NaN to ``torch.multinomial``
+      (on the card a device-side assert); the token is garbage either way
+      and the caller discards it;
+    - ``health=True``: also return ``bad [batch]``, set where a live row
+      saw a non-finite logit (computed from the NaN logits, not the
+      stand-in)."""
     pad = eos_id if eos_id is not None else 0
     emitted, lives = [], []
+    bad = torch.zeros_like(done) if health else None
     for key in keys:
         live = ~done & (remaining > 0)
+        if freeze is not None:
+            live = live & ~freeze
         length = cache["length"]
         logits, cache = decode_step(params, cache, current, config)
-        nxt = _pick(logits, key, temperature, top_k, top_p)
+        pick_from = logits
+        if corrupt is not None:
+            logits = logits.masked_fill(corrupt[:, None], float("nan"))
+            pick_from = logits.masked_fill(corrupt[:, None], 0.0)
+        if health:
+            bad = bad | (live & ~torch.isfinite(logits).all(dim=-1))
+        nxt = _pick(pick_from, key, temperature, top_k, top_p)
         emitted.append(torch.where(live, nxt, pad))
         if eos_id is not None:
             done = done | (live & (nxt == eos_id))
@@ -348,4 +375,66 @@ def block_decode(
         cache["length"] = torch.where(live, cache["length"], length)
         lives.append(live)
     counts = torch.stack(lives).sum(dim=0)
+    if health:
+        return (cache, current, done, remaining, torch.stack(emitted),
+                counts, bad)
     return cache, current, done, remaining, torch.stack(emitted), counts
+
+
+def gang_block_decode(
+    params: dict,
+    cache: dict,
+    current: torch.Tensor,
+    done: torch.Tensor,
+    remaining: torch.Tensor,
+    keys: list,
+    shard_active: torch.Tensor,
+    config: ModelConfig,
+    *,
+    shards: int,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    eos_id: int | None = None,
+    poison: torch.Tensor | None = None,
+    wedge: torch.Tensor | None = None,
+):
+    """Advance ``shards`` engine shards of ``B = rows / shards`` slots
+    each with one :func:`block_decode` over the flat ``[S*B]`` rows (the
+    reference ``vmap``s it over ``[S, B]``; rows never interact, so the
+    flat call computes what ``S`` independent engines would).
+
+    ``shard_active`` (bool ``[S]``) is the scale mask: an inactive shard
+    reports 0 free slots while its in-flight rows decode on (drain).
+    ``poison`` / ``wedge`` (bool ``[S]``, ``None`` = healthy) are the
+    shard-fault seams, passed to every row of the shard as
+    :func:`block_decode`'s ``corrupt`` / ``freeze``.
+
+    Keys: the reference folds the shard index into each block key so
+    vmapped shards do not replay one stream.  Here one generator per step
+    draws for all ``S*B`` rows, so every row, in every shard, already gets
+    its own draws.
+
+    Returns ``(cache, current, done, remaining, tokens [block, S*B],
+    counts [S*B], free [S], bad [S])``: ``free[s]`` counts shard ``s``'s
+    rows that are done or out of budget (0 for an inactive shard) and
+    ``bad[s]`` says a live row of shard ``s`` saw non-finite logits.
+    Both are reduced on the device, for the caller's one settle copy."""
+    rows = current.shape[0]
+    if rows % shards:
+        raise ValueError(f"{rows} rows not divisible by {shards} shards")
+    slots = rows // shards
+
+    def per_row(mask):
+        return None if mask is None else mask.repeat_interleave(slots)
+
+    (cache, current, done, remaining, tokens, counts,
+     bad_rows) = block_decode(
+        params, cache, current, done, remaining, keys, config,
+        temperature=temperature, top_k=top_k, top_p=top_p, eos_id=eos_id,
+        freeze=per_row(wedge), corrupt=per_row(poison), health=True,
+    )
+    spent = (done | (remaining <= 0)).view(shards, slots).sum(dim=1)
+    free = torch.where(shard_active, spent, torch.zeros_like(spent))
+    bad = bad_rows.view(shards, slots).any(dim=1)
+    return cache, current, done, remaining, tokens, counts, free, bad

@@ -161,6 +161,10 @@ class ServiceConfig:
     # this many seconds on arrival (its SentTimestamp) with an "expired"
     # error reply instead of decoding it; 0 = off
     request_ttl_s: float = 0.0
+    # continuous serving only: > 1 stacks this many engine shards of
+    # batch_size slots each behind one admission plane, gang-stepped in one
+    # decode dispatch a cycle (workloads/shard_plane.py)
+    shards: int = 1
     # publish one JSON result per input message to this queue (after
     # compute, before deleting the input: at-least-once)
     result_queue_url: str = ""
@@ -181,6 +185,8 @@ class ServiceConfig:
             raise ValueError(
                 f"decode_block={self.decode_block} must be >= 1"
             )
+        if self.shards < 1:
+            raise ValueError(f"shards={self.shards} must be >= 1")
         if self.request_ttl_s < 0:
             raise ValueError(
                 f"request_ttl_s={self.request_ttl_s} must be >= 0 "

@@ -1,7 +1,8 @@
 """The port's fleet and control loop held against the JAX package.
 
-- **Seam parity.** The port's ``WorkerPool`` (stub replicas) and the JAX
-  package's ``PodAutoScaler`` over a ``FakeDeploymentAPI`` go through the
+- **Seam parity.** The port's ``WorkerPool`` (stub replicas) and
+  ``ShardedWorkerPool`` (a stub plane) and the JAX package's
+  ``PodAutoScaler`` over a ``FakeDeploymentAPI`` go through the
   JAX ``ControlLoop`` and the port's, on one scripted depth trace with one
   actuation failure: every tick record and replica count is equal.
 - **Loop parity.** The canonical cooldown episode (3 -> 4 replicas at
@@ -45,6 +46,7 @@ from kube_sqs_autoscaler_tpu_torch.fleet import (
     DRAINING,
     STOPPED,
     FleetDriver,
+    ShardedWorkerPool,
     WorkerPool,
 )
 from kube_sqs_autoscaler_tpu_torch.fleet import __main__ as fleet_main
@@ -110,6 +112,28 @@ class _StubWorker:
         return len(messages)
 
 
+class _StubShardedBatcher(_StubBatcher):
+    """The plane surface ShardedWorkerPool needs, with no serving engine."""
+
+    def __init__(self, shards):
+        super().__init__()
+        self.shards = shards
+        self.shard_admitting = [True] * shards
+        self.shard_probing = [False] * shards
+
+    def set_shard_active(self, shard, active):
+        self.shard_admitting[shard] = bool(active)
+
+    def shard_busy(self, shard):
+        return 0
+
+
+class _StubShardedWorker(_StubWorker):
+    def __init__(self, shards):
+        super().__init__()
+        self.batcher = _StubShardedBatcher(shards)
+
+
 def make_pod(initial, min_, max_):
     api = FakeDeploymentAPI.with_deployments("ns", initial, "deploy")
     scaler = PodAutoScaler(
@@ -126,6 +150,16 @@ def make_pod(initial, min_, max_):
 def make_pool(initial, min_, max_):
     pool = WorkerPool(lambda p: _StubWorker(), min=min_, max=max_,
                       initial=initial)
+
+    def fail_next_up(err):
+        pool.fail_next_up = err
+
+    return pool, (lambda: pool.replicas), fail_next_up
+
+
+def make_sharded_pool(initial, min_, max_):
+    pool = ShardedWorkerPool(lambda p: _StubShardedWorker(max_), min=min_,
+                             max=max_, initial=initial)
 
     def fail_next_up(err):
         pool.fail_next_up = err
@@ -191,8 +225,9 @@ def test_pool_and_pod_scaler_identical_through_both_loops():
     runs = {
         (loop, name): drive_loop(loop, make, SCRIPT, initial=2,
                                  cooldowns=(10.0, 20.0), fail_up_at=2)
-        for loop in LOOPS for name, make in (("pod", make_pod),
-                                             ("pool", make_pool))
+        for loop in LOOPS for name, make in (
+            ("pod", make_pod), ("pool", make_pool),
+            ("sharded-pool", make_sharded_pool))
     }
     want = runs[("jax-loop", "pod")]
     for key, rows in runs.items():
@@ -201,6 +236,7 @@ def test_pool_and_pod_scaler_identical_through_both_loops():
     assert "fire" in gates and "cooling" in gates
     assert any("up_error" in row[0] for row in want)
     assert isinstance(make_pool(1, 1, 2)[0], Scaler)
+    assert isinstance(make_sharded_pool(1, 1, 2)[0], Scaler)
 
 
 def test_canonical_cooldown_episode_through_both_loops():
@@ -240,7 +276,7 @@ def test_pool_failure_seam_and_bounds():
     with pytest.raises(ValueError, match="hang_grace_cycles"):
         WorkerPool(lambda p: _StubWorker(), min=1, max=2, hang_grace_cycles=1)
     with pytest.raises(ValueError, match="not yet ported"):
-        FleetFaultPlan(shard_wedges=((1, 2, 0),))
+        FleetFaultPlan(admission_kills=((1, 0),))
     with pytest.raises(ValueError, match="not yet ported"):
         ControlLoop(pool, _Scripted([1]), resilience=object())
 
@@ -421,15 +457,17 @@ def test_binary_rejects_fleet_flags_outside_their_mode(args, message):
         binary(["--fleet-max-replicas", "2", "--device", "cpu", *args])
 
 
-@pytest.mark.parametrize("entry", ["pool", "fleet-demo", "fleet-flag", "sqs"])
+@pytest.mark.parametrize("entry", ["pool", "sharded-pool", "fleet-demo",
+                                   "fleet-flag", "sqs"])
 def test_new_entry_points_default_to_cuda_and_raise_without_a_card(
         tiny, entry):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
-    if entry == "pool":
+    if entry in ("pool", "sharded-pool"):
         model, params = tiny
+        pool_cls = WorkerPool if entry == "pool" else ShardedWorkerPool
         with pytest.raises(RuntimeError, match="no usable CUDA card"):
-            WorkerPool.serving(
+            pool_cls.serving(
                 FakeMessageQueue(), params, model,
                 ServiceConfig(queue_url="t://q", batch_size=BATCH,
                               seq_len=PROMPT, generate_tokens=TOKENS),

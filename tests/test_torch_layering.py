@@ -6,7 +6,8 @@ An AST scan of every module of ``kube_sqs_autoscaler_tpu_torch`` (its
 and a subprocess in which ``jax``, ``jaxlib`` and
 ``kube_sqs_autoscaler_tpu`` cannot be imported still imports the port and
 runs a tiny forward, generate, worker cycle, continuous-worker drain,
-fleet episode with its control loop and train step on the CPU.  The
+fleet episode with its control loop, sharded-plane drain, sharded-pool
+episode with a poisoned shard and train step on the CPU.  The
 control-plane subpackages import no torch at all, so importing the fleet
 starts no CUDA work and builds no kernel.
 """
@@ -77,7 +78,7 @@ import torch
 from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
 from kube_sqs_autoscaler_tpu_torch.workloads import decode, model, service
 from kube_sqs_autoscaler_tpu_torch.workloads import __main__, worker  # noqa
-from kube_sqs_autoscaler_tpu_torch.workloads import continuous
+from kube_sqs_autoscaler_tpu_torch.workloads import continuous, shard_plane
 from kube_sqs_autoscaler_tpu_torch.workloads import data, perf, train  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import trainer  # noqa
 from kube_sqs_autoscaler_tpu_torch import core, fleet, metrics, obs, sim
@@ -121,6 +122,24 @@ assert stats["processed"] == 3 and max(stats["replica_trajectory"]) == 2
 registry = obs.WorkloadMetrics()
 pool.attach_metrics(registry)
 assert "fleet_replica_state" in registry.render()
+plane = shard_plane.ShardedBatcher(params, cfg, shards=2, shard_slots=1,
+                                   prompt_len=8, generate_tokens=3,
+                                   decode_block=2, device="cpu")
+plane.submit_many([([1, 2, 3], "a"), ([4, 5], "b")])
+while plane.active:
+    plane.step()
+assert plane.gang_cycles == plane.decode_dispatches > 0
+for _ in range(3):
+    jobs.send_message("q", json.dumps([1, 2, 3]))
+sharded = fleet.ShardedWorkerPool.serving(
+    jobs, params, cfg,
+    service.ServiceConfig(queue_url="q", seq_len=8, generate_tokens=3,
+                          batch_size=1, decode_block=2),
+    min=1, max=2, shards=2, clock=core.FakeClock(), device="cpu")
+stats = fleet.FleetDriver(
+    sharded, fault_plan=sim.FleetFaultPlan(shard_poisons=((1, 3, 0),)),
+    cycle_dt=0.5).run(until_processed=3)
+assert stats["processed"] == 3 and sharded.quarantined_total == 1
 state = train.train_state(params, train.TrainConfig())
 step = train.make_train_step(cfg, train.TrainConfig(), "cpu")
 assert step(state, ids)[0]["step"] == 1
@@ -145,7 +164,7 @@ def test_the_control_plane_imports_no_torch():
         "before = set(sys.modules)\n"
         "from kube_sqs_autoscaler_tpu_torch import core, fleet, obs, sim\n"
         "from kube_sqs_autoscaler_tpu_torch import metrics\n"
-        "from kube_sqs_autoscaler_tpu_torch.fleet import __main__\n"
+        "from kube_sqs_autoscaler_tpu_torch.fleet import __main__, sharded\n"
         "from kube_sqs_autoscaler_tpu_torch.utils import profiling, sigv4\n"
         "print(sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('torch', 'jax')))\n"
