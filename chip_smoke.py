@@ -22,6 +22,9 @@ Phases (any failure makes the run exit non-zero and print no result):
    (its bound): the serving forward (``flash_fwd``, also at the
    continuous engine's refill sizes 1 and 3, at the sharded plane's
    refill of 32 rows and its resume inserts of 1 and 8 rows of 544 tokens,
+   at the llama family's GQA shapes (8 query heads over 2 kv heads, D =
+   64: a batch or refill of 8 rows of 512, classify's 1024, a refill of
+   one, and a window of 128 at 1024, against SDPA with ``enable_gqa``),
    and at the train shape, where the eval passes run it), and the
    training forward with
    the lse (``flash_fwd_lse``) and its two backward halves
@@ -46,9 +49,9 @@ Phases (any failure makes the run exit non-zero and print no result):
    first near-tie;
 6. throughput and profile: warm ``--demo 64`` rates in each mode (the
    continuous engine's with its mean time to first token), and
-   ``torch.profiler`` over one batch in each mode and over a 16-message
-   continuous drain at blocks 1 and 8 (device busy share and the kernels
-   that take the time);
+   ``torch.profiler`` (device activity) over one batch in each mode and
+   over a 16-message continuous drain at blocks 1 and 8 (device busy share
+   and the kernels that take the time);
 7. sqs: a local SQS endpoint (the JSON protocol over the port's in-memory
    queue, on 127.0.0.1) loaded with the ``--demo 64`` bodies; the worker
    binary started as a child process with ``--sqs-queue-url
@@ -82,10 +85,22 @@ Phases (any failure makes the run exit non-zero and print no result):
    every quarantined shard probed and readmitted, f32 replies against
    ``generate``); warm rates of one block-8 worker, the plane and the
    3-replica fleet one after another, and a profiled plane drain;
-10. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
+10. llama: the binary's built-in llama (``--family llama``, 2 kv heads) in
+   bf16 through the batch worker and ``--continuous`` at decode blocks 1
+   and 8 (replies identical, ``4 x`` prompt passes forward launches, no
+   lse), the block-8 worker cycle by cycle (at most one decode dispatch a
+   cycle) with its 8.500 MiB cache, a one-shard plane (replies equal to
+   the block-8 worker's), ``--shards 4`` and ``--fleet-max-replicas 3``
+   (replies counted against the single worker's); in f32 the staggered
+   prompts through the batcher at blocks 1 and 8 against
+   ``llama_generate`` up to the first near-tie, and a model with a window
+   of 128: the kernel's windowed GQA prefill within 1e-4 of dense, the
+   rolling-cache generate equal to the full cache's; warm rates of the GPT
+   and the llama one after another (batch, block 8, ``--shards 4``);
+11. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
    through dense attention with no kernel launch, its loss falling; the
    forward wrapper called directly at D = 16 must raise ``ValueError``;
-11. training: an f32 loss and gradient at the flagship train width through
+12. training: an f32 loss and gradient at the flagship train width through
    the kernels against the dense-attention path; the trainer binary's code
    path in-process at the flagship config (GPT, d_model 1024, 16 heads,
    8 layers, d_ff 4096, vocab 8192, B=8, S=2048) in bf16 for 10
@@ -94,8 +109,8 @@ Phases (any failure makes the run exit non-zero and print no result):
    steps`` (and twice that for the forward under ``--remat``); its steady
    step time, tokens/s, MFU and peak memory; ``torch.profiler`` over one
    step;
-12. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-13. the last line, ``{"ok": true, "device": {...}}``.
+13. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+14. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
@@ -164,6 +179,18 @@ SERVE_MODES = (("generate", GENERATE_ARGS),
                ("continuous-b8", [*GENERATE_ARGS, "--continuous",
                                   "--decode-block", "8"]))
 MARGIN = 1e-4  # greedy tokens are compared up to the first near-tie
+# the llama family (--family llama: the built-in llama, 8 query heads over
+# 2 kv heads, D = 64): its prompt passes as (B, H, H_kv, S, D) and window
+LLAMA_SHAPES = {
+    "gqa-h8-kv2-d64": ((8, 8, 2, 512, 64), None),
+    "gqa-classify-s1024": ((8, 8, 2, 1024, 64), None),
+    "gqa-refill-1": ((1, 8, 2, 512, 64), None),
+    "gqa-window128-s1024": ((2, 8, 2, 1024, 64), 128),
+}
+LLAMA_ARGS = [*GENERATE_ARGS, "--family", "llama"]
+LLAMA_LAYERS = 4
+# 8 slots x 4 layers x (k, v) x 2 kv heads x 544 positions x 64 x 2 bytes
+LLAMA_CACHE_MIB = 8.5
 
 
 class Smoke:
@@ -297,11 +324,21 @@ def resources_phase(flash, smoke: Smoke) -> dict:
 
 
 def make_qkv(torch, batch, heads, kv_heads, seq, dim, dtype, strided, seed):
-    """q, k, v on the card; ``strided`` takes them as the model does, as
-    head views of one fused [B, S, 3 * H * D] projection."""
+    """q, k, v on the card; ``strided`` takes them as the model does: the
+    GPT's as head views of one fused [B, S, 3 * H * D] projection, the
+    llama's (``kv_heads < heads``) with q and k contiguous (they leave
+    RoPE as new tensors) and v a head view of the fused [B, S, 2 * H_kv *
+    D] kv projection."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    if strided and heads != kv_heads:
+        q = torch.randn((batch, heads, seq, dim), generator=g, device="cuda")
+        k = torch.randn((batch, kv_heads, seq, dim), generator=g,
+                        device="cuda")
+        kv = torch.randn((batch, seq, 2 * kv_heads * dim), generator=g,
+                         device="cuda").to(dtype)
+        v = kv[..., kv_heads * dim:].reshape(batch, seq, kv_heads, dim)
+        return q.to(dtype), k.to(dtype), v.transpose(1, 2)
     if strided:
-        assert heads == kv_heads
         fused = torch.randn((batch, seq, 3 * heads * dim), generator=g,
                             device="cuda").to(dtype)
         q, k, v = fused.chunk(3, dim=-1)
@@ -389,6 +426,11 @@ def kernel_phase(torch, flash, smoke: Smoke) -> dict:
         ("bucket-s16", 8, 8, 8, 16, 64, None, True),
         ("gqa-h8-kv2-d128", 2, 8, 2, 512, 128, None, False),
         ("window128-s1024", 2, 8, 8, 1024, 64, 128, False),
+        # the llama family's prompt passes (H = 8 over H_kv = 2, D = 64,
+        # its q/k/v layout): a batch or refill of 8, classify, a refill of
+        # one, and a sliding window of 128 with GQA
+        *((label, *shape, window, True)
+          for label, (shape, window) in LLAMA_SHAPES.items()),
     ]
     results = []
     main_err = 0.0
@@ -448,7 +490,55 @@ def kernel_phase(torch, flash, smoke: Smoke) -> dict:
               f"({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
               flush=True)
-    return {"cases": results, "main_err": main_err, "timings": timings}
+    llama_timings = {label: gqa_timing(torch, flash, F, shape, window)
+                     for label, (shape, window) in LLAMA_SHAPES.items()}
+    llama_err = max(r["max_abs_err"] for r in results
+                    if r["case"] in LLAMA_SHAPES and r["dtype"] == "bfloat16")
+    return {"cases": results, "main_err": main_err, "timings": timings,
+            "llama_timings": llama_timings, "llama_err": llama_err}
+
+
+def gqa_timing(torch, flash, F, shape, window) -> dict:
+    """The forward kernel at a llama shape ``(B, H, H_kv, S, D)`` in bf16,
+    timed beside its plain version and SDPA (``enable_gqa=True`` where the
+    card's torch has it, else over k/v repeated to H heads; a windowed
+    case passes its mask), with its bound."""
+    b, h, hkv, s, d = shape
+    q, k, v = make_qkv(torch, b, h, hkv, s, d, torch.bfloat16, True, 98)
+    kernel_ms = time_ms(torch, lambda: flash.flash_attention(
+        q, k, v, window=window))
+    plain_ms = time_ms(torch, lambda: flash.flash_attention_reference(
+        q, k, v, window=window))
+    mask = None
+    if window is not None:
+        rows = torch.arange(s, device="cuda")[:, None]
+        cols = torch.arange(s, device="cuda")[None, :]
+        mask = (cols <= rows) & (cols > rows - window)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    causal = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+    try:
+        F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True, **causal)
+        call = "F.scaled_dot_product_attention(enable_gqa=True) forward"
+        kc_, vc_, extra = kc, vc, dict(enable_gqa=True)
+    except TypeError:
+        call = "F.scaled_dot_product_attention forward over repeat_kv k/v"
+        kc_, vc_ = (flash.repeat_kv(t, h // hkv).contiguous()
+                    for t in (kc, vc))
+        extra = {}
+    if mask is not None:
+        call += " with a window mask"
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qc, kc_, vc_, **causal, **extra))
+    bound_ms, bound_by = flash_bound_ms((b, h, s, d), hkv, "bfloat16",
+                                        window=window)
+    tflops = flash_ops((b, h, s, d), window=window) / kernel_ms / 1e9
+    print(f"time flash_fwd bf16 GQA {shape} window={window}: kernel "
+          f"{kernel_ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} "
+          f"ms, {call} {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})", flush=True)
+    return dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_call=call, bound_ms=bound_ms, bound_by=bound_by,
+                tflops=tflops, kv_heads=hkv, window=window)
 
 
 def main_path_phase(torch, flash, smoke: Smoke) -> dict:
@@ -565,8 +655,10 @@ def profile_phase(torch) -> dict:
             result_queue_url=args.result_queue_url,
         )
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # device activity only, as the plane's and the fleet's profiles:
+        # recording the host operators too adds seconds of post-processing
+        # and nothing this phase reads
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             summary = binary.run_demo(8, params, config, service_config,
                                       torch.device("cuda"))
             torch.cuda.synchronize()
@@ -657,15 +749,14 @@ def demo_bodies(n: int = 64, vocab: int = 8192, seq_len: int = 512):
 
 
 def demo_setup(torch, argv: list[str], decode_block: int = 1):
-    """The worker binary's built-in config, seeded weights and service
-    config for ``argv``, on the card."""
+    """The worker binary's built-in config (of ``argv``'s ``--family``),
+    seeded weights and service config for ``argv``, on the card."""
     from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary
-    from kube_sqs_autoscaler_tpu_torch.workloads.model import init_params
     from kube_sqs_autoscaler_tpu_torch.workloads.service import ServiceConfig
 
     args = binary.build_parser().parse_args(argv)
-    config = binary.builtin_config(args.seq_len, args.generate_tokens)
-    params = init_params(config, torch.Generator().manual_seed(0), "cuda")
+    config, params = binary.builtin_model(args.family, args.seq_len,
+                                          args.generate_tokens, "cuda")
     service_config = ServiceConfig(
         queue_url="", batch_size=args.batch_size, seq_len=args.seq_len,
         generate_tokens=args.generate_tokens,
@@ -674,19 +765,20 @@ def demo_setup(torch, argv: list[str], decode_block: int = 1):
     return config, params, service_config
 
 
-def block_cycles_phase(torch, smoke: Smoke) -> dict:
-    """The continuous worker's cycles at decode block 8, driven one by
-    one over the demo traffic: each may launch at most one decode and
-    count at most one host transfer for the block plus one for each
-    insert whose first tokens it settled (the reference's odometer; the
-    port waits once for both); and the share of block settles at which
-    the block dispatched that cycle was still running."""
+def block_cycles_phase(torch, smoke: Smoke, argv=GENERATE_ARGS,
+                       label: str = "block 8") -> dict:
+    """The continuous worker's cycles at decode block 8 (``argv``'s model
+    family), driven one by one over the demo traffic: each may launch at
+    most one decode and count at most one host transfer for the block plus
+    one for each insert whose first tokens it settled (the reference's
+    odometer; the port waits once for both); and the share of block
+    settles at which the block dispatched that cycle was still running."""
     from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
     from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
         ContinuousWorker,
     )
 
-    config, params, service_config = demo_setup(torch, GENERATE_ARGS, 8)
+    config, params, service_config = demo_setup(torch, argv, 8)
     service_config.queue_url = "demo://queue"
     service_config.result_queue_url = ""
     queue = FakeMessageQueue()
@@ -710,7 +802,7 @@ def block_cycles_phase(torch, smoke: Smoke) -> dict:
         if transfers > 1 + settled:
             over.append((cycles, transfers, settled))
     smoke.check(worker.processed == 64 and worst_dispatches <= 1 and not over,
-                f"block 8: {worker.processed} of 64 served in {cycles} "
+                f"{label}: {worker.processed} of 64 served in {cycles} "
                 f"cycles, at most {worst_dispatches} decode dispatch a cycle "
                 f"(want <= 1); cycles counting more host transfers than 1 + "
                 f"the inserts settled (cycle, transfers, settled): {over}; "
@@ -718,18 +810,24 @@ def block_cycles_phase(torch, smoke: Smoke) -> dict:
                 f"{batcher.insert_dispatches} inserts and "
                 f"{batcher.decode_dispatches} blocks")
     share = batcher.overlapped_settles / max(1, batcher.block_settles)
-    print(f"block 8: {batcher.overlapped_settles} of {batcher.block_settles} "
+    cache_mib = sum(t.numel() * t.element_size()
+                    for t in flat_params(batcher.cache["layers"])) / 2 ** 20
+    print(f"{label}: {batcher.overlapped_settles} of {batcher.block_settles} "
           f"block settles found the next block still running "
           f"({100 * share:.1f}%), block utilization "
-          f"{batcher.block_tokens / batcher.block_capacity:.4f}", flush=True)
+          f"{batcher.block_tokens / batcher.block_capacity:.4f}, KV cache "
+          f"{cache_mib:.3f} MiB for {len(batcher.slots)} slots", flush=True)
     return {"cycles": cycles, "overlapped_settles": batcher.overlapped_settles,
-            "block_settles": batcher.block_settles, "overlap_share": share}
+            "block_settles": batcher.block_settles, "overlap_share": share,
+            "cache_mib": cache_mib}
 
 
-def greedy_margins(torch, params, config, prompt, tokens):
+def greedy_margins(torch, params, config, prompt, tokens, forward=None):
     """The top-two margin of the logits that chose each of ``tokens``
-    (one dense-attention forward over the prompt and its continuation)."""
-    from kube_sqs_autoscaler_tpu_torch.workloads.model import forward
+    (one dense-attention ``forward`` over the prompt and its
+    continuation; the GPT's by default)."""
+    if forward is None:
+        from kube_sqs_autoscaler_tpu_torch.workloads.model import forward
 
     seq = torch.cat([prompt, tokens])[None]
     logits = forward(params, seq, config)[0, len(prompt) - 1:-1]
@@ -770,16 +868,7 @@ def staggered_phase(torch, flash, smoke: Smoke) -> dict:
         batcher = ContinuousBatcher(params, config, 8, 512, 32,
                                     decode_block=block, device="cuda")
         before = flash.kernel_launches
-        waiting, got, cycle = list(enumerate(requests)), {}, 0
-        while (waiting or batcher.active) and cycle < 5000:
-            free = len(batcher.free_slots)
-            if waiting and free and cycle % 3 == 0:
-                take = min(free, 3)
-                batcher.submit_many([(ids, i) for i, ids in waiting[:take]])
-                waiting = waiting[take:]
-            for i, tokens in batcher.step():
-                got[i] = tokens
-            cycle += 1
+        got, cycle = staggered_drive(batcher, requests)
         bad = []
         for i, tokens in got.items():
             upto = 32 if near_tie[i] is None else near_tie[i]
@@ -804,6 +893,23 @@ def staggered_phase(torch, flash, smoke: Smoke) -> dict:
     return out
 
 
+def staggered_drive(batcher, requests, every: int = 3):
+    """Submit ``requests`` at most 3 at a time every ``every`` cycles while
+    the others decode, until all finish; returns ``(tokens by request,
+    cycles)``."""
+    waiting, got, cycle = list(enumerate(requests)), {}, 0
+    while (waiting or batcher.active) and cycle < 5000:
+        free = len(batcher.free_slots)
+        if waiting and free and cycle % every == 0:
+            take = min(free, 3)
+            batcher.submit_many([(ids, i) for i, ids in waiting[:take]])
+            waiting = waiting[take:]
+        for i, tokens in batcher.step():
+            got[i] = tokens
+        cycle += 1
+    return got, cycle
+
+
 def serve_profile_phase(torch) -> dict:
     """Where the continuous engine's time goes: ``torch.profiler`` around
     a 16-message drain at decode blocks 1 and 8 (weights already on the
@@ -817,8 +923,7 @@ def serve_profile_phase(torch) -> dict:
         config, params, service_config = demo_setup(torch, GENERATE_ARGS,
                                                     block)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             summary = binary.run_demo(16, params, config, service_config,
                                       torch.device("cuda"), continuous=True)
             torch.cuda.synchronize()
@@ -2248,14 +2353,14 @@ def check_chaos(torch, flash, smoke: Smoke, label: str, run: dict, params,
     return {**summary, "mismatched": bad, "near_ties": ties}
 
 
-def plane_profile(torch, worker) -> dict:
+def plane_profile(torch, worker, argv=SHARDS_ARGS, label="shards") -> dict:
     """``torch.profiler`` (device activity only) over the binary's
-    ``--demo 64 --shards 4`` drain: the busy share, and the share of block
-    settles that found the next block still running."""
+    ``--demo 64 --shards 4`` drain (``argv``): the busy share, and the
+    share of block settles that found the next block still running."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        summary = worker([*demo64(SHARDS_ARGS), "--device", "cuda"])
+        summary = worker([*demo64(argv), "--device", "cuda"])
         torch.cuda.synchronize()
     kernels, copies = device_breakdown(prof)
     busy_ms = sum(ms for ms, _, _ in kernels)
@@ -2263,7 +2368,7 @@ def plane_profile(torch, worker) -> dict:
     wall_ms = summary["elapsed_s"] * 1e3
     flash_ms = sum(ms for ms, _, key in kernels if "flash_fwd" in key)
     overlap = summary["overlapped_settles"] / max(1, summary["block_settles"])
-    print(f"profile shards binary --demo 64 --shards 4 (profiler on): wall "
+    print(f"profile {label} binary --demo 64 --shards 4 (profiler on): wall "
           f"{wall_ms:.3f} ms, kernels busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), flash_fwd {flash_ms:.3f} ms, "
           f"copies {copy_ms:.3f} ms; {summary['overlapped_settles']} of "
@@ -2275,6 +2380,285 @@ def plane_profile(torch, worker) -> dict:
             busy_ms / wall_ms, "flash_ms": flash_ms, "copy_ms": copy_ms,
             "overlap_share": overlap,
             "top": [(ms, count, key[:90]) for ms, count, key in kernels[:8]]}
+
+
+def llama_phase(torch, flash, smoke: Smoke) -> dict:
+    """The llama family (``--family llama``: the built-in llama, bf16,
+    seeded weights) through every serving path at the generate cell's
+    shape: (a) the binary's ``--demo 64`` through the batch worker and
+    ``--continuous`` at decode blocks 1 and 8, whose replies must be
+    identical, with ``n_layers x inserts`` forward launches and no lse
+    launch; (b) the block-8 worker cycle by cycle (at most one decode
+    dispatch a cycle) and its KV cache; (c) a one-shard plane whose replies
+    must equal the block-8 worker's; (d) the binary's ``--shards 4`` and
+    ``--fleet-max-replicas 3``; (e) f32 staggered prompts through the
+    batcher against ``llama_generate`` alone; (f) an f32 windowed model:
+    the kernel prefill against dense, the rolling generate against the
+    full cache; (g) warm rates beside the GPT's, one after another."""
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        main as worker,
+    )
+
+    out = {"launches": {}}
+    replies = {}
+    modes = (("generate", LLAMA_ARGS),
+             ("continuous-b1", [*LLAMA_ARGS, "--continuous",
+                                "--decode-block", "1"]),
+             ("continuous-b8", [*LLAMA_ARGS, "--continuous",
+                                "--decode-block", "8"]))
+    for mode, args in modes:
+        zero_counts(flash)
+        summary = worker([*demo64(args), "--device", "cuda"])
+        torch.cuda.synchronize()
+        launched = counts(flash)
+        replies[mode] = {rid: json.dumps(body) for rid, body in
+                         summary["replies"].items()}
+        attrs = summary["queue_attributes"]
+        smoke.check(summary["processed"] == 64 and len(replies[mode]) == 64
+                    and summary["duplicate_replies"] == 0
+                    and attrs["ApproximateNumberOfMessages"] == "0"
+                    and attrs["ApproximateNumberOfMessagesNotVisible"] == "0"
+                    and all(len(r.get("tokens", ())) == 32
+                            and all(0 <= t < 8192 for t in r["tokens"])
+                            for r in summary["replies"].values()),
+                    f"llama {mode}: processed {summary['processed']} of 64, "
+                    f"{len(replies[mode])} replies of 32 tokens in the "
+                    f"vocabulary, {summary['duplicate_replies']} duplicates, "
+                    f"queue {attrs}")
+        # the batch worker prefills once a batch of 8, the engine once an
+        # insert of 8: 8 prompt passes of 4 layers either way
+        passes = (summary["insert_dispatches"] if mode != "generate"
+                  else 64 // 8)
+        smoke.check(passes == 8
+                    and launched["flash_fwd"] == LLAMA_LAYERS * passes
+                    and launched["flash_fwd_lse"] == 0,
+                    f"llama {mode}: flash_fwd launches {launched['flash_fwd']}"
+                    f" = {LLAMA_LAYERS} layers x {passes} prompt passes, lse "
+                    f"{launched['flash_fwd_lse']}")
+        out["launches"][f"serve-llama-{mode}"] = launched["flash_fwd"]
+        print(f"llama {mode}: launches {launched}, inserts "
+              f"{summary['insert_dispatches']}, decode dispatches "
+              f"{summary['decode_dispatches']}, host transfers "
+              f"{summary['host_transfers']}", flush=True)
+    single = replies["continuous-b8"]
+    for mode in ("continuous-b1", "continuous-b8"):
+        same = sum(replies[mode].get(r) == b
+                   for r, b in replies["generate"].items())
+        smoke.check(same == 64, f"llama {mode}: {same} of 64 replies "
+                    "byte-identical to the batch worker's (bf16, greedy)")
+
+    # (b) block 8 cycle by cycle, and the compact cache
+    cycles = block_cycles_phase(torch, smoke, LLAMA_ARGS, "llama block 8")
+    smoke.check(cycles["cache_mib"] == LLAMA_CACHE_MIB,
+                f"llama KV cache for 8 slots: {cycles['cache_mib']:.3f} MiB "
+                f"(want {LLAMA_CACHE_MIB:.3f}: 2 kv heads where the GPT's "
+                f"8 hold 34.000)")
+    out["cycles"] = cycles
+
+    # (c) a one-shard plane against the block-8 worker
+    config, params, service_config = demo_setup(torch, LLAMA_ARGS, 8)
+    results = FakeMessageQueue()
+    _, one = plane_worker(torch, params, config, service_config, 1,
+                          result_queue=results, sharded=True,
+                          family="llama")
+    zero_counts(flash)
+    one.drain(total=64)
+    torch.cuda.synchronize()
+    launched = counts(flash)
+    plane_replies = {rid: bodies[0] for rid, bodies in
+                     drain_raw(results, "demo://replies").items()}
+    inserts = one.batcher.insert_dispatches
+    same = sum(plane_replies.get(r) == b for r, b in single.items())
+    smoke.check(same == 64 and one.batcher.family == "llama"
+                and launched["flash_fwd"] == LLAMA_LAYERS * inserts
+                and launched["flash_fwd_lse"] == 0,
+                f"llama S=1 plane bf16 block 8: {same} of 64 replies "
+                f"byte-identical to the block-8 worker's; flash_fwd launches "
+                f"{launched['flash_fwd']} = {LLAMA_LAYERS} x {inserts} "
+                f"inserts, lse {launched['flash_fwd_lse']}")
+    out["launches"]["serve-llama-s1"] = launched["flash_fwd"]
+    del one
+
+    # (d) the binary's --shards 4 and --fleet-max-replicas 3
+    for name, extra in (("shards-4", ["--shards", "4"]),
+                        ("fleet-3", ["--fleet-max-replicas", "3"])):
+        zero_counts(flash)
+        summary = worker([*demo64(LLAMA_ARGS), "--continuous",
+                          "--decode-block", "8", *extra, "--device", "cuda"])
+        torch.cuda.synchronize()
+        launched = counts(flash)
+        inserts = summary["insert_dispatches"]
+        smoke.check(summary["processed"] == 64
+                    and len(summary["replies"]) == 64
+                    and summary["duplicate_replies"] == 0
+                    and launched["flash_fwd"] == LLAMA_LAYERS * inserts
+                    and launched["flash_fwd_lse"] == 0,
+                    f"llama binary {name}: processed {summary['processed']} "
+                    f"of 64, {len(summary['replies'])} replies, "
+                    f"{summary['duplicate_replies']} duplicates; flash_fwd "
+                    f"launches {launched['flash_fwd']} = {LLAMA_LAYERS} x "
+                    f"{inserts} inserts, lse {launched['flash_fwd_lse']}")
+        same = sum(json.dumps(body) == single.get(rid)
+                   for rid, body in summary["replies"].items())
+        print(f"llama binary {name}: {same} of 64 replies byte-identical to "
+              f"the single block-8 worker's (counted, not gated)", flush=True)
+        out["launches"][f"serve-llama-{name}"] = launched["flash_fwd"]
+        out[name] = {"same_as_single": same, "inserts": inserts}
+    del params
+
+    out["f32"] = llama_f32_checks(torch, flash, smoke)
+    out["rates"] = llama_rates(torch, worker)
+    out["ops_per_step"] = ops_per_decode_step(torch)
+    out["profile"] = plane_profile(
+        torch, worker, [*SHARDS_ARGS, "--family", "llama"], "llama shards")
+    return out
+
+
+def ops_per_decode_step(torch) -> dict:
+    """The PyTorch operators one decode step of 8 rows dispatches (each a
+    kernel launch or a view) for the built-in GPT and llama: the host work
+    a decode step costs when serving is launch-bound."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+
+    class Counter(TorchDispatchMode):
+        def __init__(self) -> None:
+            super().__init__()
+            self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    out = {}
+    for family in ("gpt", "llama"):
+        config, params = binary.builtin_model(family, 512, 32, "cuda")
+        model = family_of(config)
+        ids = torch.zeros((8, 512), dtype=torch.long, device="cuda")
+        with torch.inference_mode():
+            _, cache = model.prefill(params, ids, config)
+            with Counter() as counter:
+                model.decode_step(params, cache, ids[:, 0], config)
+        out[family] = counter.ops
+    print(f"operators a decode step of 8 rows dispatches: GPT {out['gpt']}, "
+          f"llama {out['llama']}", flush=True)
+    return out
+
+
+def llama_f32_checks(torch, flash, smoke: Smoke) -> dict:
+    """Parts (e) and (f) of :func:`llama_phase`, in f32 at the built-in
+    llama's width."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import llama
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        builtin_llama_config,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousBatcher,
+    )
+
+    config = dataclasses.replace(builtin_llama_config(512, 32),
+                                 dtype=torch.float32)
+    params = llama.init_llama_params(config, torch.Generator().manual_seed(0),
+                                     "cuda")
+    rng = np.random.default_rng(5)
+    lengths = np.linspace(7, 512, 24).round().astype(int)
+    requests = [rng.integers(0, config.vocab_size, n) for n in lengths]
+    want, near_tie = [], []
+    with torch.inference_mode():
+        for ids in requests:
+            prompt = torch.from_numpy(ids).cuda()
+            tokens = llama.llama_generate(
+                params, prompt[None], 32, config,
+                prompt_attention=llama.llama_attention_fn_for(
+                    config, len(ids), "cuda"))[0]
+            margins = greedy_margins(torch, params, config, prompt, tokens,
+                                     llama.llama_forward)
+            low = np.flatnonzero(margins < MARGIN)
+            want.append(tokens.cpu().numpy())
+            near_tie.append(int(low[0]) if low.size else None)
+    out = {}
+    for block in (1, 8):
+        batcher = ContinuousBatcher(params, config, 8, 512, 32,
+                                    family="llama", decode_block=block,
+                                    device="cuda")
+        before = flash.kernel_launches
+        got, cycle = staggered_drive(batcher, requests)
+        launched = flash.kernel_launches - before
+        bad = [i for i, tokens in got.items()
+               if not np.array_equal(tokens[:near_tie[i] or 32],
+                                     want[i][:near_tie[i] or 32])]
+        ties = {i: p for i, p in enumerate(near_tie) if p is not None}
+        smoke.check(
+            len(got) == 24 and not bad
+            and launched == LLAMA_LAYERS * batcher.insert_dispatches,
+            f"llama f32 staggered block {block}: {len(got)} of 24 requests "
+            f"in {cycle} cycles and {batcher.insert_dispatches} inserts "
+            f"({launched} flash_fwd launches); tokens equal to llama_generate "
+            f"alone up to the first near-tie (margin < {MARGIN:g}): "
+            f"mismatched {bad}; near-ties (request: position) {ties}")
+        out[f"staggered-b{block}"] = {"cycles": cycle, "mismatched": bad,
+                                      "near_ties": ties}
+    del params
+
+    # the sliding window: the kernel's windowed GQA prefill against dense,
+    # and the window-sized ring against the full cache
+    windowed = dataclasses.replace(config, sliding_window=128)
+    params = llama.init_llama_params(windowed,
+                                     torch.Generator().manual_seed(1), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    ids = torch.randint(0, config.vocab_size, (4, 512), generator=g,
+                        device="cuda")
+    row_lengths = torch.tensor([512, 400, 200, 129], device="cuda")
+    pick = llama.llama_attention_fn_for(windowed, 512, "cuda")
+    with torch.inference_mode():
+        before = flash.kernel_launches
+        got, _ = llama.llama_prefill(params, ids, windowed, pick,
+                                     lengths=row_lengths)
+        launched = flash.kernel_launches - before
+        dense, _ = llama.llama_prefill(params, ids, windowed,
+                                       lengths=row_lengths)
+        full = llama.llama_generate(params, ids, 32, windowed,
+                                    prompt_attention=pick,
+                                    lengths=row_lengths)
+        rolling = llama.llama_generate(params, ids, 32, windowed,
+                                       prompt_attention=pick,
+                                       lengths=row_lengths, rolling=True)
+    err = (got - dense).abs().max().item()
+    smoke.check(err <= 1e-4 and launched == LLAMA_LAYERS,
+                f"llama f32 window 128, 512-token prompts: kernel prefill vs "
+                f"dense max|d|={err:.3e} tol=1e-4 ({launched} windowed GQA "
+                f"launches)")
+    same = bool(torch.equal(full, rolling))
+    smoke.check(same, f"llama f32 window 128: the rolling-cache generate's "
+                f"{rolling.numel()} tokens equal the full cache's")
+    out["window"] = {"prefill_err": err, "rolling_equal": same}
+    return out
+
+
+def llama_rates(torch, worker) -> dict:
+    """Warm ``--demo 64`` rates of the GPT and the llama one after the
+    other, for the batch worker, block 8 and ``--shards 4``."""
+    rates = {}
+    for name, extra in (("batch", []),
+                        ("block-8", ["--continuous", "--decode-block", "8"]),
+                        ("shards-4", ["--continuous", "--decode-block", "8",
+                                      "--shards", "4"])):
+        for family in ("gpt", "llama"):
+            summary = worker([*demo64(GENERATE_ARGS), *extra, "--family",
+                              family, "--device", "cuda"])
+            ttft = summary.get("ttft_mean_s") or summary["cycle"]["mean_s"]
+            rates[f"{family}-{name}"] = {
+                "msgs_per_s": summary["msgs_per_s"],
+                "tokens_per_s": summary["tokens_per_s"],
+                "ttft_mean_s": ttft, "elapsed_s": summary["elapsed_s"]}
+            print(f"warm {family} {name} --demo 64: "
+                  f"{summary['msgs_per_s']:.3f} msgs/s, "
+                  f"{summary['tokens_per_s']:.3f} generated tokens/s, mean "
+                  f"TTFT {ttft * 1e3:.3f} ms", flush=True)
+    return rates
 
 
 def odd_head_dim_phase(torch, flash, smoke: Smoke) -> dict:
@@ -2367,6 +2751,7 @@ def main() -> int:
                                   serve)
     shards = serve and stagger and smoke.phase(
         "shards", shards_phase, torch, flash, smoke, serve, stagger, fleet)
+    llama = smoke.phase("llama", llama_phase, torch, flash, smoke)
     odd = smoke.phase("odd head dim", odd_head_dim_phase, torch, flash, smoke)
     f32_train = smoke.phase("f32 train step", f32_train_phase, torch, flash,
                             smoke)
@@ -2377,7 +2762,7 @@ def main() -> int:
                               and train_kern and path and serve and cycles
                               and stagger and rates and prof
                               and serve_prof and sqs and fleet and shards
-                              and odd
+                              and llama and odd
                               and f32_train and train_path and train_prof):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
@@ -2397,16 +2782,24 @@ def main() -> int:
         # chaos episode (its resume inserts included)
         "serve-shards": shards["s1"]["launches"]
         + shards["binary"]["launches"] + shards["chaos"]["bf16"]["launches"],
+        # the llama family: batch, blocks 1 and 8, S = 1, --shards 4 and
+        # --fleet-max-replicas 3, GQA at H_kv = 2
+        **llama["launches"],
         **{f"train-{r}": v["launches"]["flash_fwd"]
            for r, v in train_path.items()},
     }
     fwd = kernel_entry(
         "flash_fwd", "flash_fwd.cu", 159, "_fwd_kernel (need_lse=False)",
-        sum(by_path.values()), by_path, kern["main_err"], timing, MAIN_SHAPES[0])
+        sum(by_path.values()), by_path,
+        max(kern["main_err"], kern["llama_err"]), timing, MAIN_SHAPES[0])
     fwd["at_other_shapes"] = {
         "x".join(map(str, shape)): t for shape, t in
         kern["timings"].items() if shape != MAIN_SHAPES[0]
     }
+    # the llama shapes, (B, H, H_kv, S, D) with the window where there is one
+    for label, (shape, window) in LLAMA_SHAPES.items():
+        key = "x".join(map(str, shape)) + (f"-w{window}" if window else "")
+        fwd["at_other_shapes"][key] = kern["llama_timings"][label]
     fwd["at_other_shapes"]["x".join(map(str, TRAIN_SHAPE))] = \
         train_kern["timings"]["flash_fwd"]
     fwd["tflops"] = timing["tflops"]

@@ -633,14 +633,16 @@ class WorkerPool(FleetPoolBase):
         *,
         min: int,
         max: int,
+        family: str | None = None,
         result_queue=None,
         device="cuda",
         **pool_kwargs,
     ) -> "WorkerPool":
         """A pool of real :class:`~.worker.FleetWorker` replicas over one
         shared queue, on ``device`` (``"cuda"`` by default; a missing card
-        raises).  Replicas share ``params`` by reference; the first builds
-        the engine and the rest adopt it.
+        raises), serving the model ``family`` (``"gpt"`` or ``"llama"``; by
+        default the config's).  Replicas share ``params`` by reference; the
+        first builds the engine and the rest adopt it.
 
         Sampled serving: each replica gets ``sample_seed + spawn
         ordinal``, so the fleet draws independent streams."""
@@ -655,7 +657,7 @@ class WorkerPool(FleetPoolBase):
             )
             return FleetWorker(
                 queue, params, model_config, seeded,
-                result_queue=result_queue, device=device,
+                family=family, result_queue=result_queue, device=device,
                 pool=pool,
                 engine_source=pool.engine_donor(),
             )

@@ -373,6 +373,7 @@ class ShardedWorkerPool(FleetPoolBase):
         min: int,
         max: int | None = None,
         shards: int | None = None,
+        family: str | None = None,
         result_queue=None,
         engine_source=None,
         now_fn=None,
@@ -383,7 +384,8 @@ class ShardedWorkerPool(FleetPoolBase):
         ``shards`` shards of ``service_config.batch_size`` slots
         (``shards`` defaults to ``service_config.shards``, or to ``max``
         when that is 1), on ``device`` (``"cuda"`` by default; a missing
-        card raises).  ``engine_source`` is a sharded donor batcher whose
+        card raises), serving the model ``family`` (by default the
+        config's).  ``engine_source`` is a sharded donor batcher whose
         engine the plane adopts; ``now_fn`` is the request-TTL clock."""
         if shards is None:
             shards = (service_config.shards if service_config.shards > 1
@@ -396,7 +398,7 @@ class ShardedWorkerPool(FleetPoolBase):
             # sharded=True: the plane even at one shard (the worker's own
             # pick would build the plain batcher, which has no masks)
             return FleetWorker(
-                queue, params, model_config, seeded,
+                queue, params, model_config, seeded, family=family,
                 result_queue=result_queue, now_fn=now_fn, device=device,
                 pool=pool, engine_source=engine_source, sharded=True,
             )

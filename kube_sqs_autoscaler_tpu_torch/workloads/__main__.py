@@ -1,8 +1,10 @@
 """Worker binary: ``python -m kube_sqs_autoscaler_tpu_torch.workloads``.
 
 Counterpart of ``python -m kube_sqs_autoscaler_tpu.workloads``: one
-queue-draining GPT inference worker, the process a scaled Deployment
-replica runs.
+queue-draining inference worker, the process a scaled Deployment replica
+runs.  ``--family gpt`` (the default) serves the built-in GPT,
+``--family llama`` the built-in llama (RoPE, GQA with 2 kv heads, RMSNorm,
+SwiGLU) through every mode below.
 
 - ``--sqs-queue-url URL [--aws-region R]`` serves that SQS queue until
   the process is stopped, through :class:`~.service.QueueWorker` (or,
@@ -25,9 +27,10 @@ replica runs.
 
 The worker runs on the card (``--device cuda``, the default) and exits
 with an error when there is none; ``--device cpu`` runs it on the CPU.
-Weights are the built-in GPT config's, drawn from a seeded generator.
-Flags of the reference binary whose paths are not ported yet are not
-accepted.
+Weights are the built-in config's, drawn from a seeded generator.
+Flags of the reference binary whose paths are not ported yet
+(``--checkpoint-dir``, ``--hf-checkpoint``, ``--model-parallel``, ...) are
+not accepted.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ from ..device import resolve_device
 from ..metrics.fake import FakeMessageQueue
 from ..utils.logging import configure_logging
 from .continuous import ContinuousWorker
-from .model import ModelConfig, init_params
+from .family import family_of
+from .llama import LlamaConfig
+from .model import ModelConfig
 from .service import QueueWorker, ServiceConfig, collect_replies
 
 log = logging.getLogger("worker")
@@ -57,6 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--sqs-queue-url", default="", help="The sqs queue url")
     parser.add_argument("--aws-region", default="", help="Your AWS region")
     parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument(
+        "--family", choices=tuple(BUILTIN_CONFIGS), default="gpt",
+        help="model family served: gpt (learned positions, MHA) or llama "
+             "(RoPE, GQA: an n_kv_heads-sized KV cache)",
+    )
     parser.add_argument("--seq-len", type=int, default=64)
     parser.add_argument(
         "--generate-tokens", type=int, default=0, metavar="N",
@@ -149,6 +159,27 @@ def builtin_config(seq_len: int, generate_tokens: int) -> ModelConfig:
         vocab_size=8192, d_model=512, n_heads=8, n_layers=4, d_ff=2048,
         max_seq_len=max(64, seq_len + generate_tokens),
     )
+
+
+def builtin_llama_config(seq_len: int, generate_tokens: int) -> LlamaConfig:
+    """The built-in llama (``--family llama``): the GPT's vocab, width,
+    heads and depth, 2 kv heads and d_ff 1408, with the same context."""
+    return LlamaConfig(
+        vocab_size=8192, d_model=512, n_heads=8, n_kv_heads=2, n_layers=4,
+        d_ff=1408, max_seq_len=max(64, seq_len + generate_tokens),
+    )
+
+
+BUILTIN_CONFIGS = {"gpt": builtin_config, "llama": builtin_llama_config}
+
+
+def builtin_model(family: str, seq_len: int, generate_tokens: int,
+                  device: str | torch.device):
+    """``(config, params)``: the built-in model of ``family`` (``--family``)
+    and its weights, drawn from a generator seeded 0."""
+    config = BUILTIN_CONFIGS[family](seq_len, generate_tokens)
+    init = family_of(config).init_params
+    return config, init(config, torch.Generator().manual_seed(0), device)
 
 
 def demo_queue(demo: int, model_config: ModelConfig,
@@ -427,8 +458,8 @@ def main(argv=None) -> dict | None:
         device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(f"error: {err}") from None
-    model_config = builtin_config(args.seq_len, args.generate_tokens)
-    params = init_params(model_config, torch.Generator().manual_seed(0), device)
+    model_config, params = builtin_model(args.family, args.seq_len,
+                                         args.generate_tokens, device)
     service_config = ServiceConfig(
         queue_url=args.sqs_queue_url, batch_size=args.batch_size,
         seq_len=args.seq_len,

@@ -1,8 +1,10 @@
 """Continuous batching: rolling decode slots that refill independently.
 
 Counterpart of ``kube_sqs_autoscaler_tpu/workloads/continuous.py``, plain
-GPT path.  The batch worker (:class:`.service.QueueWorker` in generate
-mode) decodes a whole batch before it takes another message; here every
+path, for both model families (``family="gpt"`` or ``"llama"``, whose
+slots hold the compact GQA cache).  The batch worker
+(:class:`.service.QueueWorker` in generate mode) decodes a whole batch
+before it takes another message; here every
 row of the KV cache is a slot of its own.  Each engine step advances every
 busy slot, a finished slot replies at once, and new requests are
 prefilled into free slots while the others keep decoding.  Greedy outputs
@@ -11,11 +13,13 @@ included: the batcher changes scheduling, never results.
 
 - **Admission** (:meth:`ContinuousBatcher.submit_many`): one refill's
   prompts, each padded to the ``prompt_len`` bucket, prefill as one
-  ``[M, P]`` batch (through the CUDA flash forward on the card) and are
+  ``[M, P]`` batch (through the CUDA flash forward on the card, in its
+  GQA mode with the sliding window for the llama family) and are
   copied into their slot rows, with each row's length, pending token and
   liveness folded into the batcher's state: one insert, no host wait.
-- **Decode**: at ``decode_block == 1`` one :func:`.decode.decode_step`
-  over every slot, busy or not, and one host wait per token (the
+- **Decode**: at ``decode_block == 1`` one decode step of the family
+  (:func:`.decode.decode_step` or :func:`.llama.llama_decode_step`) over
+  every slot, busy or not, and one host wait per token (the
   reference's baseline).  At ``decode_block > 1`` a
   :func:`.decode.block_decode` with the liveness on the device, and block
   N+1 is dispatched before block N is read, so the host's settle, reply
@@ -45,8 +49,8 @@ The worker reports its serving gauges and TTFT histogram to a
 :class:`~..obs.prometheus.WorkloadMetrics` registry
 (:meth:`ContinuousWorker.attach_metrics`), from host counters only.
 
-Not ported yet (the batcher raises ``ValueError``): the llama family, a
-mesh, the int8 KV cache, the shared prefix cache, speculative and beam
+Not ported yet (the batcher raises ``ValueError``): a mesh, the int8 KV
+cache, the shared prefix cache, speculative and beam
 slots, and tenancy (with the overload ladder's ``_quiesce_rows``).
 """
 
@@ -66,8 +70,8 @@ import torch
 
 from ..device import resolve_device
 from ..utils.profiling import SpanTimer
-from .decode import _pick, block_decode, decode_step, init_cache, prefill
-from .flash import attention_fn_for
+from .decode import _pick, block_decode, prefill
+from .family import family_of
 from .model import ModelConfig
 from .service import (
     ServiceConfig, build_token_reply, parse_request_body, request_id,
@@ -117,11 +121,13 @@ class _HostCopy:
         return [host.numpy() for host in self.host]
 
 
-def _rows_prefill(params, prompts, lengths, config, attention_fn):
-    """``M`` prompts' prefill as one ``[M, P]`` batch; returns ``(logits
-    [M, V], rows_cache)``.  Rows never interact across the batch, so each
-    row's result is what its own ``[1, P]`` prefill gives."""
-    return prefill(params, prompts, config, attention_fn, lengths=lengths)
+def _rows_prefill(params, prompts, lengths, config, attention_fn,
+                  prefill_fn=prefill):
+    """``M`` prompts' prefill as one ``[M, P]`` batch through the family's
+    ``prefill_fn``; returns ``(logits [M, V], rows_cache)``.  Rows never
+    interact across the batch, so each row's result is what its own ``[1,
+    P]`` prefill gives."""
+    return prefill_fn(params, prompts, config, attention_fn, lengths=lengths)
 
 
 def _splice_rows_layers(cache, rows_cache, rows, prompt_len) -> None:
@@ -151,6 +157,7 @@ def _insert_rows_impl(
     top_p: float = 1.0,
     eos_id: int | None = None,
     budgets: torch.Tensor | None = None,
+    prefill_fn=prefill,
 ) -> torch.Tensor:
     """Batched admission: prefill ``prompts`` (``[M, P]``, right-padded,
     real lengths ``lengths``) as one batch, copy them into slot ``rows``
@@ -159,9 +166,10 @@ def _insert_rows_impl(
     (``budget - 1``: the first token spends one) into the state, all in
     place.  ``budgets`` (``[M]``) replaces ``budget - 1`` with each row's
     own remaining budget: the resume insert's rows are mid-request.
-    Returns the first tokens ``[M]``, still on the device."""
+    ``prefill_fn`` is the family's prefill.  Returns the first tokens
+    ``[M]``, still on the device."""
     logits, rows_cache = _rows_prefill(params, prompts, lengths, config,
-                                       attention_fn)
+                                       attention_fn, prefill_fn)
     _splice_rows_layers(cache, rows_cache, rows, prompts.shape[1])
     cache["length"][rows] = lengths
     firsts = _pick(logits, key, temperature, top_k, top_p)
@@ -186,9 +194,15 @@ class ContinuousBatcher:
     """The slot machine: submit prompts, step the batch, collect results.
 
     Synchronous and queue-agnostic: drive it from anything that produces
-    ``(token_ids, payload)`` requests.  Greedy or sampled
-    (``temperature``/``top_k``/``top_p`` through :func:`.decode._pick`,
-    one generator per engine step), ``eos_id`` ends a slot early.  The
+    ``(token_ids, payload)`` requests.  The config's class picks the model
+    family (:func:`.family.family_of`): a :class:`.model.ModelConfig` is
+    served as the GPT, a :class:`.llama.LlamaConfig` as the llama (the
+    compact GQA cache, the llama prefill with the sliding window,
+    :func:`.llama.llama_decode_step`); ``family``, where given, must name
+    the same family.  Greedy or
+    sampled (``temperature``/``top_k``/``top_p`` through
+    :func:`.decode._pick`, one generator per engine step), ``eos_id`` ends a
+    slot early.  The
     model runs on ``device`` (``"cuda"`` by default; a missing card
     raises).  Counters: ``insert_dispatches`` and ``decode_dispatches``
     (device work launched), ``host_transfers`` (host waits for a device
@@ -214,7 +228,7 @@ class ContinuousBatcher:
         prompt_len: int,
         generate_tokens: int,
         *,
-        family: str = "gpt",
+        family: str | None = None,
         temperature: float = 0.0,
         top_k: int = 0,
         top_p: float = 1.0,
@@ -231,10 +245,8 @@ class ContinuousBatcher:
     ) -> None:
         if beams < 1:
             raise ValueError(f"beams={beams} must be >= 1")
-        if family not in ("gpt", "llama"):
-            raise ValueError(f"unknown family {family!r}")
+        model_family = family_of(config, family)
         unported = {
-            "family='llama'": family == "llama",
             "mesh": mesh is not None,
             "quantized_kv": quantized_kv,
             "prefix_cache": prefix_cache is not None,
@@ -246,7 +258,7 @@ class ContinuousBatcher:
             if asked:
                 raise ValueError(
                     f"{knob} is not yet ported to the PyTorch continuous "
-                    "batcher (plain GPT path only)"
+                    "batcher (plain path only)"
                 )
         if decode_block < 1:
             raise ValueError(f"decode_block={decode_block} must be >= 1")
@@ -263,6 +275,7 @@ class ContinuousBatcher:
         self.device = resolve_device(device)
         self.params = params
         self.config = config
+        self.family = model_family.name
         self.prompt_len = prompt_len
         self.generate_tokens = generate_tokens
         self.temperature = temperature
@@ -281,14 +294,18 @@ class ContinuousBatcher:
         self.slot_limit: int | None = None
         self.free_slot_scans = 0
         # the engine a fleet replica adopts from its donor (adopt_engine):
-        # the prompt-pass attention and the insert and decode steps
-        self._attention_fn = attention_fn_for(prompt_len, self.device,
-                                              config.head_dim)
+        # the prompt-pass attention (the llama pick carries the sliding
+        # window), the insert and its prefill, the family's decode step and
+        # the engine that runs it
+        self._attention_fn = model_family.attention_fn_for(
+            config, prompt_len, self.device)
         self._insert_many = _insert_rows_impl
+        self._prefill_fn = model_family.prefill
+        self._step_fn = model_family.decode_step
         if decode_block > 1:
             self._block_fn = block_decode
         else:
-            self._decode = decode_step
+            self._decode = self._step_fn
         # serving stats
         self.tokens_emitted = 0
         self.ttft_sum = 0.0
@@ -316,7 +333,8 @@ class ContinuousBatcher:
         self._pending_block: tuple[_HostCopy, int] | None = None
         self.slots = [_Slot() for _ in range(batch_size)]
         with torch.inference_mode():
-            self.cache = init_cache(config, batch_size, self.device)
+            self.cache = model_family.init_cache(config, batch_size,
+                                                 self.device)
             # each slot's next input token, and its liveness on the
             # device: done marks a free or finished row (admission clears
             # it), remaining its unspent budget
@@ -334,7 +352,8 @@ class ContinuousBatcher:
 
     def adopt_engine(self, source: "ContinuousBatcher") -> None:
         """Share ``source``'s engine: its prompt-pass attention and its
-        insert and decode steps.  They close over the serving knobs only,
+        insert and decode steps (of one family: the family is part of the
+        engine key).  They close over the serving knobs only,
         never over a batcher's rolling state, so a fleet replica built
         with the donor's knobs, params and config runs the donor's engine
         and pays only for its own KV cache.  Raises ``ValueError`` when a
@@ -353,6 +372,8 @@ class ContinuousBatcher:
             )
         self._attention_fn = source._attention_fn
         self._insert_many = source._insert_many
+        self._prefill_fn = source._prefill_fn
+        self._step_fn = source._step_fn
         # whichever decode step both sides built (a live decode_block
         # change can leave a block engine at block 1)
         if hasattr(source, "_block_fn") and hasattr(self, "_block_fn"):
@@ -369,8 +390,8 @@ class ContinuousBatcher:
         """The serving knobs the engine depends on."""
         return (
             len(self.slots), self.prompt_len, self.generate_tokens,
-            self.temperature, self.top_k, self.top_p, self.eos_id,
-            self.decode_block, str(self.device),
+            self.family, self.temperature, self.top_k, self.top_p,
+            self.eos_id, self.decode_block, str(self.device),
         )
 
     def request_decode_block(self, block: int) -> bool:
@@ -488,6 +509,7 @@ class ContinuousBatcher:
                 _to_device(lengths, self.device), next(self._keys),
                 self.config, self.generate_tokens, self._attention_fn,
                 self.temperature, self.top_k, self.top_p, self.eos_id,
+                prefill_fn=self._prefill_fn,
             )
             self._defer_firsts(firsts, rows)
         self.insert_dispatches += 1
@@ -563,6 +585,7 @@ class ContinuousBatcher:
                 self.config, self.generate_tokens, self._attention_fn,
                 self.temperature, self.top_k, self.top_p, self.eos_id,
                 budgets=_to_device(budgets, self.device),
+                prefill_fn=self._prefill_fn,
             )
             self._defer_firsts(firsts, rows)
         self.insert_dispatches += 1
@@ -694,8 +717,8 @@ class ContinuousBatcher:
                  tokens, counts) = self._block_fn(
                     self.params, self.cache, self._current, self._done,
                     self._remaining, self._block_keys(), self.config,
-                    temperature=self.temperature, top_k=self.top_k,
-                    top_p=self.top_p, eos_id=self.eos_id,
+                    self._step_fn, temperature=self.temperature,
+                    top_k=self.top_k, top_p=self.top_p, eos_id=self.eos_id,
                 )
                 new_block = (_HostCopy(tokens, counts), busy)
             self.decode_dispatches += 1
@@ -750,7 +773,9 @@ class ContinuousWorker:
     reply (when ``ServiceConfig.result_queue_url`` is set) is sent.  A long
     request never blocks fresh messages: slots refill as they finish.
     ``now_fn`` is the request-TTL clock and must share a time base with
-    the queue's ``SentTimestamp`` (epoch seconds by default)."""
+    the queue's ``SentTimestamp`` (epoch seconds by default).  ``family``
+    (``"gpt"`` or ``"llama"``; by default the config's) goes to the
+    batcher or the plane."""
 
     # after an empty receive while slots are still decoding, skip this
     # many cycles before polling again (one billed receive per generated
@@ -767,6 +792,7 @@ class ContinuousWorker:
         result_queue=None,
         now_fn=None,
         sharded: bool | None = None,
+        family: str | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
         if service_config.generate_tokens < 1:
@@ -793,6 +819,7 @@ class ContinuousWorker:
             eos_id=service_config.eos_id,
             sample_seed=service_config.sample_seed,
             decode_block=service_config.decode_block,
+            family=family,
             device=device,
         )
         if sharded is None:

@@ -1,9 +1,13 @@
 """The JAX package's parameters to the port's.
 
-The JAX package's ``init_params`` pytree, passed as numpy arrays (for
-example ``jax.tree.map(np.asarray, params)``), becomes the port's parameter
-dict: the same names, the same nesting and the same ``[in, out]`` weight
-layout, so no array is transposed.  This module imports no JAX; the caller
+The JAX package's ``init_params`` or ``init_llama_params`` pytree, passed
+as numpy arrays (for example ``jax.tree.map(np.asarray, params)``), becomes
+the port's parameter dict: the same names, the same nesting and the same
+``[in, out]`` weight layout, so no array is transposed.  For the llama
+family that is ``embed``, ``final_norm`` and an optional ``lm_head``, and
+per layer ``attn_norm``, ``wq``, ``wkv``, ``wo``, ``mlp_norm``,
+``w_gate_up`` and ``w_down`` (or the split pipeline layout's ``wk`` /
+``wv`` / ``w_gate`` / ``w_up``).  This module imports no JAX; the caller
 does the ``np.asarray``.
 """
 
@@ -12,10 +16,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .llama import LlamaConfig
 from .model import ModelConfig
 
 
-def _tensor(array, config: ModelConfig, device) -> torch.Tensor:
+def _tensor(array, config: ModelConfig | LlamaConfig, device) -> torch.Tensor:
     # bf16 arrays arrive as ml_dtypes' bfloat16, which torch cannot read:
     # widen to fp32 (exact) on the host, then cast to the config's dtype
     host = np.array(array)  # a writable, contiguous copy
@@ -27,7 +32,9 @@ def _tensor(array, config: ModelConfig, device) -> torch.Tensor:
 
 
 def params_from_jax(
-    numpy_pytree: dict, config: ModelConfig, device: str | torch.device = "cuda"
+    numpy_pytree: dict,
+    config: ModelConfig | LlamaConfig,
+    device: str | torch.device = "cuda",
 ) -> dict:
     """The port's parameter dict from the reference's (numpy leaves).
 

@@ -9,7 +9,10 @@ token runs the single-position path against the cache
 :func:`block_decode` advances the continuous batcher's slots a block of
 tokens at a time with their liveness on the device, and
 :func:`gang_block_decode` does it for the sharded plane's ``S`` engine
-shards in one call.
+shards in one call; both take the model family's decode step as
+``step_fn`` (the llama family's is ``llama.llama_decode_step``, which
+reuses the masked cache attention here, its sliding window and grouped
+queries included).
 
 Unlike the reference's pure functions, the port writes the cache **in
 place**: :func:`prefill` fills a fresh cache and :func:`decode_step`
@@ -104,28 +107,55 @@ def prefill(
     return logits, cache
 
 
+def _masked_cache_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    valid: torch.Tensor,
+) -> torch.Tensor:
+    """``q`` (``[B, H, T, D]``) against a cache of ``H_kv`` heads (``H_kv``
+    divides ``H``): fp32 scores, ``-inf`` where ``valid`` (broadcast to
+    ``[B, H, T, S]``) is False, an fp32 softmax cast to ``q``'s dtype.  Query
+    head ``h`` reads kv head ``h // (H / H_kv)``: the queries are grouped
+    as ``[B, H_kv, G * T, D]`` against the compact cache, the dot products
+    of the reference's repeated cache without a repeated (and upcast)
+    copy; at ``H_kv = H`` the grouping is no reshape at all."""
+    batch, heads, chunk, head_dim = q.shape
+    kv_heads, keys = k_cache.shape[1], k_cache.shape[2]
+    grouped = q.reshape(batch, kv_heads, heads // kv_heads * chunk, head_dim)
+    scores = torch.matmul(
+        grouped.float(), k_cache.float().transpose(-1, -2)
+    ).view(batch, heads, chunk, keys) / (head_dim ** 0.5)
+    scores = scores.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.matmul(probs.view(batch, kv_heads, -1, keys), v_cache)
+    return out.view(batch, heads, chunk, head_dim)
+
+
 def _chunk_cached_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     start: torch.Tensor,
+    window: int | None = None,
 ) -> torch.Tensor:
     """``T`` query positions per row (``[B, H, T, D]`` at global positions
     ``start[b] + t``) against the padded cache: query ``t`` attends
-    entries ``<= start[b] + t``, fp32 scores masked with -inf."""
-    head_dim = q.shape[-1]
+    entries ``<= start[b] + t``, and with ``window`` only those ``> start[b]
+    + t - window`` (sliding-window models)."""
     chunk = q.shape[2]
-    scores = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) / (
-        head_dim ** 0.5
-    )
     key_pos = torch.arange(k_cache.shape[2], device=q.device)
     q_pos = start[:, None, None, None] + torch.arange(
         chunk, device=q.device
     )[None, None, :, None]
     valid = key_pos <= q_pos
-    scores = scores.masked_fill(~valid, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.matmul(probs, v_cache)
+    if window is not None:
+        # the window's lower edge stops at the cache's last key: an idle
+        # slot stepping on past the end keeps its last `window` keys and a
+        # finite softmax (an empty one is NaN, which the sampler rejects)
+        last = k_cache.shape[2] - 1
+        valid = valid & (key_pos > q_pos.clamp(max=last) - window)
+    return _masked_cache_attention(q, k_cache, v_cache, valid)
 
 
 def _cached_attention(
@@ -133,10 +163,11 @@ def _cached_attention(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     length: torch.Tensor,
+    window: int | None = None,
 ) -> torch.Tensor:
     """One query position per row (``[B, H, 1, D]``) against the cache:
     the ``T = 1`` case of :func:`_chunk_cached_attention`."""
-    return _chunk_cached_attention(q, k_cache, v_cache, length)
+    return _chunk_cached_attention(q, k_cache, v_cache, length, window)
 
 
 def _decode_impl(
@@ -310,6 +341,7 @@ def block_decode(
     remaining: torch.Tensor,
     keys: list,
     config: ModelConfig,
+    step_fn=decode_step,
     *,
     temperature: float = 0.0,
     top_k: int = 0,
@@ -320,9 +352,10 @@ def block_decode(
     health: bool = False,
 ):
     """Advance every live row up to ``block = len(keys)`` tokens: a Python
-    loop of :func:`decode_step` with the per-row liveness kept on the
-    device, so the host waits once per block, not per token (the
-    reference's ``lax.scan``).
+    loop of ``step_fn`` (the model family's decode step, :func:`decode_step`
+    by default; ``llama.llama_decode_step`` for the llama family) with the
+    per-row liveness kept on the device, so the host waits once per block,
+    not per token (the reference's ``lax.scan``).
 
     Per-row state (``[batch]`` tensors the caller owns across calls):
     ``current`` the next input token, ``done`` the row emitted ``eos_id``
@@ -359,7 +392,7 @@ def block_decode(
         if freeze is not None:
             live = live & ~freeze
         length = cache["length"]
-        logits, cache = decode_step(params, cache, current, config)
+        logits, cache = step_fn(params, cache, current, config)
         pick_from = logits
         if corrupt is not None:
             logits = logits.masked_fill(corrupt[:, None], float("nan"))
@@ -390,6 +423,7 @@ def gang_block_decode(
     keys: list,
     shard_active: torch.Tensor,
     config: ModelConfig,
+    step_fn=decode_step,
     *,
     shards: int,
     temperature: float = 0.0,
@@ -400,7 +434,8 @@ def gang_block_decode(
     wedge: torch.Tensor | None = None,
 ):
     """Advance ``shards`` engine shards of ``B = rows / shards`` slots
-    each with one :func:`block_decode` over the flat ``[S*B]`` rows (the
+    each with one :func:`block_decode` of ``step_fn`` over the flat
+    ``[S*B]`` rows (the
     reference ``vmap``s it over ``[S, B]``; rows never interact, so the
     flat call computes what ``S`` independent engines would).
 
@@ -430,7 +465,7 @@ def gang_block_decode(
 
     (cache, current, done, remaining, tokens, counts,
      bad_rows) = block_decode(
-        params, cache, current, done, remaining, keys, config,
+        params, cache, current, done, remaining, keys, config, step_fn,
         temperature=temperature, top_k=top_k, top_p=top_p, eos_id=eos_id,
         freeze=per_row(wedge), corrupt=per_row(poison), health=True,
     )

@@ -12,8 +12,10 @@ inputs.  Two modes:
   of that many continuation tokens per body (:mod:`.decode`).
 
 On the card both modes run their prompt pass through the CUDA flash
-kernel (:func:`.flash.attention_fn_for`).  The rolling-slot generate
-worker is :class:`.continuous.ContinuousWorker`, which reads
+kernel (the family's pick, :mod:`.family`).  The model calls are the
+reference's seams: ``forward_fn`` and ``generate_fn`` (by default those
+of the config's family, the GPT or the llama).  The rolling-slot
+generate worker is :class:`.continuous.ContinuousWorker`, which reads
 ``decode_block`` and ``request_ttl_s`` here.  Reply bytes match the
 reference worker's for the same traffic and weights (greedy).
 
@@ -37,9 +39,8 @@ import torch
 
 from ..device import resolve_device
 from ..utils.profiling import SpanTimer, maybe_trace
-from .decode import generate
-from .flash import attention_fn_for
-from .model import ModelConfig, forward
+from .family import family_of
+from .model import ModelConfig
 
 log = logging.getLogger(__name__)
 
@@ -202,7 +203,15 @@ class ServiceConfig:
 class QueueWorker:
     """One worker: receive → batch → forward or generate → (reply) →
     delete, until stopped.  The model runs on ``device`` (``"cuda"`` by
-    default; a missing card raises)."""
+    default; a missing card raises).
+
+    ``forward_fn(params, tokens) -> logits [B, S, vocab]`` and
+    ``generate_fn(params, tokens, num_tokens, lengths) -> [B, num_tokens]``
+    are the model seams.  The defaults run the forward and generate of
+    the config's family (:func:`.family.family_of`: the GPT or the llama)
+    with the prompt attention picked by the batch's bucket length, and the
+    generate default samples with the seed-per-batch generators of
+    :func:`sampling_keys`."""
 
     def __init__(
         self,
@@ -210,6 +219,8 @@ class QueueWorker:
         params: Any,
         model_config: ModelConfig,
         service_config: ServiceConfig,
+        forward_fn=None,
+        generate_fn=None,
         result_queue: MessageQueue | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
@@ -235,6 +246,30 @@ class QueueWorker:
                 )
         self._sample_keys = sampling_keys(service_config.sample_seed,
                                           self.device)
+        family = family_of(model_config)
+
+        def attention(tokens):
+            return family.attention_fn_for(model_config, tokens.shape[1],
+                                           self.device)
+
+        def default_forward(params, tokens):
+            return family.forward(params, tokens, model_config,
+                                  attention(tokens))
+
+        def default_generate(params, tokens, num_tokens, lengths):
+            config = self.config
+            generator = None
+            if config.temperature > 0.0:
+                generator = next(self._sample_keys)
+            return family.generate(
+                params, tokens, num_tokens, model_config, attention(tokens),
+                temperature=config.temperature, generator=generator,
+                lengths=lengths, top_k=config.top_k, top_p=config.top_p,
+                eos_id=config.eos_id,
+            )
+
+        self._forward = forward_fn or default_forward
+        self._generate = generate_fn or default_generate
         self._stop = threading.Event()
         self.processed = 0
         self.generated_tokens = 0
@@ -293,21 +328,12 @@ class QueueWorker:
             [m["Body"] for m in messages]
         )
         config = self.config
-        attention_fn = attention_fn_for(tokens.shape[1], self.device,
-                                        self.model_config.head_dim)
         # the host copy below waits for the device, so deletion happens
         # strictly after compute succeeds (at-least-once processing)
         with torch.inference_mode():
             if config.generate_tokens > 0:
-                generator = None
-                if config.temperature > 0.0:
-                    generator = next(self._sample_keys)
-                produced = generate(
-                    self.params, tokens, config.generate_tokens,
-                    self.model_config, temperature=config.temperature,
-                    generator=generator, attention_fn=attention_fn,
-                    lengths=lengths, top_k=config.top_k, top_p=config.top_p,
-                    eos_id=config.eos_id,
+                produced = self._generate(
+                    self.params, tokens, config.generate_tokens, lengths,
                 ).cpu().numpy()
                 self.generated_tokens += produced[: len(messages)].size
                 results = [
@@ -315,8 +341,7 @@ class QueueWorker:
                     for row in produced[: len(messages)]
                 ]
             else:
-                logits = forward(self.params, tokens, self.model_config,
-                                 attention_fn)
+                logits = self._forward(self.params, tokens)
                 rows = torch.arange(logits.shape[0], device=logits.device)
                 picks = torch.argmax(logits[rows, lengths - 1], dim=-1)
                 results = [

@@ -11,7 +11,8 @@ runs the whole fleet's decode as one call over a shard axis:
   insert, the liveness state and the cache are the batcher's own;
 - **one gang step a cycle**: :func:`~.decode.gang_block_decode` advances
   every shard up to ``decode_block`` tokens in one :func:`~.decode.
-  block_decode` over all ``S*B`` rows, and reduces a ``[S]`` free-slot
+  block_decode` of the family's decode step over all ``S*B`` rows (either
+  model family, as the batcher), and reduces a ``[S]`` free-slot
   summary and a ``[S]`` health flag on the device;
 - **one admission plane**: a refill's requests go to the freest admitting
   shard one at a time (ties to the lowest shard) and prefill as one
@@ -404,7 +405,7 @@ class ShardedBatcher(ContinuousBatcher):
                  tokens, counts, free, bad) = self._gang_fn(
                     self.params, self.cache, self._current, self._done,
                     self._remaining, self._block_keys(), self._shard_active,
-                    self.config, shards=self.shards,
+                    self.config, self._step_fn, shards=self.shards,
                     temperature=self.temperature, top_k=self.top_k,
                     top_p=self.top_p, eos_id=self.eos_id,
                     poison=(self._shard_poison if any(self.shard_poisoned)

@@ -430,7 +430,7 @@ def test_sampled_run_terminates_in_vocab_and_reproduces(decode_block):
 
 
 @pytest.mark.parametrize("knobs,match", [
-    (dict(family="llama"), "not yet ported"),
+    (dict(family="llama"), "serves a LlamaConfig"),
     (dict(mesh=object()), "not yet ported"),
     (dict(quantized_kv=True), "not yet ported"),
     (dict(prefix_cache={}), "not yet ported"),
@@ -450,6 +450,29 @@ def test_unported_and_invalid_knobs_raise(knobs, match):
     kw.update(knobs)
     with pytest.raises(ValueError, match=match):
         port_batcher(tp, tcfg, **kw)
+
+
+def test_family_llama_builds_the_gqa_engine():
+    # the llama family is served: its config, compact cache and step
+    from kube_sqs_autoscaler_tpu_torch.workloads import llama
+
+    config = llama.LlamaConfig(vocab_size=64, d_model=32, n_heads=4,
+                               n_kv_heads=2, n_layers=1, d_ff=48,
+                               max_seq_len=24, dtype=torch.float32)
+    params = llama.init_llama_params(config, torch.Generator().manual_seed(0),
+                                     "cpu")
+    batcher = port_batcher(params, config, batch_size=2, generate_tokens=4,
+                           family="llama", decode_block=2)
+    assert batcher.family == "llama"
+    assert port_batcher(params, config, batch_size=2,
+                        generate_tokens=4).family == "llama"
+    assert batcher.cache["layers"][0]["k"].shape == (2, 2, 24, 8)
+    assert batcher._step_fn is llama.llama_decode_step
+    got = drain(batcher, prompts(3, seed=4, max_len=8))
+    for i, ids in enumerate(prompts(3, seed=4, max_len=8)):
+        want = llama.llama_generate(params, torch.from_numpy(ids)[None], 4,
+                                    config)
+        np.testing.assert_array_equal(got[i], want[0].numpy())
 
 
 def test_service_config_checks_the_continuous_knobs():

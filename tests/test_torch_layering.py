@@ -7,7 +7,8 @@ and a subprocess in which ``jax``, ``jaxlib`` and
 ``kube_sqs_autoscaler_tpu`` cannot be imported still imports the port and
 runs a tiny forward, generate, worker cycle, continuous-worker drain,
 fleet episode with its control loop, sharded-plane drain, sharded-pool
-episode with a poisoned shard and train step on the CPU.  The
+episode with a poisoned shard, llama forward, generate and two-shard
+drain, and train step on the CPU.  The
 control-plane subpackages import no torch at all, so importing the fleet
 starts no CUDA work and builds no kernel.
 """
@@ -46,6 +47,7 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert {path.parent.name for path in files} >= set(SUBPACKAGES)
     assert len(files) > 10
+    assert PORT / "workloads" / "llama.py" in files
     offenders = {
         str(path.relative_to(ROOT)): name
         for path in files for name in absolute_imports(path) if banned(name)
@@ -79,6 +81,7 @@ from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
 from kube_sqs_autoscaler_tpu_torch.workloads import decode, model, service
 from kube_sqs_autoscaler_tpu_torch.workloads import __main__, worker  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import continuous, shard_plane
+from kube_sqs_autoscaler_tpu_torch.workloads import llama
 from kube_sqs_autoscaler_tpu_torch.workloads import data, perf, train  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import trainer  # noqa
 from kube_sqs_autoscaler_tpu_torch import core, fleet, metrics, obs, sim
@@ -140,6 +143,20 @@ stats = fleet.FleetDriver(
     sharded, fault_plan=sim.FleetFaultPlan(shard_poisons=((1, 3, 0),)),
     cycle_dt=0.5).run(until_processed=3)
 assert stats["processed"] == 3 and sharded.quarantined_total == 1
+lcfg = llama.LlamaConfig(vocab_size=64, d_model=64, n_heads=4, n_kv_heads=2,
+                         n_layers=1, d_ff=64, max_seq_len=32,
+                         dtype=torch.float32)
+lparams = llama.init_llama_params(lcfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+assert llama.llama_forward(lparams, ids, lcfg).shape == (2, 8, 64)
+assert llama.llama_generate(lparams, ids, 3, lcfg).shape == (2, 3)
+jobs.send_message("q", json.dumps([1, 2, 3]))
+lw = continuous.ContinuousWorker(
+    jobs, lparams, lcfg,
+    service.ServiceConfig(queue_url="q", seq_len=8, generate_tokens=3,
+                          decode_block=2, shards=2),
+    family="llama", device="cpu")
+assert lw.drain(total=1) == 1 and lw.batcher.family == "llama"
 state = train.train_state(params, train.TrainConfig())
 step = train.make_train_step(cfg, train.TrainConfig(), "cpu")
 assert step(state, ids)[0]["step"] == 1
