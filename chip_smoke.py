@@ -97,10 +97,27 @@ Phases (any failure makes the run exit non-zero and print no result):
    of 128: the kernel's windowed GQA prefill within 1e-4 of dense, the
    rolling-cache generate equal to the full cache's; warm rates of the GPT
    and the llama one after another (batch, block 8, ``--shards 4``);
-11. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
+11. int8: the built-in GPT and llama in bf16 with ``--quantize int8``,
+   ``--quantize-kv`` and both: codes quantized on the card byte-equal to
+   the CPU's, the weight bytes from the binary's log line, the 8-slot int8
+   caches (18.0625 MiB GPT, 4.5156 MiB llama); replies identical across
+   the batch worker, blocks 1 and 8 and S = 1 with ``n_layers x`` prompt
+   passes forward launches; in f32 (int8 weights and cache) the
+   staggered prompts through blocks 1 and 8 and a 4-shard plane against
+   the port's own int8 generate up to the first near-tie; warm rates and
+   peak memory of bf16, int8 weights, int8 cache and both at block 8 and
+   ``--shards 4``; a profiled int8 plane;
+12. prefix: ``--prefix-ids`` of 37 tokens at both families' full width,
+   full-precision and int8 cache, through batch, blocks 1 and 8 and
+   ``--shards 4`` (the prefix's ``n_layers`` launches once, the suffix
+   inserts none; replies counted against the batch worker's); in f32 the
+   staggered suffixes through the block-8 batcher behind the prefix
+   against ``generate`` of prefix and suffix joined (the int8 layout
+   against its own prefix generate), up to the first near-tie;
+13. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
    through dense attention with no kernel launch, its loss falling; the
    forward wrapper called directly at D = 16 must raise ``ValueError``;
-12. training: an f32 loss and gradient at the flagship train width through
+14. training: an f32 loss and gradient at the flagship train width through
    the kernels against the dense-attention path; the trainer binary's code
    path in-process at the flagship config (GPT, d_model 1024, 16 heads,
    8 layers, d_ff 4096, vocab 8192, B=8, S=2048) in bf16 for 10
@@ -109,8 +126,8 @@ Phases (any failure makes the run exit non-zero and print no result):
    steps`` (and twice that for the forward under ``--remat``); its steady
    step time, tokens/s, MFU and peak memory; ``torch.profiler`` over one
    step;
-13. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-14. the last line, ``{"ok": true, "device": {...}}``.
+15. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+16. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
@@ -119,7 +136,9 @@ card or outside a checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import logging
 import math
 import os
 import re
@@ -166,6 +185,8 @@ MAIN_SHAPES = [(8, 8, 512, 64), (8, 8, 1024, 64)]  # generate, classify
 # the sharded plane's prompt passes: a refill of 4 shards x 8 slots, and
 # resume inserts of 1 and 8 evacuated rows (512 prompt + 32 produced)
 PLANE_SHAPES = [(32, 8, 512, 64), (1, 8, 544, 64), (8, 8, 544, 64)]
+# the shared prefix's one prompt pass: 37 tokens, no multiple of the tiles
+PREFIX_SHAPES = [(1, 8, 37, 64)]
 GENERATE_ARGS = ["--demo", "16", "--batch-size", "8", "--seq-len", "512",
                  "--generate-tokens", "32", "--result-queue-url",
                  "demo://replies"]
@@ -186,6 +207,7 @@ LLAMA_SHAPES = {
     "gqa-classify-s1024": ((8, 8, 2, 1024, 64), None),
     "gqa-refill-1": ((1, 8, 2, 512, 64), None),
     "gqa-window128-s1024": ((2, 8, 2, 1024, 64), 128),
+    "gqa-prefix-37": ((1, 8, 2, 37, 64), None),
 }
 LLAMA_ARGS = [*GENERATE_ARGS, "--family", "llama"]
 LLAMA_LAYERS = 4
@@ -420,6 +442,8 @@ def kernel_phase(torch, flash, smoke: Smoke) -> dict:
         ("plane-refill-32", 32, 8, 8, 512, 64, None, True),
         ("resume-1", 1, 8, 8, 544, 64, None, True),
         ("resume-8", 8, 8, 8, 544, 64, None, True),
+        # the shared prefix's prompt pass (--prefix-ids of 37 tokens)
+        ("prefix-37", 1, 8, 8, 37, 64, None, True),
         ("ragged-s48", 8, 8, 8, 48, 64, None, False),
         ("ragged-s7", 8, 8, 8, 7, 64, None, True),
         ("ragged-s1000", 8, 8, 8, 1000, 64, None, True),
@@ -472,7 +496,7 @@ def kernel_phase(torch, flash, smoke: Smoke) -> dict:
                 "aligned with ValueError, before any launch")
 
     timings = {}
-    for shape in (*MAIN_SHAPES, *PLANE_SHAPES):
+    for shape in (*MAIN_SHAPES, *PLANE_SHAPES, *PREFIX_SHAPES):
         b, h, s, d = shape
         q, k, v = make_qkv(torch, b, h, h, s, d, torch.bfloat16, True, 99)
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
@@ -2539,9 +2563,9 @@ def ops_per_decode_step(torch) -> dict:
         model = family_of(config)
         ids = torch.zeros((8, 512), dtype=torch.long, device="cuda")
         with torch.inference_mode():
-            _, cache = model.prefill(params, ids, config)
+            _, cache = model.full.prefill(params, ids, config)
             with Counter() as counter:
-                model.decode_step(params, cache, ids[:, 0], config)
+                model.full.decode_step(params, cache, ids[:, 0], config)
         out[family] = counter.ops
     print(f"operators a decode step of 8 rows dispatches: GPT {out['gpt']}, "
           f"llama {out['llama']}", flush=True)
@@ -2693,6 +2717,517 @@ def odd_head_dim_phase(torch, flash, smoke: Smoke) -> dict:
     return {"losses": losses, "launches": launched}
 
 
+# ---------------------------------------------------------------------------
+# int8 weights, the int8 KV cache, the chunk decoder and the shared prefix
+# ---------------------------------------------------------------------------
+
+INT8_VARIANTS = (("int8-weights", ["--quantize", "int8"]),
+                 ("int8-kv", ["--quantize-kv"]),
+                 ("int8-both", ["--quantize", "int8", "--quantize-kv"]))
+# the built-in models' per-layer matmul parameters (4 layers: the GPT's
+# wqkv, wo, w_up, w_down; the llama's wq, wkv, wo, w_gate_up, w_down), and
+# their fp32 per-output-channel scales (4 x 4608 channels in both)
+INT8_MATMUL_PARAMS = {"gpt": 12_582_912, "llama": 11_272_192}
+INT8_SCALE_BYTES = 4 * 4608 * 4
+# 8 slots x 4 layers x (k, v) x H_kv x 544 positions x (64 codes + a 4-byte
+# scale): H_kv = 8 for the GPT, 2 for the llama; bf16 holds 34.000, 8.500
+INT8_CACHE_MIB = {"gpt": 18.0625, "llama": 4.515625}
+BF16_CACHE_MIB = {"gpt": 34.0, "llama": LLAMA_CACHE_MIB}
+# a shared prefix whose length is no multiple of the kernel's tiles
+PREFIX_LEN = 37
+PREFIX_IDS = [(97 * i + 13) % 8192 for i in range(PREFIX_LEN)]
+PREFIX_ARGS = ["--prefix-ids", ",".join(map(str, PREFIX_IDS))]
+ENGINE_MODES = (("generate", []),
+                ("continuous-b1", ["--continuous", "--decode-block", "1"]),
+                ("continuous-b8", ["--continuous", "--decode-block", "8"]))
+
+
+class LogLines(logging.Handler):
+    """The worker binary's log lines, for the phases that read them."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.lines: list[str] = []
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger("worker").addHandler(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        logging.getLogger("worker").removeHandler(self)
+
+
+def run_binary(torch, flash, worker, args: list[str]):
+    """One ``--demo 64`` run of the worker binary on the card: (summary,
+    launches, the run's own peak memory bytes, its log lines).  The launch
+    counts and the memory peak are reset just before and read just after;
+    the peak is counted above what was still allocated when the run
+    began (the earlier phases' tensors, collected first)."""
+    zero_counts(flash)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with LogLines() as logs:
+        summary = worker([*demo64(args), "--device", "cuda"])
+    torch.cuda.synchronize()
+    return (summary, counts(flash), torch.cuda.max_memory_allocated() - base,
+            logs.lines)
+
+
+def replies_of(summary) -> dict:
+    return {rid: json.dumps(body) for rid, body in
+            summary["replies"].items()}
+
+
+def check_served(smoke, label, summary) -> None:
+    attrs = summary["queue_attributes"]
+    smoke.check(summary["processed"] == 64
+                and len(summary["replies"]) == 64
+                and summary["duplicate_replies"] == 0
+                and attrs["ApproximateNumberOfMessages"] == "0"
+                and attrs["ApproximateNumberOfMessagesNotVisible"] == "0"
+                and all(len(r.get("tokens", ())) == 32
+                        and all(0 <= t < 8192 for t in r["tokens"])
+                        for r in summary["replies"].values()),
+                f"{label}: processed {summary['processed']} of 64, "
+                f"{len(summary['replies'])} replies of 32 tokens in the "
+                f"vocabulary, {summary['duplicate_replies']} duplicates, "
+                f"queue {attrs}")
+
+
+def int8_codes_and_bytes(torch, smoke: Smoke) -> dict:
+    """Codes on the card equal to the CPU's, ``@`` falling through to the
+    quantized weight, and the 8-slot caches' bytes, for both families."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousBatcher,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.quantize import (
+        QuantizedTensor, param_leaves, quantize_params,
+    )
+
+    out = {}
+    for family in ("gpt", "llama"):
+        config, params = binary.builtin_model(family, 512, 32, "cuda")
+        on_card = quantize_params(params, family)
+        on_host = quantize_params(
+            {**{k: v.cpu() for k, v in params.items() if k != "layers"},
+             "layers": [{k: v.cpu() for k, v in layer.items()}
+                        for layer in params["layers"]]}, family)
+        pairs = list(zip(param_leaves(on_card), param_leaves(on_host)))
+        same = all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                   for a, b in pairs)
+        weight = on_card["layers"][0]["wo"]
+        x = torch.randn(3, config.d_model, device="cuda",
+                        dtype=config.dtype)
+        through = (isinstance(weight, QuantizedTensor)
+                   and torch.equal(x @ weight, x @ weight.dequantize()))
+        smoke.check(same and through,
+                    f"int8 {family}: quantize_params on the card gives codes "
+                    f"and scales byte-equal to the CPU's ({len(pairs)} "
+                    f"tensors); h @ QuantizedTensor falls through to its "
+                    f"__rmatmul__ on torch {torch.__version__}")
+        cache_mib = {}
+        for layout, quantized in (("bf16", False), ("int8", True)):
+            batcher = ContinuousBatcher(params, config, 8, 512, 32,
+                                        family=family, quantized_kv=quantized,
+                                        device="cuda")
+            cache_mib[layout] = sum(
+                t.numel() * t.element_size()
+                for t in flat_params(batcher.cache["layers"])) / 2 ** 20
+            del batcher
+        smoke.check(cache_mib["int8"] == INT8_CACHE_MIB[family]
+                    and cache_mib["bf16"] == BF16_CACHE_MIB[family],
+                    f"int8 {family} KV cache for 8 slots at max_seq_len 544: "
+                    f"{cache_mib['int8']:.4f} MiB (want "
+                    f"{INT8_CACHE_MIB[family]:.4f}) against bf16's "
+                    f"{cache_mib['bf16']:.4f}")
+        out[family] = {"codes_equal": same, "cache_mib": cache_mib}
+    return out
+
+
+def plane_s1_replies(torch, flash, family, flags) -> tuple[dict, int, int]:
+    """A one-shard plane (``sharded=True``) at block 8 over the demo
+    bodies with ``flags``' weights and cache: (replies, flash launches,
+    inserts)."""
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.quantize import (
+        quantize_params,
+    )
+
+    config, params, service_config = demo_setup(
+        torch, [*GENERATE_ARGS, "--family", family], 8)
+    if "--quantize" in flags:
+        params = quantize_params(params, family)
+    service_config.quantized_kv = "--quantize-kv" in flags
+    results = FakeMessageQueue()
+    _, one = plane_worker(torch, params, config, service_config, 1,
+                          result_queue=results, sharded=True, family=family)
+    zero_counts(flash)
+    one.drain(total=64)
+    torch.cuda.synchronize()
+    launched = counts(flash)
+    replies = {rid: bodies[0] for rid, bodies in
+               drain_raw(results, "demo://replies").items()}
+    return replies, launched["flash_fwd"], one.batcher.insert_dispatches
+
+
+def int8_phase(torch, flash, smoke: Smoke) -> dict:
+    """int8 serving at the built-in GPT's and llama's full width in bf16:
+    (a) codes on the card equal to the CPU's and the 8-slot caches' bytes;
+    (b) the binary's ``--demo 64`` with ``--quantize int8``,
+    ``--quantize-kv`` and both, through the batch worker and
+    ``--continuous`` at blocks 1 and 8, and a one-shard plane: replies
+    identical across the four, ``n_layers x`` prompt passes forward
+    launches and no lse, the weight bytes from the binary's log line;
+    (c) in f32 with int8 weights and the int8 cache, the staggered
+    prompts through the batcher at blocks 1 and 8 and a 4-shard plane
+    against the port's own int8 generate, up to the first near-tie; (d)
+    warm rates and peak memory of bf16, int8 weights, int8 cache and both
+    at block 8 and ``--shards 4``, one after another, and a profiled int8
+    plane."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        main as worker,
+    )
+
+    out = {"launches": {}, "codes": int8_codes_and_bytes(torch, smoke)}
+    layers = 4
+    for family in ("gpt", "llama"):
+        args = [*GENERATE_ARGS, "--family", family]
+        for variant, flags in INT8_VARIANTS:
+            replies, launched_total = {}, 0
+            for mode, extra in ENGINE_MODES:
+                label = f"{family} {variant} {mode}"
+                summary, launched, _, logs = run_binary(
+                    torch, flash, worker, [*args, *flags, *extra])
+                check_served(smoke, label, summary)
+                passes = (summary["insert_dispatches"] if mode != "generate"
+                          else 64 // 8)
+                smoke.check(passes == 8
+                            and launched["flash_fwd"] == layers * passes
+                            and launched["flash_fwd_lse"] == 0,
+                            f"{label}: flash_fwd launches "
+                            f"{launched['flash_fwd']} = {layers} layers x "
+                            f"{passes} prompt passes, lse "
+                            f"{launched['flash_fwd_lse']}")
+                launched_total += launched["flash_fwd"]
+                replies[mode] = replies_of(summary)
+                if "--quantize" in flags and mode == "generate":
+                    before, after = summary["weight_bytes"]
+                    line = [s for s in logs if "Quantized weights" in s]
+                    want = 2 * INT8_MATMUL_PARAMS[family]
+                    smoke.check(
+                        bool(line) and before - after
+                        == want - INT8_MATMUL_PARAMS[family]
+                        - INT8_SCALE_BYTES,
+                        f"int8 {family} weights: {line[:1]} ({before} -> "
+                        f"{after} bytes: {INT8_MATMUL_PARAMS[family]} matmul "
+                        f"parameters at one byte, {INT8_SCALE_BYTES} bytes "
+                        f"of scales)")
+                    out[f"{family}-weight-bytes"] = [before, after]
+            replies["s1"], s1_launches, inserts = plane_s1_replies(
+                torch, flash, family, flags)
+            smoke.check(s1_launches == layers * inserts,
+                        f"{family} {variant} S=1 plane: flash_fwd launches "
+                        f"{s1_launches} = {layers} x {inserts} inserts")
+            launched_total += s1_launches
+            base = replies["generate"]
+            same = {mode: sum(replies[mode].get(r) == b
+                              for r, b in base.items())
+                    for mode in ("continuous-b1", "continuous-b8", "s1")}
+            smoke.check(all(n == 64 for n in same.values()),
+                        f"{family} {variant}: replies byte-identical to the "
+                        f"batch worker's (bf16, greedy), of 64: {same}")
+            out["launches"][f"serve-{family}-{variant}"] = launched_total
+    out["f32"] = int8_f32_checks(torch, flash, smoke)
+    out["rates"] = int8_rates(torch, flash, worker)
+    out["profile"] = plane_profile(
+        torch, worker, [*SHARDS_ARGS, "--quantize", "int8", "--quantize-kv"],
+        "int8 shards")
+    return out
+
+
+def rollout(torch, start, step, steps: int = 32):
+    """Greedy tokens and each one's top-two margin along the port's own
+    path (``start() -> (logits, cache)``, ``step(cache, token)``), one
+    prompt a call: the loop of ``generate``."""
+    logits, cache = start()
+    tokens, margins = [], []
+    for i in range(steps):
+        top = logits.float().topk(2, dim=-1).values
+        margins.append((top[:, 0] - top[:, 1]).cpu().numpy())
+        token = logits.argmax(-1)
+        tokens.append(token)
+        if i < steps - 1:
+            logits, cache = step(cache, token)
+    return (torch.stack(tokens, dim=1)[0].cpu().numpy(),
+            np.stack(margins, axis=1)[0])
+
+
+def staggered_requests(vocab: int = 8192) -> list:
+    rng = np.random.default_rng(5)
+    lengths = np.linspace(7, 512, 24).round().astype(int)
+    return [rng.integers(0, vocab, n) for n in lengths]
+
+
+def compare_upto_ties(got: dict, want: list, margins: list) -> tuple:
+    """Requests whose tokens differ before their first near-tie, and the
+    near-ties (request: position)."""
+    bad, ties = [], {}
+    for i, tokens in got.items():
+        low = np.flatnonzero(margins[i] < MARGIN)
+        upto = int(low[0]) if low.size else len(want[i])
+        if low.size:
+            ties[i] = upto
+        if not np.array_equal(np.asarray(tokens)[:upto], want[i][:upto]):
+            bad.append(i)
+    return bad, ties
+
+
+def int8_f32_checks(torch, flash, smoke: Smoke) -> dict:
+    """Part (c) of :func:`int8_phase`."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        BUILTIN_CONFIGS,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousBatcher,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+    from kube_sqs_autoscaler_tpu_torch.workloads.quantize import (
+        quantize_params,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.shard_plane import (
+        ShardedBatcher,
+    )
+
+    out = {}
+    requests = staggered_requests()
+    for family in ("gpt", "llama"):
+        config = dataclasses.replace(BUILTIN_CONFIGS[family](512, 32),
+                                     dtype=torch.float32)
+        model = family_of(config)
+        params = quantize_params(
+            model.init_params(config, torch.Generator().manual_seed(0),
+                              "cuda"), family)
+        layout = model.layout(quantized_kv=True)
+        want, margins = [], []
+        with torch.inference_mode():
+            for ids in requests:
+                prompt = torch.from_numpy(ids).cuda()[None]
+                pick = model.attention_fn_for(config, prompt.shape[1], "cuda")
+                tokens, margin = rollout(
+                    torch,
+                    lambda: layout.prefill(params, prompt, config, pick),
+                    lambda cache, token: layout.decode_step(
+                        params, cache, token, config))
+                want.append(tokens)
+                margins.append(margin)
+            first = torch.from_numpy(requests[0]).cuda()[None]
+            generated = model.generate(
+                params, first, 32, config,
+                model.attention_fn_for(config, first.shape[1], "cuda"),
+                quantized_cache=True)[0].cpu().numpy()
+        smoke.check(np.array_equal(generated, want[0]),
+                    f"int8 {family} f32: the rollout is generate("
+                    "quantized_cache=True)'s loop (request 0 equal)")
+        engines = (
+            ("block-1", lambda: ContinuousBatcher(
+                params, config, 8, 512, 32, family=family, quantized_kv=True,
+                decode_block=1, device="cuda")),
+            ("block-8", lambda: ContinuousBatcher(
+                params, config, 8, 512, 32, family=family, quantized_kv=True,
+                decode_block=8, device="cuda")),
+            ("shards-4", lambda: ShardedBatcher(
+                params, config, shards=4, shard_slots=8, prompt_len=512,
+                generate_tokens=32, family=family, quantized_kv=True,
+                decode_block=8, device="cuda")),
+        )
+        for name, make in engines:
+            batcher = make()
+            before = flash.kernel_launches
+            got, cycles = staggered_drive(batcher, requests)
+            launched = flash.kernel_launches - before
+            bad, ties = compare_upto_ties(got, want, margins)
+            smoke.check(
+                len(got) == 24 and not bad
+                and launched == 4 * batcher.insert_dispatches,
+                f"int8 {family} f32 {name} (int8 weights and cache): "
+                f"{len(got)} of 24 staggered requests in {cycles} cycles, "
+                f"{batcher.insert_dispatches} inserts ({launched} flash_fwd "
+                f"launches); tokens equal to the port's int8 generate alone "
+                f"up to the first near-tie (margin < {MARGIN:g}): mismatched "
+                f"{bad}; near-ties (request: position) {ties}")
+            out[f"{family}-{name}"] = {"mismatched": bad, "near_ties": ties}
+            del batcher
+        del params
+    return out
+
+
+def int8_rates(torch, flash, worker) -> dict:
+    """Warm ``--demo 64`` rates and peak memory of bf16, int8 weights, the
+    int8 cache and both, at block 8 and ``--shards 4``, for both families,
+    one run after another."""
+    rates = {}
+    for family in ("gpt", "llama"):
+        for name, extra in (("block-8", ["--continuous", "--decode-block",
+                                         "8"]),
+                            ("shards-4", ["--continuous", "--decode-block",
+                                          "8", "--shards", "4"])):
+            for variant, flags in (("bf16", []), *INT8_VARIANTS):
+                summary, _, peak, _ = run_binary(
+                    torch, flash, worker,
+                    [*GENERATE_ARGS, "--family", family, *extra, *flags])
+                key = f"{family}-{name}-{variant}"
+                rates[key] = {"msgs_per_s": summary["msgs_per_s"],
+                              "tokens_per_s": summary["tokens_per_s"],
+                              "ttft_mean_s": summary["ttft_mean_s"],
+                              "peak_mib": peak / 2 ** 20}
+                print(f"warm {key} --demo 64: {summary['msgs_per_s']:.3f} "
+                      f"msgs/s, {summary['tokens_per_s']:.3f} generated "
+                      f"tokens/s, mean TTFT "
+                      f"{summary['ttft_mean_s'] * 1e3:.3f} ms, "
+                      f"max_memory_allocated {peak / 2 ** 20:.3f} MiB above "
+                      f"the run's start",
+                      flush=True)
+    return rates
+
+
+def prefix_phase(torch, flash, smoke: Smoke) -> dict:
+    """The shared prefix (``--prefix-ids``, 37 tokens: no multiple of the
+    kernel's tiles) at both families' full width: (a) the binary's
+    ``--demo 64`` in bf16 through the batch worker, blocks 1 and 8 and
+    ``--shards 4``, full-precision and int8 cache: the prefix's
+    ``n_layers`` forward launches once at start-up, the suffix inserts
+    through the chunk decoder none, no lse; replies counted against the
+    batch worker's (bf16 rounding differs across row counts, so counted,
+    not gated); (b) in f32 the staggered suffixes through the block-8
+    batcher behind the prefix against ``generate`` of prefix and suffix
+    joined (full layout) and against the port's own int8 prefix generate
+    (int8 layout), up to the first near-tie."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        main as worker,
+    )
+
+    out = {"launches": {}, "replies_same": {}}
+    layers = 4
+    modes = (*ENGINE_MODES,
+             ("shards-4", ["--continuous", "--decode-block", "8",
+                           "--shards", "4"]))
+    for family in ("gpt", "llama"):
+        for layout, flags in (("full", []), ("int8-kv", ["--quantize-kv"])):
+            replies, launched_total = {}, 0
+            for mode, extra in modes:
+                label = f"prefix {family} {layout} {mode}"
+                summary, launched, _, logs = run_binary(
+                    torch, flash, worker,
+                    [*GENERATE_ARGS, "--family", family, *PREFIX_ARGS,
+                     *flags, *extra])
+                check_served(smoke, label, summary)
+                prefilled = any(f"{PREFIX_LEN} shared tokens" in s
+                                for s in logs)
+                smoke.check(prefilled and launched["flash_fwd"] == layers
+                            and launched["flash_fwd_lse"] == 0,
+                            f"{label}: the prefix prefilled once "
+                            f"({prefilled}); flash_fwd launches "
+                            f"{launched['flash_fwd']} = {layers} layers x 1 "
+                            f"(the suffixes' "
+                            f"{summary['insert_dispatches'] or 8} prompt "
+                            f"passes run the chunk decoder), lse "
+                            f"{launched['flash_fwd_lse']}")
+                launched_total += launched["flash_fwd"]
+                replies[mode] = replies_of(summary)
+            base = replies["generate"]
+            same = {mode: sum(replies[mode].get(r) == b
+                              for r, b in base.items())
+                    for mode in replies if mode != "generate"}
+            print(f"prefix {family} {layout}: replies byte-identical to the "
+                  f"batch worker's, of 64 (counted, not gated): {same}",
+                  flush=True)
+            out["replies_same"][f"{family}-{layout}"] = same
+            out["launches"][f"serve-prefix-{family}-{layout}"] = \
+                launched_total
+    out["f32"] = prefix_f32_checks(torch, flash, smoke)
+    return out
+
+
+def prefix_f32_checks(torch, flash, smoke: Smoke) -> dict:
+    """Part (b) of :func:`prefix_phase`."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        BUILTIN_CONFIGS,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousBatcher,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+
+    out = {}
+    requests = staggered_requests()
+    prefix = torch.tensor(PREFIX_IDS, device="cuda")
+    for family in ("gpt", "llama"):
+        config = dataclasses.replace(
+            BUILTIN_CONFIGS[family](512, 32, PREFIX_LEN), dtype=torch.float32)
+        model = family_of(config)
+        params = model.init_params(config, torch.Generator().manual_seed(0),
+                                   "cuda")
+        for layout_name, quantized in (("full", False), ("int8-kv", True)):
+            layout = model.layout(quantized)
+            with torch.inference_mode():
+                before = flash.kernel_launches
+                prefix_cache = layout.prefill_prefix(
+                    params, prefix, config,
+                    model.attention_fn_for(config, PREFIX_LEN, "cuda"))
+                prefix_launches = flash.kernel_launches - before
+                want, margins = [], []
+                for ids in requests:
+                    suffix = torch.from_numpy(ids).cuda()[None]
+                    if quantized:  # the port's own int8 prefix path
+                        def start(suffix=suffix):
+                            return layout.prefill_with_prefix(
+                                params, prefix_cache, suffix, config)
+                    else:  # prefix and suffix prefilled as one prompt
+                        joined = torch.cat([prefix[None], suffix], dim=1)
+
+                        def start(joined=joined):
+                            return layout.prefill(
+                                params, joined, config,
+                                model.attention_fn_for(
+                                    config, joined.shape[1], "cuda"))
+                    tokens, margin = rollout(
+                        torch, start, lambda cache, token: layout.decode_step(
+                            params, cache, token, config))
+                    want.append(tokens)
+                    margins.append(margin)
+            batcher = ContinuousBatcher(
+                params, config, 8, 512, 32, family=family,
+                quantized_kv=quantized, prefix_cache=prefix_cache,
+                decode_block=8, device="cuda")
+            before = flash.kernel_launches
+            got, cycles = staggered_drive(batcher, requests)
+            launched = flash.kernel_launches - before
+            bad, ties = compare_upto_ties(got, want, margins)
+            oracle = ("the int8 prefix generate" if quantized
+                      else "generate of prefix + suffix joined")
+            smoke.check(
+                len(got) == 24 and not bad and launched == 0
+                and prefix_launches == 4 and batcher.prefix_len == PREFIX_LEN,
+                f"prefix {family} f32 {layout_name} block 8: {len(got)} of 24 "
+                f"staggered suffixes behind the {PREFIX_LEN}-token prefix "
+                f"({prefix_launches} flash_fwd launches for the prefix, "
+                f"{launched} for {batcher.insert_dispatches} suffix "
+                f"inserts); tokens equal to {oracle} up to the first "
+                f"near-tie (margin < {MARGIN:g}): "
+                f"mismatched {bad}; near-ties {ties}")
+            out[f"{family}-{layout_name}"] = {"mismatched": bad,
+                                              "near_ties": ties}
+            del batcher, prefix_cache
+        del params
+    return out
+
+
 def kernel_entry(name, source, replaces, replaces_fn, launches, by_path,
                  err, timing, shape) -> dict:
     return {
@@ -2752,6 +3287,8 @@ def main() -> int:
     shards = serve and stagger and smoke.phase(
         "shards", shards_phase, torch, flash, smoke, serve, stagger, fleet)
     llama = smoke.phase("llama", llama_phase, torch, flash, smoke)
+    int8 = smoke.phase("int8", int8_phase, torch, flash, smoke)
+    prefix = smoke.phase("prefix", prefix_phase, torch, flash, smoke)
     odd = smoke.phase("odd head dim", odd_head_dim_phase, torch, flash, smoke)
     f32_train = smoke.phase("f32 train step", f32_train_phase, torch, flash,
                             smoke)
@@ -2762,7 +3299,7 @@ def main() -> int:
                               and train_kern and path and serve and cycles
                               and stagger and rates and prof
                               and serve_prof and sqs and fleet and shards
-                              and llama and odd
+                              and llama and int8 and prefix and odd
                               and f32_train and train_path and train_prof):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
@@ -2785,6 +3322,10 @@ def main() -> int:
         # the llama family: batch, blocks 1 and 8, S = 1, --shards 4 and
         # --fleet-max-replicas 3, GQA at H_kv = 2
         **llama["launches"],
+        # int8 weights and cache (batch, blocks 1 and 8, S = 1), and the
+        # shared prefix (its one prompt pass a run; the suffixes none)
+        **int8["launches"],
+        **prefix["launches"],
         **{f"train-{r}": v["launches"]["flash_fwd"]
            for r, v in train_path.items()},
     }

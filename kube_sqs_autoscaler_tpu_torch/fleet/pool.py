@@ -636,13 +636,17 @@ class WorkerPool(FleetPoolBase):
         family: str | None = None,
         result_queue=None,
         device="cuda",
+        prefix_cache=None,
         **pool_kwargs,
     ) -> "WorkerPool":
         """A pool of real :class:`~.worker.FleetWorker` replicas over one
         shared queue, on ``device`` (``"cuda"`` by default; a missing card
         raises), serving the model ``family`` (``"gpt"`` or ``"llama"``; by
-        default the config's).  Replicas share ``params`` by reference; the
-        first builds the engine and the rest adopt it.
+        default the config's).  Replicas share ``params`` by reference,
+        the plain tree or an int8-quantized one (``workloads/quantize``),
+        and ``prefix_cache`` (a shared prompt prefix in the layout
+        ``ServiceConfig.quantized_kv`` picks); the first builds the engine
+        and the rest adopt it.
 
         Sampled serving: each replica gets ``sample_seed + spawn
         ordinal``, so the fleet draws independent streams."""
@@ -658,7 +662,7 @@ class WorkerPool(FleetPoolBase):
             return FleetWorker(
                 queue, params, model_config, seeded,
                 family=family, result_queue=result_queue, device=device,
-                pool=pool,
+                prefix_cache=prefix_cache, pool=pool,
                 engine_source=pool.engine_donor(),
             )
 

@@ -378,6 +378,7 @@ class ShardedWorkerPool(FleetPoolBase):
         engine_source=None,
         now_fn=None,
         device="cuda",
+        prefix_cache=None,
         **pool_kwargs,
     ) -> "ShardedWorkerPool":
         """One gang-stepped :class:`~.worker.FleetWorker` whose plane holds
@@ -386,7 +387,9 @@ class ShardedWorkerPool(FleetPoolBase):
         when that is 1), on ``device`` (``"cuda"`` by default; a missing
         card raises), serving the model ``family`` (by default the
         config's).  ``engine_source`` is a sharded donor batcher whose
-        engine the plane adopts; ``now_fn`` is the request-TTL clock."""
+        engine the plane adopts; ``now_fn`` is the request-TTL clock.
+        ``params`` may be int8-quantized and ``prefix_cache`` a shared
+        prompt prefix, as for :meth:`~.pool.WorkerPool.serving`."""
         if shards is None:
             shards = (service_config.shards if service_config.shards > 1
                       else (max or service_config.shards))
@@ -400,7 +403,8 @@ class ShardedWorkerPool(FleetPoolBase):
             return FleetWorker(
                 queue, params, model_config, seeded, family=family,
                 result_queue=result_queue, now_fn=now_fn, device=device,
-                pool=pool, engine_source=engine_source, sharded=True,
+                prefix_cache=prefix_cache, pool=pool,
+                engine_source=engine_source, sharded=True,
             )
 
         return cls(factory, min=min, max=max, **pool_kwargs)

@@ -7,7 +7,10 @@
   (forward with or without the lse; dq; dk/dv) on card tensors, their plain
   PyTorch versions on CPU tensors, and the attention dispatcher.
 - :mod:`.kernels` — builds and loads the CUDA sources under ``csrc/``.
-- :mod:`.decode` — KV-cache prefill, decode step, sampling and generate.
+- :mod:`.decode` — KV-cache prefill, decode step, sampling and generate,
+  in the bf16 and int8 cache layouts, the chunk decoders and the shared
+  prefix cache.
+- :mod:`.quantize` — per-output-channel int8 weights for serving.
 - :mod:`.service` — the queue worker (classify and generate modes).
 - :mod:`.continuous` — continuous batching: the rolling-slot batcher and
   its queue worker.

@@ -24,6 +24,11 @@ SwiGLU) through every mode below.
 - ``--metrics-port P`` serves ``/metrics`` (the serve-cycle latency
   summary; the continuous worker's serving gauges and TTFT histogram; the
   fleet's replica gauges) and ``/healthz``.
+- ``--quantize int8`` serves per-channel int8 weights
+  (:mod:`.quantize`), ``--quantize-kv`` decodes through the int8 KV cache,
+  and ``--prefix-ids ID,ID,...`` prefills a shared prompt prefix once at
+  start-up that every body continues from (the built-in config's context
+  grows by its length); all three compose with every mode above.
 
 The worker runs on the card (``--device cuda``, the default) and exits
 with an error when there is none; ``--device cpu`` runs it on the CPU.
@@ -50,6 +55,7 @@ from .continuous import ContinuousWorker
 from .family import family_of
 from .llama import LlamaConfig
 from .model import ModelConfig
+from .quantize import quantize_params, quantized_bytes
 from .service import QueueWorker, ServiceConfig, collect_replies
 
 log = logging.getLogger("worker")
@@ -141,6 +147,26 @@ def build_parser() -> argparse.ArgumentParser:
         help="lower replica bound for --fleet-max-replicas",
     )
     parser.add_argument(
+        "--quantize", choices=("none", "int8"), default="none",
+        help="int8: post-training per-channel weight quantization of the "
+             "served matmul weights",
+    )
+    parser.add_argument(
+        "--quantize-kv", action="store_true",
+        help="int8 KV cache: decode reads int8 codes and per-position "
+             "scales instead of full-precision k/v (requires "
+             "--generate-tokens >= 1; composes with --continuous, --shards, "
+             "--fleet-max-replicas and --prefix-ids)",
+    )
+    parser.add_argument(
+        "--prefix-ids", default="", metavar="ID,ID,...",
+        help="shared prompt prefix (comma-separated token ids), prefilled "
+             "once at start-up and reused by every request: message bodies "
+             "become per-request suffixes continuing from the cached prefix "
+             "(the outputs of prepending it to every prompt; requires "
+             "--generate-tokens >= 1)",
+    )
+    parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="where the model runs (default cuda; no card is an error, "
              "never a quiet CPU run)",
@@ -152,21 +178,25 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def builtin_config(seq_len: int, generate_tokens: int) -> ModelConfig:
-    """The built-in GPT, with a context that holds the prompt and its
-    continuation (at least 64 positions)."""
+def builtin_config(seq_len: int, generate_tokens: int,
+                   prefix_len: int = 0) -> ModelConfig:
+    """The built-in GPT, with a context that holds a ``prefix_len``-token
+    shared prefix, the prompt and its continuation (at least 64
+    positions)."""
     return ModelConfig(
         vocab_size=8192, d_model=512, n_heads=8, n_layers=4, d_ff=2048,
-        max_seq_len=max(64, seq_len + generate_tokens),
+        max_seq_len=max(64, prefix_len + seq_len + generate_tokens),
     )
 
 
-def builtin_llama_config(seq_len: int, generate_tokens: int) -> LlamaConfig:
+def builtin_llama_config(seq_len: int, generate_tokens: int,
+                         prefix_len: int = 0) -> LlamaConfig:
     """The built-in llama (``--family llama``): the GPT's vocab, width,
     heads and depth, 2 kv heads and d_ff 1408, with the same context."""
     return LlamaConfig(
         vocab_size=8192, d_model=512, n_heads=8, n_kv_heads=2, n_layers=4,
-        d_ff=1408, max_seq_len=max(64, seq_len + generate_tokens),
+        d_ff=1408,
+        max_seq_len=max(64, prefix_len + seq_len + generate_tokens),
     )
 
 
@@ -174,10 +204,10 @@ BUILTIN_CONFIGS = {"gpt": builtin_config, "llama": builtin_llama_config}
 
 
 def builtin_model(family: str, seq_len: int, generate_tokens: int,
-                  device: str | torch.device):
+                  device: str | torch.device, prefix_len: int = 0):
     """``(config, params)``: the built-in model of ``family`` (``--family``)
     and its weights, drawn from a generator seeded 0."""
-    config = BUILTIN_CONFIGS[family](seq_len, generate_tokens)
+    config = BUILTIN_CONFIGS[family](seq_len, generate_tokens, prefix_len)
     init = family_of(config).init_params
     return config, init(config, torch.Generator().manual_seed(0), device)
 
@@ -225,6 +255,7 @@ def run_demo(
     device: torch.device,
     continuous: bool = False,
     metrics_port: int = 0,
+    prefix_cache: dict | None = None,
 ) -> dict:
     """Feed ``demo`` random bodies through a :class:`QueueWorker` (or,
     with ``continuous``, drain them through a :class:`ContinuousWorker`)
@@ -233,7 +264,8 @@ def run_demo(
     result_queue = FakeMessageQueue() if service_config.result_queue_url else None
     if continuous:
         worker = ContinuousWorker(queue, params, model_config, service_config,
-                                  result_queue=result_queue, device=device)
+                                  result_queue=result_queue, device=device,
+                                  prefix_cache=prefix_cache)
         server = serve_metrics(metrics_port, worker)
         start = time.perf_counter()
         worker.drain(total=demo)
@@ -257,7 +289,8 @@ def run_demo(
         }
     else:
         worker = QueueWorker(queue, params, model_config, service_config,
-                             result_queue=result_queue, device=device)
+                             result_queue=result_queue, device=device,
+                             prefix_cache=prefix_cache)
         server = serve_metrics(metrics_port, worker)
         start = time.perf_counter()
         while worker.processed < demo:
@@ -307,6 +340,7 @@ def run_fleet_demo(
     min_replicas: int,
     max_replicas: int,
     metrics_port: int = 0,
+    prefix_cache: dict | None = None,
 ) -> dict:
     """The closed loop in one process, on the real clock: a
     :class:`~..core.loop.ControlLoop` autoscales a
@@ -323,7 +357,7 @@ def run_fleet_demo(
     pool = WorkerPool.serving(
         queue, params, model_config, service_config,
         result_queue=result_queue, min=min_replicas, max=max_replicas,
-        device=device,
+        device=device, prefix_cache=prefix_cache,
     )
     server = serve_metrics(metrics_port, pool)
     batch = service_config.batch_size
@@ -385,7 +419,8 @@ def run_fleet_demo(
 
 
 def serve_sqs(args, params: dict, model_config: ModelConfig,
-              service_config: ServiceConfig, device: torch.device) -> None:
+              service_config: ServiceConfig, device: torch.device,
+              prefix_cache: dict | None = None) -> None:
     """Serve ``--sqs-queue-url`` until the worker is stopped.  AWS SQS
     addresses queues per call by url, so the same client publishes replies
     when ``--result-queue-url`` is set."""
@@ -393,12 +428,10 @@ def serve_sqs(args, params: dict, model_config: ModelConfig,
 
     queue = AwsSqsService(region=args.aws_region)
     result_queue = queue if args.result_queue_url else None
-    if args.continuous:
-        worker = ContinuousWorker(queue, params, model_config, service_config,
-                                  result_queue=result_queue, device=device)
-    else:
-        worker = QueueWorker(queue, params, model_config, service_config,
-                             result_queue=result_queue, device=device)
+    worker_class = ContinuousWorker if args.continuous else QueueWorker
+    worker = worker_class(queue, params, model_config, service_config,
+                          result_queue=result_queue, device=device,
+                          prefix_cache=prefix_cache)
     server = serve_metrics(args.metrics_port, worker)
     log.info("Starting %sworker on %s",
              "continuous " if args.continuous else "", args.sqs_queue_url)
@@ -433,6 +466,9 @@ def main(argv=None) -> dict | None:
         raise SystemExit(f"--shards {args.shards} must be >= 1")
     if args.shards > 1 and not args.continuous:
         raise SystemExit("--shards requires --continuous")
+    if args.quantize_kv and args.generate_tokens < 1:
+        raise SystemExit("--quantize-kv requires --generate-tokens >= 1")
+    prefix_ids = parse_prefix_ids(args)
     if args.fleet_max_replicas:
         if not args.continuous:
             raise SystemExit("--fleet-max-replicas requires --continuous")
@@ -459,7 +495,31 @@ def main(argv=None) -> dict | None:
     except RuntimeError as err:
         raise SystemExit(f"error: {err}") from None
     model_config, params = builtin_model(args.family, args.seq_len,
-                                         args.generate_tokens, device)
+                                         args.generate_tokens, device,
+                                         prefix_len=len(prefix_ids))
+    family = family_of(model_config)
+    weight_bytes = None
+    if args.quantize == "int8":
+        before = quantized_bytes(params)
+        params = quantize_params(params, family=family.name)
+        weight_bytes = (before, quantized_bytes(params))
+        log.info("Quantized weights to int8: %.1f MiB -> %.1f MiB",
+                 before / 2**20, weight_bytes[1] / 2**20)
+    prefix_cache = None
+    if prefix_ids:
+        bad = [i for i in prefix_ids if not 0 <= i < model_config.vocab_size]
+        if bad:
+            raise SystemExit(
+                f"--prefix-ids {bad} out of range for vocab_size="
+                f"{model_config.vocab_size}"
+            )
+        with torch.inference_mode():
+            prefix_cache = family.layout(args.quantize_kv).prefill_prefix(
+                params, prefix_ids, model_config,
+                family.attention_fn_for(model_config, len(prefix_ids),
+                                        device))
+        log.info("Prefix cache: %d shared tokens prefilled once",
+                 len(prefix_ids))
     service_config = ServiceConfig(
         queue_url=args.sqs_queue_url, batch_size=args.batch_size,
         seq_len=args.seq_len,
@@ -468,20 +528,41 @@ def main(argv=None) -> dict | None:
         result_queue_url=args.result_queue_url,
         eos_id=None if args.eos_id < 0 else args.eos_id,
         decode_block=args.decode_block, request_ttl_s=args.request_ttl,
-        shards=args.shards,
+        shards=args.shards, quantized_kv=args.quantize_kv,
     )
     if not args.demo:
-        serve_sqs(args, params, model_config, service_config, device)
+        serve_sqs(args, params, model_config, service_config, device,
+                  prefix_cache)
         return None
     if args.fleet_max_replicas:
-        return run_fleet_demo(
+        summary = run_fleet_demo(
             args.demo, params, model_config, service_config, device,
             args.fleet_min_replicas, args.fleet_max_replicas,
-            metrics_port=args.metrics_port,
+            metrics_port=args.metrics_port, prefix_cache=prefix_cache,
         )
-    return run_demo(args.demo, params, model_config, service_config, device,
-                    continuous=args.continuous,
-                    metrics_port=args.metrics_port)
+    else:
+        summary = run_demo(args.demo, params, model_config, service_config,
+                           device, continuous=args.continuous,
+                           metrics_port=args.metrics_port,
+                           prefix_cache=prefix_cache)
+    summary["weight_bytes"] = weight_bytes
+    return summary
+
+
+def parse_prefix_ids(args) -> list[int]:
+    """``--prefix-ids`` as token ids, with the reference binary's checks
+    (the vocabulary range is checked once the model is built)."""
+    if not args.prefix_ids:
+        return []
+    try:
+        prefix_ids = [int(s) for s in args.prefix_ids.split(",") if s.strip()]
+    except ValueError as err:
+        raise SystemExit(f"--prefix-ids must be integers ({err})")
+    if not prefix_ids:
+        raise SystemExit("--prefix-ids is empty")
+    if args.generate_tokens < 1:
+        raise SystemExit("--prefix-ids requires --generate-tokens >= 1")
+    return prefix_ids
 
 
 if __name__ == "__main__":

@@ -49,9 +49,18 @@ The worker reports its serving gauges and TTFT histogram to a
 :class:`~..obs.prometheus.WorkloadMetrics` registry
 (:meth:`ContinuousWorker.attach_metrics`), from host counters only.
 
-Not ported yet (the batcher raises ``ValueError``): a mesh, the int8 KV
-cache, the shared prefix cache, speculative and beam
-slots, and tenancy (with the overload ladder's ``_quiesce_rows``).
+The slots hold either cache layout (``quantized_kv``: int8 codes with
+per-position scales) and may start past a shared prompt prefix
+(``prefix_cache``, from the family's ``prefill_prefix`` in the same
+layout): every slot row holds a copy of the prefix, an insert runs the
+suffixes through the family's chunk decoder (no kernel launch, as in the
+reference) and splices only the suffix positions, so decode never writes
+the prefix region.  The layout's entry points come from
+:meth:`.family.ModelFamily.layout`.
+
+Not ported yet (the batcher raises ``ValueError``): a mesh, speculative
+and beam slots, and tenancy (with the overload ladder's
+``_quiesce_rows``).
 """
 
 from __future__ import annotations
@@ -70,8 +79,11 @@ import torch
 
 from ..device import resolve_device
 from ..utils.profiling import SpanTimer
-from .decode import _pick, block_decode, prefill
-from .family import family_of
+from .decode import (
+    _check_prefix_layout, _pick, block_decode, broadcast_prefix,
+    prefix_len_of,
+)
+from .family import CacheLayout, family_of
 from .model import ModelConfig
 from .service import (
     ServiceConfig, build_token_reply, parse_request_body, request_id,
@@ -122,21 +134,32 @@ class _HostCopy:
 
 
 def _rows_prefill(params, prompts, lengths, config, attention_fn,
-                  prefill_fn=prefill):
-    """``M`` prompts' prefill as one ``[M, P]`` batch through the family's
-    ``prefill_fn``; returns ``(logits [M, V], rows_cache)``.  Rows never
-    interact across the batch, so each row's result is what its own ``[1,
-    P]`` prefill gives."""
-    return prefill_fn(params, prompts, config, attention_fn, lengths=lengths)
+                  layout: CacheLayout, prefix_cache=None):
+    """``M`` prompts' prefill as one ``[M, P]`` batch in the family's cache
+    ``layout``; returns ``(logits [M, V], rows_cache)``.  With a
+    ``prefix_cache`` the prompts are suffixes continued from it through
+    the layout's chunk decoder (``attention_fn`` does not apply), else the
+    layout's prefill runs them with ``attention_fn``.  Rows never interact
+    across the batch, so each row's result is what its own ``[1, P]``
+    prefill gives."""
+    if prefix_cache is not None:
+        return layout.prefill_with_prefix(params, prefix_cache, prompts,
+                                          config, lengths=lengths)
+    return layout.prefill(params, prompts, config, attention_fn,
+                          lengths=lengths)
 
 
-def _splice_rows_layers(cache, rows_cache, rows, prompt_len) -> None:
-    """Copy each prefilled row's prompt positions into its slot row of the
-    batch cache, in place: one indexed copy per layer entry for all the
-    rows."""
+def _splice_rows_layers(cache, rows_cache, rows, prefix_len,
+                        prompt_len) -> None:
+    """Copy each prefilled row's prompt positions (under a prefix, the
+    suffix positions ``[prefix_len, prefix_len + prompt_len)`` only) into
+    its slot row of the batch cache, in place: one indexed copy per layer
+    entry for all the rows.  Every entry has the position on axis 2, the
+    ``[B, H, S, D]`` k/v or codes and the ``[B, H, S]`` scales alike."""
+    span = slice(prefix_len, prefix_len + prompt_len)
     for layer_cache, rows_layer in zip(cache["layers"], rows_cache["layers"]):
         for name, buf in layer_cache.items():
-            buf[rows, :, :prompt_len] = rows_layer[name][:, :, :prompt_len]
+            buf[rows, :, span] = rows_layer[name][:, :, span]
 
 
 def _insert_rows_impl(
@@ -157,21 +180,25 @@ def _insert_rows_impl(
     top_p: float = 1.0,
     eos_id: int | None = None,
     budgets: torch.Tensor | None = None,
-    prefill_fn=prefill,
+    *,
+    layout: CacheLayout,
+    prefix_cache: dict | None = None,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     """Batched admission: prefill ``prompts`` (``[M, P]``, right-padded,
-    real lengths ``lengths``) as one batch, copy them into slot ``rows``
-    of ``cache``, and fold each row's length, pending token (``current``),
+    real lengths ``lengths``) as one batch in the cache ``layout``, copy
+    them into slot ``rows`` of ``cache``, and fold each row's length (past
+    the ``prefix_len`` shared prefix tokens), pending token (``current``),
     ``done`` (set where the first token is ``eos_id``) and ``remaining``
     (``budget - 1``: the first token spends one) into the state, all in
     place.  ``budgets`` (``[M]``) replaces ``budget - 1`` with each row's
     own remaining budget: the resume insert's rows are mid-request.
-    ``prefill_fn`` is the family's prefill.  Returns the first tokens
-    ``[M]``, still on the device."""
+    Returns the first tokens ``[M]``, still on the device."""
     logits, rows_cache = _rows_prefill(params, prompts, lengths, config,
-                                       attention_fn, prefill_fn)
-    _splice_rows_layers(cache, rows_cache, rows, prompts.shape[1])
-    cache["length"][rows] = lengths
+                                       attention_fn, layout, prefix_cache)
+    _splice_rows_layers(cache, rows_cache, rows, prefix_len,
+                        prompts.shape[1])
+    cache["length"][rows] = prefix_len + lengths
     firsts = _pick(logits, key, temperature, top_k, top_p)
     current[rows] = firsts
     done[rows] = firsts == eos_id if eos_id is not None else False
@@ -194,7 +221,10 @@ class ContinuousBatcher:
     """The slot machine: submit prompts, step the batch, collect results.
 
     Synchronous and queue-agnostic: drive it from anything that produces
-    ``(token_ids, payload)`` requests.  The config's class picks the model
+    ``(token_ids, payload)`` requests.  ``quantized_kv`` keeps the slots
+    in the int8 layout; ``prefix_cache`` (the family's ``prefill_prefix``
+    in the same layout) starts every slot past a shared prefix.  The
+    config's class picks the model
     family (:func:`.family.family_of`): a :class:`.model.ModelConfig` is
     served as the GPT, a :class:`.llama.LlamaConfig` as the llama (the
     compact GQA cache, the llama prefill with the sliding window,
@@ -248,8 +278,6 @@ class ContinuousBatcher:
         model_family = family_of(config, family)
         unported = {
             "mesh": mesh is not None,
-            "quantized_kv": quantized_kv,
-            "prefix_cache": prefix_cache is not None,
             "draft_layers": draft_layers > 0,
             "beams > 1": beams > 1,
             "tenancy": tenancy is not None,
@@ -262,10 +290,16 @@ class ContinuousBatcher:
                 )
         if decode_block < 1:
             raise ValueError(f"decode_block={decode_block} must be >= 1")
-        budget = prompt_len + generate_tokens
+        self._prefix_cache = prefix_cache
+        if prefix_cache is not None:
+            # slots start past a shared, once-prefilled prefix in the
+            # decode path's layout
+            _check_prefix_layout(prefix_cache, quantized_kv)
+        self.prefix_len = prefix_len_of(prefix_cache)
+        budget = self.prefix_len + prompt_len + generate_tokens
         if budget > config.max_seq_len:
             raise ValueError(
-                f"prompt_len + generate_tokens = {budget} exceeds "
+                f"prefix + prompt_len + generate_tokens = {budget} exceeds "
                 f"max_seq_len={config.max_seq_len}"
             )
         if top_k < 0:
@@ -276,6 +310,7 @@ class ContinuousBatcher:
         self.params = params
         self.config = config
         self.family = model_family.name
+        self.quantized_kv = quantized_kv
         self.prompt_len = prompt_len
         self.generate_tokens = generate_tokens
         self.temperature = temperature
@@ -295,13 +330,13 @@ class ContinuousBatcher:
         self.free_slot_scans = 0
         # the engine a fleet replica adopts from its donor (adopt_engine):
         # the prompt-pass attention (the llama pick carries the sliding
-        # window), the insert and its prefill, the family's decode step and
-        # the engine that runs it
+        # window), the insert, the family's cache layout (its prefill,
+        # prefix continuation and decode step) and the engine that runs it
         self._attention_fn = model_family.attention_fn_for(
             config, prompt_len, self.device)
         self._insert_many = _insert_rows_impl
-        self._prefill_fn = model_family.prefill
-        self._step_fn = model_family.decode_step
+        self._layout = model_family.layout(quantized_kv)
+        self._step_fn = self._layout.decode_step
         if decode_block > 1:
             self._block_fn = block_decode
         else:
@@ -333,8 +368,12 @@ class ContinuousBatcher:
         self._pending_block: tuple[_HostCopy, int] | None = None
         self.slots = [_Slot() for _ in range(batch_size)]
         with torch.inference_mode():
-            self.cache = model_family.init_cache(config, batch_size,
-                                                 self.device)
+            if prefix_cache is not None:
+                # every slot row starts as a copy of the shared prefix
+                self.cache = broadcast_prefix(prefix_cache, batch_size)
+            else:
+                self.cache = self._layout.init_cache(config, batch_size,
+                                                     self.device)
             # each slot's next input token, and its liveness on the
             # device: done marks a free or finished row (admission clears
             # it), remaining its unspent budget
@@ -358,21 +397,23 @@ class ContinuousBatcher:
         with the donor's knobs, params and config runs the donor's engine
         and pays only for its own KV cache.  Raises ``ValueError`` when a
         knob differs or ``params`` / ``config`` are not the donor's very
-        objects."""
+        objects (and the donor's prefix cache)."""
         mine, theirs = self._engine_key(), source._engine_key()
         if mine != theirs:
             raise ValueError(
                 f"engine mismatch: {mine} != {theirs} (a replica must be "
                 "constructed with the donor's exact serving knobs)"
             )
-        if self.config is not source.config or self.params is not source.params:
+        if (self.config is not source.config
+                or self.params is not source.params
+                or self._prefix_cache is not source._prefix_cache):
             raise ValueError(
-                "adopt_engine requires the donor's exact params/config "
-                "objects (the engine runs over them)"
+                "adopt_engine requires the donor's exact params/config/"
+                "prefix objects (the engine runs over them)"
             )
         self._attention_fn = source._attention_fn
         self._insert_many = source._insert_many
-        self._prefill_fn = source._prefill_fn
+        self._layout = source._layout
         self._step_fn = source._step_fn
         # whichever decode step both sides built (a live decode_block
         # change can leave a block engine at block 1)
@@ -391,7 +432,8 @@ class ContinuousBatcher:
         return (
             len(self.slots), self.prompt_len, self.generate_tokens,
             self.family, self.temperature, self.top_k, self.top_p,
-            self.eos_id, self.decode_block, str(self.device),
+            self.eos_id, self.quantized_kv, self.prefix_len,
+            self.decode_block, str(self.device),
         )
 
     def request_decode_block(self, block: int) -> bool:
@@ -509,7 +551,7 @@ class ContinuousBatcher:
                 _to_device(lengths, self.device), next(self._keys),
                 self.config, self.generate_tokens, self._attention_fn,
                 self.temperature, self.top_k, self.top_p, self.eos_id,
-                prefill_fn=self._prefill_fn,
+                **self._insert_layout(),
             )
             self._defer_firsts(firsts, rows)
         self.insert_dispatches += 1
@@ -521,6 +563,12 @@ class ContinuousBatcher:
         self._invalidate_admission_cache()
         return rows
 
+    def _insert_layout(self) -> dict:
+        """The insert's cache-layout keywords: the layout and the shared
+        prefix the slots start past."""
+        return dict(layout=self._layout, prefix_cache=self._prefix_cache,
+                    prefix_len=self.prefix_len)
+
     def _defer_firsts(self, firsts: torch.Tensor, rows: list[int]) -> None:
         """Hold an insert's first tokens until the next :meth:`step`: here
         each insert's are copied to the host at once, behind their own
@@ -531,7 +579,8 @@ class ContinuousBatcher:
     def resume_len(self) -> int:
         """The resume insert's prompt bucket: a resumed row prefills its
         prompt and what it had produced, at most ``prompt_len +
-        generate_tokens`` tokens."""
+        generate_tokens`` tokens (past the shared prefix, if any: the
+        resume runs through the same insert)."""
         return self.prompt_len + self.generate_tokens
 
     def submit_resume(self, resumes: list[tuple]) -> list[int]:
@@ -585,7 +634,7 @@ class ContinuousBatcher:
                 self.config, self.generate_tokens, self._attention_fn,
                 self.temperature, self.top_k, self.top_p, self.eos_id,
                 budgets=_to_device(budgets, self.device),
-                prefill_fn=self._prefill_fn,
+                **self._insert_layout(),
             )
             self._defer_firsts(firsts, rows)
         self.insert_dispatches += 1
@@ -774,8 +823,10 @@ class ContinuousWorker:
     request never blocks fresh messages: slots refill as they finish.
     ``now_fn`` is the request-TTL clock and must share a time base with
     the queue's ``SentTimestamp`` (epoch seconds by default).  ``family``
-    (``"gpt"`` or ``"llama"``; by default the config's) goes to the
-    batcher or the plane."""
+    (``"gpt"`` or ``"llama"``; by default the config's) and
+    ``prefix_cache`` (a shared prefix the slots start past, in the layout
+    ``ServiceConfig.quantized_kv`` picks) go to the batcher or the
+    plane."""
 
     # after an empty receive while slots are still decoding, skip this
     # many cycles before polling again (one billed receive per generated
@@ -793,6 +844,7 @@ class ContinuousWorker:
         now_fn=None,
         sharded: bool | None = None,
         family: str | None = None,
+        prefix_cache: dict | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
         if service_config.generate_tokens < 1:
@@ -819,6 +871,8 @@ class ContinuousWorker:
             eos_id=service_config.eos_id,
             sample_seed=service_config.sample_seed,
             decode_block=service_config.decode_block,
+            quantized_kv=service_config.quantized_kv,
+            prefix_cache=prefix_cache,
             family=family,
             device=device,
         )

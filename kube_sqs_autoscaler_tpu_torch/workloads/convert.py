@@ -18,6 +18,7 @@ import torch
 
 from .llama import LlamaConfig
 from .model import ModelConfig
+from .quantize import QuantizedTensor
 
 
 def _tensor(array, config: ModelConfig | LlamaConfig, device) -> torch.Tensor:
@@ -31,6 +32,18 @@ def _tensor(array, config: ModelConfig | LlamaConfig, device) -> torch.Tensor:
     )
 
 
+def _leaf(value, config: ModelConfig | LlamaConfig, device):
+    """One weight: an array cast to ``config.dtype``, or the reference's
+    int8 ``QuantizedTensor`` (numpy codes and scale) as the port's, its
+    codes int8 and its scales fp32 exactly."""
+    if hasattr(value, "codes") and hasattr(value, "scale"):
+        codes = torch.from_numpy(np.array(value.codes, np.int8))
+        scale = torch.from_numpy(np.array(value.scale, np.float32))
+        return QuantizedTensor(codes.to(device), scale.to(device),
+                               config.dtype)
+    return _tensor(value, config, device)
+
+
 def params_from_jax(
     numpy_pytree: dict,
     config: ModelConfig | LlamaConfig,
@@ -39,13 +52,15 @@ def params_from_jax(
     """The port's parameter dict from the reference's (numpy leaves).
 
     Every weight is cast to ``config.dtype``; a bf16 or f32 reference
-    converts exactly into the same dtype."""
+    converts exactly into the same dtype.  An int8 tree (the reference's
+    ``quantize_params``, mapped to numpy leaf by leaf) keeps its codes and
+    scales, as :class:`.quantize.QuantizedTensor`."""
     params = {
-        name: _tensor(value, config, device)
+        name: _leaf(value, config, device)
         for name, value in numpy_pytree.items() if name != "layers"
     }
     params["layers"] = [
-        {name: _tensor(value, config, device) for name, value in layer.items()}
+        {name: _leaf(value, config, device) for name, value in layer.items()}
         for layer in numpy_pytree["layers"]
     ]
     return params

@@ -34,9 +34,18 @@ path (its ``llama.py:45-786`` and ``llama_generate``), held against it by
 As the port's GPT cache, the cache is written in place: a decode step
 writes each row's new k/v into the cache it is given and returns it.
 
-Not ported yet: ``llama_chunk_decode`` and the shared prefix cache
-(ROADMAP Queue 1 item 6), the int8 paths (item 5), the trainer branch
-(item 8) and mesh serving (item 9).
+The int8 cache (:func:`llama_quantized_prefill`,
+:func:`llama_quantized_decode_step`) keeps the compact ``n_kv_heads``
+heads, its codes and per-position scales read by the grouped attention as
+they are (the reference expands both to full heads, ``expand_gqa``; the
+products are the same).  Each layout has a chunk decoder
+(:func:`llama_chunk_decode`, :func:`llama_quantized_chunk_decode`) and a
+shared-prefix prefill whose suffixes continue through it
+(:func:`llama_prefill_prefix`, :func:`llama_prefill_with_prefix` and
+their int8 twins).
+
+Not ported yet: the trainer branch (ROADMAP Queue 1 item 8) and mesh
+serving (item 9).
 """
 
 from __future__ import annotations
@@ -46,7 +55,11 @@ from dataclasses import dataclass
 import torch
 
 from .decode import (
-    _cached_attention, _masked_cache_attention, _pick, _write_rows,
+    _cached_attention, _check_prefix_budget, _check_prefix_layout,
+    _chunk_positions, _full_chunk_write_and_attend, _generate_loop,
+    _masked_cache_attention, _prefill_prefix_impl, _prefill_with_prefix_impl,
+    _quantized_chunk_write_and_attend, _quantized_write_and_attend,
+    _write_rows, init_quantized_cache, quantize_cache,
 )
 from .flash import attention_fn_for, gqa_adapt, windowed
 from .model import _dense_attention, embed_tokens, unembed
@@ -581,6 +594,131 @@ def llama_rolling_decode_step(
     )
 
 
+def llama_quantized_prefill(
+    params: dict,
+    tokens: torch.Tensor,
+    config: LlamaConfig,
+    prompt_attention=None,
+    lengths: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """:func:`llama_prefill` with the filled GQA cache quantized to int8
+    (:func:`.decode.quantize_cache`): the compact kv heads and the int8
+    bytes compose."""
+    logits, cache = llama_prefill(params, tokens, config, prompt_attention,
+                                  lengths=lengths)
+    return logits, quantize_cache(cache)
+
+
+def init_llama_quantized_cache(
+    config: LlamaConfig, batch: int, device: str | torch.device = "cuda"
+) -> dict:
+    """An empty int8 GQA cache (``n_kv_heads`` heads)."""
+    return init_quantized_cache(config, batch, kv_heads=config.n_kv_heads,
+                                device=device)
+
+
+def llama_quantized_decode_step(
+    params: dict, cache: dict, tokens: torch.Tensor, config: LlamaConfig
+) -> tuple[torch.Tensor, dict]:
+    """:func:`llama_decode_step` against the int8 GQA cache: quantize the
+    new compact k/v vectors, write codes and scales, attend with the
+    scales factored out (the sliding window included)."""
+    return _decode_step_impl(
+        params, cache, tokens, config,
+        _quantized_write_and_attend(window=config.sliding_window),
+    )
+
+
+def _llama_chunk_decode_impl(
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,
+    config: LlamaConfig,
+    write_and_attend,
+) -> tuple[torch.Tensor, dict]:
+    """The llama chunk-decode skeleton both cache layouts share: embed,
+    RoPE at each row's chunk positions (``[B, 1, T]``), per layer
+    ``write_and_attend(q, k, v, layer_cache, rows, cols, start) -> out``,
+    logits at every position; advances ``cache["length"]`` by ``T``."""
+    start, rows, cols = _chunk_positions(cache, tokens)
+    rope = rope_angles(cols[:, None, :], config.head_dim, config.rope_theta)
+    x = embed_tokens(params["embed"], tokens)
+    x32 = None
+    for layer, layer_cache in zip(params["layers"], cache["layers"]):
+
+        def attend(q, k, v, _lc=layer_cache):
+            return write_and_attend(q, k, v, _lc, rows, cols, start)
+
+        x, x32 = _llama_block(x, layer, config, rope, attend, x32)
+    x = _rms_norm(x32, params["final_norm"], config.rms_eps, x.dtype)
+    cache["length"] = start + tokens.shape[1]
+    return unembed(x, readout_weights(params)), cache
+
+
+def llama_chunk_decode(
+    params: dict, cache: dict, tokens: torch.Tensor, config: LlamaConfig
+) -> tuple[torch.Tensor, dict]:
+    """Decode a ``T``-token chunk a row in one forward against the GQA
+    cache (the contract of :func:`.decode.chunk_decode`; RoPE at each
+    row's chunk positions, the sliding window included)."""
+    return _llama_chunk_decode_impl(
+        params, cache, tokens, config,
+        _full_chunk_write_and_attend(config.sliding_window))
+
+
+def llama_quantized_chunk_decode(
+    params: dict, cache: dict, tokens: torch.Tensor, config: LlamaConfig
+) -> tuple[torch.Tensor, dict]:
+    """:func:`llama_chunk_decode` against the int8 GQA cache."""
+    return _llama_chunk_decode_impl(
+        params, cache, tokens, config,
+        _quantized_chunk_write_and_attend(config.sliding_window))
+
+
+def llama_prefill_prefix(
+    params: dict, prefix, config: LlamaConfig, prompt_attention=None
+) -> dict:
+    """The GQA cache of a shared prompt prefix, computed once (RoPE is
+    position-absolute, so the cached keys are rotated for their slots);
+    ``prompt_attention`` is :func:`llama_attention_fn_for`'s pick."""
+    return _prefill_prefix_impl(llama_prefill, params, prefix, config,
+                                prompt_attention)
+
+
+def llama_prefill_with_prefix(
+    params: dict,
+    prefix_cache: dict,
+    tokens: torch.Tensor,
+    config: LlamaConfig,
+    lengths: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """Per-request suffixes continued from a shared prefix's cache in one
+    :func:`llama_chunk_decode` (the contract of
+    :func:`.decode.prefill_with_prefix`)."""
+    return _prefill_with_prefix_impl(llama_chunk_decode, params,
+                                     prefix_cache, tokens, config, lengths)
+
+
+def llama_quantized_prefill_prefix(
+    params: dict, prefix, config: LlamaConfig, prompt_attention=None
+) -> dict:
+    """:func:`llama_prefill_prefix` in the int8 GQA layout."""
+    return _prefill_prefix_impl(llama_quantized_prefill, params, prefix,
+                                config, prompt_attention)
+
+
+def llama_quantized_prefill_with_prefix(
+    params: dict,
+    prefix_cache: dict,
+    tokens: torch.Tensor,
+    config: LlamaConfig,
+    lengths: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """:func:`llama_prefill_with_prefix` over the int8 GQA layout."""
+    return _prefill_with_prefix_impl(llama_quantized_chunk_decode, params,
+                                     prefix_cache, tokens, config, lengths)
+
+
 def llama_generate(
     params: dict,
     prompt: torch.Tensor,
@@ -604,42 +742,46 @@ def llama_generate(
     (:func:`llama_attention_fn_for`), ``lengths`` marks ragged prompts,
     rows that emit ``eos_id`` pad with it.  ``rolling=True`` decodes
     through the window-sized rolling cache (sliding-window configs only;
-    the same tokens as the full cache)."""
-    if quantized_cache:
-        raise ValueError(
-            "quantized_cache (the int8 GQA cache) is not yet ported "
-            "(ROADMAP Queue 1 item 5)"
-        )
-    if prefix_cache is not None:
-        raise ValueError(
-            "prefix_cache is not yet ported: its suffix prefill runs "
-            "llama_chunk_decode (ROADMAP Queue 1 item 6)"
-        )
+    the same tokens as the full cache); ``quantized_cache=True`` through
+    the int8 GQA cache; ``prefix_cache`` (from
+    :func:`llama_prefill_prefix` or its int8 twin) prepends a shared
+    prefix, the ``prompt`` rows being the suffixes."""
     batch, prompt_len = prompt.shape
     if num_tokens < 1:
         raise ValueError(f"num_tokens must be >= 1, got {num_tokens}")
-    if prompt_len + num_tokens > config.max_seq_len:
-        raise ValueError(
-            f"prefix (0) + prompt ({prompt_len}) + num_tokens "
-            f"({num_tokens}) exceeds max_seq_len={config.max_seq_len}"
-        )
+    _check_prefix_budget(prefix_cache, prompt_len, num_tokens, config)
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature sampling requires a generator")
-    prefill_fn = llama_rolling_prefill if rolling else llama_prefill
-    step_fn = llama_rolling_decode_step if rolling else llama_decode_step
-    logits, cache = prefill_fn(params, prompt, config, prompt_attention,
-                               lengths=lengths)
-    token = _pick(logits, generator, temperature, top_k, top_p)
-    done = (
-        token == eos_id if eos_id is not None
-        else torch.zeros_like(token, dtype=torch.bool)
-    )
-    produced = [token]
-    for _ in range(num_tokens - 1):
-        logits, cache = step_fn(params, cache, token, config)
-        token = _pick(logits, generator, temperature, top_k, top_p)
-        if eos_id is not None:
-            token = torch.where(done, eos_id, token)
-            done = done | (token == eos_id)
-        produced.append(token)
-    return torch.stack(produced, dim=1)
+    if rolling and quantized_cache:
+        raise ValueError(
+            "rolling and quantized_cache do not compose (the ring's slot "
+            "arithmetic is a full-precision layout); pick one"
+        )
+    if prefix_cache is not None:
+        if rolling:
+            raise ValueError(
+                "prefix_cache rides the padded cache layout; it does not "
+                "combine with the rolling-buffer cache"
+            )
+        if prompt_attention is not None:
+            raise ValueError(
+                "prompt_attention does not apply with prefix_cache (the "
+                "suffix prefill runs the chunk decoder); drop one"
+            )
+        _check_prefix_layout(prefix_cache, quantized_cache)
+    if quantized_cache:
+        prefill_fn = llama_quantized_prefill
+        step_fn = llama_quantized_decode_step
+    else:
+        prefill_fn = llama_rolling_prefill if rolling else llama_prefill
+        step_fn = llama_rolling_decode_step if rolling else llama_decode_step
+    if prefix_cache is not None:
+        pf = (llama_quantized_prefill_with_prefix if quantized_cache
+              else llama_prefill_with_prefix)
+        logits, cache = pf(params, prefix_cache, prompt, config,
+                           lengths=lengths)
+    else:
+        logits, cache = prefill_fn(params, prompt, config, prompt_attention,
+                                   lengths=lengths)
+    return _generate_loop(step_fn, params, cache, logits, num_tokens, config,
+                          generator, temperature, top_k, top_p, eos_id)

@@ -19,10 +19,12 @@ generate worker is :class:`.continuous.ContinuousWorker`, which reads
 ``decode_block`` and ``request_ttl_s`` here.  Reply bytes match the
 reference worker's for the same traffic and weights (greedy).
 
-``ServiceConfig.profile_dir`` traces the batch worker's first
+``ServiceConfig.quantized_kv`` decodes through the int8 KV cache, and a
+worker given a ``prefix_cache`` continues every body from that shared,
+once-prefilled prompt prefix (its suffix prefill runs the family's chunk
+decoder).  ``ServiceConfig.profile_dir`` traces the batch worker's first
 ``profile_cycles`` serve cycles with ``torch.profiler``
-(:func:`..utils.profiling.maybe_trace`).  Not ported yet: the int8 KV
-cache (``quantized_kv``), which raises at construction.
+(:func:`..utils.profiling.maybe_trace`).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 
 from ..device import resolve_device
 from ..utils.profiling import SpanTimer, maybe_trace
+from .decode import prefix_len_of
 from .family import family_of
 from .model import ModelConfig
 
@@ -154,7 +157,9 @@ class ServiceConfig:
     top_k: int = 0
     top_p: float = 1.0
     eos_id: int | None = None
-    quantized_kv: bool = False  # not ported yet: raises
+    # generate mode decodes through the int8 KV cache (int8 weights are a
+    # separate choice, workloads/quantize.py)
+    quantized_kv: bool = False
     # continuous serving only: tokens the engine advances per decode
     # dispatch (decode.block_decode); 1 = the single-step engine
     decode_block: int = 1
@@ -193,11 +198,6 @@ class ServiceConfig:
                 f"request_ttl_s={self.request_ttl_s} must be >= 0 "
                 "(0 = off)"
             )
-        if self.quantized_kv:
-            raise ValueError(
-                "quantized_kv (the int8 KV cache) is not yet ported to the "
-                "PyTorch worker"
-            )
 
 
 class QueueWorker:
@@ -211,7 +211,10 @@ class QueueWorker:
     the config's family (:func:`.family.family_of`: the GPT or the llama)
     with the prompt attention picked by the batch's bucket length, and the
     generate default samples with the seed-per-batch generators of
-    :func:`sampling_keys`."""
+    :func:`sampling_keys`.  The generate default decodes through the int8
+    cache under ``ServiceConfig.quantized_kv`` and, given a
+    ``prefix_cache`` (the family's ``prefill_prefix`` in that layout),
+    continues each body from the shared prefix."""
 
     def __init__(
         self,
@@ -223,6 +226,7 @@ class QueueWorker:
         generate_fn=None,
         result_queue: MessageQueue | None = None,
         device: str | torch.device = "cuda",
+        prefix_cache: dict | None = None,
     ) -> None:
         self.queue = queue
         self.params = params
@@ -238,11 +242,12 @@ class QueueWorker:
             )
         self.result_queue = result_queue
         if service_config.generate_tokens > 0:
-            budget = service_config.seq_len + service_config.generate_tokens
+            budget = (prefix_len_of(prefix_cache) + service_config.seq_len
+                      + service_config.generate_tokens)
             if budget > model_config.max_seq_len:
                 raise ValueError(
-                    f"seq_len + generate_tokens = {budget} exceeds the "
-                    f"model's max_seq_len={model_config.max_seq_len}"
+                    f"prefix + seq_len + generate_tokens = {budget} exceeds "
+                    f"the model's max_seq_len={model_config.max_seq_len}"
                 )
         self._sample_keys = sampling_keys(service_config.sample_seed,
                                           self.device)
@@ -261,11 +266,15 @@ class QueueWorker:
             generator = None
             if config.temperature > 0.0:
                 generator = next(self._sample_keys)
+            # under a prefix the suffix prefill runs the chunk decoder,
+            # which takes no prompt-pass attention
             return family.generate(
-                params, tokens, num_tokens, model_config, attention(tokens),
+                params, tokens, num_tokens, model_config,
+                None if prefix_cache is not None else attention(tokens),
                 temperature=config.temperature, generator=generator,
                 lengths=lengths, top_k=config.top_k, top_p=config.top_p,
-                eos_id=config.eos_id,
+                eos_id=config.eos_id, quantized_cache=config.quantized_kv,
+                prefix_cache=prefix_cache,
             )
 
         self._forward = forward_fn or default_forward

@@ -27,6 +27,11 @@ runs the whole fleet's decode as one call over a shard axis:
   device ``[S]`` bit and its host mirror; a masked shard admits nothing
   and its rows in flight decode to completion (drain).
 
+Both cache layouts and the shared prefix reach the plane as the batcher's
+knobs (``quantized_kv``, ``prefix_cache``): the flat rows hold int8 codes
+and scales, or start past the prefix, and the gang step runs the layout's
+decode step, as the reference's plane composes them.
+
 The health sentinels behind the pool's quarantine (NaN logits, no
 progress, a device mask that disagrees with the host's) are read from
 that one copy, so detection costs no extra wait.  Greedy outputs equal

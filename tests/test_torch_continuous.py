@@ -432,8 +432,11 @@ def test_sampled_run_terminates_in_vocab_and_reproduces(decode_block):
 @pytest.mark.parametrize("knobs,match", [
     (dict(family="llama"), "serves a LlamaConfig"),
     (dict(mesh=object()), "not yet ported"),
-    (dict(quantized_kv=True), "not yet ported"),
-    (dict(prefix_cache={}), "not yet ported"),
+    # int8 slots and the shared prefix are ported (test_torch_int8_cache,
+    # test_torch_prefix): what is left to refuse is a prefix of the other
+    # layout, and a budget that only the prefix pushes past the context
+    (dict(quantized_kv=True, prefix_cache="full"), "layout mismatch"),
+    (dict(prefix_cache="full", generate_tokens=80), "exceeds max_seq_len"),
     (dict(draft_layers=1), "not yet ported"),
     (dict(beams=2), "not yet ported"),
     (dict(tenancy=object()), "not yet ported"),
@@ -448,6 +451,8 @@ def test_unported_and_invalid_knobs_raise(knobs, match):
     _, _, tcfg, tp = both_params()
     kw = dict(batch_size=2, generate_tokens=4)
     kw.update(knobs)
+    if kw.get("prefix_cache") == "full":
+        kw["prefix_cache"] = decode.prefill_prefix(tp, torch.arange(7), tcfg)
     with pytest.raises(ValueError, match=match):
         port_batcher(tp, tcfg, **kw)
 

@@ -8,7 +8,8 @@ and a subprocess in which ``jax``, ``jaxlib`` and
 runs a tiny forward, generate, worker cycle, continuous-worker drain,
 fleet episode with its control loop, sharded-plane drain, sharded-pool
 episode with a poisoned shard, llama forward, generate and two-shard
-drain, and train step on the CPU.  The
+drain, int8 weights, int8 KV cache, chunk decode and shared-prefix serving
+of both families, and train step on the CPU.  The
 control-plane subpackages import no torch at all, so importing the fleet
 starts no CUDA work and builds no kernel.
 """
@@ -48,6 +49,7 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     assert {path.parent.name for path in files} >= set(SUBPACKAGES)
     assert len(files) > 10
     assert PORT / "workloads" / "llama.py" in files
+    assert PORT / "workloads" / "quantize.py" in files
     offenders = {
         str(path.relative_to(ROOT)): name
         for path in files for name in absolute_imports(path) if banned(name)
@@ -81,7 +83,7 @@ from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
 from kube_sqs_autoscaler_tpu_torch.workloads import decode, model, service
 from kube_sqs_autoscaler_tpu_torch.workloads import __main__, worker  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import continuous, shard_plane
-from kube_sqs_autoscaler_tpu_torch.workloads import llama
+from kube_sqs_autoscaler_tpu_torch.workloads import llama, quantize
 from kube_sqs_autoscaler_tpu_torch.workloads import data, perf, train  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import trainer  # noqa
 from kube_sqs_autoscaler_tpu_torch import core, fleet, metrics, obs, sim
@@ -157,6 +159,33 @@ lw = continuous.ContinuousWorker(
                           decode_block=2, shards=2),
     family="llama", device="cpu")
 assert lw.drain(total=1) == 1 and lw.batcher.family == "llama"
+# int8 weights, the int8 cache, the chunk decoders and the shared prefix
+qparams = quantize.quantize_params(params, "gpt")
+assert quantize.quantized_bytes(qparams) < quantize.quantized_bytes(params)
+prefix = decode.quantized_prefill_prefix(qparams, [5, 6, 7], cfg)
+assert decode.generate(qparams, ids, 3, cfg, quantized_cache=True,
+                       prefix_cache=prefix).shape == (2, 3)
+_, cache = decode.prefill(params, ids, cfg)
+assert decode.chunk_decode(params, cache, ids[:, :2], cfg)[0].shape == (
+    2, 2, 64)
+_, qcache = decode.quantized_prefill(qparams, ids, cfg)
+assert decode.quantized_chunk_decode(qparams, qcache, ids[:, :2],
+                                     cfg)[0].shape == (2, 2, 64)
+lq = quantize.quantize_params(lparams, "llama")
+lprefix = llama.llama_quantized_prefill_prefix(lq, [5, 6], lcfg)
+assert llama.llama_generate(lq, ids, 3, lcfg, quantized_cache=True,
+                            prefix_cache=lprefix).shape == (2, 3)
+_, lcache = llama.llama_prefill(lparams, ids, lcfg)
+assert llama.llama_chunk_decode(lparams, lcache, ids[:, :2],
+                                lcfg)[0].shape == (2, 2, 64)
+for _ in range(2):
+    jobs.send_message("q", json.dumps([1, 2, 3]))
+qw = continuous.ContinuousWorker(
+    jobs, lq, lcfg,
+    service.ServiceConfig(queue_url="q", seq_len=8, generate_tokens=3,
+                          decode_block=2, shards=2, quantized_kv=True),
+    prefix_cache=lprefix, device="cpu")
+assert qw.drain(total=2) == 2 and qw.batcher.prefix_len == 2
 state = train.train_state(params, train.TrainConfig())
 step = train.make_train_step(cfg, train.TrainConfig(), "cpu")
 assert step(state, ids)[0]["step"] == 1

@@ -469,8 +469,8 @@ def test_grouped_cached_attention_matches_the_repeated_reference(
     ("rolling-full-cache", "window-sized cache"),
     ("rolling-cache-no-window", "sliding_window"),
     ("rolling-prefill-no-window", "sliding_window"),
-    ("quantized", "item 5"),
-    ("prefix", "item 6"),
+    ("quantized", "do not compose"),
+    ("prefix", "does not apply with prefix_cache"),
     ("zero-tokens", "num_tokens"),
     ("budget", "exceeds max_seq_len"),
     ("no-generator", "generator"),
@@ -487,10 +487,15 @@ def test_refusals(call, match):
             plain, 2, "cpu"),
         "rolling-prefill-no-window": lambda: llama.llama_rolling_prefill(
             tp, ids, plain),
-        "quantized": lambda: llama.llama_generate(tp, ids, 2, tcfg,
-                                                  quantized_cache=True),
-        "prefix": lambda: llama.llama_generate(tp, ids, 2, tcfg,
-                                               prefix_cache={}),
+        # int8 and the prefix are ported (test_torch_int8_cache,
+        # test_torch_prefix): the rolling ring with int8, and a prompt
+        # attention beside a prefix, are what is refused
+        "quantized": lambda: llama.llama_generate(
+            tp, ids, 2, tcfg, rolling=True, quantized_cache=True),
+        "prefix": lambda: llama.llama_generate(
+            tp, ids, 2, tcfg, prompt_attention=llama._gqa_dense_attention(
+                tcfg),
+            prefix_cache=llama.llama_prefill_prefix(tp, ids[0, :3], tcfg)),
         "zero-tokens": lambda: llama.llama_generate(tp, ids, 0, tcfg),
         "budget": lambda: llama.llama_generate(tp, ids, 39, tcfg),
         "no-generator": lambda: llama.llama_generate(tp, ids, 2, tcfg,

@@ -108,8 +108,11 @@ def test_host_helpers_match_reference():
 
 
 def test_unported_options_raise_at_construction():
-    with pytest.raises(ValueError, match="not yet ported"):
-        service.ServiceConfig(queue_url=URL, quantized_kv=True)
+    # the int8 KV cache is ported: the option is accepted, as in the
+    # reference (test_torch_int8_cache and test_torch_prefix serve it)
+    assert service.ServiceConfig(queue_url=URL, quantized_kv=True).quantized_kv
+    assert jax_service.ServiceConfig(queue_url=URL,
+                                     quantized_kv=True).quantized_kv
     # device tracing is ported: the option is accepted, as in the reference
     traced = service.ServiceConfig(queue_url=URL, profile_dir="traces")
     assert (traced.profile_dir, traced.profile_cycles) == ("traces", 20)
