@@ -114,10 +114,32 @@ Phases (any failure makes the run exit non-zero and print no result):
    staggered suffixes through the block-8 batcher behind the prefix
    against ``generate`` of prefix and suffix joined (the int8 layout
    against its own prefix generate), up to the first near-tie;
-13. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
+13. speculative: ``--speculative-draft-layers 2 --speculative-draft-tokens
+   4`` for both families in bf16 through the batch worker
+   (``n_layers + draft_layers`` forward launches a batch: the target's
+   and the draft's prefill) and ``--continuous`` (``n_layers`` an
+   insert: one target prefill seeds both caches), replies counted
+   against the plain greedy worker's on the same weights, the accepted
+   fraction, rounds a request and second rounds dispatched ahead;
+   ``--temperature 0.8`` answering 64 of 64 in the vocabulary; the
+   acceptance rule on the card over 10^5 rows of synthetic distributions
+   (V = 32), its emitted marginal within total variation 0.01 of the
+   warped target; in f32 the staggered prompts through the batch
+   ``speculative_generate`` and the slot engine against greedy
+   ``generate`` up to the first near-tie; the GPT with ``--quantize-kv``
+   and behind the 37-token prefix;
+14. beam: ``--beams 4``, and with ``--length-penalty 0.6 --eos-id`` a
+   token the demo emits, for both families through the batch worker and
+   ``--continuous`` (``n_layers`` launches a prompt pass), replies counted
+   between the two; in f32 the beam slots against ``beam_search`` of each
+   prompt alone up to the first near-tie in the search's selection; the
+   GPT with ``--quantize-kv`` and the prefix; warm rates of plain block-1
+   ``--continuous``, speculative and beams; ``torch.profiler`` over a
+   beam drain with the parent gather's share;
+15. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
    through dense attention with no kernel launch, its loss falling; the
    forward wrapper called directly at D = 16 must raise ``ValueError``;
-14. training: an f32 loss and gradient at the flagship train width through
+16. training: an f32 loss and gradient at the flagship train width through
    the kernels against the dense-attention path; the trainer binary's code
    path in-process at the flagship config (GPT, d_model 1024, 16 heads,
    8 layers, d_ff 4096, vocab 8192, B=8, S=2048) in bf16 for 10
@@ -126,11 +148,18 @@ Phases (any failure makes the run exit non-zero and print no result):
    steps`` (and twice that for the forward under ``--remat``); its steady
    step time, tokens/s, MFU and peak memory; ``torch.profiler`` over one
    step;
-15. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-16. the last line, ``{"ok": true, "device": {...}}``.
+17. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+18. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
+
+``python3 chip_smoke.py --repair-cost PARENT`` measures instead what a
+change to the model's numerics costs: for the checkout at ``PARENT`` and
+this one, in the order parent, this, this, parent, each in a process of
+its own, the operators a decode step of 8 rows dispatches, the GPT decode
+step's time, and the flagship trainer's steady step time and peak
+memory.
 """
 
 from __future__ import annotations
@@ -2783,18 +2812,23 @@ def replies_of(summary) -> dict:
             summary["replies"].items()}
 
 
-def check_served(smoke, label, summary) -> None:
+def check_served(smoke, label, summary, eos_id=None) -> None:
+    """64 of 64 answered once and deleted, each reply 32 tokens in the
+    vocabulary (with ``eos_id``: at most 32, cut before the eos)."""
     attrs = summary["queue_attributes"]
     smoke.check(summary["processed"] == 64
                 and len(summary["replies"]) == 64
                 and summary["duplicate_replies"] == 0
                 and attrs["ApproximateNumberOfMessages"] == "0"
                 and attrs["ApproximateNumberOfMessagesNotVisible"] == "0"
-                and all(len(r.get("tokens", ())) == 32
+                and all((len(r.get("tokens", ())) == 32 if eos_id is None
+                         else len(r.get("tokens", ())) <= 32
+                         and eos_id not in r["tokens"])
                         and all(0 <= t < 8192 for t in r["tokens"])
                         for r in summary["replies"].values()),
                 f"{label}: processed {summary['processed']} of 64, "
-                f"{len(summary['replies'])} replies of 32 tokens in the "
+                f"{len(summary['replies'])} replies of "
+                f"{'32' if eos_id is None else 'at most 32'} tokens in the "
                 f"vocabulary, {summary['duplicate_replies']} duplicates, "
                 f"queue {attrs}")
 
@@ -3228,6 +3262,599 @@ def prefix_f32_checks(torch, flash, smoke: Smoke) -> dict:
     return out
 
 
+# -- speculative decoding and beam search -----------------------------------
+
+SPEC_DRAFT = 2  # the self-draft's depth: the first 2 of the 4 layers
+SPEC_K = 4  # proposals a round
+SPEC_ARGS = ["--speculative-draft-layers", str(SPEC_DRAFT),
+             "--speculative-draft-tokens", str(SPEC_K)]
+BEAMS = 4
+BEAM_ARGS = ["--beams", str(BEAMS)]
+SERVE_LAYERS = 4  # the built-in models' depth
+MARGINAL_ROWS = 100_000
+MARGINAL_VOCAB = 32
+MARGINAL_TV = 0.01
+
+
+def plain_replies(torch, family: str, headroom: int) -> dict:
+    """The plain greedy batch worker's ``--demo 64`` replies, with the
+    weights of the built-in config whose context is widened by
+    ``headroom`` (the speculative binary's 2k: the GPT's position table,
+    and so its seeded weights, depend on the context)."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import ServiceConfig
+
+    config, params = binary.builtin_model(family, 512, 32, "cuda",
+                                          headroom=headroom)
+    service_config = ServiceConfig(queue_url="", batch_size=8, seq_len=512,
+                                   generate_tokens=32,
+                                   result_queue_url="demo://replies")
+    summary = binary.run_demo(64, params, config, service_config,
+                              torch.device("cuda"))
+    return replies_of(summary)
+
+
+def count_same(replies: dict, base: dict) -> int:
+    return sum(replies.get(rid) == body for rid, body in base.items())
+
+
+def engine_rates(summary) -> dict:
+    return {"msgs_per_s": summary["msgs_per_s"],
+            "tokens_per_s": summary["tokens_per_s"],
+            "ttft_mean_s": summary["ttft_mean_s"]}
+
+
+def speculative_phase(torch, flash, smoke: Smoke) -> dict:
+    """Speculative decoding (``--speculative-draft-layers 2
+    --speculative-draft-tokens 4``: the first 2 of 4 layers draft, 4
+    proposals a round) at both families' full width: (a) the binary's
+    ``--demo 64`` in bf16 through the batch worker (one prefill of the
+    target and one of the draft a batch: ``n_layers + draft_layers``
+    forward launches, no lse) and ``--continuous`` (one target prefill an
+    insert seeds both caches: ``n_layers`` launches an insert); replies
+    counted against the plain greedy batch worker's on the same weights;
+    the accepted fraction, rounds a request and second rounds dispatched
+    ahead (and still running when the first was read); (b) sampled, the
+    GPT at ``--temperature 0.8`` in both workers: 64 of 64 answered, every
+    token in the vocabulary; (c) the rejection rule on the card:
+    ``_accept_and_fixup`` over 10^5 rows of synthetic draft and target
+    distributions (V = 32), the emitted marginal within total variation
+    0.01 of the warped target; (d) in f32 the staggered prompts through
+    the batch ``speculative_generate`` and the slot engine against the
+    port's greedy generate, up to the first near-tie; (e) the GPT with
+    ``--quantize-kv`` and with the 37-token prefix, each answering 64 of
+    64."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        main as worker,
+    )
+
+    out = {"launches": {}, "replies_same": {}, "stats": {}, "rates": {}}
+    for family in ("gpt", "llama"):
+        base = plain_replies(torch, family, 2 * SPEC_K)
+        total = 0
+        for mode, extra in (("generate", []),
+                            ("continuous", ["--continuous"])):
+            label = f"speculative {family} {mode}"
+            summary, launched, _, logs = run_binary(
+                torch, flash, worker,
+                [*GENERATE_ARGS, "--family", family, *SPEC_ARGS, *extra])
+            check_served(smoke, label, summary)
+            logged = any(f"{SPEC_DRAFT}-layer early-exit self-draft, "
+                         f"{SPEC_K} proposals/round" in s for s in logs)
+            if mode == "generate":
+                passes, per_pass = 64 // 8, SERVE_LAYERS + SPEC_DRAFT
+            else:
+                passes, per_pass = summary["insert_dispatches"], SERVE_LAYERS
+            smoke.check(
+                logged and (mode == "generate" or passes == 64)
+                and launched["flash_fwd"] == per_pass * passes
+                and launched["flash_fwd_lse"] == 0,
+                f"{label}: logged ({logged}); flash_fwd launches "
+                f"{launched['flash_fwd']} = {per_pass} x {passes} prompt "
+                f"passes, lse {launched['flash_fwd_lse']}")
+            total += launched["flash_fwd"]
+            same = count_same(replies_of(summary), base)
+            print(f"{label}: replies byte-identical to the plain greedy "
+                  f"batch worker's on the same weights, of 64 (bf16, counted, "
+                  f"not gated): {same}", flush=True)
+            out["replies_same"][f"{family}-{mode}"] = same
+            if mode == "continuous":
+                rounds = summary["spec_rounds"]
+                stats = {
+                    "accepted_fraction": summary["spec_accepted"]
+                    / (SPEC_K * rounds),
+                    "rounds_per_request": rounds / 64,
+                    "second_rounds": summary["spec_second_rounds"],
+                    "second_rounds_running_at_read":
+                        summary["spec_overlapped"],
+                    "decode_dispatches": summary["decode_dispatches"],
+                }
+                print(f"{label}: accepted {stats['accepted_fraction']:.4f} "
+                      f"of the drafts, {stats['rounds_per_request']:.3f} "
+                      f"rounds a request, {stats['second_rounds']} second "
+                      f"rounds dispatched ahead of the first's read, "
+                      f"{stats['second_rounds_running_at_read']} of them "
+                      f"still running at that read", flush=True)
+                out["stats"][family] = stats
+                out["rates"][f"{family}-speculative"] = engine_rates(summary)
+        out["launches"][f"serve-speculative-{family}"] = total
+    for mode, extra in (("generate", []), ("continuous", ["--continuous"])):
+        summary, launched, _, _ = run_binary(
+            torch, flash, worker,
+            [*GENERATE_ARGS, *SPEC_ARGS, "--temperature", "0.8", *extra])
+        check_served(smoke, f"speculative gpt sampled {mode}", summary)
+        out["launches"]["serve-speculative-gpt"] += launched["flash_fwd"]
+    out["marginal"] = spec_marginal(torch, smoke)
+    out["f32"] = spec_f32_checks(torch, flash, smoke)
+    out["launches"]["serve-speculative-gpt"] += compositions(
+        torch, flash, smoke, worker, SPEC_ARGS, "speculative")
+    return out
+
+
+def compositions(torch, flash, smoke, worker, mode_args, name) -> int:
+    """The GPT's ``--continuous`` with ``mode_args`` over the int8 cache
+    and behind the 37-token prefix: 64 of 64 answered, ``n_layers`` forward
+    launches an insert (the prefix's once, its suffixes none); returns
+    the launches."""
+    total = 0
+    for layout, flags in (("int8-kv", ["--quantize-kv"]),
+                          ("prefix", PREFIX_ARGS)):
+        label = f"{name} gpt {layout} continuous"
+        summary, launched, _, _ = run_binary(
+            torch, flash, worker,
+            [*GENERATE_ARGS, *mode_args, *flags, "--continuous"])
+        check_served(smoke, label, summary)
+        want = (SERVE_LAYERS if layout == "prefix"
+                else SERVE_LAYERS * summary["insert_dispatches"])
+        smoke.check(summary["insert_dispatches"] == 64
+                    and launched["flash_fwd"] == want
+                    and launched["flash_fwd_lse"] == 0,
+                    f"{label}: {summary['insert_dispatches']} inserts, "
+                    f"flash_fwd launches {launched['flash_fwd']} (want {want})"
+                    f", lse {launched['flash_fwd_lse']}")
+        total += launched["flash_fwd"]
+    return total
+
+
+def spec_marginal(torch, smoke: Smoke) -> dict:
+    """The speculative-sampling rule on the card: 10^5 rows of one draft
+    proposal (k = 1) from synthetic draft logits, accepted or fixed up
+    against synthetic target logits (both warped at temperature 0.8,
+    top-k 20): the emitted token's empirical distribution against the
+    warped target's softmax, in total variation."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import speculative
+
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((2, MARGINAL_VOCAB), device="cuda",
+                         generator=generator) * 1.5
+    draft_w = speculative._warp(logits[0], 0.8, 20, 1.0)
+    target_w = speculative._warp(logits[1], 0.8, 20, 1.0)
+    rows = MARGINAL_ROWS
+    draft = draft_w.expand(rows, 1, MARGINAL_VOCAB)
+    target = target_w.expand(rows, 2, MARGINAL_VOCAB)
+    drafts = speculative._sample(draft[:, 0], generator)[:, None]
+    n, fixup = speculative._accept_and_fixup(generator, drafts, draft,
+                                             target)
+    emitted = torch.where(n >= 1, drafts[:, 0], fixup)
+    empirical = torch.bincount(emitted, minlength=MARGINAL_VOCAB).double()
+    empirical /= rows
+    expected = torch.softmax(target_w.double(), dim=-1)
+    tv = 0.5 * float((empirical - expected).abs().sum())
+    accepted = float(n.double().mean())
+    smoke.check(tv < MARGINAL_TV,
+                f"speculative sampling on the card: {rows} rows, V = "
+                f"{MARGINAL_VOCAB}, {accepted:.4f} of the drafts accepted; "
+                f"the emitted marginal's total variation from the warped "
+                f"target {tv:.5f} (< {MARGINAL_TV})")
+    return {"tv": tv, "accepted": accepted}
+
+
+def f32_model(torch, family: str, headroom: int = 0):
+    """``(config, params, family record)`` of the built-in model of
+    ``family`` in f32 with its context widened by ``headroom``."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        BUILTIN_CONFIGS,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+
+    config = dataclasses.replace(
+        BUILTIN_CONFIGS[family](512, 32, 0, headroom), dtype=torch.float32)
+    model = family_of(config)
+    return (config, model.init_params(
+        config, torch.Generator().manual_seed(0), "cuda"), model)
+
+
+def padded_batches(torch, requests, rows: int = 8):
+    """The requests as ``[rows, 512]`` right-padded batches with their
+    lengths, on the card."""
+    for start in range(0, len(requests), rows):
+        chunk = requests[start:start + rows]
+        ids = torch.zeros((len(chunk), 512), dtype=torch.long)
+        for i, prompt in enumerate(chunk):
+            ids[i, :len(prompt)] = torch.from_numpy(prompt)
+        yield start, ids.cuda(), torch.tensor(
+            [len(p) for p in chunk], device="cuda")
+
+
+def spec_f32_checks(torch, flash, smoke: Smoke) -> dict:
+    """Part (d) of :func:`speculative_phase`."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousBatcher,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.speculative import (
+        self_draft, speculative_generate,
+    )
+
+    out = {}
+    requests = staggered_requests()
+    for family in ("gpt", "llama"):
+        config, params, model = f32_model(torch, family, 2 * SPEC_K)
+        layout = model.full
+        want, margins = [], []
+        with torch.inference_mode():
+            for ids in requests:
+                prompt = torch.from_numpy(ids).cuda()[None]
+                pick = model.attention_fn_for(config, prompt.shape[1], "cuda")
+                tokens, margin = rollout(
+                    torch,
+                    lambda: layout.prefill(params, prompt, config, pick),
+                    lambda cache, token: layout.decode_step(
+                        params, cache, token, config))
+                want.append(tokens)
+                margins.append(margin)
+            draft_params, draft_config = self_draft(params, config,
+                                                    SPEC_DRAFT)
+            got, launched, calls = {}, 0, 0
+            for start, ids, lengths in padded_batches(torch, requests):
+                before = flash.kernel_launches
+                tokens = speculative_generate(
+                    params, config, draft_params, draft_config, ids, 32,
+                    draft_tokens=SPEC_K, lengths=lengths,
+                    attention_fn=model.attention_fn_for(config, 512, "cuda"))
+                launched += flash.kernel_launches - before
+                calls += 1
+                for i, row in enumerate(tokens.cpu().numpy()):
+                    got[start + i] = row
+        bad, ties = compare_upto_ties(got, want, margins)
+        smoke.check(
+            len(got) == 24 and not bad
+            and launched == (SERVE_LAYERS + SPEC_DRAFT) * calls,
+            f"speculative {family} f32 batch speculative_generate: 24 "
+            f"staggered prompts in {calls} batches ({launched} flash_fwd "
+            f"launches); tokens equal to the port's greedy generate alone up "
+            f"to the first near-tie (margin < {MARGIN:g}): mismatched {bad}; "
+            f"near-ties {ties}")
+        batcher = ContinuousBatcher(
+            params, config, 8, 512, 32, family=family,
+            draft_layers=SPEC_DRAFT, draft_tokens=SPEC_K, device="cuda")
+        before = flash.kernel_launches
+        slots, cycles = staggered_drive(batcher, requests)
+        slot_launches = flash.kernel_launches - before
+        slot_bad, slot_ties = compare_upto_ties(slots, want, margins)
+        smoke.check(
+            len(slots) == 24 and not slot_bad
+            and slot_launches == SERVE_LAYERS * batcher.insert_dispatches,
+            f"speculative {family} f32 slot engine: {len(slots)} of 24 "
+            f"staggered prompts in {cycles} cycles, "
+            f"{batcher.insert_dispatches} inserts ({slot_launches} flash_fwd "
+            f"launches), {batcher.spec_rounds} rounds accepting "
+            f"{batcher.spec_accepted}; tokens equal to the port's greedy "
+            f"generate alone up to the first near-tie: mismatched "
+            f"{slot_bad}; near-ties {slot_ties}")
+        out[family] = {"batch": {"mismatched": bad, "near_ties": ties},
+                       "slots": {"mismatched": slot_bad,
+                                 "near_ties": slot_ties}}
+        del batcher, params
+    return out
+
+
+def eos_token(replies: dict) -> int:
+    """A token the demo's greedy replies emit: the commonest one at
+    positions 4-12 (so some beams end early and most do not)."""
+    counts_ = np.bincount([t for body in replies.values()
+                           for t in json.loads(body)["tokens"][4:12]])
+    return int(counts_.argmax())
+
+
+def beam_phase(torch, flash, smoke: Smoke) -> dict:
+    """Beam search (``--beams 4``, and with ``--length-penalty 0.6
+    --eos-id`` a token the demo emits) at both families' full width: (a)
+    the binary's ``--demo 64`` in bf16 through the batch worker (one
+    prompt pass a batch: ``n_layers`` forward launches) and
+    ``--continuous`` (one an insert), replies counted between the two; (b)
+    in f32 the staggered prompts through the beam slot engine against the
+    port's batch ``beam_search`` of each prompt alone, up to the first
+    step where the standalone search's choice is a near-tie; (c) the GPT
+    with ``--quantize-kv`` and with the 37-token prefix; (d) the warm
+    rates of plain block-1 ``--continuous``, speculative and beams, and a
+    profiled beam drain with the parent gather's share of the device
+    time."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        main as worker,
+    )
+
+    out = {"launches": {}, "replies_same": {}, "rates": {}, "eos": {}}
+    for family in ("gpt", "llama"):
+        eos = eos_token(plain_replies(torch, family, 0))
+        out["eos"][family] = eos
+        total = 0
+        for variant, flags in (
+                ("beams", BEAM_ARGS),
+                ("beams-eos-penalty", [*BEAM_ARGS, "--length-penalty", "0.6",
+                                       "--eos-id", str(eos)])):
+            replies = {}
+            for mode, extra in (("generate", []),
+                                ("continuous", ["--continuous"])):
+                label = f"{variant} {family} {mode}"
+                summary, launched, _, logs = run_binary(
+                    torch, flash, worker,
+                    [*GENERATE_ARGS, "--family", family, *flags, *extra])
+                check_served(smoke, label, summary,
+                             eos_id=eos if "--eos-id" in flags else None)
+                passes = (64 // 8 if mode == "generate"
+                          else summary["insert_dispatches"])
+                logged = any(f"Beam search: {BEAMS} beams" in s for s in logs)
+                smoke.check(
+                    logged and (mode == "generate" or passes == 64)
+                    and launched["flash_fwd"] == SERVE_LAYERS * passes
+                    and launched["flash_fwd_lse"] == 0,
+                    f"{label}: logged ({logged}); flash_fwd launches "
+                    f"{launched['flash_fwd']} = {SERVE_LAYERS} x {passes} "
+                    f"prompt passes, lse {launched['flash_fwd_lse']}")
+                total += launched["flash_fwd"]
+                replies[mode] = replies_of(summary)
+                if mode == "continuous" and variant == "beams":
+                    out["rates"][f"{family}-beams"] = engine_rates(summary)
+            same = count_same(replies["continuous"], replies["generate"])
+            ended = sum(len(json.loads(b)["tokens"]) < 32
+                        for b in replies["generate"].values())
+            print(f"{variant} {family}: continuous replies byte-identical to "
+                  f"the batch worker's, of 64 (bf16, counted, not gated): "
+                  f"{same}; replies ended by eos {ended}", flush=True)
+            out["replies_same"][f"{family}-{variant}"] = same
+        summary, _, _, _ = run_binary(
+            torch, flash, worker,
+            [*GENERATE_ARGS, "--family", family, "--continuous"])
+        out["rates"][f"{family}-plain-b1"] = engine_rates(summary)
+        out["launches"][f"serve-beams-{family}"] = total
+    out["f32"] = beam_f32_checks(torch, flash, smoke)
+    out["launches"]["serve-beams-gpt"] += compositions(
+        torch, flash, smoke, worker, BEAM_ARGS, "beams")
+    return out
+
+
+def beam_gaps(torch, params, config, layout, prompt, lengths, pick,
+              steps: int = 32, eos_id=None):
+    """Each step's selection gap of :func:`beam.beam_search` on one prompt:
+    the distance between the ``W``-th and the ``W + 1``-th best of the
+    ``W * V`` continuations (the first expansion's too), the place where
+    another summation order could pick another beam.  The search's own
+    loop, with the ``W + 1``-th candidate read off."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import beam
+
+    logits, cache = layout.prefill(params, prompt, config, pick,
+                                   lengths=lengths)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    top, last = beam.top_k_lowest_first(logp, BEAMS + 1)
+    gaps = [float(top[0, BEAMS - 1] - top[0, BEAMS])]
+    scores, last = top[:, :BEAMS], last[:, :BEAMS]
+    cache = beam.repeat_rows(cache, BEAMS)
+    gather = beam.RowGather(cache)
+    alive = (last != eos_id if eos_id is not None
+             else torch.ones_like(last, dtype=torch.bool))
+    for _ in range(steps - 1):
+        logits, cache = layout.decode_step(params, cache, last.reshape(-1),
+                                           config)
+        logp = torch.log_softmax(logits.float(), dim=-1).view(1, BEAMS, -1)
+        if eos_id is not None:
+            frozen = torch.full_like(logp, float("-inf"))
+            frozen[..., eos_id] = 0.0
+            logp = torch.where(alive[..., None], logp, frozen)
+        total = (scores[..., None] + logp).reshape(1, -1)
+        top, _ = beam.top_k_lowest_first(total, BEAMS + 1)
+        gaps.append(float(top[0, BEAMS - 1] - top[0, BEAMS]))
+        scores, parent, last = beam.expand_beams(logp, scores, alive, None)
+        cache = gather(cache, parent.reshape(-1))
+        alive = alive.gather(1, parent)
+        if eos_id is not None:
+            alive = alive & (last != eos_id)
+    return np.asarray(gaps)
+
+
+def beam_f32_checks(torch, flash, smoke: Smoke) -> dict:
+    """Part (b) of :func:`beam_phase`: the GPT also with an eos and a
+    length penalty."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.beam import beam_search
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousBatcher,
+    )
+
+    out = {}
+    requests = staggered_requests()
+    for family in ("gpt", "llama"):
+        config, params, model = f32_model(torch, family)
+        pick = model.attention_fn_for(config, 512, "cuda")
+        variants = [("beams", {})]
+        if family == "gpt":
+            variants.append(("beams-eos-penalty", None))
+        for variant, knobs in variants:
+            want, tied = {}, {}
+            with torch.inference_mode():
+                for start, ids, lengths in padded_batches(torch, requests, 1):
+                    if knobs is None:  # an eos the first prompt's beam emits
+                        first = beam_search(params, config, ids, 32,
+                                            beams=BEAMS, lengths=lengths,
+                                            attention_fn=pick)
+                        knobs = {"eos_id": int(first[0, 3]),
+                                 "length_penalty": 0.6}
+                    seqs, ranked = beam_search(
+                        params, config, ids, 32, beams=BEAMS, lengths=lengths,
+                        attention_fn=pick, return_all=True, **knobs)
+                    want[start] = seqs[0, 0].cpu().numpy()
+                    gaps = beam_gaps(torch, params, config, model.full, ids,
+                                     lengths, pick,
+                                     eos_id=knobs.get("eos_id"))
+                    low = np.flatnonzero(gaps < MARGIN)
+                    if float(ranked[0, 0] - ranked[0, 1]) < MARGIN:
+                        tied[start] = 0  # the final ranking is a near-tie
+                    elif low.size:
+                        tied[start] = int(low[0])
+            batcher = ContinuousBatcher(params, config, 8, 512, 32,
+                                        family=family, beams=BEAMS,
+                                        device="cuda", **knobs)
+            before = flash.kernel_launches
+            got, cycles = staggered_drive(batcher, requests)
+            launched = flash.kernel_launches - before
+            # a request whose standalone search met a near-tie at step s
+            # is compared over its first s tokens only
+            bad = [i for i, tokens in got.items()
+                   if not np.array_equal(tokens[:tied.get(i, 32)],
+                                         want[i][:tied.get(i, 32)])]
+            smoke.check(
+                len(got) == 24 and not bad
+                and launched == SERVE_LAYERS * batcher.insert_dispatches,
+                f"{variant} {family} f32 slot engine {knobs}: {len(got)} of "
+                f"24 staggered prompts in {cycles} cycles, "
+                f"{batcher.insert_dispatches} inserts ({launched} flash_fwd "
+                f"launches); equal to beam_search of each prompt alone up to "
+                f"the first near-tie in its selection (gap < {MARGIN:g}): "
+                f"mismatched {bad}; near-ties (request: step) {tied}")
+            out[f"{family}-{variant}"] = {"mismatched": bad,
+                                          "near_ties": tied}
+            del batcher
+        del params
+    return out
+
+
+def beam_profile(torch) -> dict:
+    """Where a beam engine's device time goes: ``torch.profiler`` around
+    a 16-message ``--beams 4`` drain of the GPT (block 1), with the parent
+    gather's kernels (``index_select``) apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary
+
+    config, params, service_config = demo_setup(torch, GENERATE_ARGS, 1)
+    modes = ({}, {"beams": BEAMS})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        summary = binary.run_demo(16, params, config, service_config,
+                                  torch.device("cuda"), continuous=True,
+                                  modes=modes)
+        torch.cuda.synchronize()
+    wall_ms = summary["elapsed_s"] * 1e3
+    kernels, copies = device_breakdown(prof)
+    busy_ms = sum(ms for ms, _, _ in kernels)
+    # the parent gather's index_select runs as vectorized_gather_kernel;
+    # the stable top-k over W * V continuations as a radix sort
+    gather_ms = sum(ms for ms, _, key in kernels
+                    if "vectorized_gather_kernel" in key)
+    sort_ms = sum(ms for ms, _, key in kernels if "RadixSort" in key)
+    print(f"profile beams 4 continuous (16 messages, profiler on): wall "
+          f"{wall_ms:.3f} ms, kernels busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), parent gather (index_select) "
+          f"{gather_ms:.3f} ms ({100 * gather_ms / busy_ms:.1f}% of busy), "
+          f"top-k sort {sort_ms:.3f} ms ({100 * sort_ms / busy_ms:.1f}%), "
+          f"copies {sum(ms for ms, _, _ in copies):.3f} ms", flush=True)
+    for ms, count, key in kernels[:8]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
+    return {"wall_ms": wall_ms, "kernel_busy_ms": busy_ms,
+            "gather_ms": gather_ms, "sort_ms": sort_ms,
+            "top": [(ms, count, key[:90]) for ms, count, key in kernels[:8]]}
+
+
+def slice_rates(spec: dict, beams: dict) -> dict:
+    """The warm ``--demo 64`` rates of plain block-1 ``--continuous``,
+    speculative and beams, both families, from the runs above."""
+    rates = {**beams["rates"], **spec["rates"]}
+    for key in sorted(rates):
+        r = rates[key]
+        print(f"warm {key} --continuous --demo 64: {r['msgs_per_s']:.3f} "
+              f"msgs/s, {r['tokens_per_s']:.3f} generated tokens/s, mean "
+              f"TTFT {r['ttft_mean_s'] * 1e3:.3f} ms", flush=True)
+    return rates
+
+
+# -- the cost of the GPT's bf16 rounding repair -----------------------------
+
+REPAIR_TRAIN_STEPS = 6
+
+
+def cost_of_this_tree() -> None:
+    """One JSON line of the cost numbers of the tree whose package this
+    process imports: the operators a decode step of 8 rows dispatches
+    (GPT and llama), the GPT decode step's time at a cache of 544
+    positions, and the flagship trainer's steady bf16 step time and peak
+    memory over ``REPAIR_TRAIN_STEPS`` ``--overfit`` steps."""
+    import torch
+
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary
+    from kube_sqs_autoscaler_tpu_torch.workloads import trainer
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+
+    ops = ops_per_decode_step(torch)
+    config, params = binary.builtin_model("gpt", 512, 32, "cuda")
+    layout = family_of(config).full
+    ids = torch.zeros((8, 512), dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        _, cache = layout.prefill(params, ids, config)
+        start = cache["length"].clone()
+
+        def step():
+            cache["length"] = start.clone()
+            layout.decode_step(params, cache, ids[:, 0], config)
+
+        step_ms = time_ms(torch, step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    summary = trainer.main([*TRAIN_ARGS, "--steps", str(REPAIR_TRAIN_STEPS),
+                            "--log-every", "1", "--overfit"])
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "tree": str(Path(trainer.__file__).resolve().parents[2]),
+        "ops_gpt": ops["gpt"], "ops_llama": ops["llama"],
+        "gpt_decode_step_ms": step_ms,
+        "train_step_ms": 1e3 / summary["steps_per_s"],
+        "train_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "losses": summary["losses"],
+    }), flush=True)
+
+
+def repair_cost_main(parent: str) -> int:
+    """``python3 chip_smoke.py --repair-cost PARENT``: the cost numbers of
+    :func:`cost_of_this_tree` for the checkout at ``PARENT`` (the tree
+    before the repair) and for this one, in the order parent, this, this,
+    parent, each in a process of its own whose package is that tree's."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    device_phase(torch)
+    here = Path(__file__).resolve()
+    runs = []
+    for tree in (Path(parent).resolve(), ROOT, ROOT, Path(parent).resolve()):
+        code = (
+            "import importlib.util, sys\n"
+            f"sys.path.insert(0, {str(tree)!r})\n"
+            f"spec = importlib.util.spec_from_file_location('smoke', "
+            f"{str(here)!r})\n"
+            "smoke = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(smoke)\n"
+            "smoke.cost_of_this_tree()\n"
+        )
+        done = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                              capture_output=True, text=True, timeout=900)
+        lines = done.stdout.strip().splitlines()
+        if done.returncode or not lines:
+            print(done.stdout[-4000:], done.stderr[-4000:], file=sys.stderr)
+            return 1
+        runs.append(json.loads(lines[-1]))
+        print(lines[-1], flush=True)
+    print(json.dumps({"repair_cost": runs}), flush=True)
+    return 0
+
+
 def kernel_entry(name, source, replaces, replaces_fn, launches, by_path,
                  err, timing, shape) -> dict:
     return {
@@ -3289,6 +3916,10 @@ def main() -> int:
     llama = smoke.phase("llama", llama_phase, torch, flash, smoke)
     int8 = smoke.phase("int8", int8_phase, torch, flash, smoke)
     prefix = smoke.phase("prefix", prefix_phase, torch, flash, smoke)
+    spec = smoke.phase("speculative", speculative_phase, torch, flash, smoke)
+    beams = smoke.phase("beam", beam_phase, torch, flash, smoke)
+    slice_prof = smoke.phase("beam profile", beam_profile, torch)
+    spec and beams and smoke.phase("slice rates", slice_rates, spec, beams)
     odd = smoke.phase("odd head dim", odd_head_dim_phase, torch, flash, smoke)
     f32_train = smoke.phase("f32 train step", f32_train_phase, torch, flash,
                             smoke)
@@ -3299,7 +3930,8 @@ def main() -> int:
                               and train_kern and path and serve and cycles
                               and stagger and rates and prof
                               and serve_prof and sqs and fleet and shards
-                              and llama and int8 and prefix and odd
+                              and llama and int8 and prefix and spec
+                              and beams and slice_prof and odd
                               and f32_train and train_path and train_prof):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
@@ -3326,6 +3958,10 @@ def main() -> int:
         # shared prefix (its one prompt pass a run; the suffixes none)
         **int8["launches"],
         **prefix["launches"],
+        # speculative (batch: target and draft prefills; slots: one target
+        # prefill an insert) and beams (one prompt pass a batch or insert)
+        **spec["launches"],
+        **beams["launches"],
         **{f"train-{r}": v["launches"]["flash_fwd"]
            for r, v in train_path.items()},
     }
@@ -3374,4 +4010,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--repair-cost":
+        sys.exit(repair_cost_main(sys.argv[2]))
     sys.exit(main())

@@ -29,13 +29,21 @@ SwiGLU) through every mode below.
   and ``--prefix-ids ID,ID,...`` prefills a shared prompt prefix once at
   start-up that every body continues from (the built-in config's context
   grows by its length); all three compose with every mode above.
+- ``--speculative-draft-layers N --speculative-draft-tokens K`` decodes
+  by draft and verify, the model's first N layers proposing K tokens a
+  round (:mod:`.speculative`); ``--beams W [--length-penalty A]`` runs
+  beam search (:mod:`.beam`).  Each serves through the batch worker and
+  ``--continuous`` (not ``--decode-block > 1``, ``--shards`` or the fleet)
+  and composes with ``--quantize-kv`` and ``--prefix-ids``.
 
 The worker runs on the card (``--device cuda``, the default) and exits
 with an error when there is none; ``--device cpu`` runs it on the CPU.
 Weights are the built-in config's, drawn from a seeded generator.
 Flags of the reference binary whose paths are not ported yet
-(``--checkpoint-dir``, ``--hf-checkpoint``, ``--model-parallel``, ...) are
-not accepted.
+(``--checkpoint-dir``, ``--hf-checkpoint``, ``--model-parallel``,
+``--tenants``, ...) are not accepted; ``--speculative-draft-layers`` with
+``--shards``, which the reference serves on its decode plane, exits with a
+message naming ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ from .family import family_of
 from .llama import LlamaConfig
 from .model import ModelConfig
 from .quantize import quantize_params, quantized_bytes
-from .service import QueueWorker, ServiceConfig, collect_replies
+from .service import QueueWorker, ServiceConfig, collect_replies, sampling_keys
 
 log = logging.getLogger("worker")
 
@@ -167,6 +175,35 @@ def build_parser() -> argparse.ArgumentParser:
              "--generate-tokens >= 1)",
     )
     parser.add_argument(
+        "--speculative-draft-layers", type=int, default=0, metavar="N",
+        help="speculative decoding with an early-exit self-draft: the "
+             "model's own first N layers propose tokens and the full "
+             "model verifies them in one chunk forward (greedy output "
+             "identical to plain greedy decode; --temperature > 0 runs "
+             "speculative sampling, every emitted token a warped-target "
+             "sample; requires --generate-tokens >= 1; composes with "
+             "--continuous, --quantize-kv and --prefix-ids; not with "
+             "--beams)",
+    )
+    parser.add_argument(
+        "--speculative-draft-tokens", type=int, default=4, metavar="K",
+        help="proposals per speculative round (each round emits 1..K+1 "
+             "tokens for one full-model pass)",
+    )
+    parser.add_argument(
+        "--beams", type=int, default=1, metavar="W",
+        help="beam-search generation with W beams (deterministic: not with "
+             "--temperature or --speculative-draft-layers; 1 = greedy or "
+             "sampled decode; composes with --continuous, where each slot "
+             "owns W beam rows, --quantize-kv and --prefix-ids)",
+    )
+    parser.add_argument(
+        "--length-penalty", type=float, default=0.0, metavar="ALPHA",
+        help="GNMT length normalization for --beams > 1: finished beams "
+             "rank by score / ((5 + len) / 6) ** ALPHA (0 = raw log-prob "
+             "ranking)",
+    )
+    parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="where the model runs (default cuda; no card is an error, "
              "never a quiet CPU run)",
@@ -179,24 +216,27 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def builtin_config(seq_len: int, generate_tokens: int,
-                   prefix_len: int = 0) -> ModelConfig:
+                   prefix_len: int = 0, headroom: int = 0) -> ModelConfig:
     """The built-in GPT, with a context that holds a ``prefix_len``-token
-    shared prefix, the prompt and its continuation (at least 64
-    positions)."""
+    shared prefix, the prompt, its continuation and ``headroom`` more
+    positions (the speculative rounds' 2k; at least 64 in all)."""
     return ModelConfig(
         vocab_size=8192, d_model=512, n_heads=8, n_layers=4, d_ff=2048,
-        max_seq_len=max(64, prefix_len + seq_len + generate_tokens),
+        max_seq_len=max(64, prefix_len + seq_len + generate_tokens
+                        + headroom),
     )
 
 
 def builtin_llama_config(seq_len: int, generate_tokens: int,
-                         prefix_len: int = 0) -> LlamaConfig:
+                         prefix_len: int = 0,
+                         headroom: int = 0) -> LlamaConfig:
     """The built-in llama (``--family llama``): the GPT's vocab, width,
     heads and depth, 2 kv heads and d_ff 1408, with the same context."""
     return LlamaConfig(
         vocab_size=8192, d_model=512, n_heads=8, n_kv_heads=2, n_layers=4,
         d_ff=1408,
-        max_seq_len=max(64, prefix_len + seq_len + generate_tokens),
+        max_seq_len=max(64, prefix_len + seq_len + generate_tokens
+                        + headroom),
     )
 
 
@@ -204,10 +244,12 @@ BUILTIN_CONFIGS = {"gpt": builtin_config, "llama": builtin_llama_config}
 
 
 def builtin_model(family: str, seq_len: int, generate_tokens: int,
-                  device: str | torch.device, prefix_len: int = 0):
+                  device: str | torch.device, prefix_len: int = 0,
+                  headroom: int = 0):
     """``(config, params)``: the built-in model of ``family`` (``--family``)
     and its weights, drawn from a generator seeded 0."""
-    config = BUILTIN_CONFIGS[family](seq_len, generate_tokens, prefix_len)
+    config = BUILTIN_CONFIGS[family](seq_len, generate_tokens, prefix_len,
+                                     headroom)
     init = family_of(config).init_params
     return config, init(config, torch.Generator().manual_seed(0), device)
 
@@ -256,16 +298,19 @@ def run_demo(
     continuous: bool = False,
     metrics_port: int = 0,
     prefix_cache: dict | None = None,
+    modes: tuple[dict, dict] = ({}, {}),
 ) -> dict:
     """Feed ``demo`` random bodies through a :class:`QueueWorker` (or,
     with ``continuous``, drain them through a :class:`ContinuousWorker`)
-    and collect the replies; returns the run's counts and rates."""
+    and collect the replies; returns the run's counts and rates.
+    ``modes`` holds the two workers' decode-mode keywords
+    (:func:`decode_modes`)."""
     queue = demo_queue(demo, model_config, service_config)
     result_queue = FakeMessageQueue() if service_config.result_queue_url else None
     if continuous:
         worker = ContinuousWorker(queue, params, model_config, service_config,
                                   result_queue=result_queue, device=device,
-                                  prefix_cache=prefix_cache)
+                                  prefix_cache=prefix_cache, **modes[1])
         server = serve_metrics(metrics_port, worker)
         start = time.perf_counter()
         worker.drain(total=demo)
@@ -286,11 +331,12 @@ def run_demo(
             ),
             "ttft_mean_s": (batcher.ttft_sum / batcher.ttft_count
                             if batcher.ttft_count else None),
+            **{name: getattr(batcher, name) for name in SPEC_STATS},
         }
     else:
         worker = QueueWorker(queue, params, model_config, service_config,
                              result_queue=result_queue, device=device,
-                             prefix_cache=prefix_cache)
+                             prefix_cache=prefix_cache, **modes[0])
         server = serve_metrics(metrics_port, worker)
         start = time.perf_counter()
         while worker.processed < demo:
@@ -301,7 +347,8 @@ def run_demo(
         engine = dict.fromkeys((
             "decode_dispatches", "insert_dispatches", "host_transfers",
             "block_settles", "overlapped_settles", "gang_cycles",
-            "summary_transfers", "block_utilization", "ttft_mean_s"))
+            "summary_transfers", "block_utilization", "ttft_mean_s",
+            *SPEC_STATS))
     if server is not None:
         server.stop()
     log.info(
@@ -329,6 +376,75 @@ def run_demo(
         "cycle": worker.timer.summary().get("cycle"),
         **engine,
     }
+
+
+# the continuous engine's speculative counters, in the demo's summary
+SPEC_STATS = ("spec_rounds", "spec_accepted", "spec_second_rounds",
+              "spec_overlapped")
+
+
+def decode_modes(args, model_config, service_config: ServiceConfig,
+                 device: torch.device,
+                 prefix_cache: dict | None = None) -> tuple[dict, dict]:
+    """``--beams`` / ``--speculative-draft-*`` as the keywords of the two
+    workers: ``(QueueWorker's, ContinuousWorker's)``.  The batch worker
+    gets a ``generate_fn`` (:func:`.beam.beam_search`, or
+    :func:`.speculative.speculative_generate` with the early-exit
+    self-draft), its prompt passes on the bucket's attention pick (the
+    CUDA flash forward on the card; under a prefix the suffix prefill runs
+    the chunk decoder); the continuous worker gets the knobs."""
+    family = family_of(model_config)
+
+    def attention(tokens):
+        if prefix_cache is not None:
+            return None
+        return family.attention_fn_for(model_config, tokens.shape[1], device)
+
+    if args.beams > 1:
+        from .beam import beam_search
+
+        def beam_generate(p, tokens, n, lengths):
+            return beam_search(
+                p, model_config, tokens, n, beams=args.beams,
+                length_penalty=args.length_penalty,
+                eos_id=service_config.eos_id, attention_fn=attention(tokens),
+                lengths=lengths, prefix_cache=prefix_cache,
+                quantized_cache=service_config.quantized_kv,
+            )
+
+        log.info("Beam search: %d beams", args.beams)
+        return ({"generate_fn": beam_generate},
+                {"beams": args.beams, "length_penalty": args.length_penalty})
+    if not args.speculative_draft_layers:
+        return {}, {}
+    from .speculative import (
+        draft_prefix_from_target, self_draft, speculative_generate,
+    )
+
+    n_draft = args.speculative_draft_layers
+    k = args.speculative_draft_tokens
+    keys = sampling_keys(service_config.sample_seed, device)
+    draft_prefix = (draft_prefix_from_target(prefix_cache, n_draft)
+                    if prefix_cache is not None else None)
+
+    def spec_generate(p, tokens, n, lengths):
+        draft_params, draft_config = self_draft(p, model_config, n_draft)
+        return speculative_generate(
+            p, model_config, draft_params, draft_config, tokens, n,
+            draft_tokens=k, attention_fn=attention(tokens), lengths=lengths,
+            temperature=service_config.temperature,
+            generator=(next(keys) if service_config.temperature > 0.0
+                       else None),
+            top_k=service_config.top_k, top_p=service_config.top_p,
+            eos_id=service_config.eos_id,
+            quantized_cache=service_config.quantized_kv,
+            prefix_cache=prefix_cache, draft_prefix_cache=draft_prefix,
+        )
+
+    log.info("Speculative decoding: %d-layer early-exit self-draft, "
+             "%d proposals/round", n_draft, k)
+    return ({"generate_fn": spec_generate},
+            {"draft_layers": n_draft, "draft_tokens": k})
 
 
 def run_fleet_demo(
@@ -420,7 +536,8 @@ def run_fleet_demo(
 
 def serve_sqs(args, params: dict, model_config: ModelConfig,
               service_config: ServiceConfig, device: torch.device,
-              prefix_cache: dict | None = None) -> None:
+              prefix_cache: dict | None = None,
+              modes: tuple[dict, dict] = ({}, {})) -> None:
     """Serve ``--sqs-queue-url`` until the worker is stopped.  AWS SQS
     addresses queues per call by url, so the same client publishes replies
     when ``--result-queue-url`` is set."""
@@ -431,7 +548,8 @@ def serve_sqs(args, params: dict, model_config: ModelConfig,
     worker_class = ContinuousWorker if args.continuous else QueueWorker
     worker = worker_class(queue, params, model_config, service_config,
                           result_queue=result_queue, device=device,
-                          prefix_cache=prefix_cache)
+                          prefix_cache=prefix_cache,
+                          **modes[1 if args.continuous else 0])
     server = serve_metrics(args.metrics_port, worker)
     log.info("Starting %sworker on %s",
              "continuous " if args.continuous else "", args.sqs_queue_url)
@@ -448,12 +566,22 @@ def main(argv=None) -> dict | None:
     the SQS queue until stopped (returning None)."""
     configure_logging()
     args = build_parser().parse_args(argv)
+    check_beams(args)
     if args.generate_tokens < 0:
         raise SystemExit(f"--generate-tokens {args.generate_tokens} must be >= 0")
     if args.decode_block < 1:
         raise SystemExit(f"--decode-block {args.decode_block} must be >= 1")
     if args.decode_block > 1 and not args.continuous:
         raise SystemExit("--decode-block requires --continuous")
+    spec_on_plane = bool(args.speculative_draft_layers) and args.shards > 1
+    if args.decode_block > 1 and (
+            args.beams > 1
+            or (args.speculative_draft_layers and not spec_on_plane)):
+        raise SystemExit(
+            "--decode-block applies to the plain continuous decode path "
+            "(not --beams; --speculative-draft-layers only with --shards "
+            "/ --tenants, where the decode plane's gang engine carries it)"
+        )
     if args.request_ttl < 0:
         raise SystemExit(
             f"--request-ttl {args.request_ttl} must be >= 0 (0 = off)"
@@ -466,12 +594,29 @@ def main(argv=None) -> dict | None:
         raise SystemExit(f"--shards {args.shards} must be >= 1")
     if args.shards > 1 and not args.continuous:
         raise SystemExit("--shards requires --continuous")
+    if args.shards > 1 and args.beams > 1:
+        raise SystemExit(
+            "--shards applies to the plain continuous decode path "
+            "(not --beams)"
+        )
+    if spec_on_plane:
+        # the reference serves this on its decode plane (planes/engine.py)
+        raise SystemExit(
+            "--speculative-draft-layers with --shards runs on the decode "
+            "plane, not yet ported (ROADMAP Queue 1 item 7)"
+        )
     if args.quantize_kv and args.generate_tokens < 1:
         raise SystemExit("--quantize-kv requires --generate-tokens >= 1")
     prefix_ids = parse_prefix_ids(args)
     if args.fleet_max_replicas:
         if not args.continuous:
             raise SystemExit("--fleet-max-replicas requires --continuous")
+        if args.beams > 1 or args.speculative_draft_layers:
+            raise SystemExit(
+                "--fleet-max-replicas applies to the plain continuous "
+                "decode path (replica spin-up adopts the donor's engine; "
+                "not with --beams / --speculative-draft-layers)"
+            )
         if not 1 <= args.fleet_min_replicas <= args.fleet_max_replicas:
             raise SystemExit(
                 f"need 1 <= --fleet-min-replicas "
@@ -490,13 +635,22 @@ def main(argv=None) -> dict | None:
             "error: pass --sqs-queue-url URL to serve a queue, or --demo N "
             "to drain N random messages from a local in-memory queue"
         )
+    # speculative rounds need 2k cache positions past the generated tokens
+    # (speculative.speculative_generate's budget)
+    spec_headroom = (2 * args.speculative_draft_tokens
+                     if args.speculative_draft_layers else 0)
+    check_speculative_budget(
+        args, BUILTIN_CONFIGS[args.family](args.seq_len, args.generate_tokens,
+                                           len(prefix_ids), spec_headroom),
+        len(prefix_ids))
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(f"error: {err}") from None
     model_config, params = builtin_model(args.family, args.seq_len,
                                          args.generate_tokens, device,
-                                         prefix_len=len(prefix_ids))
+                                         prefix_len=len(prefix_ids),
+                                         headroom=spec_headroom)
     family = family_of(model_config)
     weight_bytes = None
     if args.quantize == "int8":
@@ -530,9 +684,11 @@ def main(argv=None) -> dict | None:
         decode_block=args.decode_block, request_ttl_s=args.request_ttl,
         shards=args.shards, quantized_kv=args.quantize_kv,
     )
+    modes = decode_modes(args, model_config, service_config, device,
+                         prefix_cache)
     if not args.demo:
         serve_sqs(args, params, model_config, service_config, device,
-                  prefix_cache)
+                  prefix_cache, modes)
         return None
     if args.fleet_max_replicas:
         summary = run_fleet_demo(
@@ -544,9 +700,62 @@ def main(argv=None) -> dict | None:
         summary = run_demo(args.demo, params, model_config, service_config,
                            device, continuous=args.continuous,
                            metrics_port=args.metrics_port,
-                           prefix_cache=prefix_cache)
+                           prefix_cache=prefix_cache, modes=modes)
     summary["weight_bytes"] = weight_bytes
     return summary
+
+
+def check_beams(args) -> None:
+    """The reference binary's first args-only checks, of ``--beams`` and
+    ``--length-penalty``: a usage error exits before any model is
+    built."""
+    if args.beams < 1:
+        raise SystemExit(f"--beams {args.beams} must be >= 1")
+    if args.beams > 1:
+        for flag, bad in (
+            ("--temperature > 0 (beam search is deterministic)",
+             args.temperature > 0.0),
+            ("--speculative-draft-layers",
+             bool(args.speculative_draft_layers)),
+            ("--generate-tokens >= 1 required", args.generate_tokens < 1),
+        ):
+            if bad:
+                raise SystemExit(f"--beams does not support {flag}")
+    if args.length_penalty < 0.0:
+        raise SystemExit(
+            f"--length-penalty {args.length_penalty} must be >= 0"
+        )
+    if args.length_penalty > 0.0 and args.beams < 2:
+        raise SystemExit("--length-penalty requires --beams > 1")
+
+
+def check_speculative_budget(args, model_config, prefix_len: int) -> None:
+    """The reference binary's start-up checks of the speculative flags
+    against the built model: a generate mode, ``K >= 1``, a draft depth
+    in ``[1, n_layers - 1]`` and the cache budget with its 2k slack."""
+    if not args.speculative_draft_layers:
+        return
+    if args.generate_tokens < 1:
+        raise SystemExit(
+            "--speculative-draft-layers requires --generate-tokens >= 1"
+        )
+    n_draft = args.speculative_draft_layers
+    k = args.speculative_draft_tokens
+    if k < 1:
+        raise SystemExit(f"--speculative-draft-tokens {k} must be >= 1")
+    if not 0 < n_draft < model_config.n_layers:
+        raise SystemExit(
+            f"--speculative-draft-layers {n_draft} must be in "
+            f"[1, n_layers-1] (model has n_layers={model_config.n_layers})"
+        )
+    budget = prefix_len + args.seq_len + args.generate_tokens + 2 * k
+    if budget > model_config.max_seq_len:
+        raise SystemExit(
+            f"prefix + seq_len + generate_tokens + 2*draft_tokens = "
+            f"{budget} exceeds the model's max_seq_len="
+            f"{model_config.max_seq_len} (the speculative cache budget); "
+            "lower --speculative-draft-tokens or the lengths"
+        )
 
 
 def parse_prefix_ids(args) -> list[int]:

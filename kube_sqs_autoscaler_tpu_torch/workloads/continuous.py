@@ -58,9 +58,19 @@ reference) and splices only the suffix positions, so decode never writes
 the prefix region.  The layout's entry points come from
 :meth:`.family.ModelFamily.layout`.
 
-Not ported yet (the batcher raises ``ValueError``): a mesh, speculative
-and beam slots, and tenancy (with the overload ladder's
-``_quiesce_rows``).
+Speculative slots (``draft_layers``: an early-exit self-draft of the
+target's first layers, ``draft_tokens`` proposals a round) run one
+draft-and-verify round a step over every slot, with a second round
+dispatched before the first is read where every row in it is certain to
+need one; one target prefill seeds both caches.  Beam slots (``beams``)
+each own ``beams`` cache rows and a search state on the device, and a step
+is one beam expansion over every slot with the parent gather of the cache.
+Both admit one request an insert, as in the reference, and their results
+equal :func:`.speculative.speculative_generate` and
+:func:`.beam.beam_search` for each prompt alone.
+
+Not ported yet (the batcher raises ``ValueError``): a mesh and tenancy
+(with the overload ladder's ``_quiesce_rows``).
 """
 
 from __future__ import annotations
@@ -79,11 +89,15 @@ import torch
 
 from ..device import resolve_device
 from ..utils.profiling import SpanTimer
+from .beam import RowGather, beam_step, rank_beams, seed_beams
 from .decode import (
     _check_prefix_layout, _pick, block_decode, broadcast_prefix,
     prefix_len_of,
 )
 from .family import CacheLayout, family_of
+from .speculative import (
+    draft_prefix_from_target, self_draft, speculative_round,
+)
 from .model import ModelConfig
 from .service import (
     ServiceConfig, build_token_reply, parse_request_body, request_id,
@@ -150,16 +164,27 @@ def _rows_prefill(params, prompts, lengths, config, attention_fn,
 
 
 def _splice_rows_layers(cache, rows_cache, rows, prefix_len,
-                        prompt_len) -> None:
+                        prompt_len, beams: int = 1) -> None:
     """Copy each prefilled row's prompt positions (under a prefix, the
     suffix positions ``[prefix_len, prefix_len + prompt_len)`` only) into
     its slot row of the batch cache, in place: one indexed copy per layer
     entry for all the rows.  Every entry has the position on axis 2, the
-    ``[B, H, S, D]`` k/v or codes and the ``[B, H, S]`` scales alike."""
+    ``[B, H, S, D]`` k/v or codes and the ``[B, H, S]`` scales alike.
+    ``beams > 1``: slot ``row`` owns cache rows ``[row * beams, (row + 1) *
+    beams)``, and its one prefilled row is repeated over them (every beam
+    of a fresh slot starts from the same prompt cache).  Only as many
+    layers as ``cache`` holds are copied: a draft cache takes the first
+    layers of the target's prefill."""
     span = slice(prefix_len, prefix_len + prompt_len)
+    if beams > 1:
+        rows = (rows[:, None] * beams
+                + torch.arange(beams, device=rows.device)).reshape(-1)
     for layer_cache, rows_layer in zip(cache["layers"], rows_cache["layers"]):
         for name, buf in layer_cache.items():
-            buf[rows, :, span] = rows_layer[name][:, :, span]
+            piece = rows_layer[name][:, :, span]
+            if beams > 1:
+                piece = piece.repeat_interleave(beams, dim=0)
+            buf[rows, :, span] = piece
 
 
 def _insert_rows_impl(
@@ -206,6 +231,80 @@ def _insert_rows_impl(
     return firsts
 
 
+def _spec_insert_row_impl(
+    params: dict,
+    cache: dict,
+    draft_cache: dict,
+    current: torch.Tensor,
+    row: torch.Tensor,
+    prompt: torch.Tensor,
+    length: torch.Tensor,
+    key: torch.Generator | None,
+    config,
+    attention_fn,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    *,
+    layout: CacheLayout,
+    prefix_cache: dict | None = None,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    """Admission of one speculative slot: ONE target prefill of ``prompt``
+    (``[1, P]``) fills both caches.  The early-exit self-draft is the
+    target's first layers, and layer ``i``'s k/v depend only on layers
+    below it, so the draft's row is the first layers of the target's
+    (:func:`_splice_rows_layers` copies as many layers as a cache holds).
+    Folds the row's lengths and pending token in place; returns the first
+    token ``[1]``, still on the device."""
+    logits, row_cache = _rows_prefill(params, prompt, length, config,
+                                      attention_fn, layout, prefix_cache)
+    for target in (cache, draft_cache):
+        _splice_rows_layers(target, row_cache, row, prefix_len,
+                            prompt.shape[1])
+        target["length"][row] = prefix_len + length
+    first = _pick(logits, key, temperature, top_k, top_p)
+    current[row] = first
+    return first
+
+
+def _beam_insert_row_impl(
+    params: dict,
+    cache: dict,
+    state: dict,
+    current: torch.Tensor,
+    row: int,
+    prompt: torch.Tensor,
+    length: torch.Tensor,
+    config,
+    attention_fn,
+    *,
+    layout: CacheLayout,
+    beams: int,
+    eos_id: int | None = None,
+    prefix_cache: dict | None = None,
+    prefix_len: int = 0,
+) -> None:
+    """Admission of one beam slot: one prefill of ``prompt`` (``[1, P]``)
+    seeds slot ``row``'s ``beams`` cache rows and its search state in
+    place: the first expansion's top ``beams`` tokens become the beams'
+    seeds (``scores``, the first ``out`` column, ``alive``, ``emitted`` of
+    ``state``, and the rows' pending tokens), :func:`.beam.beam_search`'s
+    seeding for one slot."""
+    logits, row_cache = _rows_prefill(params, prompt, length, config,
+                                      attention_fn, layout, prefix_cache)
+    slot = torch.full((1,), row, dtype=torch.long, device=current.device)
+    _splice_rows_layers(cache, row_cache, slot, prefix_len, prompt.shape[1],
+                        beams=beams)
+    beam_rows = slice(row * beams, (row + 1) * beams)
+    cache["length"][beam_rows] = prefix_len + length
+    first_tokens, seeded = seed_beams(logits, beams,
+                                      state["out"].shape[-1], eos_id)
+    for name, value in seeded.items():
+        state[name][row] = value[0]
+    current[beam_rows] = first_tokens
+
+
 @dataclass
 class _Slot:
     busy: bool = False
@@ -213,6 +312,10 @@ class _Slot:
     budget: int = 0
     done: bool = False  # emitted eos before the budget (frees this step)
     payload: Any = None  # the caller's per-request context (the message)
+    # speculative slots: verify rounds and accepted drafts; beam slots:
+    # beam steps taken
+    rounds: int = 0
+    accepted: int = 0
     submitted_at: float = 0.0  # admission time, for time to first token
     ttft_done: bool = False  # time to first token already recorded
 
@@ -241,6 +344,13 @@ class ContinuousBatcher:
     ``overlapped_settles`` / ``block_settles`` (settles at which the block
     dispatched that cycle was still running).
 
+    ``draft_layers`` > 0 makes the slots speculative (the first
+    ``draft_layers`` layers draft ``draft_tokens`` proposals a round;
+    counters ``spec_rounds``, ``spec_accepted``, ``spec_second_rounds``
+    and ``spec_overlapped``, the second rounds still running when the
+    first was read; :meth:`set_speculative`), ``beams`` > 1 makes each
+    slot a beam search (``length_penalty`` ranks the finished beams).
+
     ``host_transfers`` is the reference's odometer: one per insert whose
     first tokens a settle reads, one per decode step read at
     ``decode_block == 1`` and one per settled block.  At ``decode_block >
@@ -268,7 +378,9 @@ class ContinuousBatcher:
         quantized_kv: bool = False,
         prefix_cache: dict | None = None,
         draft_layers: int = 0,
+        draft_tokens: int = 4,
         beams: int = 1,
+        length_penalty: float = 0.0,
         decode_block: int = 1,
         tenancy=None,
         device: str | torch.device = "cuda",
@@ -276,31 +388,63 @@ class ContinuousBatcher:
         if beams < 1:
             raise ValueError(f"beams={beams} must be >= 1")
         model_family = family_of(config, family)
-        unported = {
-            "mesh": mesh is not None,
-            "draft_layers": draft_layers > 0,
-            "beams > 1": beams > 1,
-            "tenancy": tenancy is not None,
-        }
+        unported = {"mesh": mesh is not None, "tenancy": tenancy is not None}
         for knob, asked in unported.items():
             if asked:
                 raise ValueError(
                     f"{knob} is not yet ported to the PyTorch continuous "
-                    "batcher (plain path only)"
+                    "batcher"
                 )
         if decode_block < 1:
             raise ValueError(f"decode_block={decode_block} must be >= 1")
+        if decode_block > 1 and (beams > 1 or draft_layers):
+            raise ValueError(
+                "decode_block > 1 applies to the plain decode path (beam "
+                "steps and speculative rounds already amortize their own "
+                "device calls)"
+            )
+        if beams > 1:
+            # each beam slot owns `beams` contiguous cache rows and a
+            # device-side search state; deterministic by construction
+            if draft_layers:
+                raise ValueError(
+                    "beams do not combine with draft_layers (beam "
+                    "search is deterministic; speculative rounds are "
+                    "per-row)"
+                )
+            if temperature > 0.0:
+                raise ValueError(
+                    "beams are deterministic; temperature must be 0"
+                )
         self._prefix_cache = prefix_cache
         if prefix_cache is not None:
             # slots start past a shared, once-prefilled prefix in the
             # decode path's layout
             _check_prefix_layout(prefix_cache, quantized_kv)
         self.prefix_len = prefix_len_of(prefix_cache)
-        budget = self.prefix_len + prompt_len + generate_tokens
+        if draft_layers:
+            # speculative slots: an early-exit self-draft inside the slot
+            # machine, one draft-and-verify round a step
+            if not 0 < draft_layers < config.n_layers:
+                raise ValueError(
+                    f"draft_layers={draft_layers} must be in "
+                    f"[1, n_layers-1] (model has n_layers="
+                    f"{config.n_layers})"
+                )
+            if draft_tokens < 1:
+                raise ValueError(
+                    f"draft_tokens={draft_tokens} must be >= 1"
+                )
+        # a speculative round can overshoot a slot's budget by k and still
+        # write k + 1 masked positions past its frozen length: the 2k
+        # slack speculative_generate reserves
+        spec_slack = 2 * draft_tokens if draft_layers else 0
+        budget = self.prefix_len + prompt_len + generate_tokens + spec_slack
         if budget > config.max_seq_len:
+            slack = f" + 2*draft_tokens ({spec_slack})" if spec_slack else ""
             raise ValueError(
-                f"prefix + prompt_len + generate_tokens = {budget} exceeds "
-                f"max_seq_len={config.max_seq_len}"
+                f"prefix + prompt_len + generate_tokens{slack} = "
+                f"{budget} exceeds max_seq_len={config.max_seq_len}"
             )
         if top_k < 0:
             raise ValueError(f"top_k={top_k} must be >= 0")
@@ -317,6 +461,13 @@ class ContinuousBatcher:
         self.top_k = top_k
         self.top_p = top_p
         self.eos_id = eos_id
+        self.draft_layers = draft_layers
+        self.draft_tokens = draft_tokens
+        self.beams = beams
+        self.length_penalty = length_penalty
+        # speculative slots: dispatch a round that is certain to be needed
+        # before reading the one in flight (set_speculative toggles it)
+        self.spec_overlap = True
         self.decode_block = decode_block
         # the engine that was built: the live decode_block knob
         # (request_decode_block) moves only a block engine, which takes any
@@ -341,6 +492,13 @@ class ContinuousBatcher:
             self._block_fn = block_decode
         else:
             self._decode = self._step_fn
+        # speculative stats: verify rounds and accepted drafts over all
+        # slots (each slot keeps its own), second rounds dispatched ahead
+        # of the first's read and how many were still running at that read
+        self.spec_rounds = 0
+        self.spec_accepted = 0
+        self.spec_second_rounds = 0
+        self.spec_overlapped = 0
         # serving stats
         self.tokens_emitted = 0
         self.ttft_sum = 0.0
@@ -367,22 +525,55 @@ class ContinuousBatcher:
         # when it was dispatched)
         self._pending_block: tuple[_HostCopy, int] | None = None
         self.slots = [_Slot() for _ in range(batch_size)]
+        # a beam slot owns `beams` contiguous cache rows
+        cache_rows = batch_size * beams
         with torch.inference_mode():
             if prefix_cache is not None:
                 # every slot row starts as a copy of the shared prefix
-                self.cache = broadcast_prefix(prefix_cache, batch_size)
+                self.cache = broadcast_prefix(prefix_cache, cache_rows)
             else:
-                self.cache = self._layout.init_cache(config, batch_size,
+                self.cache = self._layout.init_cache(config, cache_rows,
                                                      self.device)
-            # each slot's next input token, and its liveness on the
-            # device: done marks a free or finished row (admission clears
-            # it), remaining its unspent budget
-            self._current = torch.zeros(batch_size, dtype=torch.long,
+            # each cache row's next input token
+            self._current = torch.zeros(cache_rows, dtype=torch.long,
                                         device=self.device)
-            self._done = torch.ones(batch_size, dtype=torch.bool,
-                                    device=self.device)
-            self._remaining = torch.zeros(batch_size, dtype=torch.long,
-                                          device=self.device)
+            if beams == 1 and not draft_layers:
+                # plain slots keep their liveness on the device: done
+                # marks a free or finished row (admission clears it),
+                # remaining its unspent budget
+                self._done = torch.ones(batch_size, dtype=torch.bool,
+                                        device=self.device)
+                self._remaining = torch.zeros(batch_size, dtype=torch.long,
+                                              device=self.device)
+            if draft_layers:
+                # the draft is the target's first layers: its params a
+                # layer slice, its cache the same layout with fewer layers
+                self.draft_params, self.draft_config = self_draft(
+                    params, config, draft_layers)
+                if prefix_cache is not None:
+                    self.draft_cache = broadcast_prefix(
+                        draft_prefix_from_target(prefix_cache, draft_layers),
+                        batch_size)
+                else:
+                    self.draft_cache = self._layout.init_cache(
+                        self.draft_config, batch_size, self.device)
+            if beams > 1:
+                # each slot's search state (beam_search's loop state)
+                pad = eos_id if eos_id is not None else 0
+                self._beam = {
+                    "scores": torch.zeros((batch_size, beams),
+                                          dtype=torch.float32,
+                                          device=self.device),
+                    "out": torch.full((batch_size, beams, generate_tokens),
+                                      pad, dtype=torch.long,
+                                      device=self.device),
+                    "alive": torch.zeros((batch_size, beams),
+                                         dtype=torch.bool, device=self.device),
+                    "emitted": torch.zeros((batch_size, beams),
+                                           dtype=torch.long,
+                                           device=self.device),
+                }
+                self._beam_gather = RowGather(self.cache)
         # one generator per engine step and insert; greedy needs none
         self._keys = (
             sampling_keys(sample_seed, self.device) if temperature > 0.0
@@ -397,7 +588,13 @@ class ContinuousBatcher:
         with the donor's knobs, params and config runs the donor's engine
         and pays only for its own KV cache.  Raises ``ValueError`` when a
         knob differs or ``params`` / ``config`` are not the donor's very
-        objects (and the donor's prefix cache)."""
+        objects (and the donor's prefix cache).  Plain decode slots only,
+        as in the reference: beam and speculative engines raise."""
+        if (self.beams > 1 or self.draft_layers or source.beams > 1
+                or source.draft_layers):
+            raise ValueError(
+                "adopt_engine supports the plain decode path only"
+            )
         mine, theirs = self._engine_key(), source._engine_key()
         if mine != theirs:
             raise ValueError(
@@ -433,7 +630,8 @@ class ContinuousBatcher:
             len(self.slots), self.prompt_len, self.generate_tokens,
             self.family, self.temperature, self.top_k, self.top_p,
             self.eos_id, self.quantized_kv, self.prefix_len,
-            self.decode_block, str(self.device),
+            self.decode_block, self.draft_layers, self.draft_tokens,
+            self.beams, self.length_penalty, str(self.device),
         )
 
     def request_decode_block(self, block: int) -> bool:
@@ -472,6 +670,18 @@ class ContinuousBatcher:
             return
         self.decode_block = self._pending_decode_block
         self._pending_decode_block = None
+
+    def set_speculative(self, enabled: bool) -> None:
+        """Toggle the speculative engine's second-round overlap (the
+        dispatch, before the first round's read, of a round every row in
+        it is certain to need).  Read once a :meth:`step`.  Speculative
+        engines only."""
+        if not self.draft_layers:
+            raise ValueError(
+                "the speculative knob needs the draft-and-verify "
+                "engine (draft_layers > 0)"
+            )
+        self.spec_overlap = bool(enabled)
 
     def set_slot_limit(self, limit: int | None) -> None:
         """Cap admission at ``limit`` busy rows (per shard on the sharded
@@ -529,7 +739,9 @@ class ContinuousBatcher:
     def submit_many(self, requests: list[tuple[Any, Any]]) -> list[int]:
         """Admit ``(token_ids, payload)`` requests into free slots as one
         insert; returns their slot indices in order.  The first tokens
-        stay on the device until the next :meth:`step`."""
+        stay on the device until the next :meth:`step`.  Beam and
+        speculative slots admit one request an insert (each seeds its
+        slot's search or draft state), as in the reference."""
         if not requests:
             return []
         free = self.free_slots
@@ -540,6 +752,10 @@ class ContinuousBatcher:
             )
         rows = free[: len(requests)]
         now = time.perf_counter()
+        if self.beams > 1 or self.draft_layers:
+            for row, (token_ids, payload) in zip(rows, requests):
+                self._submit_one(row, token_ids, payload, now)
+            return rows
         padded = [self._pad_prompt(ids) for ids, _ in requests]
         prompts = np.stack([ids for ids, _ in padded])
         lengths = np.asarray([n for _, n in padded], np.int64)
@@ -562,6 +778,35 @@ class ContinuousBatcher:
             )
         self._invalidate_admission_cache()
         return rows
+
+    def _submit_one(self, row: int, token_ids, payload, now: float) -> None:
+        """Admission of one request into a beam or speculative slot: one
+        prefill (the CUDA flash forward on the card, or the chunk decoder
+        behind a prefix) that seeds the slot's state in place."""
+        ids, length = self._pad_prompt(token_ids)
+        prompt = _to_device(ids[None, :], self.device)
+        lengths = _to_device(np.asarray([length], np.int64), self.device)
+        with torch.inference_mode():
+            if self.beams > 1:
+                _beam_insert_row_impl(
+                    self.params, self.cache, self._beam, self._current, row,
+                    prompt, lengths, self.config, self._attention_fn,
+                    beams=self.beams, eos_id=self.eos_id,
+                    **self._insert_layout(),
+                )
+            else:
+                first = _spec_insert_row_impl(
+                    self.params, self.cache, self.draft_cache, self._current,
+                    _to_device(np.asarray([row]), self.device), prompt,
+                    lengths, next(self._keys), self.config,
+                    self._attention_fn, self.temperature, self.top_k,
+                    self.top_p, **self._insert_layout(),
+                )
+                self._defer_firsts(first, [row])
+        self.insert_dispatches += 1
+        self.slots[row] = _Slot(busy=True, budget=self.generate_tokens,
+                                payload=payload, submitted_at=now)
+        self._invalidate_admission_cache()
 
     def _insert_layout(self) -> dict:
         """The insert's cache-layout keywords: the layout and the shared
@@ -595,6 +840,10 @@ class ContinuousBatcher:
         as :meth:`submit_many` (the CUDA flash forward on the card), with
         each row's unspent budget, so a greedy row continues as if never
         interrupted.  Its time to first token is not recorded again."""
+        if self.beams > 1 or self.draft_layers:
+            raise ValueError(
+                "submit_resume supports the plain decode path only"
+            )
         if not resumes:
             return []
         free = self.free_slots
@@ -674,14 +923,18 @@ class ContinuousBatcher:
                 if slot.ttft_done:
                     # a resumed row: its first life recorded the TTFT
                     continue
-                slot.ttft_done = True
-                ttft = now - slot.submitted_at
-                self.ttft_sum += ttft
-                self.ttft_count += 1
-                self.last_ttft_s = ttft
-                self.ttft_samples.append(ttft)
-                self._pending_ttft_obs.append((None, ttft))
-                self._note_ttft(row, ttft)
+                self._record_ttft(row, slot, now)
+
+    def _record_ttft(self, row: int, slot: _Slot, now: float) -> None:
+        """Record a slot's time to first token, once."""
+        slot.ttft_done = True
+        ttft = now - slot.submitted_at
+        self.ttft_sum += ttft
+        self.ttft_count += 1
+        self.last_ttft_s = ttft
+        self.ttft_samples.append(ttft)
+        self._pending_ttft_obs.append((None, ttft))
+        self._note_ttft(row, ttft)
 
     def _note_ttft(self, row: int, ttft: float) -> None:
         """Per-row TTFT hook: the sharded plane files it by shard."""
@@ -714,6 +967,10 @@ class ContinuousBatcher:
         when nothing is busy."""
         if self.active == 0:
             return []
+        if self.beams > 1:
+            return self._step_beam()
+        if self.draft_layers:
+            return self._step_spec()
         if self._block_engine:
             # the built engine, not the live size: the decode_block knob
             # can take a block engine to 1
@@ -796,6 +1053,138 @@ class ContinuousBatcher:
         return self._finish_ready()
 
 
+    def _dispatch_spec_round(self, mask: list[bool]) -> _HostCopy:
+        """Launch one draft-and-verify round over the masked rows; returns
+        the host copy of its ``(round_tokens, n)`` on its way."""
+        with torch.inference_mode():
+            active = _to_device(np.asarray(mask), self.device)
+            self._current, round_tokens, n = speculative_round(
+                self._layout, self._layout, self.params, self.draft_params,
+                self.config, self.draft_config, self.cache, self.draft_cache,
+                self._current, active, self.draft_tokens, next(self._keys),
+                self.temperature, self.top_k, self.top_p,
+            )
+            copy = _HostCopy(round_tokens, n)
+        self.decode_dispatches += 1
+        return copy
+
+    def _consume_spec_round(self, mask: list[bool], copy: _HostCopy) -> None:
+        """Emit a round's accepted drafts and bonus for the masked rows."""
+        toks_host, n_host = copy.wait()
+        self.host_transfers += 1
+        for row, slot in enumerate(self.slots):
+            if not mask[row]:
+                continue
+            accepted = int(n_host[row])
+            slot.rounds += 1
+            slot.accepted += accepted
+            self.spec_rounds += 1
+            self.spec_accepted += accepted
+            for token in toks_host[row, : accepted + 1]:
+                if slot.done or len(slot.produced) >= slot.budget:
+                    break
+                self._emit(slot, int(token))
+
+    def _step_spec(self) -> list[tuple[Any, np.ndarray]]:
+        """One, or two pipelined, draft-and-verify rounds.
+
+        A row that needs another round even if the one in flight accepts
+        every draft (``produced + k + 1 < budget``) is known now, so its
+        next round is dispatched before the host reads this one's
+        ``(round_tokens, n)``: the read then overlaps the second round's
+        device time.  An ``eos_id`` makes completion unknowable ahead, so
+        the overlap needs eos-free serving; rows left out keep their
+        pending token for the next step, within the budget's 2k slack."""
+        self._settle_pending_firsts()
+        needs = [self._needs_decode(s) for s in self.slots]
+        if any(needs):
+            first_round = self._dispatch_spec_round(needs)
+            ahead = self.draft_tokens + 1
+            certain = [
+                needs[row] and self.eos_id is None
+                and len(slot.produced) + ahead < slot.budget
+                for row, slot in enumerate(self.slots)
+            ]
+            second_round = (
+                self._dispatch_spec_round(certain)
+                if any(certain) and self.spec_overlap else None
+            )
+            self._consume_spec_round(needs, first_round)
+            if second_round is not None:
+                self.spec_second_rounds += 1
+                if not second_round.ready():
+                    self.spec_overlapped += 1
+                self._consume_spec_round(certain, second_round)
+        return self._finish_ready()
+
+    def _beam_best(self, row: int, scores, out, emitted) -> np.ndarray:
+        """A finished slot's best beam from the host state, ranked as
+        :func:`.beam.beam_search` ranks (ties to the lowest beam)."""
+        _, order = rank_beams(torch.from_numpy(scores[row]),
+                              torch.from_numpy(emitted[row]),
+                              self.length_penalty)
+        return out[row, int(order[0])].astype(np.int32)
+
+    def _step_beam(self) -> list[tuple[Any, np.ndarray]]:
+        """One beam step over the slots that still search, read by the
+        host at once (with the state, so a finishing slot's best beam
+        needs no second read); then the finished slots' best beams.  A
+        beam slot has no incremental first token: its time to first token
+        is the time to its answer."""
+        needs = [
+            s.busy and not s.done and s.rounds < s.budget - 1
+            for s in self.slots
+        ]
+        host = None
+        if any(needs):
+            with torch.inference_mode():
+                active = _to_device(np.asarray(needs), self.device)
+                self.cache, self._current, self._beam = beam_step(
+                    self.params, self.cache, self._current, self._beam,
+                    active, self.config, self._beam_gather,
+                    step_fn=self._step_fn, beams=self.beams,
+                    eos_id=self.eos_id,
+                )
+                copy = _HostCopy(self._beam["alive"].any(dim=1),
+                                 self._beam["scores"], self._beam["out"],
+                                 self._beam["emitted"])
+            self.decode_dispatches += 1
+            alive_host, *host = copy.wait()
+            self.host_transfers += 1
+            for row, slot in enumerate(self.slots):
+                if needs[row]:
+                    slot.rounds += 1
+                    if not alive_host[row]:
+                        # every beam frozen: the result is already final
+                        slot.done = True
+        finished = []
+        now = time.perf_counter()
+        for row, slot in enumerate(self.slots):
+            if not (slot.busy
+                    and (slot.done or slot.rounds >= slot.budget - 1)):
+                continue
+            if host is None:
+                # a one-token budget finishes without a step
+                with torch.inference_mode():
+                    host = _HostCopy(self._beam["scores"], self._beam["out"],
+                                     self._beam["emitted"]).wait()
+            best = self._beam_best(row, *host)
+            # kept tokens as _emit counts them: up to and including the
+            # first eos, never the padding after it
+            kept = int(best.size)
+            if self.eos_id is not None:
+                hits = np.flatnonzero(best == self.eos_id)
+                if hits.size:
+                    kept = int(hits[0]) + 1
+            self.tokens_emitted += kept
+            self._record_ttft(row, slot, now)
+            finished.append((slot.payload, best))
+            self.slots[row] = _Slot()
+        if finished:
+            self._invalidate_admission_cache()
+        return finished
+
+
 def drain_ttft_histograms(batcher, metrics) -> None:
     """Move a batcher's pending TTFT samples into the cumulative
     ``ttft_seconds`` histogram of ``metrics``.  A module function because
@@ -826,6 +1215,8 @@ class ContinuousWorker:
     (``"gpt"`` or ``"llama"``; by default the config's) and
     ``prefix_cache`` (a shared prefix the slots start past, in the layout
     ``ServiceConfig.quantized_kv`` picks) go to the batcher or the
+    plane; ``draft_layers`` / ``draft_tokens`` (speculative slots) and
+    ``beams`` / ``length_penalty`` (beam slots) to the batcher, never the
     plane."""
 
     # after an empty receive while slots are still decoding, skip this
@@ -845,6 +1236,10 @@ class ContinuousWorker:
         sharded: bool | None = None,
         family: str | None = None,
         prefix_cache: dict | None = None,
+        draft_layers: int = 0,
+        draft_tokens: int = 4,
+        beams: int = 1,
+        length_penalty: float = 0.0,
         device: str | torch.device = "cuda",
     ) -> None:
         if service_config.generate_tokens < 1:
@@ -874,10 +1269,22 @@ class ContinuousWorker:
             quantized_kv=service_config.quantized_kv,
             prefix_cache=prefix_cache,
             family=family,
+            draft_layers=draft_layers,
+            draft_tokens=draft_tokens,
+            beams=beams,
+            length_penalty=length_penalty,
             device=device,
         )
         if sharded is None:
             sharded = service_config.shards > 1
+        if draft_layers > 0 and sharded:
+            # the reference runs speculative shards on its decode plane
+            # (planes/engine.py), which the port does not have yet
+            raise ValueError(
+                "speculative decoding on the sharded plane runs on the "
+                "decode-plane engine, not yet ported (ROADMAP Queue 1 "
+                "item 7)"
+            )
         if sharded:
             # the sharded plane: `shards` gang-stepped engine shards of
             # batch_size slots each behind this worker's admission, one

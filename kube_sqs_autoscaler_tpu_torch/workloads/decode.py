@@ -39,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from .model import (
-    ModelConfig, _block, _dense_attention, _layer_norm, embed_tokens, unembed,
+    ModelConfig, _block, _dense_attention, _embed, _layer_norm, unembed,
 )
 from .quantize import _INV_127
 
@@ -63,17 +63,20 @@ def init_cache(
 
 
 def _final_logits(
-    params: dict, x: torch.Tensor, last_pos: torch.Tensor | None = None
+    params: dict, x32: torch.Tensor, dtype: torch.dtype,
+    last_pos: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Readout logits ``[batch, vocab]`` (fp32) at each row's ``last_pos``
-    (``None``: position -1): final LN and the tied-embedding readout,
+    (``None``: position -1) of the last block's unrounded output ``x32``:
+    final LN into the model ``dtype`` and the tied-embedding readout,
     computed only at the rows' readout positions."""
     if last_pos is None:
-        x = x[:, -1]
+        x32 = x32[:, -1]
     else:
-        x = x[torch.arange(x.shape[0], device=x.device), last_pos]
-    x = _layer_norm(x, params["final_ln_scale"], params["final_ln_bias"])
-    return torch.matmul(x.float(), params["embed"].float().t())
+        x32 = x32[torch.arange(x32.shape[0], device=x32.device), last_pos]
+    x = _layer_norm(x32, params["final_ln_scale"], params["final_ln_bias"],
+                    dtype)
+    return unembed(x, params["embed"])
 
 
 def prefill(
@@ -97,7 +100,7 @@ def prefill(
     device = tokens.device
     cache = init_cache(config, batch, device)
     inner = attention_fn or _dense_attention
-    x = embed_tokens(params["embed"], tokens) + params["pos_embed"][:prompt_len]
+    x, x32 = _embed(params, tokens, slice(0, prompt_len))
     for layer, layer_cache in zip(params["layers"], cache["layers"]):
 
         def attend(q, k, v, _lc=layer_cache):
@@ -105,13 +108,14 @@ def prefill(
             _lc["v"][:, :, :prompt_len] = v
             return inner(q, k, v)
 
-        x = _block(x, layer, config, attend)
+        x, x32 = _block(x, layer, config, attend, x32)
     if lengths is None:
         cache["length"].fill_(prompt_len)
-        logits = _final_logits(params, x)
+        logits = _final_logits(params, x32, x.dtype)
     else:
         cache["length"].copy_(lengths)
-        logits = _final_logits(params, x, last_pos=cache["length"] - 1)
+        logits = _final_logits(params, x32, x.dtype,
+                               last_pos=cache["length"] - 1)
     return logits, cache
 
 
@@ -226,17 +230,14 @@ def _decode_impl(
     final logits; advances ``cache["length"]`` in place."""
     pos = cache["length"]
     rows = torch.arange(tokens.shape[0], device=tokens.device)
-    x = (
-        embed_tokens(params["embed"], tokens)
-        + embed_tokens(params["pos_embed"], pos)
-    )[:, None, :]
+    x, x32 = (t[:, None, :] for t in _embed(params, tokens, pos))
     for layer, layer_cache in zip(params["layers"], cache["layers"]):
 
         def attend(q, k, v, _lc=layer_cache):
             return write_and_attend(q, k, v, _lc, rows, pos)
 
-        x = _block(x, layer, config, attend)
-    logits = _final_logits(params, x)
+        x, x32 = _block(x, layer, config, attend, x32)
+    logits = _final_logits(params, x32, x.dtype)
     cache["length"] = pos + 1
     return logits, cache
 
@@ -468,15 +469,15 @@ def _chunk_decode_impl(
     layer_cache, rows, cols, start) -> out``, logits at every position;
     advances ``cache["length"]`` by ``T``."""
     start, rows, cols = _chunk_positions(cache, tokens)
-    x = (embed_tokens(params["embed"], tokens)
-         + embed_tokens(params["pos_embed"], cols))
+    x, x32 = _embed(params, tokens, cols)
     for layer, layer_cache in zip(params["layers"], cache["layers"]):
 
         def attend(q, k, v, _lc=layer_cache):
             return write_and_attend(q, k, v, _lc, rows, cols, start)
 
-        x = _block(x, layer, config, attend)
-    x = _layer_norm(x, params["final_ln_scale"], params["final_ln_bias"])
+        x, x32 = _block(x, layer, config, attend, x32)
+    x = _layer_norm(x32, params["final_ln_scale"], params["final_ln_bias"],
+                    x.dtype)
     cache["length"] = start + tokens.shape[1]
     return unembed(x, params["embed"]), cache
 
@@ -639,14 +640,20 @@ def _check_prefix_layout(prefix_cache: dict, quantized: bool) -> None:
 
 def _check_prefix_budget(
     prefix_cache: dict | None, prompt_len: int, num_tokens: int, config,
+    slack: int = 0, slack_label: str = "", model_name: str = "",
 ) -> None:
-    """The generate entry's bound: prefix + prompt + num_tokens within
-    ``max_seq_len``."""
+    """The generate entry's bound: prefix + prompt + num_tokens (+
+    ``slack``, labeled ``slack_label``: the speculative entry's 2k draft
+    window) within ``max_seq_len``; ``model_name`` names whose bound it
+    is."""
     prefix_len = prefix_len_of(prefix_cache)
-    if prefix_len + prompt_len + num_tokens > config.max_seq_len:
+    if prefix_len + prompt_len + num_tokens + slack > config.max_seq_len:
+        extra = f" + {slack_label} ({slack})" if slack else ""
+        owner = f"the {model_name} model's " if model_name else ""
         raise ValueError(
             f"prefix ({prefix_len}) + prompt ({prompt_len}) + num_tokens "
-            f"({num_tokens}) exceeds max_seq_len={config.max_seq_len}"
+            f"({num_tokens}){extra} exceeds "
+            f"{owner}max_seq_len={config.max_seq_len}"
         )
 
 

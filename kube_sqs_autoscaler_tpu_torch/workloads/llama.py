@@ -62,7 +62,7 @@ from .decode import (
     _write_rows, init_quantized_cache, quantize_cache,
 )
 from .flash import attention_fn_for, gqa_adapt, windowed
-from .model import _dense_attention, embed_tokens, unembed
+from .model import _dense_attention, _residual, embed_tokens, unembed
 
 
 @dataclass(frozen=True)
@@ -153,15 +153,6 @@ def _rms_norm(
     x32 = x.float()
     normed = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
     return (normed * scale.float()).to(dtype or x.dtype)
-
-
-def _residual(
-    x: torch.Tensor, delta: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """``x + delta`` in the model dtype, and the same sum unrounded in fp32,
-    which is what the next RMSNorm reads (see the module docstring)."""
-    total = x.float() + delta
-    return total.to(x.dtype), total
 
 
 def readout_weights(params: dict) -> torch.Tensor:

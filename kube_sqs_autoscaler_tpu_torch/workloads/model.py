@@ -16,7 +16,14 @@ differ:
   the working-dtype operands (the reference's
   ``preferred_element_type=float32``): the operands are upcast, because a
   bf16 ``torch.matmul`` would round its result to bf16;
-- GELU is the tanh approximation (``jax.nn.gelu``'s default);
+- GELU is the tanh approximation (``jax.nn.gelu``'s default), computed
+  op by op in the model dtype with its constants in that dtype, rounding
+  at each step, as XLA lowers ``jax.nn.gelu`` for bf16;
+- a layernorm that reads a residual sum (the embedding sum included)
+  reads it unrounded, in fp32: the reference's compiled program fuses the
+  add into the norm's fp32 upcast (XLA's default excess precision), while
+  the residual stream itself is rounded to the model dtype.  With both
+  rules the bf16 logits equal the compiled reference's up to fp32 noise;
 - token ids are read with JAX's gather rule: negative ids wrap once
   (``-1`` is the last row) and every other out-of-range id clamps, so an
   unchecked message body can never index past the table (on the card a
@@ -25,10 +32,10 @@ differ:
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -110,14 +117,25 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_norm(
-    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+    dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    # fp32 statistics (population variance), output in x's dtype
+    """fp32 statistics (population variance), output in ``dtype`` (default
+    ``x``'s)."""
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     var = (x32 - mean).square().mean(dim=-1, keepdim=True)
     normed = (x32 - mean) * torch.rsqrt(var + 1e-5)
-    return (normed * scale.float() + bias.float()).to(x.dtype)
+    return (normed * scale.float() + bias.float()).to(dtype or x.dtype)
+
+
+def _residual(
+    x: torch.Tensor, delta: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x + delta`` in ``x``'s dtype, and the same sum unrounded in fp32,
+    which is what the next norm reads (see the module docstring)."""
+    total = x.float() + delta
+    return total.to(x.dtype), total
 
 
 def _dense_attention(
@@ -171,21 +189,47 @@ def _project_qkv(
     )
 
 
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh): ``x * 0.5 * (1 + tanh(c * (x + 0.044715 *
+    x**3)))``, each op rounded to ``x``'s dtype and the constants too."""
+    def const(value):
+        return torch.tensor(value, dtype=x.dtype, device=x.device)
+
+    cube = x * x * x
+    inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * cube)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 def _mlp(x: torch.Tensor, layer: dict) -> torch.Tensor:
-    return F.gelu(x @ layer["w_up"], approximate="tanh") @ layer["w_down"]
+    return _gelu(x @ layer["w_up"]) @ layer["w_down"]
 
 
 def _block(
-    x: torch.Tensor, layer: dict, config: ModelConfig, attend
-) -> torch.Tensor:
+    x: torch.Tensor, layer: dict, config: ModelConfig, attend,
+    x32: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
     """One pre-LN block: attention then MLP, residual around both.
     ``attend(q, k, v) -> [B, H, S, D]`` is the attention seam (dense,
-    flash, or a cache-writing closure in :mod:`.decode`)."""
-    h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"])
+    flash, or a cache-writing closure in :mod:`.decode`).  ``x32`` is
+    ``x`` unrounded (fp32), which the first norm reads.  Returns the
+    block's output and its fp32 value."""
+    dtype = x.dtype
+    h = _layer_norm(x32, layer["ln1_scale"], layer["ln1_bias"], dtype)
     q, k, v = _project_qkv(h, layer, config)
-    x = x + _merge_heads(attend(q, k, v), config) @ layer["wo"]
-    h2 = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"])
-    return x + _mlp(h2, layer)
+    x, x32 = _residual(x, _merge_heads(attend(q, k, v), config) @ layer["wo"])
+    h2 = _layer_norm(x32, layer["ln2_scale"], layer["ln2_bias"], dtype)
+    return _residual(x, _mlp(h2, layer))
+
+
+def _embed(
+    params: dict, tokens: torch.Tensor, positions
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token plus position embeddings: the sum in the model dtype and
+    unrounded (``positions`` is a slice or a tensor of position ids)."""
+    pos = params["pos_embed"]
+    pos = pos[positions] if isinstance(positions, slice) else embed_tokens(
+        pos, positions)
+    return _residual(embed_tokens(params["embed"], tokens), pos)
 
 
 def forward_hidden(
@@ -207,15 +251,16 @@ def forward_hidden(
         raise ValueError(
             f"sequence length {seq} exceeds max_seq_len={config.max_seq_len}"
         )
-    x = embed_tokens(params["embed"], tokens) + params["pos_embed"][:seq]
+    x, x32 = _embed(params, tokens, slice(0, seq))
     attend = attention_fn or _dense_attention
     for layer in params["layers"]:
         if remat:
-            x = checkpoint(_block, x, layer, config, attend,
-                           use_reentrant=False)
+            x, x32 = checkpoint(_block, x, layer, config, attend, x32,
+                                use_reentrant=False)
         else:
-            x = _block(x, layer, config, attend)
-    return _layer_norm(x, params["final_ln_scale"], params["final_ln_bias"])
+            x, x32 = _block(x, layer, config, attend, x32)
+    return _layer_norm(x32, params["final_ln_scale"], params["final_ln_bias"],
+                       x.dtype)
 
 
 def unembed(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:

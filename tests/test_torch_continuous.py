@@ -437,8 +437,10 @@ def test_sampled_run_terminates_in_vocab_and_reproduces(decode_block):
     # layout, and a budget that only the prefix pushes past the context
     (dict(quantized_kv=True, prefix_cache="full"), "layout mismatch"),
     (dict(prefix_cache="full", generate_tokens=80), "exceeds max_seq_len"),
-    (dict(draft_layers=1), "not yet ported"),
-    (dict(beams=2), "not yet ported"),
+    # speculative and beam slots are ported (test_torch_spec_beam_serving):
+    # what is left to refuse is either of them over a mesh or with tenancy
+    (dict(draft_layers=1, mesh=object()), "not yet ported"),
+    (dict(beams=2, tenancy=object()), "not yet ported"),
     (dict(tenancy=object()), "not yet ported"),
     (dict(family="moe"), "unknown family"),
     (dict(beams=0), "beams"),

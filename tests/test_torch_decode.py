@@ -7,6 +7,7 @@ top-two logit margin exceeds 1e-4, so a flipped token is a real bug and
 not a near-tie.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,6 +95,42 @@ def test_decode_steps_match_reference():
         np.testing.assert_allclose(as_numpy(got), np.asarray(want),
                                    atol=1e-4, rtol=0)
     np.testing.assert_array_equal(tcache["length"].numpy(), LENGTHS + 3)
+
+
+# bf16, against the jitted reference: the port rounds where the compiled
+# program does, so each GPT decode path's logits agree to fp32 noise
+BF16_PATHS = ("prefill", "decode_step", "chunk_decode")
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8kv"])
+@pytest.mark.parametrize("path", BF16_PATHS)
+def test_bf16_decode_path_matches_jitted_reference(path, quantized):
+    jcfg, jp, tcfg, tp = both_params("bfloat16")
+    ids = tokens(3, 24, seed=12)
+    prefix = "quantized_" if quantized else ""
+    jfn = {name: jax.jit(getattr(jax_decode, prefix + name),
+                         static_argnames="config") for name in BF16_PATHS}
+    tfn = {name: getattr(decode, prefix + name) for name in BF16_PATHS}
+    want, jcache = jfn["prefill"](jp, jnp.asarray(ids), config=jcfg,
+                                  lengths=jnp.asarray(LENGTHS))
+    got, tcache = tfn["prefill"](tp, torch.from_numpy(ids), tcfg,
+                                 lengths=torch.from_numpy(LENGTHS))
+    rng = np.random.default_rng(13)
+    if path == "decode_step":
+        for _ in range(3):
+            step = rng.integers(0, DIMS["vocab_size"], 3).astype(np.int32)
+            want, jcache = jfn[path](jp, jcache, jnp.asarray(step),
+                                     config=jcfg)
+            got, tcache = tfn[path](tp, tcache, torch.from_numpy(step), tcfg)
+            np.testing.assert_allclose(as_numpy(got), np.asarray(want),
+                                       atol=1e-4, rtol=0)
+    elif path == "chunk_decode":
+        chunk = rng.integers(0, DIMS["vocab_size"], (3, 5)).astype(np.int32)
+        want, _ = jfn[path](jp, jcache, jnp.asarray(chunk), config=jcfg)
+        got, _ = tfn[path](tp, tcache, torch.from_numpy(chunk), tcfg)
+    want = np.asarray(want, np.float32)
+    assert want.std() > 0.5
+    np.testing.assert_allclose(as_numpy(got), want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("use_eos", [False, True])

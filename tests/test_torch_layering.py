@@ -9,7 +9,8 @@ runs a tiny forward, generate, worker cycle, continuous-worker drain,
 fleet episode with its control loop, sharded-plane drain, sharded-pool
 episode with a poisoned shard, llama forward, generate and two-shard
 drain, int8 weights, int8 KV cache, chunk decode and shared-prefix serving
-of both families, and train step on the CPU.  The
+of both families, speculative and beam generation and their slot engines,
+and train step on the CPU.  The
 control-plane subpackages import no torch at all, so importing the fleet
 starts no CUDA work and builds no kernel.
 """
@@ -50,6 +51,8 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     assert len(files) > 10
     assert PORT / "workloads" / "llama.py" in files
     assert PORT / "workloads" / "quantize.py" in files
+    assert PORT / "workloads" / "speculative.py" in files
+    assert PORT / "workloads" / "beam.py" in files
     offenders = {
         str(path.relative_to(ROOT)): name
         for path in files for name in absolute_imports(path) if banned(name)
@@ -84,6 +87,7 @@ from kube_sqs_autoscaler_tpu_torch.workloads import decode, model, service
 from kube_sqs_autoscaler_tpu_torch.workloads import __main__, worker  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import continuous, shard_plane
 from kube_sqs_autoscaler_tpu_torch.workloads import llama, quantize
+from kube_sqs_autoscaler_tpu_torch.workloads import beam, speculative
 from kube_sqs_autoscaler_tpu_torch.workloads import data, perf, train  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import trainer  # noqa
 from kube_sqs_autoscaler_tpu_torch import core, fleet, metrics, obs, sim
@@ -186,6 +190,26 @@ qw = continuous.ContinuousWorker(
                           decode_block=2, shards=2, quantized_kv=True),
     prefix_cache=lprefix, device="cpu")
 assert qw.drain(total=2) == 2 and qw.batcher.prefix_len == 2
+# speculative and beam generation, standalone and in the slot engines (a
+# 2-layer llama, whose first layer is the self-draft)
+l2cfg = llama.LlamaConfig(vocab_size=64, d_model=64, n_heads=4, n_kv_heads=2,
+                          n_layers=2, d_ff=64, max_seq_len=32,
+                          dtype=torch.float32)
+l2params = llama.init_llama_params(l2cfg, torch.Generator().manual_seed(2),
+                                   "cpu")
+dparams, dcfg = speculative.self_draft(l2params, l2cfg, 1)
+assert speculative.speculative_generate(
+    l2params, l2cfg, dparams, dcfg, ids, 3, draft_tokens=2).shape == (2, 3)
+assert beam.beam_search(params, cfg, ids, 3, beams=2).shape == (2, 3)
+for knobs in (dict(draft_layers=1, draft_tokens=2), dict(beams=2)):
+    sb = continuous.ContinuousBatcher(l2params, l2cfg, batch_size=2,
+                                      prompt_len=4, generate_tokens=3,
+                                      device="cpu", **knobs)
+    sb.submit_many([([1, 2, 3], 0), ([4, 5], 1)])
+    out = []
+    while sb.active:
+        out += sb.step()
+    assert sorted(p for p, _ in out) == [0, 1]
 state = train.train_state(params, train.TrainConfig())
 step = train.make_train_step(cfg, train.TrainConfig(), "cpu")
 assert step(state, ids)[0]["step"] == 1

@@ -8,10 +8,8 @@ reference quantized it, codes and scales exact.  Codes and scales of the
 same fp32 input are bitwise the reference's.  f32 logits agree to 1e-5 of
 ``max(1, max|ref|)``.  bf16 greedy tokens are compared up to the first
 position where the reference's top-two margin is below the family's
-guard: 1e-4 for the llama, whose port rounds bf16 where the reference's
-compiled program does; for the GPT the port's known bf16 rounding gap to
-the compiled reference (``test_torch_model``'s 0.1 on the logits; ROADMAP
-Queue 3) sets the guard.
+guard, 1e-4 for both families: each port rounds bf16 where the
+reference's compiled program does.
 
 The helpers here (both sides' weights, int8 or not, the jitted reference
 entry points and the near-tie comparison) serve ``test_torch_int8_cache``
@@ -43,7 +41,7 @@ torch.set_num_threads(1)
 
 F32_TOL = 1e-5
 # the greedy comparisons' near-tie guard, by family (see module docstring)
-BF16_GUARD = {"gpt": 0.1, "llama": 1e-4}
+BF16_GUARD = {"gpt": 1e-4, "llama": 1e-4}
 MARGIN = 1e-4
 VOCAB = {"gpt": 96, "llama": 128}
 
