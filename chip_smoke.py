@@ -136,10 +136,32 @@ Phases (any failure makes the run exit non-zero and print no result):
    GPT with ``--quantize-kv`` and the prefix; warm rates of plain block-1
    ``--continuous``, speculative and beams; ``torch.profiler`` over a
    beam drain with the parent gather's share;
-15. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
+15. sync: for the GPT and the llama, one ``decode_step``, one
+   ``block_decode`` of 8 and one pooled insert of prefix-pool hits under
+   ``torch.cuda.set_sync_debug_mode("error")``: no call may wait for the
+   card (the GPT's calls through the GELU as it was before its repair are
+   printed beside); the repair's gain, timed before, after, after, before
+   in this call: the GPT decode step, block-8 ``--demo 64`` msgs/s and the
+   flagship train step;
+16. tenancy: multi-tenant fair admission and the per-tenant prefix pool
+   at both built-in models' full width (``--continuous --decode-block 8
+   --prefix-pool 8``, 512-token prefixes and suffixes): the reference's
+   flood-isolation traffic on a ``FakeClock`` under DRR and FIFO (exactly
+   once, replies labeled with their tenant, completions per tenant, pool
+   hits + misses = requests, ``n_layers x installs`` forward launches,
+   one insert and one decode dispatch a cycle at most, the victims' mean
+   wait lower under DRR); f32 tenant requests through the block-8
+   batcher, both families and the GPT's int8 cache, against ``generate``
+   of prefix and suffix joined up to the first near-tie, and a quiesced
+   row reused with a fresh row's result; an overload episode
+   (``--shed-tiers 3``: degrade, evict, shed the flood; no victim shed;
+   one reply or error reply each); warm rates and per-tenant TTFT beside
+   tenancy off with the prefix prepended (bf16 replies counted); a
+   profiled tenancy drain;
+17. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
    through dense attention with no kernel launch, its loss falling; the
    forward wrapper called directly at D = 16 must raise ``ValueError``;
-16. training: an f32 loss and gradient at the flagship train width through
+18. training: an f32 loss and gradient at the flagship train width through
    the kernels against the dense-attention path; the trainer binary's code
    path in-process at the flagship config (GPT, d_model 1024, 16 heads,
    8 layers, d_ff 4096, vocab 8192, B=8, S=2048) in bf16 for 10
@@ -148,8 +170,8 @@ Phases (any failure makes the run exit non-zero and print no result):
    steps`` (and twice that for the forward under ``--remat``); its steady
    step time, tokens/s, MFU and peak memory; ``torch.profiler`` over one
    step;
-17. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-18. the last line, ``{"ok": true, "device": {...}}``.
+19. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+20. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
@@ -216,6 +238,8 @@ MAIN_SHAPES = [(8, 8, 512, 64), (8, 8, 1024, 64)]  # generate, classify
 PLANE_SHAPES = [(32, 8, 512, 64), (1, 8, 544, 64), (8, 8, 544, 64)]
 # the shared prefix's one prompt pass: 37 tokens, no multiple of the tiles
 PREFIX_SHAPES = [(1, 8, 37, 64)]
+# the tenant prefix pool's install prefill: one 512-token prefix
+POOL_SHAPES = [(1, 8, 512, 64)]
 GENERATE_ARGS = ["--demo", "16", "--batch-size", "8", "--seq-len", "512",
                  "--generate-tokens", "32", "--result-queue-url",
                  "demo://replies"]
@@ -525,7 +549,8 @@ def kernel_phase(torch, flash, smoke: Smoke) -> dict:
                 "aligned with ValueError, before any launch")
 
     timings = {}
-    for shape in (*MAIN_SHAPES, *PLANE_SHAPES, *PREFIX_SHAPES):
+    for shape in (*MAIN_SHAPES, *PLANE_SHAPES, *PREFIX_SHAPES,
+                  *POOL_SHAPES):
         b, h, s, d = shape
         q, k, v = make_qkv(torch, b, h, h, s, d, torch.bfloat16, True, 99)
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
@@ -3775,6 +3800,775 @@ def slice_rates(spec: dict, beams: dict) -> dict:
     return rates
 
 
+# -- host syncs on the per-step paths, and the GELU repair's gain ------------
+
+
+def old_gelu(x):
+    """The GPT's GELU as it was before the repair: its two rounded
+    constants built as device tensors on every call (a host-to-device copy
+    that waits for the stream on the card).  Kept here only to time and
+    to show that wait beside the repaired ``model._gelu``."""
+    import torch
+
+    def const(value):
+        return torch.tensor(value, dtype=x.dtype, device=x.device)
+
+    cube = x * x * x
+    inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * cube)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+class gelu_as:
+    """Serve with ``gelu`` in place of ``model._gelu`` inside the block."""
+
+    def __init__(self, gelu) -> None:
+        self.gelu = gelu
+
+    def __enter__(self):
+        from kube_sqs_autoscaler_tpu_torch.workloads import model
+
+        self.saved, model._gelu = model._gelu, self.gelu
+
+    def __exit__(self, *exc) -> None:
+        from kube_sqs_autoscaler_tpu_torch.workloads import model
+
+        model._gelu = self.saved
+
+
+def synced(torch, fn) -> str | None:
+    """Run ``fn`` with ``torch.cuda.set_sync_debug_mode("error")``: the
+    message of the first call that waited for the card, or None."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            fn()
+    except RuntimeError as err:
+        return str(err).splitlines()[0][:160]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    return None
+
+
+def tenant_model(torch, family: str, dtype=None):
+    """The built-in model of ``family`` with a context for a pooled
+    prefix of 512 ahead of a 512-token prompt and 32 generated tokens
+    (1056 positions), weights from seed 0, on the card; ``dtype``
+    overrides bf16."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        BUILTIN_CONFIGS,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+
+    config = BUILTIN_CONFIGS[family](512, 32, TENANT_PREFIX)
+    if dtype is not None:
+        config = dataclasses.replace(config, dtype=dtype)
+    params = family_of(config).init_params(
+        config, torch.Generator().manual_seed(0), "cuda")
+    return config, params
+
+
+def sync_phase(torch, smoke: Smoke) -> dict:
+    """The per-step dispatch paths wait for the card nowhere: for the GPT
+    and the llama (the control), one ``decode_step``, one ``block_decode``
+    of 8 and one pooled insert of pool hits, each under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the engine's counted
+    settle is outside).  Printed, not gated: the same GPT calls through
+    the GELU as it was before the repair."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousBatcher,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.decode import block_decode
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+    from kube_sqs_autoscaler_tpu_torch.workloads.tenancy import (
+        TenancyConfig,
+    )
+
+    out = {}
+    rng = np.random.default_rng(3)
+    for family in ("gpt", "llama"):
+        config, params = tenant_model(torch, family)
+        model = family_of(config)
+        layout = model.full
+        ids = torch.from_numpy(rng.integers(0, 8192, (8, 512))).cuda()
+        with torch.inference_mode():
+            _, cache = layout.prefill(params, ids, config,
+                                      model.attention_fn_for(config, 512,
+                                                             "cuda"))
+            current = ids[:, -1].clone()
+            done = torch.zeros(8, dtype=torch.bool, device="cuda")
+            remaining = torch.full((8,), 32, dtype=torch.long, device="cuda")
+        batcher = ContinuousBatcher(
+            params, config, 8, 512, 32, decode_block=8, device="cuda",
+            tenancy=TenancyConfig(tenants=TENANTS, prefix_pool=8,
+                                  prefix_len=TENANT_PREFIX))
+        prefixes = tenant_prefixes()
+        batcher.submit_many_prefixed([  # installs, outside the gate
+            (t, prefixes[t], ids[i, :100].cpu().numpy(), i)
+            for i, t in enumerate(TENANTS)])
+        while batcher.active:
+            batcher.step()
+        hits = [(TENANTS[i % 3], prefixes[TENANTS[i % 3]],
+                 ids[i, : 64 * (i + 1)].cpu().numpy(), 10 + i)
+                for i in range(8)]
+
+        calls = {
+            "decode_step": lambda: layout.decode_step(
+                params, cache, current, config),
+            "block_decode 8": lambda: block_decode(
+                params, cache, current, done, remaining, [None] * 8,
+                config, layout.decode_step),
+            "pooled insert": lambda: batcher.submit_many_prefixed(hits),
+        }
+        found = {}
+        for name, fn in calls.items():
+            found[name] = synced(torch, fn)
+            smoke.check(found[name] is None,
+                        f"sync {family} {name}: no call waited for the card "
+                        f"under set_sync_debug_mode('error') ({found[name]})")
+        installs = batcher.prefix_pool.installs
+        smoke.check(installs == 3 and batcher.prefix_pool.hits == 8,
+                    f"sync {family}: the gated insert took 8 pool hits "
+                    f"({batcher.prefix_pool.hits}) after {installs} installs")
+        while batcher.active:
+            batcher.step()
+        if family == "gpt":
+            with gelu_as(old_gelu):
+                before = {name: synced(torch, fn)
+                          for name, fn in calls.items()
+                          if name != "pooled insert"}
+            print(f"sync gpt with the GELU as before the repair "
+                  f"(printed, not gated): {before}", flush=True)
+            found["before_repair"] = before
+        out[family] = found
+        del batcher, cache
+    return out
+
+
+GELU_TRAIN_STEPS = 4
+
+
+def gelu_cost_phase(torch) -> dict:
+    """The GELU repair's gain, timed in one call in the order before,
+    after, after, before: the GPT decode step (8 rows at a cache of 544),
+    warm ``--demo 64 --continuous --decode-block 8`` msgs/s, and the
+    flagship train step over ``GELU_TRAIN_STEPS`` ``--overfit`` steps."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary
+    from kube_sqs_autoscaler_tpu_torch.workloads import model, trainer
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+
+    repaired = model._gelu
+    config, params = binary.builtin_model("gpt", 512, 32, "cuda")
+    layout = family_of(config).full
+    ids = torch.zeros((8, 512), dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        _, cache = layout.prefill(params, ids, config)
+        start = cache["length"].clone()
+
+    def step():
+        cache["length"] = start.clone()
+        layout.decode_step(params, cache, ids[:, 0], config)
+
+    runs = []
+    argv = demo64([*GENERATE_ARGS, "--continuous", "--decode-block", "8",
+                   "--device", "cuda"])
+    for label, gelu in (("before", old_gelu), ("after", repaired),
+                        ("after", repaired), ("before", old_gelu)):
+        with gelu_as(gelu):
+            with torch.inference_mode():
+                step_ms = time_ms(torch, step)
+            summary = binary.main(argv)
+            train = trainer.main([*TRAIN_ARGS, "--steps",
+                                  str(GELU_TRAIN_STEPS), "--log-every", "1",
+                                  "--overfit"])
+        run = {"gelu": label, "gpt_decode_step_ms": step_ms,
+               "block8_msgs_per_s": summary["msgs_per_s"],
+               "train_step_ms": 1e3 / train["steps_per_s"]}
+        print(f"gelu {label} the repair: GPT decode step {step_ms:.4f} ms, "
+              f"block-8 --demo 64 {summary['msgs_per_s']:.3f} msgs/s, "
+              f"flagship train step {run['train_step_ms']:.3f} ms",
+              flush=True)
+        runs.append(run)
+        torch.cuda.empty_cache()
+    return {"runs": runs}
+
+
+# -- multi-tenant admission and the per-tenant prefix pool -------------------
+
+TENANT_PREFIX = 512  # the pool's prefix bucket: --seq-len
+TENANTS = ("victim0", "victim1", "flood")
+TENANT_QUEUE, TENANT_REPLIES = "tenants://jobs", "tenants://replies"
+TENANT_LAYERS = 4
+POOL_ENTRIES = 8  # --prefix-pool 8
+
+
+def flood_schedule(cycles: int = 40, flood_start: int = 4,
+                   flood_cycles: int = 8, flood_per_cycle: int = 8,
+                   victims: int = 2) -> dict[int, list[str]]:
+    """The reference's flood-isolation traffic
+    (``kube_sqs_autoscaler_tpu/sim/scenarios.py`` ``flood_scenario``, its
+    defaults): tenant ``flood`` sends 8 a cycle over cycles 4-11, and
+    ``victim0`` and ``victim1`` one every 4 cycles from cycles 0 and 1.
+    Returns cycle -> the tenants sending then, in order."""
+    out = {}
+    for cycle in range(cycles):
+        sends = []
+        if flood_start <= cycle < flood_start + flood_cycles:
+            sends += ["flood"] * flood_per_cycle
+        sends += [f"victim{v}" for v in range(victims)
+                  if cycle >= v and (cycle - v) % 4 == 0]
+        out[cycle] = sends
+    return out
+
+
+def tenant_prefixes(tenants=TENANTS, vocab: int = 8192) -> dict:
+    """Each tenant's own seeded 512-token prefix."""
+    return {t: np.random.default_rng(1000 + i).integers(0, vocab,
+                                                        TENANT_PREFIX)
+            for i, t in enumerate(tenants)}
+
+
+def tenant_bodies(schedule: dict, prefixes: dict, seed: int = 7,
+                  vocab: int = 8192) -> dict[int, list[tuple]]:
+    """cycle -> ``(tenant, prefix, suffix)`` requests: every suffix 512
+    seeded tokens."""
+    rng = np.random.default_rng(seed)
+    return {cycle: [(t, prefixes[t], rng.integers(0, vocab, 512))
+                    for t in tenants]
+            for cycle, tenants in schedule.items()}
+
+
+def tenant_worker(torch, params, config, queue, results, now_fn, tenancy,
+                  seq_len: int = 512):
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousWorker,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import ServiceConfig
+
+    service_config = ServiceConfig(
+        queue_url=TENANT_QUEUE, batch_size=8, seq_len=seq_len,
+        generate_tokens=32, decode_block=8, result_queue_url=TENANT_REPLIES)
+    return ContinuousWorker(queue, params, config, service_config,
+                            result_queue=results, now_fn=now_fn,
+                            tenancy=tenancy, device="cuda")
+
+
+def tenant_episode(torch, flash, params, config, bodies, tenancy,
+                   dt: float = 1.0) -> dict:
+    """Drive ``bodies`` (cycle -> requests, sent before that engine cycle)
+    through a tenancy worker on a ``FakeClock`` advancing ``dt`` a cycle,
+    until every message is answered; the launch counts are zeroed just
+    before and read just after.  Per-tenant TTFT runs on the same clock,
+    so with ``dt = 1`` it is in engine cycles."""
+    from kube_sqs_autoscaler_tpu_torch.core import FakeClock
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import (
+        collect_replies,
+    )
+
+    clock = FakeClock(1e6)
+    queue = FakeMessageQueue(visibility_timeout=3600.0, now_fn=clock.now)
+    results = FakeMessageQueue()
+    worker = tenant_worker(torch, params, config, queue, results, clock.now,
+                           tenancy)
+    batcher = worker.batcher
+    sent, tenant_of = [], {}
+    per_cycle = {"insert": 0, "decode": 0}
+    total = sum(len(v) for v in bodies.values())
+    zero_counts(flash)
+    start = time.perf_counter()
+    cycle = 0
+    while cycle < 600:
+        for tenant, prefix, suffix in bodies.get(cycle, ()):
+            mid = queue.send_message(TENANT_QUEUE, json.dumps(
+                {"tenant": tenant, "prefix": prefix.tolist(),
+                 "ids": suffix.tolist()}))
+            sent.append(mid)
+            tenant_of[mid] = tenant
+        inserts, decodes = batcher.insert_dispatches, batcher.decode_dispatches
+        worker.run_once()
+        per_cycle["insert"] = max(per_cycle["insert"],
+                                  batcher.insert_dispatches - inserts)
+        per_cycle["decode"] = max(per_cycle["decode"],
+                                  batcher.decode_dispatches - decodes)
+        clock.advance(dt)
+        cycle += 1
+        answered = worker.processed + worker.shed \
+            - worker.shed_by_reason["degraded"]
+        if cycle > max(bodies) and answered >= total \
+                and batcher.active == 0 and worker.staged == 0:
+            break
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launched = counts(flash)
+    replies, duplicates = collect_replies(results, TENANT_REPLIES)
+    ttft = {t: batcher.tenant_ttft_sum.get(t, 0.0)
+            / max(1, batcher.tenant_ttft_count.get(t, 0))
+            for t in sorted(set(tenant_of.values()))}
+    victims = [t for t in ttft if t.startswith("victim")]
+    return {
+        "sent": sent, "tenant_of": tenant_of, "replies": replies,
+        "duplicates": duplicates, "cycles": cycle, "wall_s": wall_s,
+        "launches": launched, "per_cycle": per_cycle,
+        "queue": queue.get_queue_attributes(TENANT_QUEUE, ()),
+        "completed_by_tenant": dict(worker.completed_by_tenant),
+        "shed_by_reason": dict(worker.shed_by_reason),
+        "pool": batcher.prefix_pool.stats(), "ttft_cycles": ttft,
+        "victim_wait_cycles": (
+            sum(batcher.tenant_ttft_sum.get(v, 0.0) for v in victims)
+            / max(1, sum(batcher.tenant_ttft_count.get(v, 0)
+                         for v in victims))),
+        "ladder": (worker.ladder.export_state() if worker.ladder else None),
+        "inserts": batcher.insert_dispatches,
+    }
+
+
+def sent_by_tenant(run: dict) -> dict:
+    out = {}
+    for tenant in run["tenant_of"].values():
+        out[tenant] = out.get(tenant, 0) + 1
+    return out
+
+
+def check_tenant_episode(smoke, label, run) -> None:
+    """Exactly once, every reply labeled, completions per tenant, pool
+    accounting, launches and dispatches a cycle of one episode."""
+    replies, sent = run["replies"], run["sent"]
+    attrs = run["queue"]
+    smoke.check(len(replies) == len(sent) and run["duplicates"] == 0
+                and attrs["ApproximateNumberOfMessages"] == "0"
+                and attrs["ApproximateNumberOfMessagesNotVisible"] == "0"
+                and all(replies[m].get("tenant") == run["tenant_of"][m]
+                        for m in sent if m in replies),
+                f"{label}: {len(replies)} of {len(sent)} answered once and "
+                f"deleted, each reply labeled with its tenant "
+                f"({run['duplicates']} duplicates, queue {attrs})")
+    pool = run["pool"]
+    installs = pool["installs"]
+    launched = run["launches"]
+    smoke.check(pool["hits"] + pool["misses"] == len(sent)
+                and launched["flash_fwd"] == TENANT_LAYERS * installs
+                and launched["flash_fwd_lse"] == 0,
+                f"{label}: pool hits {pool['hits']} + misses "
+                f"{pool['misses']} = {len(sent)} requests; flash_fwd "
+                f"launches {launched['flash_fwd']} = {TENANT_LAYERS} layers "
+                f"x {installs} installs (none for a hit or a suffix insert "
+                f"over {run['inserts']} inserts), lse "
+                f"{launched['flash_fwd_lse']}")
+    smoke.check(run["per_cycle"]["insert"] <= 1
+                and run["per_cycle"]["decode"] <= 1,
+                f"{label}: at most one insert dispatch a refill "
+                f"({run['per_cycle']['insert']}) and one decode dispatch a "
+                f"cycle ({run['per_cycle']['decode']}) over "
+                f"{run['cycles']} cycles")
+
+
+def tenancy_phase(torch, flash, smoke: Smoke) -> dict:
+    """Multi-tenant fair admission and the per-tenant prefix pool at both
+    built-in models' full width (``--continuous --decode-block 8
+    --batch-size 8 --seq-len 512 --generate-tokens 32 --prefix-pool 8``,
+    a context of 1056): (a) the reference's flood-isolation traffic in
+    bf16 on a ``FakeClock`` under DRR and under the FIFO toggle: exactly
+    once, replies labeled, ``completed_by_tenant`` equal to the bodies
+    sent, pool hits + misses = requests, ``n_layers x installs`` forward
+    launches (none for a hit or a suffix insert, no lse), at most one
+    insert and one decode dispatch a cycle, the victims' mean wait in
+    engine cycles lower under DRR; (b) in f32 the staggered suffixes
+    behind three tenants' prefixes through the block-8 batcher, both
+    families and the GPT's int8 cache, against ``generate`` of prefix and
+    suffix joined (the int8 layout against its own prefix generate) up to
+    the first near-tie; a quiesced row reused with a fresh row's f32
+    result; (c) the overload episode: ``--shed-tiers 3`` with the flood
+    over its share, tiers 1-3 entered, no victim shed, every message one
+    reply or error reply; (d) warm msgs/s and per-tenant mean TTFT with
+    the pool beside the same streams with tenancy off (prefix prepended,
+    ``--seq-len 1024``), the bf16 replies counted between them; (e) the
+    GPT's DRR drain profiled."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.tenancy import (
+        TenancyConfig,
+    )
+
+    out = {"launches": {}}
+    prefixes = tenant_prefixes()
+    bodies = tenant_bodies(flood_schedule(), prefixes)
+    for family in ("gpt", "llama"):
+        config, params = tenant_model(torch, family)
+        runs = {}
+        for mode, fair in (("drr", True), ("fifo", False)):
+            tenancy = TenancyConfig(tenants=TENANTS,
+                                    prefix_pool=POOL_ENTRIES,
+                                    prefix_len=TENANT_PREFIX, fair=fair)
+            if family == "gpt" and mode == "drr":
+                run, out["profile"] = tenancy_profile(
+                    torch, flash, params, config, bodies, tenancy)
+            else:
+                run = tenant_episode(torch, flash, params, config, bodies,
+                                     tenancy)
+            label = f"tenancy {family} bf16 {mode}"
+            check_tenant_episode(smoke, label, run)
+            smoke.check(run["completed_by_tenant"] == sent_by_tenant(run),
+                        f"{label}: completed_by_tenant "
+                        f"{run['completed_by_tenant']} equals the bodies "
+                        f"sent per tenant")
+            print(f"{label}: {run['cycles']} cycles, {run['wall_s']:.3f} s "
+                  f"on the host clock; pool {run['pool']}; mean wait to "
+                  f"the first token in engine cycles by tenant "
+                  f"{ {t: round(v, 3) for t, v in run['ttft_cycles'].items()} }",
+                  flush=True)
+            runs[mode] = run
+            out["launches"][f"serve-tenancy-{family}"] = \
+                out["launches"].get(f"serve-tenancy-{family}", 0) \
+                + run["launches"]["flash_fwd"]
+        drr, fifo = (runs[m]["victim_wait_cycles"] for m in ("drr", "fifo"))
+        smoke.check(drr < fifo,
+                    f"tenancy {family}: the victims' mean wait {drr:.3f} "
+                    f"engine cycles under DRR is below FIFO's {fifo:.3f}")
+        out[family] = {m: {k: runs[m][k] for k in (
+            "cycles", "wall_s", "pool", "ttft_cycles", "victim_wait_cycles",
+            "completed_by_tenant", "launches")} for m in runs}
+        if family == "gpt":
+            out["overload"] = overload_episode(torch, flash, smoke, params,
+                                               config)
+            out["launches"]["serve-tenancy-gpt"] += \
+                out["overload"]["launches"]["flash_fwd"]
+            out["rates"] = tenancy_rates(torch, flash, params, config,
+                                         bodies)
+            out["launches"]["serve-tenancy-gpt"] += \
+                out["rates"]["launches"]["tenancy"]
+            # the same streams with tenancy off: prompt passes of 1024
+            out["launches"]["serve-tenancy-off-gpt"] = \
+                out["rates"]["launches"]["off"]
+        del params
+        torch.cuda.empty_cache()
+    out["f32"] = tenancy_f32_checks(torch, flash, smoke)
+    return out
+
+
+OVERLOAD_COLD = ("cold0", "cold1", "cold2", "cold3", "cold4")
+
+
+def overload_episode(torch, flash, smoke, params, config) -> dict:
+    """Part (c) of :func:`tenancy_phase`: the flood traffic plus five cold
+    tenants sending one request each over cycles 0-4 (so the pool holds 8
+    entries when tier 2 asks it to keep 4), ``shed_tiers=3``, a decode
+    deadline of 0.5 s a token on the 1 s a cycle clock, and staging of 16
+    a tenant, so the flood alone can fill the 16-deep staging and drive
+    the pressure to tier 3."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.tenancy import (
+        TenancyConfig,
+    )
+
+    prefixes = tenant_prefixes((*TENANTS, *OVERLOAD_COLD))
+    schedule = flood_schedule()
+    for i, tenant in enumerate(OVERLOAD_COLD):
+        schedule[i] = [tenant, *schedule[i]]
+    bodies = tenant_bodies(schedule, prefixes, seed=8)
+    tenancy = TenancyConfig(
+        tenants=(*TENANTS, *OVERLOAD_COLD), prefix_pool=POOL_ENTRIES,
+        prefix_len=TENANT_PREFIX, shed_tiers=3, decode_slo_s=0.5,
+        staging_per_tenant=16)
+    run = tenant_episode(torch, flash, params, config, bodies, tenancy)
+    label = "tenancy overload gpt bf16"
+    replies, sent = run["replies"], run["sent"]
+    victim_errors = [m for m in sent if m in replies
+                     and "error" in replies[m]
+                     and run["tenant_of"][m] != "flood"]
+    flood_errors = [m for m in sent if m in replies
+                    and "error" in replies[m]
+                    and run["tenant_of"][m] == "flood"]
+    entered = run["ladder"]["entered_total"]
+    shed = run["shed_by_reason"]
+    smoke.check(len(replies) == len(sent) and run["duplicates"] == 0
+                and run["queue"]["ApproximateNumberOfMessages"] == "0"
+                and run["queue"]["ApproximateNumberOfMessagesNotVisible"]
+                == "0",
+                f"{label}: every one of {len(sent)} messages got exactly "
+                f"one reply or error reply ({len(replies)} replies, "
+                f"{run['duplicates']} duplicates, {len(flood_errors)} "
+                f"flood error replies)")
+    smoke.check(not victim_errors and entered[1] > 0 and entered[2] > 0
+                and entered[3] > 0 and shed["degraded"] > 0
+                and shed["pressure"] > 0 and run["pool"]["evictions"] > 0,
+                f"{label}: tiers entered {entered[1:]} (degrade, evict, "
+                f"shed), sheds by reason {shed}, pool evictions "
+                f"{run['pool']['evictions']}; victim or cold requests "
+                f"shed: {len(victim_errors)}")
+    print(f"{label}: {run['cycles']} cycles; mean wait in engine cycles "
+          f"{ {t: round(v, 3) for t, v in run['ttft_cycles'].items()} }",
+          flush=True)
+    return {k: run[k] for k in ("cycles", "shed_by_reason", "pool",
+                                "ladder", "launches", "ttft_cycles")}
+
+
+def tenancy_rates(torch, flash, params, config, bodies) -> dict:
+    """Part (d) of :func:`tenancy_phase`: the flood streams on the real
+    clock, sent before their engine cycle, through the tenancy worker
+    with the pool and then through a worker with tenancy off serving
+    each request with its prefix prepended (``--seq-len 1024``), one
+    after the other: msgs/s, mean time from queue arrival to the first
+    token per tenant, and the bf16 replies counted between the two."""
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import (
+        collect_replies, request_id, sent_epoch,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.tenancy import (
+        TenancyConfig,
+    )
+
+    out, tokens = {"launches": {}}, {}
+    total = sum(len(v) for v in bodies.values())
+    for mode in ("tenancy", "off"):
+        zero_counts(flash)
+        queue, results = FakeMessageQueue(), FakeMessageQueue()
+        if mode == "tenancy":
+            worker = tenant_worker(torch, params, config, queue, results,
+                                   None, TenancyConfig(
+                                       tenants=TENANTS,
+                                       prefix_pool=POOL_ENTRIES,
+                                       prefix_len=TENANT_PREFIX))
+        else:
+            worker = tenant_worker(torch, params, config, queue, results,
+                                   None, None, seq_len=1024)
+        batcher = worker.batcher
+        tenant_of, waits, order = {}, {}, []
+
+        def note(row, ttft, batcher=batcher, tenant_of=tenant_of,
+                 waits=waits):
+            message = batcher.slots[row].payload
+            waits.setdefault(tenant_of[request_id(message)], []).append(
+                time.time() - sent_epoch(message))
+
+        batcher._note_ttft = note
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        cycle = 0
+        while cycle < 600:
+            for tenant, prefix, suffix in bodies.get(cycle, ()):
+                body = ({"tenant": tenant, "prefix": prefix.tolist(),
+                         "ids": suffix.tolist()} if mode == "tenancy"
+                        else np.concatenate([prefix, suffix]).tolist())
+                mid = queue.send_message(TENANT_QUEUE, json.dumps(body))
+                tenant_of[mid] = tenant
+                order.append(mid)
+            worker.run_once()
+            cycle += 1
+            if cycle > max(bodies) and worker.processed >= total:
+                break
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        out["launches"][mode] = counts(flash)["flash_fwd"]
+        replies, _ = collect_replies(results, TENANT_REPLIES)
+        tokens[mode] = [replies[m].get("tokens") for m in order]
+        mean = {t: 1e3 * sum(v) / len(v) for t, v in sorted(waits.items())}
+        out[mode] = {"msgs_per_s": worker.processed / elapsed,
+                     "elapsed_s": elapsed, "cycles": cycle,
+                     "ttft_ms_by_tenant": mean}
+        print(f"warm tenancy {mode} (flood traffic, real clock): "
+              f"{worker.processed / elapsed:.3f} msgs/s over {cycle} "
+              f"cycles; mean ms from queue arrival to the first token by "
+              f"tenant { {t: round(v, 3) for t, v in mean.items()} }",
+              flush=True)
+        del worker, batcher
+    same = sum(a == b for a, b in zip(tokens["tenancy"], tokens["off"]))
+    out["bf16_replies_same"] = same
+    print(f"tenancy bf16 replies equal to the prefix-prepended plain "
+          f"path's, of {total} (counted, not gated): {same}", flush=True)
+    return out
+
+
+def tenancy_profile(torch, flash, params, config, bodies, tenancy):
+    """Part (e) of :func:`tenancy_phase`: the GPT's DRR episode under
+    ``torch.profiler`` (device activity only; the episode's gates read its
+    ``FakeClock``, which the profiler does not move): the busy share, and
+    the shares of busy time of the pool's gather and of the install
+    prefill, each timed alone with CUDA events at the drain's shapes and
+    multiplied by the drain's inserts and installs.  Returns ``(the
+    episode's run, the profile)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kube_sqs_autoscaler_tpu_torch.workloads.tenancy import PrefixPool
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run = tenant_episode(torch, flash, params, config, bodies, tenancy)
+        torch.cuda.synchronize()
+    kernels, _ = device_breakdown(prof)
+    busy_ms = sum(ms for ms, _, _ in kernels)
+    wall_ms = run["wall_s"] * 1e3
+    pool = PrefixPool(params, config, entries=POOL_ENTRIES,
+                      prefix_len=TENANT_PREFIX, device="cuda")
+    prefix = tenant_prefixes()["victim0"]
+    zero_counts(flash)
+    install_ms = time_ms(torch, lambda: pool._write_entry(
+        pool._prefill_entry(prefix), 0), iters=10)
+    idx = torch.arange(8, device="cuda") % POOL_ENTRIES
+
+    def gather():
+        with torch.inference_mode():
+            return [{name: buf[idx] for name, buf in layer.items()}
+                    for layer in pool.layers]
+
+    gather_ms = time_ms(torch, gather)
+    gather_share = gather_ms * run["inserts"] / busy_ms
+    install_share = install_ms * run["pool"]["installs"] / busy_ms
+    print(f"profile tenancy gpt DRR drain (profiler on): wall {wall_ms:.3f} "
+          f"ms, kernels busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}"
+          f"%); the pool gather of 8 rows {gather_ms:.4f} ms x "
+          f"{run['inserts']} inserts = {100 * gather_share:.2f}% of busy; "
+          f"an install prefill {install_ms:.4f} ms x "
+          f"{run['pool']['installs']} installs = {100 * install_share:.2f}% "
+          f"of busy", flush=True)
+    for ms, count, key in kernels[:8]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
+    del pool
+    return run, {
+        "wall_ms": wall_ms, "busy_ms": busy_ms,
+        "busy_share": busy_ms / wall_ms, "gather_ms": gather_ms,
+        "install_ms": install_ms, "gather_share": gather_share,
+        "install_share": install_share,
+        "top": [(ms, count, key[:90]) for ms, count, key in kernels[:8]]}
+
+
+def tenancy_f32_checks(torch, flash, smoke: Smoke) -> dict:
+    """Part (b) of :func:`tenancy_phase`."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousBatcher,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+    from kube_sqs_autoscaler_tpu_torch.workloads.tenancy import (
+        TenancyConfig,
+    )
+
+    out = {}
+    requests = staggered_requests()
+    prefixes = tenant_prefixes()
+    owner = [TENANTS[i % 3] for i in range(len(requests))]
+    tenancy = TenancyConfig(tenants=TENANTS, prefix_pool=POOL_ENTRIES,
+                            prefix_len=TENANT_PREFIX)
+    for family, quantized in (("gpt", False), ("llama", False),
+                              ("gpt", True)):
+        config, params = tenant_model(torch, family, torch.float32)
+        model = family_of(config)
+        layout = model.layout(quantized)
+        want, margins = [], []
+        with torch.inference_mode():
+            caches = {t: layout.prefill_prefix(
+                params, torch.from_numpy(p).cuda(), config,
+                model.attention_fn_for(config, TENANT_PREFIX, "cuda"))
+                for t, p in prefixes.items()} if quantized else {}
+            for ids, tenant in zip(requests, owner):
+                suffix = torch.from_numpy(ids).cuda()[None]
+                if quantized:  # the port's own int8 prefix path
+                    def start(suffix=suffix, tenant=tenant):
+                        return layout.prefill_with_prefix(
+                            params, caches[tenant], suffix, config)
+                else:  # prefix and suffix prefilled as one prompt
+                    joined = torch.cat([torch.from_numpy(
+                        prefixes[tenant]).cuda()[None], suffix], dim=1)
+
+                    def start(joined=joined):
+                        return layout.prefill(
+                            params, joined, config, model.attention_fn_for(
+                                config, joined.shape[1], "cuda"))
+                tokens, margin = rollout(
+                    torch, start, lambda cache, token: layout.decode_step(
+                        params, cache, token, config))
+                want.append(tokens)
+                margins.append(margin)
+            del caches
+        batcher = ContinuousBatcher(params, config, 8, 512, 32,
+                                    family=family, quantized_kv=quantized,
+                                    decode_block=8, tenancy=tenancy,
+                                    device="cuda")
+        zero_counts(flash)
+        got, _ = pooled_drive(batcher, requests, owner, prefixes)
+        launched = counts(flash)["flash_fwd"]
+        bad, ties = compare_upto_ties(got, want, margins)
+        layout_name = "int8-kv" if quantized else "full"
+        installs = batcher.prefix_pool.installs
+        oracle = ("the int8 prefix generate" if quantized
+                  else "generate of prefix + suffix joined")
+        smoke.check(len(got) == len(requests) and not bad and installs == 3
+                    and launched == TENANT_LAYERS * installs,
+                    f"tenancy {family} f32 {layout_name} block 8: "
+                    f"{len(got)} of {len(requests)} staggered suffixes "
+                    f"behind 3 tenants' pooled {TENANT_PREFIX}-token "
+                    f"prefixes ({launched} flash_fwd launches for "
+                    f"{installs} installs, none for "
+                    f"{batcher.insert_dispatches} pooled inserts); tokens "
+                    f"equal to {oracle} up to the first near-tie (margin < "
+                    f"{MARGIN:g}): mismatched {bad}; near-ties {ties}")
+        out[f"{family}-{layout_name}"] = {"mismatched": bad,
+                                          "near_ties": ties}
+        if family == "gpt" and not quantized:
+            out["quiesce"] = quiesce_check(torch, smoke, batcher, requests,
+                                           owner, prefixes, want, margins)
+        del batcher, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def pooled_drive(batcher, requests, owner, prefixes, every: int = 3,
+                 budgets=None):
+    """:func:`staggered_drive` through the pool: submit at most 3 requests
+    at a time every ``every`` cycles, each behind its tenant's prefix;
+    ``budgets`` (request -> tokens) cuts requests' budgets as overload
+    tier 1 does.  Returns ``(tokens by request, rows each request took)``."""
+    waiting, got, rows_of, cycle = list(enumerate(requests)), {}, {}, 0
+    while (waiting or batcher.active) and cycle < 5000:
+        free = len(batcher.free_slots)
+        if waiting and free and cycle % every == 0:
+            take = waiting[:min(free, 3)]
+            waiting = waiting[len(take):]
+            rows = batcher.submit_many_prefixed([
+                (owner[i], prefixes[owner[i]], ids, i) for i, ids in take])
+            for row, (i, _) in zip(rows, take):
+                rows_of[i] = row
+                if budgets and i in budgets:
+                    batcher.slots[row].budget = budgets[i]
+                    batcher.slots[row].degraded = True
+        for i, tokens in batcher.step():
+            got[i] = tokens
+        cycle += 1
+    return got, rows_of
+
+
+def quiesce_check(torch, smoke, batcher, requests, owner, prefixes, want,
+                  margins) -> dict:
+    """Overload tier 1's quiesce at block 8 in f32: the first 8 requests
+    cut to 16 tokens finish early and are quiesced, and the requests
+    admitted after them into the same rows give a fresh row's result
+    (``generate`` of prefix and suffix joined, up to the first near-tie)."""
+    cut = {i: 16 for i in range(8)}
+    tainted = []
+    step = batcher.step
+
+    def watched():
+        done = step()
+        tainted.extend(batcher._tainted)
+        return done
+
+    batcher.step = watched
+    got, rows_of = pooled_drive(batcher, requests, owner, prefixes,
+                                budgets=cut)
+    del batcher.step
+    reused = sorted(i for i in got if i not in cut
+                    and rows_of[i] in {rows_of[j] for j in cut})
+    short = all(len(got[i]) == 16 for i in cut)
+    bad, ties = compare_upto_ties(
+        {i: got[i] for i in reused}, want, margins)
+    smoke.check(bool(tainted) and reused and short and not bad,
+                f"tenancy gpt f32 quiesce block 8: 8 requests cut to 16 "
+                f"tokens ({short}), their rows quiesced and held out of "
+                f"admission ({len(set(tainted))} rows tainted), "
+                f"{len(reused)} later requests served in those rows equal "
+                f"to a fresh row's generate up to the first near-tie: "
+                f"mismatched {bad}; near-ties {ties}")
+    return {"reused": reused, "mismatched": bad, "tainted": sorted(set(
+        tainted))}
+
+
 # -- the cost of the GPT's bf16 rounding repair -----------------------------
 
 REPAIR_TRAIN_STEPS = 6
@@ -3920,6 +4714,9 @@ def main() -> int:
     beams = smoke.phase("beam", beam_phase, torch, flash, smoke)
     slice_prof = smoke.phase("beam profile", beam_profile, torch)
     spec and beams and smoke.phase("slice rates", slice_rates, spec, beams)
+    sync = smoke.phase("sync", sync_phase, torch, smoke)
+    gelu = smoke.phase("gelu cost", gelu_cost_phase, torch)
+    tenancy = smoke.phase("tenancy", tenancy_phase, torch, flash, smoke)
     odd = smoke.phase("odd head dim", odd_head_dim_phase, torch, flash, smoke)
     f32_train = smoke.phase("f32 train step", f32_train_phase, torch, flash,
                             smoke)
@@ -3931,8 +4728,9 @@ def main() -> int:
                               and stagger and rates and prof
                               and serve_prof and sqs and fleet and shards
                               and llama and int8 and prefix and spec
-                              and beams and slice_prof and odd
-                              and f32_train and train_path and train_prof):
+                              and beams and slice_prof and sync and gelu
+                              and tenancy and odd and f32_train
+                              and train_path and train_prof):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
         return 1
@@ -3962,6 +4760,10 @@ def main() -> int:
         # prefill an insert) and beams (one prompt pass a batch or insert)
         **spec["launches"],
         **beams["launches"],
+        # tenancy: the pool's install prefills (n_layers each; hits and
+        # suffix inserts launch none), and the same streams with tenancy
+        # off, prefix prepended (one prompt pass of 1024 an insert)
+        **tenancy["launches"],
         **{f"train-{r}": v["launches"]["flash_fwd"]
            for r, v in train_path.items()},
     }

@@ -1,7 +1,7 @@
 """WorkerPool: the serving fleet behind the ``Scaler`` seam.
 
 The port's copy of ``kube_sqs_autoscaler_tpu/fleet/pool.py`` without the
-sharded, tenancy and controller-restart parts.  A :class:`WorkerPool` is a
+sharded and controller-restart parts.  A :class:`WorkerPool` is a
 :class:`~..core.types.Scaler` whose ``scale_up``/``scale_down`` spin real
 :class:`~.worker.FleetWorker` replicas up and down, so the
 :class:`~..core.loop.ControlLoop` drives a fleet of serving replicas
@@ -256,6 +256,7 @@ class WorkerPool(FleetPoolBase):
         # the prune pass skips its scan while nothing exceeds retired_keep
         self._retired_members = 0
         self._retired_processed = 0
+        self._retired_tenant: dict[str, int] = {}
         self._next_index = 0
         self._spawn_ordinal = 0  # factory invocations (pre-commit safe)
         self._orphans: list[dict] = []  # re-dispatch queue (priority)
@@ -526,6 +527,18 @@ class WorkerPool(FleetPoolBase):
         ]
         for replica in retired[: -self.retired_keep or None]:
             self._retired_processed += replica.worker.processed
+            counts = getattr(replica.worker, "completed_by_tenant", {})
+            if counts:
+                # imported here: only tenancy pools (real serving workers)
+                # reach it, and the fleet imports no torch
+                from ..workloads.service import bounded_tenant_key
+
+                for tenant, count in counts.items():
+                    # the label bound again at the fold: every replica
+                    # takes up to MAX_TENANT_SERIES new labels of its own
+                    tenant = bounded_tenant_key(tenant, self._retired_tenant)
+                    self._retired_tenant[tenant] = (
+                        self._retired_tenant.get(tenant, 0) + count)
             self.members.remove(replica)
             self._retired_members -= 1
 
@@ -539,10 +552,41 @@ class WorkerPool(FleetPoolBase):
         )
 
     @property
+    def completed_by_tenant(self) -> dict[str, int]:
+        """Answered completions per tenant over the fleet's lifetime,
+        exactly once: a worker counts a tenant completion only on a settle
+        that answered (the registry's duplicate path returns before the
+        count), so redeliveries and re-dispatches never count twice."""
+        totals = dict(self._retired_tenant)
+        for replica in self.members:
+            for tenant, count in getattr(
+                    replica.worker, "completed_by_tenant", {}).items():
+                totals[tenant] = totals.get(tenant, 0) + count
+        return totals
+
+    def staged_by_tenant(self) -> dict[str, int]:
+        """Per-tenant staged depths summed over the serving and draining
+        replicas (empty with tenancy off): who is arriving, from host
+        bookkeeping only."""
+        totals: dict[str, int] = {}
+        for replica in self.members:
+            if replica.state not in (SERVING, DRAINING):
+                continue
+            fair = getattr(replica.worker, "_fair", None)
+            if fair is None:
+                continue
+            for tenant, depth in fair.depths().items():
+                totals[tenant] = totals.get(tenant, 0) + depth
+        return totals
+
+    @property
     def idle(self) -> bool:
-        """Nothing in flight anywhere and nothing awaiting re-dispatch."""
+        """Nothing in flight anywhere and nothing awaiting re-dispatch.
+        Fair-admission staging counts as in flight: a staged message's
+        receipt handle is live."""
         return not self._orphans and all(
             r.worker.batcher.active == 0
+            and getattr(r.worker, "staged", 0) == 0
             for r in self.members
             if r.state in (SERVING, DRAINING)
         )
@@ -637,6 +681,7 @@ class WorkerPool(FleetPoolBase):
         result_queue=None,
         device="cuda",
         prefix_cache=None,
+        tenancy=None,
         **pool_kwargs,
     ) -> "WorkerPool":
         """A pool of real :class:`~.worker.FleetWorker` replicas over one
@@ -646,7 +691,8 @@ class WorkerPool(FleetPoolBase):
         the plain tree or an int8-quantized one (``workloads/quantize``),
         and ``prefix_cache`` (a shared prompt prefix in the layout
         ``ServiceConfig.quantized_kv`` picks); the first builds the engine
-        and the rest adopt it.
+        and the rest adopt it.  ``tenancy`` gives every replica its own
+        fair-admission staging (and prefix pool).
 
         Sampled serving: each replica gets ``sample_seed + spawn
         ordinal``, so the fleet draws independent streams."""
@@ -663,7 +709,7 @@ class WorkerPool(FleetPoolBase):
                 queue, params, model_config, seeded,
                 family=family, result_queue=result_queue, device=device,
                 prefix_cache=prefix_cache, pool=pool,
-                engine_source=pool.engine_donor(),
+                engine_source=pool.engine_donor(), tenancy=tenancy,
             )
 
         return cls(factory, min=min, max=max, **pool_kwargs)

@@ -379,6 +379,7 @@ class ShardedWorkerPool(FleetPoolBase):
         now_fn=None,
         device="cuda",
         prefix_cache=None,
+        tenancy=None,
         **pool_kwargs,
     ) -> "ShardedWorkerPool":
         """One gang-stepped :class:`~.worker.FleetWorker` whose plane holds
@@ -389,7 +390,15 @@ class ShardedWorkerPool(FleetPoolBase):
         config's).  ``engine_source`` is a sharded donor batcher whose
         engine the plane adopts; ``now_fn`` is the request-TTL clock.
         ``params`` may be int8-quantized and ``prefix_cache`` a shared
-        prompt prefix, as for :meth:`~.pool.WorkerPool.serving`."""
+        prompt prefix, as for :meth:`~.pool.WorkerPool.serving`.
+        ``tenancy`` on the plane (sticky tenant homes) is not ported yet
+        and raises ``ValueError``."""
+        if tenancy is not None:
+            raise ValueError(
+                "tenancy on the sharded plane (sticky tenant homes, "
+                "per-shard prefix pools) is not yet ported (ROADMAP Queue 1 "
+                "item 3)"
+            )
         if shards is None:
             shards = (service_config.shards if service_config.shards > 1
                       else (max or service_config.shards))

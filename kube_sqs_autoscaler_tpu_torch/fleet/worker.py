@@ -1,8 +1,7 @@
 """FleetWorker: a :class:`~..workloads.continuous.ContinuousWorker` that
 serves as one supervised replica of a :class:`~.pool.WorkerPool`.
 
-The port's copy of ``kube_sqs_autoscaler_tpu/fleet/worker.py`` (without
-tenancy's staging).  It is the continuous worker — same batcher, same
+The port's copy of ``kube_sqs_autoscaler_tpu/fleet/worker.py``.  It is the continuous worker — same batcher, same
 engine cycle, same at-least-once settle — with the hooks a supervised
 fleet member needs:
 
@@ -20,7 +19,8 @@ fleet member needs:
   settle wins; a later one deletes its input copy without replying;
 - **in-flight handoff** (:meth:`take_inflight`): when the supervisor
   declares this replica dead, its un-replied busy slots' messages are
-  re-dispatched to survivors (greedy decoding restarts from the prompt).
+  re-dispatched to survivors (greedy decoding restarts from the prompt),
+  with the messages waiting in its fair-admission staging (tenancy).
 
 Construction shares the pool's params by reference and adopts the donor
 replica's engine
@@ -115,6 +115,11 @@ class FleetWorker(ContinuousWorker):
                 messages.append(slot.payload)
                 self.batcher.slots[row] = _Slot()
         self.batcher._invalidate_admission_cache()
+        # staged messages (tenancy) hold live receipt handles too: left
+        # behind, they would wait out the whole visibility timeout
+        if self._fair is not None:
+            for _tenant, item in self._fair.pick(self._fair.staged):
+                messages.append(item[3])
         return messages
 
     def release_inflight(self) -> int:

@@ -5,8 +5,7 @@ The port's copy of ``WorkloadMetrics`` from
 histograms and span-timer summaries in the Prometheus text format 0.0.4,
 standard library only.  Thread-safe: the worker's cycle thread writes,
 the HTTP handler threads render.  Every value here is a host number the
-worker wrote; rendering never touches a device tensor.  The per-tenant
-gauge family waits for the tenancy path.
+worker wrote; rendering never touches a device tensor.
 """
 
 from __future__ import annotations
@@ -211,6 +210,40 @@ class WorkloadMetrics:
             "shard_tokens_per_second", tokens_per_second,
             "Generated tokens per second attributed to this shard over "
             "the plane's serving lifetime.",
+            labels=labels,
+        )
+
+    def set_tenant_gauges(
+        self,
+        tenant: str,
+        *,
+        queue_depth: int,
+        ttft_seconds: float,
+        tokens_per_second: float,
+    ) -> None:
+        """The multi-tenant admission plane's per-tenant gauges (one
+        labeled series per tenant, refreshed every engine cycle by a
+        tenancy :class:`~..workloads.continuous.ContinuousWorker`)."""
+        labels = (("tenant", tenant),)
+        self.set_gauge(
+            "tenant_queue_depth", queue_depth,
+            "Requests staged in this tenant's fair-admission sub-queue "
+            "(the DRR lookahead window, not the shared queue's backlog).",
+            labels=labels,
+        )
+        self.set_gauge(
+            "tenant_ttft_seconds", ttft_seconds,
+            "Mean seconds to first generated token over this tenant's "
+            "requests, measured from QUEUE ARRIVAL (SentTimestamp) when "
+            "the queue stamps it, else from admission: the queue wait is "
+            "where a flooding tenant starves its victims, so this is the "
+            "isolation signal.",
+            labels=labels,
+        )
+        self.set_gauge(
+            "tenant_tokens_per_second", tokens_per_second,
+            "Generated tokens per second attributed to this tenant over "
+            "the worker's serving lifetime.",
             labels=labels,
         )
 

@@ -35,15 +35,24 @@ SwiGLU) through every mode below.
   beam search (:mod:`.beam`).  Each serves through the batch worker and
   ``--continuous`` (not ``--decode-block > 1``, ``--shards`` or the fleet)
   and composes with ``--quantize-kv`` and ``--prefix-ids``.
+- ``--tenants A,B,...`` (with ``--continuous``) admits through per-tenant
+  staging by deficit round robin (:mod:`.tenancy`), with
+  ``--tenant-weights``, ``--tenant-slos`` and ``--urgency-window`` (the
+  EDF jump), ``--shed-tiers`` (the overload ladder), ``--decode-slo-budget``
+  (the decode deadline) and ``--prefix-pool N`` (N resident per-tenant
+  prefixes of ``--seq-len`` tokens; the built-in context grows by
+  ``--seq-len``).  Bodies opt in with ``{"tenant": ..., "prefix": [...],
+  "ids": [...]}``; plain bodies land on the first tenant.
 
 The worker runs on the card (``--device cuda``, the default) and exits
 with an error when there is none; ``--device cpu`` runs it on the CPU.
 Weights are the built-in config's, drawn from a seeded generator.
 Flags of the reference binary whose paths are not ported yet
-(``--checkpoint-dir``, ``--hf-checkpoint``, ``--model-parallel``,
-``--tenants``, ...) are not accepted; ``--speculative-draft-layers`` with
-``--shards``, which the reference serves on its decode plane, exits with a
-message naming ROADMAP Queue 1 item 7.
+(``--checkpoint-dir``, ``--hf-checkpoint``, ``--scheduler``, ...) are not
+accepted; ``--admission-shards > 1``, ``--tokenizer``,
+``--model-parallel``, and ``--speculative-draft-layers`` or ``--tenants``
+with ``--shards``, which the reference serves on paths the port does not
+have yet, exit with a message naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -204,6 +213,67 @@ def build_parser() -> argparse.ArgumentParser:
              "ranking)",
     )
     parser.add_argument(
+        "--tenants", default="", metavar="NAME,NAME,...",
+        help="multi-tenant fair admission: per-tenant sub-queues feed the "
+             "continuous batcher by deficit round robin; bodies opt in via "
+             "{'tenant': ..., 'ids': [...]} and unlabeled traffic lands on "
+             "the first listed tenant (requires --continuous; not with "
+             "--beams)",
+    )
+    parser.add_argument(
+        "--tenant-weights", default="", metavar="W,W,...",
+        help="DRR weights aligned with --tenants (floats >= 0.01, one per "
+             "tenant; default: all 1.0)",
+    )
+    parser.add_argument(
+        "--tenant-slos", default="", metavar="S,S,...",
+        help="per-tenant TTFT SLOs in seconds aligned with --tenants "
+             "(floats >= 0; 0 = none): the EDF jump's deadlines and the "
+             "overload ladder's shed order",
+    )
+    parser.add_argument(
+        "--urgency-window", type=float, default=0.0, metavar="SECONDS",
+        help="EDF-blended admission: a staged request whose TTFT deadline "
+             "is within this window of now jumps the DRR quantum, within a "
+             "bounded per-tenant urgency budget (0 = off; requires "
+             "--tenants)",
+    )
+    parser.add_argument(
+        "--shed-tiers", type=int, default=0, metavar="N",
+        help="tiered shedding under overload pressure: 1 = degrade "
+             "over-share tenants to half --generate-tokens, 2 = + evict "
+             "cold prefix-pool entries, 3 = + shed their staged requests "
+             "with error replies (0 = off; requires --tenants)",
+    )
+    parser.add_argument(
+        "--decode-slo-budget", type=float, default=0.0, metavar="SECONDS",
+        help="decode-phase deadline: once a request has its first token it "
+             "must sustain this many seconds per remaining token or be shed "
+             "mid-decode with an error reply (0 = off; requires --tenants)",
+    )
+    parser.add_argument(
+        "--prefix-pool", type=int, default=0, metavar="N",
+        help="per-tenant prefix pool: N resident prefix entries with LRU "
+             "eviction; a body's {'prefix': [...]} of exactly --seq-len "
+             "tokens is prefilled once and gathered into every insert "
+             "(0 = off; requires --tenants; not with --prefix-ids)",
+    )
+    parser.add_argument(
+        "--admission-shards", type=int, default=1, metavar="N",
+        help="sharded admission plane (not yet ported: N > 1 exits; 1 = "
+             "the single staging plane; requires --tenants)",
+    )
+    parser.add_argument(
+        "--tokenizer", default="", metavar="DIR",
+        help="text-in/text-out through a transformers tokenizer (not yet "
+             "ported: exits)",
+    )
+    parser.add_argument(
+        "--model-parallel", type=int, default=0, metavar="TP",
+        help="serving over a (data, model) mesh (not yet ported: a value "
+             "other than 0 exits)",
+    )
+    parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="where the model runs (default cuda; no card is an error, "
              "never a quiet CPU run)",
@@ -272,9 +342,10 @@ def demo_queue(demo: int, model_config: ModelConfig,
 def serve_metrics(port: int, source):
     """Start ``/metrics`` for a worker or a fleet pool (``port`` 0 =
     disabled, returns None): a worker's serve-cycle SpanTimer; a
-    continuous worker's serving gauges and TTFT histogram, or a pool's
-    replica gauges and every replica's TTFT samples, refreshed every
-    cycle."""
+    continuous worker's serving gauges and TTFT histogram (and, with
+    tenancy, the per-tenant gauges, TTFT histogram, shed counters and
+    overload gauges), or a pool's replica gauges and every replica's TTFT
+    samples, refreshed every cycle."""
     if not port:
         return None
     from ..obs import ObservabilityServer, WorkloadMetrics
@@ -299,18 +370,20 @@ def run_demo(
     metrics_port: int = 0,
     prefix_cache: dict | None = None,
     modes: tuple[dict, dict] = ({}, {}),
+    tenancy=None,
 ) -> dict:
     """Feed ``demo`` random bodies through a :class:`QueueWorker` (or,
-    with ``continuous``, drain them through a :class:`ContinuousWorker`)
-    and collect the replies; returns the run's counts and rates.
-    ``modes`` holds the two workers' decode-mode keywords
-    (:func:`decode_modes`)."""
+    with ``continuous``, drain them through a :class:`ContinuousWorker`,
+    with ``tenancy`` its fair admission) and collect the replies; returns
+    the run's counts and rates.  ``modes`` holds the two workers'
+    decode-mode keywords (:func:`decode_modes`)."""
     queue = demo_queue(demo, model_config, service_config)
     result_queue = FakeMessageQueue() if service_config.result_queue_url else None
     if continuous:
         worker = ContinuousWorker(queue, params, model_config, service_config,
                                   result_queue=result_queue, device=device,
-                                  prefix_cache=prefix_cache, **modes[1])
+                                  prefix_cache=prefix_cache, tenancy=tenancy,
+                                  **modes[1])
         server = serve_metrics(metrics_port, worker)
         start = time.perf_counter()
         worker.drain(total=demo)
@@ -332,6 +405,7 @@ def run_demo(
             "ttft_mean_s": (batcher.ttft_sum / batcher.ttft_count
                             if batcher.ttft_count else None),
             **{name: getattr(batcher, name) for name in SPEC_STATS},
+            **tenancy_counts(worker),
         }
     else:
         worker = QueueWorker(queue, params, model_config, service_config,
@@ -348,7 +422,7 @@ def run_demo(
             "decode_dispatches", "insert_dispatches", "host_transfers",
             "block_settles", "overlapped_settles", "gang_cycles",
             "summary_transfers", "block_utilization", "ttft_mean_s",
-            *SPEC_STATS))
+            *SPEC_STATS, *TENANCY_STATS))
     if server is not None:
         server.stop()
     log.info(
@@ -381,6 +455,21 @@ def run_demo(
 # the continuous engine's speculative counters, in the demo's summary
 SPEC_STATS = ("spec_rounds", "spec_accepted", "spec_second_rounds",
               "spec_overlapped")
+# a tenancy worker's counts, in the demo's summary
+TENANCY_STATS = ("completed_by_tenant", "shed_by_reason", "prefix_pool")
+
+
+def tenancy_counts(worker) -> dict:
+    """A continuous worker's per-tenant completions, sheds by reason and
+    prefix-pool counts (``None`` each without tenancy)."""
+    if getattr(worker, "tenancy", None) is None:
+        return dict.fromkeys(TENANCY_STATS)
+    pool = worker.batcher.prefix_pool
+    return {
+        "completed_by_tenant": dict(worker.completed_by_tenant),
+        "shed_by_reason": dict(worker.shed_by_reason),
+        "prefix_pool": pool.stats() if pool is not None else None,
+    }
 
 
 def decode_modes(args, model_config, service_config: ServiceConfig,
@@ -457,6 +546,7 @@ def run_fleet_demo(
     max_replicas: int,
     metrics_port: int = 0,
     prefix_cache: dict | None = None,
+    tenancy=None,
 ) -> dict:
     """The closed loop in one process, on the real clock: a
     :class:`~..core.loop.ControlLoop` autoscales a
@@ -473,7 +563,7 @@ def run_fleet_demo(
     pool = WorkerPool.serving(
         queue, params, model_config, service_config,
         result_queue=result_queue, min=min_replicas, max=max_replicas,
-        device=device, prefix_cache=prefix_cache,
+        device=device, prefix_cache=prefix_cache, tenancy=tenancy,
     )
     server = serve_metrics(metrics_port, pool)
     batch = service_config.batch_size
@@ -531,13 +621,15 @@ def run_fleet_demo(
         "replies": replies,
         "duplicate_replies": duplicates,
         "queue_attributes": queue.get_queue_attributes(DEMO_QUEUE, ()),
+        "completed_by_tenant": (pool.completed_by_tenant
+                                if tenancy is not None else None),
     }
 
 
 def serve_sqs(args, params: dict, model_config: ModelConfig,
               service_config: ServiceConfig, device: torch.device,
               prefix_cache: dict | None = None,
-              modes: tuple[dict, dict] = ({}, {})) -> None:
+              modes: tuple[dict, dict] = ({}, {}), tenancy=None) -> None:
     """Serve ``--sqs-queue-url`` until the worker is stopped.  AWS SQS
     addresses queues per call by url, so the same client publishes replies
     when ``--result-queue-url`` is set."""
@@ -545,11 +637,15 @@ def serve_sqs(args, params: dict, model_config: ModelConfig,
 
     queue = AwsSqsService(region=args.aws_region)
     result_queue = queue if args.result_queue_url else None
-    worker_class = ContinuousWorker if args.continuous else QueueWorker
-    worker = worker_class(queue, params, model_config, service_config,
-                          result_queue=result_queue, device=device,
-                          prefix_cache=prefix_cache,
-                          **modes[1 if args.continuous else 0])
+    if args.continuous:
+        worker = ContinuousWorker(queue, params, model_config,
+                                  service_config, result_queue=result_queue,
+                                  device=device, prefix_cache=prefix_cache,
+                                  tenancy=tenancy, **modes[1])
+    else:
+        worker = QueueWorker(queue, params, model_config, service_config,
+                             result_queue=result_queue, device=device,
+                             prefix_cache=prefix_cache, **modes[0])
     server = serve_metrics(args.metrics_port, worker)
     log.info("Starting %sworker on %s",
              "continuous " if args.continuous else "", args.sqs_queue_url)
@@ -603,8 +699,10 @@ def main(argv=None) -> dict | None:
         # the reference serves this on its decode plane (planes/engine.py)
         raise SystemExit(
             "--speculative-draft-layers with --shards runs on the decode "
-            "plane, not yet ported (ROADMAP Queue 1 item 7)"
+            "plane, not yet ported (ROADMAP Queue 1 item 3)"
         )
+    check_unported(args)
+    tenancy = check_tenancy(args)
     if args.quantize_kv and args.generate_tokens < 1:
         raise SystemExit("--quantize-kv requires --generate-tokens >= 1")
     prefix_ids = parse_prefix_ids(args)
@@ -639,6 +737,8 @@ def main(argv=None) -> dict | None:
     # (speculative.speculative_generate's budget)
     spec_headroom = (2 * args.speculative_draft_tokens
                      if args.speculative_draft_layers else 0)
+    # a pooled row holds a --seq-len prefix ahead of its prompt
+    pool_prefix = args.seq_len if args.prefix_pool else 0
     check_speculative_budget(
         args, BUILTIN_CONFIGS[args.family](args.seq_len, args.generate_tokens,
                                            len(prefix_ids), spec_headroom),
@@ -647,10 +747,9 @@ def main(argv=None) -> dict | None:
         device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(f"error: {err}") from None
-    model_config, params = builtin_model(args.family, args.seq_len,
-                                         args.generate_tokens, device,
-                                         prefix_len=len(prefix_ids),
-                                         headroom=spec_headroom)
+    model_config, params = builtin_model(
+        args.family, args.seq_len, args.generate_tokens, device,
+        prefix_len=len(prefix_ids) + pool_prefix, headroom=spec_headroom)
     family = family_of(model_config)
     weight_bytes = None
     if args.quantize == "int8":
@@ -688,19 +787,21 @@ def main(argv=None) -> dict | None:
                          prefix_cache)
     if not args.demo:
         serve_sqs(args, params, model_config, service_config, device,
-                  prefix_cache, modes)
+                  prefix_cache, modes, tenancy)
         return None
     if args.fleet_max_replicas:
         summary = run_fleet_demo(
             args.demo, params, model_config, service_config, device,
             args.fleet_min_replicas, args.fleet_max_replicas,
             metrics_port=args.metrics_port, prefix_cache=prefix_cache,
+            tenancy=tenancy,
         )
     else:
         summary = run_demo(args.demo, params, model_config, service_config,
                            device, continuous=args.continuous,
                            metrics_port=args.metrics_port,
-                           prefix_cache=prefix_cache, modes=modes)
+                           prefix_cache=prefix_cache, modes=modes,
+                           tenancy=tenancy)
     summary["weight_bytes"] = weight_bytes
     return summary
 
@@ -727,6 +828,131 @@ def check_beams(args) -> None:
         )
     if args.length_penalty > 0.0 and args.beams < 2:
         raise SystemExit("--length-penalty requires --beams > 1")
+
+
+def check_unported(args) -> None:
+    """Reference flags whose paths are not ported yet exit naming the
+    ROADMAP item that ports them."""
+    if args.tokenizer:
+        raise SystemExit(
+            "--tokenizer loads a transformers tokenizer, not yet ported "
+            "(ROADMAP Queue 1 item 4)"
+        )
+    if args.model_parallel:
+        raise SystemExit(
+            "--model-parallel serves over a (data, model) mesh, not yet "
+            "ported (ROADMAP Queue 1 item 5)"
+        )
+    if args.tenants and args.shards > 1:
+        raise SystemExit(
+            "--tenants with --shards (sticky tenant homes, per-shard prefix "
+            "pools) is not yet ported (ROADMAP Queue 1 item 3)"
+        )
+    if args.tenants and args.speculative_draft_layers:
+        raise SystemExit(
+            "--tenants with --speculative-draft-layers runs on the decode "
+            "plane, not yet ported (ROADMAP Queue 1 item 3)"
+        )
+
+
+def check_tenancy(args):
+    """The reference binary's args-only checks of the tenancy flags;
+    returns the :class:`~.tenancy.TenancyConfig` (``None`` without
+    ``--tenants``).  A usage error exits before any model is built."""
+    from .tenancy import TenancyConfig
+
+    if not args.tenants:
+        for flag, given in (
+                ("--tenant-weights", args.tenant_weights),
+                ("--tenant-slos", args.tenant_slos),
+                ("--urgency-window", args.urgency_window),
+                ("--shed-tiers", args.shed_tiers),
+                ("--admission-shards", args.admission_shards != 1),
+                ("--decode-slo-budget", args.decode_slo_budget),
+                ("--prefix-pool", args.prefix_pool)):
+            if given:
+                raise SystemExit(f"{flag} requires --tenants")
+        return None
+    if not args.continuous:
+        raise SystemExit("--tenants requires --continuous")
+    if args.beams > 1:
+        raise SystemExit(
+            "--tenants applies to the plain continuous decode path "
+            "(not --beams)"
+        )
+    names = tuple(s.strip() for s in args.tenants.split(",") if s.strip())
+    if not names:
+        raise SystemExit("--tenants is empty")
+    weights = floats_flag("--tenant-weights", args.tenant_weights)
+    slos = floats_flag("--tenant-slos", args.tenant_slos)
+    if args.urgency_window < 0:
+        raise SystemExit(
+            f"--urgency-window {args.urgency_window} must be >= 0 (0 = off)"
+        )
+    if args.urgency_window > 0 and not any(s > 0 for s in slos):
+        raise SystemExit(
+            "--urgency-window needs at least one positive --tenant-slos "
+            "entry (without a deadline nothing can jump the quantum)"
+        )
+    if not 0 <= args.shed_tiers <= 3:
+        raise SystemExit(
+            f"--shed-tiers {args.shed_tiers} must be in [0, 3] (0 = off)"
+        )
+    if args.admission_shards < 1:
+        raise SystemExit(
+            f"--admission-shards {args.admission_shards} must be >= 1 "
+            "(1 = the single staging plane)"
+        )
+    if args.admission_shards > 1:
+        raise SystemExit(
+            "--admission-shards > 1 (the sharded admission plane) is not "
+            "yet ported (ROADMAP Queue 1 item 3)"
+        )
+    if args.decode_slo_budget < 0:
+        raise SystemExit(
+            f"--decode-slo-budget {args.decode_slo_budget} must be >= 0 "
+            "(0 = off)"
+        )
+    if args.prefix_pool < 0:
+        raise SystemExit(
+            f"--prefix-pool {args.prefix_pool} must be >= 0 (0 = off)"
+        )
+    if args.prefix_pool:
+        if args.prefix_ids:
+            raise SystemExit(
+                "--prefix-pool and --prefix-ids are mutually exclusive (the "
+                "pool generalizes the single broadcast prefix)"
+            )
+        if args.prefix_pool < args.batch_size:
+            raise SystemExit(
+                f"--prefix-pool {args.prefix_pool} must be >= --batch-size "
+                f"{args.batch_size} (one refill can admit that many "
+                "distinct prefixes per shard; a smaller pool could LRU-evict "
+                "an entry the same admission batch still references)"
+            )
+    try:
+        return TenancyConfig(
+            tenants=names, weights=weights, prefix_pool=args.prefix_pool,
+            prefix_len=args.seq_len if args.prefix_pool else 0,
+            ttft_slo_s=slos, urgency_window_s=args.urgency_window,
+            shed_tiers=args.shed_tiers,
+            admission_shards=args.admission_shards,
+            decode_slo_s=args.decode_slo_budget,
+        )
+    except ValueError as err:
+        # count mismatches, tiny weights, bad knobs: usage errors at
+        # start-up, never tracebacks mid-cycle
+        raise SystemExit(str(err))
+
+
+def floats_flag(flag: str, text: str) -> tuple[float, ...]:
+    """A comma-separated float flag (empty: ``()``)."""
+    if not text:
+        return ()
+    try:
+        return tuple(float(s) for s in text.split(",") if s.strip())
+    except ValueError as err:
+        raise SystemExit(f"{flag} must be floats ({err})")
 
 
 def check_speculative_budget(args, model_config, prefix_len: int) -> None:

@@ -69,18 +69,31 @@ Both admit one request an insert, as in the reference, and their results
 equal :func:`.speculative.speculative_generate` and
 :func:`.beam.beam_search` for each prompt alone.
 
-Not ported yet (the batcher raises ``ValueError``): a mesh and tenancy
-(with the overload ladder's ``_quiesce_rows``).
+Multi-tenant serving (``tenancy``, a :class:`.tenancy.TenancyConfig`):
+the worker stages received messages in per-tenant sub-queues and picks
+each refill's admission batch by deficit round robin
+(:class:`.tenancy.FairAdmission`), with the overload ladder's degrade,
+evict and shed tiers and the decode-phase deadline.  With a prefix pool
+(``tenancy.prefix_pool > 0``) each tenant's prompt prefix is prefilled
+once into a :class:`.tenancy.PrefixPool` row, and a refill's pooled insert
+(:func:`_insert_rows_pooled_impl`) gathers every row's prefix from the
+pool on the device and runs the suffixes through the chunk decoder: one
+dispatch, no host wait.  A degraded row that finishes before its device
+budget is quiesced (:meth:`ContinuousBatcher._quiesce_rows`) and kept out
+of admission until the block in flight has settled.
+
+Not ported yet (the batcher raises ``ValueError``): a mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import logging
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -100,8 +113,9 @@ from .speculative import (
 )
 from .model import ModelConfig
 from .service import (
-    ServiceConfig, build_token_reply, parse_request_body, request_id,
-    sampling_keys, sent_epoch,
+    ServiceConfig, bounded_tenant_key, build_token_reply,
+    parse_request_body, parse_tenant_request, request_id, sampling_keys,
+    sent_epoch,
 )
 
 log = logging.getLogger(__name__)
@@ -231,6 +245,62 @@ def _insert_rows_impl(
     return firsts
 
 
+def _insert_rows_pooled_impl(
+    params: dict,
+    cache: dict,
+    current: torch.Tensor,
+    done: torch.Tensor,
+    remaining: torch.Tensor,
+    rows: torch.Tensor,
+    prompts: torch.Tensor,
+    lengths: torch.Tensor,
+    key: torch.Generator | None,
+    entry_idx: torch.Tensor,
+    pool_layers: list,
+    config,
+    budget: int,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    eos_id: int | None = None,
+    *,
+    layout: CacheLayout,
+    pool_prefix_len: int,
+) -> torch.Tensor:
+    """:func:`_insert_rows_impl` for the per-tenant prefix pool: each row's
+    prefix is gathered from the pool's stacked rows by ``entry_idx``
+    (``[M]``) instead of prefilled again (the prefix's forward was paid
+    once, at the pool's install), the suffix ``prompts`` run one chunk
+    decode continuing from the gathered prefixes (no kernel launch, as in
+    the reference), and prefix and suffix positions ``[0, pool_prefix_len
+    + P)`` are copied into the slot rows.  Lengths, pending tokens and
+    liveness fold in as the plain insert folds them, in place, with
+    scalars filled on the device: one dispatch, no host wait.  Returns
+    the first tokens ``[M]``, still on the device."""
+    n_rows = rows.shape[0]
+    prefix_rows = {
+        "layers": [{name: buf[entry_idx] for name, buf in layer.items()}
+                   for layer in pool_layers],
+        "length": torch.full((n_rows,), pool_prefix_len, dtype=torch.long,
+                             device=prompts.device),
+    }
+    logits_all, rows_cache = layout.chunk_decode(params, prefix_rows,
+                                                 prompts, config)
+    logits = logits_all[torch.arange(n_rows, device=prompts.device),
+                        lengths - 1]
+    _splice_rows_layers(cache, rows_cache, rows, 0,
+                        pool_prefix_len + prompts.shape[1])
+    cache["length"].index_copy_(0, rows, pool_prefix_len + lengths)
+    firsts = _pick(logits, key, temperature, top_k, top_p)
+    current.index_copy_(0, rows, firsts)
+    if eos_id is not None:
+        done.index_copy_(0, rows, firsts == eos_id)
+    else:
+        done.index_fill_(0, rows, False)
+    remaining.index_fill_(0, rows, budget - 1)
+    return firsts
+
+
 def _spec_insert_row_impl(
     params: dict,
     cache: dict,
@@ -318,6 +388,19 @@ class _Slot:
     accepted: int = 0
     submitted_at: float = 0.0  # admission time, for time to first token
     ttft_done: bool = False  # time to first token already recorded
+    # multi-tenant serving: the admitting tenant ("" = tenancy off, no
+    # per-tenant attribution) and the request's queue arrival (epoch
+    # seconds from its SentTimestamp): per-tenant TTFT counts from
+    # arrival, because the queue and staging wait is where a flooding
+    # tenant starves the others
+    tenant: str = ""
+    arrived_at: float | None = None
+    # overload tier 1 cut the budget below generate_tokens: the device row
+    # outlives the host's completion, so _finish_ready quiesces it
+    degraded: bool = False
+    # decode-phase deadline (tenancy.decode_slo_s > 0), armed at the first
+    # produced token; None = unarmed
+    decode_deadline_at: float | None = None
 
 
 class ContinuousBatcher:
@@ -350,6 +433,12 @@ class ContinuousBatcher:
     and ``spec_overlapped``, the second rounds still running when the
     first was read; :meth:`set_speculative`), ``beams`` > 1 makes each
     slot a beam search (``length_penalty`` ranks the finished beams).
+
+    ``tenancy`` (plain decode path only) turns on per-tenant attribution
+    (``tenant_tokens``, ``tenant_ttft`` and its sums and counts) and, with
+    ``tenancy.prefix_pool > 0``, the per-tenant :attr:`prefix_pool` and its
+    pooled insert (:meth:`submit_many_prefixed`); the pool and a global
+    ``prefix_cache`` are mutually exclusive.
 
     ``host_transfers`` is the reference's odometer: one per insert whose
     first tokens a settle reads, one per decode step read at
@@ -387,14 +476,16 @@ class ContinuousBatcher:
     ) -> None:
         if beams < 1:
             raise ValueError(f"beams={beams} must be >= 1")
+        if tenancy is not None and (beams > 1 or draft_layers):
+            raise ValueError(
+                "tenancy applies to the plain continuous decode path "
+                "(not beams / speculative slots)"
+            )
         model_family = family_of(config, family)
-        unported = {"mesh": mesh is not None, "tenancy": tenancy is not None}
-        for knob, asked in unported.items():
-            if asked:
-                raise ValueError(
-                    f"{knob} is not yet ported to the PyTorch continuous "
-                    "batcher"
-                )
+        if mesh is not None:
+            raise ValueError(
+                "mesh is not yet ported to the PyTorch continuous batcher"
+            )
         if decode_block < 1:
             raise ValueError(f"decode_block={decode_block} must be >= 1")
         if decode_block > 1 and (beams > 1 or draft_layers):
@@ -505,9 +596,31 @@ class ContinuousBatcher:
         self.ttft_count = 0
         self.last_ttft_s: float | None = None
         self.ttft_samples: deque[float] = deque(maxlen=4096)
-        # (label, seconds) TTFT samples not yet in a metrics registry's
-        # histogram (drain_ttft_histograms); label None is engine-wide
-        self._pending_ttft_obs: deque[tuple[str | None, float]] = deque()
+        # (tenant or None, seconds) TTFT samples not yet in a metrics
+        # registry's histograms (drain_ttft_histograms); None is
+        # engine-wide.  Bounded, so a batcher nobody drains cannot grow
+        self._pending_ttft_obs: deque[tuple[str | None, float]] = deque(
+            maxlen=16384)
+        # multi-tenant attribution (tenancy only): kept tokens, recent
+        # TTFT samples and cumulative TTFT sums and counts per tenant,
+        # label-bounded by bounded_tenant_key
+        self.tenancy = tenancy
+        self.tenant_tokens: dict[str, int] = {}
+        self.tenant_ttft: dict[str, deque] = {}
+        self.tenant_ttft_sum: dict[str, float] = {}
+        self.tenant_ttft_count: dict[str, int] = {}
+        # the epoch clock of arrival-based per-tenant TTFT; the worker
+        # rebinds it to its request-TTL clock, so a FakeClock episode and
+        # the queue's SentTimestamps share one time base
+        self._epoch_now = time.time
+        # tenant -> home shard (the sticky router's map on the sharded
+        # plane; carried as admission state here)
+        self._tenant_home: OrderedDict = OrderedDict()
+        # rows quiesced mid-budget (a degraded slot finished before its
+        # device budget ran out): kept out of admission until the block in
+        # flight at the quiesce settles, since that block still computed
+        # them live.  Empty unless the overload ladder degrades.
+        self._tainted: set[int] = set()
         self.block_tokens = 0
         self.block_capacity = 0
         self.block_settles = 0
@@ -579,6 +692,55 @@ class ContinuousBatcher:
             sampling_keys(sample_seed, self.device) if temperature > 0.0
             else itertools.repeat(None)
         )
+        self._prefix_pool = None
+        self._pool_prefix_len = 0
+        if tenancy is not None and tenancy.prefix_pool > 0:
+            self._build_prefix_pool(tenancy, prefix_cache, prompt_len,
+                                    generate_tokens, batch_size)
+
+    def _build_prefix_pool(self, tenancy, prefix_cache, prompt_len: int,
+                           generate_tokens: int, batch_size: int) -> None:
+        """The per-tenant prefix pool, with the reference's checks."""
+        from .tenancy import PrefixPool
+
+        if prefix_cache is not None:
+            raise ValueError(
+                "the per-tenant prefix pool and the single global "
+                "prefix_cache are mutually exclusive (the pool IS "
+                "the generalization of the broadcast prefix)"
+            )
+        if tenancy.prefix_len < 1:
+            raise ValueError(
+                "tenancy.prefix_len must be >= 1 when prefix_pool "
+                "is enabled (the pool's static prefix bucket)"
+            )
+        pooled_budget = tenancy.prefix_len + prompt_len + generate_tokens
+        if pooled_budget > self.config.max_seq_len:
+            raise ValueError(
+                f"pool prefix_len + prompt_len + generate_tokens = "
+                f"{pooled_budget} exceeds max_seq_len="
+                f"{self.config.max_seq_len}"
+            )
+        shard_slots = getattr(self, "shard_slots", batch_size)
+        if tenancy.prefix_pool < shard_slots:
+            # one refill can admit shard_slots distinct prefixes; with
+            # entries >= shard_slots every entry of the same batch sits at
+            # the LRU's recent end when the next install picks a victim, so
+            # an install never overwrites a row that an earlier request of
+            # the same insert is about to gather
+            raise ValueError(
+                f"prefix_pool={tenancy.prefix_pool} must be >= the "
+                f"per-shard slot count ({shard_slots}) so a single "
+                "admission batch can never LRU-evict an entry "
+                "another row of the same batch still references"
+            )
+        self._pool_prefix_len = tenancy.prefix_len
+        self._prefix_pool = PrefixPool(
+            self.params, self.config, entries=tenancy.prefix_pool,
+            prefix_len=tenancy.prefix_len,
+            shards=getattr(self, "shards", 1), family=self.family,
+            quantized_kv=self.quantized_kv, device=self.device,
+        )
 
     def adopt_engine(self, source: "ContinuousBatcher") -> None:
         """Share ``source``'s engine: its prompt-pass attention and its
@@ -601,6 +763,7 @@ class ContinuousBatcher:
                 f"engine mismatch: {mine} != {theirs} (a replica must be "
                 "constructed with the donor's exact serving knobs)"
             )
+        # each replica keeps its own prefix pool rows and LRU
         if (self.config is not source.config
                 or self.params is not source.params
                 or self._prefix_cache is not source._prefix_cache):
@@ -630,8 +793,9 @@ class ContinuousBatcher:
             len(self.slots), self.prompt_len, self.generate_tokens,
             self.family, self.temperature, self.top_k, self.top_p,
             self.eos_id, self.quantized_kv, self.prefix_len,
-            self.decode_block, self.draft_layers, self.draft_tokens,
-            self.beams, self.length_penalty, str(self.device),
+            self._pool_prefix_len, self.decode_block, self.draft_layers,
+            self.draft_tokens, self.beams, self.length_penalty,
+            str(self.device),
         )
 
     def request_decode_block(self, block: int) -> bool:
@@ -708,7 +872,8 @@ class ContinuousBatcher:
     @property
     def free_slots(self) -> list[int]:
         self.free_slot_scans += 1
-        rows = [i for i, s in enumerate(self.slots) if not s.busy]
+        rows = [i for i, s in enumerate(self.slots)
+                if not s.busy and i not in self._tainted]
         if self.slot_limit is not None:
             busy = len(self.slots) - len(rows)
             rows = rows[: max(0, self.slot_limit - busy)]
@@ -718,6 +883,26 @@ class ContinuousBatcher:
         """Admission capacity as a bare count (what a refill sizes its
         receive by)."""
         return len(self.free_slots)
+
+    def _quiesce_rows(self, rows: list[int]) -> None:
+        """Freeze the device state of host-finished rows whose device
+        budget has not run out (a degraded completion): mark them done
+        with no budget left, so the next dispatched block skips them, and
+        keep them out of admission until the block already in flight
+        settles (its tokens for these rows were computed live and must
+        land on free slots, never in a new request).  One small fill on
+        the stream, on cycles where a degraded slot finished."""
+        if not rows:
+            return
+        self._invalidate_admission_cache()
+        with torch.inference_mode():
+            idx = _to_device(np.asarray(rows), self.device)
+            self._done.index_fill_(0, idx, True)
+            self._remaining.index_fill_(0, idx, 0)
+        if self._pending_block is not None:
+            # the single-step engine reads every token in the cycle it
+            # dispatches it, so its quiesced rows are free at once
+            self._tainted.update(rows)
 
     @property
     def active(self) -> int:
@@ -807,6 +992,102 @@ class ContinuousBatcher:
         self.slots[row] = _Slot(busy=True, budget=self.generate_tokens,
                                 payload=payload, submitted_at=now)
         self._invalidate_admission_cache()
+
+    @property
+    def prefix_pool(self):
+        """The per-tenant :class:`~.tenancy.PrefixPool` (None when tenancy
+        is off or ``prefix_pool == 0``)."""
+        return self._prefix_pool
+
+    def export_tenant_homes(self) -> dict:
+        """Sticky-home assignments as durable state; see
+        :func:`~.tenancy.export_tenant_homes`."""
+        from .tenancy import export_tenant_homes
+
+        return export_tenant_homes(self._tenant_home)
+
+    def import_tenant_homes(self, state: dict) -> int:
+        from .tenancy import import_tenant_homes
+
+        return import_tenant_homes(
+            self._tenant_home, state, shards=getattr(self, "shards", 1)
+        )
+
+    def _route_prefixed(self, keys: list) -> list[int]:
+        """Rows for a prefixed admission batch, one per pool key: the
+        single plane admits in :attr:`free_slots` order, as
+        :meth:`submit_many` does."""
+        return self.free_slots[: len(keys)]
+
+    def _pool_shard_of(self, row: int) -> int:
+        """The pool partition a slot row draws prefix entries from."""
+        return 0
+
+    def submit_many_prefixed(
+        self, requests: list[tuple[str, np.ndarray, np.ndarray, Any]]
+    ) -> list[int]:
+        """Admit ``(tenant, prefix_ids, token_ids, payload)`` requests
+        through the per-tenant prefix pool; returns their slot rows.
+
+        Each row's prefix entry is acquired first (an LRU hit, or a
+        one-time install prefill on a miss), then the whole batch admits
+        as one pooled insert (:func:`_insert_rows_pooled_impl`): the rows'
+        prefixes gathered from the pool on the device and one suffix
+        chunk forward, so a hit never prefills its prefix again.  No host
+        wait; the first tokens settle with the next :meth:`step`."""
+        from .tenancy import prefix_pool_key
+
+        if self._prefix_pool is None:
+            raise ValueError(
+                "submit_many_prefixed needs tenancy with prefix_pool > 0"
+            )
+        if not requests:
+            return []
+        free = self._free_slot_count()
+        if len(requests) > free:
+            raise RuntimeError(
+                f"no free slot for {len(requests)} request(s) "
+                f"({free} free); call step() until slots open"
+            )
+        keys = [prefix_pool_key(tenant, prefix_ids)
+                for tenant, prefix_ids, _, _ in requests]
+        rows = self._route_prefixed(keys)
+        entry_idx = [
+            self._prefix_pool.acquire(self._pool_shard_of(row), key,
+                                      prefix_ids)
+            for row, key, (_, prefix_ids, _, _) in zip(rows, keys, requests)
+        ]
+        now = time.perf_counter()
+        padded = [self._pad_prompt(ids) for _, _, ids, _ in requests]
+        prompts = np.stack([ids for ids, _ in padded])
+        lengths = np.asarray([n for _, n in padded], np.int64)
+        with torch.inference_mode():
+            firsts = _insert_rows_pooled_impl(
+                self.params, self.cache, self._current, self._done,
+                self._remaining, _to_device(np.asarray(rows), self.device),
+                _to_device(prompts, self.device),
+                _to_device(lengths, self.device), next(self._keys),
+                _to_device(np.asarray(entry_idx, np.int64), self.device),
+                self._prefix_pool.layers, self.config, self.generate_tokens,
+                self.temperature, self.top_k, self.top_p, self.eos_id,
+                layout=self._layout, pool_prefix_len=self._pool_prefix_len,
+            )
+            self._defer_firsts(firsts, rows)
+        self.insert_dispatches += 1
+        for row, (tenant, _, _, payload) in zip(rows, requests):
+            self.slots[row] = _Slot(
+                busy=True, budget=self.generate_tokens, payload=payload,
+                submitted_at=now, tenant=tenant,
+            )
+        self._invalidate_admission_cache()
+        return rows
+
+    def tag_tenant(self, rows: list[int], tenants: list[str]) -> None:
+        """Label freshly admitted slots with their tenants (the pool-less
+        tenancy path: plain :meth:`submit_many` admission, per-tenant
+        attribution still on)."""
+        for row, tenant in zip(rows, tenants):
+            self.slots[row].tenant = tenant
 
     def _insert_layout(self) -> dict:
         """The insert's cache-layout keywords: the layout and the shared
@@ -902,6 +1183,9 @@ class ContinuousBatcher:
         and the emitted-token count live."""
         slot.produced.append(token)
         self.tokens_emitted += 1
+        if slot.tenant:
+            tenant = bounded_tenant_key(slot.tenant, self.tenant_tokens)
+            self.tenant_tokens[tenant] = self.tenant_tokens.get(tenant, 0) + 1
         if self.eos_id is not None and token == self.eos_id:
             slot.done = True
 
@@ -934,7 +1218,25 @@ class ContinuousBatcher:
         self.last_ttft_s = ttft
         self.ttft_samples.append(ttft)
         self._pending_ttft_obs.append((None, ttft))
+        if slot.tenant:
+            self._record_tenant_ttft(slot, ttft)
         self._note_ttft(row, ttft)
+
+    def _record_tenant_ttft(self, slot: _Slot, ttft: float) -> None:
+        """A tenant slot's TTFT sample: from its queue arrival where the
+        queue stamped one, else from admission."""
+        tenant = bounded_tenant_key(slot.tenant, self.tenant_ttft)
+        samples = self.tenant_ttft.get(tenant)
+        if samples is None:
+            samples = self.tenant_ttft[tenant] = deque(maxlen=1024)
+        sample = (max(0.0, self._epoch_now() - slot.arrived_at)
+                  if slot.arrived_at is not None else ttft)
+        samples.append(sample)
+        self.tenant_ttft_sum[tenant] = (
+            self.tenant_ttft_sum.get(tenant, 0.0) + sample)
+        self.tenant_ttft_count[tenant] = (
+            self.tenant_ttft_count.get(tenant, 0) + 1)
+        self._pending_ttft_obs.append((tenant, sample))
 
     def _note_ttft(self, row: int, ttft: float) -> None:
         """Per-row TTFT hook: the sharded plane files it by shard."""
@@ -946,7 +1248,7 @@ class ContinuousBatcher:
         """Free every slot whose request completed; returns the finished
         ``(payload, tokens)`` pairs, eos-padded to the budget like
         ``generate``."""
-        finished = []
+        finished, quiesce = [], []
         for row, slot in enumerate(self.slots):
             if slot.busy and (slot.done or len(slot.produced) >= slot.budget):
                 tokens = slot.produced
@@ -954,18 +1256,24 @@ class ContinuousBatcher:
                     tokens = tokens + [self.eos_id] * (
                         slot.budget - len(tokens)
                     )
+                if slot.degraded and not slot.done:
+                    # finished at a degraded budget, not at eos: the
+                    # device row still has budget left
+                    quiesce.append(row)
                 finished.append((slot.payload, np.asarray(tokens, np.int32)))
                 self.slots[row] = _Slot()
         if finished:
             self._invalidate_admission_cache()
+        if quiesce:
+            self._quiesce_rows(quiesce)
         return finished
 
     def step(self) -> list[tuple[Any, np.ndarray]]:
         """Advance every busy slot (one token, or up to ``decode_block``
         per dispatch); returns the finished requests as ``(payload,
         continuation_tokens)`` pairs, whose slots are free again.  A no-op
-        when nothing is busy."""
-        if self.active == 0:
+        when nothing is busy and no quiesced row waits for its block."""
+        if self.active == 0 and not self._tainted:
             return []
         if self.beams > 1:
             return self._step_beam()
@@ -1017,7 +1325,7 @@ class ContinuousBatcher:
         change lands."""
         new_block = None
         busy = self.active
-        if self._pending_decode_block is None:
+        if busy and self._pending_decode_block is None:
             with torch.inference_mode():
                 (self.cache, self._current, self._done, self._remaining,
                  tokens, counts) = self._block_fn(
@@ -1048,6 +1356,11 @@ class ContinuousBatcher:
             self.block_settles += 1
             if new_block is not None and not new_block[0].ready():
                 self.overlapped_settles += 1
+        # the one block that was in flight at the last quiesce has settled:
+        # its quiesced rows may take requests again
+        if self._tainted:
+            self._invalidate_admission_cache()
+            self._tainted.clear()
         if self._pending_block is None:
             self._apply_pending_decode_block()
         return self._finish_ready()
@@ -1187,20 +1500,31 @@ class ContinuousBatcher:
 
 def drain_ttft_histograms(batcher, metrics) -> None:
     """Move a batcher's pending TTFT samples into the cumulative
-    ``ttft_seconds`` histogram of ``metrics``.  A module function because
-    two consumers drain on their own cadence: the worker's own
+    histograms of ``metrics``: the engine-wide ``ttft_seconds`` and the
+    per-tenant ``tenant_time_to_first_token_seconds``.  A module function
+    because two consumers drain on their own cadence: the worker's own
     :meth:`ContinuousWorker._update_metrics` and the fleet pool's, which
     drains every replica into one family (cumulative histograms merge
     across replicas, unlabeled gauges would not)."""
     pending = getattr(batcher, "_pending_ttft_obs", None)
     while pending:
-        _, seconds = pending.popleft()
-        metrics.observe_histogram(
-            "ttft_seconds", seconds,
-            "Seconds from request admission to its first generated token "
-            "being host-visible (cumulative histogram over the worker's "
-            "lifetime).",
-        )
+        tenant, seconds = pending.popleft()
+        if tenant is None:
+            metrics.observe_histogram(
+                "ttft_seconds", seconds,
+                "Seconds from request admission to its first generated "
+                "token being host-visible (cumulative histogram over the "
+                "worker's lifetime).",
+            )
+        else:
+            metrics.observe_histogram(
+                "tenant_time_to_first_token_seconds", seconds,
+                "Seconds from queue arrival (SentTimestamp when the queue "
+                "stamps it, else admission) to the first generated token, "
+                "per tenant: the cumulative-histogram form of the "
+                "tenant_ttft_seconds gauge.",
+                labels=(("tenant", tenant),),
+            )
 
 
 class ContinuousWorker:
@@ -1217,7 +1541,23 @@ class ContinuousWorker:
     ``ServiceConfig.quantized_kv`` picks) go to the batcher or the
     plane; ``draft_layers`` / ``draft_tokens`` (speculative slots) and
     ``beams`` / ``length_penalty`` (beam slots) to the batcher, never the
-    plane."""
+    plane.
+
+    ``tenancy`` (a :class:`~.tenancy.TenancyConfig`) stages received
+    messages per tenant (:class:`~.tenancy.FairAdmission`, at most one
+    engine-full a tenant and two in all unless the config says otherwise;
+    overflow goes back to the queue at visibility 0) and picks each
+    refill's admission batch by deficit round robin.  Bodies may carry the
+    ``{"tenant", "prefix", "ids"}`` envelope: a prefix of the pool's
+    length goes through the pool's insert, any other prefix is prepended
+    to the prompt (or, if that no longer fits the prompt bucket, answered
+    with an error).  Replies carry their tenant; ``completed_by_tenant``
+    counts the answered ones.  ``shed_tiers`` arms the overload ladder
+    (:meth:`_run_ladder`) and ``decode_slo_s`` the decode deadline
+    (:meth:`_enforce_decode_deadlines`); ``shed_by_reason`` counts
+    ``ttl``, ``degraded``, ``pressure`` and ``decode_deadline`` sheds.  A
+    tenancy with one tenant and no prefixes serves as the plain path
+    does."""
 
     # after an empty receive while slots are still decoding, skip this
     # many cycles before polling again (one billed receive per generated
@@ -1240,6 +1580,7 @@ class ContinuousWorker:
         draft_tokens: int = 4,
         beams: int = 1,
         length_penalty: float = 0.0,
+        tenancy=None,
         device: str | torch.device = "cuda",
     ) -> None:
         if service_config.generate_tokens < 1:
@@ -1247,6 +1588,17 @@ class ContinuousWorker:
                 "ContinuousWorker is generate-mode serving; set "
                 "ServiceConfig.generate_tokens >= 1"
             )
+        if tenancy is not None and tenancy.admission_shards > 1:
+            raise ValueError(
+                "admission shards are not yet ported (ROADMAP Queue 1 "
+                "item 3)"
+            )
+        if tenancy is not None and tenancy.prefix_pool > 0 \
+                and tenancy.prefix_len < 1:
+            # the pool's prefix bucket defaults to the prompt bucket
+            tenancy = dataclasses.replace(
+                tenancy, prefix_len=service_config.seq_len)
+        self.tenancy = tenancy
         if service_config.result_queue_url and result_queue is None:
             # in-memory queues ignore urls, so defaulting replies onto the
             # input queue object would self-feed
@@ -1273,17 +1625,19 @@ class ContinuousWorker:
             draft_tokens=draft_tokens,
             beams=beams,
             length_penalty=length_penalty,
+            tenancy=tenancy,
             device=device,
         )
         if sharded is None:
             sharded = service_config.shards > 1
-        if draft_layers > 0 and sharded:
-            # the reference runs speculative shards on its decode plane
-            # (planes/engine.py), which the port does not have yet
+        if draft_layers > 0 and (sharded or tenancy is not None):
+            # the reference runs speculative shards, and speculative slots
+            # behind tenant staging, on its decode plane (planes/engine.py),
+            # which the port does not have yet
             raise ValueError(
-                "speculative decoding on the sharded plane runs on the "
-                "decode-plane engine, not yet ported (ROADMAP Queue 1 "
-                "item 7)"
+                "speculative decoding on the sharded plane or with tenancy "
+                "runs on the decode-plane engine, not yet ported (ROADMAP "
+                "Queue 1 item 3)"
             )
         if sharded:
             # the sharded plane: `shards` gang-stepped engine shards of
@@ -1304,7 +1658,41 @@ class ContinuousWorker:
         self.processed = 0
         self.refill_cycles = 0  # liveness: bumped by every refill pass
         self._now = now_fn or time.time
-        self.shed_by_reason = {"ttl": 0}
+        # per-tenant TTFT shares the TTL clock's epoch base
+        self.batcher._epoch_now = self._now
+        # requests shed by reason: ttl (older than request_ttl_s on
+        # arrival or at its pick), degraded (overload tier 1 cut its
+        # budget; answered short), pressure (tier 3 shed it from staging
+        # with an error reply), decode_deadline (its decode phase blew the
+        # per-token budget; shed mid-decode with an error reply)
+        self.shed_by_reason = {
+            "ttl": 0, "degraded": 0, "pressure": 0, "decode_deadline": 0,
+        }
+        # the fair-admission staging (tenancy only; None keeps _refill on
+        # the plain path)
+        self._fair = None
+        self.ladder = None
+        self._degrade_tenants: frozenset = frozenset()
+        self._degraded_tokens = max(1, service_config.generate_tokens // 2)
+        # answered completions per tenant (the fleet's duplicate path never
+        # reaches the count; error replies are answered, not counted)
+        self.completed_by_tenant: dict[str, int] = {}
+        # every tenant label exported as a gauge series, bounded by
+        # bounded_tenant_key and re-exported every cycle
+        self._gauge_tenants: dict[str, bool] = {}
+        if tenancy is not None:
+            from .tenancy import FairAdmission, OverloadLadder
+
+            total_slots = len(self.batcher.slots)
+            self._fair = FairAdmission(
+                tenancy,
+                per_tenant_limit=(tenancy.staging_per_tenant
+                                  or max(1, total_slots)),
+                total_limit=(tenancy.staging_total
+                             or max(2, 2 * total_slots)),
+            )
+            if tenancy.shed_tiers > 0:
+                self.ladder = OverloadLadder(tenancy.shed_tiers)
         self.timer = SpanTimer()
         # created eagerly, so a stop() before run_forever() still holds
         self._stop = threading.Event()
@@ -1320,6 +1708,51 @@ class ContinuousWorker:
         """Requests shed over the worker's lifetime, all reasons summed."""
         return sum(self.shed_by_reason.values())
 
+    @property
+    def staged(self) -> int:
+        """Requests in fair-admission staging (0 with tenancy off):
+        received, their receipt handles live, not yet admitted.  Idleness
+        and drain decisions count them as in flight."""
+        return self._fair.staged if self._fair is not None else 0
+
+    def export_admission_state(self) -> dict:
+        """The admission plane's accounting as durable state: the DRR and
+        EDF accounting and flood classification, the overload ladder and
+        the tenant-home map.  Staged messages are not saved: their receipt
+        handles die with the process and the queue redelivers them."""
+        state: dict = {"records": 0}
+        if self._fair is not None:
+            state["fair"] = self._fair.export_state()
+            state["records"] += state["fair"].get("records", 0)
+        if self.ladder is not None:
+            state["ladder"] = self.ladder.export_state()
+            state["records"] += state["ladder"].get("records", 0)
+        homes = self.batcher.export_tenant_homes()
+        if homes.get("records"):
+            state["homes"] = homes
+            state["records"] += homes["records"]
+        return state
+
+    def import_admission_state(
+        self, state: dict, *, rebase: float = 0.0,
+        now: "float | None" = None, max_age_s: float = 0.0,
+    ) -> int:
+        """Restore :meth:`export_admission_state`'s accounting; returns
+        the records recovered."""
+        recovered = 0
+        fair = state.get("fair")
+        if self._fair is not None and isinstance(fair, dict):
+            recovered += self._fair.import_state(
+                fair, rebase=rebase, now=now, max_age_s=max_age_s
+            )
+        ladder = state.get("ladder")
+        if self.ladder is not None and isinstance(ladder, dict):
+            recovered += self.ladder.import_state(ladder)
+        homes = state.get("homes")
+        if isinstance(homes, dict):
+            recovered += self.batcher.import_tenant_homes(homes)
+        return recovered
+
     def _settle(self, message: dict, tokens: np.ndarray | None, *,
                 error: str | None = None, counted: bool = True) -> bool:
         """Reply (when configured), then delete one finished message.
@@ -1328,13 +1761,18 @@ class ContinuousWorker:
         not ride :meth:`run_once`'s completion count (TTL sheds and
         malformed drops); the fleet's override keys its duplicate
         accounting on it.  Returns whether this call answered the request
-        (the fleet's override returns False for a duplicate it consumed)."""
+        (the fleet's override returns False for a duplicate it consumed).
+        A tenant request's reply carries its tenant, and an answered one
+        counts in ``completed_by_tenant``."""
+        tenant = message.get("_tenant", "")
         if self.config.result_queue_url:
             if tokens is None:
                 payload = {"error": error or "malformed body"}
             else:
                 payload = build_token_reply(tokens, self.config.eos_id)
             payload["request_id"] = request_id(message)
+            if tenant:
+                payload["tenant"] = tenant
             # reply BEFORE deleting the input: a crash between the two
             # redelivers the input (duplicates possible, losses not)
             self.result_queue.send_message(
@@ -1343,11 +1781,21 @@ class ContinuousWorker:
         self.queue.delete_message(
             self.config.queue_url, message["ReceiptHandle"]
         )
+        if tenant and tokens is not None:
+            tenant = bounded_tenant_key(tenant, self.completed_by_tenant)
+            self.completed_by_tenant[tenant] = (
+                self.completed_by_tenant.get(tenant, 0) + 1)
         return True
+
+    def _note_shed(self, reason: str) -> None:
+        self.shed_by_reason[reason] += 1
 
     def _refill(self) -> int:
         """Receive up to the free-slot count and prefill the messages in;
-        returns the number received."""
+        returns the number received.  With tenancy the receive goes
+        through the fair-admission staging instead (:meth:`_refill_tenant`)."""
+        if self.tenancy is not None:
+            return self._refill_tenant()
         self.refill_cycles += 1
         free = self.batcher._free_slot_count()
         if not free:
@@ -1365,13 +1813,239 @@ class ContinuousWorker:
         self._admit(messages)
         return len(messages)
 
-    def _parse_for_admit(self, message: dict) -> np.ndarray | None:
-        """One message's token ids; ``None`` for a malformed body."""
-        return parse_request_body(message["Body"])
+    def _refill_tenant(self) -> int:
+        """The fair-admission refill: receive into bounded per-tenant
+        staging, then pick this cycle's admission batch by deficit round
+        robin (with the EDF jump) instead of arrival order.  The picked
+        batch still admits as one insert a class (:meth:`_submit_parsed`):
+        fairness is host bookkeeping.  Overflow past a tenant's staging
+        cap goes back to the queue at visibility 0: backpressure, never
+        loss."""
+        self.refill_cycles += 1
+        self._fair.note_cycle()  # decay the arrival-rate classifier
+        free = self.batcher._free_slot_count()
+        messages = []
+        if self._poll_backoff > 0:
+            self._poll_backoff -= 1
+        elif self._fair.room > 0:
+            messages = self.queue.receive_messages(
+                self.config.queue_url, max_messages=self._fair.room,
+                wait_time_s=0 if (self.batcher.active or self._fair.staged)
+                else self.config.receive_wait_s,
+            )
+            if not messages and self.batcher.active:
+                self._poll_backoff = self.POLL_BACKOFF_CYCLES
+        nack = getattr(self.queue, "change_message_visibility", None)
+        for message in messages:
+            if self._shed_if_expired(message):
+                continue
+            parsed = self._parse_for_admit(message)
+            if parsed is None:
+                self._settle(message, None, counted=False)
+                continue
+            tenant = parsed[0]
+            # the arrival-based TTFT deadline rides into staging for the
+            # EDF jump (None: no SLO or no queue stamp, never jumps)
+            deadline = self.tenancy.deadline_of(tenant, sent_epoch(message))
+            if not self._fair.stage(tenant, parsed + (message,),
+                                    deadline=deadline,
+                                    message_id=request_id(message)):
+                # the tenant's staging cap is the fairness backstop: hand
+                # the message back now so other tenants' traffic is
+                # received next cycle (a queue without visibility changes
+                # stages it anyway)
+                if nack is not None:
+                    nack(self.config.queue_url, message["ReceiptHandle"], 0)
+                    self._fair.overflow_total += 1
+                else:
+                    self._fair.drr.push(tenant, parsed + (message,),
+                                        deadline=deadline)
+            self._poll_backoff = 0  # staged work: keep the loop hot
+        if self.ladder is not None:
+            self._run_ladder()
+        now = self._now()
+        admit: list = []
+        while len(admit) < free:
+            picked = self._fair.pick(free - len(admit), now=now)
+            if not picked:
+                break
+            shed_any = False
+            for tenant, item in picked:
+                # expired while staged: answered as an arrival-time shed
+                # is, the pick's charge refunded (the request takes no
+                # slot), and the freed room picked again
+                if self._shed_if_expired(item[3]):
+                    self._fair.drr.refund(tenant, item)
+                    shed_any = True
+                else:
+                    admit.append(item)
+            if not shed_any:
+                break
+        if admit:
+            self._submit_parsed(admit)
+        return len(admit)
 
-    def _submit_parsed(self, parsed: list[tuple[np.ndarray, dict]]) -> int:
-        """Prefill ``(ids, message)`` records as one insert."""
-        self.batcher.submit_many(parsed)
+    def _overload_pressure(self) -> float:
+        """The ladder's scalar pressure: the staged-backlog fraction gated
+        by slot occupancy after the coming admission (free slots this
+        cycle's pick is about to fill count as occupied).  A full staging
+        area behind idle slots is a transient and a full engine with
+        empty staging is steady load; overload is both at once."""
+        slots = len(self.batcher.slots)
+        if not slots:
+            return 0.0
+        staged = self._fair.staged
+        free = slots - self.batcher.active
+        occupancy = min(
+            1.0, (self.batcher.active + min(staged, free)) / slots
+        )
+        staged_frac = min(1.0, staged / self._fair.total_limit)
+        return staged_frac * occupancy
+
+    def _run_ladder(self) -> None:
+        """Measure pressure, advance the ladder and apply the active
+        tier's actions: tier 1 marks the over-share tenants for degraded
+        budgets at admission, tier 2 also evicts cold pool entries, tier 3
+        also sheds their staged requests with error replies.  Once a
+        tenant refill cycle, before the pick."""
+        tier = self.ladder.update(self._overload_pressure())
+        self._degrade_tenants = (
+            self._fair.over_share() if tier >= 1 else frozenset()
+        )
+        pool = self.batcher.prefix_pool
+        if tier >= 2 and pool is not None:
+            pool.evict_cold(max(1, pool.entries // 2))
+        if tier >= 3:
+            target = int(
+                self.ladder.exit_threshold(3) * self._fair.total_limit
+            )
+            self._shed_pressure(target, self._degrade_tenants)
+
+    def _shed_pressure(self, target: int, over_share) -> None:
+        """Tier 3: shed staged requests down to ``target``, only from
+        tenants over their weight share (by sustained offered rate; a
+        compliant tenant's requests are served late, never dropped).
+        Best-effort (no-SLO) flooders lose their newest arrivals, the
+        most over-share (staged depth / weight) first; an SLO tenant loses
+        requests only in an unambiguous flood (``PREMIUM_FLOOD_FACTOR`` x
+        the rate floor), and then only those already past deadline.  Every
+        shed is an error reply through the normal settle."""
+        fair = self._fair
+        drr = fair.drr
+        now = self._now()
+        over = {t for t in over_share if drr.depth(t) > 0}
+        best_effort = {t for t in over if self.tenancy.slo_of(t) <= 0}
+        premium_bar = fair.PREMIUM_FLOOD_FACTOR * fair.OVER_SHARE_MIN_RATE
+        premium_flood = {
+            t for t in over - best_effort
+            if fair.arrival_rate.get(t, 0.0) >= premium_bar
+        }
+        if not best_effort and not premium_flood:
+            return  # uniform overload: everyone is compliant
+        # one staged count and one depths snapshot, decremented as the
+        # loops pop (no rescan a shed on an already overloaded cycle)
+        staged = fair.staged
+        while premium_flood and staged > target:
+            popped = drr.pop_over_deadline(now, eligible=premium_flood)
+            if popped is None:
+                break
+            staged -= 1
+            self._shed_item(popped[1])
+        depths = {
+            t: d for t, d in drr.depths().items()
+            if d > 0 and t in best_effort
+        }
+        while depths and staged > target:
+            victim = max(
+                depths,
+                key=lambda t: (depths[t] / self.tenancy.weight_of(t), t),
+            )
+            item = drr.pop_tail(victim)
+            if item is None:
+                depths.pop(victim)
+                continue
+            staged -= 1
+            depths[victim] -= 1
+            if depths[victim] <= 0:
+                depths.pop(victim)
+            self._shed_item(item)
+
+    def _shed_item(self, item) -> None:
+        if self._settle(item[3], None,
+                        error="shed under overload pressure",
+                        counted=False):
+            self._note_shed("pressure")
+
+    def _parse_for_admit(self, message: dict):
+        """One message -> ``(tenant, prefix_ids, ids)``: with tenancy its
+        envelope (a plain body lands on the first configured tenant, with
+        no prefix), else ``("", None, ids)``; ``None`` for a malformed
+        body."""
+        if self.tenancy is None:
+            ids = parse_request_body(message["Body"])
+            return None if ids is None else ("", None, ids)
+        tenant, prefix_ids, ids = parse_tenant_request(
+            message["Body"], default_tenant=self.tenancy.tenants[0],
+        )
+        if ids is None:
+            return None
+        message["_tenant"] = tenant
+        return (tenant, prefix_ids, ids)
+
+    def _submit_parsed(self, parsed: list[tuple]) -> int:
+        """Admit ``(tenant, prefix_ids, ids, message)`` records: prefixes
+        of the pool's length through the pooled insert, everything else
+        through the plain insert, an off-bucket prefix prepended to its
+        prompt (the same result, uncached).  At most one insert a class a
+        cycle."""
+        pool = self.batcher.prefix_pool
+        plain, plain_tenants, prefixed = [], [], []
+        for tenant, prefix_ids, ids, message in parsed:
+            if (pool is not None and prefix_ids is not None
+                    and prefix_ids.size == pool.prefix_len):
+                prefixed.append((tenant, prefix_ids, ids, message))
+                continue
+            if prefix_ids is not None and prefix_ids.size:
+                ids = np.concatenate([prefix_ids.reshape(-1),
+                                      np.asarray(ids, np.int32).reshape(-1)])
+                if ids.size > self.batcher.prompt_len:
+                    # the prepended request no longer fits the prompt
+                    # bucket, and padding would cut the user's prompt
+                    # away: answer it with an error instead
+                    self._settle(
+                        message, None,
+                        error="prefix + prompt exceeds the prompt "
+                              "bucket (shrink the prefix or size "
+                              "--seq-len / the prefix pool for it)",
+                        counted=False,
+                    )
+                    continue
+            plain.append((ids, message))
+            plain_tenants.append(tenant)
+        admitted = []
+        if prefixed:
+            rows = self.batcher.submit_many_prefixed(prefixed)
+            admitted += [(row, t, m)
+                         for row, (t, _, _, m) in zip(rows, prefixed)]
+        if plain:
+            rows = self.batcher.submit_many(plain)
+            if self.tenancy is not None:
+                self.batcher.tag_tenant(rows, plain_tenants)
+                admitted += [(row, t, m) for row, t, (_, m)
+                             in zip(rows, plain_tenants, plain)]
+        if self.tenancy is not None:
+            # arrival stamps for per-tenant TTFT, and the ladder's tier-1
+            # action: an over-share tenant's fresh admissions get a
+            # degraded budget (answered short, never dropped)
+            degrade = self._degrade_tenants
+            for row, tenant, message in admitted:
+                slot = self.batcher.slots[row]
+                slot.arrived_at = sent_epoch(message)
+                if (degrade and tenant in degrade
+                        and self._degraded_tokens < slot.budget):
+                    slot.budget = self._degraded_tokens
+                    slot.degraded = True
+                    self._note_shed("degraded")
         return len(parsed)
 
     def _admit(self, messages: list[dict]) -> int:
@@ -1383,11 +2057,11 @@ class ContinuousWorker:
         for message in messages:
             if self._shed_if_expired(message):
                 continue
-            ids = self._parse_for_admit(message)
-            if ids is None:
+            parsed = self._parse_for_admit(message)
+            if parsed is None:
                 self._settle(message, None, counted=False)
                 continue
-            admit.append((ids, message))
+            admit.append(parsed + (message,))
         if admit:
             self._submit_parsed(admit)
         return len(admit)
@@ -1399,7 +2073,7 @@ class ContinuousWorker:
         if not self._expired(message):
             return False
         if self._settle(message, None, error="expired", counted=False):
-            self.shed_by_reason["ttl"] += 1
+            self._note_shed("ttl")
         return True
 
     def _expired(self, message: dict) -> bool:
@@ -1487,9 +2161,14 @@ class ContinuousWorker:
             ),
         )
         shed_help = (
-            "Requests shed at admission, by reason: ttl = older than "
-            "--request-ttl on arrival (explicit expired reply).  The "
-            "unlabeled series is their sum."
+            "Requests shed or degraded at admission, by reason: ttl = "
+            "older than --request-ttl on arrival (explicit expired "
+            "reply), degraded = overload tier 1 cut the token budget "
+            "(answered short), pressure = overload tier 3 shed it from "
+            "staging (explicit error reply), decode_deadline = the "
+            "decode phase blew its per-token SLO budget (shed "
+            "mid-decode with an explicit error reply).  The unlabeled "
+            "series is their sum."
         )
         self.metrics.set_gauge(
             "requests_shed_total", self.shed, shed_help, kind="counter",
@@ -1499,7 +2178,100 @@ class ContinuousWorker:
                 "requests_shed_total", count, shed_help,
                 labels=(("reason", reason),), kind="counter",
             )
+        if self.ladder is not None:
+            self.metrics.set_gauge(
+                "overload_tier", self.ladder.tier,
+                "Active overload-ladder tier (0 = serving normally, "
+                "1 = degrading over-share tenants, 2 = + evicting cold "
+                "prefix entries, 3 = + shedding staged requests).",
+            )
+            self.metrics.set_gauge(
+                "overload_pressure", self.ladder.last_pressure,
+                "Measured overload pressure (staged-backlog fraction "
+                "gated by slot occupancy) the ladder last acted on.",
+            )
+            self.metrics.set_gauge(
+                "overload_tier_transitions_total", self.ladder.transitions,
+                "Ladder tier transitions (enter + exit) over the "
+                "worker's lifetime.",
+                kind="counter",
+            )
+        if self.tenancy is not None:
+            self._update_tenant_metrics(elapsed)
         drain_ttft_histograms(batcher, self.metrics)
+
+    def _update_tenant_metrics(self, elapsed: float) -> None:
+        """The per-tenant gauges and the pool's hit and miss counters.
+        Staged labels fold through bounded_tenant_key before they can mint
+        a series, and every registered label is written each cycle, so a
+        drained tenant's depth reads 0 instead of its last value."""
+        batcher = self.batcher
+        depths: dict[str, int] = {}
+        for tenant, depth in self._fair.depths().items():
+            label = bounded_tenant_key(tenant, self._gauge_tenants)
+            self._gauge_tenants[label] = True
+            depths[label] = depths.get(label, 0) + depth
+        for tenant in set(batcher.tenant_tokens) | set(batcher.tenant_ttft):
+            self._gauge_tenants.setdefault(tenant, True)
+        for tenant in sorted(self._gauge_tenants):
+            count = batcher.tenant_ttft_count.get(tenant, 0)
+            self.metrics.set_tenant_gauges(
+                tenant,
+                queue_depth=depths.get(tenant, 0),
+                ttft_seconds=(batcher.tenant_ttft_sum.get(tenant, 0.0)
+                              / count if count else 0.0),
+                tokens_per_second=(
+                    batcher.tenant_tokens.get(tenant, 0) / elapsed
+                    if elapsed > 0 else 0.0),
+            )
+        pool = batcher.prefix_pool
+        if pool is not None:
+            self.metrics.set_gauge(
+                "prefix_cache_hits_total", pool.hits,
+                "Prefix-pool admissions that reused a resident prefix "
+                "entry (the shared-prefix prefill skipped entirely).",
+                kind="counter",
+            )
+            self.metrics.set_gauge(
+                "prefix_cache_misses_total", pool.misses,
+                "Prefix-pool admissions that had to install (prefill "
+                "once + LRU-evict) their prefix entry.",
+                kind="counter",
+            )
+
+    def _enforce_decode_deadlines(self) -> None:
+        """The decode-phase deadline (``tenancy.decode_slo_s`` > 0): once
+        a slot has its first token it must finish its remaining budget at
+        ``decode_slo_s`` seconds a token, or it is shed mid-decode with an
+        error reply.  The shed settles the reply here, then cuts the
+        slot's budget to what it produced, so the engine frees (and
+        quiesces) the row at its next step; :meth:`run_once` skips the
+        resulting pair with no payload."""
+        slo = self.tenancy.decode_slo_s
+        now = self._now()
+        for slot in self.batcher.slots:
+            if not slot.busy or slot.done or slot.payload is None:
+                continue
+            produced = len(slot.produced)
+            if produced < 1:
+                continue  # before the first token the TTFT SLO applies
+            if slot.decode_deadline_at is None:
+                slot.decode_deadline_at = now + slo * max(
+                    1, slot.budget - produced)
+                continue
+            if now <= slot.decode_deadline_at:
+                continue
+            message = slot.payload
+            slot.payload = None
+            slot.budget = produced  # finishes (and quiesces) next step
+            slot.degraded = True
+            if self._settle(
+                message, None,
+                error=("decode deadline exceeded (the decode phase blew "
+                       "its per-token SLO budget)"),
+                counted=False,
+            ):
+                self._note_shed("decode_deadline")
 
     def run_once(self) -> int:
         """One engine cycle: refill free slots, advance the batch, settle
@@ -1507,14 +2279,21 @@ class ContinuousWorker:
         if self._served_since is None:
             self._served_since = time.perf_counter()
         self._refill()
+        if self.tenancy is not None and self.tenancy.decode_slo_s > 0:
+            self._enforce_decode_deadlines()
         done = self.batcher.step()
+        completed = 0
         for message, tokens in done:
+            if message is None:
+                # a decode-deadline shed, answered when it was shed
+                continue
             self._settle(message, tokens)
+            completed += 1
         if done:
             self._poll_backoff = 0  # a slot just freed: poll right away
-        self.processed += len(done)
+        self.processed += completed
         self._update_metrics()
-        return len(done)
+        return completed
 
     def stop(self) -> None:
         """Ask the serve loop to exit after its current cycle (sticky even

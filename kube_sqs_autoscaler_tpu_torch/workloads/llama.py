@@ -44,8 +44,8 @@ shared-prefix prefill whose suffixes continue through it
 (:func:`llama_prefill_prefix`, :func:`llama_prefill_with_prefix` and
 their int8 twins).
 
-Not ported yet: the trainer branch (ROADMAP Queue 1 item 8) and mesh
-serving (item 9).
+Not ported yet: the trainer branch (ROADMAP Queue 1 item 4) and mesh
+serving (item 5).
 """
 
 from __future__ import annotations

@@ -189,14 +189,27 @@ def _project_qkv(
     )
 
 
+def _rounded_gelu_constants(dtype: torch.dtype) -> tuple[float, float]:
+    """The tanh GELU's ``sqrt(2 / pi)`` and ``0.044715`` rounded to
+    ``dtype``, as Python floats: a kernel reads a Python scalar as an fp32
+    operand, which holds the rounded value exactly, and no tensor goes up
+    to the device (a per-call host-to-device copy would stall the host)."""
+    return tuple(float(torch.tensor(value, dtype=dtype))
+                 for value in (math.sqrt(2 / math.pi), 0.044715))
+
+
+_GELU_CONSTANTS = {dtype: _rounded_gelu_constants(dtype)
+                   for dtype in (torch.float32, torch.bfloat16,
+                                 torch.float16)}
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu`` (tanh): ``x * 0.5 * (1 + tanh(c * (x + 0.044715 *
     x**3)))``, each op rounded to ``x``'s dtype and the constants too."""
-    def const(value):
-        return torch.tensor(value, dtype=x.dtype, device=x.device)
-
+    scale, cubic = (_GELU_CONSTANTS.get(x.dtype)
+                    or _rounded_gelu_constants(x.dtype))
     cube = x * x * x
-    inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * cube)
+    inner = scale * (x + cubic * cube)
     return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 

@@ -71,6 +71,77 @@ def parse_request_body(body: str) -> np.ndarray | None:
         return None
 
 
+def parse_tenant_request(
+    body: str, default_tenant: str = "default"
+) -> tuple[str, np.ndarray | None, np.ndarray | None]:
+    """One multi-tenant message body -> ``(tenant, prefix_ids, ids)``.
+
+    The tenancy envelope is a JSON object ``{"tenant": "a", "prefix":
+    [...], "ids": [...]}``, ``tenant`` and ``prefix`` optional.  Any other
+    body goes to :func:`parse_request_body` as it is and lands on
+    ``default_tenant`` with no prefix, so a tenancy worker serves plain
+    traffic unchanged.  ``ids is None`` marks a malformed body (dropped
+    with an error reply, as a plain malformed body is)."""
+    try:
+        payload = json.loads(body)
+    except Exception:
+        payload = None
+    if not isinstance(payload, dict):
+        return default_tenant, None, parse_request_body(body)
+    tenant = payload.get("tenant")
+    tenant = tenant if isinstance(tenant, str) and tenant \
+        else default_tenant
+    prefix = None
+    if isinstance(payload.get("prefix"), list):
+        try:
+            prefix = np.asarray(payload["prefix"], np.int32).reshape(-1)
+        except Exception:
+            prefix = None
+    if "ids" in payload:
+        try:
+            return tenant, prefix, np.asarray(
+                payload["ids"], np.int32
+            ).reshape(-1)
+        except Exception:
+            log.error("Dropping malformed tenant body: %.64r", body)
+            return tenant, prefix, None
+    return tenant, prefix, parse_request_body(body)
+
+
+# Tenant labels come from untrusted message bodies: per-tenant attribution
+# tables (tokens, TTFT samples, completion counts, and the Prometheus
+# series made from them) must not grow one entry per label an adversary
+# invents.  Past this many distinct labels, new ones fold into one
+# catch-all series.
+MAX_TENANT_SERIES = 512
+OTHER_TENANTS = "~other"
+
+
+def bounded_tenant_key(tenant: str, table: dict) -> str:
+    """The attribution key for ``tenant`` in ``table``: itself while the
+    table has room (or already has its row), else the catch-all."""
+    if tenant in table or len(table) < MAX_TENANT_SERIES:
+        return tenant
+    return OTHER_TENANTS
+
+
+def tenant_completions(replies: dict[str, dict]) -> dict[str, int]:
+    """Per-tenant completion counts from :func:`collect_replies` output,
+    which is already de-duplicated by request id, so a request answered
+    twice under redelivery counts once.  Error replies (TTL sheds,
+    malformed bodies, overload sheds) are answered but are not
+    completions, which keeps this equal to the worker's
+    ``completed_by_tenant``.  Unlabeled replies count under ``""``."""
+    counts: dict[str, int] = {}
+    for payload in replies.values():
+        if "error" in payload:
+            continue
+        tenant = payload.get("tenant", "")
+        tenant = tenant if isinstance(tenant, str) else ""
+        counts[tenant] = counts.get(tenant, 0) + 1
+    return counts
+
+
 def build_token_reply(tokens, eos_id: int | None) -> dict:
     """One generate-mode reply payload: ``{"tokens": [...]}`` trimmed at
     ``eos_id``."""

@@ -110,6 +110,12 @@ class ShardedBatcher(ContinuousBatcher):
                 "the sharded plane applies to the plain continuous decode "
                 "path (not beams / speculative slots)"
             )
+        if kwargs.get("tenancy") is not None:
+            raise ValueError(
+                "tenancy on the sharded plane (sticky tenant homes, "
+                "per-shard prefix pools) is not yet ported (ROADMAP Queue 1 "
+                "item 3)"
+            )
         self.shards = shards
         self.shard_slots = shard_slots
         # admission availability per shard, memoized until the next

@@ -28,6 +28,7 @@ from kube_sqs_autoscaler_tpu.workloads import service as jax_service
 from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
 from kube_sqs_autoscaler_tpu_torch.workloads import continuous, decode, service
 from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import main as binary
+from kube_sqs_autoscaler_tpu_torch.workloads.tenancy import TenancyConfig
 
 from .test_torch_decode import MARGIN, top2_margin
 from .test_torch_model import DIMS, as_numpy, both_params
@@ -437,11 +438,16 @@ def test_sampled_run_terminates_in_vocab_and_reproduces(decode_block):
     # layout, and a budget that only the prefix pushes past the context
     (dict(quantized_kv=True, prefix_cache="full"), "layout mismatch"),
     (dict(prefix_cache="full", generate_tokens=80), "exceeds max_seq_len"),
-    # speculative and beam slots are ported (test_torch_spec_beam_serving):
-    # what is left to refuse is either of them over a mesh or with tenancy
+    # speculative and beam slots are ported (test_torch_spec_beam_serving),
+    # and tenancy (test_torch_tenant_serving): what is left to refuse is
+    # either slot kind over a mesh or with tenancy, and a prefix pool with
+    # fewer entries than the slots
     (dict(draft_layers=1, mesh=object()), "not yet ported"),
-    (dict(beams=2, tenancy=object()), "not yet ported"),
-    (dict(tenancy=object()), "not yet ported"),
+    (dict(beams=2, tenancy=TenancyConfig(tenants=("a",))),
+     "plain continuous decode path"),
+    (dict(tenancy=TenancyConfig(tenants=("a",), prefix_pool=1,
+                                prefix_len=4)),
+     "must be >= the per-shard slot count"),
     (dict(family="moe"), "unknown family"),
     (dict(beams=0), "beams"),
     (dict(decode_block=0), "decode_block"),

@@ -10,7 +10,7 @@ fleet episode with its control loop, sharded-plane drain, sharded-pool
 episode with a poisoned shard, llama forward, generate and two-shard
 drain, int8 weights, int8 KV cache, chunk decode and shared-prefix serving
 of both families, speculative and beam generation and their slot engines,
-and train step on the CPU.  The
+a tenancy worker with its prefix pool, and train step on the CPU.  The
 control-plane subpackages import no torch at all, so importing the fleet
 starts no CUDA work and builds no kernel.
 """
@@ -88,6 +88,7 @@ from kube_sqs_autoscaler_tpu_torch.workloads import __main__, worker  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import continuous, shard_plane
 from kube_sqs_autoscaler_tpu_torch.workloads import llama, quantize
 from kube_sqs_autoscaler_tpu_torch.workloads import beam, speculative
+from kube_sqs_autoscaler_tpu_torch.workloads import tenancy
 from kube_sqs_autoscaler_tpu_torch.workloads import data, perf, train  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import trainer  # noqa
 from kube_sqs_autoscaler_tpu_torch import core, fleet, metrics, obs, sim
@@ -210,6 +211,19 @@ for knobs in (dict(draft_layers=1, draft_tokens=2), dict(beams=2)):
     while sb.active:
         out += sb.step()
     assert sorted(p for p, _ in out) == [0, 1]
+# tenancy: a prefixed and a plain body through the pooled worker
+for body in ({"tenant": "a", "prefix": [7, 8, 9, 10], "ids": [1, 2]},
+             [3, 4, 5]):
+    jobs.send_message("q", json.dumps(body))
+tw = continuous.ContinuousWorker(
+    jobs, params, cfg,
+    service.ServiceConfig(queue_url="q", seq_len=8, generate_tokens=3,
+                          batch_size=2, decode_block=2),
+    tenancy=tenancy.TenancyConfig(tenants=("a", "b"), prefix_pool=2,
+                                  prefix_len=4, shed_tiers=3),
+    device="cpu")
+assert tw.drain(total=2) == 2 and tw.batcher.prefix_pool.installs == 1
+assert tw.completed_by_tenant == {"a": 2}
 state = train.train_state(params, train.TrainConfig())
 step = train.make_train_step(cfg, train.TrainConfig(), "cpu")
 assert step(state, ids)[0]["step"] == 1

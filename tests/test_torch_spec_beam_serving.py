@@ -255,7 +255,7 @@ def test_spec_and_beam_engines_keep_to_the_plain_paths_seams():
                            device="cpu", **knobs)
     service = ServiceConfig(queue_url="q", batch_size=2, seq_len=PROMPT,
                             generate_tokens=TOKENS, shards=2)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3"):
         continuous.ContinuousWorker(FakeMessageQueue(), tp, tcfg, service,
                                     draft_layers=1, device="cpu")
 
@@ -326,7 +326,7 @@ def test_binary_flag_checks_fail_as_the_reference(args, message):
     (["--speculative-draft-layers", "1", "--generate-tokens", "0"],
      "--speculative-draft-layers requires --generate-tokens >= 1"),
     (["--speculative-draft-layers", "1", "--continuous", "--shards", "2"],
-     "ROADMAP Queue 1 item 7"),
+     "ROADMAP Queue 1 item 3"),
 ], ids=["too-deep", "negative", "no-proposals", "no-generate", "shards"])
 def test_binary_speculative_start_up_checks(args, message):
     with pytest.raises(SystemExit, match=message):
