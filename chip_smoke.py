@@ -69,7 +69,25 @@ Phases (any failure makes the run exit non-zero and print no result):
    the binary's ``--fleet-max-replicas 3`` on the real clock (rates, mean
    TTFT, replica trajectory, busy share); ``python -m
    kube_sqs_autoscaler_tpu_torch.fleet`` must exit 0;
-9. shards: the sharded serving plane at the generate cell's width, 8
+9. controller: the port's controller binary (``python -m
+   kube_sqs_autoscaler_tpu_torch``) as a child process with the deployment
+   manifest's thresholds (poll 1 s, cooldowns 3 s and 6 s, max 3: cut for
+   time), polling the SQS emulator's depth (400 generate bodies queued at
+   the start) and scaling the Deployment of an in-script apiserver double
+   through a JSON kubeconfig; in this process an ``ElasticWorkerPool`` of
+   batch ``QueueWorker`` s (the built-in GPT, bf16) reconciles to its
+   replicas every 0.5 s over the same wire.  The controller is killed with
+   SIGKILL after its first scale-up and started again with the same
+   command (``--state-path``); after the drain the double answers the
+   first scale-down's PUTs 503 for 3 s.  Gates: every body answered once,
+   the journal's replica trajectory 1 -> >= 2 -> 1, no scale-up inside its
+   cooldown (across the restart too), ``flash_fwd`` launches = 4 x prompt
+   batches and no lse, the ``ControllerMetrics`` families on ``/metrics``,
+   ``/healthz`` 503 "rehydrating" then 200 with
+   ``controller_restarts_total 1``, the breaker closed -> open -> a
+   half-open probe -> closed; printed: the drain's time and msgs/s, the
+   trajectory, the tick p50s and the kernel's share of the drain;
+10. shards: the sharded serving plane at the generate cell's width, 8
    slots a shard: a one-shard plane (``sharded=True``) whose 64 bf16
    replies must equal the block-8 worker's byte for byte; the binary's
    ``--demo 64 --continuous --decode-block 8 --shards 4`` (every message
@@ -85,7 +103,7 @@ Phases (any failure makes the run exit non-zero and print no result):
    every quarantined shard probed and readmitted, f32 replies against
    ``generate``); warm rates of one block-8 worker, the plane and the
    3-replica fleet one after another, and a profiled plane drain;
-10. llama: the binary's built-in llama (``--family llama``, 2 kv heads) in
+11. llama: the binary's built-in llama (``--family llama``, 2 kv heads) in
    bf16 through the batch worker and ``--continuous`` at decode blocks 1
    and 8 (replies identical, ``4 x`` prompt passes forward launches, no
    lse), the block-8 worker cycle by cycle (at most one decode dispatch a
@@ -97,7 +115,7 @@ Phases (any failure makes the run exit non-zero and print no result):
    of 128: the kernel's windowed GQA prefill within 1e-4 of dense, the
    rolling-cache generate equal to the full cache's; warm rates of the GPT
    and the llama one after another (batch, block 8, ``--shards 4``);
-11. int8: the built-in GPT and llama in bf16 with ``--quantize int8``,
+12. int8: the built-in GPT and llama in bf16 with ``--quantize int8``,
    ``--quantize-kv`` and both: codes quantized on the card byte-equal to
    the CPU's, the weight bytes from the binary's log line, the 8-slot int8
    caches (18.0625 MiB GPT, 4.5156 MiB llama); replies identical across
@@ -107,14 +125,14 @@ Phases (any failure makes the run exit non-zero and print no result):
    the port's own int8 generate up to the first near-tie; warm rates and
    peak memory of bf16, int8 weights, int8 cache and both at block 8 and
    ``--shards 4``; a profiled int8 plane;
-12. prefix: ``--prefix-ids`` of 37 tokens at both families' full width,
+13. prefix: ``--prefix-ids`` of 37 tokens at both families' full width,
    full-precision and int8 cache, through batch, blocks 1 and 8 and
    ``--shards 4`` (the prefix's ``n_layers`` launches once, the suffix
    inserts none; replies counted against the batch worker's); in f32 the
    staggered suffixes through the block-8 batcher behind the prefix
    against ``generate`` of prefix and suffix joined (the int8 layout
    against its own prefix generate), up to the first near-tie;
-13. speculative: ``--speculative-draft-layers 2 --speculative-draft-tokens
+14. speculative: ``--speculative-draft-layers 2 --speculative-draft-tokens
    4`` for both families in bf16 through the batch worker
    (``n_layers + draft_layers`` forward launches a batch: the target's
    and the draft's prefill) and ``--continuous`` (``n_layers`` an
@@ -128,7 +146,7 @@ Phases (any failure makes the run exit non-zero and print no result):
    ``speculative_generate`` and the slot engine against greedy
    ``generate`` up to the first near-tie; the GPT with ``--quantize-kv``
    and behind the 37-token prefix;
-14. beam: ``--beams 4``, and with ``--length-penalty 0.6 --eos-id`` a
+15. beam: ``--beams 4``, and with ``--length-penalty 0.6 --eos-id`` a
    token the demo emits, for both families through the batch worker and
    ``--continuous`` (``n_layers`` launches a prompt pass), replies counted
    between the two; in f32 the beam slots against ``beam_search`` of each
@@ -136,14 +154,14 @@ Phases (any failure makes the run exit non-zero and print no result):
    GPT with ``--quantize-kv`` and the prefix; warm rates of plain block-1
    ``--continuous``, speculative and beams; ``torch.profiler`` over a
    beam drain with the parent gather's share;
-15. sync: for the GPT and the llama, one ``decode_step``, one
+16. sync: for the GPT and the llama, one ``decode_step``, one
    ``block_decode`` of 8 and one pooled insert of prefix-pool hits under
    ``torch.cuda.set_sync_debug_mode("error")``: no call may wait for the
    card (the GPT's calls through the GELU as it was before its repair are
    printed beside); the repair's gain, timed before, after, after, before
    in this call: the GPT decode step, block-8 ``--demo 64`` msgs/s and the
    flagship train step;
-16. tenancy: multi-tenant fair admission and the per-tenant prefix pool
+17. tenancy: multi-tenant fair admission and the per-tenant prefix pool
    at both built-in models' full width (``--continuous --decode-block 8
    --prefix-pool 8``, 512-token prefixes and suffixes): the reference's
    flood-isolation traffic on a ``FakeClock`` under DRR and FIFO (exactly
@@ -158,10 +176,10 @@ Phases (any failure makes the run exit non-zero and print no result):
    one reply or error reply each); warm rates and per-tenant TTFT beside
    tenancy off with the prefix prepended (bf16 replies counted); a
    profiled tenancy drain;
-17. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
+18. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
    through dense attention with no kernel launch, its loss falling; the
    forward wrapper called directly at D = 16 must raise ``ValueError``;
-18. training: an f32 loss and gradient at the flagship train width through
+19. training: an f32 loss and gradient at the flagship train width through
    the kernels against the dense-attention path; the trainer binary's code
    path in-process at the flagship config (GPT, d_model 1024, 16 heads,
    8 layers, d_ff 4096, vocab 8192, B=8, S=2048) in bf16 for 10
@@ -170,8 +188,8 @@ Phases (any failure makes the run exit non-zero and print no result):
    steps`` (and twice that for the forward under ``--remat``); its steady
    step time, tokens/s, MFU and peak memory; ``torch.profiler`` over one
    step;
-19. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-20. the last line, ``{"ok": true, "device": {...}}``.
+20. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+21. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
@@ -2025,6 +2043,475 @@ def fleet_binary_run(torch, flash, smoke: Smoke, serve: dict) -> dict:
                busy_share=busy_ms / wall_ms, busy_ms=busy_ms,
                profiled_wall_ms=wall_ms, flash_ms=flash_ms)
     return out
+
+
+# The controller phase: the port's controller binary as a child process
+# scales an ElasticWorkerPool of batch workers in this process through a
+# Kubernetes apiserver double and the SQS emulator.  The deployment
+# manifest's thresholds (deploy/kube-sqs-autoscaler.yaml:32-38); times cut
+# for the phase's budget (manifest: poll 5s, up 5m, down 30s, max 5).
+CONTROLLER_ARGS = [
+    "--poll-period=1s", "--scale-up-cool-down=3s",
+    "--scale-down-cool-down=6s", "--scale-up-messages=100",
+    "--scale-down-messages=10", "--scale-up-pods=1", "--scale-down-pods=1",
+    "--max-pods=3", "--min-pods=1",
+    "--attribute-names=ApproximateNumberOfMessages",
+    "--scaler-retries=1", "--breaker-failures=2", "--breaker-reset=2s",
+]
+CONTROLLER_BODIES = 400  # four times the scale-up threshold
+CONTROLLER_UP_COOLDOWN = 3.0
+CONTROLLER_MAX = 3
+CONTROLLER_OUTAGE_S = 3.0  # the apiserver double's 503 window for PUTs
+# two ticks are a poll period (1 s) apart; a PUT's arrival trails its
+# gate by the GET's round trip, so gaps are compared to the cooldown less
+# this much (a fire inside the cooldown would show as a gap of <= 2 s)
+CONTROLLER_GAP_SLACK = 0.25
+CONTROLLER_DEPLOYMENT = "workers"
+
+
+class DeploymentDouble:
+    """The apps/v1 Deployment endpoints of an apiserver on 127.0.0.1: GET
+    and full-object PUT of one Deployment in ``default``, with a
+    ``resourceVersion`` that every write bumps (a PUT carrying a stale one
+    gets 409 Conflict).  From the first PUT that lowers the replicas, PUTs
+    are answered 503 for ``outage_s`` seconds: the phase's fault window.
+    Every request is logged as ``(t, method, status, replicas)`` on
+    ``time.monotonic``."""
+
+    def __init__(self, replicas: int, outage_s: float) -> None:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.lock = threading.Lock()
+        self.replicas = replicas
+        self.version = 1
+        self.outage_s = outage_s
+        self.outage_from = None
+        self.log: list[tuple[float, str, int, int]] = []
+        double = self
+        path = ("/apis/apps/v1/namespaces/default/deployments/"
+                f"{CONTROLLER_DEPLOYMENT}")
+
+        class Handler(BaseHTTPRequestHandler):
+            def _reply(self, status: int, body: dict) -> None:
+                data = json.dumps(body).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self) -> None:  # noqa: N802 (http.server API)
+                if self.path != path:
+                    return self._reply(404, {"kind": "Status", "code": 404})
+                with double.lock:
+                    body = double.body()
+                    double.note("GET", 200, double.replicas)
+                self._reply(200, body)
+
+            def do_PUT(self) -> None:  # noqa: N802 (http.server API)
+                length = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                if self.path != path:
+                    return self._reply(404, {"kind": "Status", "code": 404})
+                want = int(body["spec"]["replicas"])
+                with double.lock:
+                    now = time.monotonic()
+                    if double.outage_from is None and want < double.replicas:
+                        double.outage_from = now
+                    if (double.outage_from is not None and now
+                            < double.outage_from + double.outage_s):
+                        double.note("PUT", 503, want)
+                        status, reply = 503, {
+                            "kind": "Status", "code": 503,
+                            "message": "apiserver unavailable (fault window)"}
+                    elif body["metadata"].get("resourceVersion") != str(
+                            double.version):
+                        double.note("PUT", 409, want)
+                        status, reply = 409, {
+                            "kind": "Status", "code": 409,
+                            "message": "the object has been modified"}
+                    else:
+                        double.replicas = want
+                        double.version += 1
+                        double.note("PUT", 200, want)
+                        status, reply = 200, double.body()
+                self._reply(status, reply)
+
+            def log_message(self, *args) -> None:
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def body(self) -> dict:
+        return {
+            "apiVersion": "apps/v1", "kind": "Deployment",
+            "metadata": {"name": CONTROLLER_DEPLOYMENT,
+                         "namespace": "default",
+                         "resourceVersion": str(self.version)},
+            "spec": {"replicas": self.replicas,
+                     "selector": {"matchLabels": {"app": "worker"}}},
+        }
+
+    def note(self, method: str, status: int, replicas: int) -> None:
+        self.log.append((time.monotonic(), method, status, replicas))
+
+    def writes(self) -> list[tuple[float, int]]:
+        """``(t, replicas)`` of every successful PUT."""
+        with self.lock:
+            return [(t, r) for t, m, s, r in self.log
+                    if m == "PUT" and s == 200]
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def http_get(url: str, timeout: float = 5.0) -> tuple[int, str]:
+    """``(status, body)`` of a GET; an HTTP error status is an answer."""
+    import urllib.error
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read().decode()
+
+
+def wait_for(predicate, timeout: float, every: float = 0.02) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if predicate():
+            return True
+        time.sleep(every)
+    return predicate()
+
+
+def journal_trajectory(episodes, start: int = 1, low: int = 1,
+                       high: int = CONTROLLER_MAX) -> list[int]:
+    """The replica count after each journaled tick, replayed from the
+    ticks' successful actuations (a boundary no-op clamps, as the scaler
+    does), from ``start`` replicas."""
+    replicas, out = start, []
+    for _, records in episodes:
+        for record in records:
+            if record.scaled("up"):
+                replicas = min(high, replicas + 1)
+            if record.scaled("down"):
+                replicas = max(low, replicas - 1)
+            out.append(replicas)
+    return out
+
+
+class ControllerRun:
+    """One boot of the port's controller binary as a child process, its
+    output in ``build/chip_smoke/controller-<n>.log``."""
+
+    def __init__(self, argv: list[str], env: dict, n: int) -> None:
+        self.log = ROOT / "build" / "chip_smoke" / f"controller-{n}.log"
+        self.log.parent.mkdir(parents=True, exist_ok=True)
+        self.fh = open(self.log, "w")
+        self.child = subprocess.Popen(
+            [sys.executable, "-m", "kube_sqs_autoscaler_tpu_torch", *argv],
+            cwd=ROOT, env=env, stdout=self.fh, stderr=subprocess.STDOUT)
+
+    def stop(self, kill: bool = False) -> int:
+        if self.child.poll() is None:
+            self.child.kill() if kill else self.child.terminate()
+        try:
+            self.child.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.child.kill()
+            self.child.wait()
+        self.fh.close()
+        return self.child.returncode
+
+    def tail(self) -> str:
+        self.fh.flush()
+        return self.log.read_text()[-2000:]
+
+
+def controller_phase(torch, flash, smoke: Smoke, kern) -> dict:
+    """The port's controller binary closing the loop on port workers on
+    the card: ``CONTROLLER_BODIES`` bodies queued at the start; the
+    controller (``python -m kube_sqs_autoscaler_tpu_torch``) polls the SQS
+    emulator's depth and scales the apiserver double's Deployment; in this
+    process an ``ElasticWorkerPool`` of ``QueueWorker`` s (the built-in GPT,
+    bf16, batch 8, ``--seq-len 512 --generate-tokens 32``, one set of
+    weights) reconciles to its replicas every 0.5 s over the same wire.
+    Mid-drain the controller is killed with SIGKILL and started again
+    with the same command (``--state-path``); after the drain the double
+    answers the first scale-down's PUTs 503 for ``CONTROLLER_OUTAGE_S``
+    seconds, which opens the circuit breaker."""
+    import shutil
+
+    from kube_sqs_autoscaler_tpu_torch.metrics.sqs_aws import AwsSqsService
+    from kube_sqs_autoscaler_tpu_torch.obs.journal import (
+        read_journal_episodes,
+    )
+    from kube_sqs_autoscaler_tpu_torch.scale.kube import (
+        ClusterConfig,
+        KubeDeploymentAPI,
+    )
+    from kube_sqs_autoscaler_tpu_torch.utils.sigv4 import Credentials
+    from kube_sqs_autoscaler_tpu_torch.workloads import kernels
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import (
+        ElasticWorkerPool,
+        QueueWorker,
+        ServiceConfig,
+    )
+
+    kernels.build_all()  # no worker thread waits on nvcc
+    config, params, _ = demo_setup(torch, GENERATE_ARGS)
+    work = ROOT / "build" / "chip_smoke" / "controller"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    emulator = SqsEmulator()
+    # the queue's 30 s visibility timeout is a hundred worker cycles
+    jobs_url, jobs = emulator.queue("000000000000/jobs")
+    replies_url, replies = emulator.queue("000000000000/replies")
+    sent = [jobs.send_message(jobs_url, body)
+            for body in demo_bodies(CONTROLLER_BODIES)]
+    double = DeploymentDouble(replicas=1, outage_s=CONTROLLER_OUTAGE_S)
+    kubeconfig = work / "kubeconfig.json"
+    kubeconfig.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "chip",
+        "contexts": [{"name": "chip",
+                      "context": {"cluster": "double", "user": "smoke"}}],
+        "clusters": [{"name": "double", "cluster": {"server": double.url}}],
+        "users": [{"name": "smoke", "user": {"token": "smoke-token"}}],
+    }))
+    env = {**os.environ, **LOCAL_AWS_ENV,
+           "KUBE_CONFIG_PATH": str(kubeconfig)}
+    journal, state = work / "journal.jsonl", work / "state.json"
+    port = free_port()
+    argv = [*CONTROLLER_ARGS, "--sqs-queue-url", jobs_url, "--aws-region",
+            "us-east-1", "--kubernetes-deployment", CONTROLLER_DEPLOYMENT,
+            "--kubernetes-namespace", "default", "--metrics-port",
+            str(port), "--journal-path", str(journal), "--state-path",
+            str(state)]
+    service_config = ServiceConfig(
+        queue_url=jobs_url, batch_size=8, seq_len=512, generate_tokens=32,
+        result_queue_url=replies_url, idle_sleep_s=0.05)
+    built: list = []
+
+    class CountedWorker(QueueWorker):
+        """A batch worker that counts the prompt batches it ran."""
+
+        batches = 0
+
+        def run_once(self) -> int:
+            n = super().run_once()
+            self.batches += n > 0
+            return n
+
+    credentials = Credentials(LOCAL_AWS_ENV["AWS_ACCESS_KEY_ID"],
+                              LOCAL_AWS_ENV["AWS_SECRET_ACCESS_KEY"])
+
+    def factory():
+        client = AwsSqsService(region="us-east-1", credentials=credentials)
+        worker = CountedWorker(client, params, config, service_config,
+                               result_queue=client, device="cuda")
+        built.append(worker)
+        return worker
+
+    api = KubeDeploymentAPI("default", config=ClusterConfig(server=double.url))
+    pool = ElasticWorkerPool(api, CONTROLLER_DEPLOYMENT, factory)
+    t0 = time.monotonic()
+    workers_seen: list[tuple[float, int]] = []
+    done = threading.Event()
+
+    def reconcile():  # the kubelet's role, every 0.5 s
+        while not done.is_set():
+            try:
+                n = pool.reconcile()
+            except Exception as err:
+                print(f"reconcile failed: {err}", flush=True)
+            else:
+                if not workers_seen or workers_seen[-1][1] != n:
+                    workers_seen.append((time.monotonic() - t0, n))
+            done.wait(0.5)
+
+    def depth() -> dict:
+        return jobs.get_queue_attributes(jobs_url, ())
+
+    def answered() -> int:
+        return int(replies.get_queue_attributes(
+            replies_url, ())["ApproximateNumberOfMessages"])
+
+    zero_counts(flash)
+    boots = [ControllerRun(argv, env, 1)]
+    kubelet = threading.Thread(target=reconcile, daemon=True)
+    kubelet.start()
+    out: dict = {}
+    health: list[tuple[float, int, str]] = []
+    try:
+        # mid-drain: SIGKILL half a second after the first scale-up landed
+        up = wait_for(lambda: any(r >= 2 for _, r in double.writes()), 90)
+        time.sleep(0.5)
+        kill_depth = depth()
+        kill_t = time.monotonic() - t0
+        killed = boots[0].stop(kill=True)
+        smoke.check(up and killed == -9
+                    and int(kill_depth["ApproximateNumberOfMessages"]) > 0,
+                    f"controller: first scale-up landed, SIGKILL at "
+                    f"{kill_t:.3f} s with {kill_depth} queued (exit "
+                    f"{killed}; log {boots[0].log.relative_to(ROOT)}: "
+                    f"{'...' if up else boots[0].tail()})")
+        boots.append(ControllerRun(argv, env, 2))
+
+        def probe() -> bool:
+            try:
+                status, body = http_get(
+                    f"http://127.0.0.1:{port}/healthz", timeout=2)
+            except OSError:
+                return False  # not listening yet
+            health.append((time.monotonic() - t0, status, body.strip()))
+            return status == 200
+
+        healthy = wait_for(probe, 30)
+        first = health[0] if health else None
+        _, scrape = http_get(f"http://127.0.0.1:{port}/metrics")
+        smoke.check(healthy and first is not None and first[1] == 503
+                    and first[2].startswith("rehydrating")
+                    and "kube_sqs_autoscaler_controller_restarts_total 1\n"
+                    in scrape,
+                    f"controller restart: /healthz answered {first} first, "
+                    f"then 200 after {len(health)} probes "
+                    f"({health[-1][0] if health else None} s); "
+                    f"controller_restarts_total 1 on /metrics: "
+                    f"{'controller_restarts_total 1' in scrape}")
+        # the drain, then the scale-down through the fault window to min
+        drained = wait_for(lambda: answered() >= CONTROLLER_BODIES
+                           and depth()["ApproximateNumberOfMessages"] == "0"
+                           and depth()[
+                               "ApproximateNumberOfMessagesNotVisible"] == "0",
+                           180)
+        drain_s = time.monotonic() - t0
+        back = wait_for(lambda: double.outage_from is not None
+                        and time.monotonic() > double.outage_from
+                        + CONTROLLER_OUTAGE_S and double.replicas == 1, 90)
+        time.sleep(1.5)  # one more tick after the last scale-down
+        _, scrape = http_get(f"http://127.0.0.1:{port}/metrics")
+        _, trace = http_get(f"http://127.0.0.1:{port}/debug/trace")
+        alive = boots[1].child.poll() is None
+        smoke.check(drained and back and alive,
+                    f"controller: drained {answered()} of "
+                    f"{CONTROLLER_BODIES} in {drain_s:.3f} s, back to "
+                    f"{double.replicas} replica(s), boot 2 alive {alive} "
+                    f"(log {boots[1].log.relative_to(ROOT)}: "
+                    f"{'...' if drained and back and alive else boots[1].tail()})")
+    finally:
+        done.set()
+        kubelet.join(timeout=10)
+        stopped = [boot.stop() for boot in boots[1:]]
+        pool.stop_all()
+        torch.cuda.synchronize()
+        launched = counts(flash)
+        attrs = depth()
+        got = drain_raw(replies, replies_url)
+        emulator.close()
+        double.close()
+    smoke.check(stopped == [0], f"controller: boot 2 exited {stopped} on "
+                f"SIGTERM")
+    duplicates = sum(len(bodies) - 1 for bodies in got.values())
+    smoke.check(sorted(got) == sorted(sent) and duplicates == 0
+                and attrs["ApproximateNumberOfMessages"] == "0"
+                and attrs["ApproximateNumberOfMessagesNotVisible"] == "0",
+                f"controller: {len(got)} of {len(sent)} bodies answered, "
+                f"{duplicates} duplicates, queue at the end {attrs}")
+    batches = sum(w.batches for w in built)
+    smoke.check(launched["flash_fwd"] == 4 * batches
+                and launched["flash_fwd_lse"] == 0 and batches > 0,
+                f"controller: flash_fwd launches {launched['flash_fwd']} = "
+                f"4 x {batches} prompt batches of {len(built)} workers, lse "
+                f"{launched['flash_fwd_lse']}")
+    families = ["ticks_total", "observations_total", "scale_events_total",
+                "scale_failures_total", "retries_total", "breaker_state",
+                "consecutive_scale_failures", "controller_restarts_total",
+                "tick_duration_seconds_bucket", "build_info"]
+    missing = [f for f in families
+               if f"kube_sqs_autoscaler_{f}" not in scrape]
+    smoke.check(not missing and '"name":"restart-rehydrated"' in trace,
+                f"controller /metrics: missing families {missing}; "
+                f"/debug/trace names restart-rehydrated: "
+                f"{'restart-rehydrated' in trace}")
+
+    episodes = read_journal_episodes(str(journal))
+    records = [r for _, rs in episodes for r in rs]
+    trajectory = journal_trajectory(episodes)
+    writes = double.writes()
+    smoke.check(len(episodes) == 2 and trajectory and max(trajectory) >= 2
+                and trajectory[-1] == 1 and trajectory[-1] == double.replicas
+                and [r for _, r in writes][-1:] == [1],
+                f"controller trajectory (journal, {len(records)} ticks in "
+                f"{len(episodes)} boots): {trajectory}; the double's writes "
+                f"{[(round(t - t0, 3), r) for t, r in writes]}")
+    ups = [t for (t, r), (_, before) in zip(writes, [(0, 1), *writes])
+           if r > before]
+    gaps = [b - a for a, b in zip(ups, ups[1:])]
+    kill_abs = t0 + kill_t
+    before_kill = [t for t in ups if t < kill_abs]
+    after_kill = [t for t in ups if t > kill_abs]
+    restart_gap = (after_kill[0] - before_kill[-1]
+                   if before_kill and after_kill else None)
+    smoke.check(all(g >= CONTROLLER_UP_COOLDOWN - CONTROLLER_GAP_SLACK
+                    for g in gaps),
+                f"controller: no scale-up inside the {CONTROLLER_UP_COOLDOWN}"
+                f" s cooldown: gaps between scale-ups {gaps} s; the first "
+                f"after the restart {restart_gap} s after the last before it")
+    states = [r.breaker_state for r in episodes[-1][1]]
+    opened = states.index("open") if "open" in states else None
+    rejected = [r for r in episodes[-1][1]
+                if "circuit breaker open" in (r.down_error or "")
+                or "circuit breaker open" in (r.up_error or "")]
+    probe_at = next((i for i in range(opened or 0, len(states))
+                     if opened is not None and states[i] == "closed"), None)
+    probe = episodes[-1][1][probe_at] if probe_at is not None else None
+    failed_puts = [t for t, m, s, _ in double.log if m == "PUT" and s == 503]
+    smoke.check(opened is not None and "closed" in states[:opened]
+                and bool(rejected) and probe is not None
+                and (probe.scaled("down") or probe.scaled("up"))
+                and bool(failed_puts),
+                f"controller fault window: {len(failed_puts)} PUTs answered "
+                f"503; breaker closed -> open (tick {opened}) -> "
+                f"{len(rejected)} tick(s) rejected while open -> half-open "
+                f"probe (tick {probe_at}, scaled "
+                f"{probe and (probe.scaled('down') or probe.scaled('up'))}) "
+                f"-> closed; retries {sum(r.scaler_retries or 0 for r in records)}")
+    spans = {name: [getattr(r, f) for r in records
+                    if getattr(r, f) is not None]
+             for name, f in (("observe", "observe_s"), ("decide", "decide_s"),
+                             ("actuate", "actuate_s"))}
+    p50 = {name: float(np.median(v)) * 1e3 if v else None
+           for name, v in spans.items()}
+    rate = CONTROLLER_BODIES / drain_s
+    timing = (kern or {}).get("timings", {}).get(MAIN_SHAPES[0])
+    busy = (launched["flash_fwd"] * timing["kernel_ms"] / (drain_s * 1e3)
+            if timing else None)
+    print(f"controller drain: {CONTROLLER_BODIES} bodies in {drain_s:.3f} s "
+          f"({rate:.3f} msgs/s over {len(built)} workers built); replica "
+          f"trajectory (t s, replicas) "
+          f"{[(round(t - t0, 3), r) for t, r in writes]}; worker threads "
+          f"{[(round(t, 3), n) for t, n in workers_seen]}", flush=True)
+    print(f"controller tick p50 ms: observe {p50['observe']}, decide "
+          f"{p50['decide']}, actuate {p50['actuate']} "
+          f"({len(records)} ticks)", flush=True)
+    print(f"controller: flash_fwd busy share of the drain "
+          f"{'not measured' if busy is None else f'{100 * busy:.3f}%'} "
+          f"(launches x the kernel's timed ms at {MAIN_SHAPES[0]} over the "
+          f"drain's wall)", flush=True)
+    return {"launches": launched["flash_fwd"], "batches": batches,
+            "drain_s": drain_s, "msgs_per_s": rate, "tick_p50_ms": p50,
+            "trajectory": [(t - t0, r) for t, r in writes],
+            "journal_trajectory": trajectory, "busy_share": busy,
+            "kill_t": kill_t, "health": health[:3] + health[-1:],
+            "restart_gap_s": restart_gap}
 
 
 # The sharded plane (shards phase): 4 engine shards of 8 slots behind one
@@ -4705,6 +5192,8 @@ def main() -> int:
     sqs = serve and smoke.phase("sqs", sqs_phase, torch, flash, smoke, serve)
     fleet = serve and smoke.phase("fleet", fleet_phase, torch, flash, smoke,
                                   serve)
+    ctrl = smoke.phase("controller", controller_phase, torch, flash, smoke,
+                       kern)
     shards = serve and stagger and smoke.phase(
         "shards", shards_phase, torch, flash, smoke, serve, stagger, fleet)
     llama = smoke.phase("llama", llama_phase, torch, flash, smoke)
@@ -4726,7 +5215,8 @@ def main() -> int:
     if smoke.failures or not (info and sass and resources and kern
                               and train_kern and path and serve and cycles
                               and stagger and rates and prof
-                              and serve_prof and sqs and fleet and shards
+                              and serve_prof and sqs and fleet and ctrl
+                              and shards
                               and llama and int8 and prefix and spec
                               and beams and slice_prof and sync and gelu
                               and tenancy and odd and f32_train
@@ -4745,6 +5235,8 @@ def main() -> int:
         # the bf16 fleet episode and the binary's --fleet-max-replicas
         "serve-fleet": fleet["bf16"]["launches"]
         + fleet["binary"]["launches"],
+        # the controller binary scaling an ElasticWorkerPool of batch workers
+        "serve-controller": ctrl["launches"],
         # the sharded plane: S = 1, the binary's --shards 4, the bf16
         # chaos episode (its resume inserts included)
         "serve-shards": shards["s1"]["launches"]

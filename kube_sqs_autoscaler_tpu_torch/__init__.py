@@ -17,4 +17,10 @@ from the JAX package's JAX-free modules it keeps as its own copies.
   (``csrc/flash_fwd.cu``, with and without the logsumexp) that every
   prompt pass and training forward on the card runs, and the backward
   (``csrc/flash_bwd.cu``: dq; dk with dv) of every training step.
+- :mod:`.cli` — the controller binary (``python -m
+  kube_sqs_autoscaler_tpu_torch``): the reference's flags, polling queue
+  depth and scaling a Deployment through :mod:`.core`, :mod:`.metrics`,
+  :mod:`.scale` and :mod:`.obs`, which import no torch.
 """
+
+__version__ = "0.5.0+torch"  # the reference package's version, port build

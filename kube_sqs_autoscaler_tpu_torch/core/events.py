@@ -1,18 +1,22 @@
 """Structured tick events: the loop's observability seam.
 
-The port's copy of :class:`TickRecord` and :class:`TickObserver` from
-``kube_sqs_autoscaler_tpu/core/events.py``.  The loop fills one
-:class:`TickRecord` per tick and hands it to an optional
+The port's copy of ``kube_sqs_autoscaler_tpu/core/events.py``.  The loop
+fills one :class:`TickRecord` per tick and hands it to an optional
 :class:`TickObserver`; an observer exception is logged and swallowed, so
 the loop's never-dies guarantee extends to instrumentation.
+:class:`CompositeTickObserver` (alias :data:`MultiObserver`) fans one
+record out to several observers.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, fields
 from typing import Any, Protocol, runtime_checkable
 
 from .policy import Gate
+
+log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -34,9 +38,16 @@ class TickRecord:
       under a ``FakeClock``; ``observe_s``/``decide_s``/``actuate_s`` split
       it into the tick's three phases.
 
-    The resilience fields (``stale`` through ``breaker_state``) keep the
-    reference's record shape; the port's loop has no resilience layer yet,
-    so they stay ``None`` and are absent from :meth:`to_dict`.
+    Resilience fields (``core/resilience.py``; all ``None``, and so absent
+    from journal lines, unless the opt-in layer produced them):
+
+    - ``stale`` is ``True`` when the poll failed but the tick proceeded on
+      the last good depth within the stale TTL (``num_messages`` is that
+      held depth; ``stale_age_s`` its age);
+    - ``metric_retries``/``scaler_retries`` count *extra* attempts the
+      retry policy spent this tick;
+    - ``breaker_state`` is the circuit breaker's state after the tick
+      (``closed``/``half_open``/``open``), present only with a breaker.
     """
 
     start: float
@@ -98,3 +109,23 @@ class TickObserver(Protocol):
     def on_tick(self, record: TickRecord) -> None:
         """Called once per completed tick, after all tick side effects."""
         ...
+
+
+class CompositeTickObserver:
+    """Fans one tick record out to several observers.  One observer
+    raising is logged and does not starve the others."""
+
+    def __init__(self, observers: list[TickObserver] | tuple[TickObserver, ...]):
+        self.observers = tuple(observers)
+
+    def on_tick(self, record: TickRecord) -> None:
+        for observer in self.observers:
+            try:
+                observer.on_tick(record)
+            except Exception:  # same never-dies guarantee as the loop's guard
+                log.exception("Tick observer %r failed", observer)
+
+
+# The fan-out under its observability name: the CLI wires Prometheus +
+# flight-recorder ring + journal through one of these.
+MultiObserver = CompositeTickObserver

@@ -716,15 +716,33 @@ class WorkerPool(FleetPoolBase):
 
 
 class FleetDriver:
-    """Interleaves fleet serving cycles with control-loop ticks.
+    """Interleaves fleet serving cycles with real control-loop ticks.
 
-    The loop under drive is the :class:`~..core.loop.ControlLoop`
-    (``loop.tick`` on its own clock, one tick per ``poll_interval``), the
-    actuator is the pool, and the world between ticks is serving.
-    ``loop=None`` drives the pool alone.  ``cycle_dt > 0`` advances a
-    :class:`~..core.clock.FakeClock` that much per cycle (the
-    deterministic mode); ``0`` reads real time.  ``fault_plan`` applies a
-    :class:`~..sim.faults.FleetFaultPlan`'s faults at their cycles.
+    The port's copy of the reference's ``FleetDriver``.  The loop under
+    drive is the REAL :class:`~..core.loop.ControlLoop`
+    (``loop.tick`` on its own clock, one tick per ``poll_interval``),
+    the actuator is the pool, and the world between ticks is actual
+    serving.  ``loop=None`` drives the pool alone (the chaos episodes
+    that need no autoscaler).  ``cycle_dt > 0`` advances a
+    :class:`~..core.clock.FakeClock` that much virtual time per cycle —
+    the deterministic demo mode; ``0`` reads real time (the bench).
+    ``fault_plan`` applies a :class:`~..sim.faults.FleetFaultPlan`'s
+    kills/hangs at their scheduled cycles.
+
+    **Controller crashes**: a
+    :class:`~..core.durable.ControllerCrash` escaping ``loop.tick`` —
+    injected by a :class:`~..sim.faults.CrashPlan` at any of its named
+    crash points — kills the whole controller process: loop AND pool
+    (they share it).  With a ``restart`` factory ``run`` then models
+    Kubernetes restarting the pod: it stops nothing (the dead pool's
+    in-flight work is simply abandoned to the queue's visibility
+    timeout, like real process death), advances ``downtime_s`` of
+    virtual time, asks the factory for a fresh ``(pool, loop)`` —
+    typically rehydrating from a :class:`~..core.durable`
+    snapshot — and resumes the episode.  Without a factory the crash
+    propagates (a crash the episode did not expect must fail it).
+    ``tick_index`` counts tick *attempts* across restarts — the index
+    a ``CrashPlan`` keys on.
     """
 
     def __init__(
@@ -734,12 +752,43 @@ class FleetDriver:
         *,
         cycle_dt: float = 0.0,
         fault_plan=None,
+        crash_plan=None,
+        restart: Callable[[], tuple] | None = None,
+        downtime_s: float = 0.0,
     ) -> None:
         self.pool = pool
         self.loop = loop
         self.cycle_dt = cycle_dt
         self.fault_plan = fault_plan
+        # the CrashPlan is consulted here only for its TICK-BOUNDARY
+        # kills (after journal + snapshot); the mid-tick crash points
+        # raise from inside the loop via the sim.faults wrappers
+        self.crash_plan = crash_plan
+        self.restart = restart
+        self.downtime_s = downtime_s
         self.ticks = 0
+        self.tick_index = 0  # tick ATTEMPTS, crashed ones included
+        self.crashes = 0
+        self.restarts = 0
+
+    def _crash_restart(self, clock):
+        """One controller death + pod restart (see class docstring)."""
+        from ..core.durable import ControllerCrash
+
+        self.crashes += 1
+        if self.restart is None:
+            raise ControllerCrash(
+                "controller crashed with no restart factory"
+            )
+        log.warning(
+            "Controller crashed at tick %d; restarting after %.1fs",
+            self.tick_index, self.downtime_s,
+        )
+        if self.downtime_s:
+            clock.advance(self.downtime_s)  # FakeClock only
+        self.pool, self.loop = self.restart()
+        self.restarts += 1
+        return self.loop.initial_policy_state()
 
     def run(
         self,
@@ -750,8 +799,11 @@ class FleetDriver:
     ) -> dict:
         """Drive until ``until_processed`` requests settled and the fleet
         is idle (or ``max_cycles``); returns summary stats.  ``until``
-        replaces the stop condition with a predicate evaluated after each
-        cycle."""
+        replaces the stop condition with an arbitrary predicate,
+        evaluated after each cycle (e.g. "all replies collected AND the
+        fleet scaled back down to min")."""
+        from ..core.durable import ControllerCrash
+
         clock = self.loop.clock if self.loop is not None else self.pool.clock
         state = None
         next_tick = None
@@ -768,10 +820,21 @@ class FleetDriver:
             if self.cycle_dt:
                 clock.advance(self.cycle_dt)  # FakeClock only
             if self.loop is not None and clock.now() >= next_tick:
-                state = self.loop.tick(state)
-                self.loop.ticks += 1
-                self.ticks += 1
-                trajectory.append(self.pool.replicas)
+                self.tick_index += 1
+                try:
+                    state = self.loop.tick(state)
+                except ControllerCrash:
+                    state = self._crash_restart(clock)
+                else:
+                    self.loop.ticks += 1
+                    self.ticks += 1
+                    trajectory.append(self.pool.replicas)
+                    if self.crash_plan is not None and \
+                            self.crash_plan.boundary_crash(
+                                self.tick_index - 1):
+                        # tick-boundary kill: journal line AND snapshot
+                        # landed; the restart must be seamless
+                        state = self._crash_restart(clock)
                 # re-anchor rather than accumulate: a long serve cycle
                 # must not cause a burst of catch-up ticks
                 next_tick = clock.now() + self.loop.config.poll_interval
@@ -790,4 +853,6 @@ class FleetDriver:
             "processed": self.pool.processed,
             "replica_trajectory": trajectory,
             "final_replicas": self.pool.replicas,
+            "crashes": self.crashes,
+            "restarts": self.restarts,
         }

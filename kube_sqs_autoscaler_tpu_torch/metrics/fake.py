@@ -1,15 +1,71 @@
-"""In-memory message queue with SQS-like semantics.
+"""In-memory queues: the attribute fake and a queue with SQS semantics.
 
-The port's copy of ``FakeMessageQueue`` from the JAX package's
-``metrics/fake.py``: send/receive/delete with visibility timeouts, so the
-worker binary's demo and the tests drive the real queue protocol without
-AWS.
+The port's copy of ``kube_sqs_autoscaler_tpu/metrics/fake.py``:
+:class:`FakeQueueService` is a settable attribute map behind the
+``QueueService`` seam the controller reads (with error injection);
+:class:`FakeMessageQueue` adds send/receive/delete with visibility
+timeouts, so the worker binary's demo and the tests drive the real queue
+protocol without AWS.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from typing import Mapping, Sequence
+
+
+class FakeQueueService:
+    """Settable attribute map behind the ``QueueService`` seam."""
+
+    def __init__(self, attributes: Mapping[str, str] | None = None):
+        self._lock = threading.Lock()
+        self._attributes: dict[str, str] = dict(attributes or {})
+        self.fail_next_get: Exception | None = None
+        self.get_calls = 0
+
+    @classmethod
+    def with_depths(
+        cls, visible: int, delayed: int = 0, not_visible: int = 0
+    ) -> "FakeQueueService":
+        """Seed the three default attributes (cf. ``main_test.go:289-293``)."""
+        return cls(
+            {
+                "ApproximateNumberOfMessages": str(visible),
+                "ApproximateNumberOfMessagesDelayed": str(delayed),
+                "ApproximateNumberOfMessagesNotVisible": str(not_visible),
+            }
+        )
+
+    def get_queue_attributes(
+        self, queue_url: str, attribute_names: Sequence[str]
+    ) -> Mapping[str, str]:
+        with self._lock:
+            self.get_calls += 1
+            if self.fail_next_get is not None:
+                err, self.fail_next_get = self.fail_next_get, None
+                raise err
+            # Like the reference mock (main_test.go:277-279), returns the
+            # whole stored map regardless of the requested names; the metric
+            # source picks out what it asked for.
+            return dict(self._attributes)
+
+    def set_queue_attributes(self, attributes: Mapping[str, str]) -> None:
+        """Test seam: replace the attribute map (``main_test.go:281-286``)."""
+        with self._lock:
+            self._attributes = dict(attributes)
+
+    def set_depths(
+        self, visible: int, delayed: int = 0, not_visible: int = 0
+    ) -> None:
+        """Convenience for the common three-attribute reseed."""
+        self.set_queue_attributes(
+            {
+                "ApproximateNumberOfMessages": str(visible),
+                "ApproximateNumberOfMessagesDelayed": str(delayed),
+                "ApproximateNumberOfMessagesNotVisible": str(not_visible),
+            }
+        )
 
 
 class FakeMessageQueue:

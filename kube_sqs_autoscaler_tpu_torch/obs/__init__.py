@@ -1,9 +1,40 @@
-"""Observability of the serving worker and its fleet: the Prometheus
-registry (:class:`WorkloadMetrics`), the ``/metrics`` server and the
-fleet's Chrome-trace instants.  Standard library only."""
+"""Observability of the controller, the serving worker and its fleet: the
+Prometheus registries (:class:`ControllerMetrics`, :class:`WorkloadMetrics`),
+the flight recorder (:class:`TickRing`, :class:`TickJournal` and its
+readers), the Chrome-trace export and the HTTP endpoints.  Standard library
+only."""
 
-from .prometheus import WorkloadMetrics
+from .journal import (
+    JOURNAL_SCHEMA_VERSION,
+    JournalSchemaError,
+    TickJournal,
+    TickRing,
+    read_journal,
+    read_journal_episodes,
+    read_journal_events,
+)
+from .prometheus import ControllerMetrics, WorkloadMetrics
 from .server import ObservabilityServer
-from .trace import instant_trace_events
+from .trace import (
+    instant_trace_events,
+    render_chrome_trace,
+    to_chrome_trace,
+    trace_events,
+)
 
-__all__ = ["ObservabilityServer", "WorkloadMetrics", "instant_trace_events"]
+__all__ = [
+    "ControllerMetrics",
+    "JOURNAL_SCHEMA_VERSION",
+    "JournalSchemaError",
+    "ObservabilityServer",
+    "TickJournal",
+    "TickRing",
+    "WorkloadMetrics",
+    "instant_trace_events",
+    "read_journal",
+    "read_journal_episodes",
+    "read_journal_events",
+    "render_chrome_trace",
+    "to_chrome_trace",
+    "trace_events",
+]

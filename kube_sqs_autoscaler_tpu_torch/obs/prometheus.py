@@ -1,16 +1,36 @@
-"""Prometheus registry of the serving worker: ``WorkloadMetrics``.
+"""Prometheus registries: the controller's ``ControllerMetrics`` and the
+serving worker's ``WorkloadMetrics``.
 
-The port's copy of ``WorkloadMetrics`` from
-``kube_sqs_autoscaler_tpu/obs/prometheus.py``: gauges, cumulative
-histograms and span-timer summaries in the Prometheus text format 0.0.4,
-standard library only.  Thread-safe: the worker's cycle thread writes,
-the HTTP handler threads render.  Every value here is a host number the
-worker wrote; rendering never touches a device tensor.
+The port's copy of ``kube_sqs_autoscaler_tpu/obs/prometheus.py``.
+:class:`ControllerMetrics` aggregates the loop's tick records (a
+:class:`~..core.events.TickObserver`), with the resilience layer's
+counters and the durable store's restart gauges; :class:`WorkloadMetrics`
+holds the worker's gauges, cumulative histograms and span-timer
+summaries.  Both render the Prometheus text format 0.0.4, standard
+library only, and are thread-safe: the loop or the worker's cycle thread
+writes, the HTTP handler threads render.  Every value here is a host
+number; rendering never touches a device tensor.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+
+from ..core.events import TickRecord
+from ..core.policy import Gate
+from ..core.resilience import BREAKER_STATE_CODES
+
+_PREFIX = "kube_sqs_autoscaler"
+
+# Tick latency histogram buckets (seconds).  A tick is two RPC round trips
+# (SQS read + at most two apiserver writes): sub-ms in simulation, tens to
+# hundreds of ms in production, pathological past 1 s — the buckets bracket
+# all three regimes.  Cumulative ``le`` semantics; +Inf is the count.
+TICK_DURATION_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
 
 
 def escape_help(text: str) -> str:
@@ -24,6 +44,356 @@ def escape_label_value(text: str) -> str:
     return (
         text.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
     )
+
+
+class ControllerMetrics:
+    """Tick-record aggregator + Prometheus text renderer.
+
+    Implements the :class:`~..core.events.TickObserver` protocol; pass as
+    ``ControlLoop(observer=...)``.
+    """
+
+    def __init__(
+        self,
+        version: str | None = None,
+        policy: str = "reactive",
+        forecaster: str = "",
+    ) -> None:
+        if version is None:
+            from .. import __version__ as version  # the package's own build id
+        self._build_labels = (
+            ("version", version), ("policy", policy), ("forecaster", forecaster)
+        )
+        self._started_monotonic = time.monotonic()
+        self._lock = threading.Lock()
+        self._ticks = 0
+        self._observations = 0
+        self._metric_failures = 0
+        self._queue_messages: int | None = None
+        self._decision_messages: int | None = None
+        self._predicted_messages: int | None = None
+        self._forecast_abs_error: float | None = None
+        self._cooldown_skips = {"up": 0, "down": 0}
+        self._scale_events = {"up": 0, "down": 0}
+        self._scale_failures = {"up": 0, "down": 0}
+        self._tick_seconds_sum = 0.0
+        self._tick_bucket_counts = [0] * len(TICK_DURATION_BUCKETS)
+        # Resilience layer (core/resilience.py): degradation visibility.
+        self._stale_ticks = 0
+        self._retries = {"metric": 0, "scaler": 0}
+        self._breaker_state: str | None = None
+        self._consecutive_metric_failures = 0
+        self._consecutive_scale_failures = 0
+        self._last_successful_poll: float | None = None  # unix seconds
+        self._last_successful_scale: float | None = None
+        self._last_tick_monotonic: float | None = None
+        # Durable control-plane restarts (core/durable.py): the store
+        # pushes its RehydrationReport here; the rehydrating flag gates
+        # /healthz at 503 until the first post-restart tick completes
+        # (readiness must not route to a controller still reconciling).
+        self._rehydrating = False
+        self._restarts_total = 0
+        self._rehydration_duration: float | None = None
+        self._snapshot_age: float | None = None
+        self._records_recovered: int | None = None
+        self._records_expired: int | None = None
+
+    def begin_rehydration(self) -> None:
+        """The controller is reconciling restored state against the
+        world; ``/healthz`` answers 503 until the next completed tick."""
+        with self._lock:
+            self._rehydrating = True
+
+    @property
+    def rehydrating(self) -> bool:
+        with self._lock:
+            return self._rehydrating
+
+    def set_rehydration(self, report) -> None:
+        """Record a :class:`~..core.durable.RehydrationReport`'s numbers
+        (restart counter, duration, snapshot age, recovered/expired)."""
+        with self._lock:
+            self._restarts_total = int(getattr(report, "restarts", 0) or 0)
+            self._rehydration_duration = float(
+                getattr(report, "duration_s", 0.0) or 0.0
+            )
+            self._snapshot_age = float(
+                getattr(report, "snapshot_age_s", 0.0) or 0.0
+            )
+            self._records_recovered = int(
+                getattr(report, "records_recovered", 0) or 0
+            )
+            self._records_expired = int(
+                getattr(report, "records_expired", 0) or 0
+            )
+
+    def on_tick(self, record: TickRecord) -> None:
+        with self._lock:
+            self._ticks += 1
+            self._rehydrating = False  # first post-restart tick completed
+            self._last_tick_monotonic = time.monotonic()
+            self._tick_seconds_sum += record.duration
+            for i, le in enumerate(TICK_DURATION_BUCKETS):
+                if record.duration <= le:
+                    self._tick_bucket_counts[i] += 1
+            self._retries["metric"] += record.metric_retries or 0
+            self._retries["scaler"] += record.scaler_retries or 0
+            if record.breaker_state is not None:
+                self._breaker_state = record.breaker_state
+            # A stale-held tick IS a failed poll (the hold is the degraded
+            # response to it): the consecutive-failure gauge must climb
+            # through a blackout even while depth holds keep the gates fed.
+            if record.metric_error is not None or record.stale:
+                self._consecutive_metric_failures += 1
+            else:
+                self._consecutive_metric_failures = 0
+                self._last_successful_poll = time.time()
+            if record.stale:
+                self._stale_ticks += 1
+            if record.metric_error is not None:
+                self._metric_failures += 1
+                return
+            if not record.stale:
+                # a stale tick proceeded to the gates, but it is NOT a
+                # successful queue read: readiness and the observed-depth
+                # gauge stay pinned to genuinely fresh observations
+                self._observations += 1
+                self._queue_messages = record.num_messages
+            if record.scaled("up") or record.scaled("down"):
+                self._consecutive_scale_failures = 0
+                self._last_successful_scale = time.time()
+            elif record.up_error is not None or record.down_error is not None:
+                self._consecutive_scale_failures += 1
+            # unconditional: a tick without a forecast (reactive, warm-up,
+            # or a failing depth policy) must CLEAR the forecast gauges —
+            # latching the last success would export an arbitrarily stale
+            # forecast as live (the loop's no-stale-forecast contract).
+            self._decision_messages = record.decision_messages
+            self._predicted_messages = record.predicted_messages
+            self._forecast_abs_error = record.forecast_error
+            for direction, gate, error in (
+                ("up", record.up, record.up_error),
+                ("down", record.down, record.down_error),
+            ):
+                if gate is Gate.COOLING:
+                    self._cooldown_skips[direction] += 1
+                elif gate is Gate.FIRE:
+                    if error is None:
+                        self._scale_events[direction] += 1
+                    else:
+                        self._scale_failures[direction] += 1
+
+    @property
+    def ready(self) -> bool:
+        """Readiness = at least one successful queue observation."""
+        with self._lock:
+            return self._observations > 0
+
+    def seconds_since_last_tick(self) -> float:
+        """Wall seconds since the last completed tick (registry creation
+        before the first one) — the liveness signal behind the server's
+        ``--healthz-stale-after`` staleness threshold."""
+        with self._lock:
+            base = (
+                self._last_tick_monotonic
+                if self._last_tick_monotonic is not None
+                else self._started_monotonic
+            )
+        return time.monotonic() - base
+
+    def render(self) -> str:
+        """The registry as Prometheus text exposition format 0.0.4."""
+        with self._lock:
+            lines = [
+                f"# HELP {_PREFIX}_ticks_total Completed control-loop ticks.",
+                f"# TYPE {_PREFIX}_ticks_total counter",
+                f"{_PREFIX}_ticks_total {self._ticks}",
+                f"# HELP {_PREFIX}_observations_total Successful queue-depth reads.",
+                f"# TYPE {_PREFIX}_observations_total counter",
+                f"{_PREFIX}_observations_total {self._observations}",
+                f"# HELP {_PREFIX}_metric_failures_total Failed queue-depth reads.",
+                f"# TYPE {_PREFIX}_metric_failures_total counter",
+                f"{_PREFIX}_metric_failures_total {self._metric_failures}",
+                f"# HELP {_PREFIX}_queue_messages Last observed queue depth.",
+                f"# TYPE {_PREFIX}_queue_messages gauge",
+            ]
+            if self._queue_messages is not None:
+                lines.append(f"{_PREFIX}_queue_messages {self._queue_messages}")
+            lines += [
+                f"# HELP {_PREFIX}_predicted_queue_messages Effective depth"
+                " the depth policy substituted this tick: the forecast at"
+                " now + horizon (predictive) or the network's decision"
+                " depth (learned).",
+                f"# TYPE {_PREFIX}_predicted_queue_messages gauge",
+            ]
+            if self._predicted_messages is not None:
+                lines.append(
+                    f"{_PREFIX}_predicted_queue_messages"
+                    f" {self._predicted_messages}"
+                )
+            lines += [
+                f"# HELP {_PREFIX}_decision_messages Depth the scaling gates"
+                " thresholded on this tick (= observed depth when reactive).",
+                f"# TYPE {_PREFIX}_decision_messages gauge",
+            ]
+            if self._decision_messages is not None:
+                lines.append(
+                    f"{_PREFIX}_decision_messages {self._decision_messages}"
+                )
+            lines += [
+                f"# HELP {_PREFIX}_forecast_abs_error |forecast - actual| for"
+                " the latest matured forecast (messages).",
+                f"# TYPE {_PREFIX}_forecast_abs_error gauge",
+            ]
+            if self._forecast_abs_error is not None:
+                lines.append(
+                    f"{_PREFIX}_forecast_abs_error {self._forecast_abs_error}"
+                )
+            lines += [
+                f"# HELP {_PREFIX}_scale_events_total Successful scale actuations"
+                " (includes boundary no-ops, which the reference counts as"
+                " success).",
+                f"# TYPE {_PREFIX}_scale_events_total counter",
+            ]
+            lines += self._directional(self._scale_events, "scale_events_total")
+            lines += [
+                f"# HELP {_PREFIX}_scale_failures_total Failed scale actuations.",
+                f"# TYPE {_PREFIX}_scale_failures_total counter",
+            ]
+            lines += self._directional(self._scale_failures, "scale_failures_total")
+            lines += [
+                f"# HELP {_PREFIX}_cooldown_skips_total Ticks skipped in cooldown.",
+                f"# TYPE {_PREFIX}_cooldown_skips_total counter",
+            ]
+            lines += self._directional(self._cooldown_skips, "cooldown_skips_total")
+            # Real cumulative histogram (was a 2-sample summary); the
+            # _sum/_count names are unchanged so existing dashboards keep
+            # working and rate(_sum)/rate(_count) stays the mean latency.
+            lines += [
+                f"# HELP {_PREFIX}_tick_duration_seconds Tick latency"
+                " (observe + decide + actuate).",
+                f"# TYPE {_PREFIX}_tick_duration_seconds histogram",
+            ]
+            for le, count in zip(
+                TICK_DURATION_BUCKETS, self._tick_bucket_counts
+            ):
+                lines.append(
+                    f'{_PREFIX}_tick_duration_seconds_bucket{{le="{le:g}"}}'
+                    f" {count}"
+                )
+            lines += [
+                f'{_PREFIX}_tick_duration_seconds_bucket{{le="+Inf"}}'
+                f" {self._ticks}",
+                f"{_PREFIX}_tick_duration_seconds_sum {self._tick_seconds_sum}",
+                f"{_PREFIX}_tick_duration_seconds_count {self._ticks}",
+            ]
+            # Resilience layer: degradation made scrapable.  The counters
+            # always render (zero = healthy); the breaker gauge and the
+            # last-success timestamps render once they have a value
+            # (no breaker configured / nothing succeeded yet).
+            lines += [
+                f"# HELP {_PREFIX}_stale_ticks_total Ticks that proceeded"
+                " on a held (stale) queue depth after a failed poll.",
+                f"# TYPE {_PREFIX}_stale_ticks_total counter",
+                f"{_PREFIX}_stale_ticks_total {self._stale_ticks}",
+                f"# HELP {_PREFIX}_retries_total Extra RPC attempts spent"
+                " by the retry policy.",
+                f"# TYPE {_PREFIX}_retries_total counter",
+            ]
+            lines += [
+                f'{_PREFIX}_retries_total{{call="{call}"}} {count}'
+                for call, count in self._retries.items()
+            ]
+            lines += [
+                f"# HELP {_PREFIX}_consecutive_metric_failures Failed polls"
+                " (incl. stale holds) since the last fresh observation.",
+                f"# TYPE {_PREFIX}_consecutive_metric_failures gauge",
+                f"{_PREFIX}_consecutive_metric_failures"
+                f" {self._consecutive_metric_failures}",
+                f"# HELP {_PREFIX}_consecutive_scale_failures Failed"
+                " actuations since the last successful one.",
+                f"# TYPE {_PREFIX}_consecutive_scale_failures gauge",
+                f"{_PREFIX}_consecutive_scale_failures"
+                f" {self._consecutive_scale_failures}",
+                f"# HELP {_PREFIX}_breaker_state Scaler circuit breaker"
+                " state (0=closed, 1=half_open, 2=open).",
+                f"# TYPE {_PREFIX}_breaker_state gauge",
+            ]
+            if self._breaker_state is not None:
+                lines.append(
+                    f"{_PREFIX}_breaker_state"
+                    f" {BREAKER_STATE_CODES[self._breaker_state]}"
+                )
+            lines += [
+                f"# HELP {_PREFIX}_last_successful_poll_timestamp Unix time"
+                " of the last fresh queue observation.",
+                f"# TYPE {_PREFIX}_last_successful_poll_timestamp gauge",
+            ]
+            if self._last_successful_poll is not None:
+                lines.append(
+                    f"{_PREFIX}_last_successful_poll_timestamp"
+                    f" {self._last_successful_poll}"
+                )
+            lines += [
+                f"# HELP {_PREFIX}_last_successful_scale_timestamp Unix"
+                " time of the last successful scale actuation.",
+                f"# TYPE {_PREFIX}_last_successful_scale_timestamp gauge",
+            ]
+            if self._last_successful_scale is not None:
+                lines.append(
+                    f"{_PREFIX}_last_successful_scale_timestamp"
+                    f" {self._last_successful_scale}"
+                )
+            # Durable restart visibility (core/durable.py): the restart
+            # counter always renders (0 = never restarted); the report
+            # gauges render once a rehydration produced them.
+            lines += [
+                f"# HELP {_PREFIX}_controller_restarts_total Controller"
+                " restarts observed via the durable snapshot chain"
+                " (0 = first boot or durability disabled).",
+                f"# TYPE {_PREFIX}_controller_restarts_total counter",
+                f"{_PREFIX}_controller_restarts_total {self._restarts_total}",
+            ]
+            for name, value, help_text in (
+                ("rehydration_duration_seconds", self._rehydration_duration,
+                 "Wall seconds the last startup rehydration took."),
+                ("snapshot_age_seconds", self._snapshot_age,
+                 "Age of the snapshot the last rehydration loaded"
+                 " (the restart's downtime)."),
+                ("state_records_recovered", self._records_recovered,
+                 "Control-state records the last rehydration restored."),
+                ("state_records_expired", self._records_expired,
+                 "Control-state records the last rehydration expired or"
+                 " refused (wall-clock TTLs, schema/hash refusals)."),
+            ):
+                lines += [
+                    f"# HELP {_PREFIX}_{name} {help_text}",
+                    f"# TYPE {_PREFIX}_{name} gauge",
+                ]
+                if value is not None:
+                    lines.append(f"{_PREFIX}_{name} {value}")
+            build_labels = ",".join(
+                f'{name}="{escape_label_value(value)}"'
+                for name, value in self._build_labels
+            )
+            lines += [
+                f"# HELP {_PREFIX}_build_info Constant 1; controller"
+                " build/config identity in the labels.",
+                f"# TYPE {_PREFIX}_build_info gauge",
+                f"{_PREFIX}_build_info{{{build_labels}}} 1",
+                f"# HELP {_PREFIX}_process_uptime_seconds Seconds since the"
+                " controller metrics registry was created.",
+                f"# TYPE {_PREFIX}_process_uptime_seconds gauge",
+                f"{_PREFIX}_process_uptime_seconds"
+                f" {round(time.monotonic() - self._started_monotonic, 3)}",
+            ]
+            return "\n".join(lines) + "\n"
+
+    @staticmethod
+    def _directional(values: dict[str, int], name: str) -> list[str]:
+        return [
+            f'{_PREFIX}_{name}{{direction="{d}"}} {v}' for d, v in values.items()
+        ]
 
 
 _WORKLOAD_PREFIX = "kube_sqs_autoscaler_workload"

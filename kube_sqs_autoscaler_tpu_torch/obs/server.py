@@ -1,63 +1,151 @@
-"""HTTP endpoints of the serving worker: ``/metrics``, ``/healthz``,
-``/readyz``.
+"""HTTP endpoints of the controller and the serving worker.
 
-The port's copy of the metrics and health part of
-``kube_sqs_autoscaler_tpu/obs/server.py``'s ``ObservabilityServer``: a
-standard-library ``ThreadingHTTPServer`` on a daemon thread serving
+The port's copy of ``kube_sqs_autoscaler_tpu/obs/server.py``'s
+``ObservabilityServer`` (the request and topology endpoints wait for the
+request-lifecycle registry and the comms planner): a standard-library
+``ThreadingHTTPServer`` on a daemon thread serving
 
-- ``/metrics`` — a :class:`~.prometheus.WorkloadMetrics` registry in the
-  Prometheus text format;
-- ``/healthz`` — liveness: 200 while the process serves requests;
-- ``/readyz`` — readiness: 503 until the registry holds a first sample,
-  200 after.
+- ``/metrics`` — the registry (:class:`~.prometheus.ControllerMetrics` or
+  :class:`~.prometheus.WorkloadMetrics`) in the Prometheus text format;
+- ``/healthz`` — liveness: 200 while the process serves requests; 503
+  "rehydrating" while a restarted controller has not completed its first
+  tick (``core/durable.py``); with ``unhealthy_after > 0``
+  (``--healthz-stale-after``) 503 once no tick has completed for that
+  long, so a wedged loop gets restarted;
+- ``/readyz`` — readiness: 503 until the registry holds a first
+  successful observation (and while rehydrating), 200 after;
+- ``/debug/ticks`` — the flight recorder's most recent tick records as
+  JSON (``?n=`` limits to the last N), when a :class:`~.journal.TickRing`
+  is attached;
+- ``/debug/trace`` — the same ring as Chrome/Perfetto trace-event JSON,
+  with the instants of every ``trace_sources`` object (e.g. the durable
+  store's restart instants) beside the ticks.
 
-Disabled unless the worker binary gets ``--metrics-port``.  The tick
-journal, trace, request and topology endpoints wait for the controller's
-port.
+Disabled unless a binary gets ``--metrics-port``.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from .prometheus import WorkloadMetrics
+from .journal import JOURNAL_SCHEMA_VERSION, TickRing
+from .trace import instant_trace_events, render_chrome_trace
 
 log = logging.getLogger(__name__)
 
 
 class ObservabilityServer:
-    """Serves one metrics registry; ``port=0`` binds an ephemeral port."""
+    """Serves one metrics registry; ``port=0`` binds an ephemeral port.
+
+    ``ring`` (optional) enables the ``/debug/ticks`` and ``/debug/trace``
+    flight-recorder endpoints; without it they 404 like any unknown path.
+    ``trace_sources`` are objects with an ``events`` iterable of
+    ``(name, t, args)``-shaped instants on the tick clock.
+    """
 
     def __init__(
         self,
-        metrics: WorkloadMetrics,
+        metrics,
         host: str = "0.0.0.0",
         port: int = 8080,
+        ring: TickRing | None = None,
+        unhealthy_after: float = 0.0,
+        trace_sources: tuple = (),
     ) -> None:
         self.metrics = metrics
+        self.ring = ring
+        self.unhealthy_after = unhealthy_after
         registry = metrics  # close over for the handler class
+        tick_ring = ring
+        stale_after = unhealthy_after
+        sources = tuple(trace_sources)
 
         class Handler(BaseHTTPRequestHandler):
             def do_GET(self) -> None:  # noqa: N802 (http.server API)
-                path = urllib.parse.urlsplit(self.path).path
-                if path == "/metrics":
+                url = urllib.parse.urlsplit(self.path)
+                if url.path == "/metrics":
                     self._reply(
                         200,
                         registry.render(),
                         "text/plain; version=0.0.4; charset=utf-8",
                     )
-                elif path == "/healthz":
-                    self._reply(200, "ok\n")
-                elif path == "/readyz":
-                    if registry.ready:
+                elif url.path == "/healthz":
+                    # a restarted controller answers 503 until its first
+                    # post-restart tick completes (WorkloadMetrics has no
+                    # rehydration state and stays healthy)
+                    if getattr(registry, "rehydrating", False):
+                        self._reply(
+                            503,
+                            "rehydrating: restored control-plane state"
+                            " not yet reconciled (first post-restart"
+                            " tick pending)\n",
+                        )
+                        return
+                    since = getattr(registry, "seconds_since_last_tick", None)
+                    if stale_after > 0 and since is not None and (
+                        since() > stale_after
+                    ):
+                        self._reply(
+                            503,
+                            f"no tick progress in {since():.0f}s"
+                            f" (threshold {stale_after:g}s)\n",
+                        )
+                    else:
+                        self._reply(200, "ok\n")
+                elif url.path == "/readyz":
+                    if getattr(registry, "rehydrating", False):
+                        self._reply(
+                            503,
+                            "rehydrating: restored control-plane state"
+                            " not yet reconciled\n",
+                        )
+                    elif registry.ready:
                         self._reply(200, "ok\n")
                     else:
-                        self._reply(503, "waiting for a first sample\n")
+                        self._reply(
+                            503, "waiting for first successful observation\n"
+                        )
+                elif url.path == "/debug/ticks" and tick_ring is not None:
+                    self._reply(
+                        200, self._ticks_body(url.query), "application/json"
+                    )
+                elif url.path == "/debug/trace" and tick_ring is not None:
+                    records = tick_ring.snapshot()
+                    origin = records[0].start if records else None
+                    extra = [
+                        event
+                        for source in sources
+                        for event in instant_trace_events(
+                            source.events, time_origin=origin
+                        )
+                    ]
+                    self._reply(
+                        200,
+                        render_chrome_trace(records, extra_events=extra),
+                        "application/json",
+                    )
                 else:
                     self._reply(404, "not found\n")
+
+            @staticmethod
+            def _ticks_body(query: str) -> str:
+                params = urllib.parse.parse_qs(query)
+                try:
+                    last = int(params["n"][0])
+                except (KeyError, IndexError, ValueError):
+                    last = 100
+                records = tick_ring.snapshot(last=last)
+                return json.dumps(
+                    {
+                        "schema": JOURNAL_SCHEMA_VERSION,
+                        "ticks": [r.to_dict() for r in records],
+                    },
+                    separators=(",", ":"),
+                )
 
             def _reply(
                 self, status: int, body: str, content_type: str = "text/plain"
@@ -86,8 +174,10 @@ class ObservabilityServer:
             target=self._server.serve_forever, name="obs-http", daemon=True,
         )
         self._thread.start()
-        log.info("Observability endpoints on :%d (/metrics /healthz /readyz)",
-                 self.port)
+        endpoints = "/metrics /healthz /readyz" + (
+            " /debug/ticks /debug/trace" if self.ring is not None else ""
+        )
+        log.info("Observability endpoints on :%d (%s)", self.port, endpoints)
 
     def stop(self) -> None:
         self._server.shutdown()

@@ -40,6 +40,7 @@ from kube_sqs_autoscaler_tpu.workloads import model as jax_model
 from kube_sqs_autoscaler_tpu_torch.core import policy
 from kube_sqs_autoscaler_tpu_torch.core.clock import FakeClock
 from kube_sqs_autoscaler_tpu_torch.core.loop import ControlLoop, LoopConfig
+from kube_sqs_autoscaler_tpu_torch.core.resilience import ResilienceConfig
 from kube_sqs_autoscaler_tpu_torch.core.types import ScaleError, Scaler
 from kube_sqs_autoscaler_tpu_torch.fleet import (
     DEAD,
@@ -277,8 +278,10 @@ def test_pool_failure_seam_and_bounds():
         WorkerPool(lambda p: _StubWorker(), min=1, max=2, hang_grace_cycles=1)
     with pytest.raises(ValueError, match="not yet ported"):
         FleetFaultPlan(admission_kills=((1, 0),))
-    with pytest.raises(ValueError, match="not yet ported"):
-        ControlLoop(pool, _Scripted([1]), resilience=object())
+    # the loop's resilience layer is ported: an enabled config binds it
+    loop = ControlLoop(pool, _Scripted([1]),
+                       resilience=ResilienceConfig(scaler_retries=1))
+    assert loop.resilience is not None
 
 
 def test_reply_registry_is_bounded_and_survives_export_import():

@@ -1,8 +1,9 @@
 """The port stands alone: no ``jax`` and nothing of the JAX package.
 
 An AST scan of every module of ``kube_sqs_autoscaler_tpu_torch`` (its
-``core``, ``fleet``, ``metrics``, ``obs``, ``sim``, ``utils`` and
-``workloads`` subpackages) and of ``chip_smoke.py`` finds no such import,
+``core``, ``fleet``, ``metrics``, ``obs``, ``scale``, ``sim``, ``utils``
+and ``workloads`` subpackages, ``cli.py`` and ``__main__.py``) and of
+``chip_smoke.py`` finds no such import,
 and a subprocess in which ``jax``, ``jaxlib`` and
 ``kube_sqs_autoscaler_tpu`` cannot be imported still imports the port and
 runs a tiny forward, generate, worker cycle, continuous-worker drain,
@@ -12,7 +13,9 @@ drain, int8 weights, int8 KV cache, chunk decode and shared-prefix serving
 of both families, speculative and beam generation and their slot engines,
 a tenancy worker with its prefix pool, and train step on the CPU.  The
 control-plane subpackages import no torch at all, so importing the fleet
-starts no CUDA work and builds no kernel.
+starts no CUDA work and builds no kernel; the controller binary runs a
+``FakeClock`` episode with its resilience layer and durable state in a
+subprocess where ``torch`` cannot be imported either.
 """
 
 import ast
@@ -41,7 +44,7 @@ def absolute_imports(path: Path) -> list[str]:
     return names
 
 
-SUBPACKAGES = ("core", "fleet", "metrics", "obs", "sim", "utils",
+SUBPACKAGES = ("core", "fleet", "metrics", "obs", "scale", "sim", "utils",
                "workloads")
 
 
@@ -53,6 +56,7 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     assert PORT / "workloads" / "quantize.py" in files
     assert PORT / "workloads" / "speculative.py" in files
     assert PORT / "workloads" / "beam.py" in files
+    assert PORT / "cli.py" in files and PORT / "__main__.py" in files
     offenders = {
         str(path.relative_to(ROOT)): name
         for path in files for name in absolute_imports(path) if banned(name)
@@ -246,7 +250,10 @@ def test_the_control_plane_imports_no_torch():
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
-        "from kube_sqs_autoscaler_tpu_torch import core, fleet, obs, sim\n"
+        "from kube_sqs_autoscaler_tpu_torch import cli, core, fleet, obs, sim\n"
+        "from kube_sqs_autoscaler_tpu_torch import scale\n"
+        "from kube_sqs_autoscaler_tpu_torch.scale import kube\n"
+        "from kube_sqs_autoscaler_tpu_torch.core import durable\n"
         "from kube_sqs_autoscaler_tpu_torch import metrics\n"
         "from kube_sqs_autoscaler_tpu_torch.fleet import __main__, sharded\n"
         "from kube_sqs_autoscaler_tpu_torch.utils import profiling, sigv4\n"
@@ -257,3 +264,64 @@ def test_the_control_plane_imports_no_torch():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+CONTROLLER = """
+import sys
+for name in list(sys.modules):
+    if name.split(".")[0] in {banned}:
+        del sys.modules[name]
+for name in {banned}:
+    sys.modules[name] = None
+import tempfile
+import kube_sqs_autoscaler_tpu_torch.cli
+from kube_sqs_autoscaler_tpu_torch.core import FakeClock, ControlLoop
+from kube_sqs_autoscaler_tpu_torch.core import LoopConfig, PolicyConfig
+from kube_sqs_autoscaler_tpu_torch.core import ResilienceConfig
+from kube_sqs_autoscaler_tpu_torch.core.durable import DurableStateStore
+from kube_sqs_autoscaler_tpu_torch.metrics import FakeQueueService
+from kube_sqs_autoscaler_tpu_torch.metrics import QueueMetricSource
+from kube_sqs_autoscaler_tpu_torch.obs import ControllerMetrics, TickJournal
+from kube_sqs_autoscaler_tpu_torch.scale import FakeDeploymentAPI
+from kube_sqs_autoscaler_tpu_torch.scale import PodAutoScaler
+from kube_sqs_autoscaler_tpu_torch.sim import Blackout, FaultyScaler
+
+with tempfile.TemporaryDirectory() as tmp:
+    clock = FakeClock()
+    api = FakeDeploymentAPI.with_deployments("ns", 1, "w")
+    store = DurableStateStore(tmp + "/s.json", wall_clock=clock.now)
+    loop = ControlLoop(
+        FaultyScaler(PodAutoScaler(client=api, max=4, min=1, scale_up_pods=1,
+                                   scale_down_pods=1, deployment="w",
+                                   namespace="ns"),
+                     Blackout(start=5.0, duration=6.0, metric=False,
+                              scale=True), clock),
+        QueueMetricSource(FakeQueueService.with_depths(500), "q",
+                          ("ApproximateNumberOfMessages",)),
+        LoopConfig(poll_interval=1.0, policy=PolicyConfig(
+            scale_up_cooldown=2.0)),
+        clock=clock, resilience=ResilienceConfig(
+            scaler_retries=1, breaker_failures=2, breaker_reset=3.0),
+        durable=store)
+    store.register("resilience", loop.resilience)
+    metrics = ControllerMetrics()
+    journal = TickJournal(tmp + "/j.jsonl")
+    from kube_sqs_autoscaler_tpu_torch.core.events import MultiObserver
+    loop.observer = MultiObserver([metrics, journal])
+    loop.run(max_ticks=20)
+    journal.close()
+    assert api.replicas("w") == 4 and store.snapshots_written == 20
+    assert "kube_sqs_autoscaler_breaker_state 0" in metrics.render()
+assert not any(n.split(".")[0] in {banned} and sys.modules[n] is not None
+               for n in sys.modules)
+print("ok")
+"""
+
+
+def test_controller_runs_with_torch_and_jax_unimportable():
+    banned = set(BANNED) | {"torch", "numpy"}
+    out = subprocess.run(
+        [sys.executable, "-c", CONTROLLER.replace("{banned}", repr(banned))],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
