@@ -176,10 +176,30 @@ Phases (any failure makes the run exit non-zero and print no result):
    one reply or error reply each); warm rates and per-tenant TTFT beside
    tenancy off with the prefix prepended (bf16 replies counted); a
    profiled tenancy drain;
-18. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
+18. planes: the serving planes at both models' full width, bf16 (f32 for
+   the parity gates): (a) tenancy on a ``--shards 4`` plane under the
+   tenancy phase's flood traffic, DRR and FIFO (exactly once, the
+   victims' wait lower under DRR, sticky homes held with the spills
+   counted, one pool install a (tenant, shard) pair first seen; f32 pooled
+   replies against ``generate`` of prefix and suffix joined); (b) the
+   GPT's run with ``--admission-shards 4``, the flood's admission shard
+   killed mid-flood and another gossip-partitioned (exactly once, its
+   staged requests handed back and served, the shard rehydrated); (c)
+   speculative rows on the decode plane (``--shards 4
+   --speculative-draft-layers 2 --speculative-draft-tokens 4``, 64 bodies,
+   drafting turned off mid-drain; f32 equal to plain ``--shards 4`` up to
+   the first near-tie); (d) ``DisaggregatedPool`` (2 prefill replicas x 8,
+   4 decode shards x 8) against the fused 6 x 8 plane on the reference's
+   disaggregation traffic, and with a prefill replica killed mid-handoff
+   (exactly once, ``flash_fwd`` launches = ``4 x`` prefill inserts and
+   none for the KV handoff, f32 replies identical to the fused plane's);
+   msgs/s, tokens/s and mean TTFT of each beside plain ``--shards 4``,
+   the handoff's rows, bytes and the time of a batch of 8, and a profiled
+   drain's busy share;
+19. odd head dim: the trainer at ``--d-model 64 --n-heads 4`` (D = 16)
    through dense attention with no kernel launch, its loss falling; the
    forward wrapper called directly at D = 16 must raise ``ValueError``;
-19. training: an f32 loss and gradient at the flagship train width through
+20. training: an f32 loss and gradient at the flagship train width through
    the kernels against the dense-attention path; the trainer binary's code
    path in-process at the flagship config (GPT, d_model 1024, 16 heads,
    8 layers, d_ff 4096, vocab 8192, B=8, S=2048) in bf16 for 10
@@ -188,8 +208,8 @@ Phases (any failure makes the run exit non-zero and print no result):
    steps`` (and twice that for the forward under ``--remat``); its steady
    step time, tokens/s, MFU and peak memory; ``torch.profiler`` over one
    step;
-20. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-21. the last line, ``{"ok": true, "device": {...}}``.
+21. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+22. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
@@ -709,20 +729,23 @@ def throughput_phase(torch) -> dict:
 
 def device_breakdown(prof):
     """``(kernels, copies)`` of a profile, each a list of ``(device ms,
-    count, name)``, kernels sorted by time.  Device rows only: operator
+    count, name)``, kernels sorted by time.  Device events only: operator
     rows repeat their kernels' time.  Copies are listed apart: the trace
-    may also hold copies made before the window."""
-    kernels, copies = [], []
-    for event in prof.key_averages():
-        if not str(event.device_type).endswith("CUDA"):
+    may also hold copies made before the window.  Summed from the raw
+    trace events: ``key_averages`` builds an event object a kernel, tens
+    of seconds for a drain's hundred thousand launches."""
+    totals: dict[str, list] = {}
+    for event in prof.profiler.kineto_results.events():
+        if "CUDA" not in str(event.device_type()):
             continue
-        device_us = getattr(event, "self_device_time_total", None)
-        if device_us is None:
-            device_us = event.self_cuda_time_total
-        if device_us > 0:
-            row = (device_us / 1e3, event.count, event.key)
-            is_copy = event.key.startswith(("Memcpy", "Memset"))
-            (copies if is_copy else kernels).append(row)
+        row = totals.setdefault(event.name(), [0.0, 0])
+        row[0] += event.duration_ns() / 1e6
+        row[1] += 1
+    kernels, copies = [], []
+    for name, (ms, count) in totals.items():
+        if ms > 0:
+            is_copy = name.startswith(("Memcpy", "Memset"))
+            (copies if is_copy else kernels).append((ms, count, name))
     kernels.sort(reverse=True)
     return kernels, copies
 
@@ -989,14 +1012,24 @@ def staggered_phase(torch, flash, smoke: Smoke) -> dict:
     return out
 
 
-def staggered_drive(batcher, requests, every: int = 3):
+def staggered_drive(batcher, requests, every: int = 3,
+                    flip: dict | None = None):
     """Submit ``requests`` at most 3 at a time every ``every`` cycles while
     the others decode, until all finish; returns ``(tokens by request,
-    cycles)``."""
+    cycles)``.  ``flip`` (``{"after": n}``, a decode plane): drafting is
+    turned off for new admissions once ``n`` requests are admitted, and
+    the drafted rows still in flight then are recorded under
+    ``"drafted_in_flight"``."""
     waiting, got, cycle = list(enumerate(requests)), {}, 0
     while (waiting or batcher.active) and cycle < 5000:
         free = len(batcher.free_slots)
         if waiting and free and cycle % every == 0:
+            if flip is not None and "drafted_in_flight" not in flip \
+                    and len(requests) - len(waiting) >= flip["after"]:
+                batcher.set_speculative(False)
+                flip["drafted_in_flight"] = sum(
+                    spec and slot.busy
+                    for spec, slot in zip(batcher._slot_spec, batcher.slots))
             take = min(free, 3)
             batcher.submit_many([(ids, i) for i, ids in waiting[:take]])
             waiting = waiting[take:]
@@ -4527,7 +4560,7 @@ def tenant_bodies(schedule: dict, prefixes: dict, seed: int = 7,
 
 
 def tenant_worker(torch, params, config, queue, results, now_fn, tenancy,
-                  seq_len: int = 512):
+                  seq_len: int = 512, shards: int = 1, device="cuda"):
     from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
         ContinuousWorker,
     )
@@ -4535,31 +4568,52 @@ def tenant_worker(torch, params, config, queue, results, now_fn, tenancy,
 
     service_config = ServiceConfig(
         queue_url=TENANT_QUEUE, batch_size=8, seq_len=seq_len,
-        generate_tokens=32, decode_block=8, result_queue_url=TENANT_REPLIES)
+        generate_tokens=32, decode_block=8, result_queue_url=TENANT_REPLIES,
+        shards=shards)
     return ContinuousWorker(queue, params, config, service_config,
                             result_queue=results, now_fn=now_fn,
-                            tenancy=tenancy, device="cuda")
+                            tenancy=tenancy, device=device)
 
 
 def tenant_episode(torch, flash, params, config, bodies, tenancy,
-                   dt: float = 1.0) -> dict:
+                   dt: float = 1.0, shards: int = 1, plan=None,
+                   device="cuda") -> dict:
     """Drive ``bodies`` (cycle -> requests, sent before that engine cycle)
     through a tenancy worker on a ``FakeClock`` advancing ``dt`` a cycle,
     until every message is answered; the launch counts are zeroed just
     before and read just after.  Per-tenant TTFT runs on the same clock,
-    so with ``dt = 1`` it is in engine cycles."""
+    so with ``dt = 1`` it is in engine cycles.  ``shards > 1`` serves on
+    the sharded plane and records each pooled admission's ``(tenant,
+    shard, the tenant's home then)``; ``plan`` (a ``FleetFaultPlan``) is
+    applied to the worker before each cycle."""
     from kube_sqs_autoscaler_tpu_torch.core import FakeClock
     from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
     from kube_sqs_autoscaler_tpu_torch.workloads.service import (
         collect_replies,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.tenancy import (
+        prefix_pool_key,
     )
 
     clock = FakeClock(1e6)
     queue = FakeMessageQueue(visibility_timeout=3600.0, now_fn=clock.now)
     results = FakeMessageQueue()
     worker = tenant_worker(torch, params, config, queue, results, clock.now,
-                           tenancy)
+                           tenancy, shards=shards, device=device)
     batcher = worker.batcher
+    admissions = []
+    if shards > 1:
+        submit = batcher.submit_many_prefixed
+
+        def recorded(requests):
+            rows = submit(requests)
+            admissions.extend(
+                (tenant, batcher._pool_shard_of(row),
+                 batcher._tenant_home.get(prefix_pool_key(tenant, prefix)))
+                for row, (tenant, prefix, _, _) in zip(rows, requests))
+            return rows
+
+        batcher.submit_many_prefixed = recorded
     sent, tenant_of = [], {}
     per_cycle = {"insert": 0, "decode": 0}
     total = sum(len(v) for v in bodies.values())
@@ -4574,6 +4628,8 @@ def tenant_episode(torch, flash, params, config, bodies, tenancy,
             sent.append(mid)
             tenant_of[mid] = tenant
         inserts, decodes = batcher.insert_dispatches, batcher.decode_dispatches
+        if plan is not None:
+            plan.apply(cycle, worker)
         worker.run_once()
         per_cycle["insert"] = max(per_cycle["insert"],
                                   batcher.insert_dispatches - inserts)
@@ -4586,7 +4642,8 @@ def tenant_episode(torch, flash, params, config, bodies, tenancy,
         if cycle > max(bodies) and answered >= total \
                 and batcher.active == 0 and worker.staged == 0:
             break
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
     launched = counts(flash)
     replies, duplicates = collect_replies(results, TENANT_REPLIES)
@@ -4608,6 +4665,12 @@ def tenant_episode(torch, flash, params, config, bodies, tenancy,
                          for v in victims))),
         "ladder": (worker.ladder.export_state() if worker.ladder else None),
         "inserts": batcher.insert_dispatches,
+        "tokens": batcher.tokens_emitted,
+        "ttft_mean_s": batcher.ttft_sum / max(1, batcher.ttft_count),
+        "admissions": admissions,
+        "homes": {key[0]: shard
+                  for key, shard in batcher._tenant_home.items()},
+        "fair": worker._fair,
     }
 
 
@@ -5136,6 +5199,771 @@ def repair_cost_main(parent: str) -> int:
     return 0
 
 
+# -- the serving planes: tenancy on the plane, admission shards, the decode
+# plane's speculative rows, the disaggregated planes --------------------------
+
+PLANE_SHARDS = 4  # --shards 4 of --batch-size 8
+PLANE_FLIP_AT = 32  # (c): drafting turned off once 32 of 64 are answered
+DISAGG_QUEUE, DISAGG_REPLIES = "disagg://jobs", "disagg://replies"
+DISAGG_PREFILL = 2  # prefill replicas: 2 x 8 slots
+DISAGG_FUSED = 6  # the fused plane at the same slots: 6 shards x 8
+DISAGG_KILL_FROM = 10  # the prefill kill: the first cycle from here with
+#                        rows waiting for a decode slot
+
+
+def disagg_schedule(cycles: int = 36, every: int = 2, wave_start: int = 8,
+                    wave_cycles: int = 6, wave_per_cycle: int = 6,
+                    tenants: int = 2) -> dict[int, list[str]]:
+    """The reference's disaggregation traffic
+    (``kube_sqs_autoscaler_tpu/sim/scenarios.py`` ``disagg_scenario``, at
+    the defaults of ``bench.py``'s disagg suite): ``steady0`` and
+    ``steady1`` send one request every 2 cycles from cycles 0 and 1, and a
+    prefill wave of 6 a cycle arrives over cycles 8-13; 36 cycles.
+    Returns cycle -> the tenants sending then, in order."""
+    out = {}
+    for cycle in range(cycles):
+        sends = [f"steady{i}" for i in range(tenants)
+                 if cycle >= i % every and (cycle - i % every) % every == 0]
+        if wave_start <= cycle < wave_start + wave_cycles:
+            sends += ["wave"] * wave_per_cycle
+        out[cycle] = sends
+    return out
+
+
+def disagg_bodies(schedule: dict, seed: int = 11,
+                  vocab: int = 8192) -> dict[int, list[str]]:
+    """cycle -> JSON bodies: every prompt 512 seeded tokens."""
+    rng = np.random.default_rng(seed)
+    return {cycle: [json.dumps(rng.integers(0, vocab, 512).tolist())
+                    for _ in tenants]
+            for cycle, tenants in schedule.items()}
+
+
+def plane_model(torch, family: str, dtype=None):
+    """The built-in model of ``family`` with the speculative rounds' 2k
+    positions of headroom (a context of 512 + 32 + 8), weights from seed
+    0, on the card; ``dtype`` overrides bf16."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        BUILTIN_CONFIGS,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+
+    config = BUILTIN_CONFIGS[family](512, 32, 0, 2 * SPEC_K)
+    if dtype is not None:
+        config = dataclasses.replace(config, dtype=dtype)
+    return config, family_of(config).init_params(
+        config, torch.Generator().manual_seed(0), "cuda")
+
+
+def rate_line(label: str, run: dict, power: str) -> str:
+    return (f"{label}: {run['msgs_per_s']:.3f} msgs/s, "
+            f"{run['tokens_per_s']:.3f} generated tokens/s, mean TTFT "
+            f"{run['ttft_mean_s'] * 1e3:.3f} ms over {run['cycles']} cycles "
+            f"({power})")
+
+
+def episode_rates(run: dict, answered: int) -> dict:
+    run["msgs_per_s"] = answered / run["wall_s"]
+    run["tokens_per_s"] = run["tokens"] / run["wall_s"]
+    return run
+
+
+def differ_before_ties(got: dict, base: dict, margins_of) -> tuple:
+    """Requests whose tokens in ``got`` and ``base`` part before the first
+    near-tie of the port's own greedy path (``margins_of(i)``, computed only
+    for the requests that differ), and those near-ties."""
+    bad, ties = [], {}
+    for i, tokens in got.items():
+        a, b = np.asarray(tokens), np.asarray(base[i])
+        if np.array_equal(a, b):
+            continue
+        first = (int(np.flatnonzero(a != b)[0]) if a.shape == b.shape
+                 else 0)
+        low = np.flatnonzero(margins_of(i) < MARGIN)
+        ties[i] = int(low[0]) if low.size else len(a)
+        if first < ties[i]:
+            bad.append(i)
+    return bad, ties
+
+
+def path_margins(torch, params, config, model, prompt):
+    """The port's greedy path's top-two margins for one prompt."""
+    layout = model.full
+    ids = torch.as_tensor(np.asarray(prompt)).cuda()[None]
+    with torch.inference_mode():
+        return rollout(
+            torch, lambda: layout.prefill(
+                params, ids, config,
+                model.attention_fn_for(config, ids.shape[1], "cuda")),
+            lambda cache, token: layout.decode_step(params, cache, token,
+                                                    config))[1]
+
+
+def check_plane_homes(smoke, label: str, run: dict) -> dict:
+    """Sticky homes on the plane: every tenant's home is the shard of its
+    first admission and never moves; an admission off the home is a
+    counted spill; the pool installed once for each (tenant, shard) pair
+    first seen and evicted nothing."""
+    first, on_home, spills = {}, {}, {}
+    for tenant, shard, home in run["admissions"]:
+        first.setdefault(tenant, home)
+        if shard == home:
+            on_home[tenant] = on_home.get(tenant, 0) + 1
+        else:
+            spills[tenant] = spills.get(tenant, 0) + 1
+    pairs = {(t, s) for t, s, _ in run["admissions"]}
+    pool = run["pool"]
+    kept = all(run["homes"].get(t) == h for t, h in first.items())
+    smoke.check(
+        kept and len(run["admissions"]) == len(run["sent"])
+        and pool["installs"] == len(pairs) and pool["evictions"] == 0,
+        f"{label}: homes {first} held through the run ({kept}); admissions "
+        f"on the home shard by tenant {on_home}, counted spills {spills}; "
+        f"pool installs {pool['installs']} = {len(pairs)} (tenant, shard) "
+        f"pairs first seen, {pool['evictions']} evictions")
+    return {"homes": first, "on_home": on_home, "spills": spills,
+            "pairs": len(pairs)}
+
+
+def plane_tenancy(torch, flash, smoke, power: str, bodies) -> dict:
+    """Part (a) of :func:`planes_phase`."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.tenancy import (
+        TenancyConfig,
+    )
+
+    out = {"launches": {}}
+    for family in ("gpt", "llama"):
+        config, params = tenant_model(torch, family)
+        runs = {}
+        for mode, fair in (("drr", True), ("fifo", False)):
+            tenancy = TenancyConfig(tenants=TENANTS, prefix_pool=POOL_ENTRIES,
+                                    prefix_len=TENANT_PREFIX, fair=fair)
+            run = tenant_episode(torch, flash, params, config, bodies,
+                                 tenancy, shards=PLANE_SHARDS)
+            label = f"planes (a) {family} bf16 --shards 4 {mode}"
+            check_tenant_episode(smoke, label, run)
+            smoke.check(run["completed_by_tenant"] == sent_by_tenant(run),
+                        f"{label}: completed_by_tenant "
+                        f"{run['completed_by_tenant']} equals the bodies "
+                        f"sent per tenant")
+            homes = check_plane_homes(smoke, label, run)
+            episode_rates(run, len(run["sent"]))
+            print(rate_line(f"{label} (FakeClock episode, host wall)", run,
+                            power), flush=True)
+            print(f"{label}: mean wait to the first token in engine cycles "
+                  f"by tenant "
+                  f"{ {t: round(v, 3) for t, v in run['ttft_cycles'].items()} }",
+                  flush=True)
+            runs[mode] = {**{k: run[k] for k in (
+                "cycles", "wall_s", "pool", "ttft_cycles",
+                "victim_wait_cycles", "completed_by_tenant", "launches",
+                "msgs_per_s", "tokens_per_s", "ttft_mean_s")}, **homes}
+            out["launches"][f"serve-planes-tenancy-{family}"] = \
+                out["launches"].get(f"serve-planes-tenancy-{family}", 0) \
+                + run["launches"]["flash_fwd"]
+        drr, fifo = (runs[m]["victim_wait_cycles"] for m in ("drr", "fifo"))
+        smoke.check(drr < fifo,
+                    f"planes (a) {family}: the victims' mean wait {drr:.3f} "
+                    f"engine cycles under DRR is below FIFO's {fifo:.3f}")
+        out[family] = runs
+        del params
+        torch.cuda.empty_cache()
+    out["f32"] = plane_tenancy_f32(torch, flash, smoke)
+    return out
+
+
+def plane_tenancy_f32(torch, flash, smoke) -> dict:
+    """Part (a)'s f32 gate: 12 staggered suffixes behind three tenants'
+    pooled prefixes through a 4-shard plane with sticky homes, both
+    families, against ``generate`` of prefix and suffix joined up to the
+    first near-tie."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+    from kube_sqs_autoscaler_tpu_torch.workloads.shard_plane import (
+        ShardedBatcher,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.tenancy import (
+        TenancyConfig,
+    )
+
+    out = {}
+    requests = staggered_requests()[::2]
+    prefixes = tenant_prefixes()
+    owner = [TENANTS[i % 3] for i in range(len(requests))]
+    tenancy = TenancyConfig(tenants=TENANTS, prefix_pool=POOL_ENTRIES,
+                            prefix_len=TENANT_PREFIX)
+    for family in ("gpt", "llama"):
+        config, params = tenant_model(torch, family, torch.float32)
+        model = family_of(config)
+        want, margins = [], []
+        for ids, tenant in zip(requests, owner):
+            joined = np.concatenate([prefixes[tenant], ids])
+            layout = model.full
+            prompt = torch.from_numpy(joined).cuda()[None]
+            with torch.inference_mode():
+                tokens, margin = rollout(
+                    torch, lambda prompt=prompt: layout.prefill(
+                        params, prompt, config, model.attention_fn_for(
+                            config, prompt.shape[1], "cuda")),
+                    lambda cache, token: layout.decode_step(
+                        params, cache, token, config))
+            want.append(tokens)
+            margins.append(margin)
+        plane = ShardedBatcher(params, config, shards=PLANE_SHARDS,
+                               shard_slots=8, prompt_len=512,
+                               generate_tokens=32, family=family,
+                               decode_block=8, tenancy=tenancy,
+                               device="cuda")
+        zero_counts(flash)
+        got, _ = pooled_drive(plane, requests, owner, prefixes)
+        launched = counts(flash)["flash_fwd"]
+        bad, ties = compare_upto_ties(got, want, margins)
+        installs = plane.prefix_pool.installs
+        smoke.check(len(got) == len(requests) and not bad
+                    and launched == TENANT_LAYERS * installs,
+                    f"planes (a) {family} f32 --shards 4: {len(got)} of "
+                    f"{len(requests)} suffixes behind 3 tenants' pooled "
+                    f"prefixes on sticky homes {dict(plane._tenant_home)} "
+                    f"({installs} installs, {launched} flash_fwd launches); "
+                    f"tokens equal to generate of prefix + suffix joined up "
+                    f"to the first near-tie: mismatched {bad}; near-ties "
+                    f"{ties}")
+        out[family] = {"mismatched": bad, "near_ties": ties,
+                       "installs": installs}
+        del plane, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def plane_admission(torch, flash, smoke, power: str, bodies) -> dict:
+    """Part (b) of :func:`planes_phase`: (a)'s GPT DRR run with
+    ``--admission-shards 4``, a ``FleetFaultPlan`` killing the flooding
+    tenant's admission shard mid-flood and partitioning another's gossip
+    for a window."""
+    from kube_sqs_autoscaler_tpu_torch.sim.faults import FleetFaultPlan
+    from kube_sqs_autoscaler_tpu_torch.workloads.admission_shards import (
+        HashRing,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.tenancy import (
+        TenancyConfig,
+    )
+
+    ring = HashRing(4)
+    flood_shard = ring.shard_of("flood")
+    other = (flood_shard + 1) % 4
+    plan = FleetFaultPlan(admission_kills=((9, flood_shard),),
+                          admission_partitions=((6, 14, other),))
+    config, params = tenant_model(torch, "gpt")
+    tenancy = TenancyConfig(tenants=TENANTS, prefix_pool=POOL_ENTRIES,
+                            prefix_len=TENANT_PREFIX, admission_shards=4)
+    run = tenant_episode(torch, flash, params, config, bodies, tenancy,
+                         shards=PLANE_SHARDS, plan=plan)
+    label = "planes (b) gpt bf16 --shards 4 --admission-shards 4"
+    check_tenant_episode(smoke, label, run)
+    fair = run.pop("fair")
+    killed = fair.shards[flood_shard]
+    kills = [e.args for e in fair.events if e.name == "admission-kill"]
+    handed = sum(k["handed_back"] for k in kills)
+    smoke.check(
+        killed.kills == 1 and killed.rehydrations == 1 and handed >= 1
+        and killed.rehydrated_records > 0
+        and run["completed_by_tenant"] == sent_by_tenant(run),
+        f"{label}: admission shard {flood_shard} (the flood's) killed at "
+        f"cycle 9 handed {handed} staged request(s) back to the queue, all "
+        f"served again (completed_by_tenant {run['completed_by_tenant']}); "
+        f"rehydrated from its tombstone with {killed.rehydrated_records} "
+        f"records, not cold; shard {other} gossip-partitioned over cycles "
+        f"6-13")
+    episode_rates(run, len(run["sent"]))
+    print(rate_line(f"{label} (FakeClock episode, host wall)", run, power),
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": {"serve-planes-admission-gpt":
+                         run["launches"]["flash_fwd"]},
+            "handed_back": handed,
+            "rehydrated_records": killed.rehydrated_records,
+            "victim_wait_cycles": run["victim_wait_cycles"],
+            **{k: run[k] for k in ("cycles", "msgs_per_s", "tokens_per_s",
+                                   "ttft_mean_s")}}
+
+
+def spec_plane_run(torch, flash, params, config, draft: bool,
+                   flip_at: int | None = None) -> dict:
+    """The ``--demo 64`` bodies through a continuous worker on a 4-shard
+    plane at decode block 8 (with ``draft``: the decode plane,
+    ``--speculative-draft-layers 2 --speculative-draft-tokens 4``; drafting
+    off for new admissions once ``flip_at`` are answered), the launch
+    counts zeroed just before and read just after."""
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import (
+        ServiceConfig, collect_replies,
+    )
+
+    service = ServiceConfig(queue_url="", batch_size=8, seq_len=512,
+                            generate_tokens=32, decode_block=8)
+    results = FakeMessageQueue()
+    kw = dict(draft_layers=SPEC_DRAFT, draft_tokens=SPEC_K) if draft else {}
+    queue, worker = plane_worker(torch, params, config, service,
+                                 PLANE_SHARDS, result_queue=results, **kw)
+    batcher = worker.batcher
+    zero_counts(flash)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    cycles = flipped = 0
+    while worker.processed < 64 and cycles < 2000:
+        worker.run_once()
+        cycles += 1
+        if flip_at is not None and not flipped \
+                and worker.processed >= flip_at:
+            batcher.set_speculative(False)
+            flipped = cycles
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    replies, duplicates = collect_replies(results, "demo://replies")
+    run = {
+        "replies": replies, "duplicates": duplicates,
+        "launches": counts(flash), "wall_s": wall_s, "cycles": cycles,
+        "tokens": batcher.tokens_emitted, "processed": worker.processed,
+        "ttft_mean_s": batcher.ttft_sum / max(1, batcher.ttft_count),
+        "inserts": batcher.insert_dispatches, "flipped_at_cycle": flipped,
+        "draft_inserts": getattr(batcher, "draft_inserts", 0),
+        "spec_rounds": batcher.spec_rounds,
+        "accept_rate": (batcher.accept_rate() if draft else None),
+    }
+    return episode_rates(run, worker.processed)
+
+
+def plane_speculative(torch, flash, smoke, power: str) -> dict:
+    """Part (c) of :func:`planes_phase`."""
+    out = {"launches": {}}
+    for family in ("gpt", "llama"):
+        config, params = plane_model(torch, family)
+        plain = spec_plane_run(torch, flash, params, config, False)
+        spec = spec_plane_run(torch, flash, params, config, True,
+                              flip_at=PLANE_FLIP_AT)
+        label = f"planes (c) {family} bf16 --shards 4"
+        target_inserts = spec["inserts"] - spec["draft_inserts"]
+        for name, run in (("plain", plain), ("speculative", spec)):
+            want_launches = (SERVE_LAYERS * (run["inserts"]
+                                             - run["draft_inserts"])
+                             + SPEC_DRAFT * run["draft_inserts"])
+            smoke.check(
+                len(run["replies"]) == 64 and run["duplicates"] == 0
+                and run["launches"]["flash_fwd"] == want_launches
+                and run["launches"]["flash_fwd_lse"] == 0,
+                f"{label} {name}: 64 of 64 answered once; flash_fwd "
+                f"launches {run['launches']['flash_fwd']} = "
+                f"{SERVE_LAYERS} x {run['inserts'] - run['draft_inserts']} "
+                f"target inserts + {SPEC_DRAFT} x {run['draft_inserts']} "
+                f"draft prefills, no lse")
+        same = sum(spec["replies"][m]["tokens"] == plain["replies"][m]["tokens"]
+                   for m in plain["replies"] if m in spec["replies"])
+        smoke.check(spec["spec_rounds"] > 0 and spec["flipped_at_cycle"] > 0,
+                    f"{label} speculative: {spec['spec_rounds']} rounds "
+                    f"over {target_inserts} inserts, accepted fraction "
+                    f"{spec['accept_rate'] or 0.0:.4f}, drafting turned off at "
+                    f"cycle {spec['flipped_at_cycle']} (after "
+                    f"{PLANE_FLIP_AT} answered); bf16 replies equal to plain "
+                    f"--shards 4 (counted, not gated): {same} of 64")
+        for name, run in (("plain --shards 4", plain),
+                          ("--shards 4 speculative", spec)):
+            print(rate_line(f"warm planes {family} {name} --demo 64", run,
+                            power), flush=True)
+        out[family] = {
+            "plain": {k: plain[k] for k in ("msgs_per_s", "tokens_per_s",
+                                            "ttft_mean_s", "cycles")},
+            "speculative": {k: spec[k] for k in (
+                "msgs_per_s", "tokens_per_s", "ttft_mean_s", "cycles",
+                "accept_rate", "spec_rounds", "flipped_at_cycle")},
+            "bf16_same": same}
+        out["launches"][f"serve-planes-spec-{family}"] = \
+            plain["launches"]["flash_fwd"] + spec["launches"]["flash_fwd"]
+        del params
+        torch.cuda.empty_cache()
+    out["f32"] = plane_speculative_f32(torch, flash, smoke)
+    return out
+
+
+def plane_speculative_f32(torch, flash, smoke) -> dict:
+    """Part (c)'s f32 gate: 12 staggered prompts through a 4-shard plane
+    and through the decode plane drafting on it, drafting turned off for
+    new admissions once the first 6 are admitted (rows drafted before the
+    flip finish drafted, the later ones run plain), both families: equal
+    up to the first near-tie of the port's greedy path."""
+    from kube_sqs_autoscaler_tpu_torch.planes.engine import (
+        DecodePlaneBatcher,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.shard_plane import (
+        ShardedBatcher,
+    )
+
+    out = {}
+    requests = staggered_requests()[::2]
+    for family in ("gpt", "llama"):
+        config, params, model = f32_model(torch, family, 2 * SPEC_K)
+        kw = dict(shards=PLANE_SHARDS, shard_slots=8, prompt_len=512,
+                  generate_tokens=32, family=family, decode_block=8,
+                  device="cuda")
+        plain, _ = staggered_drive(ShardedBatcher(params, config, **kw),
+                                   requests)
+        spec_plane = DecodePlaneBatcher(params, config, spec_layers=SPEC_DRAFT,
+                                        spec_tokens=SPEC_K, **kw)
+        flip = {"after": len(requests) // 2}
+        spec, _ = staggered_drive(spec_plane, requests, flip=flip)
+        bad, ties = differ_before_ties(
+            spec, plain, lambda i: path_margins(torch, params, config,
+                                                model, requests[i]))
+        drafted = flip.get("drafted_in_flight", 0)
+        smoke.check(len(spec) == len(plain) == len(requests) and not bad
+                    and spec_plane.spec_rounds > 0 and drafted > 0
+                    and spec_plane.spec_flips == 1
+                    and not spec_plane.draft_enabled,
+                    f"planes (c) {family} f32: {len(spec)} staggered prompts "
+                    f"through the decode plane ({spec_plane.spec_rounds} "
+                    f"rounds accepting {spec_plane.spec_accepted}), drafting "
+                    f"turned off after {flip['after']} admitted with "
+                    f"{drafted} drafted rows in flight, equal to plain "
+                    f"--shards 4 up to the first near-tie: mismatched {bad}; "
+                    f"near-ties {ties}")
+        out[family] = {"mismatched": bad, "near_ties": ties,
+                       "drafted_in_flight_at_flip": drafted}
+        del spec_plane, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def disagg_episode(torch, flash, params, config, bodies, *, fused: bool,
+                   kill: bool = False, plain_decode: bool = False,
+                   device="cuda") -> dict:
+    """The disaggregation traffic on a ``FakeClock`` (one cycle a second),
+    sent before each fleet cycle, through the fused plane
+    (``ShardedWorkerPool.serving`` of 6 shards x 8) or through
+    ``DisaggregatedPool.serving(min=1, max=2, decode_shards=4,
+    spec_layers=2)`` at 2 prefill replicas x 8 and 4 decode shards x 8,
+    until every message is answered.  ``plain_decode``: the decode plane
+    steps once a cycle with drafting off (as in the reference's kill
+    test).  ``kill``: the first prefill replica found from cycle 10 on
+    with rows waiting for a decode slot is killed.  The launch counts are
+    zeroed just before and read just after; every ``submit_handoff`` is
+    checked to launch no kernel.  Each request's wait from its send to
+    its first token on the host is read after every cycle, in cycles."""
+    from kube_sqs_autoscaler_tpu_torch.core import FakeClock
+    from kube_sqs_autoscaler_tpu_torch.fleet import ShardedWorkerPool
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.planes import DisaggregatedPool
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import (
+        ServiceConfig, collect_replies,
+    )
+
+    clock = FakeClock(1e6)
+    queue = FakeMessageQueue(visibility_timeout=3600.0, now_fn=clock.now)
+    results = FakeMessageQueue()
+    service = ServiceConfig(queue_url=DISAGG_QUEUE, batch_size=8,
+                            seq_len=512, generate_tokens=32, decode_block=8,
+                            result_queue_url=DISAGG_REPLIES)
+    common = dict(result_queue=results, now_fn=clock.now, clock=clock,
+                  device=device)
+    handoff = {"calls": 0, "launches": 0, "rows": 0}
+    if fused:
+        pool = ShardedWorkerPool.serving(
+            queue, params, config, service, min=DISAGG_FUSED,
+            max=DISAGG_FUSED, shards=DISAGG_FUSED, **common)
+    else:
+        pool = DisaggregatedPool.serving(
+            queue, params, config, service, min=1, max=DISAGG_PREFILL,
+            initial=DISAGG_PREFILL, decode_shards=PLANE_SHARDS,
+            spec_layers=SPEC_DRAFT, spec_tokens=SPEC_K,
+            **(dict(draft_enabled=False, decode_steps_per_cycle=1)
+               if plain_decode else {}), **common)
+        plane = pool.decode.batcher
+        submit = plane.submit_handoff
+
+        def counted(donor, records):
+            before = flash.kernel_launches
+            rows = submit(donor, records)
+            handoff["launches"] += flash.kernel_launches - before
+            handoff["calls"] += 1
+            handoff["rows"] += len(rows)
+            return rows
+
+        plane.submit_handoff = counted
+    total = sum(len(v) for v in bodies.values())
+    sent, killed, sent_at, first_at = [], None, {}, {}
+    zero_counts(flash)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    start = time.perf_counter()
+    cycle = 0
+    while cycle < 600:
+        for body in bodies.get(cycle, ()):
+            sent.append(queue.send_message(DISAGG_QUEUE, body))
+            sent_at[sent[-1]] = cycle
+        if kill and killed is None and cycle >= DISAGG_KILL_FROM:
+            for replica in pool.members:
+                if replica.state == "serving" \
+                        and replica.worker.ready_handoffs():
+                    killed = (cycle, replica.index,
+                              len(replica.worker.ready_handoffs()))
+                    pool.kill_worker(replica.index)
+                    break
+        pool.run_cycle()
+        if fused:
+            batchers, decode = [pool.worker.batcher], None
+        else:
+            batchers = [r.worker.batcher for r in pool.members]
+            decode = pool.decode.batcher
+        for batcher in batchers + ([decode] if decode is not None else []):
+            for slot in batcher.slots:
+                if slot.busy and slot.produced:
+                    first_at.setdefault(slot.payload["MessageId"], cycle)
+        clock.advance(1.0)
+        cycle += 1
+        if cycle > max(bodies) and pool.processed >= total and pool.idle:
+            break
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launched = counts(flash)
+    replies, duplicates = collect_replies(results, DISAGG_REPLIES)
+    ttft_sum = sum(b.ttft_sum for b in batchers)
+    ttft_count = sum(b.ttft_count for b in batchers)
+    run = {
+        "sent": sent, "replies": replies, "duplicates": duplicates,
+        "cycles": cycle, "wall_s": wall_s, "launches": launched,
+        "processed": pool.processed,
+        "queue": queue.get_queue_attributes(DISAGG_QUEUE, ()),
+        "tokens": (sum(b.tokens_emitted for b in batchers)
+                   + (decode.tokens_emitted if decode is not None else 0)),
+        "ttft_mean_s": ttft_sum / max(1, ttft_count),
+        # send to the first token on the host, in cycles; a request that
+        # finished within the cycle of its first token is not seen
+        "first_token_cycles": (
+            sum(first_at[m] - sent_at[m] for m in first_at)
+            / max(1, len(first_at))),
+        "first_token_seen": len(first_at),
+        "prefill_inserts": (None if fused else
+                            sum(b.insert_dispatches for b in batchers)),
+        "pool": pool, "killed": killed, "handoff": handoff,
+    }
+    if not fused:
+        run.update(kv_handoffs=pool.kv_handoffs_total,
+                   kv_bytes=pool.kv_handoffs_total * decode.row_kv_nbytes(),
+                   draft_inserts=decode.draft_inserts,
+                   accept_rate=decode.accept_rate(),
+                   redispatched=pool.redispatched_total,
+                   decode_dispatches=decode.decode_dispatches)
+    return episode_rates(run, pool.processed)
+
+
+def check_disagg(smoke, label: str, run: dict) -> None:
+    attrs = run["queue"]
+    smoke.check(
+        len(run["replies"]) == len(run["sent"]) == run["processed"]
+        and run["duplicates"] == 0
+        and attrs["ApproximateNumberOfMessages"] == "0"
+        and attrs["ApproximateNumberOfMessagesNotVisible"] == "0",
+        f"{label}: {len(run['replies'])} of {len(run['sent'])} answered "
+        f"once and deleted ({run['duplicates']} duplicates, queue {attrs})")
+    if run["prefill_inserts"] is None:
+        return
+    handoff = run["handoff"]
+    smoke.check(
+        run["launches"]["flash_fwd"] == SERVE_LAYERS * run["prefill_inserts"]
+        and handoff["launches"] == 0 and run["draft_inserts"] == 0
+        and handoff["rows"] == run["kv_handoffs"] > 0
+        and run["launches"]["flash_fwd_lse"] == 0,
+        f"{label}: flash_fwd launches {run['launches']['flash_fwd']} = "
+        f"{SERVE_LAYERS} layers x {run['prefill_inserts']} prefill "
+        f"inserts; {handoff['calls']} handoff batches of "
+        f"{handoff['rows']} rows added {handoff['launches']} launches; "
+        f"{run['kv_handoffs']} rows, {run['kv_bytes'] / 2**20:.3f} MiB "
+        f"copied (target and draft rows); no draft prefill on the decode "
+        f"plane ({run['draft_inserts']}), no lse")
+
+
+def plane_disagg(torch, flash, smoke, power: str) -> dict:
+    """Part (d) of :func:`planes_phase`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kube_sqs_autoscaler_tpu_torch.planes.engine import (
+        _handoff_rows_impl,
+    )
+
+    bodies = disagg_bodies(disagg_schedule())
+    total = sum(len(v) for v in bodies.values())
+    config, params = plane_model(torch, "gpt")
+    t0 = time.perf_counter()
+    fused = disagg_episode(torch, flash, params, config, bodies, fused=True)
+    check_disagg(smoke, "planes (d) gpt bf16 fused 6 x 8", fused)
+    disagg = disagg_episode(torch, flash, params, config, bodies,
+                            fused=False)
+    check_disagg(smoke, "planes (d) gpt bf16 disaggregated 2 x 8 + 4 x 8",
+                 disagg)
+    # the same drain again under the profiler, for its busy share
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiled = disagg_episode(torch, flash, params, config, bodies,
+                                  fused=False)
+        torch.cuda.synchronize()
+    kernels, _ = device_breakdown(prof)
+    busy_ms = sum(ms for ms, _, _ in kernels)
+    wall_ms = profiled["wall_s"] * 1e3
+    print(f"profile planes (d) disaggregated drain (profiler on): wall "
+          f"{wall_ms:.3f} ms, kernels busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%) ({power})", flush=True)
+    for ms, count, key in kernels[:8]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
+    del prof, profiled["pool"]
+    order = fused["sent"]
+    same = sum(disagg["replies"][disagg["sent"][i]]["tokens"]
+               == fused["replies"][m]["tokens"] for i, m in enumerate(order))
+    print(f"planes (d) gpt bf16: disaggregated replies equal to the fused "
+          f"plane's (counted, not gated): {same} of {total}; decode-plane "
+          f"accepted fraction {disagg['accept_rate'] or 0.0:.4f}",
+          flush=True)
+    # one handoff batch of 8 rows, timed alone on the idle planes
+    plane = disagg["pool"].decode.batcher
+    donor = disagg["pool"].members[0].worker.batcher
+    idx = torch.arange(8, device="cuda")
+    lasts = torch.zeros(8, dtype=torch.long, device="cuda")
+    zero_counts(flash)
+    with torch.inference_mode():
+        handoff_ms = time_ms(torch, lambda: _handoff_rows_impl(
+            plane.cache, plane.draft_cache, plane._current, plane._done,
+            plane._remaining, donor.cache, idx, idx, lasts, lasts,
+            spec=True, spec_layers=SPEC_DRAFT))
+    row_bytes = plane.row_kv_nbytes()
+    smoke.check(counts(flash)["flash_fwd"] == 0,
+                f"planes (d): one handoff batch of 8 rows ({8 * row_bytes / 2**20:.3f} "
+                f"MiB, target and draft rows) takes {handoff_ms:.4f} ms "
+                f"({8 * row_bytes / handoff_ms / 1e6:.1f} GB/s copied) and "
+                f"launches no kernel ({power})")
+    print(f"planes (d): the bf16 runs, the profile and the handoff timing "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    kills = {}
+    for name, plain_decode in (("drafted", False), ("plain", True)):
+        run = kills[name] = disagg_episode(
+            torch, flash, params, config, bodies, fused=False, kill=True,
+            plain_decode=plain_decode)
+        label = f"planes (d) gpt bf16 disaggregated, {name} decode, " \
+                f"prefill kill"
+        check_disagg(smoke, label, run)
+        smoke.check(run["killed"] is not None and run["redispatched"] > 0,
+                    f"{label}: (cycle, replica, rows waiting for a decode "
+                    f"slot) {run['killed']}; {run['redispatched']} in-flight "
+                    f"request(s) re-dispatched to the surviving prefill "
+                    f"replica, every request answered once")
+    for label, run in (("fused 6 x 8", fused), ("disaggregated", disagg),
+                       ("disaggregated, drafted decode, prefill kill",
+                        kills["drafted"]),
+                       ("disaggregated, plain decode, prefill kill",
+                        kills["plain"])):
+        print(rate_line(f"planes (d) gpt bf16 {label} (FakeClock episode, "
+                        f"host wall, disagg-wave traffic)", run, power),
+              flush=True)
+        print(f"planes (d) gpt bf16 {label}: mean wait from the send to the "
+              f"first token on the host {run['first_token_cycles']:.3f} "
+              f"cycles over {run['first_token_seen']} requests", flush=True)
+    launches = sum(r["launches"]["flash_fwd"]
+                   for r in (fused, disagg, profiled, *kills.values()))
+    del params, fused["pool"], disagg["pool"], plane, donor
+    for run in kills.values():
+        del run["pool"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    f32 = plane_disagg_f32(torch, flash, smoke, bodies)
+    print(f"planes (d): f32 runs {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    keep = ("cycles", "wall_s", "msgs_per_s", "tokens_per_s", "ttft_mean_s",
+            "first_token_cycles")
+    return {
+        "launches": {"serve-planes-disagg-gpt": launches + f32["launches"]},
+        "fused": {k: fused[k] for k in keep},
+        "disagg": {**{k: disagg[k] for k in keep}, "kv_handoffs":
+                   disagg["kv_handoffs"], "kv_bytes": disagg["kv_bytes"],
+                   "accept_rate": disagg["accept_rate"],
+                   "busy_share": busy_ms / wall_ms, "busy_ms": busy_ms},
+        "kill": {name: {**{k: run[k] for k in keep}, "killed": run["killed"],
+                        "redispatched": run["redispatched"]}
+                 for name, run in kills.items()},
+        "bf16_same": same, "handoff_ms_8_rows": handoff_ms,
+        "row_kv_bytes": row_bytes, "f32": f32["result"],
+    }
+
+
+def plane_disagg_f32(torch, flash, smoke, bodies) -> dict:
+    """Part (d)'s f32 gate: the disaggregated planes' replies identical to
+    the fused plane's; a difference counts only past the first near-tie
+    of the port's greedy path for that prompt."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+
+    config, params = plane_model(torch, "gpt", torch.float32)
+    model = family_of(config)
+    fused = disagg_episode(torch, flash, params, config, bodies, fused=True)
+    disagg = disagg_episode(torch, flash, params, config, bodies,
+                            fused=False)
+    check_disagg(smoke, "planes (d) gpt f32 fused 6 x 8", fused)
+    check_disagg(smoke, "planes (d) gpt f32 disaggregated", disagg)
+    prompts = [json.loads(b) for c in sorted(bodies) for b in bodies[c]]
+    got = {i: disagg["replies"][m]["tokens"]
+           for i, m in enumerate(disagg["sent"])}
+    base = {i: fused["replies"][m]["tokens"]
+            for i, m in enumerate(fused["sent"])}
+    bad, ties = differ_before_ties(
+        got, base, lambda i: path_margins(torch, params, config, model,
+                                          prompts[i]))
+    identical = sum(got[i] == base[i] for i in got)
+    smoke.check(not bad,
+                f"planes (d) gpt f32: disaggregated replies identical to the "
+                f"fused plane's for {identical} of {len(got)}; differences "
+                f"only past a near-tie of the greedy path: mismatched {bad}; "
+                f"near-ties {ties}")
+    launches = fused["launches"]["flash_fwd"] + disagg["launches"]["flash_fwd"]
+    del params, fused["pool"], disagg["pool"]
+    torch.cuda.empty_cache()
+    return {"launches": launches, "result": {
+        "identical": identical, "mismatched": bad, "near_ties": ties}}
+
+
+def planes_phase(torch, flash, smoke: Smoke, power: str) -> dict:
+    """The serving planes at the built-in models' full width, bf16 with
+    random weights from seed 0 (f32 for the parity gates): (a) tenancy on a
+    ``--shards 4 --batch-size 8 --decode-block 8 --prefix-pool 8`` plane
+    under the tenancy phase's flood traffic, both families, DRR and FIFO
+    (exactly once, completions per tenant, the victims' wait lower under
+    DRR, homes held, spills counted, one install a (tenant, shard) pair
+    first seen; f32 pooled replies against ``generate`` of prefix + suffix
+    joined); (b) the GPT's run with ``--admission-shards 4``, the flood's
+    admission shard killed mid-flood and another gossip-partitioned
+    (exactly once, the staged requests handed back and served again, the
+    shard rehydrated, not cold); (c) the decode plane, ``--shards 4
+    --speculative-draft-layers 2 --speculative-draft-tokens 4``, both
+    families, 64 bodies with drafting turned off mid-drain (launches, the
+    accepted fraction, bf16 replies counted against plain ``--shards 4``;
+    f32 equal to plain up to ties, drafting also turned off mid-drain);
+    (d) ``DisaggregatedPool`` at 2 x 8 prefill and 4 x 8 decode slots
+    against the fused 6 x 8 plane on the reference's disaggregation
+    traffic, then with a prefill replica killed mid-handoff, on the
+    drafted decode plane and on a plain one (exactly once, ``flash_fwd``
+    launches = ``n_layers x`` prefill inserts with the handoff adding
+    none, f32 replies identical to the fused plane's, bf16 counted; the
+    wait from send to first token in cycles, the drain's busy share, one
+    handoff batch's time and the bytes copied)."""
+    bodies = tenant_bodies(flood_schedule(), tenant_prefixes())
+    out = {"launches": {}}
+    for part, fn, args in (
+            ("tenancy", plane_tenancy, (bodies,)),
+            ("admission", plane_admission, (bodies,)),
+            ("speculative", plane_speculative, ()),
+            ("disagg", plane_disagg, ())):
+        start = time.perf_counter()
+        out[part] = fn(torch, flash, smoke, power, *args)
+        out["launches"].update(out[part].pop("launches"))
+        print(f"-- planes {part}: {time.perf_counter() - start:.3f} s",
+              flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, replaces_fn, launches, by_path,
                  err, timing, shape) -> dict:
     return {
@@ -5206,6 +6034,7 @@ def main() -> int:
     sync = smoke.phase("sync", sync_phase, torch, smoke)
     gelu = smoke.phase("gelu cost", gelu_cost_phase, torch)
     tenancy = smoke.phase("tenancy", tenancy_phase, torch, flash, smoke)
+    planes = smoke.phase("planes", planes_phase, torch, flash, smoke, power)
     odd = smoke.phase("odd head dim", odd_head_dim_phase, torch, flash, smoke)
     f32_train = smoke.phase("f32 train step", f32_train_phase, torch, flash,
                             smoke)
@@ -5219,7 +6048,7 @@ def main() -> int:
                               and shards
                               and llama and int8 and prefix and spec
                               and beams and slice_prof and sync and gelu
-                              and tenancy and odd and f32_train
+                              and tenancy and planes and odd and f32_train
                               and train_path and train_prof):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
@@ -5256,6 +6085,11 @@ def main() -> int:
         # suffix inserts launch none), and the same streams with tenancy
         # off, prefix prepended (one prompt pass of 1024 an insert)
         **tenancy["launches"],
+        # the serving planes: tenancy on the plane (the pool's installs),
+        # admission shards, the decode plane's target inserts and draft
+        # prefills, the prefill plane's inserts (the KV handoff launches
+        # none)
+        **planes["launches"],
         **{f"train-{r}": v["launches"]["flash_fwd"]
            for r, v in train_path.items()},
     }

@@ -17,6 +17,9 @@ from the JAX package's JAX-free modules it keeps as its own copies.
   (``csrc/flash_fwd.cu``, with and without the logsumexp) that every
   prompt pass and training forward on the card runs, and the backward
   (``csrc/flash_bwd.cu``: dq; dk with dv) of every training step.
+- :mod:`.planes` — the disaggregated prefill and decode planes: prefill
+  replicas that only insert, the decode plane with speculative rows and
+  the KV handoff, and the pool that shuttles rows between them.
 - :mod:`.cli` — the controller binary (``python -m
   kube_sqs_autoscaler_tpu_torch``): the reference's flags, polling queue
   depth and scaling a Deployment through :mod:`.core`, :mod:`.metrics`,

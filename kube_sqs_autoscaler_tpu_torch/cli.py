@@ -13,7 +13,7 @@ journal (``--journal-path`` …) and the metrics server (``--metrics-port``,
 Flags whose paths are not ported yet parse with the reference's names and
 defaults, then exit with status 2 naming their ROADMAP item:
 ``--policy predictive`` and ``--policy learned`` (Queue 1 item 6) and
-``--request-trace`` above 0 (item 3).
+``--request-trace`` above 0 (item 3b).
 
 Env vars: ``KUBE_CONFIG_PATH`` selects a kubeconfig file (in-cluster
 config when unset or empty); AWS credentials come from the standard AWS
@@ -149,7 +149,7 @@ def build_parser() -> argparse.ArgumentParser:
             "requests (arrival/staged/admitted/prefill/first_token/"
             "handoff/completed/reply stamps behind /debug/requests and "
             "request_phase_seconds histograms; 0 = disabled; not yet "
-            "ported: values above 0 exit naming ROADMAP Queue 1 item 3)"
+            "ported: values above 0 exit naming ROADMAP Queue 1 item 3b)"
         ),
     )
     # The scaling policy: 'reactive' is the reference's behavior; the
@@ -377,7 +377,7 @@ def check_unported(parser: argparse.ArgumentParser,
     if args.request_trace > 0:
         parser.error(
             "--request-trace needs obs/lifecycle.py and the serving plane's "
-            "stamp sites, not yet ported (ROADMAP Queue 1 item 3)"
+            "stamp sites, not yet ported (ROADMAP Queue 1 item 3b)"
         )
 
 

@@ -1,7 +1,7 @@
 """The control loop: sleep → poll → plan → actuate.
 
 The port's copy of ``kube_sqs_autoscaler_tpu/core/loop.py`` (its
-scheduler seam waits for ``sched/``).  The loop owns the side effects;
+scheduler seam waits for ``sched/``, ROADMAP Queue 1 item 3b).  The loop owns the side effects;
 all decisions come from the pure policy (:mod:`.policy`), in the
 reference's order:
 
@@ -133,13 +133,21 @@ class ControlLoop:
         restored = self.durable.take_restored_policy_state()
         return restored if restored is not None else initial_state(now)
 
-    def run(self, max_ticks: int | None = None) -> PolicyState:
+    def run(self, max_ticks: int | None = None, *,
+            scheduler=None) -> PolicyState:
         """Run the loop; blocks until ``max_ticks`` ticks or :meth:`stop`.
 
         ``max_ticks=None`` runs forever, like the reference.  Each call is a
         fresh episode (fresh startup-grace state and tick budget);
         ``self.ticks`` accumulates across episodes for observability.
+        ``scheduler`` (the reference's event-scheduler seam) is not ported:
+        anything but ``None`` raises ``NotImplementedError``.
         """
+        if scheduler is not None:
+            raise NotImplementedError(
+                "ControlLoop.run(scheduler=) needs sched/, not yet ported "
+                "(ROADMAP Queue 1 item 3b)"
+            )
         state = self.initial_policy_state()
         ticks_this_run = 0
         while not self._stop.is_set():

@@ -1,8 +1,7 @@
 """ShardedWorkerPool: the ``Scaler`` seam over shard mask flips.
 
 The port's copy of ``kube_sqs_autoscaler_tpu/fleet/sharded.py`` without
-the tenancy and lifecycle parts and the admission section of the state
-export.  A :class:`~.pool.WorkerPool` scales by spawning and draining
+the lifecycle hook.  A :class:`~.pool.WorkerPool` scales by spawning and draining
 whole replicas, each stepped from Python in turn; this pool holds one
 :class:`~.worker.FleetWorker` over a
 :class:`~..workloads.shard_plane.ShardedBatcher`, and its replica count is
@@ -24,6 +23,14 @@ they indict is **quarantined** (masked off), its rows in flight are
 **evacuated** (re-prefilled onto healthy shards through one resume insert,
 or handed back to the queue), after ``probe_after_cycles`` it is
 **probed** (mask on, one request), and a clean probe **readmits** it.
+
+With tenancy the plane's worker stages per tenant and routes prefixed
+admissions to sticky tenant homes over per-shard prefix pools; the tenant
+homes and the admission accounting (and, with admission shards, the
+sharded admission plane's state) ride :meth:`ShardedWorkerPool.export_state`
+as its ``admission`` section, and the admission shards are a failure
+domain of their own (:meth:`ShardedWorkerPool.kill_admission_shard`,
+:meth:`ShardedWorkerPool.partition_admission_shard`).
 Importing this module imports no torch: :meth:`ShardedWorkerPool.serving`
 imports the worker when it builds it.
 """
@@ -293,13 +300,33 @@ class ShardedWorkerPool(FleetPoolBase):
         host still believes it admits."""
         self.worker.batcher.corrupt_active_mask(shard)
 
+    def kill_admission_shard(self, shard: int) -> int:
+        """Chaos seam (``FleetFaultPlan.admission_kills``): kill one
+        admission shard (staging, not engine): its staged requests go back
+        to the queue and it rehydrates next cycle.  Needs
+        ``tenancy.admission_shards >= 2``."""
+        return self.worker.kill_admission_shard(shard)
+
+    def partition_admission_shard(self, shard: int,
+                                  partitioned: bool = True) -> None:
+        """Chaos seam (``FleetFaultPlan.admission_partitions``): partition
+        (or heal) one admission shard's gossip."""
+        self.worker.partition_admission_shard(shard, partitioned)
+
     @property
     def processed(self) -> int:
         return self.worker.processed
 
     @property
+    def completed_by_tenant(self) -> dict[str, int]:
+        """Answered completions per tenant (one worker; the registry's
+        duplicate path never reaches the count)."""
+        return dict(getattr(self.worker, "completed_by_tenant", {}))
+
+    @property
     def idle(self) -> bool:
-        return self.worker.batcher.active == 0
+        return (self.worker.batcher.active == 0
+                and getattr(self.worker, "staged", 0) == 0)
 
     def stop_all(self) -> None:
         """Stop the plane, releasing unfinished requests back to the queue
@@ -316,6 +343,30 @@ class ShardedWorkerPool(FleetPoolBase):
         self._drain_on_readmit.clear()
         self._quarantined_at.clear()
         self._update_metrics()
+
+    # -- durable state: the reply registry, plus the one worker's
+    # admission accounting (DRR/EDF deficits, flood classification, the
+    # ladders, the tenant homes); shard states stay out, the autoscaler
+    # derives the shard count again ------------------------------------------
+
+    def export_state(self) -> dict:
+        state = super().export_state()
+        admission = getattr(self.worker, "export_admission_state", None)
+        if admission is not None:
+            state["admission"] = admission()
+            state["records"] += state["admission"].get("records", 0)
+        return state
+
+    def import_state(self, state: dict, *, rebase: float = 0.0,
+                     now: float | None = None,
+                     max_age_s: float = 0.0) -> int:
+        recovered = super().import_state(state)
+        admission = state.get("admission")
+        importer = getattr(self.worker, "import_admission_state", None)
+        if importer is not None and isinstance(admission, dict):
+            recovered += importer(admission, rebase=rebase, now=now,
+                                  max_age_s=max_age_s)
+        return recovered
 
     # -- observability ------------------------------------------------------
 
@@ -391,14 +442,9 @@ class ShardedWorkerPool(FleetPoolBase):
         engine the plane adopts; ``now_fn`` is the request-TTL clock.
         ``params`` may be int8-quantized and ``prefix_cache`` a shared
         prompt prefix, as for :meth:`~.pool.WorkerPool.serving`.
-        ``tenancy`` on the plane (sticky tenant homes) is not ported yet
-        and raises ``ValueError``."""
-        if tenancy is not None:
-            raise ValueError(
-                "tenancy on the sharded plane (sticky tenant homes, "
-                "per-shard prefix pools) is not yet ported (ROADMAP Queue 1 "
-                "item 3)"
-            )
+        ``tenancy`` gives the plane's worker fair-admission staging (the
+        sharded admission plane with ``admission_shards > 1``), sticky
+        tenant homes and, with ``prefix_pool > 0``, per-shard pools."""
         if shards is None:
             shards = (service_config.shards if service_config.shards > 1
                       else (max or service_config.shards))
@@ -413,7 +459,7 @@ class ShardedWorkerPool(FleetPoolBase):
                 queue, params, model_config, seeded, family=family,
                 result_queue=result_queue, now_fn=now_fn, device=device,
                 prefix_cache=prefix_cache, pool=pool,
-                engine_source=engine_source, sharded=True,
+                engine_source=engine_source, sharded=True, tenancy=tenancy,
             )
 
         return cls(factory, min=min, max=max, **pool_kwargs)

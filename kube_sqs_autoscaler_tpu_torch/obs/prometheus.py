@@ -617,6 +617,108 @@ class WorkloadMetrics:
             labels=labels,
         )
 
+    def set_admission_shard_gauges(self, shards) -> None:
+        """The sharded admission plane's gauges, from its
+        :class:`~..workloads.admission_shards.AdmissionShard` list: the
+        ladder rollup (``overload_tier`` and ``overload_pressure`` the max
+        over the shards' ladders, ``overload_tier_transitions_total``
+        their sum) and one labeled series a shard of
+        ``admission_shard_staged``, ``admission_shard_tenants`` and
+        ``admission_shard_state`` (shard labels are a config knob, so they
+        need no tenant-label bound)."""
+        ladders = [s.ladder for s in shards if s.ladder is not None]
+        if ladders:
+            self.set_gauge(
+                "overload_tier", max(ladder.tier for ladder in ladders),
+                "Active overload-ladder tier (0 = serving normally, "
+                "1 = degrading over-share tenants, 2 = + evicting cold "
+                "prefix entries, 3 = + shedding staged requests).  "
+                "Sharded admission: the MAX across per-shard ladders.",
+            )
+            self.set_gauge(
+                "overload_pressure",
+                max(ladder.last_pressure for ladder in ladders),
+                "Measured overload pressure the ladder last acted on.  "
+                "Sharded admission: the MAX across per-shard ladders.",
+            )
+            self.set_gauge(
+                "overload_tier_transitions_total",
+                sum(ladder.transitions for ladder in ladders),
+                "Ladder tier transitions (enter + exit), summed across "
+                "admission shards.",
+                kind="counter",
+            )
+        for shard in shards:
+            labels = (("shard", str(shard.index)),)
+            self.set_gauge(
+                "admission_shard_staged", shard.fair.staged,
+                "Requests parked in this admission shard's staging slice.",
+                labels=labels,
+            )
+            self.set_gauge(
+                "admission_shard_tenants",
+                sum(1 for depth in shard.fair.drr.depths().values()
+                    if depth > 0),
+                "Tenants with staged work on this admission shard.",
+                labels=labels,
+            )
+            self.set_gauge(
+                "admission_shard_state",
+                0 if not shard.alive else (1 if shard.partitioned else 2),
+                "Admission-shard liveness: 2 = serving, 1 = "
+                "gossip-partitioned (still admitting), 0 = killed "
+                "(staged work handed back; rehydrates next cycle).",
+                labels=labels,
+            )
+
+    def set_plane_engine_gauges(self, batcher) -> None:
+        """The decode plane's engine gauges, from a
+        :class:`~..planes.engine.DecodePlaneBatcher`: the accepted-draft
+        fraction ``speculative_accept_rate`` (unlabeled plane-wide, and
+        one series a tenant, bounded upstream like every tenant series)
+        and the ``plane_kv_transfers_total`` handoff counter."""
+        if batcher.spec_layers:
+            accept_help = (
+                "Accepted-draft fraction of proposed speculative tokens in "
+                "[0, 1] (labeled rows are per-tenant, bounded like every "
+                "tenant series; the unlabeled row is plane-wide)."
+            )
+            rate = batcher.accept_rate()
+            if rate is not None:
+                self.set_gauge("speculative_accept_rate", rate, accept_help)
+            for tenant in sorted(batcher.tenant_spec_rounds):
+                self.set_gauge(
+                    "speculative_accept_rate",
+                    batcher.accept_rate(tenant) or 0.0, accept_help,
+                    labels=(("tenant", tenant),),
+                )
+        self.set_gauge(
+            "plane_kv_transfers_total", batcher.kv_transfers,
+            "KV rows this decode plane adopted from prefill-plane donors "
+            "over the handoff transport.",
+            kind="counter",
+        )
+
+    def set_plane_pool_gauges(self, *, prefill_replicas: int,
+                              decode_shards: int, kv_handoffs: int) -> None:
+        """The disaggregated pool's plane gauges: serving prefill
+        replicas and decode shards (the two Scaler axes) and the rows the
+        pool's shuttle has handed from prefill to decode."""
+        self.set_gauge(
+            "plane_prefill_replicas", prefill_replicas,
+            "Serving prefill-plane replicas (the pool Scaler's axis).",
+        )
+        self.set_gauge(
+            "plane_decode_shards", decode_shards,
+            "Serving decode-plane shards (the decode Scaler's axis).",
+        )
+        self.set_gauge(
+            "plane_kv_transfers_total", kv_handoffs,
+            "KV rows handed from the prefill plane to decode slots over "
+            "the pool shuttle.",
+            kind="counter",
+        )
+
     def set_build_info(self, version: str, **labels: str) -> None:
         """The workload binary's ``build_info`` stamp (value 1, identity
         in the labels — the serving twin of the controller registry's

@@ -16,9 +16,9 @@ demo waits for the simulator):
 - :class:`CrashPlan`: controller kills at named crash points inside a
   tick, actuated by :class:`CrashingMetricSource`, :class:`CrashingScaler`
   and :class:`CrashingJournal` (and ``FleetDriver``'s tick boundary);
-- :class:`FleetFaultPlan`: replica kills and hangs and the sharded plane's
-  shard faults.  The admission faults wait for the sharded admission
-  plane; a plan that names them raises ``ValueError``.
+- :class:`FleetFaultPlan`: replica kills and hangs, the sharded plane's
+  shard faults and the sharded admission plane's shard kills and gossip
+  partitions.
 """
 
 from __future__ import annotations
@@ -242,7 +242,14 @@ class FleetFaultPlan:
       shard)`` windows of :class:`~..fleet.ShardedWorkerPool`'s chaos
       seams, injected at ``start`` and healed at ``end`` (end-exclusive);
     - ``shard_mask_corruptions``: one-shot ``(cycle, shard)`` device-mask
-      bit flips (the quarantine's mask write heals them).
+      bit flips (the quarantine's mask write heals them);
+    - ``admission_kills``: one-shot ``(cycle, admission_shard)`` kills of
+      an admission shard (its staged requests go back to the queue and it
+      rehydrates from its tombstone and the peers' gossip next cycle);
+    - ``admission_partitions``: ``(start_cycle, end_cycle, shard)``
+      gossip-partition windows, validated as ``shard_poisons``: the shard
+      keeps admitting but neither sends nor receives flood
+      classifications until the window heals.
     """
 
     kills: tuple[tuple[int, int], ...] = ()
@@ -254,13 +261,7 @@ class FleetFaultPlan:
     admission_partitions: tuple[tuple[int, int, int], ...] = ()
 
     def __post_init__(self):
-        for name in ("admission_kills", "admission_partitions"):
-            if getattr(self, name):
-                raise ValueError(
-                    f"{name} is not yet ported to the PyTorch port's fleet "
-                    "(replica and shard faults only)"
-                )
-        for name in ("shard_poisons", "shard_wedges"):
+        for name in ("shard_poisons", "shard_wedges", "admission_partitions"):
             for start, end, _ in getattr(self, name):
                 if not start < end:
                     raise ValueError(
@@ -288,6 +289,14 @@ class FleetFaultPlan:
         for at, shard in self.shard_mask_corruptions:
             if at == cycle:
                 pool.corrupt_shard_mask(shard)
+        for at, shard in self.admission_kills:
+            if at == cycle:
+                pool.kill_admission_shard(shard)
+        for start, end, shard in self.admission_partitions:
+            if cycle == start:
+                pool.partition_admission_shard(shard, True)
+            elif cycle == end:
+                pool.partition_admission_shard(shard, False)
 
     def indices(self) -> set[int]:
         """Every replica index the plan touches (for pre-validation)."""
@@ -300,6 +309,11 @@ class FleetFaultPlan:
             | {s for _, _, s in self.shard_wedges}
             | {s for _, s in self.shard_mask_corruptions}
         )
+
+    def admission_shards(self) -> set[int]:
+        """Every admission shard the plan touches (for pre-validation)."""
+        return ({s for _, s in self.admission_kills}
+                | {s for _, _, s in self.admission_partitions})
 
 
 # ---------------------------------------------------------------------------

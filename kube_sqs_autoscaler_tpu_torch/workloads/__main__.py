@@ -33,8 +33,10 @@ SwiGLU) through every mode below.
   by draft and verify, the model's first N layers proposing K tokens a
   round (:mod:`.speculative`); ``--beams W [--length-penalty A]`` runs
   beam search (:mod:`.beam`).  Each serves through the batch worker and
-  ``--continuous`` (not ``--decode-block > 1``, ``--shards`` or the fleet)
-  and composes with ``--quantize-kv`` and ``--prefix-ids``.
+  ``--continuous`` (not the fleet) and composes with ``--quantize-kv``
+  and ``--prefix-ids``.  Speculative with ``--shards`` or ``--tenants``
+  runs on the decode plane (:class:`~..planes.engine.DecodePlaneBatcher`),
+  where ``--decode-block`` carries the plain rows' gang block.
 - ``--tenants A,B,...`` (with ``--continuous``) admits through per-tenant
   staging by deficit round robin (:mod:`.tenancy`), with
   ``--tenant-weights``, ``--tenant-slos`` and ``--urgency-window`` (the
@@ -42,17 +44,20 @@ SwiGLU) through every mode below.
   (the decode deadline) and ``--prefix-pool N`` (N resident per-tenant
   prefixes of ``--seq-len`` tokens; the built-in context grows by
   ``--seq-len``).  Bodies opt in with ``{"tenant": ..., "prefix": [...],
-  "ids": [...]}``; plain bodies land on the first tenant.
+  "ids": [...]}``; plain bodies land on the first tenant.  With
+  ``--shards`` tenants get sticky home shards and per-shard pools;
+  ``--admission-shards N`` splits the staging over N crash-tolerant
+  admission shards (:mod:`.admission_shards`).
 
 The worker runs on the card (``--device cuda``, the default) and exits
 with an error when there is none; ``--device cpu`` runs it on the CPU.
 Weights are the built-in config's, drawn from a seeded generator.
 Flags of the reference binary whose paths are not ported yet
-(``--checkpoint-dir``, ``--hf-checkpoint``, ``--scheduler``, ...) are not
-accepted; ``--admission-shards > 1``, ``--tokenizer``,
-``--model-parallel``, and ``--speculative-draft-layers`` or ``--tenants``
-with ``--shards``, which the reference serves on paths the port does not
-have yet, exit with a message naming their ROADMAP item.
+(``--checkpoint-dir``, ``--hf-checkpoint``) are not accepted;
+``--scheduler``, ``--knobs``, ``--topology``, ``--journal-path``,
+``--tokenizer`` and ``--model-parallel``, which the reference serves on
+paths the port does not have yet, exit with a message naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -191,8 +196,8 @@ def build_parser() -> argparse.ArgumentParser:
              "identical to plain greedy decode; --temperature > 0 runs "
              "speculative sampling, every emitted token a warped-target "
              "sample; requires --generate-tokens >= 1; composes with "
-             "--continuous, --quantize-kv and --prefix-ids; not with "
-             "--beams)",
+             "--continuous, --quantize-kv and --prefix-ids, and with "
+             "--shards / --tenants on the decode plane; not with --beams)",
     )
     parser.add_argument(
         "--speculative-draft-tokens", type=int, default=4, metavar="K",
@@ -260,9 +265,26 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--admission-shards", type=int, default=1, metavar="N",
-        help="sharded admission plane (not yet ported: N > 1 exits; 1 = "
-             "the single staging plane; requires --tenants)",
+        help="sharded admission plane: split fair-admission staging over "
+             "N crash-tolerant admission shards (tenants map to shards by "
+             "consistent hash, each shard runs its own DRR/EDF and ladder, "
+             "fairness across shards through rate-bounded credit "
+             "borrowing, flood classifications gossip between shards; a "
+             "killed shard hands its staged requests back to the queue and "
+             "rehydrates next cycle; 1 = the single staging plane; "
+             "requires --tenants)",
     )
+    for flag, meta, kind in (("--scheduler", None, "store_true"),
+                             ("--knobs", "KNOB,KNOB,...", None),
+                             ("--topology", "SHAPE", None),
+                             ("--journal-path", "PATH", None)):
+        extra = ({"action": kind} if kind
+                 else {"default": "", "metavar": meta})
+        parser.add_argument(
+            flag, **extra,
+            help="the reference's serving orchestration (sched/, comms/, "
+                 "the journal): not yet ported, exits",
+        )
     parser.add_argument(
         "--tokenizer", default="", metavar="DIR",
         help="text-in/text-out through a transformers tokenizer (not yet "
@@ -669,7 +691,10 @@ def main(argv=None) -> dict | None:
         raise SystemExit(f"--decode-block {args.decode_block} must be >= 1")
     if args.decode_block > 1 and not args.continuous:
         raise SystemExit("--decode-block requires --continuous")
-    spec_on_plane = bool(args.speculative_draft_layers) and args.shards > 1
+    # speculative with --shards or --tenants runs on the decode plane,
+    # whose gang engine carries the plain rows' --decode-block
+    spec_on_plane = bool(args.speculative_draft_layers) and (
+        args.shards > 1 or bool(args.tenants))
     if args.decode_block > 1 and (
             args.beams > 1
             or (args.speculative_draft_layers and not spec_on_plane)):
@@ -695,11 +720,10 @@ def main(argv=None) -> dict | None:
             "--shards applies to the plain continuous decode path "
             "(not --beams)"
         )
-    if spec_on_plane:
-        # the reference serves this on its decode plane (planes/engine.py)
+    if spec_on_plane and args.model_parallel:
         raise SystemExit(
-            "--speculative-draft-layers with --shards runs on the decode "
-            "plane, not yet ported (ROADMAP Queue 1 item 3)"
+            "--speculative-draft-layers with --shards / --tenants runs on "
+            "the single-chip decode plane (not with --model-parallel)"
         )
     check_unported(args)
     tenancy = check_tenancy(args)
@@ -843,16 +867,16 @@ def check_unported(args) -> None:
             "--model-parallel serves over a (data, model) mesh, not yet "
             "ported (ROADMAP Queue 1 item 5)"
         )
-    if args.tenants and args.shards > 1:
-        raise SystemExit(
-            "--tenants with --shards (sticky tenant homes, per-shard prefix "
-            "pools) is not yet ported (ROADMAP Queue 1 item 3)"
-        )
-    if args.tenants and args.speculative_draft_layers:
-        raise SystemExit(
-            "--tenants with --speculative-draft-layers runs on the decode "
-            "plane, not yet ported (ROADMAP Queue 1 item 3)"
-        )
+    for flag, given in (("--scheduler", args.scheduler),
+                        ("--knobs", args.knobs),
+                        ("--topology", args.topology),
+                        ("--journal-path", args.journal_path)):
+        if given:
+            raise SystemExit(
+                f"{flag} belongs to the serving orchestration (sched/, "
+                "comms/, the journal), not yet ported (ROADMAP Queue 1 "
+                "item 3b)"
+            )
 
 
 def check_tenancy(args):
@@ -902,11 +926,6 @@ def check_tenancy(args):
         raise SystemExit(
             f"--admission-shards {args.admission_shards} must be >= 1 "
             "(1 = the single staging plane)"
-        )
-    if args.admission_shards > 1:
-        raise SystemExit(
-            "--admission-shards > 1 (the sharded admission plane) is not "
-            "yet ported (ROADMAP Queue 1 item 3)"
         )
     if args.decode_slo_budget < 0:
         raise SystemExit(

@@ -80,7 +80,14 @@ once into a :class:`.tenancy.PrefixPool` row, and a refill's pooled insert
 pool on the device and runs the suffixes through the chunk decoder: one
 dispatch, no host wait.  A degraded row that finishes before its device
 budget is quiesced (:meth:`ContinuousBatcher._quiesce_rows`) and kept out
-of admission until the block in flight has settled.
+of admission until the block in flight has settled.  With
+``tenancy.admission_shards > 1`` the staging is the sharded admission
+plane (:class:`.admission_shards.ShardedAdmission`), each shard with its
+own ladder; tenancy on ``shards > 1`` rides the sharded plane's sticky
+tenant homes and per-shard pools; speculative slots with ``shards > 1``
+or with tenancy run on the decode plane
+(:class:`~..planes.engine.DecodePlaneBatcher`), the S = 1 end of it
+without ``shards``.
 
 Not ported yet (the batcher raises ``ValueError``): a mesh.
 """
@@ -1588,11 +1595,6 @@ class ContinuousWorker:
                 "ContinuousWorker is generate-mode serving; set "
                 "ServiceConfig.generate_tokens >= 1"
             )
-        if tenancy is not None and tenancy.admission_shards > 1:
-            raise ValueError(
-                "admission shards are not yet ported (ROADMAP Queue 1 "
-                "item 3)"
-            )
         if tenancy is not None and tenancy.prefix_pool > 0 \
                 and tenancy.prefix_len < 1:
             # the pool's prefix bucket defaults to the prompt bucket
@@ -1631,15 +1633,22 @@ class ContinuousWorker:
         if sharded is None:
             sharded = service_config.shards > 1
         if draft_layers > 0 and (sharded or tenancy is not None):
-            # the reference runs speculative shards, and speculative slots
-            # behind tenant staging, on its decode plane (planes/engine.py),
-            # which the port does not have yet
-            raise ValueError(
-                "speculative decoding on the sharded plane or with tenancy "
-                "runs on the decode-plane engine, not yet ported (ROADMAP "
-                "Queue 1 item 3)"
+            # speculative shards, and speculative slots behind tenant
+            # staging, run on the decode plane: draft-and-verify rounds
+            # over the whole [S*B] row axis, S = 1 for tenancy without
+            # shards (the plain speculative engine has no tenant staging)
+            from ..planes.engine import DecodePlaneBatcher
+
+            plane_knobs = dict(knobs)
+            plane_knobs.pop("draft_layers")
+            plane_knobs.pop("draft_tokens")
+            self.batcher = DecodePlaneBatcher(
+                params, model_config, shards=service_config.shards,
+                shard_slots=service_config.batch_size,
+                spec_layers=draft_layers, spec_tokens=draft_tokens,
+                **plane_knobs,
             )
-        if sharded:
+        elif sharded:
             # the sharded plane: `shards` gang-stepped engine shards of
             # batch_size slots each behind this worker's admission, one
             # decode dispatch a cycle.  sharded=True builds it even at one
@@ -1684,15 +1693,22 @@ class ContinuousWorker:
             from .tenancy import FairAdmission, OverloadLadder
 
             total_slots = len(self.batcher.slots)
-            self._fair = FairAdmission(
-                tenancy,
+            fair_limits = dict(
                 per_tenant_limit=(tenancy.staging_per_tenant
                                   or max(1, total_slots)),
                 total_limit=(tenancy.staging_total
                              or max(2, 2 * total_slots)),
             )
-            if tenancy.shed_tiers > 0:
-                self.ladder = OverloadLadder(tenancy.shed_tiers)
+            if tenancy.admission_shards > 1:
+                # the sharded admission plane, each shard with its own
+                # ladder (admission_shards=1 never imports the module)
+                from .admission_shards import ShardedAdmission
+
+                self._fair = ShardedAdmission(tenancy, **fair_limits)
+            else:
+                self._fair = FairAdmission(tenancy, **fair_limits)
+                if tenancy.shed_tiers > 0:
+                    self.ladder = OverloadLadder(tenancy.shed_tiers)
         self.timer = SpanTimer()
         # created eagerly, so a stop() before run_forever() still holds
         self._stop = threading.Event()
@@ -1863,6 +1879,8 @@ class ContinuousWorker:
             self._poll_backoff = 0  # staged work: keep the loop hot
         if self.ladder is not None:
             self._run_ladder()
+        elif self.tenancy.shed_tiers > 0 and hasattr(self._fair, "shards"):
+            self._run_shard_ladders()
         now = self._now()
         admit: list = []
         while len(admit) < free:
@@ -1921,7 +1939,41 @@ class ContinuousWorker:
             )
             self._shed_pressure(target, self._degrade_tenants)
 
-    def _shed_pressure(self, target: int, over_share) -> None:
+    def _run_shard_ladders(self) -> None:
+        """The sharded admission plane's ladder pass: each alive shard
+        measures its own pressure (its staged fraction, gated by the
+        engine's occupancy) and advances its own ladder, so one shard's
+        flood engages tier actions for its tenants only.  The degrade set
+        is the union over the shards, tier 3 sheds from the shard's own
+        staging, and gossip then shares every flood classification."""
+        fair = self._fair
+        slots = len(self.batcher.slots)
+        if not slots:
+            return
+        free = slots - self.batcher.active
+        occupancy = min(
+            1.0, (self.batcher.active + min(fair.staged, free)) / slots)
+        degrade: set = set()
+        pool = self.batcher.prefix_pool
+        for shard in fair.shards:
+            if not shard.alive or shard.ladder is None:
+                continue
+            staged_frac = min(1.0, shard.fair.staged / shard.fair.total_limit)
+            tier = shard.ladder.update(staged_frac * occupancy)
+            if tier < 1:
+                continue
+            flood = shard.fair.over_share()
+            degrade |= set(flood)
+            if tier >= 2 and pool is not None:
+                pool.evict_cold(max(1, pool.entries // 2))
+            if tier >= 3:
+                target = int(shard.ladder.exit_threshold(3)
+                             * shard.fair.total_limit)
+                self._shed_pressure(target, flood, fair=shard.fair)
+        fair.gossip()
+        self._degrade_tenants = frozenset(degrade)
+
+    def _shed_pressure(self, target: int, over_share, fair=None) -> None:
         """Tier 3: shed staged requests down to ``target``, only from
         tenants over their weight share (by sustained offered rate; a
         compliant tenant's requests are served late, never dropped).
@@ -1929,8 +1981,10 @@ class ContinuousWorker:
         most over-share (staged depth / weight) first; an SLO tenant loses
         requests only in an unambiguous flood (``PREMIUM_FLOOD_FACTOR`` x
         the rate floor), and then only those already past deadline.  Every
-        shed is an error reply through the normal settle."""
-        fair = self._fair
+        shed is an error reply through the normal settle.  ``fair`` scopes
+        the shed to one admission shard's staging (default: the worker's
+        whole staging)."""
+        fair = fair if fair is not None else self._fair
         drr = fair.drr
         now = self._now()
         over = {t for t in over_share if drr.depth(t) > 0}
@@ -2127,6 +2181,46 @@ class ContinuousWorker:
                 nack(self.config.queue_url, payload["ReceiptHandle"], 0)
         return len(resumes), len(handback)
 
+    def kill_admission_shard(self, shard: int) -> int:
+        """Chaos seam (``FleetFaultPlan.admission_kills``): kill one
+        admission shard.  Its staged requests go back to the queue through
+        ``change_message_visibility(0)`` (redelivered, and the reply
+        registry dedups), its accounting is tombstoned, and the next refill
+        rehydrates it.  Sharded admission only; returns the hand-back
+        count."""
+        fair = self._fair
+        if fair is None or not hasattr(fair, "kill_shard"):
+            raise ValueError(
+                "no sharded admission plane to kill a shard of "
+                "(tenancy.admission_shards must be >= 2)"
+            )
+        nack = getattr(self.queue, "change_message_visibility", None)
+        if nack is None:
+            log.warning(
+                "Queue has no change_message_visibility; the killed "
+                "admission shard's staged requests will redeliver only "
+                "after the visibility timeout"
+            )
+
+        def handback(message) -> None:
+            if nack is not None:
+                nack(self.config.queue_url, message["ReceiptHandle"], 0)
+
+        return fair.kill_shard(shard, handback)
+
+    def partition_admission_shard(self, shard: int,
+                                  partitioned: bool = True) -> None:
+        """Chaos seam (``FleetFaultPlan.admission_partitions``): flip one
+        admission shard's gossip partition; it keeps admitting its
+        tenants."""
+        fair = self._fair
+        if fair is None or not hasattr(fair, "partition_shard"):
+            raise ValueError(
+                "no sharded admission plane to partition a shard of "
+                "(tenancy.admission_shards must be >= 2)"
+            )
+        fair.partition_shard(shard, partitioned)
+
     def attach_metrics(self, metrics) -> None:
         """Report the serving gauges (tokens/s, time to first token,
         active slots, block utilization), the shed counters and the TTFT
@@ -2196,8 +2290,13 @@ class ContinuousWorker:
                 "worker's lifetime.",
                 kind="counter",
             )
+        elif self._fair is not None and hasattr(self._fair, "shards"):
+            self.metrics.set_admission_shard_gauges(self._fair.shards)
         if self.tenancy is not None:
             self._update_tenant_metrics(elapsed)
+        if getattr(batcher, "kv_transfers", None) is not None:
+            # the decode plane: accept rates and the handoff counter
+            self.metrics.set_plane_engine_gauges(batcher)
         drain_ttft_histograms(batcher, self.metrics)
 
     def _update_tenant_metrics(self, elapsed: float) -> None:

@@ -1,7 +1,7 @@
 """The sharded serving plane: engine shards gang-stepped in one dispatch.
 
 Counterpart of ``kube_sqs_autoscaler_tpu/workloads/shard_plane.py``
-without the tenant homes, the comms and lifecycle hooks, and the mesh.  A
+without the comms and lifecycle hooks and the mesh.  A
 fleet of independent :class:`~.continuous.ContinuousWorker` replicas
 steps its engines one after another from one Python thread; this plane
 runs the whole fleet's decode as one call over a shard axis:
@@ -25,7 +25,14 @@ runs the whole fleet's decode as one call over a shard axis:
   for its event while the next block runs;
 - **scale by mask**: :meth:`ShardedBatcher.set_shard_active` flips a
   device ``[S]`` bit and its host mirror; a masked shard admits nothing
-  and its rows in flight decode to completion (drain).
+  and its rows in flight decode to completion (drain);
+- **tenancy** (``tenancy``, a :class:`~.tenancy.TenancyConfig`): the
+  batcher's per-tenant attribution, and with ``tenancy.prefix_pool > 0``
+  one :class:`~.tenancy.PrefixPool` partition per shard.  A prefixed
+  admission routes affinity first (:meth:`ShardedBatcher._route_prefixed`):
+  a tenant's first admission pins it to the freest shard, its home, where
+  its prefix entry stays resident; a spill to another shard when home is
+  full or trails pays one foreign install and leaves the home in place.
 
 Both cache layouts and the shared prefix reach the plane as the batcher's
 knobs (``quantized_kv``, ``prefix_cache``): the flat rows hold int8 codes
@@ -109,12 +116,6 @@ class ShardedBatcher(ContinuousBatcher):
             raise ValueError(
                 "the sharded plane applies to the plain continuous decode "
                 "path (not beams / speculative slots)"
-            )
-        if kwargs.get("tenancy") is not None:
-            raise ValueError(
-                "tenancy on the sharded plane (sticky tenant homes, "
-                "per-shard prefix pools) is not yet ported (ROADMAP Queue 1 "
-                "item 3)"
             )
         self.shards = shards
         self.shard_slots = shard_slots
@@ -309,8 +310,8 @@ class ShardedBatcher(ContinuousBatcher):
         self._avail_cache = None
 
     def _admission_rows_by_shard(self) -> list[list[int]]:
-        """The admission-eligible rows of each shard: free rows of
-        admitting shards, at most one while a shard probes, at most
+        """The admission-eligible rows of each shard: free, unquiesced
+        rows of admitting shards, at most one while a shard probes, at most
         ``slot_limit - busy`` under the slot limit.  Memoized until an
         eligibility change (:meth:`_invalidate_admission_cache`), so one
         scan serves a cycle's reads; callers treat the lists as
@@ -318,7 +319,8 @@ class ShardedBatcher(ContinuousBatcher):
         if self._avail_cache is not None:
             return self._avail_cache
         per_shard = [
-            [row for row in self.shard_rows(s) if not self.slots[row].busy]
+            [row for row in self.shard_rows(s)
+             if not self.slots[row].busy and row not in self._tainted]
             if self.shard_admitting[s] else []
             for s in range(self.shards)
         ]
@@ -355,6 +357,67 @@ class ShardedBatcher(ContinuousBatcher):
             heads[best] += 1
         return order
 
+    def _route_prefixed(self, keys: list) -> list[int]:
+        """Rows for a prefixed admission batch, affinity first, then
+        freest.  A key's first admission makes the freest shard (ties to
+        the lowest index, as :attr:`free_slots`) its home, where its prefix
+        entry is resident in the shard's pool partition; later admissions
+        stay home unless home has no eligible row or the freest shard
+        leads it by ``tenancy.sticky_imbalance`` free rows or more (0: the
+        shard's slot count, so only a full home yields).  A spill goes to
+        the freest shard and leaves the home in place: it pays one foreign
+        install and the key goes home at its next refill.  The home map
+        is LRU-touched on every lookup and capped at 4096 keys;
+        ``tenancy.sticky=False`` routes freest first."""
+        per_shard = self._admission_rows_by_shard()
+        heads = [0] * self.shards
+        sticky = self.tenancy is not None and self.tenancy.sticky
+        threshold = (self.tenancy.sticky_imbalance
+                     if self.tenancy is not None
+                     and self.tenancy.sticky_imbalance
+                     else self.shard_slots)
+
+        def avail(s: int) -> int:
+            return len(per_shard[s]) - heads[s]
+
+        def freest() -> int:
+            best, best_avail = -1, 0
+            for s in range(self.shards):
+                if avail(s) > best_avail:  # strict: ties keep the lowest s
+                    best, best_avail = s, avail(s)
+            return best
+
+        rows: list[int] = []
+        for key in keys:
+            pick = None
+            home = self._tenant_home.get(key)
+            if home is not None:
+                # touched on every lookup: the cap evicts cold keys, never
+                # a busy long-lived tenant's home
+                self._tenant_home.move_to_end(key)
+            if sticky and home is not None and avail(home) > 0:
+                top = freest()
+                if top < 0 or avail(top) - avail(home) < threshold:
+                    pick = home
+            if pick is None:
+                pick = freest()
+                if pick < 0:
+                    raise RuntimeError(
+                        "no admission-eligible slot for a routed request "
+                        "(caller must size batches by free_slots)"
+                    )
+                if sticky and home is None:
+                    self._tenant_home[key] = pick
+                    self._tenant_home.move_to_end(key)
+                    while len(self._tenant_home) > 4096:
+                        self._tenant_home.popitem(last=False)
+            rows.append(per_shard[pick][heads[pick]])
+            heads[pick] += 1
+        return rows
+
+    def _pool_shard_of(self, row: int) -> int:
+        return row // self.shard_slots
+
     def _free_slot_count(self) -> int:
         return sum(len(rows) for rows in self._admission_rows_by_shard())
 
@@ -365,7 +428,7 @@ class ShardedBatcher(ContinuousBatcher):
         settle the previous block and the cycle's first tokens from one
         host copy; returns the finished ``(payload, tokens)`` pairs, as the
         block engine does."""
-        if self.active == 0:
+        if self.active == 0 and not self._tainted:
             return []
         return self._step_gang()
 
@@ -450,6 +513,11 @@ class ShardedBatcher(ContinuousBatcher):
                 self._settle_block(pending, block_host, firsts_by_shard)
                 if mark is not None and not mark.query():
                     self.overlapped_settles += 1
+        # every block dispatched before the last quiesce has settled, so
+        # the quiesced rows may take requests again
+        if self._tainted:
+            self._invalidate_admission_cache()
+            self._tainted.clear()
         if self._pending_block is None:
             self._apply_pending_decode_block()
         busy_before = [self.shard_busy(s) for s in range(self.shards)]

@@ -24,8 +24,10 @@ same classes and the same decisions on the same inputs:
 
 Everything but the pool's buffers is host bookkeeping, plain Python, and
 the pick adds no device work: a refill still admits as one insert.  The
-pool's mesh placement, the admission shards and the request-lifecycle
-stamps are not ported; the single-plane batcher's pool has one partition.
+pool has one partition per engine shard of the sharded plane (one on the
+single plane); the sharded admission plane over these classes is
+:mod:`.admission_shards`.  The pool's mesh placement and the
+request-lifecycle stamps are not ported.
 Torch is imported by the pool alone, so the control plane may read these
 classes without it.
 """
@@ -776,6 +778,10 @@ class FairAdmission:
         # change_message_visibility(0) went through, so the counter
         # never claims a backpressure event that did not happen
         self.overflow_total = 0
+        # serial host work done (rate decays, stagings, flood scans): a
+        # sharded admission plane's shards run concurrently, so a cost
+        # model charges the max over its shards
+        self.host_ops = 0
         # tenant -> decayed staged-arrivals-per-cycle (the ladder's
         # flood classifier input; pure bookkeeping — nothing on the
         # admission path reads it unless a ladder asks).  Rated by
@@ -802,6 +808,7 @@ class FairAdmission:
         """Decay the arrival-rate EWMA one refill cycle (entries under
         :attr:`ARRIVAL_FLOOR` drop out, so the dict stays bounded by
         recent stagers no matter how many labels an adversary mints)."""
+        self.host_ops += 1 + len(self.arrival_rate)
         decay = self.ARRIVAL_DECAY
         self.arrival_rate = {
             tenant: rate * decay
@@ -823,6 +830,7 @@ class FairAdmission:
         is non-empty even after its measured rate decays (the attack
         stopped SENDING, but its backlog is still the overload), and
         drops out the moment its backlog clears."""
+        self.host_ops += len(self.arrival_rate)
         fresh: set[str] = set()
         rates = self.arrival_rate
         if len(rates) >= 2:
@@ -892,6 +900,7 @@ class FairAdmission:
         deadline (epoch seconds; None = no SLO), carried so the EDF
         blend can see it at pick time; ``message_id`` dedups the
         offered-load rate under redelivery."""
+        self.host_ops += 1
         if self.drr.depth(tenant) >= self.per_tenant_limit:
             # offered past its OWN cap: the per-tenant flood signature
             # — counted into the rate even though nothing stages (a

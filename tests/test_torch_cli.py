@@ -115,7 +115,7 @@ def test_usage_errors_match_reference(argv, capsys):
     (["--policy=predictive"], "item 6"),
     (["--policy=learned"], "item 6"),
     (["--policy=learned", "--policy-checkpoint=ck.json"], "item 6"),
-    (["--request-trace=1"], "item 3"),
+    (["--request-trace=1"], "item 3b"),
 ])
 def test_unported_flags_exit_naming_their_item(argv, item, capsys):
     with pytest.raises(SystemExit) as info:

@@ -276,8 +276,8 @@ def test_pool_failure_seam_and_bounds():
     assert [r.state for r in pool.members].count(DRAINING) == 1
     with pytest.raises(ValueError, match="hang_grace_cycles"):
         WorkerPool(lambda p: _StubWorker(), min=1, max=2, hang_grace_cycles=1)
-    with pytest.raises(ValueError, match="not yet ported"):
-        FleetFaultPlan(admission_kills=((1, 0),))
+    # the admission faults are ported: a plan names its admission shards
+    assert FleetFaultPlan(admission_kills=((1, 0),)).admission_shards() == {0}
     # the loop's resilience layer is ported: an enabled config binds it
     loop = ControlLoop(pool, _Scripted([1]),
                        resilience=ResilienceConfig(scaler_retries=1))

@@ -1,8 +1,9 @@
 """The port stands alone: no ``jax`` and nothing of the JAX package.
 
 An AST scan of every module of ``kube_sqs_autoscaler_tpu_torch`` (its
-``core``, ``fleet``, ``metrics``, ``obs``, ``scale``, ``sim``, ``utils``
-and ``workloads`` subpackages, ``cli.py`` and ``__main__.py``) and of
+``core``, ``fleet``, ``metrics``, ``obs``, ``planes``, ``scale``, ``sim``,
+``utils`` and ``workloads`` subpackages, ``cli.py`` and ``__main__.py``) and
+of
 ``chip_smoke.py`` finds no such import,
 and a subprocess in which ``jax``, ``jaxlib`` and
 ``kube_sqs_autoscaler_tpu`` cannot be imported still imports the port and
@@ -11,8 +12,11 @@ fleet episode with its control loop, sharded-plane drain, sharded-pool
 episode with a poisoned shard, llama forward, generate and two-shard
 drain, int8 weights, int8 KV cache, chunk decode and shared-prefix serving
 of both families, speculative and beam generation and their slot engines,
-a tenancy worker with its prefix pool, and train step on the CPU.  The
-control-plane subpackages import no torch at all, so importing the fleet
+a tenancy worker with its prefix pool, tenancy on a two-shard plane behind
+the sharded admission plane, speculative rows on the decode plane, a
+disaggregated prefill/decode pool with its KV handoff, and train step on
+the CPU.  The control-plane subpackages (and the ``planes`` package, whose
+engines import lazily) import no torch at all, so importing the fleet
 starts no CUDA work and builds no kernel; the controller binary runs a
 ``FakeClock`` episode with its resilience layer and durable state in a
 subprocess where ``torch`` cannot be imported either.
@@ -44,8 +48,8 @@ def absolute_imports(path: Path) -> list[str]:
     return names
 
 
-SUBPACKAGES = ("core", "fleet", "metrics", "obs", "scale", "sim", "utils",
-               "workloads")
+SUBPACKAGES = ("core", "fleet", "metrics", "obs", "planes", "scale", "sim",
+               "utils", "workloads")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -57,6 +61,9 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     assert PORT / "workloads" / "speculative.py" in files
     assert PORT / "workloads" / "beam.py" in files
     assert PORT / "cli.py" in files and PORT / "__main__.py" in files
+    assert PORT / "workloads" / "admission_shards.py" in files
+    for name in ("engine.py", "prefill.py", "pool.py"):
+        assert PORT / "planes" / name in files
     offenders = {
         str(path.relative_to(ROOT)): name
         for path in files for name in absolute_imports(path) if banned(name)
@@ -93,6 +100,9 @@ from kube_sqs_autoscaler_tpu_torch.workloads import continuous, shard_plane
 from kube_sqs_autoscaler_tpu_torch.workloads import llama, quantize
 from kube_sqs_autoscaler_tpu_torch.workloads import beam, speculative
 from kube_sqs_autoscaler_tpu_torch.workloads import tenancy
+from kube_sqs_autoscaler_tpu_torch.workloads import admission_shards  # noqa
+from kube_sqs_autoscaler_tpu_torch import planes
+from kube_sqs_autoscaler_tpu_torch.planes import engine, prefill  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import data, perf, train  # noqa
 from kube_sqs_autoscaler_tpu_torch.workloads import trainer  # noqa
 from kube_sqs_autoscaler_tpu_torch import core, fleet, metrics, obs, sim
@@ -228,6 +238,34 @@ tw = continuous.ContinuousWorker(
     device="cpu")
 assert tw.drain(total=2) == 2 and tw.batcher.prefix_pool.installs == 1
 assert tw.completed_by_tenant == {"a": 2}
+# tenancy on a two-shard plane behind four admission shards, with
+# speculative rows on the decode plane
+for body in ({"tenant": "a", "prefix": [7, 8, 9, 10], "ids": [1, 2]},
+             {"tenant": "b", "ids": [3, 4, 5]}):
+    jobs.send_message("q", json.dumps(body))
+pw = continuous.ContinuousWorker(
+    jobs, l2params, l2cfg,
+    service.ServiceConfig(queue_url="q", seq_len=8, generate_tokens=3,
+                          batch_size=1, decode_block=2, shards=2),
+    tenancy=tenancy.TenancyConfig(tenants=("a", "b"), prefix_pool=1,
+                                  prefix_len=4, admission_shards=4),
+    draft_layers=1, draft_tokens=2, device="cpu")
+assert pw.drain(total=2) == 2 and pw.completed_by_tenant == {"a": 1, "b": 1}
+assert isinstance(pw.batcher, planes.DecodePlaneBatcher)
+assert pw.batcher.spec_rounds > 0 and pw.batcher._tenant_home
+# the disaggregated planes: prefill replicas hand their rows to the decode
+# plane by a KV copy
+for _ in range(3):
+    jobs.send_message("q", json.dumps([1, 2, 3]))
+disagg = planes.DisaggregatedPool.serving(
+    jobs, l2params, l2cfg,
+    service.ServiceConfig(queue_url="q", seq_len=8, generate_tokens=3,
+                          batch_size=2, decode_block=2),
+    min=1, max=1, decode_shards=2, spec_layers=1, spec_tokens=2,
+    clock=core.FakeClock(), device="cpu")
+for _ in range(20):
+    disagg.run_cycle()
+assert disagg.processed == 3 and disagg.kv_handoffs_total == 3
 state = train.train_state(params, train.TrainConfig())
 step = train.make_train_step(cfg, train.TrainConfig(), "cpu")
 assert step(state, ids)[0]["step"] == 1
@@ -256,6 +294,8 @@ def test_the_control_plane_imports_no_torch():
         "from kube_sqs_autoscaler_tpu_torch.core import durable\n"
         "from kube_sqs_autoscaler_tpu_torch import metrics\n"
         "from kube_sqs_autoscaler_tpu_torch.fleet import __main__, sharded\n"
+        "from kube_sqs_autoscaler_tpu_torch import planes\n"
+        "from kube_sqs_autoscaler_tpu_torch.planes import pool\n"
         "from kube_sqs_autoscaler_tpu_torch.utils import profiling, sigv4\n"
         "print(sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('torch', 'jax')))\n"

@@ -161,10 +161,12 @@ def test_fault_plan_validates_shard_windows_and_refuses_admission_faults():
         FleetFaultPlan(shard_poisons=((5, 5, 0),))
     with pytest.raises(ValueError, match="start < end"):
         FleetFaultPlan(shard_wedges=((7, 3, 1),))
-    for name in ("admission_kills", "admission_partitions"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            FleetFaultPlan(**{name: ((1, 2, 0),) if "part" in name
-                              else ((1, 0),)})
+    # the admission faults are ported: windows validate as the shard ones
+    with pytest.raises(ValueError, match="start < end"):
+        FleetFaultPlan(admission_partitions=((4, 2, 0),))
+    assert FleetFaultPlan(admission_kills=((1, 0),),
+                          admission_partitions=((1, 2, 1),)
+                          ).admission_shards() == {0, 1}
     plan = FleetFaultPlan(kills=((1, 0),), shard_poisons=((1, 4, 0),),
                           shard_wedges=((2, 5, 1),),
                           shard_mask_corruptions=((3, 2),))

@@ -255,9 +255,12 @@ def test_spec_and_beam_engines_keep_to_the_plain_paths_seams():
                            device="cpu", **knobs)
     service = ServiceConfig(queue_url="q", batch_size=2, seq_len=PROMPT,
                             generate_tokens=TOKENS, shards=2)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3"):
-        continuous.ContinuousWorker(FakeMessageQueue(), tp, tcfg, service,
-                                    draft_layers=1, device="cpu")
+    # speculative shards run on the decode plane
+    worker = continuous.ContinuousWorker(FakeMessageQueue(), tp, tcfg,
+                                         service, draft_layers=1,
+                                         device="cpu")
+    assert type(worker.batcher).__name__ == "DecodePlaneBatcher"
+    assert worker.batcher.shards == 2 and worker.batcher.spec_layers == 1
 
 
 BINARY = ["--device", "cpu", "--demo", "4", "--seq-len", "16",
@@ -325,8 +328,8 @@ def test_binary_flag_checks_fail_as_the_reference(args, message):
      "--speculative-draft-tokens 0 must be >= 1"),
     (["--speculative-draft-layers", "1", "--generate-tokens", "0"],
      "--speculative-draft-layers requires --generate-tokens >= 1"),
-    (["--speculative-draft-layers", "1", "--continuous", "--shards", "2"],
-     "ROADMAP Queue 1 item 3"),
+    (["--speculative-draft-layers", "1", "--continuous", "--shards", "2",
+      "--model-parallel", "2"], "single-chip decode plane"),
 ], ids=["too-deep", "negative", "no-proposals", "no-generate", "shards"])
 def test_binary_speculative_start_up_checks(args, message):
     with pytest.raises(SystemExit, match=message):

@@ -236,26 +236,30 @@ def test_batcher_checks_fail_as_the_reference():
         continuous.ContinuousBatcher(tp, tcfg, 2, PROMPT, TOKENS,
                                      tenancy=cfg, prefix_cache=prefix,
                                      device="cpu")
-    for make in (
-        lambda: ShardedBatcher(tp, tcfg, shards=2, shard_slots=1,
-                               prompt_len=PROMPT, generate_tokens=TOKENS,
-                               tenancy=cfg, device="cpu"),
-        lambda: ShardedWorkerPool.serving(
-            FakeMessageQueue(), tp, tcfg, config(result_queue_url=""), min=1, max=2,
-            tenancy=cfg, device="cpu"),
-        lambda: continuous.ContinuousWorker(
-            FakeMessageQueue(), tp, tcfg, config(shards=2, result_queue_url=""), tenancy=cfg,
-            device="cpu"),
-        lambda: continuous.ContinuousWorker(
-            FakeMessageQueue(), tp, tcfg, config(result_queue_url=""), tenancy=cfg,
-            draft_layers=1, device="cpu"),
-        lambda: continuous.ContinuousWorker(
-            FakeMessageQueue(), tp, tcfg, config(result_queue_url=""), device="cpu",
-            tenancy=tenancy.TenancyConfig(tenants=("a",),
-                                          admission_shards=2)),
-    ):
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3"):
-            make()
+    # tenancy on the sharded plane, with speculative slots (the decode
+    # plane) and with admission shards is ported: each combination builds
+    plane = ShardedBatcher(tp, tcfg, shards=2, shard_slots=1,
+                           prompt_len=PROMPT, generate_tokens=TOKENS,
+                           tenancy=cfg, device="cpu")
+    assert plane.prefix_pool.stats()["resident"] == [0, 0]
+    pool = ShardedWorkerPool.serving(
+        FakeMessageQueue(), tp, tcfg, config(result_queue_url=""), min=1,
+        max=2, tenancy=cfg, device="cpu")
+    assert pool.worker.tenancy is cfg
+    worker = continuous.ContinuousWorker(
+        FakeMessageQueue(), tp, tcfg, config(shards=2, result_queue_url=""),
+        tenancy=cfg, device="cpu")
+    assert worker.batcher.shards == 2
+    worker = continuous.ContinuousWorker(
+        FakeMessageQueue(), tp, tcfg, config(result_queue_url=""),
+        tenancy=cfg, draft_layers=1, device="cpu")
+    assert type(worker.batcher).__name__ == "DecodePlaneBatcher"
+    assert worker.batcher.shards == 1
+    worker = continuous.ContinuousWorker(
+        FakeMessageQueue(), tp, tcfg, config(result_queue_url=""),
+        device="cpu", tenancy=tenancy.TenancyConfig(tenants=("a",),
+                                                    admission_shards=2))
+    assert type(worker._fair).__name__ == "ShardedAdmission"
 
 
 # -- the worker on a FakeClock -------------------------------------------------
@@ -500,20 +504,34 @@ def test_binary_tenancy_flag_checks_fail_as_the_reference(args, message):
             main([*argv, *extra])
 
 
-@pytest.mark.parametrize("args,item", [
-    (["--tenants", "a", "--continuous", "--shards", "2"], "item 3"),
-    (["--tenants", "a", "--continuous", "--admission-shards", "2"],
-     "item 3"),
-    (["--tenants", "a", "--continuous", "--speculative-draft-layers", "1"],
-     "item 3"),
-    (["--tokenizer", "some/dir"], "item 4"),
-    (["--model-parallel", "2"], "item 5"),
+@pytest.mark.parametrize("args,message,both", [
+    # ported combinations: the reference's argument checks, both binaries
+    (["--tenants", "a", "--shards", "2"], "--shards requires --continuous",
+     True),
+    (["--tenants", "a", "--admission-shards", "2"],
+     "--tenants requires --continuous", True),
+    (["--tenants", "a", "--continuous", "--speculative-draft-layers", "1",
+      "--model-parallel", "2"], "single-chip decode plane", True),
+    # still unported: the port's binary exits naming the ROADMAP item
+    (["--tokenizer", "some/dir"], "ROADMAP Queue 1 item 4", False),
+    (["--model-parallel", "2"], "ROADMAP Queue 1 item 5", False),
+    (["--continuous", "--scheduler"], "ROADMAP Queue 1 item 3b", False),
+    (["--continuous", "--knobs", "prefix_pool"], "ROADMAP Queue 1 item 3b",
+     False),
+    (["--continuous", "--topology", "ring"], "ROADMAP Queue 1 item 3b",
+     False),
+    (["--journal-path", "j.jsonl"], "ROADMAP Queue 1 item 3b", False),
 ], ids=["shards", "admission-shards", "speculative", "tokenizer",
-        "model-parallel"])
-def test_binary_unported_combinations_name_their_roadmap_item(args, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 {item}"):
-        binary(["--device", "cpu", "--demo", "2", "--generate-tokens", "4",
-                *args])
+        "model-parallel", "scheduler", "knobs", "topology", "journal-path"])
+def test_binary_unported_combinations_name_their_roadmap_item(args, message,
+                                                              both):
+    argv = ["--demo", "2", "--generate-tokens", "4", *args]
+    mains = [(binary, ["--device", "cpu"])]
+    if both:
+        mains.append((jax_binary.main, []))
+    for main, extra in mains:
+        with pytest.raises(SystemExit, match=message):
+            main([*argv, *extra])
 
 
 def test_binary_tenants_demo_serves_with_the_pool():
