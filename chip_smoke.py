@@ -1763,7 +1763,8 @@ def flat_params(params) -> list:
     return [params]
 
 
-def fleet_episode(torch, params, config, device="cuda") -> dict:
+def fleet_episode(torch, params, config, device="cuda", driver_cls=None,
+                  observer=None, knobs=None, on_cycle=None) -> dict:
     """The deterministic fleet episode on one ``FakeClock``: the
     ``--demo 64`` traffic, ``WorkerPool.serving(min=1, max=3)`` at
     ``--batch-size 8 --seq-len 512 --generate-tokens 32 --decode-block
@@ -1771,7 +1772,11 @@ def fleet_episode(torch, params, config, device="cuda") -> dict:
     down at 8, cooldowns 0.2 and 0.4 s), two fleet cycles a poll, and a
     fault plan that kills replica 1 and hangs replica 2 while they hold
     requests.  Runs until every request is answered and the fleet is back
-    at min."""
+    at min.  ``driver_cls`` replaces ``FleetDriver`` (the event
+    scheduler's ``ScheduledFleetDriver``), ``observer`` sees the loop's
+    tick records, ``knobs(pool, clock)`` returns a ``KnobActuator`` armed
+    on the pool, and ``on_cycle(cycle, pool, actuator)`` runs with the
+    fault plan, before the cycle's knob safe point."""
     from kube_sqs_autoscaler_tpu_torch.core import (
         ControlLoop, FakeClock, LoopConfig, PolicyConfig,
     )
@@ -1800,8 +1805,9 @@ def fleet_episode(torch, params, config, device="cuda") -> dict:
         LoopConfig(poll_interval=0.1, policy=PolicyConfig(
             scale_up_messages=2 * 8, scale_down_messages=8,
             scale_up_cooldown=0.2, scale_down_cooldown=0.4)),
-        clock=clock)
+        clock=clock, observer=observer)
     plan = FleetFaultPlan(kills=(FLEET_KILL,), hangs=(FLEET_HANG,))
+    actuator = knobs(pool, clock) if knobs is not None else None
     busy_at_fault = {}
 
     class Recorded:
@@ -1814,15 +1820,20 @@ def fleet_episode(torch, params, config, device="cuda") -> dict:
                     busy_at_fault[index] = \
                         target._member(index).worker.batcher.active
             plan.apply(cycle, target)
+            if on_cycle is not None:
+                on_cycle(cycle, target, actuator)
 
-    driver = FleetDriver(pool, loop, cycle_dt=0.05, fault_plan=Recorded())
+    extra = {} if actuator is None else {"knobs": actuator}
+    driver = (driver_cls or FleetDriver)(
+        pool, loop, cycle_dt=0.05, fault_plan=Recorded(), **extra)
     stats = driver.run(max_cycles=3000, until=lambda: (
         pool.processed >= len(sent) and pool.idle
         and pool.replicas == pool.min
         and not any(r.state == DRAINING for r in pool.members)))
     return {"pool": pool, "stats": stats, "sent": sent,
             "replies": drain_raw(results, FLEET_RESULTS),
-            "busy_at_fault": busy_at_fault, "queue": queue}
+            "busy_at_fault": busy_at_fault, "queue": queue,
+            "actuator": actuator}
 
 
 def check_fleet_episode(torch, smoke: Smoke, label: str, run: dict,
@@ -2327,7 +2338,7 @@ def controller_phase(torch, flash, smoke: Smoke, kern) -> dict:
             "us-east-1", "--kubernetes-deployment", CONTROLLER_DEPLOYMENT,
             "--kubernetes-namespace", "default", "--metrics-port",
             str(port), "--journal-path", str(journal), "--state-path",
-            str(state)]
+            str(state), "--request-trace", "64"]
     service_config = ServiceConfig(
         queue_url=jobs_url, batch_size=8, seq_len=512, generate_tokens=32,
         result_queue_url=replies_url, idle_sleep_s=0.05)
@@ -2432,6 +2443,8 @@ def controller_phase(torch, flash, smoke: Smoke, kern) -> dict:
         time.sleep(1.5)  # one more tick after the last scale-down
         _, scrape = http_get(f"http://127.0.0.1:{port}/metrics")
         _, trace = http_get(f"http://127.0.0.1:{port}/debug/trace")
+        requests_status, requests_body = http_get(
+            f"http://127.0.0.1:{port}/debug/requests?n=8&slo=1")
         alive = boots[1].child.poll() is None
         smoke.check(drained and back and alive,
                     f"controller: drained {answered()} of "
@@ -2474,6 +2487,18 @@ def controller_phase(torch, flash, smoke: Smoke, kern) -> dict:
                 f"controller /metrics: missing families {missing}; "
                 f"/debug/trace names restart-rehydrated: "
                 f"{'restart-rehydrated' in trace}")
+    try:
+        snapshot = json.loads(requests_body)
+        trace_ok = isinstance(json.loads(trace).get("traceEvents"), list)
+    except (ValueError, AttributeError):
+        snapshot, trace_ok = {}, False
+    smoke.check(requests_status == 200 and trace_ok
+                and {"epoch", "open", "replies", "requests",
+                     "attribution"} <= set(snapshot),
+                f"controller --request-trace 64: /debug/requests answered "
+                f"{requests_status} with a snapshot that parses (epoch "
+                f"{snapshot.get('epoch')}: the registry came back through "
+                f"the durable state); /debug/trace parses: {trace_ok}")
 
     episodes = read_journal_episodes(str(journal))
     records = [r for _, rs in episodes for r in rs]
@@ -4394,8 +4419,15 @@ def sync_phase(torch, smoke: Smoke) -> dict:
     and the llama (the control), one ``decode_step``, one ``block_decode``
     of 8 and one pooled insert of pool hits, each under
     ``torch.cuda.set_sync_debug_mode("error")`` (the engine's counted
-    settle is outside).  Printed, not gated: the same GPT calls through
-    the GELU as it was before the repair."""
+    settle is outside).  A second pass runs the same calls with a
+    ``LifecycleRegistry`` and a WHEN-only ``CollectiveScheduler`` attached
+    to the batcher (the pooled insert's requests traced), plus the comms
+    flush of the dispatch-ahead window.  Printed, not gated: the same GPT
+    calls through the GELU as it was before the repair."""
+    from kube_sqs_autoscaler_tpu_torch.comms import CollectiveScheduler
+    from kube_sqs_autoscaler_tpu_torch.obs.lifecycle import (
+        LifecycleRegistry,
+    )
     from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
         ContinuousBatcher,
     )
@@ -4453,6 +4485,40 @@ def sync_phase(torch, smoke: Smoke) -> dict:
                     f"({batcher.prefix_pool.hits}) after {installs} installs")
         while batcher.active:
             batcher.step()
+        # the second pass: traced, with the collective scheduler attached
+        registry, comms = LifecycleRegistry(), CollectiveScheduler()
+        batcher.lifecycle = registry
+        batcher.attach_comms(comms)
+        traced_hits = [(t, p, i, {"MessageId": f"sync-{family}-{n}"})
+                       for n, (t, p, i, _) in enumerate(hits)]
+        traced_calls = {
+            **{name: fn for name, fn in calls.items()
+               if name != "pooled insert"},
+            "pooled insert": lambda: batcher.submit_many_prefixed(
+                traced_hits),
+            "comms flush": lambda: batcher._comms_flush(
+                batcher._pending_firsts, batcher._pending_block,
+                overlapped=True),
+        }
+        for name, fn in traced_calls.items():
+            found[f"traced {name}"] = synced(torch, fn)
+            smoke.check(found[f"traced {name}"] is None,
+                        f"sync {family} {name}, traced and comms attached: "
+                        f"no call waited for the card "
+                        f"({found[f'traced {name}']})")
+        while batcher.active:
+            batcher.step()
+        cc = comms.counters()
+        smoke.check(registry.replies == 0 and registry.created == 8
+                    and cc["by_kind"]["settle_pull"] >= 1
+                    and cc["pending"] == 0
+                    and cc["finished_ops"] == cc["dispatched_ops"],
+                    f"sync {family}: 8 traced requests, their first-token "
+                    f"pulls flushed and finished ({cc['by_kind']}, "
+                    f"{cc['finished_ops']} of {cc['dispatched_ops']} ops "
+                    f"finished)")
+        batcher.attach_comms(None)
+        batcher.lifecycle = None
         if family == "gpt":
             with gelu_as(old_gelu):
                 before = {name: synced(torch, fn)
@@ -5634,7 +5700,8 @@ def plane_speculative_f32(torch, flash, smoke) -> dict:
 
 def disagg_episode(torch, flash, params, config, bodies, *, fused: bool,
                    kill: bool = False, plain_decode: bool = False,
-                   device="cuda") -> dict:
+                   device="cuda", lifecycle=None, comms=None,
+                   on_cycle=None) -> dict:
     """The disaggregation traffic on a ``FakeClock`` (one cycle a second),
     sent before each fleet cycle, through the fused plane
     (``ShardedWorkerPool.serving`` of 6 shards x 8) or through
@@ -5646,7 +5713,10 @@ def disagg_episode(torch, flash, params, config, bodies, *, fused: bool,
     with rows waiting for a decode slot is killed.  The launch counts are
     zeroed just before and read just after; every ``submit_handoff`` is
     checked to launch no kernel.  Each request's wait from its send to
-    its first token on the host is read after every cycle, in cycles."""
+    its first token on the host is read after every cycle, in cycles.
+    ``lifecycle`` (a ``LifecycleRegistry``) and ``comms`` (a
+    ``CollectiveScheduler``) attach to the pool before the first cycle;
+    ``on_cycle(cycle, pool)`` runs before each cycle, after its sends."""
     from kube_sqs_autoscaler_tpu_torch.core import FakeClock
     from kube_sqs_autoscaler_tpu_torch.fleet import ShardedWorkerPool
     from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
@@ -5687,6 +5757,10 @@ def disagg_episode(torch, flash, params, config, bodies, *, fused: bool,
             return rows
 
         plane.submit_handoff = counted
+    if lifecycle is not None:
+        pool.attach_lifecycle(lifecycle)
+    if comms is not None:
+        pool.attach_comms(comms)
     total = sum(len(v) for v in bodies.values())
     sent, killed, sent_at, first_at = [], None, {}, {}
     zero_counts(flash)
@@ -5706,6 +5780,8 @@ def disagg_episode(torch, flash, params, config, bodies, *, fused: bool,
                               len(replica.worker.ready_handoffs()))
                     pool.kill_worker(replica.index)
                     break
+        if on_cycle is not None:
+            on_cycle(cycle, pool)
         pool.run_cycle()
         if fused:
             batchers, decode = [pool.worker.batcher], None
@@ -5744,6 +5820,12 @@ def disagg_episode(torch, flash, params, config, bodies, *, fused: bool,
         "prefill_inserts": (None if fused else
                             sum(b.insert_dispatches for b in batchers)),
         "pool": pool, "killed": killed, "handoff": handoff,
+        # host_transfers, decode and insert dispatches over every engine
+        "odometers": tuple(
+            sum(getattr(b, name) for b in batchers
+                + ([decode] if decode is not None else []))
+            for name in ("host_transfers", "decode_dispatches",
+                         "insert_dispatches")),
     }
     if not fused:
         run.update(kv_handoffs=pool.kv_handoffs_total,
@@ -5964,6 +6046,631 @@ def planes_phase(torch, flash, smoke: Smoke, power: str) -> dict:
     return out
 
 
+# The orchestration phase: request-lifecycle tracing, the collective
+# scheduler (WHEN-only and routed over a modeled torus) and the event
+# scheduler with live engine knobs, on the planes and pools above.
+ORCH_EVAC_TOTAL = 24  # the evacuation episode's bodies (32 slots)
+ORCH_EVAC_POISON = (2, 6, 1)  # shard 1's logits poisoned over cycles [2, 6)
+COMMS_MODES = ("off", "disabled", "when", "routed")
+ORCH_BLOCK_STEPS = {7: 2, 13: 8}  # fleet cycle -> decode_block staged then
+ORCH_SLOT_STEPS = {12: 6, 19: 0}  # fleet cycle -> slot_limit (0: unlimited)
+ORCH_PLANE_STEPS = {3: ("plane_ratio", 1), 10: ("plane_ratio", 2),
+                    16: ("speculative", False)}
+
+
+def comms_for(mode: str, shards: int, lifecycle=None):
+    """A collective scheduler in one of :data:`COMMS_MODES` (``off``:
+    none), routed over ``topology_from_geometry("torus", shards)``."""
+    from kube_sqs_autoscaler_tpu_torch.comms import (
+        CollectiveScheduler, topology_from_geometry,
+    )
+
+    if mode == "off":
+        return None
+    if mode == "disabled":
+        return CollectiveScheduler(enabled=False, lifecycle=lifecycle)
+    topology = (topology_from_geometry("torus", shards=shards)
+                if mode == "routed" else None)
+    return CollectiveScheduler(lifecycle=lifecycle, topology=topology,
+                               trace_len=1 << 20)
+
+
+class timed_waits:
+    """Within the block, the host's summed ``perf_counter`` seconds inside
+    ``continuous._HostCopy.wait`` (the engines' only wait for a device
+    result) and the number of waits."""
+
+    def __enter__(self):
+        from kube_sqs_autoscaler_tpu_torch.workloads import continuous
+
+        self.cls = continuous._HostCopy
+        original = self.original = self.cls.wait
+        self.seconds, self.calls = 0.0, 0
+        box = self
+
+        def wait(copy):
+            t0 = time.perf_counter()
+            try:
+                return original(copy)
+            finally:
+                box.seconds += time.perf_counter() - t0
+                box.calls += 1
+
+        self.cls.wait = wait
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls.wait = self.original
+
+
+def bytes_by_kind(comms) -> dict:
+    out: dict = {}
+    for op in (comms.recent if comms is not None else ()):
+        out[op.kind] = out.get(op.kind, 0) + op.nbytes
+    return out
+
+
+def evac_episode(torch, flash, params, config, comms,
+                 device="cuda") -> dict:
+    """The comms suite's evacuation episode: ``ShardedWorkerPool.serving``
+    at ``--shards 4 --batch-size 8 --decode-block 8`` (all four shards
+    serving, no control loop), 24 ``--demo`` bodies queued (six a shard,
+    so the healthy shards have room for the evacuated rows), shard 1's
+    logits poisoned over cycles [2, 6) so it is quarantined mid-drain and
+    its rows evacuated through a resume insert; a ``FakeClock``, until
+    every request is answered.  ``comms`` attaches to the plane.  The
+    launch counts are zeroed just before and read just after, and the
+    host's waits in ``_HostCopy.wait`` are summed."""
+    from kube_sqs_autoscaler_tpu_torch.core import FakeClock
+    from kube_sqs_autoscaler_tpu_torch.fleet import (
+        FleetDriver, ShardedWorkerPool,
+    )
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.sim.faults import FleetFaultPlan
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import ServiceConfig
+
+    clock = FakeClock()
+    queue = FakeMessageQueue(visibility_timeout=30.0, now_fn=clock.now)
+    results = FakeMessageQueue(now_fn=clock.now)
+    sent = [queue.send_message(CHAOS_QUEUE, body)
+            for body in demo_bodies(ORCH_EVAC_TOTAL, config.vocab_size)]
+    service = ServiceConfig(
+        queue_url=CHAOS_QUEUE, batch_size=8, seq_len=512, generate_tokens=32,
+        decode_block=8, result_queue_url=CHAOS_RESULTS, shards=4)
+    pool = ShardedWorkerPool.serving(
+        queue, params, config, service, result_queue=results, min=4, max=4,
+        clock=clock, now_fn=clock.now, probe_after_cycles=CHAOS_PROBE_AFTER,
+        device=device)
+    if comms is not None:
+        pool.worker.batcher.attach_comms(comms)
+    driver = FleetDriver(pool, None, cycle_dt=0.05, fault_plan=FleetFaultPlan(
+        shard_poisons=(ORCH_EVAC_POISON,)))
+    zero_counts(flash)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    start = time.perf_counter()
+    with timed_waits() as waits:
+        stats = driver.run(max_cycles=400, until=lambda: (
+            pool.processed >= len(sent) and pool.idle))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    b = pool.worker.batcher
+    return {
+        "sent": sent, "replies": drain_raw(results, CHAOS_RESULTS),
+        "queue": queue.get_queue_attributes(CHAOS_QUEUE, ()),
+        "cycles": stats["cycles"], "wall_s": wall_s,
+        "launches": counts(flash)["flash_fwd"],
+        "odometers": (b.host_transfers, b.decode_dispatches,
+                      b.insert_dispatches),
+        "wait_s": waits.seconds, "waits": waits.calls,
+        "evacuated": pool.rows_evacuated_total,
+        "quarantines": [e.args for e in pool.events
+                        if e.name == "shard-quarantine"],
+    }
+
+
+def answered_once(run: dict) -> bool:
+    """Every sent request answered exactly once and the queue empty
+    (``replies`` either request id -> bodies or request id -> reply)."""
+    replies = run["replies"]
+    dup = run.get("duplicates", 0) + sum(
+        len(v) - 1 for v in replies.values() if isinstance(v, list))
+    attrs = run["queue"]
+    return (sorted(replies) == sorted(run["sent"]) and dup == 0
+            and attrs["ApproximateNumberOfMessages"] == "0"
+            and attrs["ApproximateNumberOfMessagesNotVisible"] == "0")
+
+
+def reply_tokens(run: dict) -> list:
+    """The replies' token lists in send order."""
+    out = []
+    for rid in run["sent"]:
+        reply = run["replies"][rid]
+        if isinstance(reply, list):
+            reply = json.loads(reply[0])
+        out.append(reply["tokens"])
+    return out
+
+
+def comms_modes(smoke, label: str, runs: dict, power: str) -> dict:
+    """The comms gates over one episode's four modes (see
+    :func:`orchestration_phase`); prints bytes by kind, the overlapped
+    dispatches, the host's summed wait and each run's wall."""
+    from kube_sqs_autoscaler_tpu_torch.comms import (
+        assert_no_oversubscription,
+    )
+
+    base = runs["off"]
+    for mode, run in runs.items():
+        smoke.check(answered_once(run),
+                    f"orchestration (b) {label} comms {mode}: "
+                    f"{len(run['replies'])} of {len(run['sent'])} answered "
+                    f"once, queue {run['queue']}")
+    same = all(reply_tokens(run) == reply_tokens(base)
+               for run in runs.values())
+    smoke.check(same, f"orchestration (b) {label}: bf16 replies "
+                f"byte-identical across {list(runs)} (comms moves no "
+                f"arithmetic)")
+    launches = {mode: (run["launches"]["flash_fwd"]
+                       if isinstance(run["launches"], dict)
+                       else run["launches"]) for mode, run in runs.items()}
+    smoke.check(len(set(launches.values())) == 1,
+                f"orchestration (b) {label}: flash_fwd launches {launches} "
+                f"(comms adds none)")
+    odo = {mode: run["odometers"] for mode, run in runs.items()}
+    smoke.check(odo["disabled"] == odo["off"],
+                f"orchestration (b) {label}: attached-but-disabled "
+                f"odometers (host transfers, decode, insert dispatches) "
+                f"{odo['disabled']} equal to off {odo['off']}")
+    when = runs["when"]["comms"].counters()
+    smoke.check(odo["when"][0] < odo["off"][0]
+                and odo["when"][1:] == odo["off"][1:]
+                and when["overlapped_transfers_total"] >= 1,
+                f"orchestration (b) {label}: WHEN-only blocking host "
+                f"transfers {odo['when'][0]} < off {odo['off'][0]} at the "
+                f"same dispatches, {when['overlapped_transfers_total']} "
+                f"overlapped dispatches")
+    routed = runs["routed"]["comms"]
+    try:
+        assert_no_oversubscription(routed.ledger)
+        fits = "holds"
+    except AssertionError as err:
+        fits = f"fails: {err}"
+    smoke.check(odo["routed"] == odo["when"] and fits == "holds",
+                f"orchestration (b) {label}: routed odometers "
+                f"{odo['routed']} equal to WHEN-only's {odo['when']}; "
+                f"assert_no_oversubscription {fits} "
+                f"({routed.counters()['routing']['routed_ops']} routed ops)")
+    for mode in ("when", "routed"):
+        cc = runs[mode]["comms"].counters()
+        print(f"orchestration (b) {label} comms {mode}: bytes by kind "
+              f"{bytes_by_kind(runs[mode]['comms'])}, dispatches by kind "
+              f"{cc['by_kind']}, by bucket {cc['by_bucket']}, "
+              f"{cc['overlapped_transfers_total']} overlapped of "
+              f"{cc['dispatched_ops']} ops", flush=True)
+    for mode, run in runs.items():
+        print(f"orchestration (b) {label} comms {mode}: host wait in "
+              f"_HostCopy.wait {run['wait_s'] * 1e3:.3f} ms over "
+              f"{run['waits']} waits, blocking host transfers "
+              f"{run['odometers'][0]}, wall {run['wall_s']:.3f} s, "
+              f"{run['cycles']} cycles ({power})", flush=True)
+    return {mode: {"wait_s": run["wait_s"], "waits": run["waits"],
+                   "host_transfers": run["odometers"][0],
+                   "wall_s": run["wall_s"], "cycles": run["cycles"],
+                   "bytes_by_kind": bytes_by_kind(run.get("comms"))}
+            for mode, run in runs.items()}
+
+
+def orch_lifecycle(torch, flash, smoke, power: str, device="cuda") -> dict:
+    """Part (a) of :func:`orchestration_phase`."""
+    from kube_sqs_autoscaler_tpu_torch.obs.lifecycle import (
+        DURATION_PHASES, LifecycleRegistry, phase_durations, validate_chain,
+    )
+
+    bodies = disagg_bodies(disagg_schedule())
+    config, params = plane_model(torch, "gpt")
+    runs, launches = {}, 0
+    for name, kw in (("traced", dict(lifecycle=LifecycleRegistry())),
+                     ("kill", dict(lifecycle=LifecycleRegistry(),
+                                   kill=True)),
+                     ("untraced", {})):
+        run = runs[name] = disagg_episode(torch, flash, params, config,
+                                          bodies, fused=False, device=device,
+                                          **kw)
+        run["registry"] = kw.get("lifecycle")
+        launches += run["launches"]["flash_fwd"]
+        check_disagg(smoke, f"orchestration (a) gpt bf16 {name}", run)
+    total = sum(len(v) for v in bodies.values())
+    for name in ("traced", "kill"):
+        run, reg = runs[name], runs[name]["registry"]
+        done = [t for t in reg.done_traces() if "reply" in t.phases]
+        problems = {t.rid: validate_chain(t, require_handoff=True)
+                    for t in done}
+        bad = {rid: p for rid, p in problems.items() if p}
+        smoke.check(len(done) == total == reg.replies and not bad
+                    and sorted(t.rid for t in done) == sorted(run["sent"]),
+                    f"orchestration (a) {name}: {len(done)} of {total} "
+                    f"answered requests carry a gap-free monotone chain "
+                    f"with one reply stamp and a handoff stamp "
+                    f"({reg.duplicates} duplicates closed, {reg.open_count} "
+                    f"open); problems {dict(list(bad.items())[:3])}")
+    kill = runs["kill"]
+    smoke.check(kill["killed"] is not None and kill["redispatched"] > 0,
+                f"orchestration (a) kill: (cycle, replica, rows waiting for "
+                f"a decode slot) {kill['killed']}; {kill['redispatched']} "
+                f"request(s) re-dispatched, their chains continued")
+    traced, untraced = runs["traced"], runs["untraced"]
+    smoke.check(traced["odometers"] == untraced["odometers"]
+                and traced["launches"] == untraced["launches"]
+                and traced["kv_handoffs"] == untraced["kv_handoffs"],
+                f"orchestration (a): odometers (host transfers, decode, "
+                f"insert dispatches) {traced['odometers']} and launches "
+                f"{traced['launches']['flash_fwd']} traced, "
+                f"{untraced['odometers']} and "
+                f"{untraced['launches']['flash_fwd']} untraced")
+    same = sum(a == b for a, b in zip(reply_tokens(traced),
+                                      reply_tokens(untraced)))
+    print(f"orchestration (a) gpt bf16: traced replies equal to untraced "
+          f"(counted, not gated) {same} of {total}; tokens/s traced over "
+          f"untraced {traced['tokens_per_s'] / untraced['tokens_per_s']:.4f} "
+          f"(counted, not gated: host rates) ({power})", flush=True)
+    reg = traced["registry"]
+    durations = [phase_durations(t) for t in reg.done_traces()]
+    p50 = {}
+    for phase in DURATION_PHASES:
+        vals = sorted(d[phase] for d in durations if phase in d)
+        if vals:
+            p50[phase] = vals[len(vals) // 2]
+    totals = sorted(t.total_s() for t in reg.done_traces()
+                    if t.total_s() is not None)
+    slo = totals[len(totals) // 4]
+    report = reg.attribute_slo(slo)
+    print(f"orchestration (a) phase p50 on the episode's FakeClock (one "
+          f"cycle a second, so these are cycles of host dynamics, not wall "
+          f"time): {p50}; attribute_slo at the first quartile of the "
+          f"totals, {slo} s: dominant {report['dominant']}, by phase "
+          f"{report['by_phase']} of {report['over_slo']} over",
+          flush=True)
+    for name, run in runs.items():
+        print(rate_line(f"orchestration (a) gpt bf16 {name}", run, power),
+              flush=True)
+    for run in runs.values():
+        del run["pool"], run["registry"]
+    del params
+    f32_config, f32_params = plane_model(torch, "gpt", torch.float32)
+    f32 = {}
+    for name, kw in (("traced", dict(lifecycle=LifecycleRegistry())),
+                     ("untraced", {})):
+        f32[name] = disagg_episode(torch, flash, f32_params, f32_config,
+                                   bodies, fused=False, plain_decode=True,
+                                   device=device, **kw)
+        launches += f32[name]["launches"]["flash_fwd"]
+        check_disagg(smoke, f"orchestration (a) gpt f32 plain decode {name}",
+                     f32[name])
+    smoke.check(reply_tokens(f32["traced"]) == reply_tokens(f32["untraced"])
+                and f32["traced"]["odometers"] == f32["untraced"]["odometers"],
+                f"orchestration (a) gpt f32 (plain decode): replies "
+                f"identical traced and untraced, {total} of {total}; "
+                f"odometers {f32['traced']['odometers']}")
+    for run in f32.values():
+        del run["pool"]
+    del f32_params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "p50": p50, "dominant": report["dominant"],
+            "slo_s": slo, "rates": {
+                name: {k: run[k] for k in ("msgs_per_s", "tokens_per_s",
+                                           "wall_s", "cycles")}
+                for name, run in runs.items()}}
+
+
+def orch_comms(torch, flash, smoke, power: str, device="cuda") -> dict:
+    """Part (b) of :func:`orchestration_phase`."""
+    config, params = plane_model(torch, "gpt")
+    launches = 0
+    evac = {}
+    for mode in COMMS_MODES:
+        comms = comms_for(mode, shards=4)
+        run = evac[mode] = evac_episode(torch, flash, params, config, comms,
+                                        device=device)
+        run["comms"] = comms
+        launches += run["launches"]
+    for mode, run in evac.items():
+        smoke.check(run["evacuated"] > 0 and len(run["quarantines"]) == 1,
+                    f"orchestration (b) evacuation {mode}: "
+                    f"{run['evacuated']} rows evacuated from "
+                    f"{run['quarantines']}")
+    kinds = evac["when"]["comms"].counters()["by_kind"]
+    smoke.check(kinds["evacuation_kv"] == 1 and kinds["settle_pull"] > 0,
+                f"orchestration (b) evacuation: the evacuation recorded as "
+                f"one evacuation_kv op, settle pulls {kinds['settle_pull']}")
+    out = {"evacuation": comms_modes(smoke, "evacuation", evac, power)}
+    bodies = disagg_bodies(disagg_schedule())
+    handoff = {}
+    for mode in COMMS_MODES:
+        comms = comms_for(mode, shards=4)
+        with timed_waits() as waits:
+            run = handoff[mode] = disagg_episode(
+                torch, flash, params, config, bodies, fused=False,
+                plain_decode=True, device=device, comms=comms)
+        run.update(comms=comms, wait_s=waits.seconds, waits=waits.calls)
+        launches += run["launches"]["flash_fwd"]
+        check_disagg(smoke, f"orchestration (b) handoff {mode}", run)
+    kinds = handoff["when"]["comms"].counters()["by_kind"]
+    smoke.check(kinds["handoff_kv"] > 0,
+                f"orchestration (b) handoff: {kinds['handoff_kv']} KV "
+                f"handoff batches recorded as handoff_kv ops")
+    out["handoff"] = comms_modes(smoke, "handoff", handoff, power)
+    for run in handoff.values():
+        del run["pool"]
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def orch_fleet(torch, flash, smoke, power: str, device="cuda") -> dict:
+    """Part (c)'s ``FakeClock`` fleet episodes and knob changes."""
+    from kube_sqs_autoscaler_tpu_torch.obs import TickJournal
+    from kube_sqs_autoscaler_tpu_torch.obs.journal import read_journal_events
+    from kube_sqs_autoscaler_tpu_torch.sched import (
+        KnobActuator, ScheduledFleetDriver,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+
+    class Ticks:
+        def __init__(self):
+            self.records = []
+
+        def on_tick(self, record):
+            self.records.append(record)
+
+    launches, out = 0, {}
+    for family in ("gpt", "llama"):
+        config, params = plane_model(torch, family)
+        runs = {}
+        for name, cls in (("FleetDriver", None),
+                          ("ScheduledFleetDriver", ScheduledFleetDriver)):
+            ticks = Ticks()
+            zero_counts(flash)
+            run = runs[name] = fleet_episode(torch, params, config,
+                                             device=device, driver_cls=cls,
+                                             observer=ticks)
+            run["ticks"] = ticks.records
+            run["launches"] = counts(flash)["flash_fwd"]
+            launches += run["launches"]
+        a, b = runs["FleetDriver"], runs["ScheduledFleetDriver"]
+        smoke.check(
+            answered_once({**b, "queue": b["queue"].get_queue_attributes(
+                FLEET_QUEUE, ())})
+            and a["stats"] == b["stats"]
+            and a["ticks"] == b["ticks"]
+            and a["replies"] == b["replies"] and a["launches"] == b["launches"],
+            f"orchestration (c) {family} bf16: ScheduledFleetDriver with no "
+            f"knobs armed gives FleetDriver's trajectory "
+            f"{b['stats']['replica_trajectory']} ({b['stats']['cycles']} "
+            f"cycles), its {len(b['ticks'])} tick records and its replies, "
+            f"{len(b['replies'])} answered once; launches {b['launches']}")
+        out[family] = {"cycles": b["stats"]["cycles"],
+                       "trajectory": b["stats"]["replica_trajectory"]}
+        for run in runs.values():
+            del run["pool"]
+        del params
+    # the knobs: f32, decode_block 8 -> 2 -> 8 and slot_limit 6 -> 0
+    config, params = plane_model(torch, "gpt", torch.float32)
+    model = family_of(config)
+    work = Path(os.environ.get("TMPDIR", "/tmp")) / f"orch-{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    journal_path = work / "knobs.jsonl"
+    staged = []
+
+    def knobs(pool, clock):
+        journal = TickJournal(str(journal_path), meta={"phase": "orch"})
+        return KnobActuator(pool, armed=("decode_block", "slot_limit"),
+                            clock=clock, journal=journal)
+
+    def on_cycle(cycle, pool, actuator):
+        for steps, knob in ((ORCH_BLOCK_STEPS, "decode_block"),
+                            (ORCH_SLOT_STEPS, "slot_limit")):
+            if cycle in steps and actuator.set(knob, steps[cycle]):
+                staged.append((knob, steps[cycle], actuator.clock.now()))
+
+    zero_counts(flash)
+    still = fleet_episode(torch, params, config, device=device,
+                          driver_cls=ScheduledFleetDriver)
+    swap = fleet_episode(torch, params, config, device=device,
+                         driver_cls=ScheduledFleetDriver, knobs=knobs,
+                         on_cycle=on_cycle)
+    launches += counts(flash)["flash_fwd"]
+    actuator = swap["actuator"]
+    actuator.journal.close()
+    lines = read_journal_events(str(journal_path), "knob")
+    applied = [(c["knob"], c["value"], c["t"]) for c in actuator.changes]
+    final = [r.worker.batcher.decode_block for r in swap["pool"].members
+             if r.state == "serving"]
+    smoke.check(
+        answered_once({**swap, "queue": swap["queue"].get_queue_attributes(
+            FLEET_QUEUE, ())})
+        and applied == staged and len(applied) == 4
+        and [(e["knob"], e["value"]) for e in lines]
+        == [(k, v) for k, v, _ in applied] and set(final) == {8},
+        f"orchestration (c) gpt f32 knobs: {len(swap['replies'])} answered "
+        f"once; each change applied at the safe point of the cycle that "
+        f"staged it {applied} (staged {staged}) and journaled as a knob "
+        f"line ({len(lines)}); serving replicas at decode_block {final}")
+    prompts = {rid: json.loads(body) for rid, body in zip(
+        swap["sent"], demo_bodies(64, config.vocab_size))}
+    got = {rid: json.loads(v[0])["tokens"] for rid, v in
+           swap["replies"].items()}
+    base = {rid: json.loads(v[0])["tokens"] for rid, v in
+            still["replies"].items()}
+    bad, ties = differ_before_ties(got, base, lambda rid: path_margins(
+        torch, params, config, model, prompts[rid]))
+    identical = sum(got[r] == base.get(r) for r in got)
+    smoke.check(not bad and sorted(got) == sorted(base),
+                f"orchestration (c) gpt f32: greedy replies across the "
+                f"decode_block swap equal to the no-swap run's for "
+                f"{identical} of {len(got)}; differences only past a "
+                f"near-tie: mismatched {bad}; near-ties {ties}")
+    del still["pool"], swap["pool"], params
+    out["knobs"] = {"applied": applied, "identical": identical}
+    # the disaggregated pool: plane_ratio and speculative
+    config, params = plane_model(torch, "gpt")
+    plane_journal = work / "plane-knobs.jsonl"
+    holder, ratio = {}, []
+
+    def plane_cycle(cycle, pool):
+        if "actuator" not in holder:
+            holder["actuator"] = KnobActuator(
+                pool, armed=("plane_ratio", "speculative"),
+                journal=TickJournal(str(plane_journal), meta={}))
+        actuator = holder["actuator"]
+        if cycle in ORCH_PLANE_STEPS:
+            actuator.set(*ORCH_PLANE_STEPS[cycle])
+        actuator.apply()  # the safe point: between two pool cycles
+        ratio.append(pool.replicas)
+
+    bodies = disagg_bodies(disagg_schedule())
+    run = disagg_episode(torch, flash, params, config, bodies, fused=False,
+                         device=device, on_cycle=plane_cycle)
+    launches += run["launches"]["flash_fwd"]
+    actuator = holder["actuator"]
+    actuator.journal.close()
+    lines = read_journal_events(str(plane_journal), "knob")
+    decode = run["pool"].decode.batcher
+    changes = [(c["knob"], c["value"]) for c in actuator.changes]
+    smoke.check(
+        answered_once(run) and changes == list(ORCH_PLANE_STEPS.values())
+        and [(e["knob"], e["value"]) for e in lines] == changes
+        and decode.draft_enabled is False and decode.spec_flips == 1
+        and 1 in ratio and ratio[-1] == 2,
+        f"orchestration (c) disaggregated pool: {len(run['replies'])} of "
+        f"{len(run['sent'])} answered once; knob changes {changes} "
+        f"journaled ({len(lines)} lines); prefill replicas by cycle "
+        f"{ratio[:24]}...; drafting off at the end "
+        f"({decode.draft_enabled}, {decode.spec_flips} flip)")
+    del run["pool"], params, decode
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def orch_binary(torch, flash, smoke, power: str) -> dict:
+    """Part (c)'s worker binary: ``--fleet-max-replicas 3`` beside the
+    same flags with ``--scheduler --knobs decode_block,slot_limit
+    --journal-path --metrics-port``, ``/metrics`` scraped mid-run."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        main as worker,
+    )
+
+    work = Path(os.environ.get("TMPDIR", "/tmp")) / f"orch-{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    journal = work / "fleet.jsonl"
+    argv = [*demo64(GENERATE_ARGS), "--continuous", "--decode-block", "8",
+            "--fleet-max-replicas", "3", "--device", "cuda"]
+    port = free_port()
+    scraped, stop, tries = [], threading.Event(), []
+
+    def scrape():
+        while not stop.is_set():
+            try:
+                status, body = http_get(f"http://127.0.0.1:{port}/metrics",
+                                        timeout=2)
+            except OSError as err:
+                status, body = type(err).__name__, ""
+            tries.append((status, len(body)))
+            if "engine_knob{" in body:
+                scraped.append(body)
+                return
+            time.sleep(0.02)
+
+    zero_counts(flash)
+    plain = worker(argv)
+    scraper = threading.Thread(target=scrape, daemon=True)
+    scraper.start()
+    try:
+        sched = worker([*argv, "--scheduler", "--knobs",
+                        "decode_block,slot_limit", "--journal-path",
+                        str(journal), "--metrics-port", str(port)])
+    finally:
+        stop.set()
+        scraper.join(timeout=5)
+    torch.cuda.synchronize()
+    launched = counts(flash)["flash_fwd"]
+    header = json.loads(journal.read_text().splitlines()[0])
+    for name, run in (("plain", plain), ("--scheduler", sched)):
+        smoke.check(run["processed"] == 64 and len(run["replies"]) == 64
+                    and run["duplicate_replies"] == 0,
+                    f"orchestration (c) fleet binary {name}: "
+                    f"{run['processed']} of 64 processed, "
+                    f"{len(run['replies'])} replies, "
+                    f"{run['duplicate_replies']} duplicates")
+    knob_lines = [ln for ln in scraped[0].splitlines()
+                  if "engine_knob{" in ln] if scraped else []
+    smoke.check(bool(knob_lines)
+                and header.get("meta", {}).get("sched", {}).get("knobs")
+                == ["decode_block", "slot_limit"],
+                f"orchestration (c) fleet binary --scheduler: engine_knob "
+                f"on a mid-run scrape {knob_lines} ({len(tries)} scrapes, "
+                f"the last {tries[-3:]}); journal header sched "
+                f"{header.get('meta', {}).get('sched')}; knob changes "
+                f"{[(c['knob'], c['value']) for c in sched['knob_changes']]}")
+    for name, run in (("plain", plain), ("--scheduler --knobs", sched)):
+        print(f"orchestration (c) fleet binary {name} (real clock): "
+              f"{run['msgs_per_s']:.3f} msgs/s, {run['tokens_per_s']:.3f} "
+              f"generated tokens/s, trajectory {run['replica_trajectory']}, "
+              f"{run['elapsed_s']:.3f} s ({power})", flush=True)
+    return {"launches": launched,
+            "plain_msgs_per_s": plain["msgs_per_s"],
+            "sched_msgs_per_s": sched["msgs_per_s"],
+            "knob_changes": sched["knob_changes"]}
+
+
+def orchestration_phase(torch, flash, smoke: Smoke, power: str) -> dict:
+    """The serving orchestration at the built-in models' full width, bf16
+    with random weights from seed 0 (f32 for the parity gates):
+
+    (a) request-lifecycle tracing on the ``planes`` phase's disaggregated
+    wave episode (72 prompts of 512 through ``DisaggregatedPool.serving(
+    min=1, max=2, decode_shards=4, spec_layers=2)``): traced, traced with
+    the prefill kill, untraced.  Every answered request carries a
+    gap-free monotone chain with one reply stamp and a handoff stamp;
+    odometers and ``flash_fwd`` launches equal traced and untraced; f32
+    replies identical traced and untraced (plain decode).
+
+    (b) the collective scheduler on two episodes of the reference's comms
+    suite, the sharded pool's evacuation and the disaggregated handoff
+    (plain decode), each in four modes: off, attached but disabled,
+    WHEN-only and routed over a modeled 4-shard torus.  Exactly once;
+    bf16 replies byte-identical; disabled odometers equal to off;
+    WHEN-only strictly fewer blocking host transfers with an overlapped
+    dispatch; routed odometers equal to WHEN-only's; no modeled link
+    oversubscribed.  The host's summed wait in ``_HostCopy.wait`` is
+    printed beside each mode.
+
+    (c) the event scheduler: the ``fleet`` phase's ``FakeClock`` episode,
+    both families, under ``ScheduledFleetDriver`` with no knobs gives
+    ``FleetDriver``'s trajectory, tick records and replies; in f32 the
+    ``decode_block`` knob steps 8 -> 2 -> 8 and ``slot_limit`` 6 -> 0
+    mid-drain (each change journaled and applied at its safe point;
+    greedy replies equal the no-swap run's up to the first near-tie);
+    ``plane_ratio`` and ``speculative`` on the disaggregated pool; then
+    the worker binary with ``--scheduler --knobs`` beside it without."""
+    out = {"launches": {}}
+    for part, fn in (("lifecycle", orch_lifecycle), ("comms", orch_comms),
+                     ("knobs", orch_fleet), ("binary", orch_binary)):
+        start = time.perf_counter()
+        out[part] = fn(torch, flash, smoke, power)
+        out["launches"][f"serve-orchestration-{part}"] = \
+            out[part].pop("launches")
+        print(f"-- orchestration {part}: {time.perf_counter() - start:.3f} s",
+              flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, replaces_fn, launches, by_path,
                  err, timing, shape) -> dict:
     return {
@@ -6035,6 +6742,8 @@ def main() -> int:
     gelu = smoke.phase("gelu cost", gelu_cost_phase, torch)
     tenancy = smoke.phase("tenancy", tenancy_phase, torch, flash, smoke)
     planes = smoke.phase("planes", planes_phase, torch, flash, smoke, power)
+    orch = smoke.phase("orchestration", orchestration_phase, torch, flash,
+                       smoke, power)
     odd = smoke.phase("odd head dim", odd_head_dim_phase, torch, flash, smoke)
     f32_train = smoke.phase("f32 train step", f32_train_phase, torch, flash,
                             smoke)
@@ -6048,7 +6757,8 @@ def main() -> int:
                               and shards
                               and llama and int8 and prefix and spec
                               and beams and slice_prof and sync and gelu
-                              and tenancy and planes and odd and f32_train
+                              and tenancy and planes and orch and odd
+                              and f32_train
                               and train_path and train_prof):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
@@ -6090,6 +6800,10 @@ def main() -> int:
         # prefills, the prefill plane's inserts (the KV handoff launches
         # none)
         **planes["launches"],
+        # the orchestration: traced and comms-on disaggregated episodes,
+        # the evacuation's refills and resume inserts, the scheduled fleet
+        # and the --scheduler binary (tracing and comms add none)
+        **orch["launches"],
         **{f"train-{r}": v["launches"]["flash_fwd"]
            for r, v in train_path.items()},
     }

@@ -7,13 +7,13 @@ library only) and scales one Kubernetes Deployment between ``--min-pods``
 and ``--max-pods`` through :class:`~.core.loop.ControlLoop`, with the
 opt-in resilience layer (``--metric-retries`` … ``--stale-depth-ttl``),
 the durable state (``--state-path``, ``--state-max-age``), the flight
-journal (``--journal-path`` …) and the metrics server (``--metrics-port``,
+journal (``--journal-path`` …), request-lifecycle tracing
+(``--request-trace``) and the metrics server (``--metrics-port``,
 ``--healthz-stale-after``).  The controller process imports no torch.
 
 Flags whose paths are not ported yet parse with the reference's names and
 defaults, then exit with status 2 naming their ROADMAP item:
-``--policy predictive`` and ``--policy learned`` (Queue 1 item 6) and
-``--request-trace`` above 0 (item 3b).
+``--policy predictive`` and ``--policy learned`` (Queue 1 item 6).
 
 Env vars: ``KUBE_CONFIG_PATH`` selects a kubeconfig file (in-cluster
 config when unset or empty); AWS credentials come from the standard AWS
@@ -139,17 +139,19 @@ def build_parser() -> argparse.ArgumentParser:
             "this size"
         ),
     )
-    # Request-lifecycle tracing: parsed with the reference's name and
-    # default; a value above 0 exits naming its ROADMAP item
-    # (check_unported).
+    # Request-lifecycle tracing (obs/lifecycle.py): a bounded host-side
+    # registry of per-request phase chains behind /debug/requests and the
+    # request_phase_seconds histograms.  Off by default, and off means no
+    # registry at all: every stamp site stays behind an `is None` check.
     parser.add_argument(
         "--request-trace", type=int, default=0, metavar="N",
         help=(
             "Keep per-request phase-chain traces for the newest N open "
             "requests (arrival/staged/admitted/prefill/first_token/"
             "handoff/completed/reply stamps behind /debug/requests and "
-            "request_phase_seconds histograms; 0 = disabled; not yet "
-            "ported: values above 0 exit naming ROADMAP Queue 1 item 3b)"
+            "request_phase_seconds histograms; 0 = disabled, the engine "
+            "path is byte-identical). With --state-path, open traces "
+            "ride the durable snapshot across restarts"
         ),
     )
     # The scaling policy: 'reactive' is the reference's behavior; the
@@ -374,11 +376,6 @@ def check_unported(parser: argparse.ArgumentParser,
             f"--policy {args.policy} needs the port of forecast/ and learn/, "
             "not yet ported (ROADMAP Queue 1 item 6)"
         )
-    if args.request_trace > 0:
-        parser.error(
-            "--request-trace needs obs/lifecycle.py and the serving plane's "
-            "stamp sites, not yet ported (ROADMAP Queue 1 item 3b)"
-        )
 
 
 def main(argv: Sequence[str] | None = None) -> None:
@@ -424,6 +421,17 @@ def main(argv: Sequence[str] | None = None) -> None:
             journal_path=args.journal_path or None,
         )
 
+    # The request-lifecycle registry, built only when asked for, and a
+    # durable section, so open traces rejoin their chains after a restart
+    lifecycle = None
+    if args.request_trace > 0:
+        from .obs import LifecycleRegistry
+
+        lifecycle = LifecycleRegistry(capacity=args.request_trace)
+        if store is not None:
+            store.register("request_trace", lifecycle,
+                           ttl_s=_STATE_SECTION_TTL_S)
+
     server = None
     observers = []
     journal = None
@@ -450,6 +458,8 @@ def main(argv: Sequence[str] | None = None) -> None:
             # restart/rehydrate instants land beside the ticks on
             # /debug/trace (their own "restart" category)
             trace_sources=(store,) if store is not None else (),
+            # /debug/requests, and per-request lanes on /debug/trace
+            lifecycle=lifecycle,
         )
         server.start()
 
@@ -503,6 +513,9 @@ def main(argv: Sequence[str] | None = None) -> None:
             max_bytes=args.journal_max_bytes,
         )
         observers.append(journal)
+        if lifecycle is not None:
+            # closed traces land in the journal as "request" lines
+            lifecycle.journal = journal
 
     if not observers:
         observer = None

@@ -1,7 +1,7 @@
 """The control loop: sleep → poll → plan → actuate.
 
-The port's copy of ``kube_sqs_autoscaler_tpu/core/loop.py`` (its
-scheduler seam waits for ``sched/``, ROADMAP Queue 1 item 3b).  The loop owns the side effects;
+The port's copy of ``kube_sqs_autoscaler_tpu/core/loop.py``.  The loop
+owns the side effects;
 all decisions come from the pure policy (:mod:`.policy`), in the
 reference's order:
 
@@ -140,13 +140,20 @@ class ControlLoop:
         ``max_ticks=None`` runs forever, like the reference.  Each call is a
         fresh episode (fresh startup-grace state and tick budget);
         ``self.ticks`` accumulates across episodes for observability.
-        ``scheduler`` (the reference's event-scheduler seam) is not ported:
-        anything but ``None`` raises ``NotImplementedError``.
+
+        ``scheduler`` hands the sleep loop to the event scheduler
+        (:mod:`..sched`): an :class:`~..sched.scheduler.EventScheduler`, or
+        ``True`` to build one on this loop's clock, runs the episode as a
+        registered ``control-tick`` event, with the same cadence, stop and
+        ``max_ticks`` semantics and identical tick records, on a queue
+        other events can share.
         """
-        if scheduler is not None:
-            raise NotImplementedError(
-                "ControlLoop.run(scheduler=) needs sched/, not yet ported "
-                "(ROADMAP Queue 1 item 3b)"
+        if scheduler is not None and scheduler is not False:
+            from ..sched.scheduler import drive_loop
+
+            return drive_loop(
+                self, max_ticks=max_ticks,
+                scheduler=None if scheduler is True else scheduler,
             )
         state = self.initial_policy_state()
         ticks_this_run = 0

@@ -126,6 +126,11 @@ class FleetPoolBase:
         self.events: deque[FleetEvent] = deque(maxlen=4096)
         self.cycle = 0
         self.metrics = None
+        # the request-lifecycle registry (obs/lifecycle.py): one registry
+        # for the whole fleet, so a request's chain threads through
+        # whichever members touch it; attach_lifecycle wires it into
+        # current members and _add_replica into later spawns
+        self.lifecycle = None
         self._replied = _BoundedSet(replied_capacity)
         self.duplicates_suppressed = 0
         # test seams, mirroring the fakes' error injection hooks
@@ -241,6 +246,9 @@ class WorkerPool(FleetPoolBase):
             raise ValueError("hang_grace_cycles must be >= 2")
         super().__init__(clock=clock, replied_capacity=replied_capacity)
         self.replica_factory = replica_factory
+        # the decode block a live knob moved the fleet to (None: the
+        # service config's); replicas spawned later serve at it
+        self.spawn_decode_block: int | None = None
         self.min = min
         self.max = max
         self.scale_up_pods = scale_up_pods
@@ -330,6 +338,10 @@ class WorkerPool(FleetPoolBase):
         replica = Replica(self._next_index, worker, self.clock.now())
         self._next_index += 1
         self.members.append(replica)
+        if self.lifecycle is not None:
+            attach = getattr(worker, "attach_lifecycle", None)
+            if attach is not None:
+                attach(self.lifecycle)
         self._event("replica-spawn", replica=replica.index)
         return replica
 
@@ -489,6 +501,13 @@ class WorkerPool(FleetPoolBase):
             return
         take, self._orphans = self._orphans[:free], self._orphans[free:]
         if take:
+            if self.lifecycle is not None:
+                from ..workloads.service import request_id
+
+                for message in take:
+                    # the chain continues on the survivor: its admission
+                    # re-stamps, and first occurrences keep the timeline
+                    self.lifecycle.note(request_id(message), "redispatched")
             replica.worker._admit(take)
             self._event(
                 "redispatch", replica=replica.index, requests=len(take),
@@ -601,6 +620,17 @@ class WorkerPool(FleetPoolBase):
                 self._retire(replica, released=released)
         self._update_metrics()
 
+    def attach_lifecycle(self, registry) -> None:
+        """Wire one :class:`~..obs.lifecycle.LifecycleRegistry` through
+        every current member and, via :meth:`_add_replica`, every later
+        spawn: the registry is fleet-scoped, never per replica.  Workers
+        without the hook stay untraced."""
+        self.lifecycle = registry
+        for replica in self.members:
+            attach = getattr(replica.worker, "attach_lifecycle", None)
+            if attach is not None:
+                attach(registry)
+
     def attach_metrics(self, metrics) -> None:
         """Refresh the fleet gauges into a
         :class:`~..obs.prometheus.WorkloadMetrics` registry every cycle:
@@ -700,17 +730,29 @@ class WorkerPool(FleetPoolBase):
         def factory(pool: "WorkerPool"):
             from .worker import FleetWorker
 
+            donor = pool.engine_donor()
+            block = pool.spawn_decode_block
             seeded = dataclasses.replace(
                 service_config,
                 sample_seed=service_config.sample_seed
                 + pool.next_spawn_ordinal(),
             )
-            return FleetWorker(
+            if block is not None and donor is not None:
+                # a live decode_block knob moved the fleet: construct at
+                # the donor's engine (its key must match), then move to the
+                # actuated size, at once on the idle replica
+                seeded = dataclasses.replace(
+                    seeded, decode_block=donor.decode_block)
+            worker = FleetWorker(
                 queue, params, model_config, seeded,
                 family=family, result_queue=result_queue, device=device,
                 prefix_cache=prefix_cache, pool=pool,
-                engine_source=pool.engine_donor(), tenancy=tenancy,
+                engine_source=donor, tenancy=tenancy,
             )
+            if block is not None:
+                worker.batcher.request_decode_block(block)
+                worker.config.decode_block = block
+            return worker
 
         return cls(factory, min=min, max=max, **pool_kwargs)
 

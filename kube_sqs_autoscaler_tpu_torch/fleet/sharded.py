@@ -370,6 +370,14 @@ class ShardedWorkerPool(FleetPoolBase):
 
     # -- observability ------------------------------------------------------
 
+    def attach_lifecycle(self, registry) -> None:
+        """Wire a :class:`~..obs.lifecycle.LifecycleRegistry` through the
+        plane's one worker (admission, emit, settle, evacuation)."""
+        self.lifecycle = registry
+        attach = getattr(self.worker, "attach_lifecycle", None)
+        if attach is not None:
+            attach(registry)
+
     def attach_metrics(self, metrics) -> None:
         """Refresh the per-shard gauges (``shard_active``,
         ``shard_active_slots``, ``shard_tokens_per_second``,

@@ -91,6 +91,10 @@ class FleetWorker(ContinuousWorker):
                     self.config.queue_url, message["ReceiptHandle"]
                 )
                 self._pool.note_duplicate(rid)
+                if self.lifecycle is not None:
+                    # close the duplicate copy's open trace without a
+                    # reply stamp: one reply stamp per answered request
+                    self.lifecycle.duplicate(rid)
                 if counted:
                     self.processed -= 1
                 return False

@@ -1,7 +1,8 @@
 """Observability of the controller, the serving worker and its fleet: the
 Prometheus registries (:class:`ControllerMetrics`, :class:`WorkloadMetrics`),
 the flight recorder (:class:`TickRing`, :class:`TickJournal` and its
-readers), the Chrome-trace export and the HTTP endpoints.  Standard library
+readers), request-lifecycle tracing (:class:`LifecycleRegistry`), the
+Chrome-trace export and the HTTP endpoints.  Standard library
 only."""
 
 from .journal import (
@@ -13,11 +14,13 @@ from .journal import (
     read_journal_episodes,
     read_journal_events,
 )
+from .lifecycle import LifecycleRegistry
 from .prometheus import ControllerMetrics, WorkloadMetrics
 from .server import ObservabilityServer
 from .trace import (
     instant_trace_events,
     render_chrome_trace,
+    request_trace_events,
     to_chrome_trace,
     trace_events,
 )
@@ -26,6 +29,7 @@ __all__ = [
     "ControllerMetrics",
     "JOURNAL_SCHEMA_VERSION",
     "JournalSchemaError",
+    "LifecycleRegistry",
     "ObservabilityServer",
     "TickJournal",
     "TickRing",
@@ -35,6 +39,7 @@ __all__ = [
     "read_journal_episodes",
     "read_journal_events",
     "render_chrome_trace",
+    "request_trace_events",
     "to_chrome_trace",
     "trace_events",
 ]

@@ -1,8 +1,7 @@
 """HTTP endpoints of the controller and the serving worker.
 
 The port's copy of ``kube_sqs_autoscaler_tpu/obs/server.py``'s
-``ObservabilityServer`` (the request and topology endpoints wait for the
-request-lifecycle registry and the comms planner): a standard-library
+``ObservabilityServer``: a standard-library
 ``ThreadingHTTPServer`` on a daemon thread serving
 
 - ``/metrics`` — the registry (:class:`~.prometheus.ControllerMetrics` or
@@ -19,7 +18,19 @@ request-lifecycle registry and the comms planner): a standard-library
   is attached;
 - ``/debug/trace`` — the same ring as Chrome/Perfetto trace-event JSON,
   with the instants of every ``trace_sources`` object (e.g. the durable
-  store's restart instants) beside the ticks.
+  store's restart instants) beside the ticks and, with a lifecycle
+  registry attached, the per-request phase spans as flow-linked lanes;
+- ``/debug/requests`` — the request-lifecycle registry's recent traces
+  and counters as JSON (``?n=`` limits; ``?slo=`` adds an
+  ``attribution`` block naming the phase that ate each over-SLO
+  request's budget), when a :class:`~.lifecycle.LifecycleRegistry` is
+  attached;
+- ``/debug/topology`` — the comms route planner's link graph, its live
+  per-link virtual-time ledger and the routing odometers, when a
+  topology-attached :class:`~..comms.CollectiveScheduler` is wired
+  (``comms=``).
+
+Each optional endpoint answers 404 without its source.
 
 Disabled unless a binary gets ``--metrics-port``.
 """
@@ -33,7 +44,11 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from .journal import JOURNAL_SCHEMA_VERSION, TickRing
-from .trace import instant_trace_events, render_chrome_trace
+from .trace import (
+    instant_trace_events,
+    render_chrome_trace,
+    request_trace_events,
+)
 
 log = logging.getLogger(__name__)
 
@@ -44,7 +59,9 @@ class ObservabilityServer:
     ``ring`` (optional) enables the ``/debug/ticks`` and ``/debug/trace``
     flight-recorder endpoints; without it they 404 like any unknown path.
     ``trace_sources`` are objects with an ``events`` iterable of
-    ``(name, t, args)``-shaped instants on the tick clock.
+    ``(name, t, args)``-shaped instants on the tick clock; ``lifecycle``
+    a :class:`~.lifecycle.LifecycleRegistry`; ``comms`` a
+    :class:`~..comms.CollectiveScheduler`.
     """
 
     def __init__(
@@ -55,14 +72,20 @@ class ObservabilityServer:
         ring: TickRing | None = None,
         unhealthy_after: float = 0.0,
         trace_sources: tuple = (),
+        lifecycle=None,
+        comms=None,
     ) -> None:
         self.metrics = metrics
         self.ring = ring
         self.unhealthy_after = unhealthy_after
+        self.lifecycle = lifecycle
+        self.comms = comms
         registry = metrics  # close over for the handler class
         tick_ring = ring
         stale_after = unhealthy_after
         sources = tuple(trace_sources)
+        lifecycle_registry = lifecycle
+        comms_scheduler = comms
 
         class Handler(BaseHTTPRequestHandler):
             def do_GET(self) -> None:  # noqa: N802 (http.server API)
@@ -123,9 +146,28 @@ class ObservabilityServer:
                             source.events, time_origin=origin
                         )
                     ]
+                    if lifecycle_registry is not None:
+                        traces = (lifecycle_registry.done_traces()
+                                  + lifecycle_registry.open_traces())
+                        extra += request_trace_events(
+                            traces, time_origin=origin)
                     self._reply(
                         200,
                         render_chrome_trace(records, extra_events=extra),
+                        "application/json",
+                    )
+                elif (url.path == "/debug/requests"
+                      and lifecycle_registry is not None):
+                    self._reply(200, self._requests_body(url.query),
+                                "application/json")
+                elif (url.path == "/debug/topology"
+                      and comms_scheduler is not None
+                      and getattr(comms_scheduler, "topology", None)
+                      is not None):
+                    self._reply(
+                        200,
+                        json.dumps(comms_scheduler.topology_snapshot(),
+                                   separators=(",", ":")),
                         "application/json",
                     )
                 else:
@@ -146,6 +188,23 @@ class ObservabilityServer:
                     },
                     separators=(",", ":"),
                 )
+
+            @staticmethod
+            def _requests_body(query: str) -> str:
+                params = urllib.parse.parse_qs(query)
+                try:
+                    last = int(params["n"][0])
+                except (KeyError, IndexError, ValueError):
+                    last = 100
+                body = lifecycle_registry.snapshot(last=last)
+                try:
+                    slo = float(params["slo"][0])
+                except (KeyError, IndexError, ValueError):
+                    slo = None
+                if slo is not None:
+                    body["attribution"] = lifecycle_registry.attribute_slo(
+                        slo)
+                return json.dumps(body, separators=(",", ":"))
 
             def _reply(
                 self, status: int, body: str, content_type: str = "text/plain"
@@ -176,6 +235,11 @@ class ObservabilityServer:
         self._thread.start()
         endpoints = "/metrics /healthz /readyz" + (
             " /debug/ticks /debug/trace" if self.ring is not None else ""
+        ) + (
+            " /debug/requests" if self.lifecycle is not None else ""
+        ) + (
+            " /debug/topology"
+            if getattr(self.comms, "topology", None) is not None else ""
         )
         log.info("Observability endpoints on :%d (%s)", self.port, endpoints)
 

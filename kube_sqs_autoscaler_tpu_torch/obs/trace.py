@@ -1,13 +1,14 @@
 """Chrome/Perfetto trace-event export of tick records and instants.
 
-The port's copy of ``kube_sqs_autoscaler_tpu/obs/trace.py``, its tick part
-(the per-request spans wait for the request-lifecycle registry): one
+The port's copy of ``kube_sqs_autoscaler_tpu/obs/trace.py``: one
 complete ("X") span per tick with child spans for its three phases
 (observe → decide → actuate), instant ("i") events at gate fires,
 cooldown skips and metric failures, and instants from ``(name, t, args)``
 events such as the fleet's supervisor decisions and the durable store's
-restart instants.  Every event lands on the lane (pid, tid) of its
-category, so the dicts equal the reference's for the same inputs.
+restart instants, and per-request lifecycle spans threaded by flow
+arrows (:func:`request_trace_events`).  Every event lands on the lane
+(pid, tid) of its category, so the dicts equal the reference's for the
+same inputs.
 Timestamps are microseconds from the first record's start on the loop's
 own clock.  Served live at ``/debug/trace`` by
 :class:`~.server.ObservabilityServer`.
@@ -230,6 +231,157 @@ def instant_trace_events(
         _instant(e.name, e.t - origin, dict(e.args), cat=_cat(e.name))
         for e in events
     ]
+
+
+def to_chrome_trace(
+    records: Sequence[TickRecord] | Iterable[TickRecord],
+    meta: dict[str, Any] | None = None,
+    extra_events: Sequence[dict[str, Any]] | None = None,
+) -> dict[str, Any]:
+    """The JSON-object trace format (``{"traceEvents": [...]}``).
+
+    ``extra_events`` are pre-built trace-event dicts appended verbatim
+    (e.g. the fleet's :func:`instant_trace_events` with ``time_origin``
+    set to the first tick's start, so both streams share t=0)."""
+    events = trace_events(records) + list(extra_events or ())
+    if events:
+        # name the tracks (process/thread lanes) — but an empty trace
+        # stays byte-empty, so consumers can cheaply test for "nothing
+        # recorded yet"
+        events = track_metadata_events() + events
+    trace: dict[str, Any] = {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+    }
+    if meta:
+        trace["otherData"] = meta
+    return trace
+
+
+def render_chrome_trace(
+    records: Sequence[TickRecord] | Iterable[TickRecord],
+    meta: dict[str, Any] | None = None,
+    extra_events: Sequence[dict[str, Any]] | None = None,
+) -> str:
+    """``to_chrome_trace`` as a compact JSON string (the HTTP body)."""
+    return json.dumps(
+        to_chrome_trace(records, meta, extra_events), separators=(",", ":")
+    )
+
+
+def request_trace_events(
+    traces: Iterable[Any], time_origin: float | None = None
+) -> list[dict[str, Any]]:
+    """Per-request lifecycle spans threaded by Perfetto flow arrows.
+
+    ``traces`` is any iterable of :class:`~.lifecycle.RequestTrace`
+    values (anything with ``rid`` / ``flow_id`` / ``tenant`` and the
+    ``first``/``last`` stamp accessors).  Each request renders as one
+    span per lifecycle phase — queue wait, prefill, KV-handoff stall,
+    decode, settle — on the ``requests`` process's per-phase lanes,
+    linked start-to-finish by flow events (``s``/``t``/``f``) carrying
+    the trace's flow id, so Perfetto draws the arrow a postmortem
+    follows: THIS request waited here, prefilled there, stalled on the
+    shuttle, decoded on the plane.  ``time_origin`` defaults to the
+    first trace's arrival so request spans share t=0 with whatever tick
+    records they are merged with.
+    """
+    from .lifecycle import (  # local: avoid import cycle
+        phase_durations,
+        transfer_spans,
+    )
+
+    traces = list(traces)
+    starts = [
+        t.first("arrival") for t in traces
+        if t.first("arrival") is not None
+    ]
+    if time_origin is None:
+        if not starts:
+            return []
+        time_origin = min(starts)
+    events: list[dict[str, Any]] = []
+    for trace in traces:
+        arrival = trace.first("arrival")
+        if arrival is None:
+            continue
+        durations = phase_durations(trace)
+        cursor = arrival - time_origin
+        spans: list[tuple[str, float, float]] = []
+        for phase in ("queue", "prefill", "handoff", "decode", "settle"):
+            span = durations.get(phase)
+            if span is None:
+                continue
+            spans.append((phase, cursor, span))
+            cursor += span
+        if not spans:
+            continue
+        args = {
+            "rid": trace.rid,
+            "tenant": trace.tenant,
+            "notes": dict(trace.notes),
+        }
+        if getattr(trace, "error", None) is not None:
+            args["error"] = trace.error
+        for index, (phase, start, span) in enumerate(spans):
+            tid, _ = _REQUEST_LANES[phase]
+            events.append({
+                "name": phase,
+                "cat": "request",
+                "ph": "X",
+                "ts": _us(start),
+                "dur": _us(span),
+                "pid": _REQUEST_PID,
+                "tid": tid,
+                "args": args,
+            })
+            # the flow arrow: start at the first span, step through the
+            # middle ones, finish (binding to the enclosing slice) at
+            # the last — one arrow per request, id = its flow id, which
+            # the registry keeps unique across restart epochs
+            if index == 0:
+                ph = "s"
+            elif index == len(spans) - 1:
+                ph = "f"
+            else:
+                ph = "t"
+            flow: dict[str, Any] = {
+                "name": "request",
+                "cat": "request",
+                "ph": ph,
+                "id": trace.flow_id,
+                "ts": _us(start),
+                "pid": _REQUEST_PID,
+                "tid": tid,
+            }
+            if ph == "f":
+                flow["bp"] = "e"
+            events.append(flow)
+        # scheduled-collective windows (comms/): absolute-time spans on
+        # the transfers lane.  The chained spans above start at the
+        # trace's absolute stamp times too, so a transfer dispatched
+        # while a block decodes renders exactly under the decode span
+        # it hides behind — the overlap the bench gate looks for.
+        transfer_tid, _ = _REQUEST_LANES["transfer"]
+        routes = getattr(trace, "routes", None) or []
+        for index, (t0, t1) in enumerate(transfer_spans(trace)):
+            transfer_args = args
+            if index < len(routes):
+                # the comms route planner appended hop lists in stamp
+                # order — the i-th route belongs to the i-th span
+                transfer_args = dict(args)
+                transfer_args["route"] = routes[index]
+            events.append({
+                "name": "transfer",
+                "cat": "request",
+                "ph": "X",
+                "ts": _us(t0 - time_origin),
+                "dur": _us(max(0.0, t1 - t0)),
+                "pid": _REQUEST_PID,
+                "tid": transfer_tid,
+                "args": transfer_args,
+            })
+    return events
 
 
 def to_chrome_trace(

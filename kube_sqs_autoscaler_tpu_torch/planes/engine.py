@@ -266,6 +266,8 @@ class DecodePlaneBatcher(ShardedBatcher):
             lasts.append(produced[-1])
             budgets.append(budget - len(produced))
         spec = bool(self.spec_layers) and self.draft_enabled
+        lc = self.lifecycle
+        handoff_t0 = lc.now_fn() if lc is not None else None
         with torch.inference_mode():
             _handoff_rows_impl(
                 self.cache, self.draft_cache, self._current, self._done,
@@ -278,6 +280,14 @@ class DecodePlaneBatcher(ShardedBatcher):
             )
         self.insert_dispatches += 1
         self.kv_transfers += len(rows)
+        if self.comms is not None and self.comms.enabled:
+            from ..comms.ops import HANDOFF_KV
+
+            self.comms.record(
+                HANDOFF_KV, "decode-plane", source="prefill",
+                nbytes=self._row_kv_nbytes() * len(rows),
+                args={"rows": len(rows)},
+            )
         for row, (_, payload, produced, budget, submitted_at,
                   tenant) in zip(rows, handoffs):
             self.slots[row] = _Slot(
@@ -286,6 +296,16 @@ class DecodePlaneBatcher(ShardedBatcher):
                 tenant=tenant or "", ttft_done=True,
             )
             self._slot_spec[row] = spec
+            if lc is not None:
+                from ..obs.lifecycle import request_key
+
+                # the KV landed in a decode slot: the handoff phase closes,
+                # and the copy is a paired transfer window on the trace
+                rid = request_key(payload)
+                lc.stamp(rid, "handoff", tenant=tenant or None)
+                lc.stamp(rid, "transfer", t=handoff_t0)
+                lc.stamp(rid, "transfer_done")
+                lc.note(rid, "transfer_handoff_kv")
         self._invalidate_admission_cache()
         return rows
 

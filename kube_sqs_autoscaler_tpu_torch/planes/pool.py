@@ -44,12 +44,6 @@ log = logging.getLogger(__name__)
 # decode plane's drafting mode
 DISAGG_SECTION = "disagg_pool"
 
-_ORCHESTRATION = (
-    "the orchestration half of the serving planes (comms/, sched/, "
-    "obs/lifecycle.py) is not yet ported (ROADMAP Queue 1 item 3b)"
-)
-
-
 class DisaggregatedPool(WorkerPool):
     """Supervised prefill replicas shuttling KV to one decode plane.
 
@@ -244,12 +238,32 @@ class DisaggregatedPool(WorkerPool):
         super().attach_metrics(metrics)
 
     def attach_lifecycle(self, registry) -> None:
-        """Request-lifecycle tracing across both planes: not ported."""
-        raise NotImplementedError(_ORCHESTRATION)
+        """One registry across both planes: a request's chain runs
+        arrival -> first_token on a prefill replica, handoff on the decode
+        plane and completed -> reply on the decode worker, so split
+        registries would each see half a chain."""
+        self.decode_pool.attach_lifecycle(registry)
+        super().attach_lifecycle(registry)
 
     def attach_comms(self, comms) -> None:
-        """The collective scheduler through both planes: not ported."""
-        raise NotImplementedError(_ORCHESTRATION)
+        """Wire one :class:`~..comms.CollectiveScheduler` through both
+        planes' engines (current members; attach before serving): the
+        decode plane's and the prefill replicas' settle pulls ride their
+        dispatch-ahead windows, and every KV handoff records its bytes."""
+        self.comms = comms
+        topology = getattr(comms, "topology", None)
+        if topology is not None:
+            # the handoff endpoints are routable from the first move on
+            topology.ensure_node("prefill")
+            topology.ensure_node("decode-plane")
+        attach = getattr(self.decode.batcher, "attach_comms", None)
+        if attach is not None:
+            attach(comms)
+        for replica in self.members:
+            batcher = getattr(replica.worker, "batcher", None)
+            attach = getattr(batcher, "attach_comms", None)
+            if attach is not None:
+                attach(comms)
 
     # -- real planes -----------------------------------------------------------
 

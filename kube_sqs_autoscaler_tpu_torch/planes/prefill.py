@@ -75,6 +75,14 @@ class PrefillWorker(FleetWorker):
         enqueued: the next insert into them runs after the copy on the
         stream."""
         for row in rows:
+            if self.lifecycle is not None:
+                from ..obs.lifecycle import request_key
+
+                # the donor half of the handoff audit: every handed_off
+                # note pairs with a decode-plane handoff stamp
+                self.lifecycle.note(
+                    request_key(self.batcher.slots[row].payload),
+                    "handed_off")
             self.batcher.slots[row] = _Slot()
         self.batcher._invalidate_admission_cache()
         self.handed_off += len(rows)

@@ -52,12 +52,15 @@ SwiGLU) through every mode below.
 The worker runs on the card (``--device cuda``, the default) and exits
 with an error when there is none; ``--device cpu`` runs it on the CPU.
 Weights are the built-in config's, drawn from a seeded generator.
-Flags of the reference binary whose paths are not ported yet
-(``--checkpoint-dir``, ``--hf-checkpoint``) are not accepted;
-``--scheduler``, ``--knobs``, ``--topology``, ``--journal-path``,
-``--tokenizer`` and ``--model-parallel``, which the reference serves on
-paths the port does not have yet, exit with a message naming their ROADMAP
-item.
+The serving orchestration rides the same flags as the reference's:
+``--scheduler`` runs the fleet demo on the event scheduler, ``--knobs``
+arms live engine knobs there, ``--journal-path`` records the fleet's
+control loop and ``--topology`` attaches a route-planning collective
+scheduler to the continuous worker.  Flags of the reference binary whose
+paths are not ported yet (``--checkpoint-dir``, ``--hf-checkpoint``) are
+not accepted; ``--tokenizer`` and ``--model-parallel``, which the
+reference serves on paths the port does not have yet, exit with a message
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -274,17 +277,45 @@ def build_parser() -> argparse.ArgumentParser:
              "rehydrates next cycle; 1 = the single staging plane; "
              "requires --tenants)",
     )
-    for flag, meta, kind in (("--scheduler", None, "store_true"),
-                             ("--knobs", "KNOB,KNOB,...", None),
-                             ("--topology", "SHAPE", None),
-                             ("--journal-path", "PATH", None)):
-        extra = ({"action": kind} if kind
-                 else {"default": "", "metavar": meta})
-        parser.add_argument(
-            flag, **extra,
-            help="the reference's serving orchestration (sched/, comms/, "
-                 "the journal): not yet ported, exits",
-        )
+    parser.add_argument(
+        "--topology", default="", metavar="SHAPE",
+        choices=("", "ring", "mesh2d", "torus", "two-tier"),
+        help="topology-aware collective routing: model the fleet as a "
+             "link graph of this shape (ring, mesh2d, torus, or "
+             "two-tier islands over a slower tier), derived from the live "
+             "--shards geometry, and attach a route-planning "
+             "CollectiveScheduler: transfers get multi-hop routes over "
+             "modeled links, and /metrics gains link_bytes_total / "
+             "link_utilization plus a /debug/topology endpoint (default: "
+             "off, byte-identical; requires --continuous)",
+    )
+    parser.add_argument(
+        "--scheduler", action="store_true",
+        help="run the fleet demo's control loop and serving cycles on the "
+             "one event-driven scheduler (sched/: a priority-ordered event "
+             "queue over one clock) instead of the hand-rolled interleave: "
+             "the same behavior with no knobs armed, and the seam --knobs "
+             "actuates through (requires --fleet-max-replicas)",
+    )
+    parser.add_argument(
+        "--knobs", default="", metavar="KNOB,KNOB,...",
+        help="arm live engine knobs for actuation between cycles at safe "
+             "points: decode-block (re-dispatch boundary; needs "
+             "--decode-block >= 2 or --shards >= 2), slot-limit (per-shard "
+             "admission cap), shards (drain/retire mask flips; needs "
+             "--shards >= 2), speculative (round-overlap toggle; needs "
+             "--speculative-draft-layers, not --beams), prefix-pool "
+             "(residency ceiling; needs --prefix-pool).  Every change is "
+             "journaled, snapshotted, and exported as engine_knob{knob=...} "
+             "gauges (requires --continuous and --scheduler)",
+    )
+    parser.add_argument(
+        "--journal-path", default="", metavar="PATH",
+        help="append the fleet control loop's tick records to this JSONL "
+             "flight journal (the header meta stamps the deployment knobs "
+             "incl. the tenancy config; requires --fleet-max-replicas; "
+             "empty = disabled)",
+    )
     parser.add_argument(
         "--tokenizer", default="", metavar="DIR",
         help="text-in/text-out through a transformers tokenizer (not yet "
@@ -361,25 +392,49 @@ def demo_queue(demo: int, model_config: ModelConfig,
     return queue
 
 
-def serve_metrics(port: int, source):
+def serve_metrics(port: int, source, comms=None, build_info=None,
+                  metrics=None):
     """Start ``/metrics`` for a worker or a fleet pool (``port`` 0 =
     disabled, returns None): a worker's serve-cycle SpanTimer; a
     continuous worker's serving gauges and TTFT histogram (and, with
     tenancy, the per-tenant gauges, TTFT histogram, shed counters and
     overload gauges), or a pool's replica gauges and every replica's TTFT
-    samples, refreshed every cycle."""
+    samples, refreshed every cycle.  A topology-attached ``comms``
+    scheduler adds ``/debug/topology`` and the per-link gauges;
+    ``build_info`` labels stamp a ``build_info`` gauge; ``metrics`` is a
+    registry to serve (a fresh one by default)."""
     if not port:
         return None
+    from .. import __version__
     from ..obs import ObservabilityServer, WorkloadMetrics
 
-    metrics = WorkloadMetrics()
+    metrics = metrics if metrics is not None else WorkloadMetrics()
+    if build_info is not None:
+        metrics.set_build_info(__version__, **build_info)
     if hasattr(source, "timer"):
         metrics.attach_timer("worker", source.timer)
     if hasattr(source, "attach_metrics"):
         source.attach_metrics(metrics)
-    server = ObservabilityServer(metrics, port=port)
+    server = ObservabilityServer(metrics, port=port, comms=comms)
     server.start()
     return server
+
+
+def attach_topology(topology: str, shards: int, worker):
+    """The ``--topology`` route-planning collective scheduler over the
+    live ``--shards`` geometry, wired through ``worker``'s engine; None
+    when the flag is off (the engine byte for byte)."""
+    if not topology:
+        return None
+    from ..comms import CollectiveScheduler, topology_from_geometry
+
+    graph = topology_from_geometry(topology, shards=shards, model_parallel=1)
+    comms = CollectiveScheduler(lifecycle=getattr(worker, "lifecycle", None),
+                                topology=graph)
+    worker.batcher.attach_comms(comms)
+    log.info("Topology-aware routing on: %s (%d nodes, %d links)",
+             topology, len(graph.nodes), len(graph.links))
+    return comms
 
 
 def run_demo(
@@ -393,12 +448,14 @@ def run_demo(
     prefix_cache: dict | None = None,
     modes: tuple[dict, dict] = ({}, {}),
     tenancy=None,
+    topology: str = "",
 ) -> dict:
     """Feed ``demo`` random bodies through a :class:`QueueWorker` (or,
     with ``continuous``, drain them through a :class:`ContinuousWorker`,
-    with ``tenancy`` its fair admission) and collect the replies; returns
-    the run's counts and rates.  ``modes`` holds the two workers'
-    decode-mode keywords (:func:`decode_modes`)."""
+    with ``tenancy`` its fair admission and ``topology`` a route-planning
+    collective scheduler) and collect the replies; returns the run's
+    counts and rates.  ``modes`` holds the two workers' decode-mode
+    keywords (:func:`decode_modes`)."""
     queue = demo_queue(demo, model_config, service_config)
     result_queue = FakeMessageQueue() if service_config.result_queue_url else None
     if continuous:
@@ -406,7 +463,8 @@ def run_demo(
                                   result_queue=result_queue, device=device,
                                   prefix_cache=prefix_cache, tenancy=tenancy,
                                   **modes[1])
-        server = serve_metrics(metrics_port, worker)
+        comms = attach_topology(topology, service_config.shards, worker)
+        server = serve_metrics(metrics_port, worker, comms=comms)
         start = time.perf_counter()
         worker.drain(total=demo)
         elapsed = time.perf_counter() - start
@@ -428,6 +486,7 @@ def run_demo(
                             if batcher.ttft_count else None),
             **{name: getattr(batcher, name) for name in SPEC_STATS},
             **tenancy_counts(worker),
+            "comms": comms.counters() if comms is not None else None,
         }
     else:
         worker = QueueWorker(queue, params, model_config, service_config,
@@ -444,7 +503,7 @@ def run_demo(
             "decode_dispatches", "insert_dispatches", "host_transfers",
             "block_settles", "overlapped_settles", "gang_cycles",
             "summary_transfers", "block_utilization", "ttft_mean_s",
-            *SPEC_STATS, *TENANCY_STATS))
+            *SPEC_STATS, *TENANCY_STATS, "comms"))
     if server is not None:
         server.stop()
     log.info(
@@ -569,12 +628,19 @@ def run_fleet_demo(
     metrics_port: int = 0,
     prefix_cache: dict | None = None,
     tenancy=None,
+    scheduler: bool = False,
+    knob_names: tuple = (),
+    journal_path: str = "",
 ) -> dict:
     """The closed loop in one process, on the real clock: a
     :class:`~..core.loop.ControlLoop` autoscales a
     :class:`~..fleet.WorkerPool` of continuous replicas between
     ``min_replicas`` and ``max_replicas`` over the demo queue until every
-    message is answered; returns the run's counts and rates."""
+    message is answered; returns the run's counts and rates.
+    ``scheduler`` runs the interleave on the event scheduler
+    (:class:`~..sched.fleet.ScheduledFleetDriver`), with ``knob_names``
+    armed on a :class:`~..sched.knobs.KnobActuator`; ``journal_path``
+    records the loop's ticks (and the knob changes)."""
     from ..core.loop import ControlLoop, LoopConfig
     from ..core.policy import PolicyConfig
     from ..fleet import FleetDriver, WorkerPool
@@ -587,12 +653,44 @@ def run_fleet_demo(
         result_queue=result_queue, min=min_replicas, max=max_replicas,
         device=device, prefix_cache=prefix_cache, tenancy=tenancy,
     )
-    server = serve_metrics(metrics_port, pool)
+    journal = None
+    if journal_path:
+        from ..obs import TickJournal
+
+        journal = TickJournal(journal_path, meta=fleet_journal_meta(
+            service_config, min_replicas, max_replicas, tenancy,
+            scheduler, knob_names))
+        # the sharded admission plane's transitions ride the same journal
+        for replica in pool.members:
+            fair = getattr(replica.worker, "_fair", None)
+            if hasattr(fair, "attach_journal"):
+                fair.attach_journal(journal)
+    # the registry exists before the server starts, so the knob gauges
+    # are on its first scrape
+    registry = None
+    if metrics_port:
+        from ..obs import WorkloadMetrics
+
+        registry = WorkloadMetrics()
     batch = service_config.batch_size
+
+    class _LastDepthSource:
+        """Remembers the tick's observation, so the knob policy decides
+        on the depth the loop just saw instead of polling again."""
+
+        def __init__(self, source) -> None:
+            self.source = source
+            self.last = 0
+
+        def num_messages(self) -> int:
+            self.last = self.source.num_messages()
+            return self.last
+
+    metric_source = _LastDepthSource(QueueMetricSource(
+        queue, service_config.queue_url, ("ApproximateNumberOfMessages",)))
     loop = ControlLoop(
         pool,
-        QueueMetricSource(queue, service_config.queue_url,
-                          ("ApproximateNumberOfMessages",)),
+        metric_source,
         LoopConfig(
             poll_interval=0.1,
             policy=PolicyConfig(
@@ -600,12 +698,44 @@ def run_fleet_demo(
                 scale_up_cooldown=0.2, scale_down_cooldown=0.4,
             ),
         ),
+        observer=journal,
     )
-    driver = FleetDriver(pool, loop)
+    actuator = None
+    if scheduler:
+        from ..sched import (
+            KnobActuator, KnobError, ReactiveKnobPolicy, ScheduledFleetDriver,
+        )
+
+        knob_policy = None
+        if knob_names:
+            try:
+                actuator = KnobActuator(pool, armed=knob_names,
+                                        journal=journal, metrics=registry)
+            except KnobError as err:
+                raise SystemExit(str(err))
+            if "decode_block" in knob_names:
+                # backlog-reactive block size: deep queue -> big block,
+                # shallow -> small; decided on the tick's own depth
+                knob_policy = ReactiveKnobPolicy(
+                    actuator, lambda: metric_source.last,
+                    high=2 * batch, low=max(1, batch // 2),
+                    block_high=max(service_config.decode_block, 8),
+                    block_low=2,
+                )
+        driver = ScheduledFleetDriver(pool, loop, knobs=actuator,
+                                      knob_policy=knob_policy)
+    else:
+        driver = FleetDriver(pool, loop)
+    server = serve_metrics(
+        metrics_port, pool, metrics=registry,
+        build_info=dict(scheduler=int(bool(scheduler)),
+                        knobs=",".join(knob_names) or "none"))
     start = time.perf_counter()
     stats = driver.run(until=lambda: pool.processed >= demo and pool.idle)
     elapsed = time.perf_counter() - start
     pool.stop_all()
+    if journal is not None:
+        journal.close()
     if server is not None:
         server.stop()
     batchers = [r.worker.batcher for r in pool.members]
@@ -645,6 +775,45 @@ def run_fleet_demo(
         "queue_attributes": queue.get_queue_attributes(DEMO_QUEUE, ()),
         "completed_by_tenant": (pool.completed_by_tenant
                                 if tenancy is not None else None),
+        "knob_changes": (list(actuator.changes) if actuator is not None
+                         else None),
+    }
+
+
+def fleet_journal_meta(service_config: ServiceConfig, min_replicas: int,
+                       max_replicas: int, tenancy, scheduler: bool,
+                       knob_names: tuple) -> dict:
+    """The serving fleet journal's header meta: which deployment knobs
+    (the scheduler seam and armed knobs, the tenancy policy) produced its
+    tick lines."""
+    return {
+        "source": "serving-fleet",
+        "queue_url": "demo://queue",
+        "world": {"min_pods": min_replicas, "max_pods": max_replicas},
+        "serving": {
+            "batch_size": service_config.batch_size,
+            "generate_tokens": service_config.generate_tokens,
+            "decode_block": service_config.decode_block,
+            "shards": service_config.shards,
+        },
+        "sched": {"scheduler": bool(scheduler), "knobs": list(knob_names)},
+        "tenancy": (
+            {
+                "tenants": list(tenancy.tenants),
+                "weights": list(tenancy.weights),
+                "prefix_pool": tenancy.prefix_pool,
+                "prefix_len": tenancy.prefix_len,
+                "sticky": tenancy.sticky,
+                "fair": tenancy.fair,
+                "ttft_slo_s": list(tenancy.ttft_slo_s),
+                "urgency_window_s": tenancy.urgency_window_s,
+                "urgency_budget": tenancy.urgency_budget,
+                "shed_tiers": tenancy.shed_tiers,
+                "admission_shards": tenancy.admission_shards,
+                "decode_slo_s": tenancy.decode_slo_s,
+            }
+            if tenancy is not None else {}
+        ),
     }
 
 
@@ -668,7 +837,9 @@ def serve_sqs(args, params: dict, model_config: ModelConfig,
         worker = QueueWorker(queue, params, model_config, service_config,
                              result_queue=result_queue, device=device,
                              prefix_cache=prefix_cache, **modes[0])
-    server = serve_metrics(args.metrics_port, worker)
+    comms = (attach_topology(args.topology, args.shards, worker)
+             if args.continuous else None)
+    server = serve_metrics(args.metrics_port, worker, comms=comms)
     log.info("Starting %sworker on %s",
              "continuous " if args.continuous else "", args.sqs_queue_url)
     try:
@@ -713,6 +884,8 @@ def main(argv=None) -> dict | None:
         raise SystemExit("--continuous requires --generate-tokens >= 1")
     if args.shards < 1:
         raise SystemExit(f"--shards {args.shards} must be >= 1")
+    if args.topology and not args.continuous:
+        raise SystemExit("--topology requires --continuous")
     if args.shards > 1 and not args.continuous:
         raise SystemExit("--shards requires --continuous")
     if args.shards > 1 and args.beams > 1:
@@ -727,6 +900,7 @@ def main(argv=None) -> dict | None:
         )
     check_unported(args)
     tenancy = check_tenancy(args)
+    knob_names = check_orchestration(args, spec_on_plane)
     if args.quantize_kv and args.generate_tokens < 1:
         raise SystemExit("--quantize-kv requires --generate-tokens >= 1")
     prefix_ids = parse_prefix_ids(args)
@@ -818,14 +992,15 @@ def main(argv=None) -> dict | None:
             args.demo, params, model_config, service_config, device,
             args.fleet_min_replicas, args.fleet_max_replicas,
             metrics_port=args.metrics_port, prefix_cache=prefix_cache,
-            tenancy=tenancy,
+            tenancy=tenancy, scheduler=args.scheduler, knob_names=knob_names,
+            journal_path=args.journal_path,
         )
     else:
         summary = run_demo(args.demo, params, model_config, service_config,
                            device, continuous=args.continuous,
                            metrics_port=args.metrics_port,
                            prefix_cache=prefix_cache, modes=modes,
-                           tenancy=tenancy)
+                           tenancy=tenancy, topology=args.topology)
     summary["weight_bytes"] = weight_bytes
     return summary
 
@@ -867,16 +1042,64 @@ def check_unported(args) -> None:
             "--model-parallel serves over a (data, model) mesh, not yet "
             "ported (ROADMAP Queue 1 item 5)"
         )
-    for flag, given in (("--scheduler", args.scheduler),
-                        ("--knobs", args.knobs),
-                        ("--topology", args.topology),
-                        ("--journal-path", args.journal_path)):
-        if given:
+
+
+def check_orchestration(args, spec_on_plane: bool) -> tuple:
+    """The reference binary's args-only checks of ``--journal-path``,
+    ``--scheduler`` and ``--knobs``; returns the armed knob names."""
+    if args.journal_path and not args.fleet_max_replicas:
+        raise SystemExit(
+            "--journal-path records the fleet control loop "
+            "(requires --fleet-max-replicas)"
+        )
+    if args.scheduler and not args.fleet_max_replicas:
+        raise SystemExit(
+            "--scheduler drives the fleet demo's loop + cycles "
+            "(requires --fleet-max-replicas)"
+        )
+    if not args.knobs:
+        return ()
+    from ..sched.knobs import KnobError, parse_knob_names
+
+    try:
+        knob_names = parse_knob_names(args.knobs)
+    except KnobError as err:
+        raise SystemExit(str(err))
+    if not args.continuous:
+        raise SystemExit("--knobs requires --continuous")
+    if not args.scheduler:
+        raise SystemExit(
+            "--knobs actuates through the scheduler's between-cycle "
+            "safe point (requires --scheduler)"
+        )
+    if "speculative" in knob_names:
+        if args.beams > 1:
             raise SystemExit(
-                f"{flag} belongs to the serving orchestration (sched/, "
-                "comms/, the journal), not yet ported (ROADMAP Queue 1 "
-                "item 3b)"
+                "the speculative knob does not combine with --beams "
+                "(beam search is deterministic; there is no "
+                "draft-and-verify round to toggle)"
             )
+        if not args.speculative_draft_layers:
+            raise SystemExit(
+                "the speculative knob requires --speculative-draft-layers "
+                "(there is no draft-and-verify engine to toggle)"
+            )
+    if "decode_block" in knob_names and (
+            (args.decode_block < 2 and args.shards < 2)
+            or args.beams > 1
+            or (args.speculative_draft_layers and not spec_on_plane)):
+        raise SystemExit(
+            "the decode-block knob needs the block/gang decode engine: set "
+            "--decode-block >= 2 or --shards >= 2 (plain continuous path "
+            "only — not with --beams / --speculative-draft-layers)"
+        )
+    if "shards" in knob_names and args.shards < 2:
+        raise SystemExit(
+            "the shards knob needs the sharded plane (--shards >= 2)"
+        )
+    if "prefix_pool" in knob_names and not args.prefix_pool:
+        raise SystemExit("the prefix-pool knob requires --prefix-pool")
+    return knob_names
 
 
 def check_tenancy(args):

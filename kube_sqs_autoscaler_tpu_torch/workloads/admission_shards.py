@@ -300,6 +300,7 @@ class ShardedAdmission:
         # admission-kill / admission-rehydrate instants, shaped for
         # obs.trace.instant_trace_events
         self.events: deque = deque(maxlen=1024)
+        self._lifecycle = None
 
     # -- routing -----------------------------------------------------------
 
@@ -322,6 +323,18 @@ class ShardedAdmission:
         return self.shards[owner]
 
     # -- the FairAdmission surface -----------------------------------------
+
+    @property
+    def lifecycle(self):
+        return self._lifecycle
+
+    @lifecycle.setter
+    def lifecycle(self, registry) -> None:
+        """The request-lifecycle registry, wired into every shard's
+        staging (a killed shard's fresh staging gets it too)."""
+        self._lifecycle = registry
+        for shard in self.shards:
+            shard.fair.lifecycle = registry
 
     @property
     def staged(self) -> int:
@@ -463,6 +476,7 @@ class ShardedAdmission:
                 if handback is not None:
                     handback(item[3])
         target.fair = target._fresh_fair()
+        target.fair.lifecycle = self._lifecycle
         target.alive = False
         target.kills += 1
         self.events.append(_PoolEvent(

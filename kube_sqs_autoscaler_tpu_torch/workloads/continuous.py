@@ -108,6 +108,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.lifecycle import request_key as _trace_key
 from ..utils.profiling import SpanTimer
 from .beam import RowGather, beam_step, rank_beams, seed_beams
 from .decode import (
@@ -638,6 +639,20 @@ class ContinuousBatcher:
         self.decode_dispatches = 0
         self.insert_dispatches = 0
         self.host_transfers = 0
+        # request-lifecycle tracing (obs/lifecycle.py): None = off = the
+        # engine path byte for byte; the worker's attach_lifecycle wires it
+        self.lifecycle = None
+        # scheduled collectives (comms.CollectiveScheduler): None = off =
+        # the engine byte for byte, odometers included; attach_comms wires
+        # it.  With comms on, the settle pulls are scheduled inside the
+        # dispatch-ahead window, and a settle that consumes a pull started
+        # there is not counted as a blocking host transfer
+        self.comms = None
+        # the settle-pull ops covering deferred first tokens, keyed by
+        # id() of the entry (alive in _pending_firsts until the settle
+        # pops both), and the op covering the block in flight
+        self._first_ops: dict[int, Any] = {}
+        self._block_op = None
         # deferred first tokens: (host copy, slot rows), read at the next
         # step()
         self._pending_firsts: list[tuple[_HostCopy, list[int]]] = []
@@ -870,6 +885,81 @@ class ContinuousBatcher:
         self.slot_limit = limit
         self._invalidate_admission_cache()
 
+    # -- scheduled collectives (comms/): the engine's transfer seam --------
+
+    def attach_comms(self, comms) -> None:
+        """Wire a :class:`~..comms.CollectiveScheduler` (None detaches).
+        With one attached, the block and gang steps flush the queued
+        settle pulls inside their dispatch-ahead window and the prefix
+        pool records its installs; detached, every path is the engine as
+        it was, odometers included."""
+        self.comms = comms
+        if self._prefix_pool is not None:
+            self._prefix_pool.comms = comms
+
+    def _comms_flush(self, firsts: list, block, *, overlapped: bool) -> None:
+        """Submit every deferred first-token entry of ``firsts`` not yet
+        scheduled, and the ``block`` in flight, as settle-pull ops, then
+        flush the comms queue.  Called right after the next block's
+        dispatch (``overlapped``: a block is on the device to hide
+        behind).  The pulls start nothing new on the card: each result's
+        host copy was issued when it was produced, and the op's finish
+        waits on it.  No synchronizing call."""
+        comms = self.comms
+        if comms is None or not comms.enabled:
+            return
+        for entry, rows in firsts:
+            if id(entry) in self._first_ops:
+                continue
+            payload, wait = self._first_pull(entry)
+            rids = [_trace_key(self.slots[row].payload) for row in rows]
+            op = comms.settle_pull(
+                payload, wait=wait, destination="host",
+                source=self._comms_source(rows),
+                rids=[r for r in rids if r is not None],
+                args={"rows": list(rows)},
+            )
+            if op is not None:
+                self._first_ops[id(entry)] = op
+        if self._block_op is None and block is not None:
+            payload, wait = self._block_pull(block)
+            rids = [_trace_key(slot.payload)
+                    for slot in self.slots if slot.busy]
+            self._block_op = comms.settle_pull(
+                payload, wait=wait, destination="host",
+                source=self._comms_source(None),
+                rids=[r for r in rids if r is not None],
+                args={"block": True},
+            )
+        comms.flush(overlapped=overlapped)
+
+    def _first_pull(self, entry) -> tuple:
+        """A deferred first-token entry as ``(payload, wait)`` for its
+        settle pull: here the entry is its host copy."""
+        return entry.host, entry.wait
+
+    def _block_pull(self, block) -> tuple:
+        """The block in flight as ``(payload, wait)``: its tokens and
+        counts, on their way to the host in one copy."""
+        copy, _ = block
+        return copy.host, copy.wait
+
+    def _comms_source(self, rows) -> str:
+        """The routing endpoint a settle pull leaves from: one device
+        here (the sharded plane names a single shard's rows)."""
+        return "device"
+
+    def _row_kv_nbytes(self) -> int:
+        """One cache row's KV bytes across every layer: the size of a
+        per-row KV move (evacuation, handoff) for the comms accounting.
+        Metadata only."""
+        total = 0
+        for layer in self.cache["layers"]:
+            for buf in layer.values():
+                total += (buf.numel() * buf.element_size()
+                          // max(1, buf.shape[0]))
+        return total
+
     def _invalidate_admission_cache(self) -> None:
         """Called at every change of which rows may be admitted (slot
         assignment and release, mask and probe flips, the slot limit): the
@@ -944,6 +1034,9 @@ class ContinuousBatcher:
             )
         rows = free[: len(requests)]
         now = time.perf_counter()
+        if self.lifecycle is not None:
+            for _, payload in requests:
+                self.lifecycle.stamp(_trace_key(payload), "prefill")
         if self.beams > 1 or self.draft_layers:
             for row, (token_ids, payload) in zip(rows, requests):
                 self._submit_one(row, token_ids, payload, now)
@@ -1065,6 +1158,10 @@ class ContinuousBatcher:
             for row, key, (_, prefix_ids, _, _) in zip(rows, keys, requests)
         ]
         now = time.perf_counter()
+        if self.lifecycle is not None:
+            for tenant, _, _, payload in requests:
+                self.lifecycle.stamp(_trace_key(payload), "prefill",
+                                     tenant=tenant)
         padded = [self._pad_prompt(ids) for _, _, ids, _ in requests]
         prompts = np.stack([ids for ids, _ in padded])
         lengths = np.asarray([n for _, n in padded], np.int64)
@@ -1182,6 +1279,10 @@ class ContinuousBatcher:
                 produced=list(produced), submitted_at=submitted_at,
                 ttft_done=bool(produced),
             )
+            if self.lifecycle is not None:
+                # the evacuation -> resume seam: the trace keeps its first
+                # life's stamps, a resume only annotates
+                self.lifecycle.note(_trace_key(payload), "resumed")
         self._invalidate_admission_cache()
         return rows
 
@@ -1193,16 +1294,30 @@ class ContinuousBatcher:
         if slot.tenant:
             tenant = bounded_tenant_key(slot.tenant, self.tenant_tokens)
             self.tenant_tokens[tenant] = self.tenant_tokens.get(tenant, 0) + 1
+        if self.lifecycle is not None:
+            # the host time of a token already in hand: no device read
+            self.lifecycle.token(_trace_key(slot.payload))
         if self.eos_id is not None and token == self.eos_id:
             slot.done = True
 
     def _settle_pending_firsts(self) -> None:
         """Emit the deferred first tokens and record time to first token;
-        counts one host transfer per insert read, as the reference does."""
+        counts one host transfer per insert read, as the reference does.
+        With comms attached, an insert whose settle pull was already
+        scheduled in the dispatch-ahead window is not a blocking
+        transfer: its finish waits on the copy and closes the op."""
         if not self._pending_firsts:
             return
         pending, self._pending_firsts = self._pending_firsts, []
-        self.host_transfers += len(pending)
+        comms = self.comms
+        blocking = 0
+        for copy, _ in pending:
+            op = self._first_ops.pop(id(copy), None)
+            if comms is not None and op is not None and op.dispatched:
+                comms.finish(op)
+            else:
+                blocking += 1
+        self.host_transfers += blocking
         self._record_firsts([(copy.wait()[0], rows) for copy, rows in pending])
 
     def _record_firsts(self, pending_host: list) -> None:
@@ -1220,6 +1335,10 @@ class ContinuousBatcher:
         """Record a slot's time to first token, once."""
         slot.ttft_done = True
         ttft = now - slot.submitted_at
+        if self.lifecycle is not None:
+            # the token is host-resident here: the stamp reads no device
+            self.lifecycle.stamp(_trace_key(slot.payload), "first_token",
+                                 tenant=slot.tenant or None)
         self.ttft_sum += ttft
         self.ttft_count += 1
         self.last_ttft_s = ttft
@@ -1267,6 +1386,9 @@ class ContinuousBatcher:
                     # finished at a degraded budget, not at eos: the
                     # device row still has budget left
                     quiesce.append(row)
+                if self.lifecycle is not None:
+                    self.lifecycle.stamp(_trace_key(slot.payload),
+                                         "completed")
                 finished.append((slot.payload, np.asarray(tokens, np.int32)))
                 self.slots[row] = _Slot()
         if finished:
@@ -1343,12 +1465,26 @@ class ContinuousBatcher:
                 )
                 new_block = (_HostCopy(tokens, counts), busy)
             self.decode_dispatches += 1
+        if self.comms is not None:
+            # the dispatch-ahead window: the block dispatched above (or
+            # the one in flight) occupies the card while the pulls run
+            self._comms_flush(
+                self._pending_firsts, self._pending_block,
+                overlapped=(new_block is not None
+                            or self._pending_block is not None),
+            )
         self._settle_pending_firsts()
         pending, self._pending_block = self._pending_block, new_block
         if pending is not None:
             copy, dispatched_busy = pending
+            block_op, self._block_op = self._block_op, None
+            if (self.comms is not None and block_op is not None
+                    and block_op.dispatched):
+                # pulled inside the last window: not a blocking read
+                self.comms.finish(block_op)
+            else:
+                self.host_transfers += 1
             toks_host, counts_host = copy.wait()
-            self.host_transfers += 1
             self.block_capacity += self.decode_block * dispatched_busy
             self.block_tokens += int(counts_host.sum())
             for row, slot in enumerate(self.slots):
@@ -1718,6 +1854,9 @@ class ContinuousWorker:
         # refresh once per engine cycle
         self.metrics = None
         self._served_since: float | None = None
+        # optional request-lifecycle registry (attach_lifecycle); None =
+        # tracing off = the serving path byte for byte
+        self.lifecycle = None
 
     @property
     def shed(self) -> int:
@@ -1801,6 +1940,17 @@ class ContinuousWorker:
             tenant = bounded_tenant_key(tenant, self.completed_by_tenant)
             self.completed_by_tenant[tenant] = (
                 self.completed_by_tenant.get(tenant, 0) + 1)
+        lc = self.lifecycle
+        if lc is not None:
+            # THE reply stamp: this call answered the request.  An error
+            # settle may never have been admitted, so its arrival is
+            # stamped here too (idempotent); the fleet's duplicate path
+            # never reaches this line
+            rid = request_id(message)
+            lc.arrival(rid, sent=sent_epoch(message),
+                       tenant=message.get("_tenant") or None)
+            lc.settle(rid, error=((error or "malformed body")
+                                  if tokens is None else None))
         return True
 
     def _note_shed(self, reason: str) -> None:
@@ -1860,6 +2010,12 @@ class ContinuousWorker:
                 self._settle(message, None, counted=False)
                 continue
             tenant = parsed[0]
+            if self.lifecycle is not None:
+                # arrival precedes the staged stamp, even where the queue
+                # stamps no SentTimestamp (then it is the receive time)
+                self.lifecycle.arrival(request_id(message),
+                                       sent=sent_epoch(message),
+                                       tenant=tenant)
             # the arrival-based TTFT deadline rides into staging for the
             # EDF jump (None: no SLO or no queue stamp, never jumps)
             deadline = self.tenancy.deadline_of(tenant, sent_epoch(message))
@@ -1896,6 +2052,9 @@ class ContinuousWorker:
                     self._fair.drr.refund(tenant, item)
                     shed_any = True
                 else:
+                    if self.lifecycle is not None:
+                        self.lifecycle.stamp(request_id(item[3]), "picked",
+                                             tenant=tenant)
                     admit.append(item)
             if not shed_any:
                 break
@@ -2052,6 +2211,17 @@ class ContinuousWorker:
         through the plain insert, an off-bucket prefix prepended to its
         prompt (the same result, uncached).  At most one insert a class a
         cycle."""
+        lc = self.lifecycle
+        if lc is not None:
+            # one seam for every admission path (refill, tenant refill,
+            # the fleet's re-dispatch): arrival, backdated to the queue's
+            # SentTimestamp and idempotent, and the admitted stamp that
+            # closes the queue wait
+            for tenant, _, _, message in parsed:
+                rid = request_id(message)
+                lc.arrival(rid, sent=sent_epoch(message),
+                           tenant=tenant or None)
+                lc.stamp(rid, "admitted")
         pool = self.batcher.prefix_pool
         plain, plain_tenants, prefixed = [], [], []
         for tenant, prefix_ids, ids, message in parsed:
@@ -2229,6 +2399,20 @@ class ContinuousWorker:
         self.metrics = metrics
         self._update_metrics()
 
+    def attach_lifecycle(self, registry) -> None:
+        """Wire a :class:`~..obs.lifecycle.LifecycleRegistry` through
+        every stamp site this worker owns (the batcher's admission, emit
+        and settle funnels and the fair-admission staging), and rebind the
+        registry's clock to the worker's epoch clock, so stamps,
+        ``SentTimestamp`` arrivals and FakeClock episodes share one time
+        base.  ``None`` detaches."""
+        self.lifecycle = registry
+        if registry is not None:
+            registry.now_fn = self._now
+        self.batcher.lifecycle = registry
+        if self._fair is not None:
+            self._fair.lifecycle = registry
+
     def _update_metrics(self) -> None:
         """Write this cycle's numbers into the registry.  Host counters
         only: the registry renders on a server thread, which must never
@@ -2254,6 +2438,12 @@ class ContinuousWorker:
                 if batcher.block_capacity else 0.0
             ),
         )
+        export = getattr(getattr(batcher, "comms", None), "export_gauges",
+                         None)
+        if export is not None:
+            # per-link routing gauges (topology-attached comms only), on
+            # the serving gauges' cadence
+            export(self.metrics)
         shed_help = (
             "Requests shed or degraded at admission, by reason: ttl = "
             "older than --request-ttl on arrival (explicit expired "
@@ -2298,6 +2488,9 @@ class ContinuousWorker:
             # the decode plane: accept rates and the handoff counter
             self.metrics.set_plane_engine_gauges(batcher)
         drain_ttft_histograms(batcher, self.metrics)
+        if self.lifecycle is not None:
+            # the lifecycle histograms refresh on the same cadence
+            self.lifecycle.export_metrics(self.metrics)
 
     def _update_tenant_metrics(self, elapsed: float) -> None:
         """The per-tenant gauges and the pool's hit and miss counters.

@@ -250,19 +250,53 @@ class ShardedBatcher(ContinuousBatcher):
         the prompt); their slots are freed and their device rows killed.
         Deferred first tokens are settled first, so a row admitted this
         cycle carries its first token along."""
+        from ..obs.lifecycle import request_key
+
         self._check_shard(shard)
         self._invalidate_admission_cache()
+        lc = self.lifecycle
+        evac_t0 = lc.now_fn() if lc is not None else None
         self._settle_pending_firsts()
-        taken, killed = [], []
+        taken, killed, rids = [], [], []
         for row in self.shard_rows(shard):
             slot = self.slots[row]
             if not self._needs_decode(slot):
                 continue
             taken.append((slot.payload, list(slot.produced), slot.budget,
                           slot.submitted_at))
+            rids.append(request_key(slot.payload))
+            if lc is not None:
+                # the trace survives the move: the resume (or the queue's
+                # redelivery) continues the same chain
+                lc.note(rids[-1], "evacuated")
             self.slots[row] = _Slot()
             killed.append(row)
         self.kill_rows(killed)
+        evac_op = None
+        if killed and self.comms is not None and self.comms.enabled:
+            from ..comms.ops import EVACUATION_KV
+
+            # the rows leave the draining shard for host staging
+            evac_op = self.comms.record(
+                EVACUATION_KV, "host", source=f"shard:{shard}",
+                nbytes=self._row_kv_nbytes() * len(killed),
+                args={"shard": shard, "rows": len(killed)},
+            )
+        if killed and lc is not None:
+            # the evacuation is a transfer: a paired window on each
+            # evacuated trace, so attribute_slo can name it
+            done_t = lc.now_fn()
+            route = evac_op.args.get("route") if evac_op is not None else None
+            for rid in rids:
+                if rid is None:
+                    continue
+                if route is not None:
+                    # appended before the stamps, so the i-th route stays
+                    # zipped onto the i-th transfer span
+                    lc.route(rid, route)
+                lc.stamp(rid, "transfer", t=evac_t0)
+                lc.stamp(rid, "transfer_done", t=done_t)
+                lc.note(rid, "transfer_evacuation_kv")
         return taken
 
     def clear_shard_health(self, shard: int) -> None:
@@ -445,7 +479,14 @@ class ShardedBatcher(ContinuousBatcher):
         with torch.inference_mode():
             copy = _HostCopy(*[firsts for firsts, _ in pending])
         values = copy.wait()
-        self.host_transfers += len(pending)
+        blocking = 0
+        for firsts, _ in pending:
+            op = self._first_ops.pop(id(firsts), None)
+            if self.comms is not None and op is not None and op.dispatched:
+                self.comms.finish(op)
+            else:
+                blocking += 1
+        self.host_transfers += blocking
         self._record_firsts([(vals, rows)
                              for vals, (_, rows) in zip(values, pending)])
 
@@ -457,6 +498,24 @@ class ShardedBatcher(ContinuousBatcher):
 
     def _note_ttft(self, row: int, ttft: float) -> None:
         self.shard_ttft[row // self.shard_slots].append(ttft)
+
+    def _first_pull(self, entry) -> tuple:
+        # the plane's first tokens stay on the device until the cycle's
+        # one combined copy, whose wait the step itself makes
+        return entry, None
+
+    def _block_pull(self, block) -> tuple:
+        # the gang block's tokens, counts, free summary and health flags
+        return block[:4], None
+
+    def _comms_source(self, rows) -> str:
+        # a pull of one shard's rows leaves from that shard; a gang-wide
+        # pull stays the generic device endpoint
+        if rows:
+            shards = {row // self.shard_slots for row in rows}
+            if len(shards) == 1:
+                return f"shard:{shards.pop()}"
+        return super()._comms_source(rows)
 
     def _step_gang(self) -> list[tuple[Any, np.ndarray]]:
         pending_firsts, self._pending_firsts = self._pending_firsts, []
@@ -493,10 +552,19 @@ class ShardedBatcher(ContinuousBatcher):
                 new_block = (tokens, counts, free, bad, busy,
                              [self.shard_busy(s) for s in range(self.shards)],
                              list(self.slots))
+        if self.comms is not None:
+            # the dispatch-ahead window: the pulls of this cycle's settle
+            # are scheduled while the gang block above computes
+            self._comms_flush(pending_firsts, pending,
+                              overlapped=(new_block is not None
+                                          or pending is not None))
         self._pending_block = new_block
         if copy is not None:
             host = copy.wait()
-            self.host_transfers += 1
+            if self.comms is None:
+                self.host_transfers += 1
+            else:
+                self._finish_gang_pulls(pending_firsts, pending)
             firsts_host, block_host = (host[: len(pending_firsts)],
                                        host[len(pending_firsts):])
             # first tokens count as shard progress: a budget-1 row is never
@@ -527,6 +595,24 @@ class ShardedBatcher(ContinuousBatcher):
         if pending is not None:
             self._update_mask_mismatch()
         return finished
+
+    def _finish_gang_pulls(self, pending_firsts, pending) -> None:
+        """Close the settle pulls of a cycle's combined copy; the copy
+        counts as a blocking host transfer unless every array in it was
+        pulled inside the window."""
+        block_op, self._block_op = self._block_op, None
+        first_ops = [self._first_ops.pop(id(firsts), None)
+                     for firsts, _ in pending_firsts]
+        prefetched = [op for op in first_ops
+                      if op is not None and op.dispatched]
+        block_prefetched = block_op is not None and block_op.dispatched
+        for op in prefetched:
+            self.comms.finish(op)
+        if block_prefetched:
+            self.comms.finish(block_op)
+        if (len(prefetched) != len(pending_firsts)
+                or (pending is not None and not block_prefetched)):
+            self.host_transfers += 1
 
     def _settle_block(self, pending, block_host, firsts_by_shard) -> None:
         """Emit a settled gang block's tokens and update the sentinels."""

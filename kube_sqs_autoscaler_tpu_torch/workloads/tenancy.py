@@ -778,6 +778,9 @@ class FairAdmission:
         # change_message_visibility(0) went through, so the counter
         # never claims a backpressure event that did not happen
         self.overflow_total = 0
+        # the request-lifecycle registry (obs/lifecycle.py): the worker's
+        # attach_lifecycle wires it, and staging stamps "staged"
+        self.lifecycle = None
         # serial host work done (rate decays, stagings, flood scans): a
         # sharded admission plane's shards run concurrently, so a cost
         # model charges the max over its shards
@@ -916,6 +919,8 @@ class FairAdmission:
             return False
         self.drr.push(tenant, item, deadline=deadline)
         self._note_offered(tenant, message_id)
+        if self.lifecycle is not None:
+            self.lifecycle.stamp(message_id, "staged", tenant=tenant)
         return True
 
     def pick(self, k: int,
@@ -1286,6 +1291,9 @@ class PrefixPool:
         self.installs = 0
         self.evictions = 0
         self.events: deque[_PoolEvent] = deque(maxlen=1024)
+        # a comms CollectiveScheduler, when attached: each install is
+        # recorded as a prefix_install transfer
+        self.comms = None
 
     def resident(self, shard: int, key) -> bool:
         """Residency probe; never touches the LRU."""
@@ -1362,6 +1370,14 @@ class PrefixPool:
             "prefix-install", time.perf_counter(),
             {"shard": shard, "tenant": key[0], "slot": slot},
         ))
+        if self.comms is not None and self.comms.enabled:
+            from ..comms.ops import PREFIX_INSTALL, array_nbytes
+
+            self.comms.record(
+                PREFIX_INSTALL, f"pool:{shard}",
+                nbytes=array_nbytes(entry["layers"]),
+                args={"shard": shard, "slot": slot},
+            )
         return shard * self.entries + slot
 
     def evict_cold(self, keep: int) -> int:

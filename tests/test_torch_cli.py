@@ -115,13 +115,29 @@ def test_usage_errors_match_reference(argv, capsys):
     (["--policy=predictive"], "item 6"),
     (["--policy=learned"], "item 6"),
     (["--policy=learned", "--policy-checkpoint=ck.json"], "item 6"),
-    (["--request-trace=1"], "item 3b"),
+    (["--request-trace=1"], None),
+    (["--request-trace=x"], "invalid int value"),
 ])
 def test_unported_flags_exit_naming_their_item(argv, item, capsys):
+    """The predictive and learned policies exit naming item 6.
+    ``--request-trace`` is accepted (and parses as the reference's does);
+    a value that is not an integer is a usage error on both binaries."""
+    if item is None:
+        parser = cli.build_parser()
+        args = parser.parse_args(argv)
+        cli.check_unported(parser, args)
+        assert args.request_trace == ref_cli.build_parser().parse_args(
+            argv).request_trace == 1
+        return
     with pytest.raises(SystemExit) as info:
         cli.main(argv)
     assert info.value.code == 2
-    assert f"ROADMAP Queue 1 {item}" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if item.startswith("item"):
+        assert f"ROADMAP Queue 1 {item}" in err
+        return
+    assert item in err
+    assert usage_error(ref_cli.build_parser(), argv, capsys)[0] == 2
 
 
 ARGV = ["--poll-period=2s", "--scale-up-cool-down=4s",

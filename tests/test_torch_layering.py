@@ -1,8 +1,9 @@
 """The port stands alone: no ``jax`` and nothing of the JAX package.
 
 An AST scan of every module of ``kube_sqs_autoscaler_tpu_torch`` (its
-``core``, ``fleet``, ``metrics``, ``obs``, ``planes``, ``scale``, ``sim``,
-``utils`` and ``workloads`` subpackages, ``cli.py`` and ``__main__.py``) and
+``comms``, ``core``, ``fleet``, ``metrics``, ``obs`` (``obs/lifecycle.py``
+included), ``planes``, ``scale``, ``sched``, ``sim``, ``utils`` and
+``workloads`` subpackages, ``cli.py`` and ``__main__.py``) and
 of
 ``chip_smoke.py`` finds no such import,
 and a subprocess in which ``jax``, ``jaxlib`` and
@@ -14,8 +15,8 @@ drain, int8 weights, int8 KV cache, chunk decode and shared-prefix serving
 of both families, speculative and beam generation and their slot engines,
 a tenancy worker with its prefix pool, tenancy on a two-shard plane behind
 the sharded admission plane, speculative rows on the decode plane, a
-disaggregated prefill/decode pool with its KV handoff, and train step on
-the CPU.  The control-plane subpackages (and the ``planes`` package, whose
+disaggregated prefill/decode pool with its KV handoff, traced and with a
+routed collective scheduler attached, and train step on the CPU.  The control-plane subpackages (and the ``planes`` package, whose
 engines import lazily) import no torch at all, so importing the fleet
 starts no CUDA work and builds no kernel; the controller binary runs a
 ``FakeClock`` episode with its resilience layer and durable state in a
@@ -48,8 +49,8 @@ def absolute_imports(path: Path) -> list[str]:
     return names
 
 
-SUBPACKAGES = ("core", "fleet", "metrics", "obs", "planes", "scale", "sim",
-               "utils", "workloads")
+SUBPACKAGES = ("comms", "core", "fleet", "metrics", "obs", "planes",
+               "scale", "sched", "sim", "utils", "workloads")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -64,6 +65,11 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     assert PORT / "workloads" / "admission_shards.py" in files
     for name in ("engine.py", "prefill.py", "pool.py"):
         assert PORT / "planes" / name in files
+    assert PORT / "obs" / "lifecycle.py" in files
+    for name in ("ops.py", "topology.py", "routing.py", "scheduler.py"):
+        assert PORT / "comms" / name in files
+    for name in ("scheduler.py", "knobs.py", "fleet.py"):
+        assert PORT / "sched" / name in files
     offenders = {
         str(path.relative_to(ROOT)): name
         for path in files for name in absolute_imports(path) if banned(name)
@@ -263,9 +269,15 @@ disagg = planes.DisaggregatedPool.serving(
                           batch_size=2, decode_block=2),
     min=1, max=1, decode_shards=2, spec_layers=1, spec_tokens=2,
     clock=core.FakeClock(), device="cpu")
+from kube_sqs_autoscaler_tpu_torch import comms
+registry = obs.LifecycleRegistry()
+disagg.attach_lifecycle(registry)
+disagg.attach_comms(comms.CollectiveScheduler(
+    lifecycle=registry, topology=comms.topology_from_geometry("torus", shards=2)))
 for _ in range(20):
     disagg.run_cycle()
 assert disagg.processed == 3 and disagg.kv_handoffs_total == 3
+assert registry.replies == 3
 state = train.train_state(params, train.TrainConfig())
 step = train.make_train_step(cfg, train.TrainConfig(), "cpu")
 assert step(state, ids)[0]["step"] == 1
@@ -296,6 +308,9 @@ def test_the_control_plane_imports_no_torch():
         "from kube_sqs_autoscaler_tpu_torch.fleet import __main__, sharded\n"
         "from kube_sqs_autoscaler_tpu_torch import planes\n"
         "from kube_sqs_autoscaler_tpu_torch.planes import pool\n"
+        "from kube_sqs_autoscaler_tpu_torch import comms, sched\n"
+        "from kube_sqs_autoscaler_tpu_torch.sched import fleet as sf, knobs\n"
+        "from kube_sqs_autoscaler_tpu_torch.obs import lifecycle\n"
         "from kube_sqs_autoscaler_tpu_torch.utils import profiling, sigv4\n"
         "print(sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('torch', 'jax')))\n"

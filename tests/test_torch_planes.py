@@ -14,9 +14,10 @@ On the CPU, f32, with the reference's tiny weights converted:
   through a prefill kill mid-handoff and through a redelivery racing a row
   the decode plane holds; its state, gauges and refusals.
 
-The reference's ``tests/test_planes.py`` is mirrored by name, except
-``test_knobs_route_to_the_right_plane`` (it needs ``sched/``) and the two
-bench tests.
+The reference's ``tests/test_planes.py`` is mirrored by name, except the
+two bench tests.  The pool's orchestration hooks (request-lifecycle
+tracing, the collective scheduler, the knob actuator and the scheduled
+control loop) attach and serve.
 """
 
 from __future__ import annotations
@@ -539,11 +540,69 @@ def test_serving_requires_a_drafted_decode_plane(tiny):
 
 
 def test_orchestration_hooks_name_their_roadmap_item(tiny):
-    pool = make_disagg(tiny, queue_url="disagg://hooks", min=1, max=1)[0]
-    loop = ControlLoop(pool, object(), clock=FakeClock())
-    for hook in (pool.attach_lifecycle, pool.attach_comms,
-                 lambda s: loop.run(1, scheduler=s)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 3b"):
-            hook(object())
-    assert loop.ticks == 0
+    """The three hooks the pool refused until item 3b now attach and
+    serve: a traced, comms-attached pool answers every request once with
+    a valid chain carrying its handoff, and the control loop runs on the
+    event scheduler.  The learned knob policy still refuses, naming item
+    6."""
+    from kube_sqs_autoscaler_tpu_torch.comms import (
+        HANDOFF_KV, CollectiveScheduler, topology_from_geometry,
+    )
+    from kube_sqs_autoscaler_tpu_torch.obs.lifecycle import (
+        LifecycleRegistry, validate_chain,
+    )
+    from kube_sqs_autoscaler_tpu_torch.sched.knobs import LearnedKnobPolicy
+
+    pool, clock, queue, _, _ = make_disagg(tiny, queue_url="disagg://hooks",
+                                           min=1, max=1)
+    registry = LifecycleRegistry()
+    pool.attach_lifecycle(registry)
+    comms = CollectiveScheduler(
+        lifecycle=registry, topology=topology_from_geometry("ring", shards=2))
+    pool.attach_comms(comms)
+    assert pool.decode.batcher.comms is comms
+    assert {"prefill", "decode-plane"} <= set(comms.topology.nodes)
+    to_send = prompts_for(4, seed=43)
+
+    def on_cycle(_):
+        if to_send:
+            send(queue, "disagg://hooks", to_send.pop(0))
+
+    drive(pool, clock, on_cycle=on_cycle,
+          until=lambda: not to_send and pool.processed >= 4 and pool.idle)
+    assert registry.replies == 4 and pool.processed == 4
+    for trace in registry.done_traces():
+        assert validate_chain(trace, require_handoff=bool(
+            trace.notes.get("handed_off"))) == [], trace.rid
+    assert comms.counters()["by_kind"][HANDOFF_KV] >= 1
+    loop = ControlLoop(pool, type("Depth", (), {
+        "num_messages": staticmethod(lambda: 0)})(), clock=clock)
+    loop.run(2, scheduler=True)
+    assert loop.ticks == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+        LearnedKnobPolicy(None, None)
+
+
+def test_knobs_route_to_the_right_plane(tiny):
+    from kube_sqs_autoscaler_tpu_torch.sched.knobs import (
+        KNOB_PLANE_RATIO, KNOB_SPECULATIVE, KnobActuator, KnobError,
+    )
+
+    pool, clock, _, _, _ = make_disagg(tiny, queue_url="disagg://knob",
+                                       min=1, max=3)
+    actuator = KnobActuator(pool, armed=(KNOB_SPECULATIVE, KNOB_PLANE_RATIO),
+                            clock=clock)
+    # speculative routes to the one decode-plane worker
+    assert actuator.set(KNOB_SPECULATIVE, False)
+    (change,) = actuator.apply()
+    assert change["knob"] == KNOB_SPECULATIVE
+    assert pool.decode.batcher.draft_enabled is False
+    assert pool.decode.batcher.spec_flips == 1
+    # plane_ratio walks the prefill plane through its own Scaler
+    assert actuator.set(KNOB_PLANE_RATIO, 3)
+    (change,) = actuator.apply()
+    assert change["knob"] == KNOB_PLANE_RATIO and change["value"] == 3
+    assert pool.replicas == 3
+    assert pool.decode_pool.replicas == 2  # the decode plane unmoved
+    with pytest.raises(KnobError, match="plane_ratio"):
+        actuator.set(KNOB_PLANE_RATIO, 7)  # outside [min, max]

@@ -512,17 +512,21 @@ def test_binary_tenancy_flag_checks_fail_as_the_reference(args, message):
      "--tenants requires --continuous", True),
     (["--tenants", "a", "--continuous", "--speculative-draft-layers", "1",
       "--model-parallel", "2"], "single-chip decode plane", True),
+    # the serving orchestration: the reference's argument checks
+    (["--continuous", "--scheduler"], "requires --fleet-max-replicas", True),
+    (["--continuous", "--knobs", "prefix_pool"], "requires --scheduler",
+     True),
+    (["--topology", "ring"], "--topology requires --continuous", True),
+    (["--journal-path", "j.jsonl"], "records the fleet control loop", True),
+    (["--continuous", "--knobs", "warp"], "unknown knob", True),
+    (["--continuous", "--scheduler", "--fleet-max-replicas", "2", "--knobs",
+      "prefix-pool"], "requires --prefix-pool", True),
     # still unported: the port's binary exits naming the ROADMAP item
     (["--tokenizer", "some/dir"], "ROADMAP Queue 1 item 4", False),
     (["--model-parallel", "2"], "ROADMAP Queue 1 item 5", False),
-    (["--continuous", "--scheduler"], "ROADMAP Queue 1 item 3b", False),
-    (["--continuous", "--knobs", "prefix_pool"], "ROADMAP Queue 1 item 3b",
-     False),
-    (["--continuous", "--topology", "ring"], "ROADMAP Queue 1 item 3b",
-     False),
-    (["--journal-path", "j.jsonl"], "ROADMAP Queue 1 item 3b", False),
-], ids=["shards", "admission-shards", "speculative", "tokenizer",
-        "model-parallel", "scheduler", "knobs", "topology", "journal-path"])
+], ids=["shards", "admission-shards", "speculative", "scheduler", "knobs",
+        "topology", "journal-path", "unknown-knob", "knob-without-pool",
+        "tokenizer", "model-parallel"])
 def test_binary_unported_combinations_name_their_roadmap_item(args, message,
                                                               both):
     argv = ["--demo", "2", "--generate-tokens", "4", *args]
