@@ -207,9 +207,37 @@ Phases (any failure makes the run exit non-zero and print no result):
    lse-forward, dq and dk/dv launch counts must each be ``n_layers x
    steps`` (and twice that for the forward under ``--remat``); its steady
    step time, tokens/s, MFU and peak memory; ``torch.profiler`` over one
-   step;
-21. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-22. the last line, ``{"ok": true, "device": {...}}``.
+   step; the "train kernels" phase also holds the backward at the
+   flagship llama shape (16 query heads over 4 kv heads, D = 64, B = 8,
+   S = 2048), causal and with a window of 512, against its plain version,
+   and times the three training kernels there beside SDPA with
+   ``enable_gqa=True``;
+21. the rest of training (the "training" phase, bf16): (a) the flagship
+   llama cell (vocab 8192, d_model 1024, 16 heads over 4 kv heads, 8
+   layers, d_ff 2816, B = 8, S = 2048) through the trainer binary for 10
+   ``--overfit`` steps, full causal and with ``--sliding-window 512``:
+   the loss falls, the lse forward, dq and dk/dv kernels launch
+   ``n_layers`` times a step each; step time, tokens/s, MFU, peak memory
+   and a profiled step's busy share; (b) the flagship GPT at 4 layers: 6
+   steps against 3 with ``--checkpoint-every 3`` and 3 more with
+   ``--resume``, losses equal, then the worker binary's
+   ``--checkpoint-dir`` replies equal to serving the resumed run's
+   in-memory weights; (c) ``--moe`` (8 experts, top-2) for both
+   families, 5 steps: the loss falls, the worker refuses the checkpoint
+   with the reference's error; step time and peak memory; (d)
+   ``--lora-rank 8`` on the flagship llama: the untargeted weights of the
+   merged checkpoint equal the seeded base, every adapter moved, and the
+   worker's replies from it equal serving ``merge_lora``; (e) the
+   flagship llama through ``hf_state_dict_from_llama`` and
+   ``llama_params_from_hf`` bit for bit (and, where ``transformers`` is
+   installed, the HF directory round trip at 2 layers and the worker's
+   ``--hf-checkpoint``), the worker's text path through a stub tokenizer,
+   batch and continuous; (f) ``write_token_shards`` and 5 steps on
+   ``--data-dir`` through the native reader, built on first use; (g)
+   ``--profile-dir`` (the trace names ``flash_bwd_dq``) and
+   ``--metrics-port`` (a mid-run scrape has the train gauges);
+22. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+23. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
@@ -231,6 +259,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -270,6 +299,19 @@ TRAIN_ARGS = ["--d-model", "1024", "--n-heads", "16", "--n-layers", "8",
 TRAIN_LAYERS = 8
 TRAIN_STEPS = 10
 EVAL_EVERY = 5
+# the flagship llama train cell (the JAX package's workbench llama cell):
+# 16 query heads over 4 kv heads at D = 64, d_ff 2816, B = 8, S = 2048
+LLAMA_TRAIN_ARGS = ["--family", "llama", "--vocab-size", "8192",
+                    "--d-model", "1024", "--n-heads", "16", "--n-kv-heads",
+                    "4", "--n-layers", "8", "--d-ff", "2816", "--seq-len",
+                    "2048", "--batch-size", "8", "--device", "cuda"]
+LLAMA_TRAIN_DIMS = dict(vocab_size=8192, d_model=1024, n_heads=16,
+                        n_kv_heads=4, n_layers=8, d_ff=2816)
+LLAMA_TRAIN_SHAPE = (8, 16, 4, 2048, 64)  # (B, H, H_kv, S, D)
+LLAMA_TRAIN_WINDOW = 512
+# the checkpoint, corpus and profile runs: the flagship GPT cut to 4 layers
+SHORT_TRAIN_ARGS = [*TRAIN_ARGS[:4], "--n-layers", "4", *TRAIN_ARGS[6:]]
+SHORT_TRAIN_LAYERS = 4
 MAIN_SHAPES = [(8, 8, 512, 64), (8, 8, 1024, 64)]  # generate, classify
 # the sharded plane's prompt passes: a refill of 4 shards x 8 slots, and
 # resume inserts of 1 and 8 evacuated rows (512 prompt + 32 produced)
@@ -1153,6 +1195,14 @@ def train_kernel_phase(torch, flash, smoke: Smoke) -> dict:
         ("ragged-s7", 2, 8, 8, 7, 7, 64, True, None, 0, False, False),
         ("gqa-h8-kv2-d128-s2048", 2, 8, 2, 2048, 2048, 128, True, None, 0,
          False, False),
+        # the flagship llama train cell: 16 query heads over 4 kv heads at
+        # D = 64, as the model hands them over, full causal and windowed
+        ("llama-gqa-h16-kv4-d64", *LLAMA_TRAIN_SHAPE[:3],
+         LLAMA_TRAIN_SHAPE[3], LLAMA_TRAIN_SHAPE[3], LLAMA_TRAIN_SHAPE[4],
+         True, None, 0, True, False),
+        (f"llama-gqa-h16-kv4-d64-window{LLAMA_TRAIN_WINDOW}",
+         *LLAMA_TRAIN_SHAPE[:3], LLAMA_TRAIN_SHAPE[3], LLAMA_TRAIN_SHAPE[3],
+         LLAMA_TRAIN_SHAPE[4], True, LLAMA_TRAIN_WINDOW, 0, True, False),
     ]
     errs = {name: 0.0 for name in ("flash_fwd_lse", "flash_bwd_dq",
                                    "flash_bwd_dkv")}
@@ -1285,7 +1335,78 @@ def train_kernel_phase(torch, flash, smoke: Smoke) -> dict:
     print(f"time backward pair bf16 {TRAIN_SHAPE}: dq + dk/dv kernels "
           f"{pair:.4f} ms, SDPA backward {sdpa_bwd_ms:.4f} ms "
           f"({pair / sdpa_bwd_ms:.1f}x)", flush=True)
-    return {"errs": errs, "timings": timings}
+    llama = {f"window{w}" if w else "causal": llama_train_timing(
+        torch, flash, F, w) for w in (None, LLAMA_TRAIN_WINDOW)}
+    return {"errs": errs, "timings": timings, "llama_timings": llama}
+
+
+def llama_train_timing(torch, flash, F, window) -> dict:
+    """The three training kernels at the flagship llama shape (16 query
+    heads over 4 kv heads, D = 64, bf16), timed beside their plain
+    versions and SDPA with ``enable_gqa=True`` (forward alone, and its
+    backward alone for dq and dk/dv together; a window passes its mask),
+    with their bounds."""
+    b, h, hkv, s, d = LLAMA_TRAIN_SHAPE
+    q, k, v, dout = train_inputs(torch, b, h, hkv, s, s, d, torch.bfloat16,
+                                 True, 97)
+    opts = dict(window=window)
+    out, lse = flash.flash_fwd_reference(q, k, v, **opts)
+    args = (q, k, v, dout, lse, flash.attention_delta(out, dout))
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, dout))
+    mask = dict(is_causal=True)
+    call = "F.scaled_dot_product_attention(enable_gqa=True)"
+    if window is not None:
+        rows = torch.arange(s, device="cuda")[:, None]
+        cols = torch.arange(s, device="cuda")[None, :]
+        mask = dict(attn_mask=(cols <= rows) & (cols > rows - window))
+        call += " with a window mask"
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qc, kc, vc))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True,
+                                              **mask)
+
+    def sdpa_backward():
+        torch.autograd.grad(sdpa_out, (qg, kg, vg), doc, retain_graph=True)
+
+    sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, enable_gqa=True, **mask))
+    sdpa_bwd_ms = time_ms(torch, sdpa_backward)
+    timings = {
+        "flash_fwd_lse": dict(
+            kernel_ms=time_ms(torch, lambda: flash.flash_fwd(
+                q, k, v, need_lse=True, **opts)),
+            plain_ms=time_ms(torch, lambda: flash.flash_fwd_reference(
+                q, k, v, **opts)),
+            library_ms=sdpa_fwd_ms, library_call=call + " forward",
+            kind="fwd_lse"),
+        "flash_bwd_dq": dict(
+            kernel_ms=time_ms(torch, lambda: flash.flash_bwd_dq(
+                *args, **opts)),
+            plain_ms=time_ms(torch, lambda: flash.flash_bwd_dq_reference(
+                *args, **opts)),
+            library_ms=sdpa_bwd_ms,
+            library_call=call + " backward alone (dq, dk and dv together)",
+            kind="dq"),
+        "flash_bwd_dkv": dict(
+            kernel_ms=time_ms(torch, lambda: flash.flash_bwd_dkv(
+                *args, **opts)),
+            plain_ms=time_ms(torch, lambda: flash.flash_bwd_dkv_reference(
+                *args, **opts)),
+            library_ms=sdpa_bwd_ms,
+            library_call=call + " backward alone (dq, dk and dv together)",
+            kind="dkv"),
+    }
+    for name, t in timings.items():
+        kind = t.pop("kind")
+        t["bound_ms"], t["bound_by"] = flash_bound_ms(
+            (b, h, s, d), hkv, "bfloat16", window=window, kind=kind)
+        t["tflops"] = flash_ops((b, h, s, d), window=window,
+                                kind=kind) / t["kernel_ms"] / 1e9
+        print(f"time {name} bf16 GQA {LLAMA_TRAIN_SHAPE} window={window}: "
+              f"kernel {t['kernel_ms']:.4f} ms ({t['tflops']:.1f} TFLOP/s), "
+              f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} "
+              f"ms ({t['library_call']}), bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})", flush=True)
+    return timings
 
 
 def f32_train_phase(torch, flash, smoke: Smoke) -> dict:
@@ -3359,8 +3480,8 @@ class LogLines(logging.Handler):
         logging.getLogger("worker").removeHandler(self)
 
 
-def run_binary(torch, flash, worker, args: list[str]):
-    """One ``--demo 64`` run of the worker binary on the card: (summary,
+def run_binary(torch, flash, worker, args: list[str], demo: int = 64):
+    """One ``--demo 64`` (or ``demo``) run of the worker binary on the card: (summary,
     launches, the run's own peak memory bytes, its log lines).  The launch
     counts and the memory peak are reset just before and read just after;
     the peak is counted above what was still allocated when the run
@@ -3371,7 +3492,9 @@ def run_binary(torch, flash, worker, args: list[str]):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     with LogLines() as logs:
-        summary = worker([*demo64(args), "--device", "cuda"])
+        argv = demo64(args)
+        argv[argv.index("--demo") + 1] = str(demo)
+        summary = worker([*argv, "--device", "cuda"])
     torch.cuda.synchronize()
     return (summary, counts(flash), torch.cuda.max_memory_allocated() - base,
             logs.lines)
@@ -3671,10 +3794,13 @@ def int8_f32_checks(torch, flash, smoke: Smoke) -> dict:
     return out
 
 
+INT8_RATE_DEMO = 32  # cut from 64 for the run's time limit
+
+
 def int8_rates(torch, flash, worker) -> dict:
-    """Warm ``--demo 64`` rates and peak memory of bf16, int8 weights, the
+    """Warm ``--demo 32`` rates and peak memory of bf16, int8 weights, the
     int8 cache and both, at block 8 and ``--shards 4``, for both families,
-    one run after another."""
+    one run after another (32 bodies: the depth cut for time)."""
     rates = {}
     for family in ("gpt", "llama"):
         for name, extra in (("block-8", ["--continuous", "--decode-block",
@@ -3684,13 +3810,15 @@ def int8_rates(torch, flash, worker) -> dict:
             for variant, flags in (("bf16", []), *INT8_VARIANTS):
                 summary, _, peak, _ = run_binary(
                     torch, flash, worker,
-                    [*GENERATE_ARGS, "--family", family, *extra, *flags])
+                    [*GENERATE_ARGS, "--family", family, *extra, *flags],
+                    demo=INT8_RATE_DEMO)
                 key = f"{family}-{name}-{variant}"
                 rates[key] = {"msgs_per_s": summary["msgs_per_s"],
                               "tokens_per_s": summary["tokens_per_s"],
                               "ttft_mean_s": summary["ttft_mean_s"],
                               "peak_mib": peak / 2 ** 20}
-                print(f"warm {key} --demo 64: {summary['msgs_per_s']:.3f} "
+                print(f"warm {key} --demo {INT8_RATE_DEMO}: "
+                      f"{summary['msgs_per_s']:.3f} "
                       f"msgs/s, {summary['tokens_per_s']:.3f} generated "
                       f"tokens/s, mean TTFT "
                       f"{summary['ttft_mean_s'] * 1e3:.3f} ms, "
@@ -6671,6 +6799,497 @@ def orchestration_phase(torch, flash, smoke: Smoke, power: str) -> dict:
     return out
 
 
+class StubTokenizer:
+    """HF-shaped ``encode`` / ``decode`` over a byte vocabulary (ids are
+    the text's UTF-8 bytes): the worker's text path on a machine without
+    ``transformers``."""
+
+    vocab_size = 256
+
+    def __len__(self) -> int:
+        return self.vocab_size
+
+    def encode(self, text):
+        return list(text.encode())[:64]
+
+    def decode(self, ids):
+        return bytes(int(i) % 256 for i in ids).decode(errors="replace")
+
+
+def trainer_run(torch, flash, argv: list[str]) -> dict:
+    """One in-process run of the trainer binary: its summary, the
+    kernels' launches (zeroed just before, read just after) and, on the
+    card, the run's peak memory in GiB."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import trainer
+
+    cuda = "cuda" in argv
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts(flash)
+    summary = trainer.main(argv)
+    if cuda:
+        torch.cuda.synchronize()
+    return {"summary": summary, "launches": counts(flash),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+            if cuda else 0.0}
+
+
+def step_busy(torch, argv: list[str]) -> dict:
+    """One warm step of the trainer's own step function under
+    ``torch.profiler``: wall time, the kernels' busy time and share, and
+    the attention kernels' share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kube_sqs_autoscaler_tpu_torch.workloads import trainer
+
+    args = trainer.build_parser().parse_args(argv)
+    run = trainer.setup(args)
+    state, step_fn = run["state"], run["step_fn"]
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, args.vocab_size, (args.batch_size,
+                                                args.seq_len),
+                           generator=g).to(args.device)
+    for _ in range(2):
+        state, loss = step_fn(state, tokens)
+    float(loss)
+    if args.device == "cuda":
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        state, loss = step_fn(state, tokens)
+        float(loss)
+        wall_ms = (time.perf_counter() - start) * 1e3
+    kernels, _ = device_breakdown(prof)
+    busy_ms = sum(ms for ms, _, _ in kernels)
+    attention_ms = sum(ms for ms, _, key in kernels if "flash_" in key)
+    del run, state, step_fn
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "attention_share": attention_ms / max(busy_ms, 1e-9),
+            "top": [(ms, n, key[:90]) for ms, n, key in kernels[:6]]}
+
+
+def print_train(label: str, run: dict, power: str,
+                busy: dict | None = None) -> dict:
+    summary = run["summary"]
+    step_ms = 1e3 / summary["steps_per_s"]
+    mfu = summary["mfu"]
+    line = (f"training {label}: steady step {step_ms:.3f} ms, "
+            f"{summary['tokens_per_s']:.1f} tokens/s, MFU "
+            f"{'not known' if mfu is None else f'{100 * mfu:.2f}%'}, peak "
+            f"memory {run['peak_gib']:.3f} GiB")
+    if busy is not None:
+        line += (f", busy {busy['busy_ms']:.3f} of {busy['wall_ms']:.3f} ms "
+                 f"({100 * busy['busy_share']:.1f}%, profiler on; attention "
+                 f"kernels {100 * busy['attention_share']:.1f}% of busy)")
+    print(line + f" ({power})", flush=True)
+    return {"step_ms": step_ms, "tokens_per_s": summary["tokens_per_s"],
+            "mfu": mfu, "peak_gib": run["peak_gib"],
+            **({"busy_share": busy["busy_share"],
+                "attention_share": busy["attention_share"]} if busy else {})}
+
+
+def check_learns(smoke: Smoke, label: str, run: dict, steps: int) -> None:
+    losses = run["summary"]["losses"]
+    smoke.check(len(losses) == steps and all(map(math.isfinite, losses))
+                and losses[-1] < losses[0],
+                f"{label}: {steps} losses, finite and falling: "
+                f"{[round(x, 4) for x in losses]}")
+
+
+def train_llama(torch, flash, smoke: Smoke, power: str,
+                device="cuda") -> dict:
+    """(a) The flagship llama cell through the trainer binary, 10
+    ``--overfit`` steps full causal, then with ``--sliding-window 512``:
+    the loss falls, and the lse forward, dq and dk/dv kernels launch
+    ``n_layers`` times a step each (no dense fallback)."""
+    out = {"launches": {}}
+    for label, extra in (("llama", []),
+                         (f"llama-window{LLAMA_TRAIN_WINDOW}",
+                          ["--sliding-window", str(LLAMA_TRAIN_WINDOW)])):
+        argv = [*LLAMA_TRAIN_ARGS, *extra]
+        run = trainer_run(torch, flash, [*argv, "--steps", str(TRAIN_STEPS),
+                                         "--log-every", "1", "--overfit"])
+        check_learns(smoke, label, run, TRAIN_STEPS)
+        per_step = TRAIN_LAYERS * TRAIN_STEPS if device == "cuda" else 0
+        want = {"flash_fwd": 0, "flash_fwd_lse": per_step,
+                "flash_bwd_dq": per_step, "flash_bwd_dkv": per_step}
+        smoke.check(run["launches"] == want,
+                    f"{label}: launches {run['launches']}, want {want} "
+                    "(n_layers a step each: the GQA-native kernels, the "
+                    "window bound in)")
+        out[label] = print_train(label, run, power, step_busy(torch, argv))
+        out["launches"][f"train-{label}"] = run["launches"]
+    return out
+
+
+def train_checkpoint(torch, flash, smoke: Smoke, power: str,
+                     device="cuda") -> dict:
+    """(b) The flagship GPT at 4 layers: 6 steps in one run, and 3 steps
+    with ``--checkpoint-every 3`` then ``--resume`` for 3 more; the losses
+    of the two must be equal.  Then the worker binary serves the
+    checkpoint: its greedy replies over the demo bodies must equal serving
+    the resumed run's in-memory parameters."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as worker
+    from kube_sqs_autoscaler_tpu_torch.workloads.checkpoint import (
+        TrainCheckpointer, load_model_manifest,
+    )
+
+    root = Path("build") / "chip_smoke" / "checkpoint"
+    shutil.rmtree(root, ignore_errors=True)
+    base = [*SHORT_TRAIN_ARGS, "--log-every", "1"]
+    whole = trainer_run(torch, flash, [*base, "--steps", "6"])
+    first = trainer_run(torch, flash, [*base, "--steps", "3",
+                                       "--checkpoint-dir", str(root),
+                                       "--checkpoint-every", "3"])
+    second = trainer_run(torch, flash, [*base, "--steps", "3",
+                                        "--checkpoint-dir", str(root),
+                                        "--resume"])
+    want = whole["summary"]["losses"]
+    got = first["summary"]["losses"] + second["summary"]["losses"]
+    same_first = first["summary"]["losses"] == want[:3]
+    smoke.check(same_first, f"checkpoint: the first 3 steps repeat the "
+                f"uninterrupted run's bit for bit: {got[:3]} vs {want[:3]}")
+    smoke.check(got == want and second["summary"]["final_step"] == 6,
+                f"checkpoint: 3 + 3 resumed steps' losses equal the "
+                f"uninterrupted 6 bit for bit: {got} vs {want}")
+    steps = TrainCheckpointer(root)._steps()
+    smoke.check(steps == [3, 6], f"checkpoint: steps on disk {steps}")
+    family, config = load_model_manifest(root)
+    argv = ["--demo", "16", "--batch-size", "8", "--seq-len", "512",
+            "--generate-tokens", "16", "--result-queue-url",
+            "demo://replies", "--device", device]
+    served = worker.main([*argv, "--checkpoint-dir", str(root)])
+    service_config = worker.ServiceConfig(
+        queue_url="", batch_size=8, seq_len=512, generate_tokens=16,
+        result_queue_url="demo://replies")
+    direct = worker.run_demo(16, second["summary"]["params"], config,
+                             service_config, torch.device(device))
+    same = replies_of(served) == replies_of(direct)
+    smoke.check(same and len(served["replies"]) == 16,
+                f"checkpoint: the worker's {len(served['replies'])} replies "
+                f"from --checkpoint-dir ({family}) equal serving the "
+                "in-memory parameters")
+    print(f"training checkpoint: 3 + 3 resumed steps {got}, uninterrupted "
+          f"{want}; save + resume on the card ({power})", flush=True)
+    return {"launches": {"train-checkpoint": {
+        name: first["launches"][name] + second["launches"][name]
+        for name in first["launches"]}}, "losses": got}
+
+
+def train_moe(torch, flash, smoke: Smoke, power: str,
+              device="cuda") -> dict:
+    """(c) Both families at the flagship widths with ``--moe`` (8
+    experts, top-2), 5 ``--overfit`` steps: the loss falls; the worker
+    refuses the MoE checkpoint with the reference's error.  Step time
+    and peak memory printed (the GShard dense dispatch, as the reference
+    computes it)."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as worker
+
+    out = {"launches": {}}
+    for label, argv in (("gpt-moe", TRAIN_ARGS),
+                        ("llama-moe", LLAMA_TRAIN_ARGS)):
+        root = Path("build") / "chip_smoke" / label
+        shutil.rmtree(root, ignore_errors=True)
+        run = trainer_run(torch, flash, [
+            *argv, "--moe", "--moe-experts", "8", "--moe-top-k", "2",
+            "--steps", "5", "--log-every", "1", "--overfit",
+            "--checkpoint-dir", str(root), "--checkpoint-every", "0"])
+        check_learns(smoke, label, run, 5)
+        per_step = TRAIN_LAYERS * 5 if device == "cuda" else 0
+        smoke.check(run["launches"]["flash_bwd_dq"] == per_step,
+                    f"{label}: launches {run['launches']}")
+        try:
+            worker.main(["--demo", "1", "--checkpoint-dir", str(root),
+                         "--device", device])
+            refused = "served"
+        except ValueError as err:
+            refused = str(err)
+        smoke.check("routed-expert" in refused,
+                    f"{label}: the worker refuses the MoE checkpoint: "
+                    f"{refused[:100]}")
+        out[label] = print_train(label, run, power)
+        out["launches"][f"train-{label}"] = run["launches"]
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def train_lora(torch, flash, smoke: Smoke, power: str,
+               device="cuda") -> dict:
+    """(d) ``--lora-rank 8`` on the flagship llama, 5 ``--overfit``
+    steps: the untargeted weights of the merged checkpoint equal the
+    seeded base bit for bit, the adapters moved, and the worker serving
+    the checkpoint replies as serving ``merge_lora`` of the base and the
+    saved adapters."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as worker
+    from kube_sqs_autoscaler_tpu_torch.workloads.checkpoint import (
+        TrainCheckpointer, load_model_manifest,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.llama import (
+        init_llama_params,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.lora import (
+        LoraConfig, merge_lora,
+    )
+
+    root = Path("build") / "chip_smoke" / "lora"
+    shutil.rmtree(root, ignore_errors=True)
+    run = trainer_run(torch, flash, [
+        *LLAMA_TRAIN_ARGS, "--lora-rank", "8", "--steps", "5",
+        "--log-every", "1", "--overfit", "--learning-rate", "1e-3",
+        "--checkpoint-dir", str(root)])
+    check_learns(smoke, "lora", run, 5)
+    family, config = load_model_manifest(root)
+    saved = TrainCheckpointer(root).load()
+    base = init_llama_params(config, torch.Generator().manual_seed(0),
+                             device)
+    adapters = {"layers": [
+        {name: {k: t.to(device) for k, t in ab.items()}
+         for name, ab in layer.items()}
+        for layer in saved["lora"]["adapters"]["layers"]]}
+    targets = set(LoraConfig().targets)
+    frozen_same = all(
+        torch.equal(saved["params"]["layers"][i][name].to(device), t)
+        for i, layer in enumerate(base["layers"])
+        for name, t in layer.items() if name not in targets
+    ) and all(torch.equal(saved["params"][name].to(device), base[name])
+              for name in ("embed", "final_norm"))
+    moved = all(bool(ab["b"].abs().max() > 0)
+                for layer in adapters["layers"] for ab in layer.values())
+    smoke.check(frozen_same and moved,
+                f"lora: untargeted weights equal the seeded base "
+                f"({frozen_same}), every adapter's B moved ({moved})")
+    merged = merge_lora(base, adapters, LoraConfig(rank=8))
+    argv = ["--demo", "16", "--batch-size", "8", "--seq-len", "512",
+            "--generate-tokens", "16", "--result-queue-url",
+            "demo://replies", "--device", device]
+    served = worker.main([*argv, "--checkpoint-dir", str(root)])
+    direct = worker.run_demo(16, merged, config, worker.ServiceConfig(
+        queue_url="", batch_size=8, seq_len=512, generate_tokens=16,
+        result_queue_url="demo://replies"), torch.device(device))
+    smoke.check(replies_of(served) == replies_of(direct)
+                and len(served["replies"]) == 16,
+                "lora: the worker's replies from the merged checkpoint "
+                "equal serving merge_lora(base, adapters)")
+    out = {"lora": print_train("lora", run, power),
+           "launches": {"train-lora": run["launches"]}}
+    return out
+
+
+def train_hf(torch, flash, smoke: Smoke, power: str,
+             device="cuda") -> dict:
+    """(e) ``hf_state_dict_from_llama`` then ``llama_params_from_hf`` on
+    the flagship llama's bf16 weights on the card: bit for bit.  The HF
+    directory functions and ``--tokenizer`` need ``transformers``; the
+    worker's text path runs here with a stub tokenizer, batch and
+    continuous, against the same ids sent as id bodies."""
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousWorker,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads import hf_convert
+    from kube_sqs_autoscaler_tpu_torch.workloads.hf_convert import (
+        hf_state_dict_from_llama, llama_params_from_hf,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.llama import (
+        LlamaConfig, init_llama_params,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.train import param_leaves
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import (
+        QueueWorker, ServiceConfig, collect_replies,
+    )
+
+    config = LlamaConfig(**LLAMA_TRAIN_DIMS, max_seq_len=2048)
+    params = init_llama_params(config, torch.Generator().manual_seed(0),
+                               device)
+    back = llama_params_from_hf(hf_state_dict_from_llama(params, config),
+                                config, device=device)
+    same = all(torch.equal(a, b) for a, b in zip(param_leaves(params),
+                                                 param_leaves(back)))
+    smoke.check(same and len(param_leaves(back)) == len(param_leaves(params)),
+                "hf: the flagship llama's bf16 weights round-trip through "
+                "the HF state dict bit for bit on the card")
+    import importlib.util
+
+    if importlib.util.find_spec("transformers") is None:
+        print("hf: transformers is not installed on this machine; the HF "
+              "directory functions (load_hf_llama, save_hf_llama, "
+              "--hf-checkpoint, --hf-export) and --tokenizer are gated on "
+              "the CPU only (tests/test_torch_hf_convert.py)", flush=True)
+    else:
+        # the directory round trip on the card where transformers is there:
+        # the flagship llama's first 2 layers (cut for time) saved as an HF
+        # directory, loaded back bit for bit, and served by the worker
+        # binary's --hf-checkpoint
+        root = Path("build") / "chip_smoke" / "hf"
+        shutil.rmtree(root, ignore_errors=True)
+        cut = dataclasses.replace(config, n_layers=2)
+        cut_params = {**params, "layers": params["layers"][:2]}
+        hf_convert.save_hf_llama(cut_params, cut, root)
+        read_config, read = hf_convert.load_hf_llama(root, device=device)
+        same_dir = read_config == cut and all(
+            torch.equal(a, b) for a, b in zip(param_leaves(cut_params),
+                                              param_leaves(read)))
+        smoke.check(same_dir, "hf: save_hf_llama then load_hf_llama of the "
+                    "flagship llama's widths (2 layers) on the card: bit "
+                    "for bit")
+        from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as worker
+
+        served = worker.main(["--demo", "8", "--batch-size", "8",
+                              "--seq-len", "64", "--generate-tokens", "8",
+                              "--hf-checkpoint", str(root), "--device",
+                              device])
+        smoke.check(served["processed"] == 8, "hf: the worker binary serves "
+                    f"the HF directory: {served['processed']} of 8")
+        shutil.rmtree(root, ignore_errors=True)
+        from importlib.metadata import version
+
+        print(f"hf: transformers {version('transformers')} is installed on "
+              "this machine; the HF "
+              "directory round trip and --hf-checkpoint ran on the card "
+              "(--tokenizer and the logits against transformers' own "
+              "forward are gated on the CPU, tests/test_torch_hf_convert.py)",
+              flush=True)
+    texts = ["hello card", "the quick brown fox", "queue depth 300",
+             "scale up", "scale down", "cooldown", "kv cache", "tokens"]
+    stub = StubTokenizer()
+    small = LlamaConfig(**LLAMA_TRAIN_DIMS, max_seq_len=64)
+    ok = True
+    for mode in ("batch", "continuous"):
+        replies = {}
+        for kind in ("text", "ids"):
+            queue, results = FakeMessageQueue(), FakeMessageQueue()
+            for text in texts:
+                body = (json.dumps({"text": text}) if kind == "text"
+                        else json.dumps(stub.encode(text)))
+                queue.send_message("stub://in", body)
+            service = ServiceConfig(queue_url="stub://in", batch_size=8,
+                                    seq_len=32, generate_tokens=8,
+                                    result_queue_url="stub://out")
+            cls = QueueWorker if mode == "batch" else ContinuousWorker
+            worker = cls(queue, params, small, service, result_queue=results,
+                         device=device,
+                         tokenizer=stub if kind == "text" else None)
+            if mode == "batch":
+                worker.run_once()
+            else:
+                worker.drain(total=len(texts))
+            got, _ = collect_replies(results, "stub://out")
+            replies[kind] = got
+        text_tokens = sorted(r["tokens"] for r in replies["text"].values())
+        id_tokens = sorted(r["tokens"] for r in replies["ids"].values())
+        decoded = all(r["text"] == stub.decode(r["tokens"])
+                      for r in replies["text"].values())
+        ok &= text_tokens == id_tokens and decoded and len(text_tokens) == 8
+        smoke.check(text_tokens == id_tokens and decoded,
+                    f"tokenizer {mode}: 8 text bodies through a stub "
+                    "tokenizer reply with the id bodies' tokens and their "
+                    "decoded text")
+    return {"roundtrip": same, "tokenizer": ok, "launches": {}}
+
+
+def train_corpus(torch, flash, smoke: Smoke, power: str,
+                 device="cuda") -> dict:
+    """(f) ``write_token_shards`` into a directory of the checkout, then
+    5 steps of the 4-layer GPT with ``--data-dir``; the native reader
+    builds on first use, and its step-0 batch holds windows of the
+    corpus."""
+    from kube_sqs_autoscaler_tpu_torch.native import tokenreader
+
+    root = Path("build") / "chip_smoke" / "corpus"
+    shutil.rmtree(root, ignore_errors=True)
+    seq = int(SHORT_TRAIN_ARGS[SHORT_TRAIN_ARGS.index("--seq-len") + 1])
+    corpus = np.random.default_rng(3).integers(0, 8192, 1 << 20)
+    tokenreader.write_token_shards(root, corpus, 8192, shard_tokens=1 << 18)
+    start = time.perf_counter()
+    with tokenreader.TokenReader(root, min_window=seq) as reader:
+        build_s = time.perf_counter() - start
+        batch = reader.batch(8, seq, 0, 0)
+    text = corpus.astype(np.int64)
+    windows = all(
+        any(np.array_equal(text[s:s + seq], row)
+            for s in np.flatnonzero(text == row[0]))
+        for row in batch)
+    smoke.check(windows, f"corpus: the native reader (built and opened in "
+                f"{build_s:.3f} s) returns windows of the corpus")
+    run = trainer_run(torch, flash, [*SHORT_TRAIN_ARGS, "--steps", "5",
+                                     "--log-every", "1", "--data-dir",
+                                     str(root)])
+    losses = run["summary"]["losses"]
+    smoke.check(len(losses) == 5 and all(map(math.isfinite, losses))
+                and run["summary"]["final_step"] == 5,
+                f"corpus: 5 steps on --data-dir, losses {losses}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": {"train-corpus": run["launches"]},
+            "step_ms": 1e3 / run["summary"]["steps_per_s"]}
+
+
+def train_observe(torch, flash, smoke: Smoke, power: str,
+                  device="cuda") -> dict:
+    """(g) ``--profile-dir``: the trace of 2 steps names ``flash_bwd_dq``;
+    ``--metrics-port``: a scrape in the middle of a 20-step run has the
+    train gauges."""
+    root = Path("build") / "chip_smoke" / "train-trace"
+    shutil.rmtree(root, ignore_errors=True)
+    traced = trainer_run(torch, flash, [*SHORT_TRAIN_ARGS, "--steps", "2",
+                                        "--profile-dir", str(root)])
+    traces = list(root.glob("*.json"))
+    named = any("flash_bwd_dq" in p.read_text() for p in traces)
+    smoke.check(named, f"profile: {len(traces)} trace(s), naming "
+                f"flash_bwd_dq: {named}")
+    port = free_port()
+    result = {}
+    thread = threading.Thread(target=lambda: result.update(trainer_run(
+        torch, flash, [*SHORT_TRAIN_ARGS, "--steps", "20", "--log-every",
+                       "1", "--metrics-port", str(port)])))
+    thread.start()
+    gauges = ("train_tokens_per_sec", "train_mfu", "train_loss",
+              "train_step")
+    body = ""
+    deadline = time.time() + 120
+    while time.time() < deadline and thread.is_alive():
+        try:
+            status, body = http_get(f"http://127.0.0.1:{port}/metrics")
+        except OSError:
+            status = None
+        if status == 200 and all(g in body for g in gauges):
+            break
+        time.sleep(0.2)
+    thread.join()
+    scraped = {g: g in body for g in gauges}
+    smoke.check(all(scraped.values()) and bool(result),
+                f"metrics: a mid-run scrape has the train gauges {scraped}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": {"train-profiled": traced["launches"],
+                         "train-metrics": result.get("launches", {})}}
+
+
+def training_phase(torch, flash, smoke: Smoke, power: str,
+                   device="cuda") -> dict:
+    """The rest of training at full width on the card, bf16: (a) the
+    flagship llama cell through the trainer binary, full causal and
+    windowed; (b) checkpoint, resume and the worker serving the
+    checkpoint; (c) MoE, both families; (d) LoRA on the llama; (e) the HF
+    state dicts and the worker's text path; (f) the on-disk corpus
+    through the native reader; (g) ``--profile-dir`` and
+    ``--metrics-port``."""
+    out = {"launches": {}}
+    for part, fn in (("llama", train_llama), ("checkpoint", train_checkpoint),
+                     ("moe", train_moe), ("lora", train_lora),
+                     ("hf", train_hf), ("corpus", train_corpus),
+                     ("observe", train_observe)):
+        start = time.perf_counter()
+        out[part] = fn(torch, flash, smoke, power, device)
+        out["launches"].update(out[part].pop("launches"))
+        print(f"-- training {part}: {time.perf_counter() - start:.3f} s",
+              flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, replaces_fn, launches, by_path,
                  err, timing, shape) -> dict:
     return {
@@ -6750,6 +7369,8 @@ def main() -> int:
     train_path = smoke.phase("train path", train_path_phase, torch, flash,
                              smoke, power)
     train_prof = smoke.phase("train profile", train_profile_phase, torch)
+    training = smoke.phase("training", training_phase, torch, flash, smoke,
+                           power)
     if smoke.failures or not (info and sass and resources and kern
                               and train_kern and path and serve and cycles
                               and stagger and rates and prof
@@ -6759,7 +7380,7 @@ def main() -> int:
                               and beams and slice_prof and sync and gelu
                               and tenancy and planes and orch and odd
                               and f32_train
-                              and train_path and train_prof):
+                              and train_path and train_prof and training):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
         return 1
@@ -6806,6 +7427,10 @@ def main() -> int:
         **orch["launches"],
         **{f"train-{r}": v["launches"]["flash_fwd"]
            for r, v in train_path.items()},
+        # the rest of training: the no-lse forward runs in eval passes
+        # only, which these runs have none of
+        **{path: v["flash_fwd"] for path, v in training["launches"].items()
+           if v},
     }
     fwd = kernel_entry(
         "flash_fwd", "flash_fwd.cu", 159, "_fwd_kernel (need_lse=False)",
@@ -6831,11 +7456,22 @@ def main() -> int:
         entry = kernel_entry(
             name, source, line, fn,
             train_path["train"]["launches"][name],
-            {f"train-{r}": v["launches"][name]
-             for r, v in train_path.items()},
+            {**{f"train-{r}": v["launches"][name]
+                for r, v in train_path.items()},
+             # the rest of training: the llama cell (causal, windowed),
+             # checkpoint and resume, MoE, LoRA, corpus, profile, metrics
+             **{path: v[name] for path, v in training["launches"].items()
+                if v}},
             train_kern["errs"][name], train_kern["timings"][name],
             TRAIN_SHAPE)
         entry["tflops"] = train_kern["timings"][name]["tflops"]
+        # the flagship llama train shape (B, H, H_kv, S, D), causal and
+        # with the window
+        entry["at_llama_train_shapes"] = {
+            "x".join(map(str, LLAMA_TRAIN_SHAPE)) + (
+                "" if label == "causal" else f"-w{LLAMA_TRAIN_WINDOW}"):
+            timings[name]
+            for label, timings in train_kern["llama_timings"].items()}
         entries.append(entry)
     for entry in entries:
         # the instantiation the main paths run: bf16, D = 64

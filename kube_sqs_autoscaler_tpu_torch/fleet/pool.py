@@ -712,6 +712,7 @@ class WorkerPool(FleetPoolBase):
         device="cuda",
         prefix_cache=None,
         tenancy=None,
+        tokenizer=None,
         **pool_kwargs,
     ) -> "WorkerPool":
         """A pool of real :class:`~.worker.FleetWorker` replicas over one
@@ -722,7 +723,8 @@ class WorkerPool(FleetPoolBase):
         and ``prefix_cache`` (a shared prompt prefix in the layout
         ``ServiceConfig.quantized_kv`` picks); the first builds the engine
         and the rest adopt it.  ``tenancy`` gives every replica its own
-        fair-admission staging (and prefix pool).
+        fair-admission staging (and prefix pool); ``tokenizer`` every
+        replica's text encoding and reply decoding.
 
         Sampled serving: each replica gets ``sample_seed + spawn
         ordinal``, so the fleet draws independent streams."""
@@ -747,7 +749,7 @@ class WorkerPool(FleetPoolBase):
                 queue, params, model_config, seeded,
                 family=family, result_queue=result_queue, device=device,
                 prefix_cache=prefix_cache, pool=pool,
-                engine_source=donor, tenancy=tenancy,
+                engine_source=donor, tenancy=tenancy, tokenizer=tokenizer,
             )
             if block is not None:
                 worker.batcher.request_decode_block(block)

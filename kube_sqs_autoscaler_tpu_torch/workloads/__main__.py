@@ -51,16 +51,22 @@ SwiGLU) through every mode below.
 
 The worker runs on the card (``--device cuda``, the default) and exits
 with an error when there is none; ``--device cpu`` runs it on the CPU.
-Weights are the built-in config's, drawn from a seeded generator.
+Weights are the built-in config's, drawn from a seeded generator, unless
+``--checkpoint-dir DIR`` serves what the port's trainer saved there (its
+``model_config.json`` manifest gives the family and dimensions; a MoE
+checkpoint is refused, as the reference refuses it) or
+``--hf-checkpoint DIR`` a Hugging Face Llama/Mistral directory (this
+needs ``transformers``).  ``--tokenizer DIR`` loads a ``transformers``
+tokenizer from a local directory: text bodies (plain, a JSON string or
+``{"text": ...}``) are encoded, replies carry the decoded ``text``, and
+``--eos-id`` defaults to the tokenizer's.
 The serving orchestration rides the same flags as the reference's:
 ``--scheduler`` runs the fleet demo on the event scheduler, ``--knobs``
 arms live engine knobs there, ``--journal-path`` records the fleet's
 control loop and ``--topology`` attaches a route-planning collective
-scheduler to the continuous worker.  Flags of the reference binary whose
-paths are not ported yet (``--checkpoint-dir``, ``--hf-checkpoint``) are
-not accepted; ``--tokenizer`` and ``--model-parallel``, which the
-reference serves on paths the port does not have yet, exit with a message
-naming their ROADMAP item.
+scheduler to the continuous worker.  ``--model-parallel``, which the
+reference serves over a device mesh, exits with a message naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ import argparse
 import json
 import logging
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -98,6 +105,18 @@ def build_parser() -> argparse.ArgumentParser:
         help="model family served: gpt (learned positions, MHA) or llama "
              "(RoPE, GQA: an n_kv_heads-sized KV cache)",
     )
+    parser.add_argument(
+        "--checkpoint-dir", default="", metavar="DIR",
+        help="serve the weights a trainer checkpointed here (reads the "
+             "model_config.json manifest for family + dimensions; "
+             "default: random init — smoke/bench mode)",
+    )
+    parser.add_argument(
+        "--hf-checkpoint", default="", metavar="DIR",
+        help="serve a Hugging Face Llama checkpoint directory "
+             "(transformers format; converted via workloads.hf_convert — "
+             "implies --family llama)",
+    )
     parser.add_argument("--seq-len", type=int, default=64)
     parser.add_argument(
         "--generate-tokens", type=int, default=0, metavar="N",
@@ -119,7 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--eos-id", type=int, default=-1, metavar="ID",
-        help="stop generating a row once it emits this token id (-1 = none)",
+        help="stop generating a row once it emits this token id (-1 = none "
+             "/ auto from --tokenizer)",
     )
     parser.add_argument(
         "--result-queue-url", default="",
@@ -318,8 +338,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--tokenizer", default="", metavar="DIR",
-        help="text-in/text-out through a transformers tokenizer (not yet "
-             "ported: exits)",
+        help="text-in/text-out: load a transformers tokenizer (from a "
+             "local directory) and encode plain-text or {'text': ...} "
+             "message bodies (and decode generate-mode replies)",
     )
     parser.add_argument(
         "--model-parallel", type=int, default=0, metavar="TP",
@@ -449,20 +470,22 @@ def run_demo(
     modes: tuple[dict, dict] = ({}, {}),
     tenancy=None,
     topology: str = "",
+    tokenizer=None,
 ) -> dict:
     """Feed ``demo`` random bodies through a :class:`QueueWorker` (or,
     with ``continuous``, drain them through a :class:`ContinuousWorker`,
     with ``tenancy`` its fair admission and ``topology`` a route-planning
     collective scheduler) and collect the replies; returns the run's
     counts and rates.  ``modes`` holds the two workers' decode-mode
-    keywords (:func:`decode_modes`)."""
+    keywords (:func:`decode_modes`); ``tokenizer`` encodes text bodies and
+    decodes replies."""
     queue = demo_queue(demo, model_config, service_config)
     result_queue = FakeMessageQueue() if service_config.result_queue_url else None
     if continuous:
         worker = ContinuousWorker(queue, params, model_config, service_config,
                                   result_queue=result_queue, device=device,
                                   prefix_cache=prefix_cache, tenancy=tenancy,
-                                  **modes[1])
+                                  tokenizer=tokenizer, **modes[1])
         comms = attach_topology(topology, service_config.shards, worker)
         server = serve_metrics(metrics_port, worker, comms=comms)
         start = time.perf_counter()
@@ -491,7 +514,8 @@ def run_demo(
     else:
         worker = QueueWorker(queue, params, model_config, service_config,
                              result_queue=result_queue, device=device,
-                             prefix_cache=prefix_cache, **modes[0])
+                             prefix_cache=prefix_cache, tokenizer=tokenizer,
+                             **modes[0])
         server = serve_metrics(metrics_port, worker)
         start = time.perf_counter()
         while worker.processed < demo:
@@ -631,6 +655,7 @@ def run_fleet_demo(
     scheduler: bool = False,
     knob_names: tuple = (),
     journal_path: str = "",
+    tokenizer=None,
 ) -> dict:
     """The closed loop in one process, on the real clock: a
     :class:`~..core.loop.ControlLoop` autoscales a
@@ -652,6 +677,7 @@ def run_fleet_demo(
         queue, params, model_config, service_config,
         result_queue=result_queue, min=min_replicas, max=max_replicas,
         device=device, prefix_cache=prefix_cache, tenancy=tenancy,
+        tokenizer=tokenizer,
     )
     journal = None
     if journal_path:
@@ -820,7 +846,8 @@ def fleet_journal_meta(service_config: ServiceConfig, min_replicas: int,
 def serve_sqs(args, params: dict, model_config: ModelConfig,
               service_config: ServiceConfig, device: torch.device,
               prefix_cache: dict | None = None,
-              modes: tuple[dict, dict] = ({}, {}), tenancy=None) -> None:
+              modes: tuple[dict, dict] = ({}, {}), tenancy=None,
+              tokenizer=None) -> None:
     """Serve ``--sqs-queue-url`` until the worker is stopped.  AWS SQS
     addresses queues per call by url, so the same client publishes replies
     when ``--result-queue-url`` is set."""
@@ -832,11 +859,13 @@ def serve_sqs(args, params: dict, model_config: ModelConfig,
         worker = ContinuousWorker(queue, params, model_config,
                                   service_config, result_queue=result_queue,
                                   device=device, prefix_cache=prefix_cache,
-                                  tenancy=tenancy, **modes[1])
+                                  tenancy=tenancy, tokenizer=tokenizer,
+                                  **modes[1])
     else:
         worker = QueueWorker(queue, params, model_config, service_config,
                              result_queue=result_queue, device=device,
-                             prefix_cache=prefix_cache, **modes[0])
+                             prefix_cache=prefix_cache, tokenizer=tokenizer,
+                             **modes[0])
     comms = (attach_topology(args.topology, args.shards, worker)
              if args.continuous else None)
     server = serve_metrics(args.metrics_port, worker, comms=comms)
@@ -937,17 +966,14 @@ def main(argv=None) -> dict | None:
                      if args.speculative_draft_layers else 0)
     # a pooled row holds a --seq-len prefix ahead of its prompt
     pool_prefix = args.seq_len if args.prefix_pool else 0
-    check_speculative_budget(
-        args, BUILTIN_CONFIGS[args.family](args.seq_len, args.generate_tokens,
-                                           len(prefix_ids), spec_headroom),
-        len(prefix_ids))
+    model_config, layout, params = served_model(
+        args, len(prefix_ids), pool_prefix, spec_headroom)
+    check_speculative_budget(args, model_config, len(prefix_ids))
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(f"error: {err}") from None
-    model_config, params = builtin_model(
-        args.family, args.seq_len, args.generate_tokens, device,
-        prefix_len=len(prefix_ids) + pool_prefix, headroom=spec_headroom)
+    params = served_params(args, model_config, layout, params, device)
     family = family_of(model_config)
     weight_bytes = None
     if args.quantize == "int8":
@@ -981,11 +1007,12 @@ def main(argv=None) -> dict | None:
         decode_block=args.decode_block, request_ttl_s=args.request_ttl,
         shards=args.shards, quantized_kv=args.quantize_kv,
     )
+    tokenizer = load_tokenizer(args, model_config, service_config)
     modes = decode_modes(args, model_config, service_config, device,
                          prefix_cache)
     if not args.demo:
         serve_sqs(args, params, model_config, service_config, device,
-                  prefix_cache, modes, tenancy)
+                  prefix_cache, modes, tenancy, tokenizer)
         return None
     if args.fleet_max_replicas:
         summary = run_fleet_demo(
@@ -993,14 +1020,15 @@ def main(argv=None) -> dict | None:
             args.fleet_min_replicas, args.fleet_max_replicas,
             metrics_port=args.metrics_port, prefix_cache=prefix_cache,
             tenancy=tenancy, scheduler=args.scheduler, knob_names=knob_names,
-            journal_path=args.journal_path,
+            journal_path=args.journal_path, tokenizer=tokenizer,
         )
     else:
         summary = run_demo(args.demo, params, model_config, service_config,
                            device, continuous=args.continuous,
                            metrics_port=args.metrics_port,
                            prefix_cache=prefix_cache, modes=modes,
-                           tenancy=tenancy, topology=args.topology)
+                           tenancy=tenancy, topology=args.topology,
+                           tokenizer=tokenizer)
     summary["weight_bytes"] = weight_bytes
     return summary
 
@@ -1029,13 +1057,112 @@ def check_beams(args) -> None:
         raise SystemExit("--length-penalty requires --beams > 1")
 
 
-def check_unported(args) -> None:
-    """Reference flags whose paths are not ported yet exit naming the
-    ROADMAP item that ports them."""
-    if args.tokenizer:
+def served_model(args, prefix_len: int, pool_prefix: int, headroom: int):
+    """``(config, layout, params)`` of the model the worker serves: an HF
+    directory's (its weights converted on the host, ``params`` set), the
+    trainer's manifest and its parameter layout (``params`` ``None``: read
+    on the device by :func:`served_params`) or the built-in ``--family``
+    config, whose context holds the prefix, the pooled prefix, the prompt,
+    its continuation and ``headroom``.  A checkpoint's context must hold
+    the prefix, the prompt and its continuation."""
+    needed = prefix_len + args.seq_len + args.generate_tokens
+    if args.hf_checkpoint:
+        from .hf_convert import load_hf_llama
+
+        config, params = load_hf_llama(args.hf_checkpoint, device="cpu")
+        log.info(
+            "Imported HF llama checkpoint %s (d_model=%d layers=%d "
+            "heads=%d/%d, %s readout)",
+            args.hf_checkpoint, config.d_model, config.n_layers,
+            config.n_heads, config.n_kv_heads,
+            "untied" if "lm_head" in params else "tied",
+        )
+        if config.max_seq_len < needed:
+            raise SystemExit(
+                f"HF model has max_seq_len={config.max_seq_len} < "
+                f"seq_len + generate_tokens = {needed}; lower "
+                "--seq-len/--generate-tokens"
+            )
+        return config, None, params
+    if args.checkpoint_dir:
+        from .checkpoint import load_model_layout, load_model_manifest
+
+        family, config = load_model_manifest(args.checkpoint_dir)
+        if family != args.family:
+            log.info("Checkpoint manifest says family=%s (overriding CLI)",
+                     family)
+        if config.max_seq_len < needed:
+            raise SystemExit(
+                f"checkpointed model has max_seq_len={config.max_seq_len} "
+                f"< seq_len + generate_tokens = {needed}; lower "
+                "--seq-len/--generate-tokens"
+            )
+        return config, load_model_layout(args.checkpoint_dir), None
+    return BUILTIN_CONFIGS[args.family](args.seq_len, args.generate_tokens,
+                                        prefix_len + pool_prefix,
+                                        headroom), None, None
+
+
+def served_params(args, config, layout, params, device: torch.device) -> dict:
+    """The weights of :func:`served_model`'s model on ``device``: the HF
+    directory's, the latest checkpoint's (a ``moe`` layout is refused with
+    the reference's error) or the built-in seeded ones."""
+    if params is not None:
+        from .checkpoint import _to_device
+
+        return _to_device(params, device)
+    if args.checkpoint_dir:
+        from .checkpoint import TrainCheckpointer
+
+        checkpointer = TrainCheckpointer(args.checkpoint_dir)
+        params = checkpointer.restore_params(
+            family_of(config).name, config, layout=layout, device=device)
+        log.info("Restored weights from %s step %s", args.checkpoint_dir,
+                 checkpointer.latest_step())
+        return params
+    return family_of(config).init_params(
+        config, torch.Generator().manual_seed(0), device)
+
+
+def load_tokenizer(args, model_config, service_config: ServiceConfig):
+    """``--tokenizer``'s ``transformers`` tokenizer (``None`` without the
+    flag), loaded from a local directory only; the reference's vocabulary
+    check, and ``eos_id`` from the tokenizer when ``--eos-id`` is unset."""
+    if not args.tokenizer:
+        return None
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as err:
+        raise SystemExit(f"--tokenizer needs transformers ({err})")
+    tokenizer = AutoTokenizer.from_pretrained(args.tokenizer,
+                                              local_files_only=True)
+    tok_vocab = len(tokenizer)  # incl. added special tokens
+    if tok_vocab > model_config.vocab_size:
+        # an out-of-range id would be clamped by the embedding gather and
+        # silently serve garbage
         raise SystemExit(
-            "--tokenizer loads a transformers tokenizer, not yet ported "
-            "(ROADMAP Queue 1 item 4)"
+            f"tokenizer vocab ({tok_vocab}) exceeds the model's "
+            f"vocab_size ({model_config.vocab_size})"
+        )
+    if service_config.eos_id is None and tokenizer.eos_token_id is not None:
+        service_config.eos_id = int(tokenizer.eos_token_id)
+        log.info("eos_id %d from the tokenizer", service_config.eos_id)
+    log.info("Tokenizer: %s (vocab %d)", args.tokenizer, tok_vocab)
+    return tokenizer
+
+
+def check_unported(args) -> None:
+    """The checks of the checkpoint and tokenizer flags, before any model
+    is built; the flag whose path is not ported yet exits naming the
+    ROADMAP item that ports it."""
+    if args.hf_checkpoint and args.checkpoint_dir:
+        raise SystemExit(
+            "--hf-checkpoint and --checkpoint-dir are mutually exclusive"
+        )
+    if args.tokenizer and not Path(args.tokenizer).is_dir():
+        raise SystemExit(
+            f"--tokenizer {args.tokenizer} is not a directory (tokenizers "
+            "load from a local directory, never from a hub)"
         )
     if args.model_parallel:
         raise SystemExit(

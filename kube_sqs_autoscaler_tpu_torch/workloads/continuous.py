@@ -1700,7 +1700,9 @@ class ContinuousWorker:
     (:meth:`_enforce_decode_deadlines`); ``shed_by_reason`` counts
     ``ttl``, ``degraded``, ``pressure`` and ``decode_deadline`` sheds.  A
     tenancy with one tenant and no prefixes serves as the plain path
-    does."""
+    does.  A ``tokenizer`` (HF-shaped ``encode`` / ``decode``) encodes
+    text bodies and adds the decoded ``text`` to each reply, as the batch
+    worker's does."""
 
     # after an empty receive while slots are still decoding, skip this
     # many cycles before polling again (one billed receive per generated
@@ -1725,6 +1727,7 @@ class ContinuousWorker:
         length_penalty: float = 0.0,
         tenancy=None,
         device: str | torch.device = "cuda",
+        tokenizer=None,
     ) -> None:
         if service_config.generate_tokens < 1:
             raise ValueError(
@@ -1747,6 +1750,7 @@ class ContinuousWorker:
         self.queue = queue
         self.config = service_config
         self.result_queue = result_queue
+        self.tokenizer = tokenizer
         knobs = dict(
             prompt_len=service_config.seq_len,
             generate_tokens=service_config.generate_tokens,
@@ -1924,7 +1928,8 @@ class ContinuousWorker:
             if tokens is None:
                 payload = {"error": error or "malformed body"}
             else:
-                payload = build_token_reply(tokens, self.config.eos_id)
+                payload = build_token_reply(tokens, self.config.eos_id,
+                                            self.tokenizer)
             payload["request_id"] = request_id(message)
             if tenant:
                 payload["tenant"] = tenant
@@ -2195,10 +2200,11 @@ class ContinuousWorker:
         no prefix), else ``("", None, ids)``; ``None`` for a malformed
         body."""
         if self.tenancy is None:
-            ids = parse_request_body(message["Body"])
+            ids = parse_request_body(message["Body"], self.tokenizer)
             return None if ids is None else ("", None, ids)
         tenant, prefix_ids, ids = parse_tenant_request(
             message["Body"], default_tenant=self.tenancy.tenants[0],
+            tokenizer=self.tokenizer,
         )
         if ids is None:
             return None
@@ -2323,7 +2329,7 @@ class ContinuousWorker:
         capacity = len(self.batcher.free_slots)
         resumes, handback = [], []
         for payload, produced, budget, submitted_at in taken:
-            ids = parse_request_body(payload["Body"])
+            ids = parse_request_body(payload["Body"], self.tokenizer)
             fits = (
                 ids is not None
                 and len(resumes) < capacity

@@ -7,8 +7,11 @@ the port's parameter dict: the same names, the same nesting and the same
 family that is ``embed``, ``final_norm`` and an optional ``lm_head``, and
 per layer ``attn_norm``, ``wq``, ``wkv``, ``wo``, ``mlp_norm``,
 ``w_gate_up`` and ``w_down`` (or the split pipeline layout's ``wk`` /
-``wv`` / ``w_gate`` / ``w_up``).  This module imports no JAX; the caller
-does the ``np.asarray``.
+``wv`` / ``w_gate`` / ``w_up``).  MoE layers carry their fp32 ``router``
+(kept fp32, as the reference keeps it) and the stacked expert weights
+``w_up_experts`` / ``w_gate_up_experts`` / ``w_down_experts``;
+:func:`adapters_from_jax` carries a LoRA adapter tree.  This module imports
+no JAX; the caller does the ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,11 @@ def _tensor(array, config: ModelConfig | LlamaConfig, device) -> torch.Tensor:
     )
 
 
-def _leaf(value, config: ModelConfig | LlamaConfig, device):
+# weights the reference keeps in fp32 whatever the model dtype
+FP32_WEIGHTS = ("router",)
+
+
+def _leaf(value, config: ModelConfig | LlamaConfig, device, name: str = ""):
     """One weight: an array cast to ``config.dtype``, or the reference's
     int8 ``QuantizedTensor`` (numpy codes and scale) as the port's, its
     codes int8 and its scales fp32 exactly."""
@@ -41,6 +48,8 @@ def _leaf(value, config: ModelConfig | LlamaConfig, device):
         scale = torch.from_numpy(np.array(value.scale, np.float32))
         return QuantizedTensor(codes.to(device), scale.to(device),
                                config.dtype)
+    if name in FP32_WEIGHTS:
+        return torch.from_numpy(np.array(value, np.float32)).to(device)
     return _tensor(value, config, device)
 
 
@@ -60,7 +69,20 @@ def params_from_jax(
         for name, value in numpy_pytree.items() if name != "layers"
     }
     params["layers"] = [
-        {name: _leaf(value, config, device) for name, value in layer.items()}
+        {name: _leaf(value, config, device, name)
+         for name, value in layer.items()}
         for layer in numpy_pytree["layers"]
     ]
     return params
+
+
+def adapters_from_jax(numpy_adapters: dict,
+                      device: str | torch.device = "cuda") -> dict:
+    """The reference's LoRA adapter tree (``{"layers": [{name: {"a": ...,
+    "b": ...}}]}``, numpy leaves) as the port's, fp32 as the reference
+    keeps them."""
+    return {"layers": [
+        {name: {key: torch.from_numpy(np.array(ab[key], np.float32)).to(
+            device) for key in ("a", "b")} for name, ab in layer.items()}
+        for layer in numpy_adapters["layers"]
+    ]}

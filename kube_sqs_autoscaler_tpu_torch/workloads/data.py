@@ -11,8 +11,10 @@ Counterpart of ``kube_sqs_autoscaler_tpu/workloads/data.py``:
   so the host-to-device copy of batch ``n+1`` overlaps the device compute
   of batch ``n`` (the counterpart of ``prefetch_to_mesh``).
 
-The reference's ``corpus_token_stream`` reads an on-disk corpus through
-its native reader and is not ported yet.
+- :func:`corpus_token_stream` — endless random-crop batches from an
+  on-disk token corpus through the port's native mmap reader
+  (:mod:`..native.tokenreader`), the same batches as the reference's for a
+  (seed, step).
 """
 
 from __future__ import annotations
@@ -31,6 +33,27 @@ def synthetic_token_stream(
     rng = np.random.default_rng(seed)
     while True:
         yield rng.integers(0, vocab_size, (batch, seq), dtype=np.int32)
+
+
+def corpus_token_stream(
+    data_dir: str,
+    batch: int,
+    seq: int,
+    seed: int = 0,
+    start_step: int = 0,
+) -> Iterator[np.ndarray]:
+    """Endless ``[batch, seq]`` int32 random-crop batches from a token
+    corpus (``write_token_shards``'s format) through the native reader,
+    which builds on first use.  Every batch is a pure function of
+    ``(seed, step)``: a trainer resumed at step ``N`` passes
+    ``start_step=N`` and reads the stream the uninterrupted run read."""
+    from ..native.tokenreader import TokenReader
+
+    reader = TokenReader(data_dir, min_window=seq)
+    step = start_step
+    while True:
+        yield reader.batch(batch, seq, seed, step)
+        step += 1
 
 
 def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:

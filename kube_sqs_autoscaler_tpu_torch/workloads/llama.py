@@ -44,8 +44,10 @@ shared-prefix prefill whose suffixes continue through it
 (:func:`llama_prefill_prefix`, :func:`llama_prefill_with_prefix` and
 their int8 twins).
 
-Not ported yet: the trainer branch (ROADMAP Queue 1 item 4) and mesh
-serving (item 5).
+The trainer branch (:func:`llama_loss_fn`, :func:`make_llama_train_step`)
+runs through :func:`.train.make_train_step`'s seams; its attention is the
+GQA-native flash forward and backward on the card.  Mesh serving and
+training wait for ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .decode import (
     _cached_attention, _check_prefix_budget, _check_prefix_layout,
@@ -236,7 +239,7 @@ def _swiglu(x: torch.Tensor, layer: dict) -> torch.Tensor:
 def _llama_block(
     x: torch.Tensor, layer: dict, config: LlamaConfig,
     rope: tuple[torch.Tensor, torch.Tensor], attend,
-    x32: torch.Tensor | None = None,
+    x32: torch.Tensor | None = None, mlp=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pre-RMSNorm attention and pre-RMSNorm SwiGLU, residual around both.
     ``rope`` is the ``(cos, sin)`` of :func:`rope_angles` at the block's
@@ -244,7 +247,9 @@ def _llama_block(
     ``n_kv_heads`` k/v:
     the prompt pass's kernel, or a cache-writing closure in decode.
     ``x32`` is ``x`` unrounded when ``x`` is a residual sum (``None`` for
-    the embeddings).  Returns the block's output and its fp32 value."""
+    the embeddings).  ``mlp(h, layer)`` replaces the SwiGLU (the routed
+    experts of :mod:`.moe`).  Returns the block's output and its fp32
+    value."""
     dtype = x.dtype
     h = _rms_norm(x if x32 is None else x32, layer["attn_norm"],
                   config.rms_eps, dtype)
@@ -254,7 +259,7 @@ def _llama_block(
     out = out.transpose(1, 2).reshape(batch, seq, config.d_model)
     x, x32 = _residual(x, out @ layer["wo"])
     h2 = _rms_norm(x32, layer["mlp_norm"], config.rms_eps, dtype)
-    return _residual(x, _swiglu(h2, layer))
+    return _residual(x, (mlp or _swiglu)(h2, layer))
 
 
 def _gqa_dense_attention(config: LlamaConfig):
@@ -290,11 +295,16 @@ def llama_forward_hidden(
     tokens: torch.Tensor,
     config: LlamaConfig,
     attention_fn=None,
+    mlp=None,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Final RMS-normed hidden states ``[B, S, d_model]``.
     ``attention_fn(q, k, v)`` is the prompt-pass pick
     (:func:`llama_attention_fn_for`; window-aware dense by default),
-    adapted to the compact k/v."""
+    adapted to the compact k/v; ``mlp(h, layer)`` replaces the SwiGLU.
+    ``remat=True`` recomputes each block in the backward
+    (:func:`torch.utils.checkpoint.checkpoint`, the reference's
+    ``jax.checkpoint``): the same values at a lower peak memory."""
     seq = tokens.shape[1]
     if seq > config.max_seq_len:
         raise ValueError(
@@ -306,7 +316,11 @@ def llama_forward_hidden(
     x = embed_tokens(params["embed"], tokens)
     x32 = None
     for layer in params["layers"]:
-        x, x32 = _llama_block(x, layer, config, rope, attend, x32)
+        if remat:
+            x, x32 = checkpoint(_llama_block, x, layer, config, rope, attend,
+                                x32, mlp, use_reentrant=False)
+        else:
+            x, x32 = _llama_block(x, layer, config, rope, attend, x32, mlp)
     return _rms_norm(x32, params["final_norm"], config.rms_eps, x.dtype)
 
 
@@ -315,12 +329,78 @@ def llama_forward(
     tokens: torch.Tensor,
     config: LlamaConfig,
     attention_fn=None,
+    mlp=None,
 ) -> torch.Tensor:
     """Logits ``[B, S, vocab]`` (fp32 results of model-dtype operands)."""
     return unembed(
-        llama_forward_hidden(params, tokens, config, attention_fn),
+        llama_forward_hidden(params, tokens, config, attention_fn, mlp=mlp),
         readout_weights(params),
     )
+
+
+# ---------------------------------------------------------------------------
+# Training (the reference's llama.py:400-461, single device)
+# ---------------------------------------------------------------------------
+
+
+def llama_loss_fn(
+    params: dict,
+    tokens: torch.Tensor,
+    config: LlamaConfig,
+    attention_fn=None,
+    remat: bool = False,
+) -> torch.Tensor:
+    """Next-token cross-entropy in fp32 through the fused readout
+    (:func:`.train.fused_next_token_nll` over :func:`readout_weights`)."""
+    from .train import fused_next_token_nll
+
+    return fused_next_token_nll(
+        readout_weights(params),
+        llama_forward_hidden(params, tokens, config, attention_fn,
+                             remat=remat),
+        tokens,
+    )
+
+
+def init_llama_train_state(
+    generator: torch.Generator, config: LlamaConfig, train_config,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Seeded llama weights (:func:`init_llama_params`), AdamW and the
+    step count."""
+    from .train import init_train_state
+
+    return init_train_state(generator, config, train_config, device,
+                            init_fn=init_llama_params)
+
+
+def llama_mesh_loss(config: LlamaConfig, train_config):
+    """The family objective in :func:`.train.make_train_step`'s loss-seam
+    shape, ``loss(params, tokens, attention_fn)``: the seam's attention
+    (the GQA-native flash kernels on the card, which take the compact k/v;
+    dense with repeated k/v elsewhere) adapted in the prompt pass, under
+    ``train_config.remat``.  One objective for the full train step, the
+    LoRA step and the trainer's eval."""
+
+    def loss(params, tokens, attention_fn=None):
+        return llama_loss_fn(params, tokens, config, attention_fn,
+                             remat=train_config.remat)
+
+    return loss
+
+
+def make_llama_train_step(config: LlamaConfig, train_config,
+                          device: str | torch.device = "cuda"):
+    """One optimizer step of the llama through
+    :func:`.train.make_train_step`'s seams: :func:`llama_mesh_loss` as the
+    objective and ``config.sliding_window`` bound into the attention (the
+    windowed kernels' tile skip on the card, the windowed dense mask on
+    the CPU)."""
+    from .train import make_train_step
+
+    return make_train_step(config, train_config, device,
+                           loss=llama_mesh_loss(config, train_config),
+                           window=config.sliding_window)
 
 
 # ---------------------------------------------------------------------------

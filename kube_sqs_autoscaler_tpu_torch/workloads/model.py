@@ -62,13 +62,16 @@ def init_params(
     config: ModelConfig,
     generator: torch.Generator,
     device: str | torch.device = "cuda",
+    dense_mlp: bool = True,
 ) -> dict:
     """Scaled-normal initialization in the reference's layout (std 0.02,
     GPT-2-style ``0.02 / sqrt(2 * n_layers)`` on the output projections).
 
     ``generator`` is a CPU :class:`torch.Generator`: the weights are drawn
     in fp32 on the host, so a seed gives the same weights on every device,
-    then cast to ``config.dtype`` and moved to ``device``."""
+    then cast to ``config.dtype`` and moved to ``device``.
+    ``dense_mlp=False`` leaves out ``w_up``/``w_down`` (the reference's
+    flag for routed experts, :mod:`.moe`)."""
     dtype = config.dtype
 
     def normal(shape, scale):
@@ -91,16 +94,18 @@ def init_params(
     }
     out_scale = 0.02 / (2 * config.n_layers) ** 0.5
     for _ in range(config.n_layers):
-        params["layers"].append({
+        layer = {
             "ln1_scale": ones(),
             "ln1_bias": zeros(),
             "wqkv": normal((d, 3 * d), 0.02),
             "wo": normal((d, d), out_scale),
             "ln2_scale": ones(),
             "ln2_bias": zeros(),
-            "w_up": normal((d, config.d_ff), 0.02),
-            "w_down": normal((config.d_ff, d), out_scale),
-        })
+        }
+        if dense_mlp:
+            layer["w_up"] = normal((d, config.d_ff), 0.02)
+            layer["w_down"] = normal((config.d_ff, d), out_scale)
+        params["layers"].append(layer)
     return params
 
 
@@ -219,19 +224,20 @@ def _mlp(x: torch.Tensor, layer: dict) -> torch.Tensor:
 
 def _block(
     x: torch.Tensor, layer: dict, config: ModelConfig, attend,
-    x32: torch.Tensor,
+    x32: torch.Tensor, mlp=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One pre-LN block: attention then MLP, residual around both.
     ``attend(q, k, v) -> [B, H, S, D]`` is the attention seam (dense,
-    flash, or a cache-writing closure in :mod:`.decode`).  ``x32`` is
-    ``x`` unrounded (fp32), which the first norm reads.  Returns the
-    block's output and its fp32 value."""
+    flash, or a cache-writing closure in :mod:`.decode`); ``mlp(h,
+    layer)`` the MLP seam (the dense GELU MLP by default, the routed
+    experts of :mod:`.moe`).  ``x32`` is ``x`` unrounded (fp32), which the
+    first norm reads.  Returns the block's output and its fp32 value."""
     dtype = x.dtype
     h = _layer_norm(x32, layer["ln1_scale"], layer["ln1_bias"], dtype)
     q, k, v = _project_qkv(h, layer, config)
     x, x32 = _residual(x, _merge_heads(attend(q, k, v), config) @ layer["wo"])
     h2 = _layer_norm(x32, layer["ln2_scale"], layer["ln2_bias"], dtype)
-    return _residual(x, _mlp(h2, layer))
+    return _residual(x, (mlp or _mlp)(h2, layer))
 
 
 def _embed(
@@ -251,8 +257,11 @@ def forward_hidden(
     config: ModelConfig,
     attention_fn=None,
     remat: bool = False,
+    mlp=None,
 ) -> torch.Tensor:
     """Final layernormed hidden states ``[batch, seq, d_model]``.
+    ``mlp(h, layer)`` replaces the dense MLP (the reference's seam, which
+    :mod:`.moe` rides).
 
     ``remat=True`` wraps each block in
     :func:`torch.utils.checkpoint.checkpoint` (the reference's
@@ -268,10 +277,10 @@ def forward_hidden(
     attend = attention_fn or _dense_attention
     for layer in params["layers"]:
         if remat:
-            x, x32 = checkpoint(_block, x, layer, config, attend, x32,
+            x, x32 = checkpoint(_block, x, layer, config, attend, x32, mlp,
                                 use_reentrant=False)
         else:
-            x, x32 = _block(x, layer, config, attend, x32)
+            x, x32 = _block(x, layer, config, attend, x32, mlp)
     return _layer_norm(x32, params["final_ln_scale"], params["final_ln_bias"],
                        x.dtype)
 
@@ -286,13 +295,14 @@ def forward(
     tokens: torch.Tensor,
     config: ModelConfig,
     attention_fn=None,
+    mlp=None,
 ) -> torch.Tensor:
     """Logits ``[batch, seq, vocab]`` (fp32) for int ``[batch, seq]``
     tokens.  ``attention_fn`` replaces the attention inner op
     (``[B,H,S,D]^3 -> out``; dense by default, the flash kernel on the
-    card via :func:`.flash.attention_fn_for`)."""
+    card via :func:`.flash.attention_fn_for`); ``mlp`` the MLP."""
     return unembed(
-        forward_hidden(params, tokens, config, attention_fn),
+        forward_hidden(params, tokens, config, attention_fn, mlp=mlp),
         params["embed"],
     )
 

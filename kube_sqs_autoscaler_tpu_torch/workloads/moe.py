@@ -1,0 +1,353 @@
+"""Mixture-of-Experts MLP for both families, on one device.
+
+Counterpart of ``kube_sqs_autoscaler_tpu/workloads/moe.py`` without its
+mesh (expert parallelism over the ``data`` axis), zig-zag and pipeline
+steps, which wait for ROADMAP Queue 1 item 5.  The routing is the
+reference's GShard dense dispatch, kept as it is:
+
+- **Dense dispatch**: routing is one-hot ``[G, T, E, C]`` dispatch and
+  combine tensors with a static per-expert capacity ``C``, and the
+  tokens reach the experts and come back through two einsums.  It is a
+  plain large product the reference computes outside any kernel, so
+  ``torch.einsum`` computes it here.  At the flagship width it costs more
+  than the experts themselves (see ``PERF.md``); making it cheaper is
+  performance work, not a port.
+- **Groups over the flattened stream**: tokens are routed over the
+  flattened ``[B*S]`` stream in groups of ``MoeConfig.group_size``
+  (default: the largest divisor of the token count up to
+  :data:`DEFAULT_GROUP_TOKENS`), so routing and capacity depend on the
+  token stream alone, not on how the batch is shaped.
+- **fp32 routing**: the router weight is fp32, its logits, softmax and
+  top-k run in fp32, and the combine is in fp32 so the gate weighting is
+  exact; the expert matmuls run in the model dtype.
+
+Load balancing is the Switch-Transformer auxiliary loss
+(``E * sum_e(frac_tokens_e * mean_prob_e)``), averaged over the layers
+and added to the objective with ``MoeConfig.aux_loss_weight``.
+
+Parameters keep the reference's names: per layer ``router [D, E]`` (fp32)
+and ``w_up_experts [E, D, F]`` (GELU experts) or ``w_gate_up_experts
+[E, D, 2F]`` (SwiGLU), and ``w_down_experts [E, F, D]``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from functools import partial
+
+import torch
+
+from .llama import (
+    init_llama_params, llama_forward, llama_forward_hidden, readout_weights,
+)
+from .model import (
+    ModelConfig, _gelu, forward, forward_hidden, init_params,
+)
+
+# Default routing-group budget (tokens): bounded groups keep the
+# [G, T, E, C] dispatch tensors linear in the batch size.
+DEFAULT_GROUP_TOKENS = 4096
+
+
+def _default_group(tokens: int) -> int:
+    """Largest divisor of ``tokens`` that is <= DEFAULT_GROUP_TOKENS — a
+    function of the token count alone, so routing stays invariant to a
+    batch reshape."""
+    group = min(DEFAULT_GROUP_TOKENS, tokens)
+    while tokens % group:
+        group -= 1
+    return group
+
+
+@dataclass(frozen=True)
+class MoeConfig:
+    """Routing hyper-parameters (defaults follow Switch/GShard practice).
+
+    ``group_size`` fixes the routing-group length in tokens over the
+    flattened ``[B*S]`` stream (``None`` = :func:`_default_group`).
+    Capacity is per group."""
+
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 1e-2
+    group_size: int | None = None
+
+    def __post_init__(self) -> None:
+        if not 1 <= self.top_k <= self.n_experts:
+            raise ValueError(
+                f"top_k={self.top_k} must be in [1, n_experts={self.n_experts}]"
+            )
+        if self.group_size is not None and self.group_size < 1:
+            raise ValueError(f"group_size={self.group_size} must be >= 1")
+
+    def capacity(self, tokens_per_group: int) -> int:
+        """Static per-expert slot count for a group of that many tokens."""
+        return max(
+            1,
+            math.ceil(
+                self.top_k * tokens_per_group * self.capacity_factor
+                / self.n_experts
+            ),
+        )
+
+
+def _add_expert_weights(params: dict, config, moe: MoeConfig,
+                        generator: torch.Generator, device,
+                        up_name: str, up_cols: int) -> dict:
+    """Attach ``router`` (fp32) and the stacked expert weights to every
+    layer of a dense-MLP-free parameter dict: std 0.02, ``0.02 / sqrt(2 *
+    n_layers)`` on ``w_down_experts``, drawn in fp32 on the host."""
+    out_scale = 0.02 / (2 * config.n_layers) ** 0.5
+
+    def normal(shape, scale, dtype):
+        draw = torch.randn(shape, generator=generator, dtype=torch.float32)
+        return (draw * scale).to(device=device, dtype=dtype)
+
+    for layer in params["layers"]:
+        # the router stays fp32: routing decisions are precision-sensitive
+        layer["router"] = normal((config.d_model, moe.n_experts), 0.02,
+                                 torch.float32)
+        layer[up_name] = normal((moe.n_experts, config.d_model, up_cols),
+                                0.02, config.dtype)
+        layer["w_down_experts"] = normal(
+            (moe.n_experts, config.d_ff, config.d_model), out_scale,
+            config.dtype)
+    return params
+
+
+def init_moe_params(config: ModelConfig, moe: MoeConfig,
+                    generator: torch.Generator,
+                    device: str | torch.device = "cuda") -> dict:
+    """The GPT's parameters with every layer's dense MLP replaced by
+    ``router`` and stacked GELU expert weights."""
+    params = init_params(config, generator, device, dense_mlp=False)
+    return _add_expert_weights(params, config, moe, generator, device,
+                               "w_up_experts", config.d_ff)
+
+
+def init_llama_moe_params(config, moe: MoeConfig,
+                          generator: torch.Generator,
+                          device: str | torch.device = "cuda") -> dict:
+    """Llama parameters with every layer's SwiGLU replaced by ``router``
+    and stacked SwiGLU expert weights (``w_gate_up_experts [E, D, 2F]``,
+    ``w_down_experts [E, F, D]``)."""
+    params = init_llama_params(config, generator, device, dense_mlp=False)
+    return _add_expert_weights(params, config, moe, generator, device,
+                               "w_gate_up_experts", 2 * config.d_ff)
+
+
+def _one_hot(index: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    # jax.nn.one_hot: an index outside [0, n) gives a row of zeros
+    return (index[..., None] == torch.arange(n, device=index.device)).to(dtype)
+
+
+def _top_k_routing(probs: torch.Tensor, moe: MoeConfig, capacity: int):
+    """Greedy top-k assignment with per-expert capacity.
+
+    ``probs``: fp32 ``[G, T, E]`` router softmax.  Returns ``dispatch
+    [G, T, E, C]`` (0/1), ``combine [G, T, E, C]`` (gate-weighted
+    dispatch) and the Switch aux loss.  A token that overflows an
+    expert's capacity is dropped for that choice; gates are renormalized
+    over the selected experts before the drop."""
+    groups, tokens, n_experts = probs.shape
+    remaining = probs
+    choices = []  # (expert one-hot [G, T, E], gate [G, T])
+    for _ in range(moe.top_k):
+        # argmax takes the first of equal values, as jnp.argmax does
+        onehot = _one_hot(remaining.argmax(dim=-1), n_experts, probs.dtype)
+        choices.append((onehot, (probs * onehot).sum(dim=-1)))
+        remaining = remaining * (1.0 - onehot)
+
+    gate_sum = sum(g for _, g in choices)
+    denom = torch.clamp(gate_sum, min=1e-9)
+
+    dispatch = probs.new_zeros((groups, tokens, n_experts, capacity))
+    combine = torch.zeros_like(dispatch)
+    # slots already used per (group, expert) by earlier choices
+    used = probs.new_zeros((groups, n_experts))
+    for onehot, gate in choices:
+        # each token's position within its chosen expert's slot sequence
+        pos = torch.cumsum(onehot, dim=1) - onehot + used[:, None, :]
+        used = used + onehot.sum(dim=1)
+        kept = (onehot * (pos < capacity)).sum(dim=-1)  # [G, T] 0/1
+        slot = (pos * onehot).sum(dim=-1).to(torch.int64)
+        mask = onehot[..., None] * _one_hot(slot, capacity,
+                                            probs.dtype)[:, :, None, :]
+        mask = mask * kept[..., None, None]
+        dispatch = dispatch + mask
+        combine = combine + mask * (gate / denom)[..., None, None]
+
+    # Switch aux loss on the first-choice assignment fractions
+    frac_tokens = choices[0][0].mean(dim=(0, 1))  # [E]
+    mean_prob = probs.mean(dim=(0, 1))  # [E]
+    aux = n_experts * (frac_tokens * mean_prob).sum()
+    return dispatch, combine, aux
+
+
+def _routed_ffn(x: torch.Tensor, layer: dict, moe: MoeConfig, expert_ffn):
+    """The family-agnostic route / dispatch / combine skeleton:
+    ``[B, S, D] -> ([B, S, D], aux)``.  ``expert_ffn(expert_in, layer)``
+    maps ``[E, G, C, D] -> [E, G, C, D]``."""
+    b, s, d = x.shape
+    tokens = b * s
+    group = moe.group_size or _default_group(tokens)
+    if tokens % group:
+        raise ValueError(
+            f"batch of {tokens} tokens not divisible by group_size={group}"
+        )
+    xg = x.reshape(tokens // group, group, d)
+    capacity = moe.capacity(group)
+    logits = torch.einsum("gtd,de->gte", xg.float(), layer["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    dispatch, combine, aux = _top_k_routing(probs, moe, capacity)
+    # [G,T,E,C] x [G,T,D] -> [E,G,C,D]: the tokens to their experts
+    expert_in = torch.einsum("gtec,gtd->egcd", dispatch.to(x.dtype), xg)
+    expert_out = expert_ffn(expert_in, layer)
+    # the way back in fp32, so the gate weighting is exact
+    out = torch.einsum("gtec,egcd->gtd", combine, expert_out.float())
+    return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def _gelu_experts(expert_in: torch.Tensor, layer: dict) -> torch.Tensor:
+    hidden = _gelu(torch.einsum("egcd,edf->egcf", expert_in,
+                                layer["w_up_experts"]))
+    return torch.einsum("egcf,efd->egcd", hidden, layer["w_down_experts"])
+
+
+def _swiglu_experts(expert_in: torch.Tensor, layer: dict) -> torch.Tensor:
+    gate_up = torch.einsum("egcd,edf->egcf", expert_in,
+                           layer["w_gate_up_experts"])
+    gate, up = torch.chunk(gate_up, 2, dim=-1)
+    silu = gate * torch.reciprocal(1 + torch.exp(-gate))
+    return torch.einsum("egcf,efd->egcd", silu * up, layer["w_down_experts"])
+
+
+def moe_mlp(x: torch.Tensor, layer: dict, moe: MoeConfig):
+    """Sparse MLP of the GPT family: GELU experts behind the routing."""
+    return _routed_ffn(x, layer, moe, _gelu_experts)
+
+
+def llama_moe_mlp(x: torch.Tensor, layer: dict, moe: MoeConfig):
+    """Sparse MLP of the llama family: SwiGLU experts (fused gate and up
+    projection per expert) behind the same routing."""
+    return _routed_ffn(x, layer, moe, _swiglu_experts)
+
+
+def _collecting_mlp(expert_mlp, moe: MoeConfig):
+    """Wrap an ``(h, layer, moe) -> (out, aux)`` expert MLP as a
+    ``mlp(h, layer)`` seam that collects each layer's aux loss;
+    ``mean_aux()`` is their mean."""
+    aux_out = []
+
+    def sparse_mlp(h, layer):
+        out, aux = expert_mlp(h, layer, moe)
+        aux_out.append(aux)
+        return out
+
+    def mean_aux():
+        return sum(aux_out) / len(aux_out)
+
+    return sparse_mlp, mean_aux
+
+
+def moe_forward(params: dict, tokens: torch.Tensor, config: ModelConfig,
+                moe: MoeConfig, attention_fn=None):
+    """Logits and the mean auxiliary load-balance loss, through
+    :func:`.model.forward`'s ``mlp`` seam."""
+    sparse_mlp, mean_aux = _collecting_mlp(moe_mlp, moe)
+    logits = forward(params, tokens, config, attention_fn, mlp=sparse_mlp)
+    return logits, mean_aux()
+
+
+def llama_moe_forward(params: dict, tokens: torch.Tensor, config,
+                      moe: MoeConfig, attention_fn=None):
+    """Llama counterpart of :func:`moe_forward` (RoPE, GQA and RMSNorm
+    unchanged; the routed SwiGLU experts in the ``mlp`` seam)."""
+    sparse_mlp, mean_aux = _collecting_mlp(llama_moe_mlp, moe)
+    logits = llama_forward(params, tokens, config, attention_fn,
+                           mlp=sparse_mlp)
+    return logits, mean_aux()
+
+
+def moe_loss_fn(params: dict, tokens: torch.Tensor, config: ModelConfig,
+                moe: MoeConfig, attention_fn=None) -> torch.Tensor:
+    """Next-token cross-entropy plus the weighted aux loss (fp32)."""
+    from .train import fused_next_token_nll
+
+    sparse_mlp, mean_aux = _collecting_mlp(moe_mlp, moe)
+    x = forward_hidden(params, tokens, config, attention_fn, mlp=sparse_mlp)
+    nll = fused_next_token_nll(params["embed"], x, tokens)
+    return nll + moe.aux_loss_weight * mean_aux()
+
+
+def llama_moe_loss_fn(params: dict, tokens: torch.Tensor, config,
+                      moe: MoeConfig, attention_fn=None) -> torch.Tensor:
+    """Llama-family MoE objective (cross-entropy plus weighted aux)."""
+    from .train import fused_next_token_nll
+
+    sparse_mlp, mean_aux = _collecting_mlp(llama_moe_mlp, moe)
+    x = llama_forward_hidden(params, tokens, config, attention_fn,
+                             mlp=sparse_mlp)
+    nll = fused_next_token_nll(readout_weights(params), x, tokens)
+    return nll + moe.aux_loss_weight * mean_aux()
+
+
+def init_moe_train_state(generator: torch.Generator, config: ModelConfig,
+                         moe: MoeConfig, train_config,
+                         device: str | torch.device = "cuda") -> dict:
+    from .train import train_state
+
+    return train_state(init_moe_params(config, moe, generator, device),
+                       train_config)
+
+
+def init_llama_moe_train_state(generator: torch.Generator, config,
+                               moe: MoeConfig, train_config,
+                               device: str | torch.device = "cuda") -> dict:
+    from .train import train_state
+
+    return train_state(init_llama_moe_params(config, moe, generator, device),
+                       train_config)
+
+
+def _require_no_remat(train_config) -> None:
+    """The MoE objectives collect each layer's aux loss through a closure
+    over the ``mlp`` seam; a recomputing backward would run that closure
+    again.  Refuse the flag instead of ignoring it."""
+    if getattr(train_config, "remat", False):
+        raise ValueError(
+            "TrainConfig.remat is not supported for the MoE loss (the "
+            "aux-loss collection is incompatible with a recomputing "
+            "backward); set remat=False"
+        )
+
+
+def _make_moe_step(config, moe: MoeConfig, train_config, device, loss_fn):
+    from .train import make_train_step
+
+    _require_no_remat(train_config)
+    objective = partial(loss_fn, config=config, moe=moe)
+    return make_train_step(
+        config, train_config, device,
+        loss=lambda params, tokens, attention_fn: objective(
+            params, tokens, attention_fn=attention_fn),
+        # a llama MoE config may carry a window: it rides the same seam
+        window=getattr(config, "sliding_window", None),
+    )
+
+
+def make_moe_train_step(config: ModelConfig, moe: MoeConfig, train_config,
+                        device: str | torch.device = "cuda"):
+    """One MoE optimizer step of the GPT through
+    :func:`.train.make_train_step`'s loss seam."""
+    return _make_moe_step(config, moe, train_config, device, moe_loss_fn)
+
+
+def make_llama_moe_train_step(config, moe: MoeConfig, train_config,
+                              device: str | torch.device = "cuda"):
+    """The llama family's MoE optimizer step (same seams and
+    constraints as :func:`make_moe_train_step`)."""
+    return _make_moe_step(config, moe, train_config, device,
+                          llama_moe_loss_fn)

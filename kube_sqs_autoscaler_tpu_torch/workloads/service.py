@@ -57,27 +57,51 @@ def sampling_keys(seed: int, device: str | torch.device = "cuda"):
         yield generator
 
 
-def parse_request_body(body: str) -> np.ndarray | None:
-    """One message body (a JSON array of token ids) -> int32 ids, or
-    ``None`` for a malformed body, which is dropped."""
+def parse_request_body(body: str, tokenizer=None) -> np.ndarray | None:
+    """One message body -> int32 ids, or ``None`` for a malformed body,
+    which is dropped.  A JSON array of token ids always works; with a
+    ``tokenizer`` (anything with an HF-shaped ``encode(text) -> ids``),
+    plain text, a JSON string or ``{"text": ...}`` is encoded."""
     try:
-        return np.asarray(json.loads(body), np.int32).reshape(-1)
+        payload = json.loads(body)
     except Exception:
-        # the body comes off the queue unchecked and may fail to parse or
-        # convert in any way; a malformed body is consumed (deleted) with
-        # an error reply, never redelivered forever and never answered
-        # with a fabricated result
-        log.error("Dropping malformed message body: %.64r", body)
-        return None
+        payload = None
+    if payload is not None:
+        if tokenizer is not None:
+            text = None
+            if isinstance(payload, dict) and isinstance(payload.get("text"),
+                                                        str):
+                text = payload["text"]
+            elif isinstance(payload, str):
+                text = payload
+            if text is not None:
+                return np.asarray(tokenizer.encode(text),
+                                  np.int32).reshape(-1)
+        try:
+            return np.asarray(payload, np.int32).reshape(-1)
+        except Exception:
+            pass
+    if tokenizer is not None:
+        try:
+            return np.asarray(tokenizer.encode(body), np.int32).reshape(-1)
+        except Exception:
+            pass
+    # the body comes off the queue unchecked and may fail to parse or
+    # convert in any way; a malformed body is consumed (deleted) with an
+    # error reply, never redelivered forever and never answered with a
+    # fabricated result
+    log.error("Dropping malformed message body: %.64r", body)
+    return None
 
 
 def parse_tenant_request(
-    body: str, default_tenant: str = "default"
+    body: str, default_tenant: str = "default", tokenizer=None,
 ) -> tuple[str, np.ndarray | None, np.ndarray | None]:
     """One multi-tenant message body -> ``(tenant, prefix_ids, ids)``.
 
     The tenancy envelope is a JSON object ``{"tenant": "a", "prefix":
-    [...], "ids": [...]}``, ``tenant`` and ``prefix`` optional.  Any other
+    [...], "ids": [...]}`` (or ``"text"`` with a ``tokenizer``),
+    ``tenant`` and ``prefix`` optional.  Any other
     body goes to :func:`parse_request_body` as it is and lands on
     ``default_tenant`` with no prefix, so a tenancy worker serves plain
     traffic unchanged.  ``ids is None`` marks a malformed body (dropped
@@ -87,7 +111,7 @@ def parse_tenant_request(
     except Exception:
         payload = None
     if not isinstance(payload, dict):
-        return default_tenant, None, parse_request_body(body)
+        return default_tenant, None, parse_request_body(body, tokenizer)
     tenant = payload.get("tenant")
     tenant = tenant if isinstance(tenant, str) and tenant \
         else default_tenant
@@ -105,7 +129,7 @@ def parse_tenant_request(
         except Exception:
             log.error("Dropping malformed tenant body: %.64r", body)
             return tenant, prefix, None
-    return tenant, prefix, parse_request_body(body)
+    return tenant, prefix, parse_request_body(body, tokenizer)
 
 
 # Tenant labels come from untrusted message bodies: per-tenant attribution
@@ -142,13 +166,16 @@ def tenant_completions(replies: dict[str, dict]) -> dict[str, int]:
     return counts
 
 
-def build_token_reply(tokens, eos_id: int | None) -> dict:
+def build_token_reply(tokens, eos_id: int | None, tokenizer=None) -> dict:
     """One generate-mode reply payload: ``{"tokens": [...]}`` trimmed at
-    ``eos_id``."""
+    ``eos_id``, plus ``{"text": ...}`` when a ``tokenizer`` decodes."""
     ids = [int(t) for t in tokens]
     if eos_id is not None and eos_id in ids:
         ids = ids[: ids.index(eos_id)]
-    return {"tokens": ids}
+    payload = {"tokens": ids}
+    if tokenizer is not None:
+        payload["text"] = tokenizer.decode(ids)
+    return payload
 
 
 def request_id(message: dict) -> str:
@@ -285,7 +312,9 @@ class QueueWorker:
     :func:`sampling_keys`.  The generate default decodes through the int8
     cache under ``ServiceConfig.quantized_kv`` and, given a
     ``prefix_cache`` (the family's ``prefill_prefix`` in that layout),
-    continues each body from the shared prefix."""
+    continues each body from the shared prefix.  A ``tokenizer`` (HF-shaped
+    ``encode`` / ``decode``) encodes text bodies and adds the decoded
+    ``text`` to generate-mode replies."""
 
     def __init__(
         self,
@@ -298,9 +327,11 @@ class QueueWorker:
         result_queue: MessageQueue | None = None,
         device: str | torch.device = "cuda",
         prefix_cache: dict | None = None,
+        tokenizer=None,
     ) -> None:
         self.queue = queue
         self.params = params
+        self.tokenizer = tokenizer
         self.model_config = model_config
         self.config = service_config
         self.device = resolve_device(device)
@@ -374,7 +405,7 @@ class QueueWorker:
         """(tokens ``[batch, bucket]``, lengths ``[batch]``, per-body
         validity) on the worker's device; dropped bodies occupy a
         one-pad-token row, flagged invalid."""
-        raw = [parse_request_body(body) for body in bodies]
+        raw = [parse_request_body(body, self.tokenizer) for body in bodies]
         valid = [ids is not None for ids in raw]
         parsed: list[np.ndarray] = [
             (ids if ids is not None else np.zeros((0,), np.int32))
@@ -417,7 +448,7 @@ class QueueWorker:
                 ).cpu().numpy()
                 self.generated_tokens += produced[: len(messages)].size
                 results = [
-                    build_token_reply(row, config.eos_id)
+                    build_token_reply(row, config.eos_id, self.tokenizer)
                     for row in produced[: len(messages)]
                 ]
             else:

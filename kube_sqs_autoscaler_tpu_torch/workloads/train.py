@@ -5,7 +5,9 @@ Counterpart of the single-device part of
 next-token NLL with its memory-lean fused readout), AdamW with the
 reference's warmup-cosine schedule and global-norm clip, fp32 gradient
 accumulation, and the step that ties them together.  The reference's mesh,
-sharding and ring-attention functions are not ported yet.
+sharding and ring-attention functions wait for the mesh (ROADMAP Queue 1
+item 5).  :func:`make_train_step` keeps the reference's ``loss=`` and
+``window=`` seams, through which the llama, MoE and LoRA steps run.
 
 Where the two frameworks differ:
 
@@ -99,20 +101,39 @@ def _linear(init: float, end: float, steps: int, count: int) -> float:
     return (init - end) * frac + end
 
 
-def param_leaves(params: dict) -> list[torch.Tensor]:
-    """The parameter dict's tensors in a fixed order (top level by name,
-    then each layer by name)."""
-    top = [params[name] for name in sorted(params) if name != "layers"]
-    return top + [layer[name] for layer in params["layers"]
-                  for name in sorted(layer)]
+def _keys(tree: dict) -> list:
+    # top level by name with "layers" last, as the port has always ordered
+    # its parameters
+    return sorted(k for k in tree if k != "layers") + (
+        ["layers"] if "layers" in tree else [])
 
 
-def _unflatten(params: dict, leaves) -> dict:
+def param_leaves(params) -> list[torch.Tensor]:
+    """The tensors of a nested dict / list tree in a fixed order: each
+    dict's entries by name (``layers`` last), each list in order.  For the
+    model's parameter dict that is the top level by name, then each layer
+    by name; MoE expert stacks and LoRA adapter trees nest the same way."""
+    if isinstance(params, torch.Tensor):
+        return [params]
+    if isinstance(params, dict):
+        return [leaf for key in _keys(params)
+                for leaf in param_leaves(params[key])]
+    return [leaf for item in params for leaf in param_leaves(item)]
+
+
+def _unflatten(params, leaves):
+    """A tree shaped like ``params`` holding ``leaves`` in
+    :func:`param_leaves` order."""
     leaves = iter(leaves)
-    out = {name: next(leaves) for name in sorted(params) if name != "layers"}
-    out["layers"] = [{name: next(leaves) for name in sorted(layer)}
-                     for layer in params["layers"]]
-    return out
+
+    def build(tree):
+        if isinstance(tree, torch.Tensor):
+            return next(leaves)
+        if isinstance(tree, dict):
+            return {key: build(tree[key]) for key in _keys(tree)}
+        return [build(item) for item in tree]
+
+    return build(params)
 
 
 def clip_by_global_norm(grads: list[torch.Tensor],
@@ -153,6 +174,43 @@ class AdamW:
         self.adamw.step()
         for leaf in self.leaves:
             leaf.grad = None
+
+    def moments(self, count: int) -> dict:
+        """The optimizer's state in plain tensors and ints, in
+        :attr:`leaves` order (``optax``'s ``mu``, ``nu`` and ``count``):
+        what a checkpoint stores.  Zeros before the first update."""
+        state = self.adamw.state
+        return {
+            "count": int(count),
+            "mu": [state[leaf]["exp_avg"] if leaf in state
+                   else torch.zeros_like(leaf) for leaf in self.leaves],
+            "nu": [state[leaf]["exp_avg_sq"] if leaf in state
+                   else torch.zeros_like(leaf) for leaf in self.leaves],
+        }
+
+    def load_moments(self, moments: dict) -> None:
+        """Restore :meth:`moments`: the next update continues the saved
+        run's exactly."""
+        if len(moments["mu"]) != len(self.leaves):
+            raise ValueError(
+                f"checkpoint holds {len(moments['mu'])} moment tensors, the "
+                f"optimizer has {len(self.leaves)} parameters"
+            )
+        self.adamw.state.clear()
+        if not moments["count"]:
+            return
+        for leaf, mu, nu in zip(self.leaves, moments["mu"], moments["nu"]):
+            if mu.shape != leaf.shape or nu.shape != leaf.shape:
+                raise ValueError(
+                    f"checkpoint moment of shape {tuple(mu.shape)} for a "
+                    f"parameter of shape {tuple(leaf.shape)}"
+                )
+            self.adamw.state[leaf] = {
+                "step": torch.tensor(float(moments["count"]),
+                                     dtype=torch.float32),
+                "exp_avg": mu.to(device=leaf.device, dtype=leaf.dtype),
+                "exp_avg_sq": nu.to(device=leaf.device, dtype=leaf.dtype),
+            }
 
 
 def make_optimizer(config: TrainConfig, params: dict) -> AdamW:
@@ -279,26 +337,33 @@ def accumulate_value_and_grad(vag, accum: int):
     return wrapped
 
 
-def make_train_step(model_config: ModelConfig, train_config: TrainConfig,
-                    device: str | torch.device = "cuda", attention_fn=None):
+def make_train_step(model_config, train_config: TrainConfig,
+                    device: str | torch.device = "cuda", attention_fn=None,
+                    loss=None, window: int | None = None):
     """``step_fn(state, tokens) -> (state, loss)``: one optimizer step on
     ``[B, S]`` tokens, updating ``state`` in place.  The attention is
     ``flash.attention_fn_for(S, device, head_dim)`` — the CUDA kernels,
     forward and backward, on the card at the head dims they take; dense on
-    the CPU and at any other head dim — unless ``attention_fn`` is
-    given.  ``loss`` is a detached fp32 scalar on the device (reading it
+    the CPU and at any other head dim — with ``window`` bound in, unless
+    ``attention_fn`` is given.  ``loss(params, tokens, attention_fn) ->
+    scalar`` overrides the objective (default :func:`loss_fn` under
+    ``train_config.remat``; the llama, MoE and LoRA steps pass theirs), so
+    every family gets the same attention pick, accumulation, clip and
+    AdamW.  ``loss`` is a detached fp32 scalar on the device (reading it
     is the caller's sync point)."""
-    from .flash import attention_fn_for
+    from .flash import attention_fn_for, windowed
 
-    attend = attention_fn or attention_fn_for(
-        model_config.max_seq_len, device, model_config.head_dim)
-
-    def loss(params, tokens):
-        return loss_fn(params, tokens, model_config, attend,
-                       remat=train_config.remat)
+    attend = attention_fn or windowed(
+        attention_fn_for(model_config.max_seq_len, device,
+                         model_config.head_dim), window)
+    if loss is None:
+        def loss(params, tokens, attention_fn):
+            return loss_fn(params, tokens, model_config, attention_fn,
+                           remat=train_config.remat)
 
     compute_grads = accumulate_value_and_grad(
-        lambda params, tokens: value_and_grad(loss, params, tokens),
+        lambda params, tokens: value_and_grad(
+            lambda p, t: loss(p, t, attend), params, tokens),
         train_config.grad_accum,
     )
 

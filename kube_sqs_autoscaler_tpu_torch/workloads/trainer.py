@@ -1,58 +1,86 @@
 """Trainer binary: ``python -m kube_sqs_autoscaler_tpu_torch.workloads.trainer``.
 
-Counterpart of ``python -m kube_sqs_autoscaler_tpu.workloads.trainer`` in
-its GPT, single-device, dense branch: seeded weights, the synthetic token
-stream prefetched to the device, the train step of :mod:`.train` (remat,
-grad accumulation, warmup-cosine schedule, global-norm clip), a fixed
-held-out eval set, and the reference's log line
-``step N loss L (steps/s, tokens/s, MFU)``.
+Counterpart of ``python -m kube_sqs_autoscaler_tpu.workloads.trainer`` on
+one device.  Both families (``--family gpt|llama``, the llama with GQA
+``--n-kv-heads`` and a Mistral-style ``--sliding-window``), dense or with
+routed experts (``--moe``), full training or rank-``r`` adapters on a
+frozen base (``--lora-rank``, with ``--moe`` too); seeded weights or an
+HF Llama/Mistral checkpoint (``--hf-checkpoint``); the synthetic token
+stream or an on-disk corpus (``--data-dir``, the native mmap reader);
+the train step of :mod:`.train` (remat, grad accumulation, warmup-cosine
+schedule, global-norm clip), a fixed held-out eval set, checkpoints with
+resume and retention (:mod:`.checkpoint`; the worker serves them), an HF
+export of the final weights (``--hf-export``), a ``torch.profiler``
+trace of the loop (``--profile-dir``) and ``/metrics`` with the train
+gauges (``--metrics-port``).  The log line is the reference's ``step N
+loss L (steps/s, tokens/s, MFU)``.
 
 It runs on the card (``--device cuda``, the default), where every
-attention forward and backward is a hand-written CUDA kernel, and exits
-with an error when there is none; ``--device cpu`` runs it on the CPU with
-dense attention.
+attention forward and backward is a hand-written CUDA kernel (the
+GQA-native and windowed kernels for the llama), and exits with an error
+when there is none; ``--device cpu`` runs it on the CPU with dense
+attention.
 
-Not ported yet (their flags are not accepted): the llama family, MoE,
-LoRA, the pipeline / sequence / model-parallel meshes and zig-zag,
-checkpoint/resume, HF import/export, on-disk corpora (``--data-dir``),
-device tracing (``--profile-dir``) and ``--metrics-port``.
+Every flag of the reference's parser is accepted.  Those that need a
+device mesh (``--model-parallel``, ``--seq-parallel``, ``--zigzag``,
+``--pipe-*``, ``--topology-mesh``) exit 2 naming ROADMAP Queue 1 item 5,
+which ports the mesh.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import itertools
+import json
 import logging
 import time
+from pathlib import Path
 
 import torch
 
 from ..device import resolve_device
 from ..utils.logging import configure_logging
-from .data import prefetch_to_device, synthetic_token_stream
-from .flash import attention_fn_for
+from ..utils.profiling import maybe_trace
+from .data import corpus_token_stream, prefetch_to_device, synthetic_token_stream
+from .flash import attention_fn_for, windowed
+from .llama import LlamaConfig
 from .model import ModelConfig, param_count
 from .perf import mfu as mfu_of, train_step_flops
-from .train import TrainConfig, init_train_state, loss_fn, make_train_step
+from .train import TrainConfig, loss_fn, next_token_nll
 
 log = logging.getLogger("trainer")
 
 EVAL_SEED_OFFSET = 0x5EED  # the held-out set's seed domain
+MESH_ITEM = "ROADMAP Queue 1 item 5"
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="kube-sqs-autoscaler-torch-trainer")
+    # model (defaults sized for a quick single-card run)
     parser.add_argument(
         "--family", choices=("gpt", "llama"), default="gpt",
-        help="gpt: learned positions/MHA/LayerNorm/GELU (llama is not "
-             "ported yet)",
+        help="gpt: learned positions/MHA/LayerNorm/GELU; "
+             "llama: RoPE/GQA/RMSNorm/SwiGLU",
     )
     parser.add_argument("--vocab-size", type=int, default=8192)
     parser.add_argument("--d-model", type=int, default=512)
     parser.add_argument("--n-heads", type=int, default=8)
+    parser.add_argument("--n-kv-heads", type=int, default=2,
+                        help="llama family only: GQA KV head count")
+    parser.add_argument(
+        "--sliding-window", type=int, default=0, metavar="W",
+        help="llama family only: Mistral-style sliding-window attention "
+             "(each position attends its last W keys; 0 = full causal)",
+    )
     parser.add_argument("--n-layers", type=int, default=4)
-    parser.add_argument("--d-ff", type=int, default=2048)
+    parser.add_argument(
+        "--d-ff", type=int, default=None,
+        help="default: 2048 (gpt GELU), 1408 (llama SwiGLU convention, "
+             "matching the serving binary)",
+    )
     parser.add_argument("--seq-len", type=int, default=256)
+    # schedule / optimization
     parser.add_argument("--steps", type=int, default=100)
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--learning-rate", type=float, default=3e-4)
@@ -61,23 +89,102 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--grad-accum", type=int, default=1)
     parser.add_argument(
         "--grad-clip-norm", type=float, default=0.0,
-        help="clip the global gradient norm to this before the AdamW "
-             "update (0 = off)",
+        help="clip the global gradient norm before the optimizer update "
+             "(0 = off)",
     )
     parser.add_argument("--remat", action="store_true")
+    # parallelism: each needs a device mesh, which is not ported yet
+    mesh = f" (needs a device mesh: not ported yet, {MESH_ITEM})"
+    parser.add_argument("--model-parallel", type=int, default=1,
+                        help="tensor-parallel degree" + mesh)
+    parser.add_argument("--seq-parallel", type=int, default=1,
+                        help="sequence-parallel degree" + mesh)
+    parser.add_argument(
+        "--zigzag", action="store_true",
+        help="balanced zig-zag schedule for the seq axis (needs "
+             "seq-parallel >= 2)" + mesh,
+    )
+    parser.add_argument(
+        "--pipe-parallel", type=int, default=1,
+        help="pipeline-parallel stages over a "
+             "('pipe','data'[,'model'|'seq']) mesh" + mesh,
+    )
+    parser.add_argument(
+        "--pipe-schedule", choices=("gpipe", "1f1b"), default="gpipe",
+        help="gpipe: all-forward-then-all-backward; 1f1b: interleaved, "
+             "min(M, P) live stage inputs" + mesh,
+    )
+    parser.add_argument(
+        "--pipe-microbatches", type=int, default=4,
+        help="microbatches per step; batch-size must divide by it" + mesh,
+    )
+    # mixture-of-experts (both families)
+    parser.add_argument(
+        "--moe", action="store_true",
+        help="replace the dense MLP with a top-k routed expert MLP (GELU "
+             "experts for gpt, SwiGLU experts for llama)",
+    )
+    parser.add_argument("--moe-experts", type=int, default=8)
+    parser.add_argument("--moe-top-k", type=int, default=2)
+    # parameter-efficient fine-tuning
+    parser.add_argument(
+        "--lora-rank", type=int, default=0,
+        help="train rank-N LoRA adapters on a frozen base instead of full "
+             "weights (0 = off); checkpoints save the MERGED weights, so "
+             "the serve binary works unchanged",
+    )
+    parser.add_argument("--lora-alpha", type=float, default=16.0)
+    parser.add_argument(
+        "--hf-checkpoint", default="", metavar="DIR",
+        help="start from a Hugging Face Llama checkpoint directory "
+             "(workloads.hf_convert; implies --family llama and the "
+             "architecture from its config) — the usual base for "
+             "--lora-rank fine-tuning",
+    )
+    parser.add_argument(
+        "--hf-export", default="", metavar="DIR",
+        help="after training, export the final weights (LoRA-merged when "
+             "--lora-rank is set) as a transformers-loadable Llama/"
+             "Mistral checkpoint directory (llama family only)",
+    )
+    parser.add_argument(
+        "--topology-mesh", action="store_true",
+        help="order devices along the physical interconnect" + mesh,
+    )
+    # data
+    parser.add_argument(
+        "--data-dir", default="", metavar="DIR",
+        help="train on an on-disk token corpus (*.bin shards + meta.json, "
+             "see native.tokenreader.write_token_shards) through the "
+             "native mmap reader; default: the synthetic stream",
+    )
+    # ops
+    parser.add_argument("--checkpoint-dir", default="")
+    parser.add_argument("--checkpoint-every", type=int, default=50)
+    parser.add_argument(
+        "--checkpoint-keep", type=int, default=0,
+        help="retain only the newest N step checkpoints (0 = keep all)",
+    )
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--profile-dir", default="")
+    parser.add_argument(
+        "--metrics-port", type=int, default=0,
+        help="serve /metrics with tokens/s, MFU and loss gauges "
+             "(0 = disabled)",
+    )
     parser.add_argument("--log-every", type=int, default=10)
     parser.add_argument(
         "--eval-every", type=int, default=0, metavar="N",
         help="every N steps, evaluate mean loss on a fixed held-out set "
-             "(--eval-batches batches from a disjoint seed domain; 0 = "
-             "no eval)",
+             "(--eval-batches batches drawn from a disjoint seed domain "
+             "of the same source; 0 = no eval)",
     )
     parser.add_argument("--eval-batches", type=int, default=4)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument(
         "--overfit", action="store_true",
-        help="repeat the first batch every step: the smoke test that the "
-             "whole stack can drive the loss toward zero",
+        help="repeat the first batch every step — the standard smoke test "
+             "that the whole stack can drive the loss toward zero",
     )
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
@@ -87,15 +194,301 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def setup(args) -> dict:
-    """The run's pieces from parsed flags: ``device``, ``model_config``,
-    ``state`` (seeded weights, AdamW) and ``step_fn``."""
-    if args.family != "gpt":
+def mesh_refusal(args) -> str | None:
+    """The message for a flag that needs a device mesh, or ``None``."""
+    for flag, used in (
+            ("--model-parallel", args.model_parallel != 1),
+            ("--seq-parallel", args.seq_parallel != 1),
+            ("--zigzag", args.zigzag),
+            ("--pipe-parallel", args.pipe_parallel != 1),
+            ("--pipe-schedule", args.pipe_schedule != "gpipe"),
+            ("--pipe-microbatches", args.pipe_microbatches != 4),
+            ("--topology-mesh", args.topology_mesh)):
+        if used:
+            return (f"{flag} needs a device mesh, which is not ported yet "
+                    f"({MESH_ITEM})")
+    return None
+
+
+def check_args(args) -> None:
+    """The reference's argument checks (``trainer.py:225-310``), before
+    any device work."""
+    if args.lora_rank and args.moe and args.zigzag:
         raise SystemExit(
-            f"error: --family {args.family} is not ported yet (gpt only)"
+            "--lora-rank with --moe does not combine with --zigzag"
         )
+    refusal = mesh_refusal(args)
+    if refusal:
+        raise SystemExit(refusal)
+    if args.sliding_window < 0:
+        raise SystemExit(
+            f"--sliding-window {args.sliding_window} must be >= 0 "
+            "(0 = full causal)"
+        )
+    if args.sliding_window and args.family != "llama":
+        raise SystemExit(
+            "--sliding-window is a llama-family knob (the gpt family has "
+            "no windowed config)"
+        )
+    if args.sliding_window and args.hf_checkpoint:
+        raise SystemExit(
+            "--sliding-window does not combine with --hf-checkpoint (the "
+            "HF config carries the architecture, window included — a "
+            "Mistral import brings its own)"
+        )
+    if args.hf_checkpoint:
+        if args.moe:
+            raise SystemExit(
+                "--hf-checkpoint is a llama-family base; it does not "
+                "combine with --moe"
+            )
+        if args.family != "llama":
+            log.info("--hf-checkpoint implies --family llama")
+            args.family = "llama"
     if args.eval_every > 0 and args.eval_batches < 1:
         raise SystemExit("--eval-every needs --eval-batches >= 1")
+    if args.hf_export:
+        for flag, bad in (("--family gpt", args.family != "llama"),
+                          ("--moe", args.moe)):
+            if bad:
+                raise SystemExit(
+                    f"--hf-export writes llama-family checkpoints; it "
+                    f"does not combine with {flag}"
+                )
+        # probe BEFORE training: a missing package discovered after a
+        # long run would lose the weights
+        if importlib.util.find_spec("transformers") is None:
+            raise SystemExit(
+                "--hf-export needs torch + transformers (No module named "
+                "'transformers')"
+            )
+    if args.data_dir:
+        from ..native.tokenreader import read_meta
+
+        try:
+            args.corpus_vocab = int(read_meta(args.data_dir)["vocab_size"])
+        except FileNotFoundError as err:
+            raise SystemExit(
+                f"--data-dir {args.data_dir}: {err} (write shards with "
+                "native.tokenreader.write_token_shards)"
+            ) from None
+
+
+def checkpoint_layout(args) -> dict | None:
+    """The manifest's ``layout`` record of this run (the reference's)."""
+    if args.moe:
+        layout = {"kind": "moe", "n_experts": args.moe_experts,
+                  "top_k": args.moe_top_k}
+        if args.lora_rank:
+            layout["lora_rank"] = args.lora_rank
+            layout["seed"] = args.seed
+        return layout
+    if args.lora_rank:
+        return {"kind": "lora", "rank": args.lora_rank, "seed": args.seed,
+                "base": args.hf_checkpoint or ""}
+    return None
+
+
+def open_checkpoints(args, model_config):
+    """The run's :class:`.checkpoint.TrainCheckpointer` (``None`` without
+    ``--checkpoint-dir``) after the reference's refusals: a directory with
+    steps and no ``--resume``; a manifest of another model; a manifest
+    without a layout record for a run that has one.  A new directory gets
+    the manifest."""
+    if not args.checkpoint_dir:
+        return None
+    from .checkpoint import (
+        MODEL_MANIFEST, TrainCheckpointer, load_model_layout,
+        load_model_manifest, save_model_manifest,
+    )
+
+    checkpointer = TrainCheckpointer(args.checkpoint_dir,
+                                     keep=args.checkpoint_keep)
+    latest = checkpointer.latest_step()
+    if latest is not None and not args.resume:
+        raise SystemExit(
+            f"checkpoint dir {args.checkpoint_dir} already has step "
+            f"{latest}; pass --resume to continue it or use a fresh dir"
+        )
+    layout = checkpoint_layout(args)
+    if (Path(args.checkpoint_dir) / MODEL_MANIFEST).exists():
+        prior_family, prior_config = load_model_manifest(args.checkpoint_dir)
+        prior_layout = load_model_layout(args.checkpoint_dir)
+        hint = ""
+        if (prior_layout is None) == (layout is None):
+            # the manifest keeps no dtype: compare the architecture
+            mismatch = (prior_family, prior_config, prior_layout) != (
+                args.family,
+                type(model_config)(**{**vars(model_config),
+                                      "dtype": prior_config.dtype}),
+                layout)
+        else:
+            # a manifest without a layout record cannot tell a dense run
+            # from a pre-layout-record --moe run: refuse with the fix
+            mismatch = True
+            if layout is not None:
+                hint = (
+                    "; if this dir WAS trained with these exact flags "
+                    "before the layout record existed, add "
+                    f'"layout": {json.dumps(layout)} to its '
+                    "model_config.json"
+                )
+        if mismatch:
+            raise SystemExit(
+                f"checkpoint dir {args.checkpoint_dir} was written by a "
+                f"{prior_family} run with {prior_config} "
+                f"(layout={prior_layout}); this run's flags describe a "
+                f"different model ({args.family}, {model_config}, "
+                f"layout={layout}){hint}"
+            )
+    else:
+        save_model_manifest(args.checkpoint_dir, args.family, model_config,
+                            layout=layout)
+    return checkpointer
+
+
+def build_model(args, device, train_config):
+    """``(model_config, moe_config, base_params, state)``: the run's model
+    and its train state.  A LoRA run's ``state`` is ``None`` (its frozen
+    base is ``base_params``); a full run's ``base_params`` is ``None``."""
+    from .train import init_train_state, train_state
+
+    d_ff = args.d_ff if args.d_ff is not None else (
+        1408 if args.family == "llama" else 2048)
+    generator = torch.Generator().manual_seed(args.seed)
+    moe_config = None
+    if args.moe:
+        from .moe import MoeConfig
+
+        moe_config = MoeConfig(n_experts=args.moe_experts,
+                               top_k=args.moe_top_k)
+    hf_base = None
+    if args.family == "llama":
+        from . import llama
+
+        if args.hf_checkpoint:
+            from .hf_convert import load_hf_llama
+
+            model_config, hf_base = load_hf_llama(args.hf_checkpoint,
+                                                  device=device)
+            log.info(
+                "HF base: %s (d_model=%d layers=%d heads=%d/%d)",
+                args.hf_checkpoint, model_config.d_model,
+                model_config.n_layers, model_config.n_heads,
+                model_config.n_kv_heads,
+            )
+            if model_config.max_seq_len < args.seq_len:
+                raise SystemExit(
+                    f"HF model max_seq_len={model_config.max_seq_len} < "
+                    f"--seq-len {args.seq_len}"
+                )
+        else:
+            model_config = LlamaConfig(
+                vocab_size=args.vocab_size, d_model=args.d_model,
+                n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
+                n_layers=args.n_layers, d_ff=d_ff, max_seq_len=args.seq_len,
+                sliding_window=args.sliding_window or None,
+            )
+        init_dense = llama.init_llama_params
+    else:
+        from .model import init_params as init_dense
+
+        model_config = ModelConfig(
+            vocab_size=args.vocab_size, d_model=args.d_model,
+            n_heads=args.n_heads, n_layers=args.n_layers, d_ff=d_ff,
+            max_seq_len=args.seq_len,
+        )
+    if args.moe:
+        from .moe import init_llama_moe_params, init_moe_params
+
+        init_routed = (init_llama_moe_params if args.family == "llama"
+                       else init_moe_params)
+        base = init_routed(model_config, moe_config, generator, device)
+    else:
+        base = hf_base if hf_base is not None else init_dense(
+            model_config, generator, device)
+    if args.lora_rank:
+        # params only: the base is frozen, so no full-model AdamW moments
+        return model_config, moe_config, base, None
+    return model_config, moe_config, None, train_state(base, train_config)
+
+
+def make_step(args, model_config, moe_config, train_config, device,
+              lora=None):
+    """The run's optimizer step: the family's objective (routed with
+    ``--moe``) through :func:`.train.make_train_step`, or the adapter-only
+    step of :mod:`.lora` on ``lora = (frozen_params, LoraConfig)``."""
+    from . import llama, moe
+
+    objective = None
+    if args.moe:
+        moe._require_no_remat(train_config)
+        routed = (moe.llama_moe_loss_fn if args.family == "llama"
+                  else moe.moe_loss_fn)
+
+        def objective(params, tokens, attention_fn):
+            return routed(params, tokens, model_config, moe_config,
+                          attention_fn)
+    elif args.family == "llama":
+        objective = llama.llama_mesh_loss(model_config, train_config)
+    if lora is not None:
+        from .lora import make_lora_train_step
+
+        frozen, lora_config = lora
+        return make_lora_train_step(model_config, train_config, frozen,
+                                    lora_config, device, loss=objective)
+    if args.moe:
+        make = (moe.make_llama_moe_train_step if args.family == "llama"
+                else moe.make_moe_train_step)
+        return make(model_config, moe_config, train_config, device)
+    if args.family == "llama":
+        return llama.make_llama_train_step(model_config, train_config,
+                                           device)
+    from .train import make_train_step
+
+    return make_train_step(model_config, train_config, device)
+
+
+def make_eval(args, model_config, moe_config, device, params_of):
+    """``eval_loss(state, tokens) -> float``: the pure LM loss with no
+    gradient (the aux term of ``--moe`` is a training regularizer, not a
+    quality signal); the no-lse flash forward on the card."""
+    window = getattr(model_config, "sliding_window", None)
+    attend = windowed(attention_fn_for(args.seq_len, device,
+                                       model_config.head_dim), window)
+    if args.moe:
+        from .moe import llama_moe_forward, moe_forward
+
+        forward = (llama_moe_forward if args.family == "llama"
+                   else moe_forward)
+
+        def loss(params, tokens):
+            logits, _aux = forward(params, tokens, model_config, moe_config,
+                                   attend)
+            return next_token_nll(logits, tokens)
+    elif args.family == "llama":
+        from .llama import llama_loss_fn
+
+        def loss(params, tokens):
+            return llama_loss_fn(params, tokens, model_config, attend)
+    else:
+        def loss(params, tokens):
+            return loss_fn(params, tokens, model_config, attend)
+
+    def eval_loss(state, tokens) -> float:
+        with torch.no_grad():
+            return float(loss(params_of(state), tokens))
+
+    return eval_loss
+
+
+def setup(args) -> dict:
+    """The run's pieces from parsed flags: ``device``, ``model_config``,
+    ``state`` (the train state, or a LoRA run's adapter state),
+    ``step_fn``, ``checkpointer`` (or ``None``), ``save_state`` (the
+    in-memory state's checkpointed form), ``params_of`` (the state's
+    effective parameters) and, for LoRA, ``lora``."""
+    check_args(args)
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
@@ -105,54 +498,117 @@ def setup(args) -> dict:
         decay_steps=args.decay_steps, remat=args.remat,
         grad_accum=args.grad_accum, grad_clip_norm=args.grad_clip_norm,
     )
-    model_config = ModelConfig(
-        vocab_size=args.vocab_size, d_model=args.d_model,
-        n_heads=args.n_heads, n_layers=args.n_layers, d_ff=args.d_ff,
-        max_seq_len=args.seq_len,
-    )
-    state = init_train_state(torch.Generator().manual_seed(args.seed),
-                             model_config, train_config, device)
+    model_config, moe_config, base, state = build_model(args, device,
+                                                        train_config)
+    if args.data_dir and args.corpus_vocab > model_config.vocab_size:
+        raise SystemExit(
+            f"corpus vocab_size={args.corpus_vocab} exceeds the model's "
+            f"vocab_size={model_config.vocab_size}"
+        )
+    log.info("Model: %s parameters on %s",
+             f"{param_count(base if state is None else state['params']):,}",
+             device)
+    lora = None
+
+    def save_state(s):
+        return s
+
+    def params_of(s):
+        return s["params"]
+
+    if args.lora_rank:
+        from .lora import (
+            LoraConfig, apply_lora, init_lora_train_state,
+            lora_checkpoint_state, lora_param_count,
+        )
+
+        lora_config = LoraConfig(rank=args.lora_rank, alpha=args.lora_alpha)
+        lora = (base, lora_config)
+        state = init_lora_train_state(
+            torch.Generator().manual_seed(args.seed + 1), base, lora_config,
+            train_config)
+
+        # checkpoints carry the MERGED weights (the worker serves them as
+        # any flat checkpoint) and the adapter state a resume restores
+        def save_state(s):
+            return lora_checkpoint_state(base, s, lora_config)
+
+        def params_of(s):
+            return apply_lora(base, s["adapters"], lora_config)
+
+        log.info("LoRA: rank %d, %s adapter parameters (base frozen)",
+                 args.lora_rank,
+                 f"{lora_param_count(state['adapters']):,}")
+    checkpointer = open_checkpoints(args, model_config)
+    if checkpointer is not None and args.resume:
+        latest = checkpointer.latest_step()
+        if latest is not None:
+            if args.lora_rank:
+                # adapter-only restore; the frozen base was just rebuilt
+                # from the same seed or HF source
+                checkpointer.restore_lora(state)
+            else:
+                checkpointer.restore(state)
+            log.info("Resumed from checkpoint step %d", latest)
     return {
-        "device": device, "model_config": model_config, "state": state,
-        "step_fn": make_train_step(model_config, train_config, device),
+        "device": device, "model_config": model_config,
+        "moe_config": moe_config, "state": state,
+        "step_fn": make_step(args, model_config, moe_config, train_config,
+                             device, lora),
+        "checkpointer": checkpointer, "save_state": save_state,
+        "params_of": params_of, "lora": lora,
     }
+
+
+def token_stream(args, vocab_size: int, seed: int, start_step: int):
+    """The run's batches from step ``start_step`` on: the corpus (a pure
+    function of (seed, step)) or the synthetic stream (skipping the
+    batches a resumed run already consumed)."""
+    if args.data_dir:
+        return corpus_token_stream(args.data_dir, args.batch_size,
+                                   args.seq_len, seed=seed,
+                                   start_step=start_step)
+    stream = synthetic_token_stream(vocab_size, args.batch_size,
+                                    args.seq_len, seed=seed)
+    for _ in range(start_step):
+        next(stream)
+    return stream
 
 
 def train(args) -> dict:
     """Run the loop; returns ``{"losses": [...], "final_step": int}`` plus
+    the final effective ``params`` (a LoRA run's merged) and
     ``steps_per_s``, ``tokens_per_s`` and ``mfu`` over every logged
     interval after the first (``None`` with a single interval; ``mfu`` is
     ``None`` off a known card)."""
     run = setup(args)
     device, model_config = run["device"], run["model_config"]
     state, step_fn = run["state"], run["step_fn"]
-    log.info("Model: %s parameters on %s",
-             f"{param_count(state['params']):,}", device)
+    checkpointer, save_state = run["checkpointer"], run["save_state"]
 
-    eval_data = None
-    eval_attention = attention_fn_for(args.seq_len, device,
-                                      model_config.head_dim)
+    start_step = state["step"]
+    last_saved = start_step if args.resume else None
+    eval_loss = eval_data = None
     if args.eval_every > 0:
+        eval_loss = make_eval(args, model_config, run["moe_config"], device,
+                              run["params_of"])
         # a fixed held-out set from a disjoint seed domain of the source
-        eval_stream = synthetic_token_stream(
-            model_config.vocab_size, args.batch_size, args.seq_len,
-            seed=args.seed + EVAL_SEED_OFFSET,
-        )
+        eval_stream = token_stream(args, model_config.vocab_size,
+                                   args.seed + EVAL_SEED_OFFSET, 0)
         eval_data = [torch.from_numpy(next(eval_stream)).to(device)
                      for _ in range(args.eval_batches)]
 
-    def run_eval() -> float:
-        # no recorded gradient: the attention runs the forward kernel
-        # without the lse
-        with torch.no_grad():
-            return sum(
-                float(loss_fn(state["params"], tokens, model_config,
-                              eval_attention))
-                for tokens in eval_data
-            ) / len(eval_data)
+    metrics = obs_server = None
+    if args.metrics_port:
+        from ..obs import ObservabilityServer, WorkloadMetrics
 
-    stream = synthetic_token_stream(model_config.vocab_size, args.batch_size,
-                                    args.seq_len, seed=args.seed)
+        metrics = WorkloadMetrics()
+        obs_server = ObservabilityServer(metrics, port=args.metrics_port)
+        obs_server.start()
+
+    # --overfit pins the step-0 batch on resume too
+    stream = token_stream(args, model_config.vocab_size, args.seed,
+                          0 if args.overfit else start_step)
     if args.overfit:
         stream = itertools.repeat(next(stream))
     batches = prefetch_to_device(stream, device)
@@ -166,39 +622,96 @@ def train(args) -> dict:
     # one-time costs (kernel builds, allocator growth, library set-up)
     interval_start = time.perf_counter()
     interval_steps = 0
-    for local_step in range(args.steps):
-        state, loss = step_fn(state, next(batches))
-        interval_steps += 1
-        step = state["step"]
-        if local_step % log_every == 0 or local_step == args.steps - 1:
-            loss_value = float(loss)  # sync point, only when logging
-            losses.append(loss_value)
-            now = time.perf_counter()
-            rate = ""
-            if local_step > 0:
-                steps_per_s = interval_steps / (now - interval_start)
-                tokens_per_s = steps_per_s * args.batch_size * args.seq_len
-                mfu_value = mfu_of(step_flops, 1.0 / steps_per_s, device)
-                timed_steps += interval_steps
-                timed_s += now - interval_start
-                rate = f" ({steps_per_s:.2f} steps/s, " \
-                       f"{tokens_per_s:.0f} tokens/s" + (
-                           f", {mfu_value:.1%} MFU"
-                           if mfu_value is not None else ""
-                       ) + ")"
-            interval_start = now
-            interval_steps = 0
-            log.info("step %d loss %.4f%s", step, loss_value, rate)
-        if eval_data is not None and step % args.eval_every == 0:
-            eval_loss = run_eval()
-            log.info("step %d eval_loss %.4f (%d held-out batches)",
-                     step, eval_loss, len(eval_data))
-            # eval time is not charged to the training interval
-            interval_start = time.perf_counter()
-            interval_steps = 0
+    try:
+        # --steps bounds the run, so tracing it (when asked) is bounded
+        with maybe_trace(args.profile_dir, device):
+            for local_step in range(args.steps):
+                state, loss = step_fn(state, next(batches))
+                interval_steps += 1
+                step = start_step + local_step + 1
+                if (local_step % log_every == 0
+                        or local_step == args.steps - 1):
+                    loss_value = float(loss)  # sync point, when logging
+                    losses.append(loss_value)
+                    now = time.perf_counter()
+                    rate = ""
+                    if local_step > 0:
+                        steps_per_s = interval_steps / (now - interval_start)
+                        tokens_per_s = (steps_per_s * args.batch_size
+                                        * args.seq_len)
+                        mfu_value = mfu_of(step_flops, 1.0 / steps_per_s,
+                                           device)
+                        timed_steps += interval_steps
+                        timed_s += now - interval_start
+                        rate = f" ({steps_per_s:.2f} steps/s, " \
+                               f"{tokens_per_s:.0f} tokens/s" + (
+                                   f", {mfu_value:.1%} MFU"
+                                   if mfu_value is not None else ""
+                               ) + ")"
+                        if metrics is not None:
+                            metrics.set_gauge(
+                                "train_tokens_per_sec", tokens_per_s,
+                                "Trainer throughput over the last log "
+                                "interval.")
+                            metrics.set_gauge(
+                                "train_steps_per_sec", steps_per_s,
+                                "Optimizer steps per second.")
+                            if mfu_value is not None:
+                                metrics.set_gauge(
+                                    "train_mfu", mfu_value,
+                                    "Model FLOPs utilization (per card).")
+                    if metrics is not None:
+                        metrics.set_gauge("train_loss", loss_value,
+                                          "Last logged training loss.")
+                        metrics.set_gauge("train_step", step,
+                                          "Global optimizer step.")
+                    interval_start = now
+                    interval_steps = 0
+                    log.info("step %d loss %.4f%s", step, loss_value, rate)
+                if eval_loss is not None and step % args.eval_every == 0:
+                    value = sum(eval_loss(state, tokens)
+                                for tokens in eval_data) / len(eval_data)
+                    log.info("step %d eval_loss %.4f (%d held-out batches)",
+                             step, value, len(eval_data))
+                    if metrics is not None:
+                        metrics.set_gauge(
+                            "eval_loss", value,
+                            "Mean loss on the fixed held-out batches.")
+                    # eval time is not charged to the training interval
+                    interval_start = time.perf_counter()
+                    interval_steps = 0
+                # checkpoint-every 0 = only the final save below
+                if (checkpointer is not None and args.checkpoint_every > 0
+                        and step % args.checkpoint_every == 0):
+                    # the write streams on a thread while training goes
+                    # on; the next save (or the final wait) joins it
+                    checkpointer.save(save_state(state), wait=False)
+                    last_saved = step
+                    log.info("Checkpointed step %d", step)
+        final_step = state["step"]
+        needs_final_save = checkpointer is not None and \
+            last_saved != final_step
+        final_state = (save_state(state)
+                       if needs_final_save or args.hf_export else None)
+        if needs_final_save:
+            checkpointer.save(final_state)
+        elif checkpointer is not None:
+            checkpointer.wait_until_finished()
+        if args.hf_export:
+            from .hf_convert import save_hf_llama
+
+            save_hf_llama(final_state["params"], model_config,
+                          args.hf_export)
+            log.info("Exported transformers checkpoint to %s",
+                     args.hf_export)
+    finally:
+        if obs_server is not None:
+            obs_server.stop()
     steps_per_s = timed_steps / timed_s if timed_steps else None
+    with torch.no_grad():
+        params = run["params_of"](state)
     return {
-        "losses": losses, "final_step": state["step"],
+        "losses": losses, "final_step": final_step, "params": params,
         "steps_per_s": steps_per_s,
         "tokens_per_s": steps_per_s and steps_per_s * args.batch_size
         * args.seq_len,
@@ -208,7 +721,12 @@ def train(args) -> dict:
 
 def main(argv=None) -> dict:
     configure_logging()
-    return train(build_parser().parse_args(argv))
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    refusal = mesh_refusal(args)
+    if refusal:
+        parser.error(refusal)  # exit 2, as a usage error
+    return train(args)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """The port stands alone: no ``jax`` and nothing of the JAX package.
 
 An AST scan of every module of ``kube_sqs_autoscaler_tpu_torch`` (its
-``comms``, ``core``, ``fleet``, ``metrics``, ``obs`` (``obs/lifecycle.py``
-included), ``planes``, ``scale``, ``sched``, ``sim``, ``utils`` and
+``comms``, ``core``, ``fleet``, ``metrics``, ``native``, ``obs``
+(``obs/lifecycle.py`` included), ``planes``, ``scale``, ``sched``, ``sim``, ``utils`` and
 ``workloads`` subpackages, ``cli.py`` and ``__main__.py``) and
 of
 ``chip_smoke.py`` finds no such import,
@@ -16,7 +16,12 @@ of both families, speculative and beam generation and their slot engines,
 a tenancy worker with its prefix pool, tenancy on a two-shard plane behind
 the sharded admission plane, speculative rows on the decode plane, a
 disaggregated prefill/decode pool with its KV handoff, traced and with a
-routed collective scheduler attached, and train step on the CPU.  The control-plane subpackages (and the ``planes`` package, whose
+routed collective scheduler attached, and train step on the CPU, then the
+rest of training: a windowed llama step, a llama MoE step, a LoRA step, a
+checkpoint saved and restored with its manifest, the HF state dicts and the
+native corpus reader (``transformers`` never imported; a separate scan
+finds it imported only inside the two HF directory functions and the
+worker's tokenizer path).  The control-plane subpackages (and the ``planes`` package, whose
 engines import lazily) import no torch at all, so importing the fleet
 starts no CUDA work and builds no kernel; the controller binary runs a
 ``FakeClock`` episode with its resilience layer and durable state in a
@@ -49,8 +54,8 @@ def absolute_imports(path: Path) -> list[str]:
     return names
 
 
-SUBPACKAGES = ("comms", "core", "fleet", "metrics", "obs", "planes",
-               "scale", "sched", "sim", "utils", "workloads")
+SUBPACKAGES = ("comms", "core", "fleet", "metrics", "native", "obs",
+               "planes", "scale", "sched", "sim", "utils", "workloads")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -70,11 +75,54 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
         assert PORT / "comms" / name in files
     for name in ("scheduler.py", "knobs.py", "fleet.py"):
         assert PORT / "sched" / name in files
+    for name in ("checkpoint.py", "moe.py", "lora.py", "hf_convert.py"):
+        assert PORT / "workloads" / name in files
+    for name in ("__init__.py", "tokenreader.py"):
+        assert PORT / "native" / name in files
     offenders = {
         str(path.relative_to(ROOT)): name
         for path in files for name in absolute_imports(path) if banned(name)
     }
     assert offenders == {}
+
+
+def transformers_import_sites(path: Path) -> list[str]:
+    """The enclosing function of every ``transformers`` import in a file
+    (``<module>`` at the top level)."""
+    sites = []
+
+    def visit(node, where):
+        for child in ast.iter_child_nodes(node):
+            inner = (child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else where)
+            names = []
+            if isinstance(child, ast.Import):
+                names = [alias.name for alias in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                names = [child.module]
+            if any(n == "transformers" or n.startswith("transformers.")
+                   for n in names):
+                sites.append(where)
+            visit(child, inner)
+
+    visit(ast.parse(path.read_text(), str(path)), "<module>")
+    return sites
+
+
+def test_transformers_is_imported_only_where_a_directory_is_read():
+    # the two HF directory functions and the worker's tokenizer path; the
+    # state-dict conversions, the trainer and the rest never import it
+    sites = {
+        str(path.relative_to(ROOT)): sorted(transformers_import_sites(path))
+        for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+        if transformers_import_sites(path)
+    }
+    assert sites == {
+        "kube_sqs_autoscaler_tpu_torch/workloads/hf_convert.py": [
+            "load_hf_llama", "save_hf_llama"],
+        "kube_sqs_autoscaler_tpu_torch/workloads/__main__.py": [
+            "load_tokenizer"],
+    }
 
 
 def test_banned_check_is_exact():
@@ -281,6 +329,48 @@ assert registry.replies == 3
 state = train.train_state(params, train.TrainConfig())
 step = train.make_train_step(cfg, train.TrainConfig(), "cpu")
 assert step(state, ids)[0]["step"] == 1
+# the rest of training: a windowed llama step, MoE, LoRA, a checkpoint
+# saved and restored, the HF state dicts and the native corpus reader
+import tempfile
+import numpy as np
+from kube_sqs_autoscaler_tpu_torch.workloads import (
+    checkpoint, data, hf_convert, lora, moe)
+from kube_sqs_autoscaler_tpu_torch.native import tokenreader
+wcfg = llama.LlamaConfig(vocab_size=64, d_model=64, n_heads=4, n_kv_heads=2,
+                         n_layers=1, d_ff=64, max_seq_len=32,
+                         sliding_window=4, dtype=torch.float32)
+lstate = llama.init_llama_train_state(torch.Generator().manual_seed(3), wcfg,
+                                      train.TrainConfig(), "cpu")
+lstate, lloss = llama.make_llama_train_step(wcfg, train.TrainConfig(),
+                                            "cpu")(lstate, ids)
+mcfg = moe.MoeConfig(n_experts=2, top_k=1)
+mstate = moe.init_llama_moe_train_state(torch.Generator().manual_seed(4),
+                                        wcfg, mcfg, train.TrainConfig(),
+                                        "cpu")
+mstate, _ = moe.make_llama_moe_train_step(wcfg, mcfg, train.TrainConfig(),
+                                          "cpu")(mstate, ids)
+lcfg_ = lora.LoraConfig(rank=2)
+astate = lora.init_lora_train_state(torch.Generator().manual_seed(5), params,
+                                    lcfg_, train.TrainConfig())
+astate, _ = lora.make_lora_train_step(cfg, train.TrainConfig(), params,
+                                      lcfg_, "cpu")(astate, ids)
+with tempfile.TemporaryDirectory() as tmp:
+    saver = checkpoint.TrainCheckpointer(tmp + "/ck")
+    saver.save(lstate)
+    again = llama.init_llama_train_state(torch.Generator().manual_seed(9),
+                                         wcfg, train.TrainConfig(), "cpu")
+    assert saver.restore(again)["step"] == 1
+    checkpoint.save_model_manifest(tmp + "/ck", "llama", wcfg)
+    family, read = checkpoint.load_model_manifest(tmp + "/ck")
+    assert family == "llama" and read.sliding_window == 4
+    tokenreader.write_token_shards(tmp + "/corpus", np.arange(500) % 64, 64)
+    batch = next(data.corpus_token_stream(tmp + "/corpus", 2, 8, seed=1))
+    assert batch.shape == (2, 8)
+back = hf_convert.llama_params_from_hf(
+    hf_convert.hf_state_dict_from_llama(lparams, lcfg), lcfg, device="cpu")
+assert all(torch.equal(a, b) for a, b in zip(train.param_leaves(back),
+                                             train.param_leaves(lparams)))
+assert "transformers" not in sys.modules
 assert not any(n.split(".")[0] in {banned} and sys.modules[n] is not None
                for n in sys.modules)
 print("ok")
@@ -312,6 +402,7 @@ def test_the_control_plane_imports_no_torch():
         "from kube_sqs_autoscaler_tpu_torch.sched import fleet as sf, knobs\n"
         "from kube_sqs_autoscaler_tpu_torch.obs import lifecycle\n"
         "from kube_sqs_autoscaler_tpu_torch.utils import profiling, sigv4\n"
+        "from kube_sqs_autoscaler_tpu_torch import native\n"
         "print(sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('torch', 'jax')))\n"
     )
