@@ -236,8 +236,30 @@ Phases (any failure makes the run exit non-zero and print no result):
    ``--data-dir`` through the native reader, built on first use; (g)
    ``--profile-dir`` (the trace names ``flash_bwd_dq``) and
    ``--metrics-port`` (a mid-run scrape has the train gauges);
-22. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-23. the last line, ``{"ok": true, "device": {...}}``.
+22. mesh: sequence and tensor parallelism, 2-4 ranks sharing the card
+   (``python -m torch.distributed.run --standalone``, gloo, each hop's and
+   collective's tensors staged through pinned host memory, so its times
+   are not multi-card numbers): (a) ring and zig-zag attention at ``sp =
+   4`` at the flagship attention shape stretched over the ring ((4, 16,
+   8192, 64) bf16), at (2, 8, 2048, 64) f32, at the llama's GQA (16 over
+   4 kv heads) and with a window of 512, output and q, k, v gradients
+   against one process's ``flash_attention`` over the whole sequence, each
+   rank's lse, dq and dk/dv launches exactly its live hops (ring ``d +
+   1``, zig-zag ``P + 1``); (b) the trainer binary at flagship width, 5
+   ``--overfit`` steps each: the GPT at S = 8192, B = 4 with
+   ``--seq-parallel 4``, ``--seq-parallel 4 --zigzag`` and
+   ``--model-parallel 2 --seq-parallel 2`` (whose checkpoint the
+   single-card worker serves, replies equal to serving the gathered
+   weights), the llama at S = 4096 with ``--seq-parallel 2
+   --sliding-window 512``: the first loss against one process's, falling
+   losses, exact per-rank launches, step time and per-rank peak memory;
+   (c) the flagship GPT cut to 4 layers for 3 steps with ``--moe
+   --seq-parallel 2 --zigzag`` (experts over the data axis) and
+   ``--lora-rank 8 --seq-parallel 2``; (d) an orbax-shaped step
+   directory refused by the worker and by ``--resume`` (exit 2); then
+   the three training kernels at the hop shapes, timed alone;
+23. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+24. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
@@ -7290,6 +7312,675 @@ def training_phase(torch, flash, smoke: Smoke, power: str,
     return out
 
 
+# ---------------------------------------------------------------------------
+# mesh: ring and zig-zag attention, and the trainer over ranks sharing the
+# card (torch.distributed.run, gloo with host-staged hops)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_TIMEOUT = 300  # seconds a launch of ranks may take, build included
+MESH_HOP_CASES = [
+    # (label, ring | zigzag, (B, H, H_kv, S, D), dtype, window)
+    ("ring-bf16", "ring", (4, 16, 16, 8192, 64), "bfloat16", None),
+    ("zigzag-bf16", "zigzag", (4, 16, 16, 8192, 64), "bfloat16", None),
+    ("ring-f32", "ring", (2, 8, 8, 2048, 64), "float32", None),
+    ("zigzag-f32", "zigzag", (2, 8, 8, 2048, 64), "float32", None),
+    ("ring-gqa", "ring", (4, 16, 4, 8192, 64), "bfloat16", None),
+    ("zigzag-gqa", "zigzag", (4, 16, 4, 8192, 64), "bfloat16", None),
+    ("ring-gqa-window512", "ring", (4, 16, 4, 8192, 64), "bfloat16", 512),
+]
+MESH_TRAIN_STEPS = 5
+# the hop cases whose ring call is also run under the sync debug mode
+MESH_SYNC_CASES = ("ring-gqa", "zigzag-gqa")
+# the flagship GPT stretched over the ring: S = 8192, B = 4
+MESH_GPT_ARGS = ["--d-model", "1024", "--n-heads", "16", "--n-layers", "8",
+                 "--d-ff", "4096", "--vocab-size", "8192", "--seq-len",
+                 "8192", "--batch-size", "4", "--device", "cuda"]
+# the flagship llama at S = 4096, B = 4, with the window
+MESH_LLAMA_ARGS = [*LLAMA_TRAIN_ARGS[:-6], "--seq-len", "4096",
+                   "--batch-size", "4", "--device", "cuda",
+                   "--sliding-window", "512"]
+MESH_TRAIN_RUNS = [
+    # (label, args, flags, mesh flags, seq_parallel, model_parallel,
+    #  zigzag, steps); all over the MESH_RANKS ranks, data parallel over
+    # what the mesh flags leave; the one-process run takes args + flags
+    ("gpt-sp4", MESH_GPT_ARGS, [], ["--seq-parallel", "4"], 4, 1, False,
+     MESH_TRAIN_STEPS),
+    ("gpt-sp4-zigzag", MESH_GPT_ARGS, [], ["--seq-parallel", "4",
+                                           "--zigzag"], 4, 1, True,
+     MESH_TRAIN_STEPS),
+    ("gpt-tp2-sp2", MESH_GPT_ARGS, [], ["--model-parallel", "2",
+                                        "--seq-parallel", "2"], 2, 2, False,
+     MESH_TRAIN_STEPS),
+    ("llama-dp2-sp2-window512", MESH_LLAMA_ARGS, [], ["--seq-parallel",
+                                                      "2"], 2, 1, False,
+     MESH_TRAIN_STEPS),
+    # (c) short runs: the flagship GPT cut to 4 layers, 3 steps
+    ("gpt4-moe-dp2-sp2-zigzag", SHORT_TRAIN_ARGS, ["--moe"],
+     ["--seq-parallel", "2", "--zigzag"], 2, 1, True, 3),
+    ("gpt4-lora8-dp2-sp2", SHORT_TRAIN_ARGS, ["--lora-rank", "8"],
+     ["--seq-parallel", "2"], 2, 1, False, 3),
+]
+# the mesh run's first two losses (at init, then after one update on the
+# same --overfit batch) against one process's on the same seed, tokens and
+# weights: bf16 activations, whose attention and reductions the ranks sum
+# in another order.  The readings on the H100 are the same from run to run
+# (PERF.md): dense runs up to 5.3e-5 and 5.1e-4 (the second loss moves
+# more: AdamW's first update is about lr * sign(g), so a gradient entry
+# near zero that rounds the other way moves by 2 * lr); the limits are ten
+# times those.  The MoE run has its own, three to five times its 1.9e-3
+# and 1.6e-2: a bf16 router logit that rounds the other way sends a token
+# to another expert
+MESH_LOSS_TOL = {"dense": (5e-4, 5e-3), "moe": (1e-2, 5e-2)}
+MESH_DIR = Path("build") / "chip_smoke" / "mesh"
+
+
+def ring_hops(size: int, me: int, seq_local: int, window) -> int:
+    """Live hops of rank ``me`` of plain ring attention: its own block and
+    every earlier rank's block the causal mask (and the window) reaches."""
+    hops = 1
+    for owner in range(me):
+        shift = (me - owner) * seq_local
+        if window is None or min(seq_local,
+                                 seq_local + window - shift - 1) > 0:
+            hops += 1
+    return hops
+
+
+def hop_launches(kind: str, size: int, me: int, seq_local: int, window):
+    """Each training kernel's launches of one ring call's forward and
+    backward on rank ``me``."""
+    return size + 1 if kind == "zigzag" else ring_hops(size, me, seq_local,
+                                                       window)
+
+
+def run_group(cmd: list[str], timeout: float, log: Path) -> int:
+    """Run ``cmd`` in a process group of its own with its output in
+    ``log``; a run past ``timeout`` is killed with every process it
+    started.  Returns the exit code (``None`` on a timeout)."""
+    import signal
+
+    log.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                cwd=str(ROOT), env=env,
+                                start_new_session=True)
+        try:
+            return proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            return None
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+
+def torchrun(nproc: int, args: list[str]) -> list[str]:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc-per-node={nproc}", *args]
+
+
+def mesh_hops_rank(torch, out: Path, mesh) -> None:
+    """The hop checks on one rank: each case's ring or zig-zag attention
+    on this rank's shards, its output and q, k, v gradients against one
+    process's ``flash.flash_attention`` over the whole sequence (computed
+    here on the same inputs), the kernels' launches of the call, and its
+    time."""
+    import torch.distributed as dist
+
+    from kube_sqs_autoscaler_tpu_torch.workloads import flash, ring, zigzag
+
+    ax = mesh.axis("seq")
+    result = {"rank": mesh.rank, "seq_index": ax.index,
+              "backend": mesh.transport.backend, "cases": {}}
+    for label, kind, (b, h, hkv, s, d), dtype_name, window in \
+            MESH_HOP_CASES:
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device="cuda").manual_seed(11)
+        q = torch.randn((b, h, s, d), generator=g, device="cuda").to(dtype)
+        k = torch.randn((b, hkv, s, d), generator=g, device="cuda").to(dtype)
+        v = torch.randn((b, hkv, s, d), generator=g, device="cuda").to(dtype)
+        dout = torch.randn((b, h, s, d), generator=g, device="cuda").to(
+            dtype)
+        full = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = flash.flash_attention(*full, causal=True, window=window)
+        want.backward(dout)
+        seq_local = s // ax.size
+        perm = (torch.as_tensor(zigzag.zigzag_permutation(s, ax.size))
+                if kind == "zigzag" else torch.arange(s))
+        idx = perm[ax.index * seq_local:(ax.index + 1) * seq_local].to(
+            "cuda")
+        attend = (zigzag.make_zigzag_ring_attention(mesh) if kind == "zigzag"
+                  else ring.make_ring_attention(mesh, window=window))
+        local = [t[:, :, idx].contiguous().requires_grad_()
+                 for t in (q, k, v)]
+        dout_local = dout[:, :, idx].contiguous()
+        dist.barrier()
+        zero_counts(flash)
+        got = attend(*local)
+        got.backward(dout_local)
+        torch.cuda.synchronize()
+        launches = counts(flash)
+        errs = {"out": scaled_err(got, want[:, :, idx])}
+        for name, mine, theirs in zip(("dq", "dk", "dv"), local, full):
+            errs[name] = scaled_err(mine.grad, theirs.grad[:, :, idx])
+
+        def fwd_bwd():
+            x = [t.detach().requires_grad_() for t in local]
+            attend(*x).backward(dout_local)
+
+        times = {}
+        for what, fn in (("fwd_ms", lambda: attend(*local)),
+                         ("fwd_bwd_ms", fwd_bwd)):
+            dist.barrier()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            times[what] = (time.perf_counter() - start) / 3 * 1e3
+        if label in MESH_SYNC_CASES:
+            times["sync"] = transport_only_syncs(torch, mesh, fwd_bwd)
+        result["cases"][label] = {"errs": errs, "launches": launches,
+                                  **times}
+        del full, want, local, got
+        torch.cuda.empty_cache()
+    (out / f"hops-rank{mesh.rank}.json").write_text(json.dumps(result))
+
+
+def transport_only_syncs(torch, mesh, fn) -> dict:
+    """``fn`` (one ring call's forward and backward, warm) under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the synchronizing calls it
+    made, beside the transport's own host-staging waits (one stream
+    ``synchronize`` before each gloo exchange, which the mode flags)."""
+    import warnings
+
+    before = mesh.transport.host_waits
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the mode's own one-time notice ("a prototype feature") is no sync
+    synced = [w for w in caught
+              if "called a synchronizing CUDA operation" in str(w.message)]
+    return {"flagged": len(synced),
+            "messages": sorted({str(w.message)[:80] for w in synced}),
+            "host_waits": mesh.transport.host_waits - before}
+
+
+def mesh_train_rank(torch, out: Path, label: str, argv: list[str]) -> None:
+    """One trainer run on one rank: ``trainer.main`` as the binary runs it,
+    then this rank's losses, step rate, kernel launches and peak memory
+    (rank 0 also saves the gathered parameters)."""
+    import torch.distributed as dist
+
+    from kube_sqs_autoscaler_tpu_torch.workloads import flash, trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    zero_counts(flash)
+    summary = trainer.main(argv)
+    torch.cuda.synchronize()
+    rank = dist.get_rank()
+    if rank == 0:
+        torch.save(summary["params"], out / f"{label}-params.pt")
+    (out / f"{label}-rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "losses": summary["losses"],
+        "steps_per_s": summary["steps_per_s"],
+        "tokens_per_s": summary["tokens_per_s"],
+        "launches": counts(flash),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}))
+    del summary
+
+
+def mesh_rank_main(argv: list[str]) -> int:
+    """``chip_smoke.py --mesh-rank OUT``: the rank side of the ``mesh``
+    phase, under ``torch.distributed.run``: the hop checks, then each
+    trainer run of :data:`MESH_TRAIN_RUNS`, in one process group."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    from kube_sqs_autoscaler_tpu_torch.workloads import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(argv[0])
+    distributed.initialize_from_env(device="cuda")
+    mesh = distributed.make_mesh(model_parallel=1, seq_parallel=MESH_RANKS,
+                                 device="cuda")
+    mesh_hops_rank(torch, out, mesh)
+    for label, base, flags, meshed, sp, tp, _, steps in MESH_TRAIN_RUNS:
+        extra = (["--checkpoint-dir", str(out / label), "--checkpoint-every",
+                  "0"] if tp > 1 else [])
+        mesh_train_rank(torch, out, label, [
+            *base, *flags, "--log-every", "1", "--overfit", *meshed, *extra,
+            "--steps", str(steps)])
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def check_hops(smoke: Smoke, ranks: list[dict], power: str) -> dict:
+    """(a) The hops: each case of :data:`MESH_HOP_CASES` on every rank
+    against one process's ``flash_attention``, and each rank's exact
+    launch counts."""
+    result = {"launches": {}, "cases": {}}
+    for label, kind, (b, h, hkv, s, d), dtype_name, window in \
+            MESH_HOP_CASES:
+        tol = TOL[dtype_name]
+        total = {}
+        per_rank = []
+        for r in ranks:
+            case = r["cases"][label]
+            me = r["seq_index"]
+            n = hop_launches(kind, MESH_RANKS, me, s // MESH_RANKS, window)
+            want = {"flash_fwd": 0, "flash_fwd_lse": n, "flash_bwd_dq": n,
+                    "flash_bwd_dkv": n}
+            worst = max(scaled for _, scaled in case["errs"].values())
+            smoke.check(
+                worst <= tol and case["launches"] == want,
+                f"mesh hops {label} rank {r['rank']} (seq {me}): out, dq, "
+                f"dk, dv vs one process's flash_attention over S={s}: "
+                + ", ".join(f"{n_}={e[1]:.3e}" for n_, e in
+                            case["errs"].items())
+                + f" (/max(1,|want|), tol {tol:g}); launches "
+                f"{case['launches']}, want {want}")
+            if "sync" in case:
+                sync = case["sync"]
+                smoke.check(
+                    0 < sync["host_waits"] == sync["flagged"],
+                    f"mesh hops {label} rank {r['rank']}: under "
+                    f"set_sync_debug_mode('warn') {sync['flagged']} "
+                    f"synchronizing calls, the transport's "
+                    f"{sync['host_waits']} host stagings (no other wait); "
+                    f"{sync['messages']}")
+            for name, value in case["launches"].items():
+                total[name] = total.get(name, 0) + value
+            per_rank.append({"rank": r["rank"], "fwd_ms": case["fwd_ms"],
+                             "fwd_bwd_ms": case["fwd_bwd_ms"],
+                             "launches": case["launches"],
+                             "max_scaled_err": worst})
+        print(f"mesh hops {label} {(b, h, hkv, s, d)} {dtype_name} window="
+              f"{window}: per-rank fwd ms "
+              f"{[round(p['fwd_ms'], 3) for p in per_rank]}, fwd+bwd ms "
+              f"{[round(p['fwd_bwd_ms'], 3) for p in per_rank]} "
+              f"({MESH_RANKS} ranks sharing one {power}, over "
+              f"{ranks[0]['backend']})", flush=True)
+        result["cases"][label] = per_rank
+        result["launches"][f"mesh-hops-{label}"] = total
+    return result
+
+
+def check_training(torch, smoke: Smoke, out: Path, power: str,
+                   one: dict) -> dict:
+    """(b) The trainer runs over the ranks: the first two losses against
+    one process's first two steps on the same seed, tokens and weights
+    (``one``), falling losses, each rank's launches exactly ``n_layers``
+    ring calls' worth a step; the tensor-parallel run's checkpoint served
+    by the single-card worker."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as worker
+    from kube_sqs_autoscaler_tpu_torch.workloads.checkpoint import (
+        load_model_manifest,
+    )
+
+    result = {"launches": {}, "runs": {}}
+    for label, base, flags, _, sp, tp, zz, steps in MESH_TRAIN_RUNS:
+        files = [out / f"{label}-rank{r}.json" for r in range(MESH_RANKS)]
+        if not all(f.exists() for f in files):
+            smoke.check(False, f"mesh {label}: a rank wrote no result")
+            continue
+        ranks = [json.loads(f.read_text()) for f in files]
+        losses = ranks[0]["losses"]
+        single = one[tuple(base + flags)]
+        first = single["losses"][0]
+        tols = MESH_LOSS_TOL["moe" if "--moe" in flags else "dense"]
+        diffs = [abs(a - b) for a, b in zip(losses, single["losses"])]
+        smoke.check(
+            len(diffs) == 2
+            and all(dd <= tol for dd, tol in zip(diffs, tols))
+            and all(r["losses"] == losses for r in ranks),
+            f"mesh {label}: the first two losses "
+            f"{[round(x, 6) for x in losses[:2]]} vs one process's "
+            f"{[round(x, 6) for x in single['losses']]} (|d| "
+            f"{[f'{dd:.2e}' for dd in diffs]}, tol {list(tols)}: bf16, "
+            "summed in another order); every rank reports the same losses")
+        smoke.check(len(losses) == steps
+                    and all(map(math.isfinite, losses))
+                    and losses[-1] < losses[0],
+                    f"mesh {label}: {steps} losses, finite and "
+                    f"falling: {[round(x, 4) for x in losses]}")
+        layers = int(base[base.index("--n-layers") + 1])
+        seq = int(base[base.index("--seq-len") + 1])
+        window = (int(base[base.index("--sliding-window") + 1])
+                  if "--sliding-window" in base else None)
+        total = {}
+        for r in ranks:
+            me = (r["rank"] // tp) % sp
+            n = hop_launches("zigzag" if zz else "ring", sp, me, seq // sp,
+                             window) * layers * steps
+            want = {"flash_fwd": 0, "flash_fwd_lse": n, "flash_bwd_dq": n,
+                    "flash_bwd_dkv": n}
+            smoke.check(r["launches"] == want,
+                        f"mesh {label} rank {r['rank']} (seq {me}): launches "
+                        f"{r['launches']}, want {want}")
+            for name, value in r["launches"].items():
+                total[name] = total.get(name, 0) + value
+        result["launches"][f"mesh-train-{label}"] = total
+        step_ms = 1e3 / ranks[0]["steps_per_s"]
+        peaks = [round(r["peak_gib"], 3) for r in ranks]
+        print(f"mesh train {label}: steady step {step_ms:.3f} ms, "
+              f"{ranks[0]['tokens_per_s']:.1f} tokens/s, per-rank peak "
+              f"memory {peaks} GiB; one process's step "
+              f"{single['step_ms']:.3f} ms, peak "
+              f"{single['peak_gib']:.3f} GiB "
+              f"({MESH_RANKS} ranks sharing one {power}, over gloo)",
+              flush=True)
+        result["runs"][label] = {"step_ms": step_ms, "peak_gib": peaks,
+                                 "losses": losses, "first_one": first,
+                                 "one_losses": single["losses"],
+                                 "loss_diffs": diffs,
+                                 "tokens_per_s": ranks[0]["tokens_per_s"]}
+        if tp > 1:
+            ckpt = out / label
+            family, config = load_model_manifest(ckpt)
+            args = ["--demo", "16", "--batch-size", "8", "--seq-len", "512",
+                    "--generate-tokens", "16", "--result-queue-url",
+                    "demo://replies", "--device", "cuda"]
+            served = worker.main([*args, "--checkpoint-dir", str(ckpt)])
+            params = torch.load(out / f"{label}-params.pt",
+                                map_location="cuda", weights_only=True)
+            service_config = worker.ServiceConfig(
+                queue_url="", batch_size=8, seq_len=512, generate_tokens=16,
+                result_queue_url="demo://replies")
+            direct = worker.run_demo(16, params, config, service_config,
+                                     torch.device("cuda"))
+            same = replies_of(served) == replies_of(direct)
+            smoke.check(same and len(served["replies"]) == 16,
+                        f"mesh {label}: the single-card worker's "
+                        f"{len(served['replies'])} replies from the "
+                        f"tensor-parallel checkpoint ({family}) equal "
+                        "serving the ranks' gathered parameters")
+            del params
+    return result
+
+
+def mesh_one_process(torch, flash) -> dict:
+    """One process's first two steps of each run's flags without the mesh
+    flags, in this process: the losses the mesh run's first two steps must
+    equal (the same seed, tokens and weights), its step time and peak
+    memory."""
+    out = {}
+    for _, base, flags, *_ in MESH_TRAIN_RUNS:
+        if tuple(base + flags) in out:
+            continue
+        run = trainer_run(torch, flash, [*base, *flags, "--log-every", "1",
+                                         "--overfit", "--steps", "2"])
+        summary = run["summary"]
+        out[tuple(base + flags)] = {
+            "losses": summary["losses"],
+            "step_ms": 1e3 / summary["steps_per_s"],
+            "peak_gib": run["peak_gib"]}
+        del run, summary
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_ranks(torch, flash, smoke: Smoke, power: str) -> dict:
+    """(a) and (b): one launch of :data:`MESH_RANKS` ranks runs the hop
+    checks and every trainer run; this process checks what they wrote."""
+    one = mesh_one_process(torch, flash)
+    out = MESH_DIR / "ranks"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    log = MESH_DIR / "ranks.log"
+    start = time.perf_counter()
+    rc = run_group(torchrun(MESH_RANKS, [str(ROOT / "chip_smoke.py"),
+                                         "--mesh-rank", str(out)]),
+                   MESH_TIMEOUT, log)
+    wall = time.perf_counter() - start
+    files = [out / f"hops-rank{r}.json" for r in range(MESH_RANKS)]
+    ok = rc == 0 and all(f.exists() for f in files)
+    smoke.check(ok, f"mesh: {MESH_RANKS} ranks exited "
+                f"{'on a timeout' if rc is None else rc} after {wall:.1f} s")
+    if not ok:
+        print(log.read_text()[-6000:], flush=True)
+    result = {"launches": {}, "wall_s": wall, "one_process": {
+        " ".join(k): v for k, v in one.items()}}
+    if all(f.exists() for f in files):
+        hops = check_hops(smoke, [json.loads(f.read_text()) for f in files],
+                          power)
+        result["launches"].update(hops.pop("launches"))
+        result["hops"] = hops
+    train = check_training(torch, smoke, out, power, one)
+    result["launches"].update(train.pop("launches"))
+    result["training"] = train
+    return result
+
+
+def mesh_orbax(torch, smoke: Smoke) -> dict:
+    """(d) A directory whose step is shaped as an orbax checkpoint of the
+    JAX package (file names only): the worker and the trainer's
+    ``--resume`` exit 2 naming the format, without a traceback."""
+    import contextlib
+    import io
+
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as worker
+    from kube_sqs_autoscaler_tpu_torch.workloads import trainer
+
+    root = MESH_DIR / "orbax"
+    shutil.rmtree(root, ignore_errors=True)
+    step = root / "step_00000002"
+    (step / "d").mkdir(parents=True)
+    for name in ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt"):
+        (step / name).write_text("{}")
+    (root / "model_config.json").write_text(json.dumps({
+        "family": "gpt", "vocab_size": 256, "d_model": 64, "n_heads": 4,
+        "n_layers": 2, "d_ff": 128, "max_seq_len": 64}))
+    out = {}
+    for label, main, argv in (
+            ("worker", worker.main, [
+                "--demo", "2", "--seq-len", "16", "--generate-tokens", "2",
+                "--checkpoint-dir", str(root), "--device", "cuda"]),
+            ("trainer --resume", trainer.main, [
+                "--vocab-size", "256", "--d-model", "64", "--n-heads", "4",
+                "--n-layers", "2", "--d-ff", "128", "--seq-len", "64",
+                "--steps", "1", "--checkpoint-dir", str(root), "--resume",
+                "--device", "cuda"])):
+        err = io.StringIO()
+        code = None
+        with contextlib.redirect_stderr(err):
+            try:
+                main(argv)
+            except SystemExit as exit_:
+                code = exit_.code
+        text = err.getvalue().strip()
+        smoke.check(code == 2 and "orbax checkpoint" in text,
+                    f"mesh orbax: the {label} exits {code} naming the "
+                    f"format: {text.splitlines()[-1] if text else ''}")
+        out[label] = code
+    return out
+
+
+def mesh_hop_checks(torch, flash, smoke: Smoke, label, b, h, hkv, sq, sk, d,
+                    opts, seed) -> dict:
+    """Each training kernel at one hop shape against its plain version on
+    the same inputs, in bf16 and in f32, with a random lse cotangent (the
+    merge of the hops feeds one back to every hop)."""
+    worst_by_name = {}
+    for dtype_name in ("bfloat16", "float32"):
+        q, k, v, dout = train_inputs(torch, b, h, hkv, sq, sk, d,
+                                     getattr(torch, dtype_name), False, seed)
+        dout = dout.contiguous()
+        out, lse = flash.flash_fwd(q, k, v, need_lse=True, **opts)
+        want_out, want_lse = flash.flash_fwd_reference(q, k, v, **opts)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        dlse = torch.randn(lse.shape, generator=g, device="cuda")
+        args = (q, k, v, dout, want_lse,
+                flash.attention_delta(want_out, dout, dlse))
+        dq = flash.flash_bwd_dq(*args, **opts)
+        dk, dv = flash.flash_bwd_dkv(*args, **opts)
+        want_dq = flash.flash_bwd_dq_reference(*args, **opts)
+        want_dk, want_dv = flash.flash_bwd_dkv_reference(*args, **opts)
+        torch.cuda.synchronize()
+        tol = TOL[dtype_name]
+        for name, pairs in (
+                ("flash_fwd_lse", ((out, want_out), (lse, want_lse))),
+                ("flash_bwd_dq", ((dq, want_dq),)),
+                ("flash_bwd_dkv", ((dk, want_dk), (dv, want_dv)))):
+            errs = [scaled_err(got, want) for got, want in pairs]
+            finite = all(bool(torch.isfinite(got).all().item())
+                         for got, _ in pairs)
+            shaped = all(got.shape == want.shape for got, want in pairs)
+            worst = max(scaled for _, scaled in errs)
+            smoke.check(
+                finite and shaped and worst <= tol,
+                f"{name} mesh hop {label} {dtype_name} B={b} H={h} "
+                f"H_kv={hkv} S_q={sq} S_k={sk} D={d} causal={opts['causal']} "
+                f"window={opts['window']} q_shift={opts['q_shift']} dlse=True:"
+                f" max|d|={max(e for e, _ in errs):.3e}, /max(1,|want|)="
+                f"{worst:.3e} tol={tol:g} ({TRAIN_TOL_REASON[dtype_name]})")
+            worst_by_name.setdefault(name, {})[dtype_name] = worst
+        del q, k, v, dout, out, lse, want_out, want_lse, args, dq, dk, dv
+        del want_dq, want_dk, want_dv
+        torch.cuda.empty_cache()
+    return worst_by_name
+
+
+def mesh_hop_timing(torch, flash, smoke: Smoke) -> dict:
+    """The three training kernels at the mesh's hop shapes (B = 4, 16
+    heads, D = 64), one process alone on the card: each held against its
+    plain version in bf16 and f32 (:func:`mesh_hop_checks`), then timed in
+    bf16 beside its plain version, SDPA with the hop's mask and its
+    bound."""
+    import torch.nn.functional as F
+
+    shapes = [
+        # (label, H_kv, S_q, S_k, causal, q_shift, window)
+        ("ring-diag-2048", 16, 2048, 2048, True, 0, None),
+        ("ring-earlier-2048", 16, 2048, 2048, False, 0, None),
+        ("zigzag-diag-lo-1024", 16, 1024, 1024, True, 0, None),
+        ("zigzag-diag-hi-1024x2048-shift1024", 16, 1024, 2048, True, 1024,
+         None),
+        ("zigzag-earlier-2048x1024", 16, 2048, 1024, False, 0, None),
+        ("zigzag-later-1024x2048", 16, 1024, 2048, False, 0, None),
+        ("ring-gqa-window512-earlier-511x2048-shift2048", 4, 511, 2048,
+         True, 2048, 512),
+    ]
+    b, h, d = 4, 16, 64
+    timings = {}
+    for seed, (label, hkv, sq, sk, causal, shift, window) in enumerate(
+            shapes):
+        opts = dict(causal=causal, window=window, q_shift=shift)
+        errs = mesh_hop_checks(torch, flash, smoke, label, b, h, hkv, sq, sk,
+                               d, opts, 300 + seed)
+        q, k, v, dout = train_inputs(torch, b, h, hkv, sq, sk, d,
+                                     torch.bfloat16, False, 41)
+        out, lse = flash.flash_fwd_reference(q, k, v, **opts)
+        args = (q, k, v, dout.contiguous(), lse,
+                flash.attention_delta(out, dout))
+        mask = {}
+        if causal:
+            rows = torch.arange(sq, device="cuda")[:, None] + shift
+            cols = torch.arange(sk, device="cuda")[None, :]
+            keep = cols <= rows
+            if window is not None:
+                keep = keep & (cols > rows - window)
+            mask = dict(attn_mask=keep)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(
+            qg, kg, vg, enable_gqa=hkv != h, **mask)
+
+        def sdpa_backward():
+            torch.autograd.grad(sdpa_out, (qg, kg, vg), args[3],
+                                retain_graph=True)
+
+        library_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=hkv != h, **mask), iters=10)
+        library_bwd = time_ms(torch, sdpa_backward, iters=10)
+        kernel = {
+            "flash_fwd_lse": (lambda: flash.flash_fwd(q, k, v, need_lse=True,
+                                                      **opts),
+                              lambda: flash.flash_fwd_reference(q, k, v,
+                                                                **opts),
+                              library_fwd, "fwd_lse"),
+            "flash_bwd_dq": (lambda: flash.flash_bwd_dq(*args, **opts),
+                             lambda: flash.flash_bwd_dq_reference(*args,
+                                                                  **opts),
+                             library_bwd, "dq"),
+            "flash_bwd_dkv": (lambda: flash.flash_bwd_dkv(*args, **opts),
+                              lambda: flash.flash_bwd_dkv_reference(
+                                  *args, **opts), library_bwd, "dkv"),
+        }
+        for name, (fn, plain, library, kind) in kernel.items():
+            t = {"kernel_ms": time_ms(torch, fn, iters=10),
+                 "plain_ms": time_ms(torch, plain, iters=10),
+                 "library_ms": library,
+                 "library_call": "F.scaled_dot_product_attention with the "
+                 "hop's mask " + ("forward" if kind == "fwd_lse" else
+                                  "backward alone (dq, dk and dv together)")}
+            t["bound_ms"], t["bound_by"] = hop_bound_ms(
+                b, h, hkv, sq, sk, d, causal, shift, window, kind)
+            t["max_scaled_err"] = errs[name]
+            timings.setdefault(name, {})[label] = t
+            print(f"time {name} mesh hop {label} (B={b}, H={h}, H_kv={hkv}, "
+                  f"D={d}, bf16): kernel {t['kernel_ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, library {library:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+        del q, k, v, dout, qg, kg, vg, sdpa_out, args, out, lse
+        torch.cuda.empty_cache()
+    return timings
+
+
+def hop_bound_ms(b, h, hkv, sq, sk, d, causal, shift, window, kind):
+    """:func:`flash_bound_ms` of a rectangular hop: the live (row, key)
+    pairs of its mask, each input read and each output written once."""
+    n_q, n_kv, n_rows, products = BOUND_TERMS[kind]
+    pairs = 0
+    for r in range(sq):
+        hi = min(sk, r + shift + 1) if causal else sk
+        lo = max(0, r + shift - window + 1) if window else 0
+        pairs += max(0, hi - lo)
+    moved = (n_q * b * h * sq * d * 2 + n_kv * b * hkv * sk * d * 2
+             + n_rows * b * h * sq * 4)
+    ops = 2 * products * b * h * d * pairs
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mesh_phase(torch, flash, smoke: Smoke, power: str) -> dict:
+    """Sequence and tensor parallelism on the card: (a) the hops and (b)
+    the trainer over ranks, in one launch; (d) the orbax refusal; then the
+    kernels at the hop shapes, timed alone."""
+    out = {"launches": {}}
+    for part, fn in (("ranks", lambda: mesh_ranks(torch, flash, smoke,
+                                                  power)),
+                     ("orbax", lambda: mesh_orbax(torch, smoke)),
+                     ("hop timing", lambda: mesh_hop_timing(torch, flash,
+                                                           smoke))):
+        start = time.perf_counter()
+        out[part] = fn()
+        if "launches" in out[part]:
+            out["launches"].update(out[part].pop("launches"))
+        print(f"-- mesh {part}: {time.perf_counter() - start:.3f} s",
+              flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, replaces_fn, launches, by_path,
                  err, timing, shape) -> dict:
     return {
@@ -7371,6 +8062,7 @@ def main() -> int:
     train_prof = smoke.phase("train profile", train_profile_phase, torch)
     training = smoke.phase("training", training_phase, torch, flash, smoke,
                            power)
+    mesh = smoke.phase("mesh", mesh_phase, torch, flash, smoke, power)
     if smoke.failures or not (info and sass and resources and kern
                               and train_kern and path and serve and cycles
                               and stagger and rates and prof
@@ -7380,7 +8072,8 @@ def main() -> int:
                               and beams and slice_prof and sync and gelu
                               and tenancy and planes and orch and odd
                               and f32_train
-                              and train_path and train_prof and training):
+                              and train_path and train_prof and training
+                              and mesh):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
         return 1
@@ -7461,10 +8154,15 @@ def main() -> int:
              # the rest of training: the llama cell (causal, windowed),
              # checkpoint and resume, MoE, LoRA, corpus, profile, metrics
              **{path: v[name] for path, v in training["launches"].items()
-                if v}},
+                if v},
+             # the mesh: ring and zig-zag hops, and the trainer over
+             # ranks (each summed over its ranks)
+             **{path: v[name] for path, v in mesh["launches"].items()}},
             train_kern["errs"][name], train_kern["timings"][name],
             TRAIN_SHAPE)
         entry["tflops"] = train_kern["timings"][name]["tflops"]
+        # the ring and zig-zag hop shapes, one process alone on the card
+        entry["at_mesh_hop_shapes"] = mesh["hop timing"][name]
         # the flagship llama train shape (B, H, H_kv, S, D), causal and
         # with the window
         entry["at_llama_train_shapes"] = {
@@ -7490,4 +8188,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--repair-cost":
         sys.exit(repair_cost_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_rank_main(sys.argv[2:]))
     sys.exit(main())

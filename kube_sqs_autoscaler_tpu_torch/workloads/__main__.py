@@ -1112,11 +1112,15 @@ def served_params(args, config, layout, params, device: torch.device) -> dict:
 
         return _to_device(params, device)
     if args.checkpoint_dir:
-        from .checkpoint import TrainCheckpointer
+        from .checkpoint import OrbaxCheckpointError, TrainCheckpointer, \
+            exit_refused
 
         checkpointer = TrainCheckpointer(args.checkpoint_dir)
-        params = checkpointer.restore_params(
-            family_of(config).name, config, layout=layout, device=device)
+        try:
+            params = checkpointer.restore_params(
+                family_of(config).name, config, layout=layout, device=device)
+        except OrbaxCheckpointError as err:
+            exit_refused(err)
         log.info("Restored weights from %s step %s", args.checkpoint_dir,
                  checkpointer.latest_step())
         return params
@@ -1167,7 +1171,7 @@ def check_unported(args) -> None:
     if args.model_parallel:
         raise SystemExit(
             "--model-parallel serves over a (data, model) mesh, not yet "
-            "ported (ROADMAP Queue 1 item 5)"
+            "ported (ROADMAP Queue 1 item 5c)"
         )
 
 

@@ -1,7 +1,7 @@
 """Beam search over the KV caches, both model families.
 
 Counterpart of ``kube_sqs_autoscaler_tpu/workloads/beam.py``'s
-``beam_search`` (its mesh function waits for ROADMAP Queue 1 item 5), held
+``beam_search`` (its mesh function waits for ROADMAP Queue 1 item 5c), held
 against it by ``tests/test_torch_beam.py``.  The batch axis carries the
 beams: the prompt prefills once a row (the CUDA flash forward on the card),
 the cache is row-repeated to ``B * W``, and each step is one decode step

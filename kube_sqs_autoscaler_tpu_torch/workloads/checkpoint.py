@@ -30,6 +30,7 @@ import json
 import os
 import re
 import shutil
+import sys
 import threading
 from pathlib import Path
 from typing import Any
@@ -43,6 +44,21 @@ from .model import ModelConfig
 # worker pointed at the directory rebuilds the exact architecture
 MODEL_MANIFEST = "model_config.json"
 STATE_FILE = "state.pt"
+# what an orbax step directory of the JAX package holds in place of
+# STATE_FILE (its metadata files, the OCDBT manifest, the data directory)
+ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt", "d")
+
+
+class OrbaxCheckpointError(ValueError):
+    """A step directory is the JAX package's orbax checkpoint, which the
+    port does not read."""
+
+
+def exit_refused(err: Exception):
+    """Leave a binary as a usage error does: the message on stderr, exit
+    status 2, no traceback."""
+    print(f"error: {err}", file=sys.stderr, flush=True)
+    raise SystemExit(2)
 
 
 def save_model_manifest(directory: str | Path, family: str, config: Any,
@@ -228,7 +244,15 @@ class TrainCheckpointer:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
-        return torch.load(self._path(step) / STATE_FILE, map_location="cpu",
+        path = self._path(step)
+        if not (path / STATE_FILE).exists() and any(
+                (path / name).exists() for name in ORBAX_MARKERS):
+            raise OrbaxCheckpointError(
+                f"step {step} under {self.directory} is an orbax checkpoint "
+                f"of the JAX package; the port reads only its own "
+                f"{STATE_FILE} steps"
+            )
+        return torch.load(path / STATE_FILE, map_location="cpu",
                           weights_only=True, mmap=mmap)
 
     def restore(self, state: dict, step: int | None = None) -> dict:
@@ -267,7 +291,8 @@ class TrainCheckpointer:
         """Just the model weights, on ``device``, for serving: the file is
         memory-mapped, so the AdamW moments are never read.  A ``moe``
         layout is refused (the worker has no routed-expert forward), and a
-        ``pipeline`` layout waits for the mesh (ROADMAP Queue 1 item 5).
+        ``pipeline`` layout waits for the pipeline (ROADMAP Queue 1 item
+        5b).
         An untied ``lm_head`` comes back when the checkpoint holds one."""
         kind = (layout or {}).get("kind")
         if kind == "moe":
@@ -281,7 +306,7 @@ class TrainCheckpointer:
             raise ValueError(
                 f"this checkpoint stores stage-stacked pipeline params "
                 f"(layout={layout}); the pipeline layout is not ported yet "
-                "(ROADMAP Queue 1 item 5)"
+                "(ROADMAP Queue 1 item 5b)"
             )
         params = self.load(step, mmap=True)["params"]
         layers = params.get("layers", [])

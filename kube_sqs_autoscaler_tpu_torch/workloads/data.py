@@ -91,3 +91,30 @@ def prefetch_to_device(
     except StopIteration:
         while queue:
             yield queue.popleft()
+
+
+def mesh_rows(batch: np.ndarray, mesh) -> np.ndarray:
+    """A rank's rows of a global ``[B, S]`` batch: the ``data`` axis splits
+    the batch; every rank of a data row keeps the whole sequence (its seq
+    slice's targets reach into the next slice)."""
+    data = mesh.axis("data")
+    rows = batch.shape[0]
+    if rows % data.size:
+        raise ValueError(f"batch of {rows} rows not divisible by the data "
+                         f"axis ({data.size})")
+    share = rows // data.size
+    return batch[data.index * share:(data.index + 1) * share]
+
+
+def prefetch_to_mesh(
+    batches: Iterable[np.ndarray],
+    mesh,
+    depth: int = 2,
+) -> Iterator[torch.Tensor]:
+    """:func:`prefetch_to_device` of each rank's share
+    (:func:`mesh_rows`) onto the mesh's device, ``depth`` copies ahead;
+    the reference's ``depth`` checks."""
+    if depth < 0:
+        raise ValueError(f"depth={depth} must be >= 0")
+    return prefetch_to_device((mesh_rows(b, mesh) for b in batches),
+                              mesh.device, depth)

@@ -630,3 +630,22 @@ def gqa_adapt(fn):
         return fn(q, k, v)
 
     return attend
+
+
+def make_sharded_attention(window: int | None = None):
+    """The per-rank attention of a ``(data, model)`` mesh (the reference's
+    ``make_sharded_attention``): each rank holds its own batch rows and
+    heads, and attention never crosses either, so this is the local pick
+    of :func:`attention_fn_for` for the tensors it is called on — the
+    kernels on the card at the head dims they take, dense elsewhere — with
+    ``window`` bound in and compact GQA k/v adapted (:func:`gqa_adapt`).
+    The reference takes the mesh to build its ``shard_map``; a rank needs
+    nothing of it."""
+
+    def attend(q, k, v):
+        fn = windowed(attention_fn_for(q.shape[2], q.device, q.shape[-1]),
+                      window)
+        return gqa_adapt(fn)(q, k, v)
+
+    attend.gqa_native = True
+    return attend

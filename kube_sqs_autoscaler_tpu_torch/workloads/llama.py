@@ -46,8 +46,9 @@ their int8 twins).
 
 The trainer branch (:func:`llama_loss_fn`, :func:`make_llama_train_step`)
 runs through :func:`.train.make_train_step`'s seams; its attention is the
-GQA-native flash forward and backward on the card.  Mesh serving and
-training wait for ROADMAP Queue 1 item 5.
+GQA-native flash forward and backward on the card; on a mesh its
+objective is :func:`llama_mesh_loss`'s (RoPE at the rank's positions, the
+ring over compact k/v).  Mesh serving waits for ROADMAP Queue 1 item 5c.
 """
 
 from __future__ import annotations
@@ -216,13 +217,13 @@ def _project_qkv(
     v (``n_kv_heads``), from the fused ``wkv`` or the split ``wk``/``wv``
     layout (identical values)."""
     head_dim = config.head_dim
-    q = _split_heads(h @ layer["wq"], config.n_heads, head_dim)
+    q = _split_heads(h @ layer["wq"], -1, head_dim)
     if "wkv" in layer:
         k, v = torch.chunk(h @ layer["wkv"], 2, dim=-1)
     else:
         k, v = h @ layer["wk"], h @ layer["wv"]
-    k = _split_heads(k, config.n_kv_heads, head_dim)
-    v = _split_heads(v, config.n_kv_heads, head_dim)
+    k = _split_heads(k, -1, head_dim)
+    v = _split_heads(v, -1, head_dim)
     return _rotate(q, rope), _rotate(k, rope), v
 
 
@@ -239,7 +240,7 @@ def _swiglu(x: torch.Tensor, layer: dict) -> torch.Tensor:
 def _llama_block(
     x: torch.Tensor, layer: dict, config: LlamaConfig,
     rope: tuple[torch.Tensor, torch.Tensor], attend,
-    x32: torch.Tensor | None = None, mlp=None,
+    x32: torch.Tensor | None = None, mlp=None, tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pre-RMSNorm attention and pre-RMSNorm SwiGLU, residual around both.
     ``rope`` is the ``(cos, sin)`` of :func:`rope_angles` at the block's
@@ -248,18 +249,23 @@ def _llama_block(
     the prompt pass's kernel, or a cache-writing closure in decode.
     ``x32`` is ``x`` unrounded when ``x`` is a residual sum (``None`` for
     the embeddings).  ``mlp(h, layer)`` replaces the SwiGLU (the routed
-    experts of :mod:`.moe`).  Returns the block's output and its fp32
-    value."""
+    experts of :mod:`.moe`).  ``tp`` (:class:`.train.TensorParallel`)
+    runs the block on a tensor-parallel rank's slices.  Returns the
+    block's output and its fp32 value."""
     dtype = x.dtype
     h = _rms_norm(x if x32 is None else x32, layer["attn_norm"],
                   config.rms_eps, dtype)
+    if tp is not None:
+        h = tp.copy(h)
     q, k, v = _project_qkv(h, layer, config, rope)
     out = attend(q, k, v)
     batch, _, seq, _ = out.shape
-    out = out.transpose(1, 2).reshape(batch, seq, config.d_model)
-    x, x32 = _residual(x, out @ layer["wo"])
+    out = out.transpose(1, 2).reshape(batch, seq, -1) @ layer["wo"]
+    x, x32 = _residual(x, out if tp is None else tp.reduce(out))
     h2 = _rms_norm(x32, layer["mlp_norm"], config.rms_eps, dtype)
-    return _residual(x, (mlp or _swiglu)(h2, layer))
+    if tp is None or getattr(mlp, "tp_native", False):
+        return _residual(x, (mlp or _swiglu)(h2, layer))
+    return _residual(x, tp.reduce((mlp or _swiglu)(tp.copy(h2), layer)))
 
 
 def _gqa_dense_attention(config: LlamaConfig):
@@ -297,6 +303,8 @@ def llama_forward_hidden(
     attention_fn=None,
     mlp=None,
     remat: bool = False,
+    positions: torch.Tensor | None = None,
+    tp=None,
 ) -> torch.Tensor:
     """Final RMS-normed hidden states ``[B, S, d_model]``.
     ``attention_fn(q, k, v)`` is the prompt-pass pick
@@ -304,23 +312,29 @@ def llama_forward_hidden(
     adapted to the compact k/v; ``mlp(h, layer)`` replaces the SwiGLU.
     ``remat=True`` recomputes each block in the backward
     (:func:`torch.utils.checkpoint.checkpoint`, the reference's
-    ``jax.checkpoint``): the same values at a lower peak memory."""
+    ``jax.checkpoint``): the same values at a lower peak memory.
+    ``positions`` overrides the RoPE positions (``[S]``: a
+    sequence-parallel rank's global, or zig-zag-permuted, positions);
+    ``tp`` runs the blocks on a tensor-parallel rank's slices."""
     seq = tokens.shape[1]
     if seq > config.max_seq_len:
         raise ValueError(
             f"sequence length {seq} exceeds max_seq_len={config.max_seq_len}"
         )
-    rope = rope_angles(torch.arange(seq, device=tokens.device),
-                       config.head_dim, config.rope_theta)
+    if positions is None:
+        positions = torch.arange(seq, device=tokens.device)
+    rope = rope_angles(positions, config.head_dim, config.rope_theta)
     attend = _prompt_attention(config, attention_fn)
-    x = embed_tokens(params["embed"], tokens)
+    x = (embed_tokens(params["embed"], tokens) if tp is None
+         else tp.embed(params["embed"], tokens))
     x32 = None
     for layer in params["layers"]:
         if remat:
             x, x32 = checkpoint(_llama_block, x, layer, config, rope, attend,
-                                x32, mlp, use_reentrant=False)
+                                x32, mlp, tp, use_reentrant=False)
         else:
-            x, x32 = _llama_block(x, layer, config, rope, attend, x32, mlp)
+            x, x32 = _llama_block(x, layer, config, rope, attend, x32, mlp,
+                                  tp)
     return _rms_norm(x32, params["final_norm"], config.rms_eps, x.dtype)
 
 
@@ -374,13 +388,22 @@ def init_llama_train_state(
                             init_fn=init_llama_params)
 
 
-def llama_mesh_loss(config: LlamaConfig, train_config):
+def llama_mesh_loss(config: LlamaConfig, train_config, mesh=None):
     """The family objective in :func:`.train.make_train_step`'s loss-seam
     shape, ``loss(params, tokens, attention_fn)``: the seam's attention
     (the GQA-native flash kernels on the card, which take the compact k/v;
     dense with repeated k/v elsewhere) adapted in the prompt pass, under
     ``train_config.remat``.  One objective for the full train step, the
-    LoRA step and the trainer's eval."""
+    LoRA step and the trainer's eval.  With a ``mesh`` it is the rank's
+    share of the loss (:func:`.train.mesh_loss`): RoPE at the rank's
+    global positions, the ring's compact k/v, the vocabulary-parallel
+    readout of :func:`readout_weights`."""
+    if mesh is not None:
+        from .train import mesh_loss
+
+        return mesh_loss(config, mesh, remat=train_config.remat,
+                         forward_fn=llama_forward_hidden,
+                         readout_fn=readout_weights)
 
     def loss(params, tokens, attention_fn=None):
         return llama_loss_fn(params, tokens, config, attention_fn,
@@ -390,17 +413,17 @@ def llama_mesh_loss(config: LlamaConfig, train_config):
 
 
 def make_llama_train_step(config: LlamaConfig, train_config,
-                          device: str | torch.device = "cuda"):
+                          device: str | torch.device = "cuda", mesh=None):
     """One optimizer step of the llama through
     :func:`.train.make_train_step`'s seams: :func:`llama_mesh_loss` as the
     objective and ``config.sliding_window`` bound into the attention (the
     windowed kernels' tile skip on the card, the windowed dense mask on
-    the CPU)."""
+    the CPU; the windowed ring on a ``seq`` mesh)."""
     from .train import make_train_step
 
     return make_train_step(config, train_config, device,
-                           loss=llama_mesh_loss(config, train_config),
-                           window=config.sliding_window)
+                           loss=llama_mesh_loss(config, train_config, mesh),
+                           window=config.sliding_window, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

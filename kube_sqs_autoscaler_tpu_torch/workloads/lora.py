@@ -1,7 +1,11 @@
 """LoRA: low-rank adapter fine-tuning for both model families.
 
 Counterpart of ``kube_sqs_autoscaler_tpu/workloads/lora.py`` without its
-pipeline functions, which wait for ROADMAP Queue 1 item 5.  LoRA trains
+pipeline functions, which wait for ROADMAP Queue 1 item 5b.  On a mesh
+the adapters (and their AdamW moments) are replicated on every rank, each
+rank adds its slice of ``A @ B`` to its slice of the frozen base, and the
+adapters' gradients sum over every axis the base is split or replicated
+over.  LoRA trains
 rank-``r`` factors ``A [in, r]``, ``B [r, out]`` per targeted weight
 instead of the weight: the base stays frozen (no gradient, no AdamW
 moments) and only the adapters carry optimizer state.
@@ -79,11 +83,16 @@ def init_lora_params(generator: torch.Generator, params: dict,
     return {"layers": layers}
 
 
-def apply_lora(params: dict, adapters: dict, config: LoraConfig) -> dict:
+def apply_lora(params: dict, adapters: dict, config: LoraConfig,
+               mesh=None) -> dict:
     """Effective parameters ``W + (alpha / r) A @ B`` for the adapted
     weights, in fp32 and cast back to each weight's dtype; everything else
     passes through as the same tensor.  Gradients reach ``adapters``
-    through the sum; the base gets none."""
+    through the sum; the base gets none.  With a ``mesh``, ``params`` are
+    a rank's slices (:func:`.train.shard_params`) and each ``A @ B`` is
+    sliced the same way."""
+    from .train import slice_for_rank
+
     merged_layers = []
     for layer, adapter in zip(params["layers"], adapters["layers"]):
         merged = dict(layer)
@@ -91,6 +100,8 @@ def apply_lora(params: dict, adapters: dict, config: LoraConfig) -> dict:
             w = layer[name]
             # a leading expert axis batches through the matmul
             delta = torch.matmul(ab["a"], ab["b"]) * config.scale
+            if mesh is not None:
+                delta = slice_for_rank(name, delta, mesh)
             merged[name] = (w.float() + delta).to(w.dtype)
         merged_layers.append(merged)
     return dict(params, layers=merged_layers)
@@ -122,18 +133,35 @@ def init_lora_train_state(generator: torch.Generator, params: dict,
             "optimizer": make_optimizer(train_config, adapters), "step": 0}
 
 
+def adapter_grad_axes(adapters: dict, mesh) -> list[frozenset]:
+    """The axes each adapter leaf's gradient sums over, in
+    :func:`.train.param_leaves` order: ``data`` and ``seq`` (every rank
+    saw other tokens) and the axes its base weight is split over (every
+    rank saw another slice of ``A @ B``)."""
+    from .train import sliced_axes
+
+    return [frozenset(("data", "seq")) | sliced_axes(name, mesh)
+            for layer in adapters["layers"] for name in sorted(layer)
+            for _ in sorted(layer[name])]
+
+
 def make_lora_train_step(model_config, train_config, frozen_params: dict,
                          lora: LoraConfig, device: str | torch.device = "cuda",
-                         loss=None):
+                         loss=None, mesh=None):
     """``step_fn(state, tokens) -> (state, loss)``: one adapter-only
     optimizer step on the frozen base.  ``loss(params, tokens,
     attention_fn)`` defaults to the GPT objective (the llama and MoE
     objectives come through the same seam).  It is
     :func:`.train.make_train_step` over the adapters, with the adapted
     weights built inside the objective: the same attention pick
-    (``sliding_window`` bound in), accumulation, clip and AdamW."""
-    from .train import loss_fn, make_train_step
+    (``sliding_window`` bound in), accumulation, clip and AdamW.  With a
+    ``mesh``: ``frozen_params`` are the rank's slices, ``loss`` a mesh
+    objective (default :func:`.train.mesh_loss`), and the adapters'
+    gradients sum as :func:`adapter_grad_axes` says."""
+    from .train import loss_fn, make_train_step, mesh_loss
 
+    if loss is None and mesh is not None:
+        loss = mesh_loss(model_config, mesh, remat=train_config.remat)
     if loss is None:
         def loss(params, tokens, attention_fn):
             return loss_fn(params, tokens, model_config, attention_fn,
@@ -142,8 +170,10 @@ def make_lora_train_step(model_config, train_config, frozen_params: dict,
     step = make_train_step(
         model_config, train_config, device,
         loss=lambda adapters, tokens, attention_fn: loss(
-            apply_lora(frozen_params, adapters, lora), tokens, attention_fn),
-        window=getattr(model_config, "sliding_window", None))
+            apply_lora(frozen_params, adapters, lora, mesh), tokens,
+            attention_fn),
+        window=getattr(model_config, "sliding_window", None), mesh=mesh,
+        grad_axes=adapter_grad_axes)
 
     def step_fn(state: dict, tokens: torch.Tensor):
         inner, loss_value = step({"params": state["adapters"],

@@ -166,17 +166,17 @@ def _dense_attention(
 
 
 def _split_heads(t: torch.Tensor, config: ModelConfig) -> torch.Tensor:
-    """``[B, S, D] -> [B, H, S, head_dim]`` (a view)."""
+    """``[B, S, H * head_dim] -> [B, H, S, head_dim]`` (a view; ``H`` is
+    the heads ``t`` holds: all of them, or a tensor-parallel rank's
+    share)."""
     batch, seq, _ = t.shape
-    return t.reshape(batch, seq, config.n_heads, config.head_dim).transpose(
-        1, 2
-    )
+    return t.reshape(batch, seq, -1, config.head_dim).transpose(1, 2)
 
 
 def _merge_heads(t: torch.Tensor, config: ModelConfig) -> torch.Tensor:
-    """``[B, H, S, head_dim] -> [B, S, D]``."""
+    """``[B, H, S, head_dim] -> [B, S, H * head_dim]``."""
     batch, _, seq, _ = t.shape
-    return t.transpose(1, 2).reshape(batch, seq, config.d_model)
+    return t.transpose(1, 2).reshape(batch, seq, -1)
 
 
 def _project_qkv(
@@ -224,31 +224,42 @@ def _mlp(x: torch.Tensor, layer: dict) -> torch.Tensor:
 
 def _block(
     x: torch.Tensor, layer: dict, config: ModelConfig, attend,
-    x32: torch.Tensor, mlp=None,
+    x32: torch.Tensor, mlp=None, tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One pre-LN block: attention then MLP, residual around both.
     ``attend(q, k, v) -> [B, H, S, D]`` is the attention seam (dense,
     flash, or a cache-writing closure in :mod:`.decode`); ``mlp(h,
     layer)`` the MLP seam (the dense GELU MLP by default, the routed
     experts of :mod:`.moe`).  ``x32`` is ``x`` unrounded (fp32), which the
-    first norm reads.  Returns the block's output and its fp32 value."""
+    first norm reads.  ``tp`` (:class:`.train.TensorParallel`) runs the
+    block Megatron-style on a rank's column- and row-parallel slices (an
+    ``mlp`` marked ``tp_native`` runs its own).
+    Returns the block's output and its fp32 value."""
     dtype = x.dtype
     h = _layer_norm(x32, layer["ln1_scale"], layer["ln1_bias"], dtype)
+    if tp is not None:
+        h = tp.copy(h)
     q, k, v = _project_qkv(h, layer, config)
-    x, x32 = _residual(x, _merge_heads(attend(q, k, v), config) @ layer["wo"])
+    out = _merge_heads(attend(q, k, v), config) @ layer["wo"]
+    x, x32 = _residual(x, out if tp is None else tp.reduce(out))
     h2 = _layer_norm(x32, layer["ln2_scale"], layer["ln2_bias"], dtype)
-    return _residual(x, (mlp or _mlp)(h2, layer))
+    if tp is None or getattr(mlp, "tp_native", False):
+        return _residual(x, (mlp or _mlp)(h2, layer))
+    return _residual(x, tp.reduce((mlp or _mlp)(tp.copy(h2), layer)))
 
 
 def _embed(
-    params: dict, tokens: torch.Tensor, positions
+    params: dict, tokens: torch.Tensor, positions, tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Token plus position embeddings: the sum in the model dtype and
-    unrounded (``positions`` is a slice or a tensor of position ids)."""
+    unrounded (``positions`` is a slice or a tensor of position ids;
+    ``tp`` reads a vocabulary-parallel table)."""
     pos = params["pos_embed"]
     pos = pos[positions] if isinstance(positions, slice) else embed_tokens(
         pos, positions)
-    return _residual(embed_tokens(params["embed"], tokens), pos)
+    tokens_in = (embed_tokens(params["embed"], tokens) if tp is None
+                 else tp.embed(params["embed"], tokens))
+    return _residual(tokens_in, pos)
 
 
 def forward_hidden(
@@ -258,10 +269,14 @@ def forward_hidden(
     attention_fn=None,
     remat: bool = False,
     mlp=None,
+    positions: torch.Tensor | None = None,
+    tp=None,
 ) -> torch.Tensor:
     """Final layernormed hidden states ``[batch, seq, d_model]``.
     ``mlp(h, layer)`` replaces the dense MLP (the reference's seam, which
-    :mod:`.moe` rides).
+    :mod:`.moe` rides).  ``positions`` overrides the positional-embedding
+    rows (``[seq]`` ids: a sequence-parallel rank's global positions);
+    ``tp`` runs the blocks on a tensor-parallel rank's slices.
 
     ``remat=True`` wraps each block in
     :func:`torch.utils.checkpoint.checkpoint` (the reference's
@@ -273,14 +288,15 @@ def forward_hidden(
         raise ValueError(
             f"sequence length {seq} exceeds max_seq_len={config.max_seq_len}"
         )
-    x, x32 = _embed(params, tokens, slice(0, seq))
+    x, x32 = _embed(params, tokens,
+                    slice(0, seq) if positions is None else positions, tp)
     attend = attention_fn or _dense_attention
     for layer in params["layers"]:
         if remat:
             x, x32 = checkpoint(_block, x, layer, config, attend, x32, mlp,
-                                use_reentrant=False)
+                                tp, use_reentrant=False)
         else:
-            x, x32 = _block(x, layer, config, attend, x32, mlp)
+            x, x32 = _block(x, layer, config, attend, x32, mlp, tp)
     return _layer_norm(x32, params["final_ln_scale"], params["final_ln_bias"],
                        x.dtype)
 

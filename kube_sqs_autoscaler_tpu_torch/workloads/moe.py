@@ -1,9 +1,12 @@
 """Mixture-of-Experts MLP for both families, on one device.
 
-Counterpart of ``kube_sqs_autoscaler_tpu/workloads/moe.py`` without its
-mesh (expert parallelism over the ``data`` axis), zig-zag and pipeline
-steps, which wait for ROADMAP Queue 1 item 5.  The routing is the
-reference's GShard dense dispatch, kept as it is:
+Counterpart of ``kube_sqs_autoscaler_tpu/workloads/moe.py`` (its
+pipeline step waits for ROADMAP Queue 1 item 5b).  On a mesh the experts
+split over the ``data`` axis (expert parallelism: one ``all_to_all``
+each way), each expert's ff columns over ``model``, and the routing runs
+over the global token stream (:func:`make_mesh_moe_train_step`,
+:func:`make_zigzag_moe_train_step`).  The routing is the reference's
+GShard dense dispatch, kept as it is:
 
 - **Dense dispatch**: routing is one-hot ``[G, T, E, C]`` dispatch and
   combine tensors with a static per-expert capacity ``C``, and the
@@ -351,3 +354,214 @@ def make_llama_moe_train_step(config, moe: MoeConfig, train_config,
     constraints as :func:`make_moe_train_step`)."""
     return _make_moe_step(config, moe, train_config, device,
                           llama_moe_loss_fn)
+
+
+# ---------------------------------------------------------------------------
+# The mesh: expert parallelism over data, routing over the global stream
+# (the reference's mesh paths of _make_moe_step and the zig-zag MoE step)
+# ---------------------------------------------------------------------------
+
+_token_index: dict = {}
+
+
+def _local_tokens(batch: int, seq: int, group: int, mesh, device):
+    """This rank's tokens in the flattened global ``[B, S]`` stream (batch
+    rows over ``data``, sequence slices over ``seq``, in the ranks' own
+    order: natural, or zig-zag's permuted one): each local token's routing
+    group and position in it, and per group the local tokens it holds.
+    Shapes alone decide them, so they are built once, on the host, and
+    kept on the device."""
+    data, seq_ax = mesh.axis("data"), mesh.axis("seq")
+    key = (batch, seq, group, data.index, seq_ax.index, data.size,
+           seq_ax.size, str(device))
+    found = _token_index.get(key)
+    if found is not None:
+        return found
+    rows = data.index * batch + torch.arange(batch)
+    cols = seq_ax.index * seq + torch.arange(seq)
+    index = (rows[:, None] * (seq * seq_ax.size) + cols[None, :]).reshape(-1)
+    groups = (batch * data.size * seq * seq_ax.size) // group
+    by_group = [(g, torch.nonzero(index // group == g)[:, 0].to(device))
+                for g in range(groups)]
+    found = ((index // group).to(device), (index % group).to(device),
+             groups, by_group)
+    _token_index[key] = found
+    return found
+
+
+def _mesh_routing(probs: torch.Tensor, moe: MoeConfig, mesh):
+    """:func:`_top_k_routing` of the whole global stream, for this rank's
+    tokens.  ``probs``: this rank's fp32 ``[B_l, S_l, E]``.  The routing
+    decisions (argmax, capacity positions) need every token of a group,
+    so the probabilities are all-gathered (without gradient) over
+    ``data`` x ``seq``; the gates and the aux share come from this rank's
+    own, differentiable probabilities.  Returns ``dispatch`` and
+    ``combine`` ``[n_local, E, C]``, the group count, the capacity, this
+    rank's share of the Switch aux loss (the shares of all ranks sum to
+    the reference's) and, per group, the local tokens it holds."""
+    b, s, n_experts = probs.shape
+    rep = mesh.replicas
+    dp, sp = mesh.shape["data"], mesh.shape["seq"]
+    gathered = mesh.transport.all_gather(probs.detach().contiguous(),
+                                         rep.group, rep.size)
+    full = torch.stack(gathered).reshape(dp, sp, b, s, n_experts).permute(
+        0, 2, 1, 3, 4).reshape(dp * b, sp * s, n_experts)
+    tokens = full.shape[0] * full.shape[1]
+    group = moe.group_size or _default_group(tokens)
+    if tokens % group:
+        raise ValueError(
+            f"batch of {tokens} tokens not divisible by group_size={group}"
+        )
+    capacity = moe.capacity(group)
+    group_of, place, groups, by_group = _local_tokens(b, s, group, mesh,
+                                                      probs.device)
+    remaining = full.reshape(groups, group, n_experts)
+    onehots = []
+    for _ in range(moe.top_k):
+        onehot = _one_hot(remaining.argmax(dim=-1), n_experts, probs.dtype)
+        onehots.append(onehot)
+        remaining = remaining * (1.0 - onehot)
+    local = probs.reshape(-1, n_experts)
+    chosen = [onehot[group_of, place] for onehot in onehots]
+    gates = [(local * onehot).sum(dim=-1) for onehot in chosen]
+    denom = torch.clamp(sum(gates), min=1e-9)
+    dispatch = local.new_zeros((local.shape[0], n_experts, capacity))
+    combine = torch.zeros_like(dispatch)
+    used = full.new_zeros((groups, n_experts))
+    for onehot, mine, gate in zip(onehots, chosen, gates):
+        pos = torch.cumsum(onehot, dim=1) - onehot + used[:, None, :]
+        used = used + onehot.sum(dim=1)
+        kept = (onehot * (pos < capacity)).sum(dim=-1)[group_of, place]
+        slot = (pos * onehot).sum(dim=-1).to(torch.int64)[group_of, place]
+        mask = mine[..., None] * _one_hot(slot, capacity,
+                                          probs.dtype)[:, None, :]
+        mask = mask * kept[:, None, None]
+        dispatch = dispatch + mask
+        combine = combine + mask * (gate / denom)[:, None, None]
+    frac_tokens = onehots[0].mean(dim=(0, 1))  # [E], the whole stream
+    mean_prob_share = local.sum(dim=0) / tokens
+    aux = n_experts * (frac_tokens * mean_prob_share).sum()
+    return dispatch, combine, groups, capacity, aux, by_group
+
+
+def _mesh_routed_ffn(x: torch.Tensor, layer: dict, moe: MoeConfig,
+                     expert_ffn, mesh):
+    """:func:`_routed_ffn` on a rank of a mesh: ``[B_l, S_l, D] ->
+    ([B_l, S_l, D], aux share)``.  The local tokens fill their slots of
+    the one-hot ``[E, G, C, D]`` layout; with a data axis the experts are
+    split over it (``layer``'s stacks hold this rank's ``E / dp``), and one
+    ``all_to_all`` over ``data`` takes each expert's slots to its rank and
+    another brings the outputs back; with a model axis each expert's ff
+    columns are split (Megatron, its ``f`` and ``g`` around the expert
+    FFN).  Every slot is filled by one token, so each rank's partial
+    inputs add up to the reference's."""
+    from .distributed import all_to_all, copy_to_model, reduce_from_model
+
+    b, s, d = x.shape
+    xl = x.reshape(-1, d)
+    logits = xl.float() @ layer["router"].float()
+    probs = torch.softmax(logits, dim=-1).reshape(b, s, -1)
+    dispatch, combine, groups, capacity, aux, by_group = _mesh_routing(
+        probs, moe, mesh)
+    dispatch = dispatch.to(x.dtype)
+    n_experts = moe.n_experts
+    expert_in = torch.stack(
+        [torch.einsum("tec,td->ecd", dispatch[sel], xl[sel])
+         for _, sel in by_group], dim=1)  # [E, G, C, D]
+    data = mesh.axis("data")
+    mine = expert_in
+    if data.size > 1:
+        share = n_experts // data.size
+        mine = all_to_all(mesh, "data", expert_in.reshape(
+            data.size, share, groups, capacity, d)).sum(dim=0)
+    mine = copy_to_model(mesh, mine)
+    out_mine = reduce_from_model(mesh, expert_ffn(mine, layer))
+    expert_out = out_mine
+    if data.size > 1:
+        expert_out = all_to_all(mesh, "data", out_mine.unsqueeze(0).expand(
+            data.size, *out_mine.shape).contiguous()).reshape(
+                n_experts, groups, capacity, d)
+    out = xl.new_zeros(xl.shape, dtype=torch.float32)
+    for g, sel in by_group:
+        out = out.index_add(0, sel, torch.einsum(
+            "tec,ecd->td", combine[sel], expert_out[:, g].float()))
+    return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def mesh_forward_factory(moe: MoeConfig, mesh, llama: bool = False,
+                         aux_weight: float | None = None):
+    """``forward_factory()`` for the mesh objectives
+    (:func:`.train.mesh_loss`, :func:`.zigzag.make_zigzag_loss`): a fresh
+    family forward per loss evaluation whose ``mlp`` seam is the routed
+    experts on the mesh, and ``finalize(nll)`` adding the weighted mean
+    of the layers' aux shares (``aux_weight`` 0: the pure NLL, for
+    eval)."""
+    from .llama import llama_forward_hidden as llama_hidden
+
+    expert_ffn = _swiglu_experts if llama else _gelu_experts
+    weight = moe.aux_loss_weight if aux_weight is None else aux_weight
+
+    def factory():
+        aux_out = []
+
+        def sparse_mlp(h, layer):
+            out, aux = _mesh_routed_ffn(h, layer, moe, expert_ffn, mesh)
+            aux_out.append(aux)
+            return out
+
+        # the experts run their own tensor parallelism (the router must
+        # see every expert's full output)
+        sparse_mlp.tp_native = True
+        hidden = llama_hidden if llama else forward_hidden
+
+        def fwd(params, tokens, config, attention_fn, remat=False,
+                positions=None, tp=None):
+            return hidden(params, tokens, config, attention_fn,
+                          mlp=sparse_mlp, remat=remat, positions=positions,
+                          tp=tp)
+
+        def finalize(nll):
+            return nll + weight * (sum(aux_out) / len(aux_out))
+
+        return fwd, finalize
+
+    return factory
+
+
+def _make_mesh_moe_step(config, moe: MoeConfig, train_config, mesh, llama,
+                        zigzag: bool = False):
+    from .train import _check_divisible, make_train_step, mesh_loss
+
+    _require_no_remat(train_config)
+    _check_divisible(mesh, config, moe.n_experts)
+    readout = readout_weights if llama else None
+    factory = mesh_forward_factory(moe, mesh, llama)
+    if zigzag:
+        from .zigzag import make_zigzag_loss
+
+        loss = make_zigzag_loss(mesh, config, readout_fn=readout,
+                                forward_factory=factory)
+    else:
+        loss = mesh_loss(config, mesh, readout_fn=readout,
+                         forward_factory=factory)
+    return make_train_step(config, train_config, mesh.device, loss=loss,
+                           window=getattr(config, "sliding_window", None),
+                           mesh=mesh)
+
+
+def make_mesh_moe_train_step(mesh, config, moe: MoeConfig, train_config,
+                             llama: bool = False):
+    """A dp x sp x tp x ep MoE step of either family (the reference's
+    ``make_moe_train_step`` / ``make_llama_moe_train_step`` over a mesh):
+    the experts split over ``data``, the routing over the global token
+    stream, ring attention over ``seq``."""
+    return _make_mesh_moe_step(config, moe, train_config, mesh, llama)
+
+
+def make_zigzag_moe_train_step(mesh, config, moe: MoeConfig, train_config,
+                               llama: bool = False):
+    """MoE x zig-zag: the routed experts ride the permuted-order zig-zag
+    objective (routing groups over the permuted stream, as the
+    reference's)."""
+    return _make_mesh_moe_step(config, moe, train_config, mesh, llama,
+                               zigzag=True)

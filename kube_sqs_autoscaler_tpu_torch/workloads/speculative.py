@@ -1,7 +1,7 @@
 """Speculative decoding: draft-and-verify generation, greedy or sampled.
 
 Counterpart of ``kube_sqs_autoscaler_tpu/workloads/speculative.py``
-(without its mesh functions, ROADMAP Queue 1 item 5), held against it by
+(without its mesh functions, ROADMAP Queue 1 item 5c), held against it by
 ``tests/test_torch_speculative.py``.  A small *draft* model proposes ``k``
 tokens one decode step at a time, then the *target* scores all ``k + 1``
 positions in one chunk-wide forward (the family's chunk decoder).  Per

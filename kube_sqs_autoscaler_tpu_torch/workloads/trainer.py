@@ -21,10 +21,19 @@ GQA-native and windowed kernels for the llama), and exits with an error
 when there is none; ``--device cpu`` runs it on the CPU with dense
 attention.
 
-Every flag of the reference's parser is accepted.  Those that need a
-device mesh (``--model-parallel``, ``--seq-parallel``, ``--zigzag``,
-``--pipe-*``, ``--topology-mesh``) exit 2 naming ROADMAP Queue 1 item 5,
-which ports the mesh.
+Launched over ranks (``python -m torch.distributed.run --nproc-per-node
+N -m kube_sqs_autoscaler_tpu_torch.workloads.trainer ...``) it trains on a
+``("data", "seq", "model")`` mesh (:mod:`.distributed`):
+``--model-parallel`` (Megatron tensor parallelism), ``--seq-parallel``
+(ring attention, :mod:`.ring`; ``--zigzag`` for the balanced schedule,
+:mod:`.zigzag`) and data parallelism over the rest, ``--topology-mesh``
+ordering the ranks node-major.  Rank 0 alone logs, serves ``/metrics`` and
+writes checkpoints, which hold the full tensors (a tensor-parallel run's
+slices gathered), so the single-card worker serves them; ``--resume``
+slices them again per rank.  ``--moe`` splits the experts over ``data``
+and routes over the global token stream; ``--lora-rank`` replicates the
+adapters over a sliced frozen base.  The pipeline flags (``--pipe-*``)
+exit 2 naming ROADMAP Queue 1 item 5b.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import importlib.util
 import itertools
 import json
 import logging
+import os
 import time
 from pathlib import Path
 
@@ -53,6 +63,7 @@ log = logging.getLogger("trainer")
 
 EVAL_SEED_OFFSET = 0x5EED  # the held-out set's seed domain
 MESH_ITEM = "ROADMAP Queue 1 item 5"
+PIPE_ITEM = f"{MESH_ITEM}b"  # pipeline parallelism
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,30 +104,31 @@ def build_parser() -> argparse.ArgumentParser:
              "(0 = off)",
     )
     parser.add_argument("--remat", action="store_true")
-    # parallelism: each needs a device mesh, which is not ported yet
-    mesh = f" (needs a device mesh: not ported yet, {MESH_ITEM})"
+    # parallelism: over the ranks of torch.distributed.run
+    pipe = f" (not ported yet, {PIPE_ITEM})"
     parser.add_argument("--model-parallel", type=int, default=1,
-                        help="tensor-parallel degree" + mesh)
+                        help="tensor-parallel degree (ranks per model "
+                             "slice group)")
     parser.add_argument("--seq-parallel", type=int, default=1,
-                        help="sequence-parallel degree" + mesh)
+                        help="sequence-parallel degree (ring attention)")
     parser.add_argument(
         "--zigzag", action="store_true",
         help="balanced zig-zag schedule for the seq axis (needs "
-             "seq-parallel >= 2)" + mesh,
+             "seq-parallel >= 2)",
     )
     parser.add_argument(
         "--pipe-parallel", type=int, default=1,
         help="pipeline-parallel stages over a "
-             "('pipe','data'[,'model'|'seq']) mesh" + mesh,
+             "('pipe','data'[,'model'|'seq']) mesh" + pipe,
     )
     parser.add_argument(
         "--pipe-schedule", choices=("gpipe", "1f1b"), default="gpipe",
         help="gpipe: all-forward-then-all-backward; 1f1b: interleaved, "
-             "min(M, P) live stage inputs" + mesh,
+             "min(M, P) live stage inputs" + pipe,
     )
     parser.add_argument(
         "--pipe-microbatches", type=int, default=4,
-        help="microbatches per step; batch-size must divide by it" + mesh,
+        help="microbatches per step; batch-size must divide by it" + pipe,
     )
     # mixture-of-experts (both families)
     parser.add_argument(
@@ -149,7 +161,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--topology-mesh", action="store_true",
-        help="order devices along the physical interconnect" + mesh,
+        help="order the ranks node-major (seq and model groups inside a "
+             "node, data across nodes)",
     )
     # data
     parser.add_argument(
@@ -195,18 +208,51 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def mesh_refusal(args) -> str | None:
-    """The message for a flag that needs a device mesh, or ``None``."""
+    """The message for a flag whose path is not ported yet (the pipeline
+    flags), or ``None``."""
     for flag, used in (
-            ("--model-parallel", args.model_parallel != 1),
-            ("--seq-parallel", args.seq_parallel != 1),
-            ("--zigzag", args.zigzag),
             ("--pipe-parallel", args.pipe_parallel != 1),
             ("--pipe-schedule", args.pipe_schedule != "gpipe"),
-            ("--pipe-microbatches", args.pipe_microbatches != 4),
-            ("--topology-mesh", args.topology_mesh)):
+            ("--pipe-microbatches", args.pipe_microbatches != 4)):
         if used:
-            return (f"{flag} needs a device mesh, which is not ported yet "
-                    f"({MESH_ITEM})")
+            return (f"{flag} needs pipeline parallelism, which is not "
+                    f"ported yet ({PIPE_ITEM})")
+    return None
+
+
+def mesh_usage(args) -> str | None:
+    """The usage error of the mesh flags, or ``None``: the reference's
+    checks, and a mesh that does not divide the ranks of this launch
+    (``WORLD_SIZE``; 1 in a lone process)."""
+    from .distributed import mesh_shape
+
+    for flag, value in (("--model-parallel", args.model_parallel),
+                        ("--seq-parallel", args.seq_parallel)):
+        if value < 1:
+            return f"{flag} {value} must be >= 1"
+    if args.zigzag and args.seq_parallel < 2:
+        return "--zigzag: zig-zag needs a nontrivial seq axis (P >= 2)"
+    if args.zigzag and args.sliding_window:
+        return ("--zigzag: sliding_window does not compose with the zig-zag "
+                "schedule; use plain sequence parallelism (windowed ring "
+                "attention) or a (data, model) mesh")
+    shards = 2 * args.seq_parallel if args.zigzag else args.seq_parallel
+    if args.seq_len % shards:
+        return (f"--seq-len {args.seq_len} not divisible by {shards} "
+                "sequence shards")
+    world = int(os.environ.get("WORLD_SIZE", "").strip() or 1)
+    try:
+        mesh_shape(world, args.model_parallel, args.seq_parallel)
+    except ValueError as err:
+        flags = " ".join(
+            f for f, used in (
+                ("--topology-mesh", args.topology_mesh),
+                (f"--model-parallel {args.model_parallel}",
+                 args.model_parallel != 1),
+                (f"--seq-parallel {args.seq_parallel}",
+                 args.seq_parallel != 1)) if used)
+        return (f"{flags} over {world} rank(s): {err} (launch the ranks "
+                "with python -m torch.distributed.run --nproc-per-node N)")
     return None
 
 
@@ -217,7 +263,7 @@ def check_args(args) -> None:
         raise SystemExit(
             "--lora-rank with --moe does not combine with --zigzag"
         )
-    refusal = mesh_refusal(args)
+    refusal = mesh_refusal(args) or mesh_usage(args)
     if refusal:
         raise SystemExit(refusal)
     if args.sliding_window < 0:
@@ -289,14 +335,17 @@ def checkpoint_layout(args) -> dict | None:
     return None
 
 
-def open_checkpoints(args, model_config):
+def open_checkpoints(args, model_config, mesh=None):
     """The run's :class:`.checkpoint.TrainCheckpointer` (``None`` without
     ``--checkpoint-dir``) after the reference's refusals: a directory with
     steps and no ``--resume``; a manifest of another model; a manifest
     without a layout record for a run that has one.  A new directory gets
-    the manifest."""
+    the manifest.  On a mesh every rank checks (they read the same files)
+    and rank 0 alone writes."""
     if not args.checkpoint_dir:
         return None
+    if mesh is not None:
+        _barrier(mesh)
     from .checkpoint import (
         MODEL_MANIFEST, TrainCheckpointer, load_model_layout,
         load_model_manifest, save_model_manifest,
@@ -341,10 +390,52 @@ def open_checkpoints(args, model_config):
                 f"different model ({args.family}, {model_config}, "
                 f"layout={layout}){hint}"
             )
-    else:
+    elif mesh is None or mesh.rank == 0:
         save_model_manifest(args.checkpoint_dir, args.family, model_config,
                             layout=layout)
+    if mesh is not None:
+        _barrier(mesh)
     return checkpointer
+
+
+def _barrier(mesh) -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def open_mesh(args, device):
+    """The run's :class:`.distributed.Mesh`, or ``None`` for a lone process
+    without mesh flags.  Joins the process group when launched over ranks
+    (:func:`.distributed.initialize_from_env`); a mesh that does not
+    divide the ranks exits with the reference's message.  Ranks other than
+    0 log only warnings."""
+    from .distributed import initialize_from_env, make_mesh, \
+        make_topology_mesh
+
+    if int(os.environ.get("RANK", "").strip() or 0) != 0:
+        logging.getLogger().setLevel(logging.WARNING)
+    joined = initialize_from_env(device=device)
+    meshed = (args.model_parallel > 1 or args.seq_parallel > 1
+              or args.zigzag or args.topology_mesh)
+    if not (joined or meshed):
+        return None
+    make = make_topology_mesh if args.topology_mesh else make_mesh
+    try:
+        mesh = make(model_parallel=args.model_parallel,
+                    seq_parallel=args.seq_parallel, device=device)
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
+    if args.batch_size % mesh.shape["data"]:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} not divisible by the data "
+            f"axis ({mesh.shape['data']})")
+    log.info("Mesh: %s over %d ranks (%s%s)", mesh.shape, mesh.size,
+             mesh.transport.backend,
+             ", CUDA tensors staged through host memory"
+             if mesh.transport.staged and mesh.device.type == "cuda" else "")
+    return mesh
 
 
 def build_model(args, device, train_config):
@@ -414,11 +505,28 @@ def build_model(args, device, train_config):
 
 
 def make_step(args, model_config, moe_config, train_config, device,
-              lora=None):
+              lora=None, mesh=None):
     """The run's optimizer step: the family's objective (routed with
     ``--moe``) through :func:`.train.make_train_step`, or the adapter-only
-    step of :mod:`.lora` on ``lora = (frozen_params, LoraConfig)``."""
+    step of :mod:`.lora` on ``lora = (frozen_params, LoraConfig)``.  On a
+    mesh: the family's mesh objective, natural-order or zig-zag."""
     from . import llama, moe
+
+    if mesh is not None:
+        from .train import make_train_step
+
+        objective = mesh_objective(args, model_config, moe_config,
+                                   train_config, mesh)
+        if lora is not None:
+            from .lora import make_lora_train_step
+
+            frozen, lora_config = lora
+            return make_lora_train_step(model_config, train_config, frozen,
+                                        lora_config, device, loss=objective,
+                                        mesh=mesh)
+        return make_train_step(
+            model_config, train_config, device, loss=objective,
+            window=getattr(model_config, "sliding_window", None), mesh=mesh)
 
     objective = None
     if args.moe:
@@ -447,6 +555,69 @@ def make_step(args, model_config, moe_config, train_config, device,
     from .train import make_train_step
 
     return make_train_step(model_config, train_config, device)
+
+
+def _family_hidden(family: str):
+    """``(forward_fn, readout_fn)`` of the family for the mesh objectives
+    (``(None, None)``: the gpt defaults)."""
+    if family == "llama":
+        from .llama import llama_forward_hidden, readout_weights
+
+        return llama_forward_hidden, readout_weights
+    return None, None
+
+
+def mesh_objective(args, model_config, moe_config, train_config, mesh,
+                   aux_weight: float | None = None):
+    """The run's objective on a mesh in the train step's loss-seam shape:
+    the rank's share of the family's loss, natural-order
+    (:func:`.train.mesh_loss`) or zig-zag
+    (:func:`.zigzag.make_zigzag_loss`), routed over the mesh with
+    ``--moe`` (:func:`.moe.mesh_forward_factory`; ``aux_weight`` 0 drops
+    the aux term, for eval)."""
+    from .train import mesh_loss
+
+    forward_fn, readout_fn = _family_hidden(args.family)
+    factory = None
+    if args.moe:
+        from .moe import _require_no_remat, mesh_forward_factory
+
+        _require_no_remat(train_config)
+        factory = mesh_forward_factory(moe_config, mesh,
+                                       args.family == "llama", aux_weight)
+        forward_fn = None
+    if args.zigzag:
+        from .zigzag import make_zigzag_loss
+
+        return make_zigzag_loss(mesh, model_config,
+                                remat=train_config.remat,
+                                forward_fn=forward_fn, readout_fn=readout_fn,
+                                forward_factory=factory)
+    return mesh_loss(model_config, mesh, remat=train_config.remat,
+                     forward_fn=forward_fn, readout_fn=readout_fn,
+                     forward_factory=factory)
+
+
+def make_mesh_eval(args, model_config, moe_config, mesh, params_of):
+    """``eval_loss(state, tokens) -> float`` on a mesh: the rank's share
+    of the pure LM loss over its rows (no aux term), summed over the
+    ranks."""
+    from .data import mesh_rows
+    from .train import TrainConfig, mesh_attention_fn
+
+    loss = mesh_objective(args, model_config, moe_config, TrainConfig(),
+                          mesh, aux_weight=0.0)
+    attend = mesh_attention_fn(
+        mesh, getattr(model_config, "sliding_window", None))
+
+    def eval_loss(state, tokens) -> float:
+        rows = mesh_rows(tokens, mesh)
+        with torch.no_grad():
+            value = loss(params_of(state), rows, attend)
+        return float(mesh.transport.all_reduce(value.clone(),
+                                               mesh.replicas.group))
+
+    return eval_loss
 
 
 def make_eval(args, model_config, moe_config, device, params_of):
@@ -493,6 +664,9 @@ def setup(args) -> dict:
         device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(f"error: {err}") from None
+    mesh = open_mesh(args, device)
+    if mesh is not None:
+        device = mesh.device
     train_config = TrainConfig(
         learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,
         decay_steps=args.decay_steps, remat=args.remat,
@@ -508,6 +682,14 @@ def setup(args) -> dict:
     log.info("Model: %s parameters on %s",
              f"{param_count(base if state is None else state['params']):,}",
              device)
+    if mesh is not None:
+        from .train import _check_divisible
+
+        try:
+            _check_divisible(mesh, model_config,
+                             moe_config.n_experts if moe_config else None)
+        except ValueError as err:
+            raise SystemExit(str(err)) from None
     lora = None
 
     def save_state(s):
@@ -516,6 +698,8 @@ def setup(args) -> dict:
     def params_of(s):
         return s["params"]
 
+    full_params_of = params_of
+
     if args.lora_rank:
         from .lora import (
             LoraConfig, apply_lora, init_lora_train_state,
@@ -523,7 +707,14 @@ def setup(args) -> dict:
         )
 
         lora_config = LoraConfig(rank=args.lora_rank, alpha=args.lora_alpha)
-        lora = (base, lora_config)
+        # on a mesh each rank adapts its slices of the frozen base; the
+        # adapters are replicated
+        frozen = base
+        if mesh is not None:
+            from .train import shard_params
+
+            frozen = shard_params(base, mesh)
+        lora = (frozen, lora_config)
         state = init_lora_train_state(
             torch.Generator().manual_seed(args.seed + 1), base, lora_config,
             train_config)
@@ -534,29 +725,50 @@ def setup(args) -> dict:
             return lora_checkpoint_state(base, s, lora_config)
 
         def params_of(s):
+            return apply_lora(frozen, s["adapters"], lora_config, mesh)
+
+        def full_params_of(s):
             return apply_lora(base, s["adapters"], lora_config)
 
         log.info("LoRA: rank %d, %s adapter parameters (base frozen)",
                  args.lora_rank,
                  f"{lora_param_count(state['adapters']):,}")
-    checkpointer = open_checkpoints(args, model_config)
+    checkpointer = open_checkpoints(args, model_config, mesh)
     if checkpointer is not None and args.resume:
         latest = checkpointer.latest_step()
         if latest is not None:
-            if args.lora_rank:
-                # adapter-only restore; the frozen base was just rebuilt
-                # from the same seed or HF source
-                checkpointer.restore_lora(state)
-            else:
-                checkpointer.restore(state)
+            from .checkpoint import OrbaxCheckpointError, exit_refused
+
+            try:
+                if args.lora_rank:
+                    # adapter-only restore; the frozen base was just
+                    # rebuilt from the same seed or HF source
+                    checkpointer.restore_lora(state)
+                else:
+                    checkpointer.restore(state)
+            except OrbaxCheckpointError as err:
+                exit_refused(err)
             log.info("Resumed from checkpoint step %d", latest)
+    if mesh is not None and lora is None:
+        from .train import gather_params, gather_state, place_state
+
+        # every rank built (or restored) the same full state: keep this
+        # rank's slices; checkpoints gather the full tensors back
+        state = place_state(mesh, state)
+
+        def save_state(s):
+            return gather_state(mesh, s)
+
+        def full_params_of(s):
+            return gather_params(s["params"], mesh)
     return {
         "device": device, "model_config": model_config,
         "moe_config": moe_config, "state": state,
         "step_fn": make_step(args, model_config, moe_config, train_config,
-                             device, lora),
+                             device, lora, mesh),
         "checkpointer": checkpointer, "save_state": save_state,
-        "params_of": params_of, "lora": lora,
+        "params_of": params_of, "full_params_of": full_params_of,
+        "lora": lora, "mesh": mesh,
     }
 
 
@@ -585,13 +797,20 @@ def train(args) -> dict:
     device, model_config = run["device"], run["model_config"]
     state, step_fn = run["state"], run["step_fn"]
     checkpointer, save_state = run["checkpointer"], run["save_state"]
+    mesh = run["mesh"]
+    # rank 0 alone logs, serves /metrics, traces and writes checkpoints
+    lead = mesh is None or mesh.rank == 0
 
     start_step = state["step"]
     last_saved = start_step if args.resume else None
     eval_loss = eval_data = None
-    if args.eval_every > 0:
+    if args.eval_every > 0 and mesh is not None:
+        eval_loss = make_mesh_eval(args, model_config, run["moe_config"],
+                                   mesh, run["params_of"])
+    elif args.eval_every > 0:
         eval_loss = make_eval(args, model_config, run["moe_config"], device,
                               run["params_of"])
+    if eval_loss is not None:
         # a fixed held-out set from a disjoint seed domain of the source
         eval_stream = token_stream(args, model_config.vocab_size,
                                    args.seed + EVAL_SEED_OFFSET, 0)
@@ -599,7 +818,7 @@ def train(args) -> dict:
                      for _ in range(args.eval_batches)]
 
     metrics = obs_server = None
-    if args.metrics_port:
+    if args.metrics_port and lead:
         from ..obs import ObservabilityServer, WorkloadMetrics
 
         metrics = WorkloadMetrics()
@@ -611,8 +830,15 @@ def train(args) -> dict:
                           0 if args.overfit else start_step)
     if args.overfit:
         stream = itertools.repeat(next(stream))
-    batches = prefetch_to_device(stream, device)
-    step_flops = train_step_flops(model_config, args.batch_size, args.seq_len)
+    if mesh is not None:
+        from .data import prefetch_to_mesh
+
+        batches = prefetch_to_mesh(stream, mesh)
+    else:
+        batches = prefetch_to_device(stream, device)
+    # MFU is per card: a mesh's step FLOPs spread over its ranks
+    step_flops = train_step_flops(model_config, args.batch_size,
+                                  args.seq_len) / (mesh.size if mesh else 1)
 
     losses = []
     timed_steps, timed_s = 0, 0.0  # every logged interval after the first
@@ -624,7 +850,7 @@ def train(args) -> dict:
     interval_steps = 0
     try:
         # --steps bounds the run, so tracing it (when asked) is bounded
-        with maybe_trace(args.profile_dir, device):
+        with maybe_trace(args.profile_dir if lead else "", device):
             for local_step in range(args.steps):
                 state, loss = step_fn(state, next(batches))
                 interval_steps += 1
@@ -685,7 +911,9 @@ def train(args) -> dict:
                         and step % args.checkpoint_every == 0):
                     # the write streams on a thread while training goes
                     # on; the next save (or the final wait) joins it
-                    checkpointer.save(save_state(state), wait=False)
+                    saved = save_state(state)  # collective on a mesh
+                    if lead:
+                        checkpointer.save(saved, wait=False)
                     last_saved = step
                     log.info("Checkpointed step %d", step)
         final_step = state["step"]
@@ -693,11 +921,13 @@ def train(args) -> dict:
             last_saved != final_step
         final_state = (save_state(state)
                        if needs_final_save or args.hf_export else None)
-        if needs_final_save:
+        if needs_final_save and lead:
             checkpointer.save(final_state)
-        elif checkpointer is not None:
+        elif checkpointer is not None and lead:
             checkpointer.wait_until_finished()
-        if args.hf_export:
+        if mesh is not None:
+            _barrier(mesh)  # the step is on disk before any rank returns
+        if args.hf_export and lead:
             from .hf_convert import save_hf_llama
 
             save_hf_llama(final_state["params"], model_config,
@@ -709,7 +939,7 @@ def train(args) -> dict:
             obs_server.stop()
     steps_per_s = timed_steps / timed_s if timed_steps else None
     with torch.no_grad():
-        params = run["params_of"](state)
+        params = run["full_params_of"](state)
     return {
         "losses": losses, "final_step": final_step, "params": params,
         "steps_per_s": steps_per_s,
@@ -723,7 +953,7 @@ def main(argv=None) -> dict:
     configure_logging()
     parser = build_parser()
     args = parser.parse_args(argv)
-    refusal = mesh_refusal(args)
+    refusal = mesh_refusal(args) or mesh_usage(args)
     if refusal:
         parser.error(refusal)  # exit 2, as a usage error
     return train(args)

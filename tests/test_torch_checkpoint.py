@@ -273,3 +273,54 @@ def test_restore_checks_shapes(tmp_path):
     with pytest.raises(ValueError, match="shape"):
         TrainCheckpointer(tmp_path).restore(other)
     assert checkpoint.MODEL_MANIFEST == jax_checkpoint.MODEL_MANIFEST
+
+
+def test_reference_orbax_checkpoint_is_refused_by_name(tmp_path, capsys):
+    """A step the JAX package's trainer wrote (orbax) is refused with a
+    message naming the format, by ``load`` and so by ``restore``,
+    ``restore_lora`` and ``restore_params``; the worker and the trainer's
+    ``--resume`` exit 2 with it, no traceback.  The port imports no JAX
+    doing so."""
+    import subprocess
+    import sys
+
+    from kube_sqs_autoscaler_tpu.workloads import trainer as jax_trainer
+
+    ref = tmp_path / "ref"
+    dims = ["--vocab-size", "256", "--d-model", "64", "--n-heads", "4",
+            "--n-layers", "2", "--d-ff", "128", "--seq-len", "48",
+            "--batch-size", "8"]
+    jax_trainer.main([*dims, "--steps", "2", "--checkpoint-dir", str(ref),
+                      "--checkpoint-every", "1"])
+    saver = TrainCheckpointer(ref)
+    assert saver.latest_step() == 2
+    assert not (ref / "step_00000002" / STATE_FILE).exists()
+    for call in (lambda: saver.load(),
+                 lambda: saver.restore(fresh_state()),
+                 lambda: saver.restore_params("gpt", CONFIG, device="cpu")):
+        with pytest.raises(checkpoint.OrbaxCheckpointError,
+                           match="step 2 under .* is an orbax checkpoint of "
+                                 "the JAX package"):
+            call()
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as exit_:
+        worker.main([*SERVE, "--checkpoint-dir", str(ref)])
+    assert exit_.value.code == 2
+    assert "orbax checkpoint" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exit_:
+        trainer.main([*TINY, "--steps", "1", "--checkpoint-dir", str(ref),
+                      "--resume"])
+    assert exit_.value.code == 2
+    assert "orbax checkpoint" in capsys.readouterr().err
+    # without --resume the trainer refuses the directory as before
+    with pytest.raises(SystemExit, match="already has step 2"):
+        trainer.main([*TINY, "--steps", "1", "--checkpoint-dir", str(ref)])
+    # the worker binary as a process with jax unimportable: exit 2, the
+    # message, no traceback
+    code = ("import sys; sys.modules['jax'] = None; "
+            "from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import "
+            f"main; main({[*SERVE, '--checkpoint-dir', str(ref)]!r})")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 2
+    assert "orbax checkpoint" in out.stderr and "Traceback" not in out.stderr

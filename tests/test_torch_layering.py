@@ -75,7 +75,8 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
         assert PORT / "comms" / name in files
     for name in ("scheduler.py", "knobs.py", "fleet.py"):
         assert PORT / "sched" / name in files
-    for name in ("checkpoint.py", "moe.py", "lora.py", "hf_convert.py"):
+    for name in ("checkpoint.py", "moe.py", "lora.py", "hf_convert.py",
+                 "distributed.py", "ring.py", "zigzag.py"):
         assert PORT / "workloads" / name in files
     for name in ("__init__.py", "tokenreader.py"):
         assert PORT / "native" / name in files
@@ -366,6 +367,22 @@ with tempfile.TemporaryDirectory() as tmp:
     tokenreader.write_token_shards(tmp + "/corpus", np.arange(500) % 64, 64)
     batch = next(data.corpus_token_stream(tmp + "/corpus", 2, 8, seed=1))
     assert batch.shape == (2, 8)
+# the training mesh: a one-rank process group over gloo, a mesh step
+# through the ring's per-rank seam, and the zig-zag permutation
+import socket
+from kube_sqs_autoscaler_tpu_torch.workloads import distributed, ring, zigzag
+sock = socket.socket(); sock.bind(("127.0.0.1", 0))
+port = sock.getsockname()[1]; sock.close()
+assert distributed.initialize_from_env(
+    device="cpu", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+    world_size=1)
+mesh = distributed.make_mesh(model_parallel=1, seq_parallel=1, device="cpu")
+mstate_ = train.place_state(mesh, train.train_state(params,
+                                                    train.TrainConfig()))
+mstate_, _ = train.make_train_step(cfg, train.TrainConfig(), "cpu",
+                                   mesh=mesh)(mstate_, ids)
+assert mstate_["step"] == 1 and ring.make_ring_attention(mesh).gqa_native
+assert len(zigzag.zigzag_permutation(8, 2)) == 8
 back = hf_convert.llama_params_from_hf(
     hf_convert.hf_state_dict_from_llama(lparams, lcfg), lcfg, device="cpu")
 assert all(torch.equal(a, b) for a, b in zip(train.param_leaves(back),

@@ -331,3 +331,81 @@ def test_trainer_rejects_lora_with_incompatible_flags():
          "--steps", "1", "--device", "cpu"])
     with pytest.raises(SystemExit, match="zigzag"):
         trainer.train(args)
+
+
+# ---------------------------------------------------------------------------
+# LoRA on the mesh: the port's ranks (gloo, spawned; torch_mesh_ranks.py)
+# against the reference's mesh step.  Each rank adds its slice of A @ B to
+# its slice of the frozen base; the replicated adapters' gradients sum over
+# every axis.
+# ---------------------------------------------------------------------------
+
+MESH_RUNS = {
+    # name: (family, tp, sp, zigzag)
+    "gpt-tp2-sp2": ("gpt", 2, 2, False),
+    "llama-dp2-sp2": ("llama", 1, 2, False),
+    "gpt-zigzag-dp2-sp2": ("gpt", 1, 2, True),
+}
+MESH_BATCHES = list(itertools.islice(
+    jax_data.synthetic_token_stream(256, 4, 32, seed=17), 2))
+_mesh_done = {}
+
+
+def mesh_case(name):
+    fam = MESH_RUNS[name][0]
+    (jcfg, _, npp, jad, jlora), (tcfg, _, tp, tad, _) = reference_case(
+        fam, seed=11)
+    if fam == "llama":  # the ring over sp with no window: plain causal
+        jcfg = jax_llama.LlamaConfig(**LLAMA, dtype=jnp.float32)
+        tcfg = llama.LlamaConfig(**LLAMA, dtype=torch.float32)
+    return jcfg, npp, jad, jlora, tcfg, tp, tad
+
+
+def mesh_port(name):
+    if not _mesh_done:
+        from .torch_mesh_ranks import run_ranks
+
+        runs = []
+        for n, (fam, tp_, sp, zz) in MESH_RUNS.items():
+            _, _, _, _, tcfg, tp, tad = mesh_case(n)
+            runs.append(dict(family=fam, config=tcfg, tp=tp_, sp=sp,
+                             zigzag=zz, lora=4, params=tp, adapters=tad,
+                             train=dict(learning_rate=1e-3),
+                             batches=[torch.from_numpy(b)
+                                      for b in MESH_BATCHES]))
+        results = run_ranks("train", 4, {"runs": runs}, timeout=300)
+        _mesh_done.update({n: results[0][i]
+                           for i, n in enumerate(MESH_RUNS)})
+    return _mesh_done[name]
+
+
+@pytest.mark.parametrize("name", list(MESH_RUNS))
+def test_mesh_adapter_steps_match_the_reference(name):
+    fam, tp_, sp, zz = MESH_RUNS[name]
+    jcfg, npp, jad, jlora, _, _, _ = mesh_case(name)
+    config = jax_train.TrainConfig(learning_rate=1e-3)
+    mesh = jax_train.make_mesh(jax.devices()[:4], model_parallel=tp_,
+                               seq_parallel=sp)
+    frozen = jax.device_put(jax.tree.map(jnp.asarray, npp),
+                            jax_train.param_shardings(mesh, npp))
+    jad = jax.tree.map(jnp.asarray, jad)
+    jstate = {"adapters": jad,
+              "opt_state": jax_train.make_optimizer(config).init(jad),
+              "step": jnp.zeros((), jnp.int32)}
+    loss = None
+    if zz:
+        from kube_sqs_autoscaler_tpu.workloads.zigzag import make_zigzag_loss
+
+        loss = make_zigzag_loss(mesh, jcfg)
+    elif fam == "llama":
+        loss = jax_llama.llama_mesh_loss(jcfg, config)
+    jstep = jax_lora.make_lora_train_step(mesh, jcfg, config, frozen,
+                                          jstate, jlora, loss=loss)
+    want = []
+    for batch in MESH_BATCHES:
+        jstate, jl = jstep(jstate, jnp.asarray(batch))
+        want.append(float(jl))
+    got = mesh_port(name)
+    np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
+    assert_params_close([t.numpy() for t in got["params"]],
+                        tree_leaves(jstate["adapters"]))

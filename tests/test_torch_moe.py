@@ -310,3 +310,87 @@ def test_trainer_moe_learns(extra):
     assert result["final_step"] == 4
     losses = result["losses"]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# ---------------------------------------------------------------------------
+# MoE on the mesh: the port's ranks (gloo, spawned; torch_mesh_ranks.py)
+# against the reference's mesh steps on its virtual CPU devices.  Experts
+# split over data (an all-to-all each way), routing over the global token
+# stream; small routing groups and the default capacity, so tokens are
+# dropped and the capacity order counts.
+# ---------------------------------------------------------------------------
+
+MESH_RUNS = {
+    # name: (family, tp, sp, zigzag, MoeConfig keywords)
+    "gpt-dp2-sp2": ("gpt", 1, 2, False, dict(group_size=64)),
+    "gpt-dp2-tp2": ("gpt", 2, 1, False, {}),
+    "llama-dp4": ("llama", 1, 1, False, dict(group_size=32)),
+    "gpt-zigzag-tp2-sp2": ("gpt", 2, 2, True, {}),
+    "llama-zigzag-sp4": ("llama", 1, 4, True, dict(group_size=64)),
+}
+MESH_BATCHES = list(itertools.islice(
+    jax_data.synthetic_token_stream(256, 4, 32, seed=13), 2))
+_mesh_done = {}
+
+
+def mesh_port(name):
+    if not _mesh_done:
+        from .torch_mesh_ranks import run_ranks
+
+        runs = []
+        for fam, tp, sp, zz, kw in MESH_RUNS.values():
+            jmoe = jax_moe.MoeConfig(n_experts=4, top_k=2, **kw)
+            _, tcfg, _, tparams, _ = weights(fam, jmoe, seed=5)
+            runs.append(dict(
+                family=fam, config=tcfg, tp=tp, sp=sp, zigzag=zz,
+                moe=moe.MoeConfig(n_experts=4, top_k=2, **kw),
+                params=tparams, train=dict(learning_rate=1e-3,
+                                           grad_clip_norm=0.5),
+                batches=[torch.from_numpy(b) for b in MESH_BATCHES]))
+        results = run_ranks("train", 4, {"runs": runs}, timeout=300)
+        _mesh_done.update({n: results[0][i]
+                           for i, n in enumerate(MESH_RUNS)})
+    return _mesh_done[name]
+
+
+@pytest.mark.parametrize("name", list(MESH_RUNS))
+def test_mesh_moe_train_steps_match_the_reference(name):
+    fam, tp, sp, zz, kw = MESH_RUNS[name]
+    jmoe = jax_moe.MoeConfig(n_experts=4, top_k=2, **kw)
+    jcfg, _, npp, _, _ = weights(fam, jmoe, seed=5)
+    config = jax_train.TrainConfig(learning_rate=1e-3, grad_clip_norm=0.5)
+    mesh = jax_train.make_mesh(jax.devices()[:4], model_parallel=tp,
+                               seq_parallel=sp)
+    params = jax.tree.map(jnp.asarray, npp)
+    jstate = jax_train.place_state(mesh, {
+        "params": params,
+        "opt_state": jax_train.make_optimizer(config).init(params),
+        "step": jnp.zeros((), jnp.int32)})
+    if zz:
+        jstep = jax_moe.make_zigzag_moe_train_step(
+            mesh, jcfg, jmoe, config, jstate, llama=fam == "llama")
+    else:
+        make_ref = (jax_moe.make_moe_train_step if fam == "gpt"
+                    else jax_moe.make_llama_moe_train_step)
+        jstep = make_ref(mesh, jcfg, jmoe, config, jstate)
+    want = []
+    for batch in MESH_BATCHES:
+        jstate, jloss = jstep(jstate, jnp.asarray(batch))
+        want.append(float(jloss))
+    got = mesh_port(name)
+    np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
+    assert_params_close([t.numpy() for t in got["params"]],
+                        tree_leaves(jstate["params"]))
+
+
+def test_mesh_moe_refuses_experts_the_data_axis_cannot_split():
+    from kube_sqs_autoscaler_tpu_torch.workloads import distributed
+
+    mesh = distributed.make_mesh(model_parallel=1, seq_parallel=1,
+                                 device="cpu")
+    mesh.shape["data"] = 3  # as a three-rank data axis would be
+    with pytest.raises(ValueError, match="n_experts=4 not divisible by "
+                                         "the data axis"):
+        moe.make_mesh_moe_train_step(mesh, family("gpt")[1],
+                                     moe.MoeConfig(n_experts=4),
+                                     train.TrainConfig())

@@ -256,10 +256,11 @@ def test_trainer_binary_overfits_on_the_cpu():
 
 def test_trainer_rejects_unported_choices():
     # the llama family and --data-dir are ported (test_torch_llama_train,
-    # test_torch_native); the flags that need a device mesh are not
+    # test_torch_native), and the mesh flags (test_torch_mesh_train); the
+    # pipeline flags are not
     with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 5"):
         trainer.train(trainer.build_parser().parse_args(
-            ["--device", "cpu", "--family", "llama", "--model-parallel",
+            ["--device", "cpu", "--family", "llama", "--pipe-parallel",
              "2"]))
     with pytest.raises(SystemExit, match="meta.json"):
         trainer.main(["--device", "cpu", "--data-dir", "x"])
