@@ -7866,8 +7866,6 @@ def mesh_hop_timing(torch, flash, smoke: Smoke) -> dict:
     plain version in bf16 and f32 (:func:`mesh_hop_checks`), then timed in
     bf16 beside its plain version, SDPA with the hop's mask and its
     bound."""
-    import torch.nn.functional as F
-
     shapes = [
         # (label, H_kv, S_q, S_k, causal, q_shift, window)
         ("ring-diag-2048", 16, 2048, 2048, True, 0, None),
@@ -7880,13 +7878,24 @@ def mesh_hop_timing(torch, flash, smoke: Smoke) -> dict:
         ("ring-gqa-window512-earlier-511x2048-shift2048", 4, 511, 2048,
          True, 2048, 512),
     ]
-    b, h, d = 4, 16, 64
+    return hop_timing(torch, flash, smoke, [(label, 4, 16, *rest)
+                                           for label, *rest in shapes], 300)
+
+
+def hop_timing(torch, flash, smoke: Smoke, shapes, seed0: int) -> dict:
+    """Each training kernel at ``shapes`` (``(label, B, H, H_kv, S_q, S_k,
+    causal, q_shift, window)``, D = 64) against its plain version in bf16
+    and f32, then timed in bf16 beside its plain version, SDPA with the
+    same mask and its bound."""
+    import torch.nn.functional as F
+
+    d = 64
     timings = {}
-    for seed, (label, hkv, sq, sk, causal, shift, window) in enumerate(
-            shapes):
+    for seed, (label, b, h, hkv, sq, sk, causal, shift, window) in \
+            enumerate(shapes):
         opts = dict(causal=causal, window=window, q_shift=shift)
         errs = mesh_hop_checks(torch, flash, smoke, label, b, h, hkv, sq, sk,
-                               d, opts, 300 + seed)
+                               d, opts, seed0 + seed)
         q, k, v, dout = train_inputs(torch, b, h, hkv, sq, sk, d,
                                      torch.bfloat16, False, 41)
         out, lse = flash.flash_fwd_reference(q, k, v, **opts)
@@ -7936,7 +7945,7 @@ def mesh_hop_timing(torch, flash, smoke: Smoke) -> dict:
                 b, h, hkv, sq, sk, d, causal, shift, window, kind)
             t["max_scaled_err"] = errs[name]
             timings.setdefault(name, {})[label] = t
-            print(f"time {name} mesh hop {label} (B={b}, H={h}, H_kv={hkv}, "
+            print(f"time {name} hop {label} (B={b}, H={h}, H_kv={hkv}, "
                   f"D={d}, bf16): kernel {t['kernel_ms']:.4f} ms, plain "
                   f"{t['plain_ms']:.4f} ms, library {library:.4f} ms, bound "
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
@@ -7977,6 +7986,309 @@ def mesh_phase(torch, flash, smoke: Smoke, power: str) -> dict:
         if "launches" in out[part]:
             out["launches"].update(out[part].pop("launches"))
         print(f"-- mesh {part}: {time.perf_counter() - start:.3f} s",
+              flush=True)
+    return out
+
+
+PIPE_RANKS = 4
+PIPE_TIMEOUT = 420  # seconds the launch of ranks may take
+PIPE_TRAIN_STEPS = 5
+# the flagship GPT at S = 4096, B = 4 for the ring inside the stages
+PIPE_GPT_S4096 = [*TRAIN_ARGS[:TRAIN_ARGS.index("--seq-len")], "--seq-len",
+                  "4096", "--batch-size", "4", "--device", "cuda"]
+PIPE_LLAMA_ARGS = [*LLAMA_TRAIN_ARGS, "--sliding-window", "512"]
+PIPE_TRAIN_RUNS = [
+    # (label, args, flags, pipeline flags, pipe, seq, model, microbatches,
+    #  zigzag, steps); all over the PIPE_RANKS ranks, data parallel over
+    # what the flags leave; the one-process run takes args + flags
+    ("gpt-pp4-m8-gpipe", TRAIN_ARGS, [], ["--pipe-parallel", "4",
+                                          "--pipe-microbatches", "8"],
+     4, 1, 1, 8, False, PIPE_TRAIN_STEPS),
+    ("gpt-pp4-m8-1f1b", TRAIN_ARGS, [], ["--pipe-parallel", "4",
+                                         "--pipe-microbatches", "8",
+                                         "--pipe-schedule", "1f1b"],
+     4, 1, 1, 8, False, PIPE_TRAIN_STEPS),
+    ("gpt-pp2-tp2-m4-1f1b", TRAIN_ARGS, [], [
+        "--pipe-parallel", "2", "--model-parallel", "2", "--pipe-schedule",
+        "1f1b", "--pipe-microbatches", "4"], 2, 1, 2, 4, False,
+     PIPE_TRAIN_STEPS),
+    ("gpt-pp2-sp2-1f1b-s4096", PIPE_GPT_S4096, [], [
+        "--pipe-parallel", "2", "--seq-parallel", "2", "--pipe-schedule",
+        "1f1b"], 2, 2, 1, 4, False, PIPE_TRAIN_STEPS),
+    ("llama-pp2-dp2-m4-window512", PIPE_LLAMA_ARGS, [], [
+        "--pipe-parallel", "2", "--pipe-microbatches", "4"], 2, 1, 1, 4,
+     False, PIPE_TRAIN_STEPS),
+    # (b) short runs: the flagship GPT cut to 4 layers, 3 steps
+    ("gpt4-pp2-sp2-zigzag-1f1b", SHORT_TRAIN_ARGS, [], [
+        "--pipe-parallel", "2", "--seq-parallel", "2", "--zigzag",
+        "--pipe-schedule", "1f1b"], 2, 2, 1, 4, True, 3),
+    # experts split by ff column over model: each microbatch routes its
+    # 2 rows as one group of 4096 tokens, as one process does
+    ("gpt4-moe-pp2-tp2", SHORT_TRAIN_ARGS, ["--moe"], [
+        "--pipe-parallel", "2", "--model-parallel", "2"], 2, 1, 2, 4, False,
+     3),
+    ("gpt4-lora8-pp2-dp2", SHORT_TRAIN_ARGS, ["--lora-rank", "8"],
+     ["--pipe-parallel", "2"], 2, 1, 1, 4, False, 3),
+]
+# the pipeline run's first two losses against one process's on the same
+# seed, tokens and weights (bf16): the stages hand on bf16 activations
+# where one process's next norm reads the fp32 residual sum, and the
+# microbatches' gradients sum in another order.  The readings on the H100
+# (PERF.md): dense runs up to 9.0e-5 and 1.9e-4, so the limits are
+# ten times those; the MoE run has its own, five and four times its
+# 1.8e-4 and 1.3e-2 (a bf16 router logit that rounds the other way sends
+# a token to another expert)
+PIPE_LOSS_TOL = {"dense": (1e-3, 2e-3), "moe": (1e-3, 5e-2)}
+PIPE_DIR = Path("build") / "chip_smoke" / "pipe"
+# the stage shapes the runs of (a) launch that the mesh's hop rows do not
+# cover: (label, B, H, H_kv, S_q, S_k, causal, q_shift, window)
+PIPE_STAGE_SHAPES = [
+    ("gpt-stage-1x16x2048", 1, 16, 16, 2048, 2048, True, 0, None),
+    ("gpt-stage-ring-earlier-1x16x2048", 1, 16, 16, 2048, 2048, False, 0,
+     None),
+    ("gpt-stage-tp2-2x8x2048", 2, 8, 8, 2048, 2048, True, 0, None),
+    ("llama-stage-gqa-window512-1x16x4x2048", 1, 16, 4, 2048, 2048, True, 0,
+     512),
+]
+
+
+def pipe_rank_main(argv: list[str]) -> int:
+    """``chip_smoke.py --pipe-rank OUT``: the rank side of the ``pipe``
+    phase, under ``torch.distributed.run``: each trainer run of
+    :data:`PIPE_TRAIN_RUNS`, in one process group."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    from kube_sqs_autoscaler_tpu_torch.workloads import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(argv[0])
+    distributed.initialize_from_env(device="cuda")
+    for label, base, flags, meshed, pipe, sp, tp, *_, steps in \
+            PIPE_TRAIN_RUNS:
+        extra = (["--checkpoint-dir", str(out / label), "--checkpoint-every",
+                  "0"] if tp > 1 and not flags else [])
+        mesh_train_rank(torch, out, label, [
+            *base, *flags, "--log-every", "1", "--overfit", *meshed, *extra,
+            "--steps", str(steps)])
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def pipe_lora_one_process(torch, argv: list[str], micro: int) -> dict:
+    """One process's first two steps of a pipelined LoRA run: the same
+    stage-stacked base and adapters (the trainer's seeds), its step on one
+    stage in this process, on the trainer's first batch.  (A flat LoRA run
+    adapts the fused projections with other factors, so it is another
+    model after its first update.)"""
+    from kube_sqs_autoscaler_tpu_torch.workloads import (
+        lora, pipeline, train, trainer,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.data import (
+        synthetic_token_stream,
+    )
+
+    args = trainer.build_parser().parse_args(
+        [*argv, "--pipe-parallel", "2"])
+    tcfg = train.TrainConfig(learning_rate=args.learning_rate)
+    config, _, base, _ = trainer.build_model(args, "cuda", tcfg)
+    mesh = pipeline.make_pipeline_mesh(1, device="cuda")
+    lcfg = lora.LoraConfig(rank=args.lora_rank, alpha=args.lora_alpha)
+    full = lora.init_pipeline_lora_train_state(
+        torch.Generator().manual_seed(args.seed + 1), base, lcfg, tcfg)
+    state = lora.place_pipeline_lora_state(mesh, full)
+    step_fn = lora.make_lora_pipeline_train_step(
+        mesh, config, pipeline.PipelineConfig(micro), tcfg,
+        pipeline.shard_pipeline_params(base, mesh), lcfg)
+    batch = next(synthetic_token_stream(config.vocab_size, args.batch_size,
+                                        args.seq_len, seed=args.seed))
+    tokens = torch.from_numpy(np.ascontiguousarray(pipeline.pipeline_rows(
+        batch, mesh, micro))).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(2):
+        start = time.perf_counter()
+        state, loss = step_fn(state, tokens)
+        losses.append(float(loss))  # the sync point
+    # the second step's wall time: the first pays the one-time costs
+    return {"losses": losses, "step_ms": (time.perf_counter() - start) * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def pipe_one_process(torch, flash) -> dict:
+    """One process's first two steps of each run's flags without the
+    pipeline flags: the losses the pipeline's first two steps must equal,
+    its step time and peak memory (the LoRA run's through one stage,
+    :func:`pipe_lora_one_process`)."""
+    out = {}
+    for _, base, flags, _, _, _, _, micro, *_ in PIPE_TRAIN_RUNS:
+        key = tuple(base + flags)
+        if key in out:
+            continue
+        if "--lora-rank" in flags:
+            out[key] = pipe_lora_one_process(torch, [*base, *flags], micro)
+            continue
+        run = trainer_run(torch, flash, [*base, *flags, "--log-every", "1",
+                                         "--overfit", "--steps", "2"])
+        summary = run["summary"]
+        out[key] = {"losses": summary["losses"],
+                    "step_ms": 1e3 / summary["steps_per_s"],
+                    "peak_gib": run["peak_gib"]}
+        del run, summary
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_pipe_training(torch, smoke: Smoke, out: Path, power: str,
+                        one: dict) -> dict:
+    """(a) and (b): each run's first two losses against one process's,
+    falling losses, each rank's exact launches a step (``n_layers / P``
+    layers x ``M`` microbatches x its ring hops), step time and per-rank
+    peak memory; 1F1B's peak below GPipe's at ``M = 8``; the pp x tp
+    checkpoint served by the single-card worker."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as worker
+    from kube_sqs_autoscaler_tpu_torch.workloads.checkpoint import (
+        load_model_layout, load_model_manifest,
+    )
+
+    result = {"launches": {}, "runs": {}}
+    for label, base, flags, _, pipe, sp, tp, micro, zz, steps in \
+            PIPE_TRAIN_RUNS:
+        files = [out / f"{label}-rank{r}.json" for r in range(PIPE_RANKS)]
+        if not all(f.exists() for f in files):
+            smoke.check(False, f"pipe {label}: a rank wrote no result")
+            continue
+        ranks = [json.loads(f.read_text()) for f in files]
+        losses = ranks[0]["losses"]
+        single = one[tuple(base + flags)]
+        tols = PIPE_LOSS_TOL["moe" if "--moe" in flags else "dense"]
+        diffs = [abs(a - b) for a, b in zip(losses, single["losses"])]
+        smoke.check(
+            len(diffs) == 2
+            and all(dd <= tol for dd, tol in zip(diffs, tols))
+            and all(r["losses"] == losses for r in ranks),
+            f"pipe {label}: the first two losses "
+            f"{[round(x, 6) for x in losses[:2]]} vs one process's "
+            f"{[round(x, 6) for x in single['losses']]} (|d| "
+            f"{[f'{dd:.2e}' for dd in diffs]}, tol {list(tols)}: bf16, "
+            "summed in another order); every rank reports the same losses")
+        smoke.check(len(losses) == steps
+                    and all(map(math.isfinite, losses))
+                    and losses[-1] < losses[0],
+                    f"pipe {label}: {steps} losses, finite and "
+                    f"falling: {[round(x, 4) for x in losses]}")
+        layers = int(base[base.index("--n-layers") + 1])
+        seq = int(base[base.index("--seq-len") + 1])
+        window = (int(base[base.index("--sliding-window") + 1])
+                  if "--sliding-window" in base else None)
+        total = {}
+        for r in ranks:
+            me = (r["rank"] // tp) % sp
+            n = hop_launches("zigzag" if zz else "ring", sp, me, seq // sp,
+                             window) * (layers // pipe) * micro * steps
+            want = {"flash_fwd": 0, "flash_fwd_lse": n, "flash_bwd_dq": n,
+                    "flash_bwd_dkv": n}
+            smoke.check(r["launches"] == want,
+                        f"pipe {label} rank {r['rank']} (stage "
+                        f"{r['rank'] // (PIPE_RANKS // pipe)}, seq {me}): "
+                        f"launches {r['launches']}, want {want}")
+            for name, value in r["launches"].items():
+                total[name] = total.get(name, 0) + value
+        result["launches"][f"pipe-train-{label}"] = total
+        step_ms = 1e3 / ranks[0]["steps_per_s"]
+        peaks = [round(r["peak_gib"], 3) for r in ranks]
+        print(f"pipe train {label}: steady step {step_ms:.3f} ms, "
+              f"{ranks[0]['tokens_per_s']:.1f} tokens/s, per-rank peak "
+              f"memory {peaks} GiB; one process's step "
+              f"{single['step_ms']:.3f} ms, peak "
+              f"{single['peak_gib']:.3f} GiB "
+              f"({PIPE_RANKS} ranks sharing one {power}, over gloo)",
+              flush=True)
+        result["runs"][label] = {"step_ms": step_ms, "peak_gib": peaks,
+                                 "losses": losses,
+                                 "one_losses": single["losses"],
+                                 "loss_diffs": diffs,
+                                 "tokens_per_s": ranks[0]["tokens_per_s"]}
+        if tp > 1 and not flags:
+            ckpt = out / label
+            family, config = load_model_manifest(ckpt)
+            layout = load_model_layout(ckpt)
+            args = ["--demo", "16", "--batch-size", "8", "--seq-len", "512",
+                    "--generate-tokens", "16", "--result-queue-url",
+                    "demo://replies", "--device", "cuda"]
+            served = worker.main([*args, "--checkpoint-dir", str(ckpt)])
+            params = torch.load(out / f"{label}-params.pt",
+                                map_location="cuda", weights_only=True)
+            service_config = worker.ServiceConfig(
+                queue_url="", batch_size=8, seq_len=512, generate_tokens=16,
+                result_queue_url="demo://replies")
+            direct = worker.run_demo(16, params, config, service_config,
+                                     torch.device("cuda"))
+            same = replies_of(served) == replies_of(direct)
+            smoke.check(same and len(served["replies"]) == 16
+                        and layout == {"kind": "pipeline",
+                                       "n_stages": pipe},
+                        f"pipe {label}: the single-card worker's "
+                        f"{len(served['replies'])} replies from the "
+                        f"pipeline checkpoint (layout {layout}, {family}) "
+                        "equal serving the ranks' gathered parameters")
+            del params
+    runs = result["runs"]
+    gpipe, one_f = runs.get("gpt-pp4-m8-gpipe"), runs.get("gpt-pp4-m8-1f1b")
+    if gpipe and one_f:
+        smoke.check(max(one_f["peak_gib"]) < max(gpipe["peak_gib"])
+                    and all(a < b for a, b in zip(one_f["peak_gib"],
+                                                  gpipe["peak_gib"])),
+                    f"pipe memory at M=8, P=4: 1F1B per-rank peaks "
+                    f"{one_f['peak_gib']} GiB below GPipe's "
+                    f"{gpipe['peak_gib']} GiB")
+    return result
+
+
+def pipe_ranks(torch, flash, smoke: Smoke, power: str) -> dict:
+    """(a) and (b): one launch of :data:`PIPE_RANKS` ranks runs every
+    trainer run; this process checks what they wrote."""
+    one = pipe_one_process(torch, flash)
+    out = PIPE_DIR / "ranks"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    log = PIPE_DIR / "ranks.log"
+    start = time.perf_counter()
+    rc = run_group(torchrun(PIPE_RANKS, [str(ROOT / "chip_smoke.py"),
+                                         "--pipe-rank", str(out)]),
+                   PIPE_TIMEOUT, log)
+    wall = time.perf_counter() - start
+    smoke.check(rc == 0, f"pipe: {PIPE_RANKS} ranks exited "
+                f"{'on a timeout' if rc is None else rc} after {wall:.1f} s")
+    if rc != 0:
+        print(log.read_text()[-6000:], flush=True)
+    result = {"wall_s": wall, "one_process": {
+        " ".join(k): v for k, v in one.items()}}
+    train = check_pipe_training(torch, smoke, out, power, one)
+    result["launches"] = train.pop("launches")
+    result["training"] = train
+    return result
+
+
+def pipe_phase(torch, flash, smoke: Smoke, power: str) -> dict:
+    """Pipeline parallelism on the card: (a) and (b) the trainer over
+    ranks through GPipe and 1F1B, in one launch; (c) the training kernels
+    at the stage shapes, checked and timed alone."""
+    out = {"launches": {}}
+    for part, fn in (("ranks", lambda: pipe_ranks(torch, flash, smoke,
+                                                  power)),
+                     ("stage timing", lambda: hop_timing(
+                         torch, flash, smoke, PIPE_STAGE_SHAPES, 400))):
+        start = time.perf_counter()
+        out[part] = fn()
+        if "launches" in out[part]:
+            out["launches"].update(out[part].pop("launches"))
+        print(f"-- pipe {part}: {time.perf_counter() - start:.3f} s",
               flush=True)
     return out
 
@@ -8063,6 +8375,7 @@ def main() -> int:
     training = smoke.phase("training", training_phase, torch, flash, smoke,
                            power)
     mesh = smoke.phase("mesh", mesh_phase, torch, flash, smoke, power)
+    pipe = smoke.phase("pipe", pipe_phase, torch, flash, smoke, power)
     if smoke.failures or not (info and sass and resources and kern
                               and train_kern and path and serve and cycles
                               and stagger and rates and prof
@@ -8073,7 +8386,7 @@ def main() -> int:
                               and tenancy and planes and orch and odd
                               and f32_train
                               and train_path and train_prof and training
-                              and mesh):
+                              and mesh and pipe):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
         return 1
@@ -8157,12 +8470,17 @@ def main() -> int:
                 if v},
              # the mesh: ring and zig-zag hops, and the trainer over
              # ranks (each summed over its ranks)
-             **{path: v[name] for path, v in mesh["launches"].items()}},
+             **{path: v[name] for path, v in mesh["launches"].items()},
+             # the pipeline: each trainer run over the ranks, GPipe and
+             # 1F1B (summed over its ranks)
+             **{path: v[name] for path, v in pipe["launches"].items()}},
             train_kern["errs"][name], train_kern["timings"][name],
             TRAIN_SHAPE)
         entry["tflops"] = train_kern["timings"][name]["tflops"]
         # the ring and zig-zag hop shapes, one process alone on the card
         entry["at_mesh_hop_shapes"] = mesh["hop timing"][name]
+        # the pipeline's per-microbatch stage shapes, alone on the card
+        entry["at_pipe_stage_shapes"] = pipe["stage timing"][name]
         # the flagship llama train shape (B, H, H_kv, S, D), causal and
         # with the window
         entry["at_llama_train_shapes"] = {
@@ -8190,4 +8508,6 @@ if __name__ == "__main__":
         sys.exit(repair_cost_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--mesh-rank":
         sys.exit(mesh_rank_main(sys.argv[2:]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--pipe-rank":
+        sys.exit(pipe_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -290,9 +290,11 @@ class TrainCheckpointer:
                        device: str | torch.device = "cuda") -> dict:
         """Just the model weights, on ``device``, for serving: the file is
         memory-mapped, so the AdamW moments are never read.  A ``moe``
-        layout is refused (the worker has no routed-expert forward), and a
-        ``pipeline`` layout waits for the pipeline (ROADMAP Queue 1 item
-        5b).
+        layout is refused (the worker has no routed-expert forward); a
+        ``pipeline`` layout's stage stacks come back in the flat serving
+        layout (:func:`.pipeline.unstack_layers` /
+        :func:`.pipeline.unstack_llama_layers`), so a checkpoint serves
+        whatever parallelism trained it.
         An untied ``lm_head`` comes back when the checkpoint holds one."""
         kind = (layout or {}).get("kind")
         if kind == "moe":
@@ -302,13 +304,16 @@ class TrainCheckpointer:
                 "forward — serve a dense checkpoint, or load the MoE "
                 "state with TrainCheckpointer.restore for training"
             )
-        if kind == "pipeline":
-            raise ValueError(
-                f"this checkpoint stores stage-stacked pipeline params "
-                f"(layout={layout}); the pipeline layout is not ported yet "
-                "(ROADMAP Queue 1 item 5b)"
-            )
         params = self.load(step, mmap=True)["params"]
+        if kind == "pipeline":
+            from .pipeline import unstack_layers, unstack_llama_layers
+
+            if "stages" not in params:
+                raise ValueError(
+                    f"checkpoint under {self.directory} has no stage stacks "
+                    f"for its pipeline layout ({layout})")
+            params = (unstack_llama_layers if family == "llama"
+                      else unstack_layers)(params)
         layers = params.get("layers", [])
         if (len(layers) != config.n_layers
                 or tuple(params["embed"].shape)

@@ -63,11 +63,20 @@ def params_from_jax(
     Every weight is cast to ``config.dtype``; a bf16 or f32 reference
     converts exactly into the same dtype.  An int8 tree (the reference's
     ``quantize_params``, mapped to numpy leaf by leaf) keeps its codes and
-    scales, as :class:`.quantize.QuantizedTensor`."""
+    scales, as :class:`.quantize.QuantizedTensor`.  A stage-stacked
+    pipeline tree (``params["stages"]``, each weight with a leading
+    ``[n_layers]`` axis) converts leaf by leaf the same way."""
     params = {
         name: _leaf(value, config, device)
-        for name, value in numpy_pytree.items() if name != "layers"
+        for name, value in numpy_pytree.items()
+        if name not in ("layers", "stages")
     }
+    if "stages" in numpy_pytree:
+        # the pipeline layout: one [n_layers, ...] stack per weight
+        params["stages"] = {
+            name: _leaf(value, config, device, name)
+            for name, value in numpy_pytree["stages"].items()}
+        return params
     params["layers"] = [
         {name: _leaf(value, config, device, name)
          for name, value in layer.items()}
@@ -79,8 +88,13 @@ def params_from_jax(
 def adapters_from_jax(numpy_adapters: dict,
                       device: str | torch.device = "cuda") -> dict:
     """The reference's LoRA adapter tree (``{"layers": [{name: {"a": ...,
-    "b": ...}}]}``, numpy leaves) as the port's, fp32 as the reference
-    keeps them."""
+    "b": ...}}]}``, or the pipeline's ``{"stages": {name: {"a", "b"}}}``;
+    numpy leaves) as the port's, fp32 as the reference keeps them."""
+    if "stages" in numpy_adapters:
+        return {"stages": {
+            name: {key: torch.from_numpy(np.array(ab[key], np.float32)).to(
+                device) for key in ("a", "b")}
+            for name, ab in numpy_adapters["stages"].items()}}
     return {"layers": [
         {name: {key: torch.from_numpy(np.array(ab[key], np.float32)).to(
             device) for key in ("a", "b")} for name, ab in layer.items()}

@@ -17,11 +17,14 @@ every collective is written out:
   rank whose tensors live on a card moves each collective's tensors
   through pinned host memory (:class:`Transport`); its compute stays on the
   card.  The transport never switches on an error.
-- :func:`make_topology_mesh` and :func:`make_hybrid_mesh` — the meshes of
-  the reference's module.  Ranks are ordered node-major, so ``seq`` and
-  ``model`` groups stay inside a node and ``data`` crosses nodes; on one
-  node that is enumeration order (the TPU torus placement has no
-  counterpart).
+- :func:`make_topology_mesh`, :func:`make_topology_pipeline_mesh` and
+  :func:`make_hybrid_mesh` — the meshes of the reference's module.  Ranks
+  are ordered node-major, so ``seq`` and ``model`` groups stay inside a
+  node and ``data`` (``pipe`` first, on a pipeline mesh) crosses nodes; on
+  one node that is enumeration order (the TPU torus placement has no
+  counterpart).  A pipeline mesh adds the ``pipe`` axis outermost
+  (:data:`PIPE_AXES`) and creates only the groups the pipeline reduces
+  over.
 - :func:`ring_shift`, :func:`copy_to_model` and
   :func:`reduce_from_model` — collectives that autograd differentiates:
   the ring rotation (backward: the rotation the other way) and the
@@ -32,6 +35,7 @@ every collective is written out:
 from __future__ import annotations
 
 import logging
+import itertools
 import os
 import socket
 from dataclasses import dataclass, field
@@ -186,6 +190,36 @@ class Transport:
             self._unstage(recv, outs)
         return outs
 
+    def exchange(self, sends, recvs, group,
+                 device: torch.device) -> list[torch.Tensor]:
+        """Point-to-point messages in one ``batch_isend_irecv``: every
+        ``(tensor, global rank)`` of ``sends`` sent, and a tensor of each
+        ``(shape, dtype, global rank)`` of ``recvs`` received and returned
+        in order, on ``device``.  The peers post the matching calls in
+        the same order (a pipeline slot's hops), so gloo cannot deadlock;
+        under gloo a CUDA tensor is staged through pinned host memory."""
+        if not sends and not recvs:
+            return []
+        outs = [torch.empty(shape, dtype=dtype, device=device)
+                for shape, dtype, _ in recvs]
+        send_t = [t.contiguous() for t, _ in sends]
+        staged = self.staged and device.type == "cuda"
+        if staged:
+            host = self._stage(send_t) or []
+            recv_t = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                      for o in outs]
+        else:
+            host, recv_t = send_t, outs
+        ops = [dist.P2POp(dist.isend, t, peer, group)
+               for t, (_, peer) in zip(host, sends)]
+        ops += [dist.P2POp(dist.irecv, t, peer, group)
+                for t, (_, _, peer) in zip(recv_t, recvs)]
+        for request in dist.batch_isend_irecv(ops):
+            request.wait()
+        if staged:
+            self._unstage(recv_t, outs)
+        return outs
+
     def all_to_all(self, tensor: torch.Tensor, group) -> torch.Tensor:
         """``all_to_all_single`` over equal splits of dim 0."""
         if group is None:
@@ -225,11 +259,13 @@ class Axis:
 
 @dataclass
 class Mesh:
-    """The ``("data", "seq", "model")`` mesh of one rank: a group for every
-    set of its axes (``axis("seq")``, ``group("data", "seq")``, ...), the
+    """The mesh of one rank: a group for every set of its axes that the
+    code uses (``axis("seq")``, ``group("data", "seq")``, ...), the
     ``replicas`` group (data x seq: the ranks holding the same slices of
     a dense model, over which its gradients sum), the device and the
-    transport."""
+    transport.  ``shape`` holds the axes in order: ``("data", "seq",
+    "model")``, or ``("pipe", "data", "seq", "model")`` for a pipeline
+    mesh (:data:`PIPE_AXES`)."""
 
     shape: dict
     rank: int
@@ -239,11 +275,14 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        return self.shape["data"] * self.shape["seq"] * self.shape["model"]
+        size = 1
+        for n in self.shape.values():
+            size *= n
+        return size
 
     @property
     def axes(self) -> dict:
-        return {name: self.groups[frozenset((name,))] for name in AXES}
+        return {name: self.groups[frozenset((name,))] for name in self.shape}
 
     @property
     def replicas(self) -> Axis:
@@ -275,59 +314,79 @@ def mesh_shape(n_devices: int, model_parallel: int,
             model_parallel)
 
 
+def pipeline_mesh_shape(n_devices: int, pipe_parallel: int,
+                        model_parallel: int = 1,
+                        seq_parallel: int = 1) -> tuple[int, int, int, int]:
+    """Validated ``(pipe, data, seq, model)`` axis sizes (the reference's
+    ``make_pipeline_mesh`` arithmetic and message)."""
+    if n_devices % (pipe_parallel * model_parallel * seq_parallel):
+        raise ValueError(
+            f"{n_devices} devices not divisible by pipe_parallel="
+            f"{pipe_parallel} x model_parallel={model_parallel} x "
+            f"seq_parallel={seq_parallel}"
+        )
+    return (pipe_parallel,
+            n_devices // (pipe_parallel * model_parallel * seq_parallel),
+            seq_parallel, model_parallel)
+
+
 def _world() -> tuple[int, int]:
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
 
 
-def build_mesh(order: list[int], shape: tuple[int, int, int],
+# the groups a mesh creates, in one order on every rank: every set of the
+# three axes, and for a pipeline mesh only the sets its code reduces over
+# (gloo group creation is collective and slow)
+_SUBSETS = (("data",), ("seq",), ("model",), ("data", "seq"),
+            ("data", "model"), ("seq", "model"), ("data", "seq", "model"))
+PIPE_AXES = ("pipe",) + AXES
+_PIPE_SUBSETS = (("pipe",), ("data",), ("seq",), ("model",),
+                 ("data", "seq"), ("pipe", "model"),
+                 ("data", "seq", "model"), ("pipe", "data", "seq"))
+
+
+def build_mesh(order: list[int], shape: tuple[int, ...],
                device: str | torch.device) -> Mesh:
-    """The mesh whose grid, row-major over ``(data, seq, model)``, holds
-    the global ranks ``order``.  Every rank calls this with the same
-    arguments (the process groups are created collectively, in one
-    order)."""
+    """The mesh whose grid, row-major over ``(data, seq, model)`` (or
+    ``(pipe, data, seq, model)`` for a 4-tuple ``shape``), holds the
+    global ranks ``order``.  Every rank calls this with the same arguments
+    (the process groups are created collectively, in one order)."""
     rank, world = _world()
     if len(order) != world:
         raise ValueError(f"{len(order)} ranks in the order for a world of "
                          f"{world}")
-    data, seq, model = shape
-    grid = [[[order[(d * seq + s) * model + m] for m in range(model)]
-             for s in range(seq)] for d in range(data)]
-    where = {grid[d][s][m]: (d, s, m) for d in range(data)
-             for s in range(seq) for m in range(model)}
+    names, subsets = ((PIPE_AXES, _PIPE_SUBSETS) if len(shape) == 4
+                      else (AXES, _SUBSETS))
+    coords = list(itertools.product(*(range(n) for n in shape)))
+    grid = dict(zip(coords, order))
     backend = dist.get_backend() if dist.is_initialized() else "gloo"
-    mesh = Mesh(shape=dict(zip(AXES, shape)), rank=rank,
+    mesh = Mesh(shape=dict(zip(names, shape)), rank=rank,
                 device=rank_device(device), transport=Transport(backend))
 
     def make_axis(name: str, axis_ids: tuple[int, ...]) -> Axis:
-        # every group of this axis, in one order on every rank
-        sizes = [shape[a] for a in axis_ids]
-        size = 1
-        for s in sizes:
-            size *= s
+        # every group of this axis set, in one order on every rank; its
+        # ranks in row-major order of its axes
         mine = None
         for fixed in sorted({tuple(0 if a in axis_ids else c
                                    for a, c in enumerate(coord))
-                             for coord in where.values()}):
+                             for coord in coords}):
             ranks = []
-            for flat in range(size):
+            for inner in itertools.product(*(range(shape[a])
+                                             for a in axis_ids)):
                 coord = list(fixed)
-                rest = flat
-                for a in reversed(axis_ids):
-                    coord[a] = rest % shape[a]
-                    rest //= shape[a]
-                ranks.append(grid[coord[0]][coord[1]][coord[2]])
-            group = dist.new_group(ranks) if size > 1 else None
+                for a, c in zip(axis_ids, inner):
+                    coord[a] = c
+                ranks.append(grid[tuple(coord)])
+            group = dist.new_group(ranks) if len(ranks) > 1 else None
             if rank in ranks:
-                mine = Axis(name, size, ranks.index(rank), ranks, group)
+                mine = Axis(name, len(ranks), ranks.index(rank), ranks, group)
         return mine
 
-    # every set of axes, in one order on every rank; a set's ranks are in
-    # row-major order of its axes
-    for ids in ((0,), (1,), (2,), (0, 1), (0, 2), (1, 2), (0, 1, 2)):
-        names = tuple(AXES[i] for i in ids)
-        mesh.groups[frozenset(names)] = make_axis("x".join(names), ids)
+    for subset in subsets:
+        ids = tuple(names.index(n) for n in subset)
+        mesh.groups[frozenset(subset)] = make_axis("x".join(subset), ids)
     return mesh
 
 
@@ -381,6 +440,19 @@ def make_topology_mesh(model_parallel: int = 1, seq_parallel: int = 1,
     ``data`` crosses nodes.  Same contract as :func:`make_mesh`."""
     _, world = _world()
     shape = mesh_shape(world, model_parallel, seq_parallel)
+    return build_mesh(_node_major_order(), shape, device)
+
+
+def make_topology_pipeline_mesh(pipe_parallel: int, model_parallel: int = 1,
+                                seq_parallel: int = 1,
+                                device: str | torch.device = "cuda") -> Mesh:
+    """The pipeline mesh (``("pipe", "data", "seq", "model")``,
+    :func:`.pipeline.make_pipeline_mesh`'s contract) with the ranks
+    ordered node-major: ``model`` and ``seq`` groups stay inside a node,
+    and ``pipe``, the outermost axis, crosses nodes first."""
+    _, world = _world()
+    shape = pipeline_mesh_shape(world, pipe_parallel, model_parallel,
+                                seq_parallel)
     return build_mesh(_node_major_order(), shape, device)
 
 

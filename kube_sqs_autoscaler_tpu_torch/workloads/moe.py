@@ -1,7 +1,8 @@
 """Mixture-of-Experts MLP for both families, on one device.
 
 Counterpart of ``kube_sqs_autoscaler_tpu/workloads/moe.py`` (its
-pipeline step waits for ROADMAP Queue 1 item 5b).  On a mesh the experts
+pipeline step is :func:`.pipeline.make_pipeline_train_step`'s ``moe``:
+inside a stage every data rank holds every expert).  On a mesh the experts
 split over the ``data`` axis (expert parallelism: one ``all_to_all``
 each way), each expert's ff columns over ``model``, and the routing runs
 over the global token stream (:func:`make_mesh_moe_train_step`,
@@ -220,9 +221,18 @@ def _gelu_experts(expert_in: torch.Tensor, layer: dict) -> torch.Tensor:
 
 
 def _swiglu_experts(expert_in: torch.Tensor, layer: dict) -> torch.Tensor:
-    gate_up = torch.einsum("egcd,edf->egcf", expert_in,
-                           layer["w_gate_up_experts"])
-    gate, up = torch.chunk(gate_up, 2, dim=-1)
+    """SwiGLU experts from the fused ``w_gate_up_experts`` or the split
+    ``w_gate_experts`` / ``w_up_experts`` of the pipeline's stage stacks
+    (identical values)."""
+    if "w_gate_up_experts" in layer:
+        gate_up = torch.einsum("egcd,edf->egcf", expert_in,
+                               layer["w_gate_up_experts"])
+        gate, up = torch.chunk(gate_up, 2, dim=-1)
+    else:
+        gate = torch.einsum("egcd,edf->egcf", expert_in,
+                            layer["w_gate_experts"])
+        up = torch.einsum("egcd,edf->egcf", expert_in,
+                          layer["w_up_experts"])
     silu = gate * torch.reciprocal(1 + torch.exp(-gate))
     return torch.einsum("egcf,efd->egcd", silu * up, layer["w_down_experts"])
 

@@ -319,27 +319,31 @@ def value_and_grad(loss, params: dict, tokens: torch.Tensor):
     return value.detach(), _unflatten(params, grads)
 
 
-def accumulate_value_and_grad(vag, accum: int):
+def accumulate_value_and_grad(vag, accum: int, accum_axis: int = 0):
     """Wrap ``vag(params, tokens) -> (loss, grads)`` in fp32 gradient
     accumulation over ``accum`` microbatches (``accum == 1`` returns
-    ``vag``).  Microbatch ``j`` takes rows ``≡ j (mod accum)``; grads are
-    summed in fp32, averaged and cast back to each parameter's dtype."""
+    ``vag``).  Microbatch ``j`` takes the rows ``≡ j (mod accum)`` along
+    ``accum_axis`` (1 for the pipeline's ``[M, B_m, S]`` batches, whose
+    axis 0 is its own microbatch schedule); grads are summed in fp32,
+    averaged and cast back to each parameter's dtype."""
     if accum == 1:
         return vag
 
     def wrapped(params, tokens):
-        n = tokens.shape[0]
+        ax = accum_axis
+        n = tokens.shape[ax]
         if n % accum:
             raise ValueError(
-                f"batch axis 0 (size {n}) not divisible by "
+                f"batch axis {ax} (size {n}) not divisible by "
                 f"grad_accum={accum}"
             )
-        micro = tokens.reshape(n // accum, accum, *tokens.shape[1:])
+        micro = tokens.reshape(*tokens.shape[:ax], n // accum, accum,
+                               *tokens.shape[ax + 1:])
         loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
         grad_sum = [torch.zeros_like(p, dtype=torch.float32)
                     for p in param_leaves(params)]
         for j in range(accum):
-            loss, grads = vag(params, micro[:, j])
+            loss, grads = vag(params, micro.select(ax + 1, j))
             loss_sum = loss_sum + loss
             for acc, grad in zip(grad_sum, param_leaves(grads)):
                 acc.add_(grad.float())
@@ -353,7 +357,8 @@ def accumulate_value_and_grad(vag, accum: int):
 def make_train_step(model_config, train_config: TrainConfig,
                     device: str | torch.device = "cuda", attention_fn=None,
                     loss=None, window: int | None = None, mesh=None,
-                    grad_axes=None):
+                    grad_axes=None, value_and_grad_fn=None,
+                    loss_axes=("data", "seq"), accum_axis: int = 0):
     """``step_fn(state, tokens) -> (state, loss)``: one optimizer step on
     ``[B, S]`` tokens, updating ``state`` in place.  The attention is
     ``flash.attention_fn_for(S, device, head_dim)`` — the CUDA kernels,
@@ -373,10 +378,18 @@ def make_train_step(model_config, train_config: TrainConfig,
     share of the global loss (:func:`mesh_loss` by default); the step sums
     the gradients and the loss over the ranks that hold the same slices
     (``data`` x ``seq``, or the axes ``grad_axes(params, mesh)`` names
-    leaf by leaf) before the update."""
+    leaf by leaf) before the update.
+
+    ``value_and_grad_fn(params, tokens) -> (loss, grads)`` replaces the
+    autograd of ``loss`` (the pipeline schedules, which run their own
+    backward); on a mesh its loss is the rank's share, summed over
+    ``loss_axes``.  ``accum_axis`` is the batch axis that ``--grad-accum``
+    splits."""
     if mesh is not None:
         return _make_mesh_train_step(model_config, train_config, mesh,
-                                     attention_fn, loss, window, grad_axes)
+                                     attention_fn, loss, window, grad_axes,
+                                     value_and_grad_fn, loss_axes,
+                                     accum_axis)
     from .flash import attention_fn_for, windowed
 
     attend = attention_fn or windowed(
@@ -388,9 +401,9 @@ def make_train_step(model_config, train_config: TrainConfig,
                            remat=train_config.remat)
 
     compute_grads = accumulate_value_and_grad(
-        lambda params, tokens: value_and_grad(
-            lambda p, t: loss(p, t, attend), params, tokens),
-        train_config.grad_accum,
+        value_and_grad_fn or (lambda params, tokens: value_and_grad(
+            lambda p, t: loss(p, t, attend), params, tokens)),
+        train_config.grad_accum, accum_axis,
     )
 
     def step_fn(state: dict, tokens: torch.Tensor):
@@ -451,6 +464,8 @@ PARAM_AXES = {
     "w_up_experts": ("expert", "model", "ff"),
     "w_down_experts": ("expert", "ff", "model"),
     "w_gate_up_experts": ("expert", "model", "ff2"),
+    # the pipeline's stage stacks split the fused SwiGLU expert projection
+    "w_gate_experts": ("expert", "model", "ff"),
 }
 # a fused projection's output is several projections side by side; a rank
 # takes its share of each, so q, k and v (gate and up) stay aligned head by
@@ -836,24 +851,28 @@ def reduce_grads(grads: list[torch.Tensor], mesh,
 
 
 def _make_mesh_train_step(model_config, train_config, mesh, attention_fn,
-                          loss, window, grad_axes=None):
-    _check_divisible(mesh, model_config)
-    attend = attention_fn or mesh_attention_fn(mesh, window)
-    if loss is None:
-        loss = mesh_loss(model_config, mesh, remat=train_config.remat)
+                          loss, window, grad_axes=None,
+                          value_and_grad_fn=None, loss_axes=("data", "seq"),
+                          accum_axis: int = 0):
+    if value_and_grad_fn is None:
+        _check_divisible(mesh, model_config)
+        attend = attention_fn or mesh_attention_fn(mesh, window)
+        if loss is None:
+            loss = mesh_loss(model_config, mesh, remat=train_config.remat)
+
+        def value_and_grad_fn(params, tokens):
+            return value_and_grad(lambda p, t: loss(p, t, attend), params,
+                                  tokens)
     compute_grads = accumulate_value_and_grad(
-        lambda params, tokens: value_and_grad(
-            lambda p, t: loss(p, t, attend), params, tokens),
-        train_config.grad_accum,
-    )
+        value_and_grad_fn, train_config.grad_accum, accum_axis)
 
     def step_fn(state: dict, tokens: torch.Tensor):
         loss_value, grads = compute_grads(state["params"], tokens)
         leaves = [g.contiguous() for g in param_leaves(grads)]
         reduce_grads(leaves, mesh, (grad_axes or dense_grad_axes)(
             state["params"], mesh))
-        loss_value = mesh.transport.all_reduce(loss_value.clone(),
-                                               mesh.replicas.group)
+        loss_value = mesh.transport.all_reduce(
+            loss_value.clone(), mesh.group(*loss_axes).group)
         state["optimizer"].update(leaves, state["step"])
         state["step"] += 1
         return state, loss_value

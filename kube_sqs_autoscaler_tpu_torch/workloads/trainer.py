@@ -32,8 +32,13 @@ writes checkpoints, which hold the full tensors (a tensor-parallel run's
 slices gathered), so the single-card worker serves them; ``--resume``
 slices them again per rank.  ``--moe`` splits the experts over ``data``
 and routes over the global token stream; ``--lora-rank`` replicates the
-adapters over a sliced frozen base.  The pipeline flags (``--pipe-*``)
-exit 2 naming ROADMAP Queue 1 item 5b.
+adapters over a sliced frozen base.  ``--pipe-parallel P`` trains on a
+``("pipe", "data", "seq", "model")`` mesh (:mod:`.pipeline`): each rank
+holds ``n_layers / P`` stage layers, the batch runs as
+``--pipe-microbatches`` microbatches on the ``--pipe-schedule`` (GPipe or
+1F1B), with ``--model-parallel``, ``--seq-parallel`` (``--zigzag``),
+``--moe`` and ``--lora-rank`` inside the stages; its checkpoints hold the
+full stage stacks (the ``pipeline`` layout), which the worker serves.
 """
 
 from __future__ import annotations
@@ -55,15 +60,13 @@ from ..utils.profiling import maybe_trace
 from .data import corpus_token_stream, prefetch_to_device, synthetic_token_stream
 from .flash import attention_fn_for, windowed
 from .llama import LlamaConfig
-from .model import ModelConfig, param_count
+from .model import ModelConfig
 from .perf import mfu as mfu_of, train_step_flops
 from .train import TrainConfig, loss_fn, next_token_nll
 
 log = logging.getLogger("trainer")
 
 EVAL_SEED_OFFSET = 0x5EED  # the held-out set's seed domain
-MESH_ITEM = "ROADMAP Queue 1 item 5"
-PIPE_ITEM = f"{MESH_ITEM}b"  # pipeline parallelism
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -105,7 +108,6 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--remat", action="store_true")
     # parallelism: over the ranks of torch.distributed.run
-    pipe = f" (not ported yet, {PIPE_ITEM})"
     parser.add_argument("--model-parallel", type=int, default=1,
                         help="tensor-parallel degree (ranks per model "
                              "slice group)")
@@ -119,16 +121,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--pipe-parallel", type=int, default=1,
         help="pipeline-parallel stages over a "
-             "('pipe','data'[,'model'|'seq']) mesh" + pipe,
+             "('pipe','data'[,'model'|'seq']) mesh",
     )
     parser.add_argument(
         "--pipe-schedule", choices=("gpipe", "1f1b"), default="gpipe",
         help="gpipe: all-forward-then-all-backward; 1f1b: interleaved, "
-             "min(M, P) live stage inputs" + pipe,
+             "min(M, P) live stage inputs",
     )
     parser.add_argument(
         "--pipe-microbatches", type=int, default=4,
-        help="microbatches per step; batch-size must divide by it" + pipe,
+        help="microbatches per step; batch-size must divide by it",
     )
     # mixture-of-experts (both families)
     parser.add_argument(
@@ -207,16 +209,30 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def mesh_refusal(args) -> str | None:
-    """The message for a flag whose path is not ported yet (the pipeline
-    flags), or ``None``."""
-    for flag, used in (
-            ("--pipe-parallel", args.pipe_parallel != 1),
-            ("--pipe-schedule", args.pipe_schedule != "gpipe"),
-            ("--pipe-microbatches", args.pipe_microbatches != 4)):
-        if used:
-            return (f"{flag} needs pipeline parallelism, which is not "
-                    f"ported yet ({PIPE_ITEM})")
+def pipeline_usage(args) -> str | None:
+    """The reference's checks of the pipeline flags
+    (``trainer.py:219-259``), or ``None``; they apply only with
+    ``--pipe-parallel`` above 1, as the reference's do."""
+    if args.pipe_parallel < 1:
+        return f"--pipe-parallel {args.pipe_parallel} must be >= 1"
+    if args.pipe_parallel == 1:
+        return None
+    if args.zigzag:
+        if args.seq_parallel < 2:
+            return "--zigzag with --pipe-parallel needs --seq-parallel >= 2"
+        for flag, bad in (("--moe", args.moe),
+                          ("--lora-rank", bool(args.lora_rank)),
+                          ("--sliding-window", bool(args.sliding_window))):
+            if bad:
+                return (f"--zigzag with --pipe-parallel does not combine "
+                        f"with {flag}")
+    if args.pipe_microbatches < 1 or \
+            args.batch_size % args.pipe_microbatches:
+        return (f"--batch-size {args.batch_size} not divisible by "
+                f"--pipe-microbatches {args.pipe_microbatches}")
+    if args.seq_parallel > 1 and args.moe:
+        return ("--moe with --pipe-parallel does not combine with "
+                "--seq-parallel")
     return None
 
 
@@ -224,8 +240,11 @@ def mesh_usage(args) -> str | None:
     """The usage error of the mesh flags, or ``None``: the reference's
     checks, and a mesh that does not divide the ranks of this launch
     (``WORLD_SIZE``; 1 in a lone process)."""
-    from .distributed import mesh_shape
+    from .distributed import mesh_shape, pipeline_mesh_shape
 
+    refusal = pipeline_usage(args)
+    if refusal:
+        return refusal
     for flag, value in (("--model-parallel", args.model_parallel),
                         ("--seq-parallel", args.seq_parallel)):
         if value < 1:
@@ -242,11 +261,17 @@ def mesh_usage(args) -> str | None:
                 "sequence shards")
     world = int(os.environ.get("WORLD_SIZE", "").strip() or 1)
     try:
-        mesh_shape(world, args.model_parallel, args.seq_parallel)
+        if args.pipe_parallel > 1:
+            pipeline_mesh_shape(world, args.pipe_parallel,
+                                args.model_parallel, args.seq_parallel)
+        else:
+            mesh_shape(world, args.model_parallel, args.seq_parallel)
     except ValueError as err:
         flags = " ".join(
             f for f, used in (
                 ("--topology-mesh", args.topology_mesh),
+                (f"--pipe-parallel {args.pipe_parallel}",
+                 args.pipe_parallel != 1),
                 (f"--model-parallel {args.model_parallel}",
                  args.model_parallel != 1),
                 (f"--seq-parallel {args.seq_parallel}",
@@ -263,7 +288,7 @@ def check_args(args) -> None:
         raise SystemExit(
             "--lora-rank with --moe does not combine with --zigzag"
         )
-    refusal = mesh_refusal(args) or mesh_usage(args)
+    refusal = mesh_usage(args)
     if refusal:
         raise SystemExit(refusal)
     if args.sliding_window < 0:
@@ -322,16 +347,24 @@ def check_args(args) -> None:
 
 def checkpoint_layout(args) -> dict | None:
     """The manifest's ``layout`` record of this run (the reference's)."""
+    pipe = args.pipe_parallel
     if args.moe:
         layout = {"kind": "moe", "n_experts": args.moe_experts,
                   "top_k": args.moe_top_k}
+        if pipe > 1:
+            layout["pipeline_stages"] = pipe
         if args.lora_rank:
             layout["lora_rank"] = args.lora_rank
             layout["seed"] = args.seed
         return layout
     if args.lora_rank:
-        return {"kind": "lora", "rank": args.lora_rank, "seed": args.seed,
-                "base": args.hf_checkpoint or ""}
+        layout = {"kind": "lora", "rank": args.lora_rank, "seed": args.seed,
+                  "base": args.hf_checkpoint or ""}
+        if pipe > 1:
+            layout["pipeline_stages"] = pipe
+        return layout
+    if pipe > 1:
+        return {"kind": "pipeline", "n_stages": pipe}
     return None
 
 
@@ -411,26 +444,41 @@ def open_mesh(args, device):
     (:func:`.distributed.initialize_from_env`); a mesh that does not
     divide the ranks exits with the reference's message.  Ranks other than
     0 log only warnings."""
-    from .distributed import initialize_from_env, make_mesh, \
-        make_topology_mesh
+    from .distributed import (
+        initialize_from_env, make_mesh, make_topology_mesh,
+        make_topology_pipeline_mesh,
+    )
 
     if int(os.environ.get("RANK", "").strip() or 0) != 0:
         logging.getLogger().setLevel(logging.WARNING)
     joined = initialize_from_env(device=device)
     meshed = (args.model_parallel > 1 or args.seq_parallel > 1
-              or args.zigzag or args.topology_mesh)
+              or args.zigzag or args.topology_mesh or args.pipe_parallel > 1)
     if not (joined or meshed):
         return None
-    make = make_topology_mesh if args.topology_mesh else make_mesh
     try:
-        mesh = make(model_parallel=args.model_parallel,
-                    seq_parallel=args.seq_parallel, device=device)
+        if args.pipe_parallel > 1:
+            from .pipeline import make_pipeline_mesh
+
+            make = (make_topology_pipeline_mesh if args.topology_mesh
+                    else make_pipeline_mesh)
+            mesh = make(args.pipe_parallel,
+                        model_parallel=args.model_parallel,
+                        seq_parallel=args.seq_parallel, device=device)
+        else:
+            make = make_topology_mesh if args.topology_mesh else make_mesh
+            mesh = make(model_parallel=args.model_parallel,
+                        seq_parallel=args.seq_parallel, device=device)
     except ValueError as err:
         raise SystemExit(str(err)) from None
-    if args.batch_size % mesh.shape["data"]:
+    micro = args.pipe_microbatches if args.pipe_parallel > 1 else 1
+    rows = args.batch_size // micro
+    if rows % mesh.shape["data"]:
+        what = ("--batch-size / --pipe-microbatches"
+                if args.pipe_parallel > 1 else "--batch-size")
         raise SystemExit(
-            f"--batch-size {args.batch_size} not divisible by the data "
-            f"axis ({mesh.shape['data']})")
+            f"{what} {rows} not divisible by the data axis "
+            f"({mesh.shape['data']})")
     log.info("Mesh: %s over %d ranks (%s%s)", mesh.shape, mesh.size,
              mesh.transport.backend,
              ", CUDA tensors staged through host memory"
@@ -498,10 +546,69 @@ def build_model(args, device, train_config):
     else:
         base = hf_base if hf_base is not None else init_dense(
             model_config, generator, device)
+    if args.pipe_parallel > 1:
+        base = stage_stacked(args, model_config, base, hf_base is not None)
     if args.lora_rank:
         # params only: the base is frozen, so no full-model AdamW moments
         return model_config, moe_config, base, None
     return model_config, moe_config, None, train_state(base, train_config)
+
+
+def stage_stacked(args, model_config, base: dict, from_hf: bool) -> dict:
+    """The run's weights in the pipeline's stage-stacked layout, after the
+    reference's refusal of a layer count that the stages do not divide."""
+    from .pipeline import (
+        as_llama_pipeline_params, as_pipeline_params, check_stages,
+    )
+
+    pipe = args.pipe_parallel
+    if from_hf and model_config.n_layers % pipe:
+        raise SystemExit(
+            f"HF model has n_layers={model_config.n_layers}, not divisible "
+            f"by --pipe-parallel {pipe}"
+        )
+    try:
+        check_stages(model_config.n_layers, pipe)
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
+    stack = (as_llama_pipeline_params if args.family == "llama"
+             else as_pipeline_params)
+    return stack(base)
+
+
+def flat_params(params: dict, family: str) -> dict:
+    """The flat serving layout of a tree (a stage-stacked one unstacked)."""
+    if "stages" not in params:
+        return params
+    from .pipeline import unstack_layers, unstack_llama_layers
+
+    return (unstack_llama_layers if family == "llama"
+            else unstack_layers)(params)
+
+
+def make_pipeline_step(args, model_config, moe_config, train_config, mesh,
+                       lora=None):
+    """The run's step through the pipeline (:mod:`.pipeline`): the
+    family's objective, zig-zag or routed, on the ``--pipe-schedule``; or
+    the adapter-only step on ``lora = (frozen part, LoraConfig)``."""
+    from .pipeline import PipelineConfig, make_pipeline_train_step
+
+    pcfg = PipelineConfig(n_microbatches=args.pipe_microbatches,
+                          schedule=args.pipe_schedule)
+    llama = args.family == "llama"
+    try:
+        if lora is not None:
+            from .lora import make_lora_pipeline_train_step
+
+            frozen, lora_config = lora
+            return make_lora_pipeline_train_step(
+                mesh, model_config, pcfg, train_config, frozen, lora_config,
+                llama=llama, moe=moe_config)
+        return make_pipeline_train_step(
+            mesh, model_config, pcfg, train_config, llama=llama,
+            zigzag=args.zigzag, moe=moe_config)
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
 
 
 def make_step(args, model_config, moe_config, train_config, device,
@@ -512,6 +619,9 @@ def make_step(args, model_config, moe_config, train_config, device,
     mesh: the family's mesh objective, natural-order or zig-zag."""
     from . import llama, moe
 
+    if mesh is not None and "pipe" in mesh.shape:
+        return make_pipeline_step(args, model_config, moe_config,
+                                  train_config, mesh, lora)
     if mesh is not None:
         from .train import make_train_step
 
@@ -620,6 +730,24 @@ def make_mesh_eval(args, model_config, moe_config, mesh, params_of):
     return eval_loss
 
 
+def make_pipeline_eval(args, model_config, moe_config, mesh, params_of):
+    """``eval_loss(state, tokens) -> float`` through the pipeline: the
+    forward slots alone on the rank's microbatched rows, the pure LM loss
+    (no aux term), summed over the ranks."""
+    from .pipeline import PipelineConfig, pipeline_loss, pipeline_rows
+
+    pcfg = PipelineConfig(n_microbatches=args.pipe_microbatches)
+
+    def eval_loss(state, tokens) -> float:
+        rows = pipeline_rows(tokens, mesh, pcfg.n_microbatches)
+        return float(pipeline_loss(
+            params_of(state), rows, model_config, pcfg, mesh,
+            llama=args.family == "llama", zigzag=args.zigzag,
+            moe=moe_config, aux_weight=0.0))
+
+    return eval_loss
+
+
 def make_eval(args, model_config, moe_config, device, params_of):
     """``eval_loss(state, tokens) -> float``: the pure LM loss with no
     gradient (the aux term of ``--moe`` is a training regularizer, not a
@@ -679,9 +807,12 @@ def setup(args) -> dict:
             f"corpus vocab_size={args.corpus_vocab} exceeds the model's "
             f"vocab_size={model_config.vocab_size}"
         )
+    from .train import param_leaves
+
+    counted = param_leaves(base if state is None else state["params"])
     log.info("Model: %s parameters on %s",
-             f"{param_count(base if state is None else state['params']):,}",
-             device)
+             f"{sum(t.numel() for t in counted):,}", device)
+    pipe = mesh is not None and "pipe" in mesh.shape
     if mesh is not None:
         from .train import _check_divisible
 
@@ -708,14 +839,21 @@ def setup(args) -> dict:
 
         lora_config = LoraConfig(rank=args.lora_rank, alpha=args.lora_alpha)
         # on a mesh each rank adapts its slices of the frozen base; the
-        # adapters are replicated
+        # adapters are replicated (through a pipeline, sliced by stage)
         frozen = base
-        if mesh is not None:
+        if pipe:
+            from .pipeline import shard_pipeline_params
+
+            frozen = shard_pipeline_params(base, mesh)
+        elif mesh is not None:
             from .train import shard_params
 
             frozen = shard_params(base, mesh)
         lora = (frozen, lora_config)
-        state = init_lora_train_state(
+        init_adapters = init_lora_train_state
+        if pipe:
+            from .lora import init_pipeline_lora_train_state as init_adapters
+        state = init_adapters(
             torch.Generator().manual_seed(args.seed + 1), base, lora_config,
             train_config)
 
@@ -729,6 +867,26 @@ def setup(args) -> dict:
 
         def full_params_of(s):
             return apply_lora(base, s["adapters"], lora_config)
+
+        if pipe:
+            from .lora import (
+                apply_pipeline_lora, gather_pipeline_lora_state,
+                lora_pipeline_checkpoint_state,
+            )
+
+            def save_state(s):
+                return lora_pipeline_checkpoint_state(
+                    base, gather_pipeline_lora_state(mesh, s), lora_config,
+                    llama=args.family == "llama")
+
+            def params_of(s):
+                return apply_pipeline_lora(frozen, s["adapters"],
+                                           lora_config, mesh)
+
+            def full_params_of(s):
+                return flat_params(apply_pipeline_lora(
+                    base, gather_pipeline_lora_state(mesh, s)["adapters"],
+                    lora_config), args.family)
 
         log.info("LoRA: rank %d, %s adapter parameters (base frozen)",
                  args.lora_rank,
@@ -749,7 +907,30 @@ def setup(args) -> dict:
             except OrbaxCheckpointError as err:
                 exit_refused(err)
             log.info("Resumed from checkpoint step %d", latest)
-    if mesh is not None and lora is None:
+    if pipe and lora is not None:
+        from .lora import place_pipeline_lora_state
+
+        # every rank built (or restored) the same full adapters: keep this
+        # rank's stage of them
+        state = place_pipeline_lora_state(mesh, state)
+    elif pipe:
+        from .pipeline import (
+            gather_pipeline_params, gather_pipeline_state,
+            place_pipeline_state,
+        )
+
+        # every rank built (or restored) the same full stage stacks: keep
+        # this rank's stage and slices; checkpoints gather them back (the
+        # pipeline layout)
+        state = place_pipeline_state(mesh, state)
+
+        def save_state(s):
+            return gather_pipeline_state(mesh, s)
+
+        def full_params_of(s):
+            return flat_params(gather_pipeline_params(s["params"], mesh),
+                               args.family)
+    elif mesh is not None and lora is None:
         from .train import gather_params, gather_state, place_state
 
         # every rank built (or restored) the same full state: keep this
@@ -804,7 +985,10 @@ def train(args) -> dict:
     start_step = state["step"]
     last_saved = start_step if args.resume else None
     eval_loss = eval_data = None
-    if args.eval_every > 0 and mesh is not None:
+    if args.eval_every > 0 and mesh is not None and "pipe" in mesh.shape:
+        eval_loss = make_pipeline_eval(args, model_config, run["moe_config"],
+                                       mesh, run["params_of"])
+    elif args.eval_every > 0 and mesh is not None:
         eval_loss = make_mesh_eval(args, model_config, run["moe_config"],
                                    mesh, run["params_of"])
     elif args.eval_every > 0:
@@ -830,7 +1014,12 @@ def train(args) -> dict:
                           0 if args.overfit else start_step)
     if args.overfit:
         stream = itertools.repeat(next(stream))
-    if mesh is not None:
+    if mesh is not None and "pipe" in mesh.shape:
+        from .pipeline import prefetch_to_pipeline
+
+        # microbatch-major [M, B / M, S], the data axis splitting B / M
+        batches = prefetch_to_pipeline(stream, mesh, args.pipe_microbatches)
+    elif mesh is not None:
         from .data import prefetch_to_mesh
 
         batches = prefetch_to_mesh(stream, mesh)
@@ -930,8 +1119,8 @@ def train(args) -> dict:
         if args.hf_export and lead:
             from .hf_convert import save_hf_llama
 
-            save_hf_llama(final_state["params"], model_config,
-                          args.hf_export)
+            save_hf_llama(flat_params(final_state["params"], args.family),
+                          model_config, args.hf_export)
             log.info("Exported transformers checkpoint to %s",
                      args.hf_export)
     finally:
@@ -953,7 +1142,7 @@ def main(argv=None) -> dict:
     configure_logging()
     parser = build_parser()
     args = parser.parse_args(argv)
-    refusal = mesh_refusal(args) or mesh_usage(args)
+    refusal = mesh_usage(args)
     if refusal:
         parser.error(refusal)  # exit 2, as a usage error
     return train(args)

@@ -215,12 +215,28 @@ def test_worker_checkpoint_refusals(tmp_path):
     with pytest.raises(SystemExit, match="max_seq_len=48"):
         worker.main([*SERVE[:-4], "--seq-len", "40", "--generate-tokens",
                      "16", "--checkpoint-dir", ckpt])
-    # a pipeline layout waits for the mesh
+    # a pipeline layout serves its stage stacks unstacked (the fused
+    # wqkv again); a flat checkpoint that claims the layout has none
+    from kube_sqs_autoscaler_tpu_torch.workloads.pipeline import (
+        as_pipeline_params,
+    )
+
     _, config = load_model_manifest(ckpt)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 5"):
-        TrainCheckpointer(ckpt).restore_params(
-            "gpt", config, layout={"kind": "pipeline", "n_stages": 2},
-            device="cpu")
+    layout = {"kind": "pipeline", "n_stages": 2}
+    flat = TrainCheckpointer(ckpt).restore_params("gpt", config,
+                                                  device="cpu")
+    staged = str(tmp_path / "staged")
+    TrainCheckpointer(staged).save({"params": as_pipeline_params(flat),
+                                    "step": 1})
+    served = TrainCheckpointer(staged).restore_params(
+        "gpt", config, layout=layout, device="cpu")
+    assert sorted(served) == sorted(flat)
+    for a, b in zip(served["layers"], flat["layers"]):
+        assert sorted(a) == sorted(b)
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    with pytest.raises(ValueError, match="no stage stacks"):
+        TrainCheckpointer(ckpt).restore_params("gpt", config, layout=layout,
+                                               device="cpu")
 
 
 def test_moe_checkpoint_refuses_to_serve_with_the_references_error(tmp_path):

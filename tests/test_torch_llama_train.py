@@ -7,9 +7,9 @@ windowed backward are held against their plain versions on the card by
 ``chip_smoke.py``).  Tolerances are ``tests/test_torch_train.py``'s: losses
 rtol 1e-5, gradients atol 1e-5, parameters after Adam steps all but 0.1%
 of entries within 2e-6 and every entry within 2e-5.  The trainer binary's
-flags are checked against the reference's parser; the pipeline flags exit
-2 naming ROADMAP Queue 1 item 5b, and the mesh flags exit 2 in a process
-that no launcher started.
+flags are checked against the reference's parser; the mesh flags and
+``--pipe-parallel`` exit 2 in a process that no launcher started, and the
+other pipeline flags are accepted there, unused.
 """
 
 import itertools
@@ -202,17 +202,25 @@ def test_trainer_accepts_every_reference_flag_with_its_default():
     ["--pipe-microbatches", "2"], ["--topology-mesh", "--seq-parallel", "2"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_trainer_mesh_flags_exit_2_naming_item_5(flag, capsys):
-    # the pipeline flags still wait for ROADMAP Queue 1 item 5 (5b); the
-    # mesh flags are ported (test_torch_mesh_train) and, in one process
-    # that no launcher started, exit 2 with the reference's mesh
-    # arithmetic (or zig-zag) message
+    # the mesh and pipeline flags are ported (test_torch_mesh_train,
+    # test_torch_pipeline_train).  In one process that no launcher
+    # started, a mesh or two stages exit 2 with the reference's mesh
+    # arithmetic (or zig-zag) message; the schedule and the microbatch
+    # count without stages are accepted and unused, as the reference
+    # reads them only under --pipe-parallel > 1
+    if flag[0] in ("--pipe-schedule", "--pipe-microbatches"):
+        out = trainer.main([*TINY, "--steps", "1", *flag])
+        assert out["final_step"] == 1
+        return
     with pytest.raises(SystemExit) as exit_info:
         trainer.main([*TINY, "--steps", "1", *flag])
     assert exit_info.value.code == 2
     err = capsys.readouterr().err
     assert flag[0] in err
-    if flag[0].startswith("--pipe"):
-        assert "ROADMAP Queue 1 item 5b" in err
+    if flag[0] == "--pipe-parallel":
+        assert ("1 devices not divisible by pipe_parallel=2 x "
+                "model_parallel=1 x seq_parallel=1") in err
+        assert "torch.distributed.run" in err
     elif flag[0] == "--zigzag":
         assert "nontrivial seq axis" in err
     else:

@@ -254,8 +254,11 @@ def test_trainer_over_ranks_checkpoints_serves_and_resumes(tmp_path):
 def test_trainer_mesh_refusals():
     parse = trainer.build_parser().parse_args
     for argv, match in (
-            (["--pipe-parallel", "2"], "item 5b"),
-            (["--pipe-schedule", "1f1b"], "item 5b"),
+            (["--pipe-parallel", "2"],
+             "1 devices not divisible by pipe_parallel=2"),
+            (["--pipe-parallel", "2", "--batch-size", "6",
+              "--pipe-schedule", "1f1b"],
+             "--batch-size 6 not divisible by --pipe-microbatches 4"),
             (["--zigzag"], "nontrivial seq axis"),
             (["--zigzag", "--seq-parallel", "2", "--family", "llama",
               "--sliding-window", "8"], "does not compose with the zig-zag"),

@@ -394,3 +394,29 @@ def test_mesh_moe_refuses_experts_the_data_axis_cannot_split():
         moe.make_mesh_moe_train_step(mesh, family("gpt")[1],
                                      moe.MoeConfig(n_experts=4),
                                      train.TrainConfig())
+
+
+@pytest.mark.parametrize("name", ["gpt", "llama"])
+def test_moe_pipeline_equals_flat_moe_loss_and_learns(name):
+    """MoE x pp over 2 gloo ranks (GPipe; the reference's
+    ``test_moe.py:370``): with ample capacity the pipelined routed loss
+    equals the flat MoE loss within 2e-4 (the aux term is averaged per
+    microbatch), and the steps learn."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import pipeline
+
+    from .torch_mesh_ranks import run_ranks
+
+    jmoe = jax_moe.MoeConfig(n_experts=4, top_k=2, capacity_factor=4.0)
+    tmoe = moe.MoeConfig(n_experts=4, top_k=2, capacity_factor=4.0)
+    _, tcfg, _, params, losses = weights(name, jmoe, max_seq_len=16)
+    batch = tokens(8, 16)
+    plain = float(losses[1](params, torch.from_numpy(batch), tcfg, tmoe))
+    stack = (pipeline.as_llama_pipeline_params if name == "llama"
+             else pipeline.as_pipeline_params)
+    ranks = run_ranks("pipeline", 2, {"runs": [dict(
+        family=name, config=tcfg, pipe=2, micro=2, schedule="gpipe",
+        kind="steps", train=dict(learning_rate=1e-2), moe=tmoe,
+        params=stack(params), batches=[batch] * 4)]}, timeout=300)
+    piped = ranks[0][0]["losses"]
+    assert piped[0] == pytest.approx(plain, rel=2e-4)
+    assert piped[-1] < piped[0]

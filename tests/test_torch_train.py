@@ -256,9 +256,12 @@ def test_trainer_binary_overfits_on_the_cpu():
 
 def test_trainer_rejects_unported_choices():
     # the llama family and --data-dir are ported (test_torch_llama_train,
-    # test_torch_native), and the mesh flags (test_torch_mesh_train); the
-    # pipeline flags are not
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 5"):
+    # test_torch_native), the mesh flags (test_torch_mesh_train) and the
+    # pipeline flags (test_torch_pipeline_train): in one process that no
+    # launcher started, two stages need ranks the launch does not have
+    with pytest.raises(SystemExit, match="1 devices not divisible by "
+                       "pipe_parallel=2 x model_parallel=1 x "
+                       "seq_parallel=1"):
         trainer.train(trainer.build_parser().parse_args(
             ["--device", "cpu", "--family", "llama", "--pipe-parallel",
              "2"]))

@@ -340,8 +340,154 @@ def case_mesh(payload):
     return out
 
 
+_PIPE_MESHES: dict = {}
+
+
+def _pipe_mesh(pipe: int, tp: int, sp: int):
+    """The pipeline mesh of that shape, built once per rank process (its
+    groups are created collectively, in the order the cases ask)."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import pipeline
+
+    key = (pipe, tp, sp)
+    if key not in _PIPE_MESHES:
+        _PIPE_MESHES[key] = pipeline.make_pipeline_mesh(
+            pipe, model_parallel=tp, seq_parallel=sp, device="cpu")
+    return _PIPE_MESHES[key]
+
+
+def case_pipeline(payload):
+    """Each run of ``payload["runs"]`` on a pipeline mesh, from a full
+    stage-stacked tree: ``"grads"`` returns the global loss and the
+    summed gradients gathered to full tensors; ``"steps"`` runs optimizer
+    steps and returns the losses and the gathered parameters; a run with
+    ``lora`` trains adapters on the frozen base.  Rank 0 returns the
+    tensors."""
+    import numpy as np
+
+    from kube_sqs_autoscaler_tpu_torch.workloads import (
+        lora, pipeline, train,
+    )
+
+    out = []
+    for run in payload["runs"]:
+        mesh = _pipe_mesh(run["pipe"], run.get("tp", 1), run.get("sp", 1))
+        config = run["config"]
+        pcfg = pipeline.PipelineConfig(run["micro"], run["schedule"])
+        tcfg = train.TrainConfig(**run.get("train", {}))
+        options = dict(llama=run["family"] == "llama",
+                       zigzag=run.get("zigzag", False), moe=run.get("moe"))
+        lead = mesh.rank == 0
+
+        def rows(batch):
+            return torch.from_numpy(np.ascontiguousarray(
+                pipeline.pipeline_rows(np.asarray(batch), mesh,
+                                       pcfg.n_microbatches)))
+
+        if run.get("lora") is not None:
+            out.append(_pipeline_lora_run(mesh, config, pcfg, tcfg, run,
+                                          rows, options))
+            continue
+        state = pipeline.place_pipeline_state(
+            mesh, train.train_state(run["params"], tcfg))
+        if run["kind"] == "grads":
+            vag = pipeline.pipeline_value_and_grad(config, pcfg, mesh,
+                                                   **options)
+            loss, grads = vag(state["params"], rows(run["batches"][0]))
+            # this rank's own share of the (tied) embedding's gradient
+            embed_part = grads["embed"].clone()
+            leaves = [g.contiguous() for g in train.param_leaves(grads)]
+            train.reduce_grads(leaves, mesh, pipeline.pipeline_grad_axes(
+                state["params"], mesh))
+            loss = mesh.transport.all_reduce(
+                loss, mesh.group(*pipeline.LOSS_AXES).group)
+            full = pipeline.gather_pipeline_params(
+                train._unflatten(state["params"], leaves), mesh)
+            evaluated = float(pipeline.pipeline_loss(
+                state["params"], rows(run["batches"][0]), config, pcfg,
+                mesh, **options, aux_weight=0.0 if run.get("moe") else None))
+            out.append({"loss": float(loss), "eval": evaluated,
+                        "grads": full if lead else None,
+                        "embed_part": embed_part,
+                        "pipe_index": mesh.axis("pipe").index})
+            continue
+        step_fn = pipeline.make_pipeline_train_step(mesh, config, pcfg, tcfg,
+                                                    **options)
+        losses = []
+        for batch in run["batches"]:
+            state, loss = step_fn(state, rows(batch))
+            losses.append(float(loss))
+        full = pipeline.gather_pipeline_state(mesh, state)
+        out.append({"losses": losses, "step": state["step"],
+                    "params": full["params"] if lead else None})
+    return out
+
+
+def _pipeline_lora_run(mesh, config, pcfg, tcfg, run, rows, options):
+    """Adapter-only steps through the pipeline from the given adapters;
+    rank 0 returns the losses, the first step's adapter gradients and the
+    gathered adapters."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import (
+        lora, pipeline, train,
+    )
+
+    lcfg = lora.LoraConfig(rank=run["lora"])
+    frozen = pipeline.shard_pipeline_params(run["params"], mesh)
+    state = {"adapters": run["adapters"],
+             "optimizer": train.make_optimizer(tcfg, run["adapters"]),
+             "step": 0}
+    state = lora.place_pipeline_lora_state(mesh, state)
+    moe = options.pop("moe")
+    options.pop("zigzag")
+    vag = lora.lora_pipeline_value_and_grad(mesh, config, pcfg, frozen,
+                                            lcfg, moe=moe, **options)
+    _, grads = vag(state["adapters"], rows(run["batches"][0]))
+    leaves = [g.contiguous() for g in train.param_leaves(grads)]
+    train.reduce_grads(leaves, mesh, lora.lora_pipeline_grad_axes(
+        state["adapters"], mesh))
+    grads = lora.gather_pipeline_lora_state(mesh, {
+        "adapters": train._unflatten(state["adapters"], leaves),
+        "optimizer": state["optimizer"], "step": 0})["adapters"]
+    step_fn = lora.make_lora_pipeline_train_step(mesh, config, pcfg, tcfg,
+                                                 frozen, lcfg, moe=moe,
+                                                 **options)
+    losses = []
+    for batch in run["batches"]:
+        state, loss = step_fn(state, rows(batch))
+        losses.append(float(loss))
+    full = lora.gather_pipeline_lora_state(mesh, state)
+    lead = mesh.rank == 0
+    return {"losses": losses, "grads": grads if lead else None,
+            "adapters": full["adapters"] if lead else None}
+
+
+def case_pipe_mesh(payload):
+    """The pipeline meshes of ``payload["shapes"]`` (``(pipe, tp, sp)``)
+    as this rank sees them, enumeration and node-major order, and the
+    divisibility refusal."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import distributed
+
+    out = []
+    for pipe, tp, sp in payload["shapes"]:
+        for topo in (False, True):
+            mesh = (distributed.make_topology_pipeline_mesh(
+                pipe, model_parallel=tp, seq_parallel=sp, device="cpu")
+                if topo else _pipe_mesh(pipe, tp, sp))
+            out.append({"shape": mesh.shape, "topology": topo,
+                        "coords": {n: a.index for n, a in mesh.axes.items()},
+                        "groups": {"+".join(sorted(k)): (None if a is None
+                                                         else a.ranks)
+                                   for k, a in mesh.groups.items()}})
+    try:
+        distributed.make_topology_pipeline_mesh(3, device="cpu")
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    return {"meshes": out, "refused": refused}
+
+
 CASES = {"attention": case_attention, "train": case_train,
-         "trainer": case_trainer, "mesh": case_mesh}
+         "trainer": case_trainer, "mesh": case_mesh,
+         "pipeline": case_pipeline, "pipe_mesh": case_pipe_mesh}
 
 
 def main() -> None:
