@@ -139,7 +139,7 @@ Phases (any failure makes the run exit non-zero and print no result):
    insert: one target prefill seeds both caches), replies counted
    against the plain greedy worker's on the same weights, the accepted
    fraction, rounds a request and second rounds dispatched ahead;
-   ``--temperature 0.8`` answering 64 of 64 in the vocabulary; the
+   ``--temperature 0.8`` answering 16 of 16 in the vocabulary; the
    acceptance rule on the card over 10^5 rows of synthetic distributions
    (V = 32), its emitted marginal within total variation 0.01 of the
    warped target; in f32 the staggered prompts through the batch
@@ -245,8 +245,9 @@ Phases (any failure makes the run exit non-zero and print no result):
    4 kv heads) and with a window of 512, output and q, k, v gradients
    against one process's ``flash_attention`` over the whole sequence, each
    rank's lse, dq and dk/dv launches exactly its live hops (ring ``d +
-   1``, zig-zag ``P + 1``); (b) the trainer binary at flagship width, 5
-   ``--overfit`` steps each: the GPT at S = 8192, B = 4 with
+   1``, zig-zag ``P + 1``); (b) the trainer binary at flagship width, 3
+   ``--overfit`` steps each: the GPT cut to 4 layers at S = 8192, B = 4
+   with
    ``--seq-parallel 4``, ``--seq-parallel 4 --zigzag`` and
    ``--model-parallel 2 --seq-parallel 2`` (whose checkpoint the
    single-card worker serves, replies equal to serving the gathered
@@ -258,8 +259,35 @@ Phases (any failure makes the run exit non-zero and print no result):
    ``--lora-rank 8 --seq-parallel 2``; (d) an orbax-shaped step
    directory refused by the worker and by ``--resume`` (exit 2); then
    the three training kernels at the hop shapes, timed alone;
-23. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-24. the last line, ``{"ok": true, "device": {...}}``.
+23. pipe: the trainer's GPipe and 1F1B stages over 4 ranks sharing the
+   card (``--pipe-rank``), first two losses against one process's, exact
+   launches a rank; the training kernels at the stage shapes;
+24. serve mesh: the worker binary with ``--model-parallel 2`` (dp 2 x tp
+   2) and ``--model-parallel 4`` over 4 ranks sharing the card
+   (``--serve-mesh-rank``): the built-in GPT at full width, batch and
+   continuous at block 8 (24 bodies, three fills of the slots), the llama
+   at tp 2 (one kv head a rank, 24), one batch of ``--beams 2``, and one
+   batch of 8 tokens a reply each of ``--quantize-kv``, ``--prefix-ids``,
+   speculative, ``--tenants --prefix-pool``, ``--shards 4`` and classify;
+   every body answered once, by rank 0 alone; bf16 replies against one
+   process's, each difference at a near-tie of one process's (top-two
+   margin below 2e-2); each rank's exact forward launches; the f32
+   serving functions and block-8 engine at full width equal to one
+   process's, the engine's cache on a rank its 4 rows and 4 heads of one
+   process's 8 and 8; rates beside one process's; then the forward
+   kernel at the ranks' shapes against its plain version, timed beside
+   SDPA and its bound;
+25. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+26. the last line, ``{"ok": true, "device": {...}}``.
+
+The binary runs of the llama, int8, prefix, speculative and beam phases
+serve 16 bodies (two batches, two fills of the slots) and their f32 checks
+take every other one of the 24 ragged prompts; the mesh and pipe trainer
+runs take 3 steps: depth cut so that the run stays inside its 1200 s
+limit on the slower hosts.  A phase is not started once less than a
+minute of that limit is left.  Every process the run starts is stopped
+when it ends, on SIGTERM, SIGINT or SIGHUP too, and the ranks of a launch
+exit of themselves once the run's own process is gone.
 
 It needs one card, imports nothing of JAX, and exits non-zero without a
 card or outside a checkout of the repository.
@@ -347,6 +375,17 @@ GENERATE_ARGS = ["--demo", "16", "--batch-size", "8", "--seq-len", "512",
                  "demo://replies"]
 CLASSIFY_ARGS = ["--demo", "16", "--batch-size", "8", "--seq-len", "1024",
                  "--result-queue-url", "demo://replies"]
+# the gated binary runs of the llama, int8, prefix, speculative and beam
+# phases: two batches of 8, two fills of the engine's 8 slots (cut from 64
+# for the run's time limit; the main path's phases keep 64)
+GATE_BODIES = 16
+# the ragged f32 prompts of those phases' parity checks: every other one of
+# staggered_requests()'s 24 (7 to 512 tokens), cut for the same reason
+GATE_STAGGER = slice(None, None, 2)
+# the run's time limit; a phase is not started once less than a minute of
+# it is left, so the run fails on its own instead of being killed
+RUN_LIMIT_S = 1200
+LAST_START_S = RUN_LIMIT_S - 60
 # the generate cell's traffic through the batch worker, then through the
 # continuous engine's rolling slots at decode blocks 1 and 8
 SERVE_MODES = (("generate", GENERATE_ARGS),
@@ -373,6 +412,7 @@ LLAMA_CACHE_MIB = 8.5
 class Smoke:
     def __init__(self) -> None:
         self.failures: list[str] = []
+        self.start = time.perf_counter()
 
     def check(self, ok: bool, what: str) -> None:
         print(("ok    " if ok else "FAIL  ") + what, flush=True)
@@ -381,9 +421,15 @@ class Smoke:
 
     def phase(self, name: str, fn, *args):
         """Run one phase; an exception fails the run (after the other
-        phases have run) and is printed, never swallowed."""
+        phases have run) and is printed, never swallowed.  Past
+        :data:`LAST_START_S` of the run the phase fails unstarted."""
         print(f"== {name}", flush=True)
         start = time.perf_counter()
+        if start - self.start > LAST_START_S:
+            self.check(False, f"phase {name} not started: "
+                       f"{start - self.start:.1f} s of the run's "
+                       f"{RUN_LIMIT_S} s gone")
+            return None
         try:
             return fn(*args)
         except Exception:
@@ -862,9 +908,9 @@ def profile_phase(torch) -> dict:
     return out
 
 
-def demo64(args: list[str]) -> list[str]:
+def demo64(args: list[str], bodies: int = 64) -> list[str]:
     args = list(args)
-    args[args.index("--demo") + 1] = "64"
+    args[args.index("--demo") + 1] = str(bodies)
     return args
 
 
@@ -1691,6 +1737,71 @@ finally:
 LOCAL_AWS_ENV = {"AWS_ACCESS_KEY_ID": "AKIDLOCALEMULATOR",
                  "AWS_SECRET_ACCESS_KEY": "local-emulator-secret"}
 ROOT = Path(__file__).resolve().parent
+# Every process the run starts inherits RUN_MARK in its environment, and
+# the ranks of a launch also their launch's LAUNCH_MARK: the run finds them
+# by it, orphans of a killed launcher included (torch.distributed.run puts
+# each rank in a session of its own).  OWNER_PID is the run's own process.
+RUN_MARK = "CHIP_SMOKE_RUN"
+LAUNCH_MARK = "CHIP_SMOKE_LAUNCH"
+OWNER_PID = "CHIP_SMOKE_PID"
+
+
+def marked_pids(key: str, value: str) -> list[int]:
+    """The live processes other than this one whose environment holds
+    ``key=value``."""
+    needle = f"{key}={value}".encode()
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{entry}/environ", "rb") as fh:
+                if needle in fh.read().split(b"\0"):
+                    found.append(int(entry))
+        except OSError:
+            continue
+    return found
+
+
+def stop_marked(key: str, value: str) -> int:
+    """SIGKILL every process marked ``key=value`` until none is left (one
+    may fork between a scan and the kill); returns how many there were."""
+    import signal
+
+    stopped = set()
+    for _ in range(10):
+        pids = marked_pids(key, value)
+        if not pids:
+            break
+        for pid in pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        stopped.update(pids)
+        time.sleep(0.1)
+    return len(stopped)
+
+
+def exit_with_owner() -> None:
+    """In a rank: exit at once when the run's own process is gone (killed,
+    so it could not stop its launches itself)."""
+    owner = int(os.environ.get(OWNER_PID, "0"))
+    if not owner:
+        return
+
+    def watch() -> None:
+        while True:
+            try:
+                with open(f"/proc/{owner}/stat") as fh:
+                    state = fh.read().rsplit(")", 1)[1].split()[0]
+            except (OSError, IndexError):
+                state = "X"
+            if state in ("Z", "X"):
+                os._exit(1)
+            time.sleep(1.0)
+
+    threading.Thread(target=watch, daemon=True).start()
 
 
 def free_port() -> int:
@@ -2754,16 +2865,17 @@ class recorded_shapes:
         self.flash.flash_fwd = self.original
 
 
-def plane_worker(torch, params, config, service_config, shards, **kw):
-    """A continuous worker over the sharded plane, the ``--demo 64``
-    bodies queued."""
+def plane_worker(torch, params, config, service_config, shards,
+                 bodies: int = 64, **kw):
+    """A continuous worker over the sharded plane, the ``--demo 64`` (or
+    ``bodies``) bodies queued."""
     from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
     from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
         ContinuousWorker,
     )
 
     queue = FakeMessageQueue()
-    for body in demo_bodies(64):
+    for body in demo_bodies(bodies):
         queue.send_message("demo://queue", body)
     service_config = dataclasses.replace(
         service_config, queue_url="demo://queue", shards=shards,
@@ -3151,7 +3263,7 @@ def plane_profile(torch, worker, argv=SHARDS_ARGS, label="shards") -> dict:
 def llama_phase(torch, flash, smoke: Smoke) -> dict:
     """The llama family (``--family llama``: the built-in llama, bf16,
     seeded weights) through every serving path at the generate cell's
-    shape: (a) the binary's ``--demo 64`` through the batch worker and
+    shape: (a) the binary's ``--demo 16`` through the batch worker and
     ``--continuous`` at decode blocks 1 and 8, whose replies must be
     identical, with ``n_layers x inserts`` forward launches and no lse
     launch; (b) the block-8 worker cycle by cycle (at most one decode
@@ -3175,28 +3287,30 @@ def llama_phase(torch, flash, smoke: Smoke) -> dict:
                                 "--decode-block", "8"]))
     for mode, args in modes:
         zero_counts(flash)
-        summary = worker([*demo64(args), "--device", "cuda"])
+        summary = worker([*demo64(args, GATE_BODIES), "--device", "cuda"])
         torch.cuda.synchronize()
         launched = counts(flash)
         replies[mode] = {rid: json.dumps(body) for rid, body in
                          summary["replies"].items()}
         attrs = summary["queue_attributes"]
-        smoke.check(summary["processed"] == 64 and len(replies[mode]) == 64
+        smoke.check(summary["processed"] == GATE_BODIES
+                    and len(replies[mode]) == GATE_BODIES
                     and summary["duplicate_replies"] == 0
                     and attrs["ApproximateNumberOfMessages"] == "0"
                     and attrs["ApproximateNumberOfMessagesNotVisible"] == "0"
                     and all(len(r.get("tokens", ())) == 32
                             and all(0 <= t < 8192 for t in r["tokens"])
                             for r in summary["replies"].values()),
-                    f"llama {mode}: processed {summary['processed']} of 64, "
+                    f"llama {mode}: processed {summary['processed']} of "
+                    f"{GATE_BODIES}, "
                     f"{len(replies[mode])} replies of 32 tokens in the "
                     f"vocabulary, {summary['duplicate_replies']} duplicates, "
                     f"queue {attrs}")
         # the batch worker prefills once a batch of 8, the engine once an
-        # insert of 8: 8 prompt passes of 4 layers either way
+        # insert of 8: 2 prompt passes of 4 layers either way
         passes = (summary["insert_dispatches"] if mode != "generate"
-                  else 64 // 8)
-        smoke.check(passes == 8
+                  else GATE_BODIES // 8)
+        smoke.check(passes == GATE_BODIES // 8
                     and launched["flash_fwd"] == LLAMA_LAYERS * passes
                     and launched["flash_fwd_lse"] == 0,
                     f"llama {mode}: flash_fwd launches {launched['flash_fwd']}"
@@ -3211,7 +3325,8 @@ def llama_phase(torch, flash, smoke: Smoke) -> dict:
     for mode in ("continuous-b1", "continuous-b8"):
         same = sum(replies[mode].get(r) == b
                    for r, b in replies["generate"].items())
-        smoke.check(same == 64, f"llama {mode}: {same} of 64 replies "
+        smoke.check(same == GATE_BODIES, f"llama {mode}: {same} of "
+                    f"{GATE_BODIES} replies "
                     "byte-identical to the batch worker's (bf16, greedy)")
 
     # (b) block 8 cycle by cycle, and the compact cache
@@ -3227,19 +3342,20 @@ def llama_phase(torch, flash, smoke: Smoke) -> dict:
     results = FakeMessageQueue()
     _, one = plane_worker(torch, params, config, service_config, 1,
                           result_queue=results, sharded=True,
-                          family="llama")
+                          family="llama", bodies=GATE_BODIES)
     zero_counts(flash)
-    one.drain(total=64)
+    one.drain(total=GATE_BODIES)
     torch.cuda.synchronize()
     launched = counts(flash)
     plane_replies = {rid: bodies[0] for rid, bodies in
                      drain_raw(results, "demo://replies").items()}
     inserts = one.batcher.insert_dispatches
     same = sum(plane_replies.get(r) == b for r, b in single.items())
-    smoke.check(same == 64 and one.batcher.family == "llama"
+    smoke.check(same == GATE_BODIES and one.batcher.family == "llama"
                 and launched["flash_fwd"] == LLAMA_LAYERS * inserts
                 and launched["flash_fwd_lse"] == 0,
-                f"llama S=1 plane bf16 block 8: {same} of 64 replies "
+                f"llama S=1 plane bf16 block 8: {same} of {GATE_BODIES} "
+                f"replies "
                 f"byte-identical to the block-8 worker's; flash_fwd launches "
                 f"{launched['flash_fwd']} = {LLAMA_LAYERS} x {inserts} "
                 f"inserts, lse {launched['flash_fwd_lse']}")
@@ -3250,24 +3366,25 @@ def llama_phase(torch, flash, smoke: Smoke) -> dict:
     for name, extra in (("shards-4", ["--shards", "4"]),
                         ("fleet-3", ["--fleet-max-replicas", "3"])):
         zero_counts(flash)
-        summary = worker([*demo64(LLAMA_ARGS), "--continuous",
+        summary = worker([*demo64(LLAMA_ARGS, GATE_BODIES), "--continuous",
                           "--decode-block", "8", *extra, "--device", "cuda"])
         torch.cuda.synchronize()
         launched = counts(flash)
         inserts = summary["insert_dispatches"]
-        smoke.check(summary["processed"] == 64
-                    and len(summary["replies"]) == 64
+        smoke.check(summary["processed"] == GATE_BODIES
+                    and len(summary["replies"]) == GATE_BODIES
                     and summary["duplicate_replies"] == 0
                     and launched["flash_fwd"] == LLAMA_LAYERS * inserts
                     and launched["flash_fwd_lse"] == 0,
                     f"llama binary {name}: processed {summary['processed']} "
-                    f"of 64, {len(summary['replies'])} replies, "
+                    f"of {GATE_BODIES}, {len(summary['replies'])} replies, "
                     f"{summary['duplicate_replies']} duplicates; flash_fwd "
                     f"launches {launched['flash_fwd']} = {LLAMA_LAYERS} x "
                     f"{inserts} inserts, lse {launched['flash_fwd_lse']}")
         same = sum(json.dumps(body) == single.get(rid)
                    for rid, body in summary["replies"].items())
-        print(f"llama binary {name}: {same} of 64 replies byte-identical to "
+        print(f"llama binary {name}: {same} of {GATE_BODIES} replies "
+              f"byte-identical to "
               f"the single block-8 worker's (counted, not gated)", flush=True)
         out["launches"][f"serve-llama-{name}"] = launched["flash_fwd"]
         out[name] = {"same_as_single": same, "inserts": inserts}
@@ -3405,22 +3522,23 @@ def llama_f32_checks(torch, flash, smoke: Smoke) -> dict:
 
 
 def llama_rates(torch, worker) -> dict:
-    """Warm ``--demo 64`` rates of the GPT and the llama one after the
-    other, for the batch worker, block 8 and ``--shards 4``."""
+    """Warm ``--demo 32`` rates of the GPT and the llama one after the
+    other, for the batch worker, block 8 and ``--shards 4`` (32 bodies: the
+    depth cut for time)."""
     rates = {}
     for name, extra in (("batch", []),
                         ("block-8", ["--continuous", "--decode-block", "8"]),
                         ("shards-4", ["--continuous", "--decode-block", "8",
                                       "--shards", "4"])):
         for family in ("gpt", "llama"):
-            summary = worker([*demo64(GENERATE_ARGS), *extra, "--family",
-                              family, "--device", "cuda"])
+            summary = worker([*demo64(GENERATE_ARGS, 32), *extra,
+                              "--family", family, "--device", "cuda"])
             ttft = summary.get("ttft_mean_s") or summary["cycle"]["mean_s"]
             rates[f"{family}-{name}"] = {
                 "msgs_per_s": summary["msgs_per_s"],
                 "tokens_per_s": summary["tokens_per_s"],
                 "ttft_mean_s": ttft, "elapsed_s": summary["elapsed_s"]}
-            print(f"warm {family} {name} --demo 64: "
+            print(f"warm {family} {name} --demo 32: "
                   f"{summary['msgs_per_s']:.3f} msgs/s, "
                   f"{summary['tokens_per_s']:.3f} generated tokens/s, mean "
                   f"TTFT {ttft * 1e3:.3f} ms", flush=True)
@@ -3502,8 +3620,9 @@ class LogLines(logging.Handler):
         logging.getLogger("worker").removeHandler(self)
 
 
-def run_binary(torch, flash, worker, args: list[str], demo: int = 64):
-    """One ``--demo 64`` (or ``demo``) run of the worker binary on the card: (summary,
+def run_binary(torch, flash, worker, args: list[str],
+               demo: int = GATE_BODIES):
+    """One ``--demo 16`` (or ``demo``) run of the worker binary on the card: (summary,
     launches, the run's own peak memory bytes, its log lines).  The launch
     counts and the memory peak are reset just before and read just after;
     the peak is counted above what was still allocated when the run
@@ -3528,11 +3647,12 @@ def replies_of(summary) -> dict:
 
 
 def check_served(smoke, label, summary, eos_id=None) -> None:
-    """64 of 64 answered once and deleted, each reply 32 tokens in the
-    vocabulary (with ``eos_id``: at most 32, cut before the eos)."""
+    """All :data:`GATE_BODIES` answered once and deleted, each reply 32
+    tokens in the vocabulary (with ``eos_id``: at most 32, cut before the
+    eos)."""
     attrs = summary["queue_attributes"]
-    smoke.check(summary["processed"] == 64
-                and len(summary["replies"]) == 64
+    smoke.check(summary["processed"] == GATE_BODIES
+                and len(summary["replies"]) == GATE_BODIES
                 and summary["duplicate_replies"] == 0
                 and attrs["ApproximateNumberOfMessages"] == "0"
                 and attrs["ApproximateNumberOfMessagesNotVisible"] == "0"
@@ -3541,7 +3661,8 @@ def check_served(smoke, label, summary, eos_id=None) -> None:
                          and eos_id not in r["tokens"])
                         and all(0 <= t < 8192 for t in r["tokens"])
                         for r in summary["replies"].values()),
-                f"{label}: processed {summary['processed']} of 64, "
+                f"{label}: processed {summary['processed']} of "
+                f"{GATE_BODIES}, "
                 f"{len(summary['replies'])} replies of "
                 f"{'32' if eos_id is None else 'at most 32'} tokens in the "
                 f"vocabulary, {summary['duplicate_replies']} duplicates, "
@@ -3615,9 +3736,10 @@ def plane_s1_replies(torch, flash, family, flags) -> tuple[dict, int, int]:
     service_config.quantized_kv = "--quantize-kv" in flags
     results = FakeMessageQueue()
     _, one = plane_worker(torch, params, config, service_config, 1,
-                          result_queue=results, sharded=True, family=family)
+                          result_queue=results, sharded=True, family=family,
+                          bodies=GATE_BODIES)
     zero_counts(flash)
-    one.drain(total=64)
+    one.drain(total=GATE_BODIES)
     torch.cuda.synchronize()
     launched = counts(flash)
     replies = {rid: bodies[0] for rid, bodies in
@@ -3628,7 +3750,7 @@ def plane_s1_replies(torch, flash, family, flags) -> tuple[dict, int, int]:
 def int8_phase(torch, flash, smoke: Smoke) -> dict:
     """int8 serving at the built-in GPT's and llama's full width in bf16:
     (a) codes on the card equal to the CPU's and the 8-slot caches' bytes;
-    (b) the binary's ``--demo 64`` with ``--quantize int8``,
+    (b) the binary's ``--demo 16`` with ``--quantize int8``,
     ``--quantize-kv`` and both, through the batch worker and
     ``--continuous`` at blocks 1 and 8, and a one-shard plane: replies
     identical across the four, ``n_layers x`` prompt passes forward
@@ -3655,8 +3777,8 @@ def int8_phase(torch, flash, smoke: Smoke) -> dict:
                     torch, flash, worker, [*args, *flags, *extra])
                 check_served(smoke, label, summary)
                 passes = (summary["insert_dispatches"] if mode != "generate"
-                          else 64 // 8)
-                smoke.check(passes == 8
+                          else GATE_BODIES // 8)
+                smoke.check(passes == GATE_BODIES // 8
                             and launched["flash_fwd"] == layers * passes
                             and launched["flash_fwd_lse"] == 0,
                             f"{label}: flash_fwd launches "
@@ -3688,9 +3810,10 @@ def int8_phase(torch, flash, smoke: Smoke) -> dict:
             same = {mode: sum(replies[mode].get(r) == b
                               for r, b in base.items())
                     for mode in ("continuous-b1", "continuous-b8", "s1")}
-            smoke.check(all(n == 64 for n in same.values()),
+            smoke.check(all(n == GATE_BODIES for n in same.values()),
                         f"{family} {variant}: replies byte-identical to the "
-                        f"batch worker's (bf16, greedy), of 64: {same}")
+                        f"batch worker's (bf16, greedy), of {GATE_BODIES}: "
+                        f"{same}")
             out["launches"][f"serve-{family}-{variant}"] = launched_total
     out["f32"] = int8_f32_checks(torch, flash, smoke)
     out["rates"] = int8_rates(torch, flash, worker)
@@ -3754,7 +3877,7 @@ def int8_f32_checks(torch, flash, smoke: Smoke) -> dict:
     )
 
     out = {}
-    requests = staggered_requests()
+    requests = staggered_requests()[GATE_STAGGER]
     for family in ("gpt", "llama"):
         config = dataclasses.replace(BUILTIN_CONFIGS[family](512, 32),
                                      dtype=torch.float32)
@@ -3802,10 +3925,11 @@ def int8_f32_checks(torch, flash, smoke: Smoke) -> dict:
             launched = flash.kernel_launches - before
             bad, ties = compare_upto_ties(got, want, margins)
             smoke.check(
-                len(got) == 24 and not bad
+                len(got) == len(requests) and not bad
                 and launched == 4 * batcher.insert_dispatches,
                 f"int8 {family} f32 {name} (int8 weights and cache): "
-                f"{len(got)} of 24 staggered requests in {cycles} cycles, "
+                f"{len(got)} of {len(requests)} staggered requests in "
+                f"{cycles} cycles, "
                 f"{batcher.insert_dispatches} inserts ({launched} flash_fwd "
                 f"launches); tokens equal to the port's int8 generate alone "
                 f"up to the first near-tie (margin < {MARGIN:g}): mismatched "
@@ -3816,13 +3940,13 @@ def int8_f32_checks(torch, flash, smoke: Smoke) -> dict:
     return out
 
 
-INT8_RATE_DEMO = 32  # cut from 64 for the run's time limit
+INT8_RATE_DEMO = 16  # cut from 64 for the run's time limit
 
 
 def int8_rates(torch, flash, worker) -> dict:
-    """Warm ``--demo 32`` rates and peak memory of bf16, int8 weights, the
+    """Warm ``--demo 16`` rates and peak memory of bf16, int8 weights, the
     int8 cache and both, at block 8 and ``--shards 4``, for both families,
-    one run after another (32 bodies: the depth cut for time)."""
+    one run after another (16 bodies: the depth cut for time)."""
     rates = {}
     for family in ("gpt", "llama"):
         for name, extra in (("block-8", ["--continuous", "--decode-block",
@@ -3853,7 +3977,7 @@ def int8_rates(torch, flash, worker) -> dict:
 def prefix_phase(torch, flash, smoke: Smoke) -> dict:
     """The shared prefix (``--prefix-ids``, 37 tokens: no multiple of the
     kernel's tiles) at both families' full width: (a) the binary's
-    ``--demo 64`` in bf16 through the batch worker, blocks 1 and 8 and
+    ``--demo 16`` in bf16 through the batch worker, blocks 1 and 8 and
     ``--shards 4``, full-precision and int8 cache: the prefix's
     ``n_layers`` forward launches once at start-up, the suffix inserts
     through the chunk decoder none, no lse; replies counted against the
@@ -3899,7 +4023,8 @@ def prefix_phase(torch, flash, smoke: Smoke) -> dict:
                               for r, b in base.items())
                     for mode in replies if mode != "generate"}
             print(f"prefix {family} {layout}: replies byte-identical to the "
-                  f"batch worker's, of 64 (counted, not gated): {same}",
+                  f"batch worker's, of {GATE_BODIES} (counted, not gated): "
+                  f"{same}",
                   flush=True)
             out["replies_same"][f"{family}-{layout}"] = same
             out["launches"][f"serve-prefix-{family}-{layout}"] = \
@@ -3919,7 +4044,7 @@ def prefix_f32_checks(torch, flash, smoke: Smoke) -> dict:
     from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
 
     out = {}
-    requests = staggered_requests()
+    requests = staggered_requests()[GATE_STAGGER]
     prefix = torch.tensor(PREFIX_IDS, device="cuda")
     for family in ("gpt", "llama"):
         config = dataclasses.replace(
@@ -3966,10 +4091,11 @@ def prefix_f32_checks(torch, flash, smoke: Smoke) -> dict:
             oracle = ("the int8 prefix generate" if quantized
                       else "generate of prefix + suffix joined")
             smoke.check(
-                len(got) == 24 and not bad and launched == 0
+                len(got) == len(requests) and not bad and launched == 0
                 and prefix_launches == 4 and batcher.prefix_len == PREFIX_LEN,
-                f"prefix {family} f32 {layout_name} block 8: {len(got)} of 24 "
-                f"staggered suffixes behind the {PREFIX_LEN}-token prefix "
+                f"prefix {family} f32 {layout_name} block 8: {len(got)} of "
+                f"{len(requests)} staggered suffixes behind the "
+                f"{PREFIX_LEN}-token prefix "
                 f"({prefix_launches} flash_fwd launches for the prefix, "
                 f"{launched} for {batcher.insert_dispatches} suffix "
                 f"inserts); tokens equal to {oracle} up to the first "
@@ -3997,7 +4123,7 @@ MARGINAL_TV = 0.01
 
 
 def plain_replies(torch, family: str, headroom: int) -> dict:
-    """The plain greedy batch worker's ``--demo 64`` replies, with the
+    """The plain greedy batch worker's ``--demo 16`` replies, with the
     weights of the built-in config whose context is widened by
     ``headroom`` (the speculative binary's 2k: the GPT's position table,
     and so its seeded weights, depend on the context)."""
@@ -4009,7 +4135,7 @@ def plain_replies(torch, family: str, headroom: int) -> dict:
     service_config = ServiceConfig(queue_url="", batch_size=8, seq_len=512,
                                    generate_tokens=32,
                                    result_queue_url="demo://replies")
-    summary = binary.run_demo(64, params, config, service_config,
+    summary = binary.run_demo(GATE_BODIES, params, config, service_config,
                               torch.device("cuda"))
     return replies_of(summary)
 
@@ -4028,22 +4154,22 @@ def speculative_phase(torch, flash, smoke: Smoke) -> dict:
     """Speculative decoding (``--speculative-draft-layers 2
     --speculative-draft-tokens 4``: the first 2 of 4 layers draft, 4
     proposals a round) at both families' full width: (a) the binary's
-    ``--demo 64`` in bf16 through the batch worker (one prefill of the
+    ``--demo 16`` in bf16 through the batch worker (one prefill of the
     target and one of the draft a batch: ``n_layers + draft_layers``
     forward launches, no lse) and ``--continuous`` (one target prefill an
     insert seeds both caches: ``n_layers`` launches an insert); replies
     counted against the plain greedy batch worker's on the same weights;
     the accepted fraction, rounds a request and second rounds dispatched
     ahead (and still running when the first was read); (b) sampled, the
-    GPT at ``--temperature 0.8`` in both workers: 64 of 64 answered, every
+    GPT at ``--temperature 0.8`` in both workers: 16 of 16 answered, every
     token in the vocabulary; (c) the rejection rule on the card:
     ``_accept_and_fixup`` over 10^5 rows of synthetic draft and target
     distributions (V = 32), the emitted marginal within total variation
     0.01 of the warped target; (d) in f32 the staggered prompts through
     the batch ``speculative_generate`` and the slot engine against the
     port's greedy generate, up to the first near-tie; (e) the GPT with
-    ``--quantize-kv`` and with the 37-token prefix, each answering 64 of
-    64."""
+    ``--quantize-kv`` and with the 37-token prefix, each answering 16 of
+    16."""
     from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
         main as worker,
     )
@@ -4062,11 +4188,12 @@ def speculative_phase(torch, flash, smoke: Smoke) -> dict:
             logged = any(f"{SPEC_DRAFT}-layer early-exit self-draft, "
                          f"{SPEC_K} proposals/round" in s for s in logs)
             if mode == "generate":
-                passes, per_pass = 64 // 8, SERVE_LAYERS + SPEC_DRAFT
+                passes = GATE_BODIES // 8
+                per_pass = SERVE_LAYERS + SPEC_DRAFT
             else:
                 passes, per_pass = summary["insert_dispatches"], SERVE_LAYERS
             smoke.check(
-                logged and (mode == "generate" or passes == 64)
+                logged and (mode == "generate" or passes == GATE_BODIES)
                 and launched["flash_fwd"] == per_pass * passes
                 and launched["flash_fwd_lse"] == 0,
                 f"{label}: logged ({logged}); flash_fwd launches "
@@ -4075,15 +4202,15 @@ def speculative_phase(torch, flash, smoke: Smoke) -> dict:
             total += launched["flash_fwd"]
             same = count_same(replies_of(summary), base)
             print(f"{label}: replies byte-identical to the plain greedy "
-                  f"batch worker's on the same weights, of 64 (bf16, counted, "
-                  f"not gated): {same}", flush=True)
+                  f"batch worker's on the same weights, of {GATE_BODIES} "
+                  f"(bf16, counted, not gated): {same}", flush=True)
             out["replies_same"][f"{family}-{mode}"] = same
             if mode == "continuous":
                 rounds = summary["spec_rounds"]
                 stats = {
                     "accepted_fraction": summary["spec_accepted"]
                     / (SPEC_K * rounds),
-                    "rounds_per_request": rounds / 64,
+                    "rounds_per_request": rounds / GATE_BODIES,
                     "second_rounds": summary["spec_second_rounds"],
                     "second_rounds_running_at_read":
                         summary["spec_overlapped"],
@@ -4113,7 +4240,7 @@ def speculative_phase(torch, flash, smoke: Smoke) -> dict:
 
 def compositions(torch, flash, smoke, worker, mode_args, name) -> int:
     """The GPT's ``--continuous`` with ``mode_args`` over the int8 cache
-    and behind the 37-token prefix: 64 of 64 answered, ``n_layers`` forward
+    and behind the 37-token prefix: 16 of 16 answered, ``n_layers`` forward
     launches an insert (the prefix's once, its suffixes none); returns
     the launches."""
     total = 0
@@ -4126,7 +4253,7 @@ def compositions(torch, flash, smoke, worker, mode_args, name) -> int:
         check_served(smoke, label, summary)
         want = (SERVE_LAYERS if layout == "prefix"
                 else SERVE_LAYERS * summary["insert_dispatches"])
-        smoke.check(summary["insert_dispatches"] == 64
+        smoke.check(summary["insert_dispatches"] == GATE_BODIES
                     and launched["flash_fwd"] == want
                     and launched["flash_fwd_lse"] == 0,
                     f"{label}: {summary['insert_dispatches']} inserts, "
@@ -4206,7 +4333,7 @@ def spec_f32_checks(torch, flash, smoke: Smoke) -> dict:
     )
 
     out = {}
-    requests = staggered_requests()
+    requests = staggered_requests()[GATE_STAGGER]
     for family in ("gpt", "llama"):
         config, params, model = f32_model(torch, family, 2 * SPEC_K)
         layout = model.full
@@ -4237,10 +4364,11 @@ def spec_f32_checks(torch, flash, smoke: Smoke) -> dict:
                     got[start + i] = row
         bad, ties = compare_upto_ties(got, want, margins)
         smoke.check(
-            len(got) == 24 and not bad
+            len(got) == len(requests) and not bad
             and launched == (SERVE_LAYERS + SPEC_DRAFT) * calls,
-            f"speculative {family} f32 batch speculative_generate: 24 "
-            f"staggered prompts in {calls} batches ({launched} flash_fwd "
+            f"speculative {family} f32 batch speculative_generate: "
+            f"{len(requests)} staggered prompts in {calls} batches "
+            f"({launched} flash_fwd "
             f"launches); tokens equal to the port's greedy generate alone up "
             f"to the first near-tie (margin < {MARGIN:g}): mismatched {bad}; "
             f"near-ties {ties}")
@@ -4252,10 +4380,10 @@ def spec_f32_checks(torch, flash, smoke: Smoke) -> dict:
         slot_launches = flash.kernel_launches - before
         slot_bad, slot_ties = compare_upto_ties(slots, want, margins)
         smoke.check(
-            len(slots) == 24 and not slot_bad
+            len(slots) == len(requests) and not slot_bad
             and slot_launches == SERVE_LAYERS * batcher.insert_dispatches,
-            f"speculative {family} f32 slot engine: {len(slots)} of 24 "
-            f"staggered prompts in {cycles} cycles, "
+            f"speculative {family} f32 slot engine: {len(slots)} of "
+            f"{len(requests)} staggered prompts in {cycles} cycles, "
             f"{batcher.insert_dispatches} inserts ({slot_launches} flash_fwd "
             f"launches), {batcher.spec_rounds} rounds accepting "
             f"{batcher.spec_accepted}; tokens equal to the port's greedy "
@@ -4279,7 +4407,7 @@ def eos_token(replies: dict) -> int:
 def beam_phase(torch, flash, smoke: Smoke) -> dict:
     """Beam search (``--beams 4``, and with ``--length-penalty 0.6
     --eos-id`` a token the demo emits) at both families' full width: (a)
-    the binary's ``--demo 64`` in bf16 through the batch worker (one
+    the binary's ``--demo 16`` in bf16 through the batch worker (one
     prompt pass a batch: ``n_layers`` forward launches) and
     ``--continuous`` (one an insert), replies counted between the two; (b)
     in f32 the staggered prompts through the beam slot engine against the
@@ -4311,11 +4439,11 @@ def beam_phase(torch, flash, smoke: Smoke) -> dict:
                     [*GENERATE_ARGS, "--family", family, *flags, *extra])
                 check_served(smoke, label, summary,
                              eos_id=eos if "--eos-id" in flags else None)
-                passes = (64 // 8 if mode == "generate"
+                passes = (GATE_BODIES // 8 if mode == "generate"
                           else summary["insert_dispatches"])
                 logged = any(f"Beam search: {BEAMS} beams" in s for s in logs)
                 smoke.check(
-                    logged and (mode == "generate" or passes == 64)
+                    logged and (mode == "generate" or passes == GATE_BODIES)
                     and launched["flash_fwd"] == SERVE_LAYERS * passes
                     and launched["flash_fwd_lse"] == 0,
                     f"{label}: logged ({logged}); flash_fwd launches "
@@ -4329,7 +4457,8 @@ def beam_phase(torch, flash, smoke: Smoke) -> dict:
             ended = sum(len(json.loads(b)["tokens"]) < 32
                         for b in replies["generate"].values())
             print(f"{variant} {family}: continuous replies byte-identical to "
-                  f"the batch worker's, of 64 (bf16, counted, not gated): "
+                  f"the batch worker's, of {GATE_BODIES} (bf16, counted, "
+                  f"not gated): "
                   f"{same}; replies ended by eos {ended}", flush=True)
             out["replies_same"][f"{family}-{variant}"] = same
         summary, _, _, _ = run_binary(
@@ -4390,7 +4519,7 @@ def beam_f32_checks(torch, flash, smoke: Smoke) -> dict:
     )
 
     out = {}
-    requests = staggered_requests()
+    requests = staggered_requests()[GATE_STAGGER]
     for family in ("gpt", "llama"):
         config, params, model = f32_model(torch, family)
         pick = model.attention_fn_for(config, 512, "cuda")
@@ -4431,10 +4560,10 @@ def beam_f32_checks(torch, flash, smoke: Smoke) -> dict:
                    if not np.array_equal(tokens[:tied.get(i, 32)],
                                          want[i][:tied.get(i, 32)])]
             smoke.check(
-                len(got) == 24 and not bad
+                len(got) == len(requests) and not bad
                 and launched == SERVE_LAYERS * batcher.insert_dispatches,
                 f"{variant} {family} f32 slot engine {knobs}: {len(got)} of "
-                f"24 staggered prompts in {cycles} cycles, "
+                f"{len(requests)} staggered prompts in {cycles} cycles, "
                 f"{batcher.insert_dispatches} inserts ({launched} flash_fwd "
                 f"launches); equal to beam_search of each prompt alone up to "
                 f"the first near-tie in its selection (gap < {MARGIN:g}): "
@@ -4484,12 +4613,13 @@ def beam_profile(torch) -> dict:
 
 
 def slice_rates(spec: dict, beams: dict) -> dict:
-    """The warm ``--demo 64`` rates of plain block-1 ``--continuous``,
+    """The warm ``--demo 16`` rates of plain block-1 ``--continuous``,
     speculative and beams, both families, from the runs above."""
     rates = {**beams["rates"], **spec["rates"]}
     for key in sorted(rates):
         r = rates[key]
-        print(f"warm {key} --continuous --demo 64: {r['msgs_per_s']:.3f} "
+        print(f"warm {key} --continuous --demo {GATE_BODIES}: "
+              f"{r['msgs_per_s']:.3f} "
               f"msgs/s, {r['tokens_per_s']:.3f} generated tokens/s, mean "
               f"TTFT {r['ttft_mean_s'] * 1e3:.3f} ms", flush=True)
     return rates
@@ -7329,11 +7459,13 @@ MESH_HOP_CASES = [
     ("zigzag-gqa", "zigzag", (4, 16, 4, 8192, 64), "bfloat16", None),
     ("ring-gqa-window512", "ring", (4, 16, 4, 8192, 64), "bfloat16", 512),
 ]
-MESH_TRAIN_STEPS = 5
+MESH_TRAIN_STEPS = 3  # cut from 5 for the run's time limit
 # the hop cases whose ring call is also run under the sync debug mode
 MESH_SYNC_CASES = ("ring-gqa", "zigzag-gqa")
-# the flagship GPT stretched over the ring: S = 8192, B = 4
-MESH_GPT_ARGS = ["--d-model", "1024", "--n-heads", "16", "--n-layers", "8",
+# the flagship GPT stretched over the ring: S = 8192, B = 4, its depth cut
+# from 8 layers to 4 for the run's time limit (over gloo a step's gradient
+# sum takes most of its time)
+MESH_GPT_ARGS = ["--d-model", "1024", "--n-heads", "16", "--n-layers", "4",
                  "--d-ff", "4096", "--vocab-size", "8192", "--seq-len",
                  "8192", "--batch-size", "4", "--device", "cuda"]
 # the flagship llama at S = 4096, B = 4, with the window
@@ -7397,11 +7529,15 @@ def hop_launches(kind: str, size: int, me: int, seq_local: int, window):
 def run_group(cmd: list[str], timeout: float, log: Path) -> int:
     """Run ``cmd`` in a process group of its own with its output in
     ``log``; a run past ``timeout`` is killed with every process it
-    started.  Returns the exit code (``None`` on a timeout)."""
+    started (the ranks too, each in a session of its own: by its
+    :data:`LAUNCH_MARK`).  Returns the exit code (``None`` on a
+    timeout)."""
     import signal
 
     log.parent.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    mark = f"{os.getpid()}-{time.time_ns()}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               **{LAUNCH_MARK: mark})
     with open(log, "w") as out:
         proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
                                 cwd=str(ROOT), env=env,
@@ -7417,6 +7553,10 @@ def run_group(cmd: list[str], timeout: float, log: Path) -> int:
                 os.killpg(proc.pid, signal.SIGKILL)
             except ProcessLookupError:
                 pass
+            left = stop_marked(LAUNCH_MARK, mark)
+            if left:
+                print(f"chip_smoke: stopped {left} process(es) of the launch "
+                      f"left running", flush=True)
 
 
 def torchrun(nproc: int, args: list[str]) -> list[str]:
@@ -7517,10 +7657,11 @@ def transport_only_syncs(torch, mesh, fn) -> dict:
             "host_waits": mesh.transport.host_waits - before}
 
 
-def mesh_train_rank(torch, out: Path, label: str, argv: list[str]) -> None:
+def mesh_train_rank(torch, out: Path, label: str, argv: list[str],
+                    keep_params: bool = False) -> None:
     """One trainer run on one rank: ``trainer.main`` as the binary runs it,
     then this rank's losses, step rate, kernel launches and peak memory
-    (rank 0 also saves the gathered parameters)."""
+    (with ``keep_params``, rank 0 also saves the gathered parameters)."""
     import torch.distributed as dist
 
     from kube_sqs_autoscaler_tpu_torch.workloads import flash, trainer
@@ -7533,7 +7674,7 @@ def mesh_train_rank(torch, out: Path, label: str, argv: list[str]) -> None:
     summary = trainer.main(argv)
     torch.cuda.synchronize()
     rank = dist.get_rank()
-    if rank == 0:
+    if rank == 0 and keep_params:
         torch.save(summary["params"], out / f"{label}-params.pt")
     (out / f"{label}-rank{rank}.json").write_text(json.dumps({
         "rank": rank, "losses": summary["losses"],
@@ -7548,6 +7689,7 @@ def mesh_rank_main(argv: list[str]) -> int:
     """``chip_smoke.py --mesh-rank OUT``: the rank side of the ``mesh``
     phase, under ``torch.distributed.run``: the hop checks, then each
     trainer run of :data:`MESH_TRAIN_RUNS`, in one process group."""
+    exit_with_owner()
     import torch
     import torch.distributed as dist
 
@@ -7567,7 +7709,7 @@ def mesh_rank_main(argv: list[str]) -> int:
                   "0"] if tp > 1 else [])
         mesh_train_rank(torch, out, label, [
             *base, *flags, "--log-every", "1", "--overfit", *meshed, *extra,
-            "--steps", str(steps)])
+            "--steps", str(steps)], keep_params=tp > 1)
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -7992,7 +8134,7 @@ def mesh_phase(torch, flash, smoke: Smoke, power: str) -> dict:
 
 PIPE_RANKS = 4
 PIPE_TIMEOUT = 420  # seconds the launch of ranks may take
-PIPE_TRAIN_STEPS = 5
+PIPE_TRAIN_STEPS = 3  # cut from 5 for the run's time limit
 # the flagship GPT at S = 4096, B = 4 for the ring inside the stages
 PIPE_GPT_S4096 = [*TRAIN_ARGS[:TRAIN_ARGS.index("--seq-len")], "--seq-len",
                   "4096", "--batch-size", "4", "--device", "cuda"]
@@ -8056,6 +8198,7 @@ def pipe_rank_main(argv: list[str]) -> int:
     """``chip_smoke.py --pipe-rank OUT``: the rank side of the ``pipe``
     phase, under ``torch.distributed.run``: each trainer run of
     :data:`PIPE_TRAIN_RUNS`, in one process group."""
+    exit_with_owner()
     import torch
     import torch.distributed as dist
 
@@ -8073,7 +8216,7 @@ def pipe_rank_main(argv: list[str]) -> int:
                   "0"] if tp > 1 and not flags else [])
         mesh_train_rank(torch, out, label, [
             *base, *flags, "--log-every", "1", "--overfit", *meshed, *extra,
-            "--steps", str(steps)])
+            "--steps", str(steps)], keep_params=bool(extra))
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -8293,6 +8436,414 @@ def pipe_phase(torch, flash, smoke: Smoke, power: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# serve mesh: serving over a (data, model) mesh of ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SERVE_MESH_RANKS = 4
+SERVE_MESH_TIMEOUT = 420  # seconds the launch of ranks may take
+SERVE_MESH_DIR = Path("build") / "chip_smoke" / "serve_mesh"
+SERVE_MESH_FEW = 8  # the reduced runs' bodies: one batch
+SERVE_MESH_B8 = ["--continuous", "--decode-block", "8"]
+
+
+def serve_mesh_few(flags: list[str]) -> list[str]:
+    """A reduced run's flags: 8 tokens a reply, cut from 32 for the run's
+    time limit."""
+    flags = list(flags)
+    flags[flags.index("--generate-tokens") + 1] = "8"
+    return flags
+
+
+SERVE_MESH_RUNS = [
+    # (label, worker flags, --model-parallel, bodies); every run over the
+    # SERVE_MESH_RANKS ranks, data parallel over what the model axis
+    # leaves; the one-process run takes the same flags without the mesh
+    # the full-width runs cut from 64 bodies for the run's time limit (over
+    # gloo a token of 8 rows costs 40-115 ms) to 24: three batches, three
+    # fills of the 8 slots
+    ("gpt-mp2-batch", GENERATE_ARGS, 2, 24),
+    ("gpt-mp2-continuous-b8", [*GENERATE_ARGS, *SERVE_MESH_B8], 2, 24),
+    ("gpt-mp4-batch", GENERATE_ARGS, 4, 24),
+    ("gpt-mp4-continuous-b8", [*GENERATE_ARGS, *SERVE_MESH_B8], 4, 24),
+    ("llama-mp2-continuous-b8", [*LLAMA_ARGS, *SERVE_MESH_B8], 2, 24),
+    # reduced: one batch of bodies each, 8 tokens a reply (beams 32: the
+    # near-tie gate reads one process's greedy margins, not its beams')
+    ("gpt-mp2-quantize-kv", serve_mesh_few([*GENERATE_ARGS, *SERVE_MESH_B8,
+                                            "--quantize-kv"]), 2,
+     SERVE_MESH_FEW),
+    ("gpt-mp2-prefix", serve_mesh_few([*GENERATE_ARGS, *SERVE_MESH_B8,
+                                       *PREFIX_ARGS]), 2, SERVE_MESH_FEW),
+    ("gpt-mp2-beams2", [*GENERATE_ARGS, "--beams", "2"], 2, SERVE_MESH_FEW),
+    ("gpt-mp2-speculative", serve_mesh_few([*GENERATE_ARGS, *SPEC_ARGS]), 2,
+     SERVE_MESH_FEW),
+    ("gpt-mp2-tenants-pool", serve_mesh_few([
+        *GENERATE_ARGS, *SERVE_MESH_B8, "--tenants", "a,b",
+        "--prefix-pool", "8"]), 2, SERVE_MESH_FEW),
+    ("gpt-mp2-shards4", serve_mesh_few([*GENERATE_ARGS, *SERVE_MESH_B8,
+                                        "--shards", "4"]), 2,
+     SERVE_MESH_FEW),
+    ("gpt-mp2-classify", CLASSIFY_ARGS, 2, SERVE_MESH_FEW),
+]
+# bf16 replies of the mesh that differ from one process's must first differ
+# at a near-tie: one process's top-two margin there below this
+SERVE_MESH_TIE = 2e-2
+# the forward kernel at the ranks' shapes: (label, B, H, H_kv, S); the
+# GPT's 8 heads over tp 2 or 4, its batch of 8 over dp 2 (a generate
+# batch's prompt pass), an insert's rows on every data rank, the llama's
+# 2 kv heads over tp 2 (GQA at one kv head a rank)
+SERVE_MESH_SHAPES = [
+    ("gpt-dp2-tp2-prefill", 4, 4, 4, 512),
+    ("gpt-tp4-prefill", 8, 2, 2, 512),
+    ("classify-dp2-tp2", 4, 4, 4, 1024),
+    ("insert-tp2-8", 8, 4, 4, 512),
+    ("insert-tp2-1", 1, 4, 4, 512),
+    ("insert-tp4-1", 1, 2, 2, 512),
+    ("plane-insert-tp2-32", 32, 4, 4, 512),
+    ("llama-tp2-gqa-kv1-8", 8, 4, 1, 512),
+    ("llama-tp2-gqa-kv1-1", 1, 4, 1, 512),
+]
+
+
+def serve_mesh_argv(flags: list[str], bodies: int) -> list[str]:
+    argv = list(flags)
+    argv[argv.index("--demo") + 1] = str(bodies)
+    return [*argv, "--device", "cuda"]
+
+
+def serve_mesh_expected(label: str, flags: list[str], bodies: int,
+                        summary: dict) -> int:
+    """The forward launches (no lse) one rank makes in a run: the model's
+    4 layers once a prompt pass.  Each batch of 8 bodies is one prompt
+    pass (speculative: the target's and the 2-layer draft's), each insert
+    of the continuous engine one (every data rank prefills it); the shared
+    prefix is prefilled once, its suffix inserts run the chunk decoder."""
+    batches = -(-bodies // 8)
+    if "--prefix-ids" in flags:
+        return SERVE_LAYERS
+    if "--continuous" in flags:
+        return SERVE_LAYERS * summary["insert_dispatches"]
+    if "--speculative-draft-layers" in flags:
+        return (SERVE_LAYERS + SPEC_DRAFT) * batches
+    return SERVE_LAYERS * batches
+
+
+def serve_mesh_f32(torch, mesh=None) -> dict:
+    """The built-in GPT at full width in f32, served over ``mesh`` (or by
+    one process): ``generate`` of the first 8 demo prompts through the
+    family's serving functions, and the continuous engine at block 8 over
+    the same prompts.  Returns both sets of tokens, and the engine's
+    cache: its rows, heads and KV bytes (on a mesh, the rank's)."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import continuous, decode
+    from kube_sqs_autoscaler_tpu_torch.workloads import train
+
+    config, params, model = f32_model(torch, "gpt")
+    prompts = torch.tensor([json.loads(b) for b in demo_bodies(8)],
+                           device="cuda")
+    lengths = torch.full((8,), 512, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        if mesh is None:
+            tokens = decode.generate(
+                params, prompts, 32, config, lengths=lengths,
+                attention_fn=model.attention_fn_for(config, 512, "cuda"))
+        else:
+            params = train.shard_params(params, mesh)
+            _, _, gen = decode.make_serving_fns(mesh, config, params)
+            tokens = gen(params, prompts, None, lengths, 32)
+        batcher = continuous.ContinuousBatcher(
+            params, config, batch_size=8, prompt_len=512, generate_tokens=32,
+            decode_block=8, mesh=mesh, device="cuda")
+        for i, row in enumerate(prompts.cpu().numpy()):
+            batcher.submit(row, payload=i)
+        slots = {}
+        while batcher.active:
+            slots.update(dict(batcher.step()))
+    first = batcher.cache["layers"][0]["k"]
+    return {"generate": tokens.cpu(),
+            "continuous": torch.tensor(np.stack([np.asarray(slots[i])
+                                                 for i in range(8)])),
+            "cache": {"rows": first.shape[0], "heads": first.shape[1],
+                      "bytes": sum(buf.numel() * buf.element_size()
+                                   for layer in batcher.cache["layers"]
+                                   for buf in layer.values())}}
+
+
+def serve_mesh_rank_main(argv: list[str]) -> int:
+    """``chip_smoke.py --serve-mesh-rank OUT``: the rank side of the
+    ``serve mesh`` phase, under ``torch.distributed.run``: each worker
+    binary run of :data:`SERVE_MESH_RUNS` with ``--model-parallel``, then
+    the f32 serving functions, in one process group."""
+    exit_with_owner()
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    from kube_sqs_autoscaler_tpu_torch.workloads import distributed, flash
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        main as worker_main,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(argv[0])
+    started = time.perf_counter()
+    distributed.initialize_from_env(device="cuda")
+    rank = dist.get_rank()
+    for label, flags, tp, bodies in SERVE_MESH_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        zero_counts(flash)
+        start = time.perf_counter()
+        summary = worker_main([*serve_mesh_argv(flags, bodies),
+                               "--model-parallel", str(tp)])
+        torch.cuda.synchronize()
+        (out / f"{label}-rank{rank}.json").write_text(json.dumps({
+            "rank": rank, "launches": counts(flash),
+            # the run's wall time, the binary's start-up included, and
+            # this process's since it joined the group
+            "wall_s": time.perf_counter() - start,
+            "since_start_s": time.perf_counter() - started,
+            "summary": {key: summary.get(key) for key in (
+                "processed", "replies", "duplicate_replies", "msgs_per_s",
+                "tokens_per_s", "elapsed_s", "generated_tokens",
+                "insert_dispatches", "decode_dispatches", "mesh")}}))
+        del summary
+    f32 = serve_mesh_f32(torch, distributed.make_mesh(model_parallel=2,
+                                                      device="cuda"))
+    if rank == 0:
+        torch.save(f32, out / "f32.pt")
+    (out / f"f32-cache-rank{rank}.json").write_text(json.dumps(f32["cache"]))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def serve_mesh_one_process(torch, flash) -> dict:
+    """Each run's flags without the mesh, in this process: the replies,
+    rates and launches the mesh run is held to."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        main as worker_main,
+    )
+
+    out = {}
+    for label, flags, _, bodies in SERVE_MESH_RUNS:
+        zero_counts(flash)
+        summary = worker_main(serve_mesh_argv(flags, bodies))
+        torch.cuda.synchronize()
+        out[label] = {"replies": summary["replies"],
+                      "launches": counts(flash)["flash_fwd"],
+                      **{key: summary.get(key) for key in (
+                          "msgs_per_s", "tokens_per_s", "elapsed_s",
+                          "generated_tokens")}}
+        del summary
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_margin(torch, label: str, flags: list[str], body: str,
+                      tokens: list[int], at: int, models: dict) -> float:
+    """One process's top-two margin where a reply first differs (position
+    ``at`` of its tokens): the family's dense forward over the prompt (the
+    shared prefix first, where there is one) and the tokens before it."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary
+    from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
+
+    if label not in models:
+        # the model the binary built for these flags (its context, hence
+        # its seeded weights, depends on the prefix, pool and draft)
+        args = binary.build_parser().parse_args(serve_mesh_argv(flags, 8))
+        config, layout, params = binary.served_model(
+            args, len(PREFIX_IDS) if args.prefix_ids else 0,
+            args.seq_len if args.prefix_pool else 0,
+            2 * args.speculative_draft_tokens
+            if args.speculative_draft_layers else 0)
+        models[label] = (config, binary.served_params(
+            args, config, layout, params, torch.device("cuda")))
+    config, params = models[label]
+    prompt = json.loads(body)
+    if "--prefix-ids" in flags:
+        prompt = PREFIX_IDS + prompt
+    ids = torch.tensor(prompt + tokens[:at], device="cuda")
+    with torch.inference_mode():
+        margins = greedy_margins(
+            torch, params, config, ids[:len(prompt)],
+            torch.tensor(tokens[:at + 1], device="cuda"),
+            family_of(config).forward)
+    return float(margins[at])
+
+
+def check_serve_mesh(torch, smoke: Smoke, out: Path, one: dict,
+                     power: str) -> dict:
+    """Every body answered once, by rank 0; bf16 replies against one
+    process's up to near-ties; each rank's exact forward launches; the
+    rates beside one process's (not gated: the ranks' collectives go
+    through host memory)."""
+    result, launches, models = {}, {}, {}
+    for label, flags, tp, bodies in SERVE_MESH_RUNS:
+        files = [out / f"{label}-rank{r}.json"
+                 for r in range(SERVE_MESH_RANKS)]
+        if not all(f.exists() for f in files):
+            smoke.check(False, f"serve mesh {label}: every rank wrote its "
+                        "result")
+            continue
+        ranks = [json.loads(f.read_text()) for f in files]
+        lead = ranks[0]["summary"]
+        smoke.check(
+            all(r["summary"]["processed"] == bodies for r in ranks)
+            and len(lead["replies"]) == bodies
+            and lead["duplicate_replies"] == 0
+            and all(not r["summary"]["replies"] for r in ranks[1:]),
+            f"serve mesh {label} (--model-parallel {tp}, mesh "
+            f"{lead['mesh']}): {len(lead['replies'])} of {bodies} bodies "
+            f"answered once, by rank 0 alone")
+        want = one[label]["replies"]
+        bodies_of = demo_bodies(bodies, seq_len=int(
+            flags[flags.index("--seq-len") + 1]))
+        same, near, far = 0, [], []
+        for rid, reply in lead["replies"].items():
+            base = want.get(rid)
+            if reply == base:
+                same += 1
+                continue
+            got_t = reply.get("tokens", [reply.get("next_token")])
+            want_t = base.get("tokens", [base.get("next_token")])
+            at = next(i for i, (a, b) in enumerate(zip(got_t, want_t))
+                      if a != b)
+            margin = serve_mesh_margin(
+                torch, label, flags, bodies_of[int(rid.split("-")[1]) - 1],
+                want_t, at, models)
+            (near if margin < SERVE_MESH_TIE else far).append(
+                (rid, at, margin))
+        smoke.check(not far, f"serve mesh {label}: {same} of {bodies} bf16 "
+                    f"replies equal one process's; {len(near)} differ, each "
+                    f"first at a near-tie of one process's (top-two margin "
+                    f"< {SERVE_MESH_TIE:g}): {near[:4]}; beyond a near-tie: "
+                    f"{far[:4]}")
+        expected = serve_mesh_expected(label, flags, bodies, lead)
+        got = [r["launches"] for r in ranks]
+        smoke.check(
+            all(g["flash_fwd"] == expected and g["flash_fwd_lse"] == 0
+                and g["flash_bwd_dq"] == 0 and g["flash_bwd_dkv"] == 0
+                for g in got),
+            f"serve mesh {label}: each rank launched flash_fwd "
+            f"{[g['flash_fwd'] for g in got]} times (want {expected}: "
+            f"{SERVE_LAYERS} layers a prompt pass) and no training kernel; "
+            f"one process {one[label]['launches']}")
+        launches[f"serve-mesh-{label}"] = sum(g["flash_fwd"] for g in got)
+        step_ms = (1e3 * lead["elapsed_s"] / (lead["generated_tokens"] / 8)
+                   if lead.get("generated_tokens") else None)
+        print(f"serve mesh {label}: rank 0's run {ranks[0]['wall_s']:.3f} s "
+              f"of wall (drain {lead['elapsed_s']:.3f} s), "
+              f"{ranks[0]['since_start_s']:.3f} s since it joined",
+              flush=True)
+        one_step = (1e3 * one[label]["elapsed_s"]
+                    / (one[label]["generated_tokens"] / 8)
+                    if one[label].get("generated_tokens") else None)
+        result[label] = {
+            "mesh": lead["mesh"], "same": same, "near_ties": near,
+            "msgs_per_s": lead["msgs_per_s"],
+            "tokens_per_s": lead["tokens_per_s"],
+            "ms_per_8_tokens": step_ms,
+            "one_process": {"msgs_per_s": one[label]["msgs_per_s"],
+                            "tokens_per_s": one[label]["tokens_per_s"],
+                            "ms_per_8_tokens": one_step},
+        }
+        print(f"rate serve mesh {label} ({power}): mesh "
+              f"{lead['msgs_per_s']:.2f} msgs/s, {lead['tokens_per_s']:.1f} "
+              f"tokens/s, {step_ms} ms a token of 8 rows; one process "
+              f"{one[label]['msgs_per_s']:.2f} msgs/s, "
+              f"{one[label]['tokens_per_s']:.1f} tokens/s, {one_step} ms "
+              "(gloo stages every collective through host memory)",
+              flush=True)
+    result["launches"] = launches
+    return result
+
+
+def serve_mesh_kernels(torch, flash, smoke: Smoke) -> dict:
+    """The forward kernel at every rank shape of :data:`SERVE_MESH_SHAPES`
+    against its plain version in bf16 and f32, then timed beside its plain
+    version, SDPA and its bound."""
+    import torch.nn.functional as F
+
+    timings, err = {}, 0.0
+    for seed, (label, b, h, hkv, s) in enumerate(SERVE_MESH_SHAPES):
+        for dtype_name in ("bfloat16", "float32"):
+            q, k, v = make_qkv(torch, b, h, hkv, s, 64,
+                               getattr(torch, dtype_name), True, 300 + seed)
+            got = flash.flash_attention(q, k, v)
+            want = flash.flash_attention_reference(q, k, v)
+            e = (got.float() - want.float()).abs().max().item()
+            smoke.check(bool(torch.isfinite(got).all().item())
+                        and e <= TOL[dtype_name],
+                        f"flash_fwd serve mesh {label} {dtype_name} B={b} "
+                        f"H={h} H_kv={hkv} S={s} D=64: max|d|={e:.3e} "
+                        f"tol={TOL[dtype_name]:g}")
+            if dtype_name == "bfloat16":
+                err = max(err, e)
+        timings[label] = gqa_timing(torch, flash, F, (b, h, hkv, s, 64),
+                                    None)
+    return {"timings": timings, "err": err}
+
+
+def serve_mesh_phase(torch, flash, smoke: Smoke, power: str) -> dict:
+    """Serving over a ``(data, model)`` mesh: one launch of
+    :data:`SERVE_MESH_RANKS` ranks sharing the card over gloo runs the
+    worker binary with ``--model-parallel`` in every mode of
+    :data:`SERVE_MESH_RUNS` and the f32 serving functions; this process
+    runs the same flags alone and checks what the ranks wrote; then the
+    forward kernel at the ranks' shapes."""
+    start = time.perf_counter()
+    one = serve_mesh_one_process(torch, flash)
+    f32_one = serve_mesh_f32(torch)
+    print(f"-- serve mesh one process: {time.perf_counter() - start:.3f} s",
+          flush=True)
+    out = SERVE_MESH_DIR / "ranks"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    log = SERVE_MESH_DIR / "ranks.log"
+    start = time.perf_counter()
+    rc = run_group(torchrun(SERVE_MESH_RANKS, [
+        str(ROOT / "chip_smoke.py"), "--serve-mesh-rank", str(out)]),
+        SERVE_MESH_TIMEOUT, log)
+    wall = time.perf_counter() - start
+    smoke.check(rc == 0, f"serve mesh: {SERVE_MESH_RANKS} ranks exited "
+                f"{'on a timeout' if rc is None else rc} after {wall:.1f} s")
+    if rc != 0:
+        print(log.read_text()[-6000:], flush=True)
+    result = {"wall_s": wall}
+    result.update(check_serve_mesh(torch, smoke, out, one, power))
+    if (out / "f32.pt").exists():
+        f32 = torch.load(out / "f32.pt")
+        for part in ("generate", "continuous"):
+            smoke.check(torch.equal(f32[part], f32_one[part]),
+                        f"serve mesh f32 {part} at full width over dp 2 x "
+                        f"tp 2: tokens [8, 32] equal one process's")
+    else:
+        smoke.check(False, "serve mesh f32: rank 0 wrote its tokens")
+    files = [out / f"f32-cache-rank{r}.json" for r in range(SERVE_MESH_RANKS)]
+    caches = [json.loads(f.read_text()) for f in files if f.exists()]
+    whole = f32_one["cache"]
+    smoke.check(
+        len(caches) == SERVE_MESH_RANKS
+        and all((c["rows"], c["heads"])
+                == (whole["rows"] // 2, whole["heads"] // 2)
+                for c in caches),
+        f"serve mesh f32 block-8 engine over dp 2 x tp 2: each rank's "
+        f"cache (rows, heads) {[(c['rows'], c['heads']) for c in caches]} "
+        f"of one process's ({whole['rows']}, {whole['heads']}); KV bytes "
+        f"a rank {[c['bytes'] for c in caches]}, one process "
+        f"{whole['bytes']}")
+    result["f32_cache"] = {"ranks": caches, "one_process": whole}
+    start = time.perf_counter()
+    result["kernels"] = serve_mesh_kernels(torch, flash, smoke)
+    print(f"-- serve mesh kernels: {time.perf_counter() - start:.3f} s",
+          flush=True)
+    return result
+
+
 def kernel_entry(name, source, replaces, replaces_fn, launches, by_path,
                  err, timing, shape) -> dict:
     return {
@@ -8376,6 +8927,8 @@ def main() -> int:
                            power)
     mesh = smoke.phase("mesh", mesh_phase, torch, flash, smoke, power)
     pipe = smoke.phase("pipe", pipe_phase, torch, flash, smoke, power)
+    serve_mesh = smoke.phase("serve mesh", serve_mesh_phase, torch, flash,
+                             smoke, power)
     if smoke.failures or not (info and sass and resources and kern
                               and train_kern and path and serve and cycles
                               and stagger and rates and prof
@@ -8386,7 +8939,7 @@ def main() -> int:
                               and tenancy and planes and orch and odd
                               and f32_train
                               and train_path and train_prof and training
-                              and mesh and pipe):
+                              and mesh and pipe and serve_mesh):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
         return 1
@@ -8437,11 +8990,15 @@ def main() -> int:
         # only, which these runs have none of
         **{path: v["flash_fwd"] for path, v in training["launches"].items()
            if v},
+        # serving over a (data, model) mesh: each worker run over the ranks
+        # (summed over its ranks)
+        **serve_mesh["launches"],
     }
     fwd = kernel_entry(
         "flash_fwd", "flash_fwd.cu", 159, "_fwd_kernel (need_lse=False)",
         sum(by_path.values()), by_path,
-        max(kern["main_err"], kern["llama_err"]), timing, MAIN_SHAPES[0])
+        max(kern["main_err"], kern["llama_err"],
+            serve_mesh["kernels"]["err"]), timing, MAIN_SHAPES[0])
     fwd["at_other_shapes"] = {
         "x".join(map(str, shape)): t for shape, t in
         kern["timings"].items() if shape != MAIN_SHAPES[0]
@@ -8452,6 +9009,12 @@ def main() -> int:
         fwd["at_other_shapes"][key] = kern["llama_timings"][label]
     fwd["at_other_shapes"]["x".join(map(str, TRAIN_SHAPE))] = \
         train_kern["timings"]["flash_fwd"]
+    # the ranks' shapes of the serving mesh, (B, H, H_kv, S, D), one
+    # process alone on the card
+    fwd["at_serve_mesh_shapes"] = {
+        f"{label}-" + "x".join(map(str, (b, h, hkv, s, 64))): t
+        for (label, b, h, hkv, s), t in zip(
+            SERVE_MESH_SHAPES, serve_mesh["kernels"]["timings"].values())}
     fwd["tflops"] = timing["tflops"]
     entries = [fwd]
     for name, source, line, fn in (
@@ -8503,6 +9066,30 @@ def main() -> int:
     return 0
 
 
+def run() -> int:
+    """:func:`main`, with every process it started stopped when it ends:
+    normally, on an exception, or on SIGTERM, SIGINT or SIGHUP."""
+    import signal
+
+    mark = f"{os.getpid()}-{time.time_ns()}"
+    os.environ[RUN_MARK] = mark
+    os.environ[OWNER_PID] = str(os.getpid())
+
+    def on_signal(signum, frame):
+        stop_marked(RUN_MARK, mark)
+        os._exit(128 + signum)
+
+    for signum in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP):
+        signal.signal(signum, on_signal)
+    try:
+        return main()
+    finally:
+        left = stop_marked(RUN_MARK, mark)
+        if left:
+            print(f"chip_smoke: stopped {left} process(es) left running",
+                  file=sys.stderr, flush=True)
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--repair-cost":
         sys.exit(repair_cost_main(sys.argv[2]))
@@ -8510,4 +9097,6 @@ if __name__ == "__main__":
         sys.exit(mesh_rank_main(sys.argv[2:]))
     if len(sys.argv) == 3 and sys.argv[1] == "--pipe-rank":
         sys.exit(pipe_rank_main(sys.argv[2:]))
-    sys.exit(main())
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve-mesh-rank":
+        sys.exit(serve_mesh_rank_main(sys.argv[2:]))
+    sys.exit(run())

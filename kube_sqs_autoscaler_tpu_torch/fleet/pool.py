@@ -713,6 +713,7 @@ class WorkerPool(FleetPoolBase):
         prefix_cache=None,
         tenancy=None,
         tokenizer=None,
+        mesh=None,
         **pool_kwargs,
     ) -> "WorkerPool":
         """A pool of real :class:`~.worker.FleetWorker` replicas over one
@@ -727,7 +728,16 @@ class WorkerPool(FleetPoolBase):
         replica's text encoding and reply decoding.
 
         Sampled serving: each replica gets ``sample_seed + spawn
-        ordinal``, so the fleet draws independent streams."""
+        ordinal``, so the fleet draws independent streams.  A ``mesh`` is
+        refused (ROADMAP Queue 1 item 5c-ii)."""
+        if mesh is not None:
+            # replicas stepping on one process group would interleave
+            # their collectives
+            raise ValueError(
+                "a fleet pool over a serving mesh is not yet ported "
+                "(ROADMAP Queue 1 item 5c-ii): replicas stepping on one "
+                "process group would interleave their collectives"
+            )
 
         def factory(pool: "WorkerPool"):
             from .worker import FleetWorker

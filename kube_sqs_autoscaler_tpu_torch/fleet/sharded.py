@@ -439,6 +439,7 @@ class ShardedWorkerPool(FleetPoolBase):
         device="cuda",
         prefix_cache=None,
         tenancy=None,
+        mesh=None,
         **pool_kwargs,
     ) -> "ShardedWorkerPool":
         """One gang-stepped :class:`~.worker.FleetWorker` whose plane holds
@@ -452,7 +453,16 @@ class ShardedWorkerPool(FleetPoolBase):
         prompt prefix, as for :meth:`~.pool.WorkerPool.serving`.
         ``tenancy`` gives the plane's worker fair-admission staging (the
         sharded admission plane with ``admission_shards > 1``), sticky
-        tenant homes and, with ``prefix_pool > 0``, per-shard pools."""
+        tenant homes and, with ``prefix_pool > 0``, per-shard pools.
+        A ``mesh`` is refused (ROADMAP Queue 1 item 5c-ii)."""
+        if mesh is not None:
+            # replicas stepping on one process group would interleave
+            # their collectives
+            raise ValueError(
+                "a fleet pool over a serving mesh is not yet ported "
+                "(ROADMAP Queue 1 item 5c-ii): replicas stepping on one "
+                "process group would interleave their collectives"
+            )
         if shards is None:
             shards = (service_config.shards if service_config.shards > 1
                       else (max or service_config.shards))

@@ -117,6 +117,11 @@ class DecodePlaneBatcher(ShardedBatcher):
                  shard_slots: int, prompt_len: int, generate_tokens: int,
                  spec_layers: int = 0, spec_tokens: int = 4,
                  draft_enabled: bool | None = None, **kwargs) -> None:
+        if kwargs.get("mesh") is not None and spec_layers:
+            raise ValueError(
+                "the speculative decode plane is single-chip for now "
+                "(the spec round and handoff copy are not mesh-sharded)"
+            )
         if spec_layers:
             if not 0 < spec_layers < config.n_layers:
                 raise ValueError(
@@ -242,6 +247,8 @@ class DecodePlaneBatcher(ShardedBatcher):
                 "a KV handoff needs the donor's exact config/family/layout "
                 "(the cache rows must be layout-identical)"
             )
+        if donor.mesh is not None or self.mesh is not None:
+            raise ValueError("the KV handoff transport is single-chip")
         free = self.free_slots
         if len(handoffs) > len(free):
             raise RuntimeError(

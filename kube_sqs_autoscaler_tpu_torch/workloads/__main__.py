@@ -64,9 +64,21 @@ The serving orchestration rides the same flags as the reference's:
 ``--scheduler`` runs the fleet demo on the event scheduler, ``--knobs``
 arms live engine knobs there, ``--journal-path`` records the fleet's
 control loop and ``--topology`` attaches a route-planning collective
-scheduler to the continuous worker.  ``--model-parallel``, which the
-reference serves over a device mesh, exits with a message naming its
-ROADMAP item.
+scheduler to the continuous worker.
+
+``--model-parallel TP`` serves over a ``(data, model)`` mesh of the
+launch's ranks (``python -m torch.distributed.run --nproc-per-node N -m
+kube_sqs_autoscaler_tpu_torch.workloads --model-parallel TP ...``): every
+rank builds the full weights and keeps its slices
+(:func:`.train.shard_params`), prompts split over ``data`` and heads over
+``model`` (:func:`.decode.make_serving_fns` and its family, beam and
+speculative twins, :func:`.train.make_forward_step`, the continuous engine
+and the sharded plane on the mesh).  World rank 0 owns the queue: it
+receives, replies and deletes, and broadcasts what it received to the
+other ranks, which run the same host logic (:class:`.distributed.
+RankQueue`).  In one process without a launcher a ``TP`` above 1 is a
+usage error (exit 2), as the trainer's mesh flags are; the fleet demo over
+a mesh is refused naming ROADMAP item 5c-ii.
 """
 
 from __future__ import annotations
@@ -344,8 +356,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--model-parallel", type=int, default=0, metavar="TP",
-        help="serving over a (data, model) mesh (not yet ported: a value "
-             "other than 0 exits)",
+        help="serve over a (data, model) mesh of the launch's ranks with "
+             "TP-way tensor parallelism (launch them with python -m "
+             "torch.distributed.run; 0 = one device)",
     )
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
@@ -423,8 +436,12 @@ def serve_metrics(port: int, source, comms=None, build_info=None,
     samples, refreshed every cycle.  A topology-attached ``comms``
     scheduler adds ``/debug/topology`` and the per-link gauges;
     ``build_info`` labels stamp a ``build_info`` gauge; ``metrics`` is a
-    registry to serve (a fresh one by default)."""
-    if not port:
+    registry to serve (a fresh one by default).  On a serving mesh world
+    rank 0 alone serves it (every rank would bind the same port), and the
+    others return None."""
+    from .distributed import is_lead
+
+    if not port or not is_lead():
         return None
     from .. import __version__
     from ..obs import ObservabilityServer, WorkloadMetrics
@@ -441,15 +458,18 @@ def serve_metrics(port: int, source, comms=None, build_info=None,
     return server
 
 
-def attach_topology(topology: str, shards: int, worker):
+def attach_topology(topology: str, shards: int, worker,
+                    model_parallel: int = 1):
     """The ``--topology`` route-planning collective scheduler over the
-    live ``--shards`` geometry, wired through ``worker``'s engine; None
-    when the flag is off (the engine byte for byte)."""
+    live ``--shards`` / ``--model-parallel`` geometry, wired through
+    ``worker``'s engine; None when the flag is off (the engine byte for
+    byte)."""
     if not topology:
         return None
     from ..comms import CollectiveScheduler, topology_from_geometry
 
-    graph = topology_from_geometry(topology, shards=shards, model_parallel=1)
+    graph = topology_from_geometry(topology, shards=shards,
+                                   model_parallel=model_parallel or 1)
     comms = CollectiveScheduler(lifecycle=getattr(worker, "lifecycle", None),
                                 topology=graph)
     worker.batcher.attach_comms(comms)
@@ -471,6 +491,7 @@ def run_demo(
     tenancy=None,
     topology: str = "",
     tokenizer=None,
+    mesh=None,
 ) -> dict:
     """Feed ``demo`` random bodies through a :class:`QueueWorker` (or,
     with ``continuous``, drain them through a :class:`ContinuousWorker`,
@@ -478,15 +499,18 @@ def run_demo(
     collective scheduler) and collect the replies; returns the run's
     counts and rates.  ``modes`` holds the two workers' decode-mode
     keywords (:func:`decode_modes`); ``tokenizer`` encodes text bodies and
-    decodes replies."""
+    decodes replies.  On a serving ``mesh`` every rank runs this with the
+    same arguments and world rank 0's queue serves them all; only rank 0's
+    summary holds the replies."""
     queue = demo_queue(demo, model_config, service_config)
     result_queue = FakeMessageQueue() if service_config.result_queue_url else None
     if continuous:
         worker = ContinuousWorker(queue, params, model_config, service_config,
                                   result_queue=result_queue, device=device,
                                   prefix_cache=prefix_cache, tenancy=tenancy,
-                                  tokenizer=tokenizer, **modes[1])
-        comms = attach_topology(topology, service_config.shards, worker)
+                                  tokenizer=tokenizer, mesh=mesh, **modes[1])
+        comms = attach_topology(topology, service_config.shards, worker,
+                                mesh.shape["model"] if mesh else 1)
         server = serve_metrics(metrics_port, worker, comms=comms)
         start = time.perf_counter()
         worker.drain(total=demo)
@@ -515,7 +539,7 @@ def run_demo(
         worker = QueueWorker(queue, params, model_config, service_config,
                              result_queue=result_queue, device=device,
                              prefix_cache=prefix_cache, tokenizer=tokenizer,
-                             **modes[0])
+                             mesh=mesh, **modes[0])
         server = serve_metrics(metrics_port, worker)
         start = time.perf_counter()
         while worker.processed < demo:
@@ -579,14 +603,20 @@ def tenancy_counts(worker) -> dict:
 
 def decode_modes(args, model_config, service_config: ServiceConfig,
                  device: torch.device,
-                 prefix_cache: dict | None = None) -> tuple[dict, dict]:
+                 prefix_cache: dict | None = None, mesh=None,
+                 params: dict | None = None) -> tuple[dict, dict]:
     """``--beams`` / ``--speculative-draft-*`` as the keywords of the two
     workers: ``(QueueWorker's, ContinuousWorker's)``.  The batch worker
     gets a ``generate_fn`` (:func:`.beam.beam_search`, or
     :func:`.speculative.speculative_generate` with the early-exit
     self-draft), its prompt passes on the bucket's attention pick (the
     CUDA flash forward on the card; under a prefix the suffix prefill runs
-    the chunk decoder); the continuous worker gets the knobs."""
+    the chunk decoder); the continuous worker gets the knobs.  On a
+    serving ``mesh`` (``params`` the rank's) the batch worker's compute
+    runs over it (:func:`mesh_modes`)."""
+    if mesh is not None:
+        return mesh_modes(args, model_config, service_config, mesh, params,
+                          prefix_cache)
     family = family_of(model_config)
 
     def attention(tokens):
@@ -639,6 +669,73 @@ def decode_modes(args, model_config, service_config: ServiceConfig,
              "%d proposals/round", n_draft, k)
     return ({"generate_fn": spec_generate},
             {"draft_layers": n_draft, "draft_tokens": k})
+
+
+def mesh_modes(args, model_config, service_config: ServiceConfig, mesh,
+               params: dict, prefix_cache: dict | None) -> tuple[dict, dict]:
+    """:func:`decode_modes` on a serving mesh (the reference's ``mesh``
+    branches, ``__main__.py:864-890``, :967-973, :1061-1068): the batch
+    worker classifies through :func:`.train.make_forward_step` and
+    generates through the family's :func:`.decode.make_serving_fns`, or
+    :func:`.beam.make_beam_serving_fn` / :func:`.speculative.
+    make_speculative_serving_fn`, each with the shared prefix pinned; the
+    continuous worker gets the knobs (it runs the mesh itself)."""
+    from .train import make_forward_step
+
+    family = family_of(model_config)
+    keys = sampling_keys(service_config.sample_seed, mesh.device)
+    quantized = service_config.quantized_kv
+    if family.name == "llama":
+        from .llama import llama_forward, make_llama_serving_fns
+
+        forward = make_forward_step(mesh, model_config, params,
+                                    forward_fn=llama_forward)
+        make_fns = make_llama_serving_fns
+    else:
+        from .decode import make_serving_fns
+
+        forward = make_forward_step(mesh, model_config, params)
+        make_fns = make_serving_fns
+    _, _, gen = make_fns(mesh, model_config, params,
+                         quantized_cache=quantized, prefix_cache=prefix_cache)
+
+    def generate(p, tokens, n, lengths):
+        return gen(p, tokens, next(keys), lengths, n,
+                   service_config.temperature, service_config.top_k,
+                   service_config.top_p, service_config.eos_id)
+
+    batch = {"forward_fn": forward, "generate_fn": generate}
+    if args.beams > 1:
+        from .beam import make_beam_serving_fn
+
+        beam_run = make_beam_serving_fn(
+            mesh, model_config, params, beams=args.beams,
+            length_penalty=args.length_penalty,
+            eos_id=service_config.eos_id, prefix_cache=prefix_cache,
+            quantized_cache=quantized)
+        batch["generate_fn"] = (
+            lambda p, tokens, n, lengths: beam_run(p, tokens, lengths, n))
+        log.info("Beam search: %d beams", args.beams)
+        return batch, {"beams": args.beams,
+                       "length_penalty": args.length_penalty}
+    if not args.speculative_draft_layers:
+        return batch, {}
+    from .speculative import make_speculative_serving_fn, self_draft
+
+    n_draft = args.speculative_draft_layers
+    k = args.speculative_draft_tokens
+    _, draft_config = self_draft(params, model_config, n_draft)
+    spec_run = make_speculative_serving_fn(
+        mesh, model_config, params, draft_config, draft_tokens=k,
+        temperature=service_config.temperature, top_k=service_config.top_k,
+        top_p=service_config.top_p, eos_id=service_config.eos_id,
+        prefix_cache=prefix_cache, quantized_cache=quantized)
+    batch["generate_fn"] = lambda p, tokens, n, lengths: spec_run(
+        p, self_draft(p, model_config, n_draft)[0], tokens, lengths,
+        next(keys), n)
+    log.info("Speculative decoding: %d-layer early-exit self-draft, "
+             "%d proposals/round", n_draft, k)
+    return batch, {"draft_layers": n_draft, "draft_tokens": k}
 
 
 def run_fleet_demo(
@@ -847,10 +944,11 @@ def serve_sqs(args, params: dict, model_config: ModelConfig,
               service_config: ServiceConfig, device: torch.device,
               prefix_cache: dict | None = None,
               modes: tuple[dict, dict] = ({}, {}), tenancy=None,
-              tokenizer=None) -> None:
+              tokenizer=None, mesh=None) -> None:
     """Serve ``--sqs-queue-url`` until the worker is stopped.  AWS SQS
     addresses queues per call by url, so the same client publishes replies
-    when ``--result-queue-url`` is set."""
+    when ``--result-queue-url`` is set.  On a serving ``mesh`` world rank
+    0 alone talks to SQS."""
     from ..metrics.sqs_aws import AwsSqsService
 
     queue = AwsSqsService(region=args.aws_region)
@@ -860,13 +958,14 @@ def serve_sqs(args, params: dict, model_config: ModelConfig,
                                   service_config, result_queue=result_queue,
                                   device=device, prefix_cache=prefix_cache,
                                   tenancy=tenancy, tokenizer=tokenizer,
-                                  **modes[1])
+                                  mesh=mesh, **modes[1])
     else:
         worker = QueueWorker(queue, params, model_config, service_config,
                              result_queue=result_queue, device=device,
                              prefix_cache=prefix_cache, tokenizer=tokenizer,
-                             **modes[0])
-    comms = (attach_topology(args.topology, args.shards, worker)
+                             mesh=mesh, **modes[0])
+    comms = (attach_topology(args.topology, args.shards, worker,
+                             args.model_parallel)
              if args.continuous else None)
     server = serve_metrics(args.metrics_port, worker, comms=comms)
     log.info("Starting %sworker on %s",
@@ -883,7 +982,8 @@ def main(argv=None) -> dict | None:
     model is built), then run the demo (returning its summary) or serve
     the SQS queue until stopped (returning None)."""
     configure_logging()
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     check_beams(args)
     if args.generate_tokens < 0:
         raise SystemExit(f"--generate-tokens {args.generate_tokens} must be >= 0")
@@ -927,7 +1027,7 @@ def main(argv=None) -> dict | None:
             "--speculative-draft-layers with --shards / --tenants runs on "
             "the single-chip decode plane (not with --model-parallel)"
         )
-    check_unported(args)
+    check_checkpoint_flags(args)
     tenancy = check_tenancy(args)
     knob_names = check_orchestration(args, spec_on_plane)
     if args.quantize_kv and args.generate_tokens < 1:
@@ -955,11 +1055,20 @@ def main(argv=None) -> dict | None:
                 "queue; SQS-backed fleets are one process per replica, "
                 "scaled by the autoscaler itself)"
             )
+        if args.model_parallel:
+            raise SystemExit(
+                "--fleet-max-replicas with --model-parallel is not yet "
+                "ported (ROADMAP Queue 1 item 5c-ii): the pool's replicas "
+                "would interleave the mesh's collectives"
+            )
     if not args.demo and not args.sqs_queue_url:
         raise SystemExit(
             "error: pass --sqs-queue-url URL to serve a queue, or --demo N "
             "to drain N random messages from a local in-memory queue"
         )
+    refusal = mesh_usage(args)
+    if refusal:
+        parser.error(refusal)  # exit 2, as a usage error
     # speculative rounds need 2k cache positions past the generated tokens
     # (speculative.speculative_generate's budget)
     spec_headroom = (2 * args.speculative_draft_tokens
@@ -973,6 +1082,9 @@ def main(argv=None) -> dict | None:
         device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(f"error: {err}") from None
+    mesh = open_serving_mesh(args, device)
+    if mesh is not None:
+        device = mesh.device
     params = served_params(args, model_config, layout, params, device)
     family = family_of(model_config)
     weight_bytes = None
@@ -997,6 +1109,16 @@ def main(argv=None) -> dict | None:
                                         device))
         log.info("Prefix cache: %d shared tokens prefilled once",
                  len(prefix_ids))
+    if mesh is not None:
+        from .train import _check_divisible, shard_params
+
+        # the full weights (and the prefix, prefilled from them above)
+        # were built alike on every rank; each keeps its slices
+        try:
+            _check_divisible(mesh, model_config)
+        except ValueError as err:
+            raise SystemExit(str(err)) from None
+        params = shard_params(params, mesh)
     service_config = ServiceConfig(
         queue_url=args.sqs_queue_url, batch_size=args.batch_size,
         seq_len=args.seq_len,
@@ -1009,10 +1131,10 @@ def main(argv=None) -> dict | None:
     )
     tokenizer = load_tokenizer(args, model_config, service_config)
     modes = decode_modes(args, model_config, service_config, device,
-                         prefix_cache)
+                         prefix_cache, mesh, params)
     if not args.demo:
         serve_sqs(args, params, model_config, service_config, device,
-                  prefix_cache, modes, tenancy, tokenizer)
+                  prefix_cache, modes, tenancy, tokenizer, mesh)
         return None
     if args.fleet_max_replicas:
         summary = run_fleet_demo(
@@ -1028,8 +1150,10 @@ def main(argv=None) -> dict | None:
                            metrics_port=args.metrics_port,
                            prefix_cache=prefix_cache, modes=modes,
                            tenancy=tenancy, topology=args.topology,
-                           tokenizer=tokenizer)
+                           tokenizer=tokenizer, mesh=mesh)
     summary["weight_bytes"] = weight_bytes
+    if mesh is not None:
+        summary["mesh"] = dict(mesh.shape)
     return summary
 
 
@@ -1155,10 +1279,56 @@ def load_tokenizer(args, model_config, service_config: ServiceConfig):
     return tokenizer
 
 
-def check_unported(args) -> None:
+def mesh_usage(args) -> str | None:
+    """The usage error of ``--model-parallel``, or ``None``: a mesh that
+    does not divide the ranks of this launch (``WORLD_SIZE``; 1 in a lone
+    process), as the trainer's mesh flags refuse it."""
+    if not args.model_parallel:
+        return None
+    import os
+
+    from .distributed import mesh_shape
+
+    if args.model_parallel < 1:
+        return f"--model-parallel {args.model_parallel} must be >= 1"
+    world = int(os.environ.get("WORLD_SIZE", "").strip() or 1)
+    try:
+        mesh_shape(world, args.model_parallel, 1)
+    except ValueError as err:
+        return (f"--model-parallel {args.model_parallel} over {world} "
+                f"rank(s): {err} (launch the ranks with python -m "
+                "torch.distributed.run --nproc-per-node N)")
+    return None
+
+
+def open_serving_mesh(args, device: torch.device):
+    """The ``(data, model)`` serving mesh of ``--model-parallel`` over this
+    launch's ranks (``None`` without the flag), with the reference's
+    check of ``--batch-size`` against its data axis.  Joins the process
+    group when launched over ranks; ranks other than 0 log only
+    warnings."""
+    if not args.model_parallel:
+        return None
+    import os
+
+    from .distributed import initialize_from_env, make_mesh
+
+    if int(os.environ.get("RANK", "").strip() or 0) != 0:
+        logging.getLogger().setLevel(logging.WARNING)
+    initialize_from_env(device=device)
+    mesh = make_mesh(model_parallel=args.model_parallel, device=device)
+    if args.batch_size % mesh.shape["data"]:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must be divisible by the "
+            f"mesh's data axis ({mesh.shape['data']})"
+        )
+    log.info("Serving mesh: %s over %d devices", dict(mesh.shape), mesh.size)
+    return mesh
+
+
+def check_checkpoint_flags(args) -> None:
     """The checks of the checkpoint and tokenizer flags, before any model
-    is built; the flag whose path is not ported yet exits naming the
-    ROADMAP item that ports it."""
+    is built."""
     if args.hf_checkpoint and args.checkpoint_dir:
         raise SystemExit(
             "--hf-checkpoint and --checkpoint-dir are mutually exclusive"
@@ -1167,11 +1337,6 @@ def check_unported(args) -> None:
         raise SystemExit(
             f"--tokenizer {args.tokenizer} is not a directory (tokenizers "
             "load from a local directory, never from a hub)"
-        )
-    if args.model_parallel:
-        raise SystemExit(
-            "--model-parallel serves over a (data, model) mesh, not yet "
-            "ported (ROADMAP Queue 1 item 5c)"
         )
 
 
@@ -1373,5 +1538,16 @@ def parse_prefix_ids(args) -> list[int]:
     return prefix_ids
 
 
+def leave_process_group() -> None:
+    """Leave the process group a ``--model-parallel`` launch joined, once
+    every rank is through (gloo's threads otherwise race the exit)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
     main()
+    leave_process_group()

@@ -1,8 +1,9 @@
 """Beam search over the KV caches, both model families.
 
 Counterpart of ``kube_sqs_autoscaler_tpu/workloads/beam.py``'s
-``beam_search`` (its mesh function waits for ROADMAP Queue 1 item 5c), held
-against it by ``tests/test_torch_beam.py``.  The batch axis carries the
+``beam_search`` and its mesh function :func:`make_beam_serving_fn`, held
+against it by ``tests/test_torch_beam.py`` and
+``tests/test_torch_serve_mesh.py``.  The batch axis carries the
 beams: the prompt prefills once a row (the CUDA flash forward on the card),
 the cache is row-repeated to ``B * W``, and each step is one decode step
 of the family over every beam.  After each expansion the cache follows
@@ -23,9 +24,11 @@ logits do occur.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
-from .decode import _check_prefix_budget, _check_prefix_layout
+from .decode import _check_prefix_budget, _check_prefix_layout, _rank_kw
 from .family import family_of
 
 
@@ -58,16 +61,22 @@ class RowGather:
     """``cache[index]`` along the row axis of every cache tensor, written
     into a spare set of buffers shaped like the cache, which then swaps
     with it: two allocations for a whole search, where a fresh gather
-    would allocate a full cache copy a step."""
+    would allocate a full cache copy a step.  ``held`` (a slice of the
+    index's rows): the layers hold only those rows, a data rank's on a
+    serving mesh, whose parents lie among them (a beam's parents are its
+    slot's rows); the lengths hold every row."""
 
-    def __init__(self, cache: dict) -> None:
+    def __init__(self, cache: dict, held: slice | None = None) -> None:
         self.spare = _map_rows(cache, torch.empty_like)
+        self.held = held
 
     def __call__(self, cache: dict, index: torch.Tensor) -> dict:
         out = self.spare
+        layer_index = (index if self.held is None
+                       else index[self.held] - self.held.start)
         for src_layer, dst_layer in zip(cache["layers"], out["layers"]):
             for name, src in src_layer.items():
-                torch.index_select(src, 0, index, out=dst_layer[name])
+                torch.index_select(src, 0, layer_index, out=dst_layer[name])
         out["length"] = cache["length"][index]
         self.spare = cache
         return out
@@ -189,6 +198,7 @@ def beam_search(
     return_all: bool = False,
     prefix_cache: dict | None = None,
     quantized_cache: bool = False,
+    tp=None,
 ):
     """The best continuation of each prompt under beam search: int64
     ``[batch, num_tokens]``, or with ``return_all=True`` ``(sequences [B,
@@ -200,7 +210,8 @@ def beam_search(
     prompts; ``prefix_cache`` continues the prompts as suffixes of a
     shared prefix (and rules ``attention_fn`` out: the suffix prefill runs
     the chunk decoder); ``quantized_cache`` searches through the int8
-    cache."""
+    cache; ``tp`` runs a tensor-parallel rank's heads (a prompt's beams
+    stay on its rank, so a mesh rank searches its own rows)."""
     batch, prompt_len = prompt.shape
     if num_tokens < 1:
         raise ValueError(f"num_tokens must be >= 1, got {num_tokens}")
@@ -215,13 +226,16 @@ def beam_search(
             )
         _check_prefix_layout(prefix_cache, quantized_cache)
     layout = family_of(config).layout(quantized_cache)
+    kw = _rank_kw(tp)
+    step_fn = (layout.decode_step if tp is None
+               else partial(layout.decode_step, tp=tp))
     width = beams
     if prefix_cache is not None:
         logits, cache = layout.prefill_with_prefix(
-            params, prefix_cache, prompt, config, lengths=lengths)
+            params, prefix_cache, prompt, config, lengths=lengths, **kw)
     else:
         logits, cache = layout.prefill(params, prompt, config, attention_fn,
-                                       lengths=lengths)
+                                       lengths=lengths, **kw)
     last, state = seed_beams(logits, width, num_tokens, eos_id)
     cache = repeat_rows(cache, width)
     gather = RowGather(cache)
@@ -229,10 +243,62 @@ def beam_search(
     for _ in range(num_tokens - 1):
         cache, last, state = beam_step(
             params, cache, last, state, every, config, gather,
-            step_fn=layout.decode_step, beams=width, eos_id=eos_id)
+            step_fn=step_fn, beams=width, eos_id=eos_id)
     out, scores, emitted = state["out"], state["scores"], state["emitted"]
     ranked, order = rank_beams(scores, emitted, length_penalty)
     out = out.gather(1, order[..., None].expand_as(out))
     if return_all:
         return out, ranked
     return out[:, 0]
+
+
+def make_beam_serving_fn(
+    mesh,
+    config,
+    params: dict,
+    *,
+    beams: int,
+    length_penalty: float = 0.0,
+    eos_id: int | None = None,
+    prefix_cache: dict | None = None,
+    quantized_cache: bool = False,
+):
+    """:func:`beam_search` over a ``(data, model)`` serving mesh.  A
+    prompt's ``W`` beams ride its rows, so a rank searches its prompts
+    over ``data`` (the parent gather never leaves the rank) at its heads
+    over ``model``; the prompt pass runs the flash forward on the card at
+    the rank's heads.  ``prefix_cache`` (a full batch-1 cache) is placed
+    once as the rank's heads (:func:`.decode.prefix_cache_shardings`);
+    ``quantized_cache`` searches the int8 layout.  Returns ``run(params,
+    prompt, lengths, num_tokens) -> [B, num_tokens]`` on the global batch
+    (every rank passes it and gets it back, an all-gather over ``data``)."""
+    from .decode import (
+        gather_rows, prefix_cache_shardings, rank_rows, require_serving_mesh,
+    )
+    from .train import _check_divisible, tensor_parallel
+
+    require_serving_mesh(mesh)
+    _check_divisible(mesh, config)
+    if prefix_cache is not None:
+        _check_prefix_layout(prefix_cache, quantized_cache)
+    placed = (None if prefix_cache is None
+              else prefix_cache_shardings(mesh, prefix_cache))
+    tp = tensor_parallel(mesh)
+    family = family_of(config)
+
+    def run(params, prompt, lengths, num_tokens):
+        prompt = torch.as_tensor(prompt, device=mesh.device)
+        rows = rank_rows(mesh, prompt.shape[0])
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, device=mesh.device)[rows]
+        attention = (None if placed is not None else family.attention_fn_for(
+            config, prompt.shape[1], mesh.device))
+        out = beam_search(
+            params, config, prompt[rows], num_tokens, beams=beams,
+            length_penalty=length_penalty, eos_id=eos_id,
+            attention_fn=attention, lengths=lengths, prefix_cache=placed,
+            quantized_cache=quantized_cache, tp=tp,
+        )
+        return gather_rows(mesh, out)
+
+    return run

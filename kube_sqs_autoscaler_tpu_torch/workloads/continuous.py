@@ -89,7 +89,22 @@ or with tenancy run on the decode plane
 (:class:`~..planes.engine.DecodePlaneBatcher`), the S = 1 end of it
 without ``shards``.
 
-Not ported yet (the batcher raises ``ValueError``): a mesh.
+On a ``(data, model)`` serving mesh (``mesh``, a rank's
+:class:`.distributed.Mesh`; the reference's mesh-sharded slots) every rank
+runs the same host bookkeeping over every slot, and the device work splits:
+each admission's prompt pass runs on every data rank at the rank's heads
+over ``model`` (the reference's insert prefill replicates over ``data``
+too), and each decode step, block or speculative round computes the rank's
+rows over ``data`` (:func:`.family.split_rows`), whose logits are gathered
+over ``model`` and ``data``, so every rank picks every row's token, sampled
+ones included, as one process would.  A rank's cache holds its own slots'
+rows at its heads (the reference's ``cache_shardings``: rows over
+``data``, heads over ``model``), and its lengths every slot's; an
+admission writes only the rows its rank holds.
+:class:`ContinuousWorker` takes the ``mesh`` too: world rank 0 owns the
+queue (it receives, replies and deletes, and broadcasts what it received)
+and the clock the host's decisions read
+(:class:`.distributed.RankQueue`, :func:`.distributed.rank_clock`).
 """
 
 from __future__ import annotations
@@ -186,7 +201,7 @@ def _rows_prefill(params, prompts, lengths, config, attention_fn,
 
 
 def _splice_rows_layers(cache, rows_cache, rows, prefix_len,
-                        prompt_len, beams: int = 1) -> None:
+                        prompt_len, beams: int = 1, held=None) -> None:
     """Copy each prefilled row's prompt positions (under a prefix, the
     suffix positions ``[prefix_len, prefix_len + prompt_len)`` only) into
     its slot row of the batch cache, in place: one indexed copy per layer
@@ -196,8 +211,16 @@ def _splice_rows_layers(cache, rows_cache, rows, prefix_len,
     beams)``, and its one prefilled row is repeated over them (every beam
     of a fresh slot starts from the same prompt cache).  Only as many
     layers as ``cache`` holds are copied: a draft cache takes the first
-    layers of the target's prefill."""
+    layers of the target's prefill.  ``held`` (``(positions, rows)``, on
+    a serving mesh's data rank): ``cache`` holds only the rank's slots, so
+    just the prefilled rows at ``positions`` are copied, into its own
+    slot rows ``rows`` (:meth:`ContinuousBatcher._held`)."""
     span = slice(prefix_len, prefix_len + prompt_len)
+    if held is not None:
+        positions, rows = held
+        rows_cache = {"layers": [
+            {name: buf[positions] for name, buf in layer.items()}
+            for layer in rows_cache["layers"]]}
     if beams > 1:
         rows = (rows[:, None] * beams
                 + torch.arange(beams, device=rows.device)).reshape(-1)
@@ -231,6 +254,7 @@ def _insert_rows_impl(
     layout: CacheLayout,
     prefix_cache: dict | None = None,
     prefix_len: int = 0,
+    held=None,
 ) -> torch.Tensor:
     """Batched admission: prefill ``prompts`` (``[M, P]``, right-padded,
     real lengths ``lengths``) as one batch in the cache ``layout``, copy
@@ -240,11 +264,13 @@ def _insert_rows_impl(
     (``budget - 1``: the first token spends one) into the state, all in
     place.  ``budgets`` (``[M]``) replaces ``budget - 1`` with each row's
     own remaining budget: the resume insert's rows are mid-request.
-    Returns the first tokens ``[M]``, still on the device."""
+    ``held``: the rows a mesh's data rank holds
+    (:func:`_splice_rows_layers`).  Returns the first tokens ``[M]``,
+    still on the device."""
     logits, rows_cache = _rows_prefill(params, prompts, lengths, config,
                                        attention_fn, layout, prefix_cache)
     _splice_rows_layers(cache, rows_cache, rows, prefix_len,
-                        prompts.shape[1])
+                        prompts.shape[1], held=held)
     cache["length"][rows] = prefix_len + lengths
     firsts = _pick(logits, key, temperature, top_k, top_p)
     current[rows] = firsts
@@ -274,6 +300,7 @@ def _insert_rows_pooled_impl(
     *,
     layout: CacheLayout,
     pool_prefix_len: int,
+    held=None,
 ) -> torch.Tensor:
     """:func:`_insert_rows_impl` for the per-tenant prefix pool: each row's
     prefix is gathered from the pool's stacked rows by ``entry_idx``
@@ -297,7 +324,7 @@ def _insert_rows_pooled_impl(
     logits = logits_all[torch.arange(n_rows, device=prompts.device),
                         lengths - 1]
     _splice_rows_layers(cache, rows_cache, rows, 0,
-                        pool_prefix_len + prompts.shape[1])
+                        pool_prefix_len + prompts.shape[1], held=held)
     cache["length"].index_copy_(0, rows, pool_prefix_len + lengths)
     firsts = _pick(logits, key, temperature, top_k, top_p)
     current.index_copy_(0, rows, firsts)
@@ -327,6 +354,7 @@ def _spec_insert_row_impl(
     layout: CacheLayout,
     prefix_cache: dict | None = None,
     prefix_len: int = 0,
+    held=None,
 ) -> torch.Tensor:
     """Admission of one speculative slot: ONE target prefill of ``prompt``
     (``[1, P]``) fills both caches.  The early-exit self-draft is the
@@ -339,7 +367,7 @@ def _spec_insert_row_impl(
                                       attention_fn, layout, prefix_cache)
     for target in (cache, draft_cache):
         _splice_rows_layers(target, row_cache, row, prefix_len,
-                            prompt.shape[1])
+                            prompt.shape[1], held=held)
         target["length"][row] = prefix_len + length
     first = _pick(logits, key, temperature, top_k, top_p)
     current[row] = first
@@ -362,6 +390,7 @@ def _beam_insert_row_impl(
     eos_id: int | None = None,
     prefix_cache: dict | None = None,
     prefix_len: int = 0,
+    held=None,
 ) -> None:
     """Admission of one beam slot: one prefill of ``prompt`` (``[1, P]``)
     seeds slot ``row``'s ``beams`` cache rows and its search state in
@@ -373,7 +402,7 @@ def _beam_insert_row_impl(
                                       attention_fn, layout, prefix_cache)
     slot = torch.full((1,), row, dtype=torch.long, device=current.device)
     _splice_rows_layers(cache, row_cache, slot, prefix_len, prompt.shape[1],
-                        beams=beams)
+                        beams=beams, held=held)
     beam_rows = slice(row * beams, (row + 1) * beams)
     cache["length"][beam_rows] = prefix_len + length
     first_tokens, seeded = seed_beams(logits, beams,
@@ -491,9 +520,21 @@ class ContinuousBatcher:
             )
         model_family = family_of(config, family)
         if mesh is not None:
-            raise ValueError(
-                "mesh is not yet ported to the PyTorch continuous batcher"
-            )
+            # mesh-sharded slots: the cache rows over "data", heads over
+            # "model" (the reference's cache_shardings); the insert prefill
+            # runs on every data rank, as the reference's replicates over
+            # data, and each rank writes the rows it holds
+            from .decode import prefix_cache_shardings, require_serving_mesh
+
+            require_serving_mesh(mesh)
+            if batch_size % mesh.shape["data"]:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by the "
+                    f"mesh's data axis ({mesh.shape['data']})"
+                )
+            if prefix_cache is not None:
+                _check_prefix_layout(prefix_cache, quantized_kv)
+                prefix_cache = prefix_cache_shardings(mesh, prefix_cache)
         if decode_block < 1:
             raise ValueError(f"decode_block={decode_block} must be >= 1")
         if decode_block > 1 and (beams > 1 or draft_layers):
@@ -549,7 +590,9 @@ class ContinuousBatcher:
             raise ValueError(f"top_k={top_k} must be >= 0")
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p={top_p} must be in (0, 1]")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self.params = params
         self.config = config
         self.family = model_family.name
@@ -586,7 +629,17 @@ class ContinuousBatcher:
             config, prompt_len, self.device)
         self._insert_many = _insert_rows_impl
         self._layout = model_family.layout(quantized_kv)
-        self._step_fn = self._layout.decode_step
+        # the layout of the steps over every slot row (decode steps,
+        # blocks, speculative rounds); on a mesh the admissions' layout
+        # runs the rank's heads on every data rank, the steps' its rows
+        self._round_layout = self._layout
+        if mesh is not None:
+            from .family import rank_layout, split_rows_layout
+            from .train import tensor_parallel
+
+            self._layout = rank_layout(self._layout, tensor_parallel(mesh))
+            self._round_layout = split_rows_layout(self._layout, mesh)
+        self._step_fn = self._round_layout.decode_step
         if decode_block > 1:
             self._block_fn = block_decode
         else:
@@ -662,13 +715,24 @@ class ContinuousBatcher:
         self.slots = [_Slot() for _ in range(batch_size)]
         # a beam slot owns `beams` contiguous cache rows
         cache_rows = batch_size * beams
+        # the slots whose cache rows this rank holds: on a mesh's data
+        # axis its own (whole beam slots, as batch_size % data == 0); None
+        # = every slot
+        self._held_slots = None
+        if mesh is not None and mesh.shape["data"] > 1:
+            from .decode import rank_rows
+
+            self._held_slots = rank_rows(mesh, batch_size)
         with torch.inference_mode():
             if prefix_cache is not None:
                 # every slot row starts as a copy of the shared prefix
-                self.cache = broadcast_prefix(prefix_cache, cache_rows)
+                self.cache = self._held_cache(
+                    lambda n: broadcast_prefix(prefix_cache, n), cache_rows)
             else:
-                self.cache = self._layout.init_cache(config, cache_rows,
-                                                     self.device)
+                self.cache = self._held_cache(
+                    lambda n: self._layout.init_cache(config, n,
+                                                      self.device),
+                    cache_rows)
             # each cache row's next input token
             self._current = torch.zeros(cache_rows, dtype=torch.long,
                                         device=self.device)
@@ -686,12 +750,16 @@ class ContinuousBatcher:
                 self.draft_params, self.draft_config = self_draft(
                     params, config, draft_layers)
                 if prefix_cache is not None:
-                    self.draft_cache = broadcast_prefix(
-                        draft_prefix_from_target(prefix_cache, draft_layers),
+                    draft_prefix = draft_prefix_from_target(prefix_cache,
+                                                            draft_layers)
+                    self.draft_cache = self._held_cache(
+                        lambda n: broadcast_prefix(draft_prefix, n),
                         batch_size)
                 else:
-                    self.draft_cache = self._layout.init_cache(
-                        self.draft_config, batch_size, self.device)
+                    self.draft_cache = self._held_cache(
+                        lambda n: self._layout.init_cache(
+                            self.draft_config, n, self.device),
+                        batch_size)
             if beams > 1:
                 # each slot's search state (beam_search's loop state)
                 pad = eos_id if eos_id is not None else 0
@@ -708,7 +776,8 @@ class ContinuousBatcher:
                                            dtype=torch.long,
                                            device=self.device),
                 }
-                self._beam_gather = RowGather(self.cache)
+                self._beam_gather = RowGather(
+                    self.cache, held=self._held_cache_rows(beams))
         # one generator per engine step and insert; greedy needs none
         self._keys = (
             sampling_keys(sample_seed, self.device) if temperature > 0.0
@@ -731,6 +800,18 @@ class ContinuousBatcher:
                 "prefix_cache are mutually exclusive (the pool IS "
                 "the generalization of the broadcast prefix)"
             )
+        if self.mesh is not None:
+            # the pool's rows hold the rank's heads over "model"
+            kv_heads = (self.config.n_kv_heads if self.family == "llama"
+                        else self.config.n_heads)
+            model_axis = self.mesh.shape["model"]
+            if kv_heads % model_axis:
+                raise ValueError(
+                    f"prefix pool KV heads ({kv_heads}) not "
+                    f"divisible by the mesh's model axis "
+                    f"({model_axis}) — the pooled gather shards "
+                    "heads over 'model'"
+                )
         if tenancy.prefix_len < 1:
             raise ValueError(
                 "tenancy.prefix_len must be >= 1 when prefix_pool "
@@ -762,6 +843,7 @@ class ContinuousBatcher:
             prefix_len=tenancy.prefix_len,
             shards=getattr(self, "shards", 1), family=self.family,
             quantized_kv=self.quantized_kv, device=self.device,
+            mesh=self.mesh,
         )
 
     def adopt_engine(self, source: "ContinuousBatcher") -> None:
@@ -796,6 +878,7 @@ class ContinuousBatcher:
         self._attention_fn = source._attention_fn
         self._insert_many = source._insert_many
         self._layout = source._layout
+        self._round_layout = source._round_layout
         self._step_fn = source._step_fn
         # whichever decode step both sides built (a live decode_block
         # change can leave a block engine at block 1)
@@ -1052,7 +1135,7 @@ class ContinuousBatcher:
                 _to_device(lengths, self.device), next(self._keys),
                 self.config, self.generate_tokens, self._attention_fn,
                 self.temperature, self.top_k, self.top_p, self.eos_id,
-                **self._insert_layout(),
+                held=self._held(rows), **self._insert_layout(),
             )
             self._defer_firsts(firsts, rows)
         self.insert_dispatches += 1
@@ -1077,7 +1160,7 @@ class ContinuousBatcher:
                     self.params, self.cache, self._beam, self._current, row,
                     prompt, lengths, self.config, self._attention_fn,
                     beams=self.beams, eos_id=self.eos_id,
-                    **self._insert_layout(),
+                    held=self._held([row]), **self._insert_layout(),
                 )
             else:
                 first = _spec_insert_row_impl(
@@ -1085,7 +1168,8 @@ class ContinuousBatcher:
                     _to_device(np.asarray([row]), self.device), prompt,
                     lengths, next(self._keys), self.config,
                     self._attention_fn, self.temperature, self.top_k,
-                    self.top_p, **self._insert_layout(),
+                    self.top_p, held=self._held([row]),
+                    **self._insert_layout(),
                 )
                 self._defer_firsts(first, [row])
         self.insert_dispatches += 1
@@ -1175,6 +1259,7 @@ class ContinuousBatcher:
                 self._prefix_pool.layers, self.config, self.generate_tokens,
                 self.temperature, self.top_k, self.top_p, self.eos_id,
                 layout=self._layout, pool_prefix_len=self._pool_prefix_len,
+                held=self._held(rows),
             )
             self._defer_firsts(firsts, rows)
         self.insert_dispatches += 1
@@ -1198,6 +1283,40 @@ class ContinuousBatcher:
         prefix the slots start past."""
         return dict(layout=self._layout, prefix_cache=self._prefix_cache,
                     prefix_len=self.prefix_len)
+
+    def _held_cache_rows(self, width: int) -> slice | None:
+        """The cache rows this rank holds, of slots ``width`` rows wide
+        (None: every row)."""
+        held = self._held_slots
+        if held is None:
+            return None
+        return slice(held.start * width, held.stop * width)
+
+    def _held_cache(self, make, rows: int) -> dict:
+        """A cache of ``rows`` slot rows from ``make(n)`` (a cache of
+        ``n`` rows): on a mesh's data rank its layers hold the rank's rows
+        alone, its lengths every row's (the steps advance the rank's and
+        gather them, :func:`.family.split_rows`)."""
+        held = self._held_cache_rows(rows // len(self.slots))
+        if held is None:
+            return make(rows)
+        cache = make(held.stop - held.start)
+        cache["length"] = cache["length"][0].expand(rows).clone()
+        return cache
+
+    def _held(self, rows: list[int]):
+        """An admission's ``held`` (:func:`_splice_rows_layers`) for slot
+        ``rows``: the positions of the rows this rank holds and their
+        rows in its cache, on the device; None when it holds every
+        row."""
+        held = self._held_slots
+        if held is None:
+            return None
+        positions = [i for i, row in enumerate(rows)
+                     if held.start <= row < held.stop]
+        local = [rows[i] - held.start for i in positions]
+        return (_to_device(np.asarray(positions, np.int64), self.device),
+                _to_device(np.asarray(local, np.int64), self.device))
 
     def _defer_firsts(self, firsts: torch.Tensor, rows: list[int]) -> None:
         """Hold an insert's first tokens until the next :meth:`step`: here
@@ -1268,7 +1387,7 @@ class ContinuousBatcher:
                 self.config, self.generate_tokens, self._attention_fn,
                 self.temperature, self.top_k, self.top_p, self.eos_id,
                 budgets=_to_device(budgets, self.device),
-                **self._insert_layout(),
+                held=self._held(rows), **self._insert_layout(),
             )
             self._defer_firsts(firsts, rows)
         self.insert_dispatches += 1
@@ -1515,8 +1634,9 @@ class ContinuousBatcher:
         with torch.inference_mode():
             active = _to_device(np.asarray(mask), self.device)
             self._current, round_tokens, n = speculative_round(
-                self._layout, self._layout, self.params, self.draft_params,
-                self.config, self.draft_config, self.cache, self.draft_cache,
+                self._round_layout, self._round_layout, self.params,
+                self.draft_params, self.config, self.draft_config,
+                self.cache, self.draft_cache,
                 self._current, active, self.draft_tokens, next(self._keys),
                 self.temperature, self.top_k, self.top_p,
             )
@@ -1728,6 +1848,7 @@ class ContinuousWorker:
         tenancy=None,
         device: str | torch.device = "cuda",
         tokenizer=None,
+        mesh=None,
     ) -> None:
         if service_config.generate_tokens < 1:
             raise ValueError(
@@ -1747,6 +1868,17 @@ class ContinuousWorker:
                 "result_queue_url is set but no result_queue client was "
                 "given"
             )
+        now_fn = now_fn or time.time
+        if mesh is not None:
+            # every rank runs this worker: rank 0 owns the queue and the
+            # clock the host's decisions read, and broadcasts both
+            from .distributed import RankQueue, rank_clock
+
+            queue = RankQueue(queue)
+            if result_queue is not None:
+                result_queue = RankQueue(result_queue)
+            now_fn = rank_clock(now_fn)
+        self.mesh = mesh
         self.queue = queue
         self.config = service_config
         self.result_queue = result_queue
@@ -1769,6 +1901,7 @@ class ContinuousWorker:
             length_penalty=length_penalty,
             tenancy=tenancy,
             device=device,
+            mesh=mesh,
         )
         if sharded is None:
             sharded = service_config.shards > 1
@@ -1806,7 +1939,7 @@ class ContinuousWorker:
             )
         self.processed = 0
         self.refill_cycles = 0  # liveness: bumped by every refill pass
-        self._now = now_fn or time.time
+        self._now = now_fn
         # per-tenant TTFT shares the TTL clock's epoch base
         self.batcher._epoch_now = self._now
         # requests shed by reason: ttl (older than request_ttl_s on

@@ -1,7 +1,8 @@
 """Autoregressive decoding with a KV cache.
 
-Counterpart of ``kube_sqs_autoscaler_tpu/workloads/decode.py`` (its
-single-device GPT paths): the prompt runs through one causal forward that
+Counterpart of ``kube_sqs_autoscaler_tpu/workloads/decode.py`` (its GPT
+paths, on one device and over a ``(data, model)`` serving mesh,
+:func:`make_serving_fns`): the prompt runs through one causal forward that
 fills a cache pre-allocated at ``max_seq_len`` (:func:`prefill`; its
 attention is the seam, the flash kernel on the card), then each generated
 token runs the single-position path against the cache
@@ -45,11 +46,15 @@ from .quantize import _INV_127
 
 
 def init_cache(
-    config: ModelConfig, batch: int, device: str | torch.device = "cuda"
+    config: ModelConfig, batch: int, device: str | torch.device = "cuda",
+    tp=None,
 ) -> dict:
     """Empty KV cache: per layer ``[B, H, max_seq_len, head_dim]`` in the
-    model dtype, plus per-row ``length`` (int64 ``[batch]``)."""
-    shape = (batch, config.n_heads, config.max_seq_len, config.head_dim)
+    model dtype, plus per-row ``length`` (int64 ``[batch]``).  ``tp``
+    (:class:`.train.TensorParallel`) holds a tensor-parallel rank's
+    ``H / tp`` heads."""
+    heads = config.n_heads if tp is None else tp.heads(config.n_heads)
+    shape = (batch, heads, config.max_seq_len, config.head_dim)
     return {
         "layers": [
             {
@@ -64,19 +69,20 @@ def init_cache(
 
 def _final_logits(
     params: dict, x32: torch.Tensor, dtype: torch.dtype,
-    last_pos: torch.Tensor | None = None,
+    last_pos: torch.Tensor | None = None, tp=None,
 ) -> torch.Tensor:
     """Readout logits ``[batch, vocab]`` (fp32) at each row's ``last_pos``
     (``None``: position -1) of the last block's unrounded output ``x32``:
     final LN into the model ``dtype`` and the tied-embedding readout,
-    computed only at the rows' readout positions."""
+    computed only at the rows' readout positions (gathered over ``model``
+    on a tensor-parallel rank)."""
     if last_pos is None:
         x32 = x32[:, -1]
     else:
         x32 = x32[torch.arange(x32.shape[0], device=x32.device), last_pos]
     x = _layer_norm(x32, params["final_ln_scale"], params["final_ln_bias"],
                     dtype)
-    return unembed(x, params["embed"])
+    return unembed(x, params["embed"], tp)
 
 
 def prefill(
@@ -85,22 +91,26 @@ def prefill(
     config: ModelConfig,
     attention_fn=None,
     lengths: torch.Tensor | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """Run the prompt, filling a fresh cache.
 
     ``tokens``: int ``[batch, prompt_len]`` → (logits ``[batch, vocab]``
     fp32 at each row's last real position, cache with ``length`` =
     ``lengths`` or ``prompt_len``).  ``lengths`` marks right-padded ragged
-    prompts; causality keeps real positions from attending the pads."""
+    prompts; causality keeps real positions from attending the pads.
+    ``tp`` (:class:`.train.TensorParallel`) runs a tensor-parallel rank's
+    heads: its cache holds them, its logits are gathered over ``model``
+    (every entry point of this module takes it)."""
     batch, prompt_len = tokens.shape
     if prompt_len > config.max_seq_len:
         raise ValueError(
             f"prompt length {prompt_len} exceeds max_seq_len={config.max_seq_len}"
         )
     device = tokens.device
-    cache = init_cache(config, batch, device)
+    cache = init_cache(config, batch, device, tp)
     inner = attention_fn or _dense_attention
-    x, x32 = _embed(params, tokens, slice(0, prompt_len))
+    x, x32 = _embed(params, tokens, slice(0, prompt_len), tp)
     for layer, layer_cache in zip(params["layers"], cache["layers"]):
 
         def attend(q, k, v, _lc=layer_cache):
@@ -108,14 +118,14 @@ def prefill(
             _lc["v"][:, :, :prompt_len] = v
             return inner(q, k, v)
 
-        x, x32 = _block(x, layer, config, attend, x32)
+        x, x32 = _block(x, layer, config, attend, x32, tp=tp)
     if lengths is None:
         cache["length"].fill_(prompt_len)
-        logits = _final_logits(params, x32, x.dtype)
+        logits = _final_logits(params, x32, x.dtype, tp=tp)
     else:
         cache["length"].copy_(lengths)
         logits = _final_logits(params, x32, x.dtype,
-                               last_pos=cache["length"] - 1)
+                               last_pos=cache["length"] - 1, tp=tp)
     return logits, cache
 
 
@@ -224,20 +234,21 @@ def _decode_impl(
     tokens: torch.Tensor,
     config: ModelConfig,
     write_and_attend,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """The decode-step skeleton: embed at each row's position, per layer
     call ``write_and_attend(q, k, v, layer_cache, rows, pos) -> out``,
     final logits; advances ``cache["length"]`` in place."""
     pos = cache["length"]
     rows = torch.arange(tokens.shape[0], device=tokens.device)
-    x, x32 = (t[:, None, :] for t in _embed(params, tokens, pos))
+    x, x32 = (t[:, None, :] for t in _embed(params, tokens, pos, tp))
     for layer, layer_cache in zip(params["layers"], cache["layers"]):
 
         def attend(q, k, v, _lc=layer_cache):
             return write_and_attend(q, k, v, _lc, rows, pos)
 
-        x, x32 = _block(x, layer, config, attend, x32)
-    logits = _final_logits(params, x32, x.dtype)
+        x, x32 = _block(x, layer, config, attend, x32, tp=tp)
+    logits = _final_logits(params, x32, x.dtype, tp=tp)
     cache["length"] = pos + 1
     return logits, cache
 
@@ -289,7 +300,8 @@ def _write_rows(
 
 
 def decode_step(
-    params: dict, cache: dict, tokens: torch.Tensor, config: ModelConfig
+    params: dict, cache: dict, tokens: torch.Tensor, config: ModelConfig,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One step: feed ``tokens`` (int ``[batch]``, row ``b``'s token for
     position ``cache["length"][b]``), return (fp32 logits ``[batch,
@@ -303,7 +315,7 @@ def decode_step(
         _write_rows(layer_cache["v"], rows, pos, v[:, :, 0])
         return _cached_attention(q, layer_cache["k"], layer_cache["v"], pos)
 
-    return _decode_impl(params, cache, tokens, config, write_and_attend)
+    return _decode_impl(params, cache, tokens, config, write_and_attend, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -343,13 +355,16 @@ def quantize_cache(cache: dict) -> dict:
 
 def init_quantized_cache(
     config, batch: int, kv_heads: int | None = None,
-    device: str | torch.device = "cuda",
+    device: str | torch.device = "cuda", tp=None,
 ) -> dict:
     """An empty int8 cache: zero codes and the floor scale ``1e-12``
     (exactly :func:`quantize_kv` of zeros), ``[B, H, max_seq_len, D]`` and
     ``[B, H, max_seq_len]`` a layer; ``kv_heads`` sets the head count of
-    the llama family's compact GQA layout."""
+    the llama family's compact GQA layout, ``tp`` a tensor-parallel rank's
+    share of it."""
     heads = kv_heads if kv_heads is not None else config.n_heads
+    if tp is not None:
+        heads = tp.heads(heads)
     shape = (batch, heads, config.max_seq_len, config.head_dim)
     return {
         "layers": [
@@ -373,11 +388,13 @@ def quantized_prefill(
     config: ModelConfig,
     attention_fn=None,
     lengths: torch.Tensor | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """:func:`prefill` with the filled cache quantized to int8: the prompt
     pass runs in full precision (through the flash forward on the card),
     the decode steps that follow read int8."""
-    logits, cache = prefill(params, tokens, config, attention_fn, lengths)
+    logits, cache = prefill(params, tokens, config, attention_fn, lengths,
+                            tp)
     return logits, quantize_cache(cache)
 
 
@@ -401,12 +418,13 @@ def _quantized_write_and_attend(window: int | None = None):
 
 
 def quantized_decode_step(
-    params: dict, cache: dict, tokens: torch.Tensor, config: ModelConfig
+    params: dict, cache: dict, tokens: torch.Tensor, config: ModelConfig,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """:func:`decode_step` against the int8 cache (the same skeleton and
     the same ragged per-row contract)."""
     return _decode_impl(params, cache, tokens, config,
-                        _quantized_write_and_attend())
+                        _quantized_write_and_attend(), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -463,27 +481,29 @@ def _chunk_decode_impl(
     tokens: torch.Tensor,
     config: ModelConfig,
     write_and_attend,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """The GPT chunk-decode skeleton both cache layouts share: embed at
     each row's chunk positions, per layer ``write_and_attend(q, k, v,
     layer_cache, rows, cols, start) -> out``, logits at every position;
     advances ``cache["length"]`` by ``T``."""
     start, rows, cols = _chunk_positions(cache, tokens)
-    x, x32 = _embed(params, tokens, cols)
+    x, x32 = _embed(params, tokens, cols, tp)
     for layer, layer_cache in zip(params["layers"], cache["layers"]):
 
         def attend(q, k, v, _lc=layer_cache):
             return write_and_attend(q, k, v, _lc, rows, cols, start)
 
-        x, x32 = _block(x, layer, config, attend, x32)
+        x, x32 = _block(x, layer, config, attend, x32, tp=tp)
     x = _layer_norm(x32, params["final_ln_scale"], params["final_ln_bias"],
                     x.dtype)
     cache["length"] = start + tokens.shape[1]
-    return unembed(x, params["embed"]), cache
+    return unembed(x, params["embed"], tp), cache
 
 
 def chunk_decode(
-    params: dict, cache: dict, tokens: torch.Tensor, config: ModelConfig
+    params: dict, cache: dict, tokens: torch.Tensor, config: ModelConfig,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """Decode a ``T``-token chunk a row in one forward: ``tokens`` (int
     ``[B, T]``) are row ``b``'s inputs at positions ``cache["length"][b]``
@@ -492,17 +512,18 @@ def chunk_decode(
     place and advanced by ``T``): what ``T`` :func:`decode_step` calls
     compute, the keys in the same slots and the mask causal."""
     return _chunk_decode_impl(params, cache, tokens, config,
-                              _full_chunk_write_and_attend())
+                              _full_chunk_write_and_attend(), tp)
 
 
 def quantized_chunk_decode(
-    params: dict, cache: dict, tokens: torch.Tensor, config: ModelConfig
+    params: dict, cache: dict, tokens: torch.Tensor, config: ModelConfig,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """:func:`chunk_decode` against the int8 cache: the chunk's k/v
     quantized per position (the codes ``T`` :func:`quantized_decode_step`
     calls would write), attended with the scales factored out."""
     return _chunk_decode_impl(params, cache, tokens, config,
-                              _quantized_chunk_write_and_attend())
+                              _quantized_chunk_write_and_attend(), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -511,7 +532,7 @@ def quantized_chunk_decode(
 
 
 def _prefill_prefix_impl(prefill_fn, params, prefix, config,
-                         attention_fn=None) -> dict:
+                         attention_fn=None, tp=None) -> dict:
     """The prefix build all four family and layout variants share: the
     prefix as a batch-1 prompt on the params' device, prefilled with
     ``prefill_fn``; returns the cache."""
@@ -519,30 +540,30 @@ def _prefill_prefix_impl(prefill_fn, params, prefix, config,
     prefix = torch.as_tensor(prefix, dtype=torch.long, device=device)
     if prefix.dim() == 1:
         prefix = prefix[None, :]
-    _, cache = prefill_fn(params, prefix, config, attention_fn)
+    _, cache = prefill_fn(params, prefix, config, attention_fn, tp=tp)
     return cache
 
 
 def prefill_prefix(
-    params: dict, prefix, config: ModelConfig, attention_fn=None
+    params: dict, prefix, config: ModelConfig, attention_fn=None, tp=None
 ) -> dict:
     """The KV cache of a shared prompt prefix, computed once: ``prefix``
     (int ``[P]`` or ``[1, P]``) -> a batch-1 cache at ``length == P`` for
     :func:`prefill_with_prefix`.  ``attention_fn`` is the prompt pass's
     (the flash forward on the card, whose ragged edge takes any ``P``)."""
     return _prefill_prefix_impl(prefill, params, prefix, config,
-                                attention_fn)
+                                attention_fn, tp)
 
 
 def quantized_prefill_prefix(
-    params: dict, prefix, config: ModelConfig, attention_fn=None
+    params: dict, prefix, config: ModelConfig, attention_fn=None, tp=None
 ) -> dict:
     """:func:`prefill_prefix` in the int8 layout.  Per-position
     quantization is position-local, so these codes are what
     :func:`quantized_prefill` of any prompt that starts with the prefix
     writes at the same positions."""
     return _prefill_prefix_impl(quantized_prefill, params, prefix, config,
-                                attention_fn)
+                                attention_fn, tp)
 
 
 def broadcast_prefix(prefix_cache: dict, batch: int) -> dict:
@@ -567,6 +588,7 @@ def _prefill_with_prefix_impl(
     tokens: torch.Tensor,
     config,
     lengths: torch.Tensor | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """The suffix continuation both families share (``chunk_decode_fn``
     is the family's and layout's chunk decoder): broadcast the prefix, run
@@ -575,7 +597,7 @@ def _prefill_with_prefix_impl(
     batch = tokens.shape[0]
     cache = broadcast_prefix(prefix_cache, batch)
     start = cache["length"]
-    logits_all, cache = chunk_decode_fn(params, cache, tokens, config)
+    logits_all, cache = chunk_decode_fn(params, cache, tokens, config, tp=tp)
     if lengths is None:
         return logits_all[:, -1], cache
     lengths = lengths.long()
@@ -591,6 +613,7 @@ def prefill_with_prefix(
     tokens: torch.Tensor,
     config: ModelConfig,
     lengths: torch.Tensor | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """Per-request suffixes (int ``[B, T]``, at positions ``[P, P + T)``)
     continued from a shared prefix's cache in one :func:`chunk_decode`:
@@ -601,7 +624,7 @@ def prefill_with_prefix(
     lengths[b]`` a row).  The suffix launches no kernel, as in the
     reference."""
     return _prefill_with_prefix_impl(chunk_decode, params, prefix_cache,
-                                     tokens, config, lengths)
+                                     tokens, config, lengths, tp)
 
 
 def quantized_prefill_with_prefix(
@@ -610,12 +633,14 @@ def quantized_prefill_with_prefix(
     tokens: torch.Tensor,
     config: ModelConfig,
     lengths: torch.Tensor | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """:func:`prefill_with_prefix` over the int8 layout (the prefix from
     :func:`quantized_prefill_prefix`; the suffix quantizes its own
     positions as it writes them)."""
     return _prefill_with_prefix_impl(quantized_chunk_decode, params,
-                                     prefix_cache, tokens, config, lengths)
+                                     prefix_cache, tokens, config, lengths,
+                                     tp)
 
 
 def prefix_len_of(prefix_cache: dict | None) -> int:
@@ -657,22 +682,29 @@ def _check_prefix_budget(
         )
 
 
+def _rank_kw(tp) -> dict:
+    """The ``tp=`` keyword of a family entry point, only on a
+    tensor-parallel rank (the single-device callers' step functions take
+    none)."""
+    return {} if tp is None else {"tp": tp}
+
+
 def _generate_loop(
     step_fn, params, cache, logits, num_tokens, config, generator,
-    temperature, top_k, top_p, eos_id,
+    temperature, top_k, top_p, eos_id, tp=None, draw=None,
 ) -> torch.Tensor:
     """The decode loop both families' generate run after their prefill:
     pick, then ``num_tokens - 1`` steps; rows that emitted ``eos_id`` pad
-    with it."""
-    token = _pick(logits, generator, temperature, top_k, top_p)
+    with it.  ``tp`` and ``draw`` are a mesh rank's (:func:`_pick`)."""
+    token = _pick(logits, generator, temperature, top_k, top_p, draw)
     done = (
         token == eos_id if eos_id is not None
         else torch.zeros_like(token, dtype=torch.bool)
     )
     produced = [token]
     for _ in range(num_tokens - 1):
-        logits, cache = step_fn(params, cache, token, config)
-        token = _pick(logits, generator, temperature, top_k, top_p)
+        logits, cache = step_fn(params, cache, token, config, **_rank_kw(tp))
+        token = _pick(logits, generator, temperature, top_k, top_p, draw)
         if eos_id is not None:
             token = torch.where(done, eos_id, token)
             done = done | (token == eos_id)
@@ -719,10 +751,19 @@ def _pick(
     temperature: float,
     top_k: int = 0,
     top_p: float = 1.0,
+    draw: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Greedy at ``temperature <= 0`` (the first maximum, as
     ``jnp.argmax``), else one draw per row from the warped distribution
-    with ``generator`` (on the logits' device)."""
+    with ``generator`` (on the logits' device).
+
+    ``draw = (start, total)`` says the rows are ``[start, start + B)`` of
+    a batch of ``total`` rows split over a mesh's ``data`` axis: the rank
+    draws the whole batch's noise from ``generator`` and keeps its rows.
+    ``torch.multinomial`` draws one sample as the argmax of ``probs / q``
+    with ``q`` exponential noise of the batch's shape, so every rank's
+    rows get the tokens one process sampling the whole batch with the
+    same generator would."""
     if top_k < 0:
         raise ValueError(f"top_k={top_k} must be >= 0 (0 = off)")
     if not 0.0 < top_p <= 1.0:
@@ -730,7 +771,33 @@ def _pick(
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(warp_logits(logits, temperature, top_k, top_p), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return sample_rows(probs, generator, draw)
+
+
+def sample_rows(probs: torch.Tensor, generator,
+                draw: tuple[int, int] | None = None) -> torch.Tensor:
+    """One draw a row from ``probs`` ``[B, V]`` (any non-negative
+    weights): ``torch.multinomial``, or with ``draw = (start, total)`` the
+    rows' share of one multinomial draw over a ``total``-row batch
+    (:func:`_pick`)."""
+    if draw is None:
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    start, total = draw
+    noise = torch.empty((total, probs.shape[-1]), dtype=probs.dtype,
+                        device=probs.device).exponential_(1,
+                                                          generator=generator)
+    return torch.argmax(probs / noise[start:start + probs.shape[0]], dim=-1)
+
+
+def uniform_rows(shape: tuple[int, ...], generator, device,
+                 draw: tuple[int, int] | None = None) -> torch.Tensor:
+    """``torch.rand(shape)`` of ``shape[0]`` rows, or with ``draw = (start,
+    total)`` those rows of one draw over a ``total``-row batch."""
+    if draw is None:
+        return torch.rand(shape, generator=generator, device=device)
+    start, total = draw
+    return torch.rand((total, *shape[1:]), generator=generator,
+                      device=device)[start:start + shape[0]]
 
 
 def generate(
@@ -748,6 +815,8 @@ def generate(
     eos_id: int | None = None,
     quantized_cache: bool = False,
     prefix_cache: dict | None = None,
+    tp=None,
+    draw: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """``num_tokens`` continuation tokens per prompt (int64 ``[batch,
     num_tokens]``): prefill, then a Python loop of decode steps.
@@ -758,7 +827,9 @@ def generate(
     position is ``eos_id``.  ``quantized_cache=True`` decodes through the
     int8 cache; ``prefix_cache`` (from :func:`prefill_prefix`, or
     :func:`quantized_prefill_prefix` with ``quantized_cache``) prepends a
-    shared prefix, the ``prompt`` rows being the per-request suffixes."""
+    shared prefix, the ``prompt`` rows being the per-request suffixes.
+    On a mesh rank (:func:`make_serving_fns`) ``tp`` runs its heads and
+    ``draw`` places its rows in the batch (:func:`_pick`)."""
     batch, prompt_len = prompt.shape
     if num_tokens < 1:
         raise ValueError(f"num_tokens must be >= 1, got {num_tokens}")
@@ -775,14 +846,15 @@ def generate(
         pf = (quantized_prefill_with_prefix if quantized_cache
               else prefill_with_prefix)
         logits, cache = pf(params, prefix_cache, prompt, config,
-                           lengths=lengths)
+                           lengths=lengths, tp=tp)
     else:
         prefill_fn = quantized_prefill if quantized_cache else prefill
         logits, cache = prefill_fn(params, prompt, config, attention_fn,
-                                   lengths=lengths)
+                                   lengths=lengths, tp=tp)
     step_fn = quantized_decode_step if quantized_cache else decode_step
     return _generate_loop(step_fn, params, cache, logits, num_tokens, config,
-                          generator, temperature, top_k, top_p, eos_id)
+                          generator, temperature, top_k, top_p, eos_id, tp,
+                          draw)
 
 
 def block_decode(
@@ -802,6 +874,8 @@ def block_decode(
     freeze: torch.Tensor | None = None,
     corrupt: torch.Tensor | None = None,
     health: bool = False,
+    tp=None,
+    draw: tuple[int, int] | None = None,
 ):
     """Advance every live row up to ``block = len(keys)`` tokens: a Python
     loop of ``step_fn`` (the model family's decode step, :func:`decode_step`
@@ -835,7 +909,10 @@ def block_decode(
       and the caller discards it;
     - ``health=True``: also return ``bad [batch]``, set where a live row
       saw a non-finite logit (computed from the NaN logits, not the
-      stand-in)."""
+      stand-in).
+
+    ``tp`` and ``draw`` are a mesh rank's (its heads, its rows' place in
+    the batch; :func:`_pick`)."""
     pad = eos_id if eos_id is not None else 0
     emitted, lives = [], []
     bad = torch.zeros_like(done) if health else None
@@ -844,14 +921,15 @@ def block_decode(
         if freeze is not None:
             live = live & ~freeze
         length = cache["length"]
-        logits, cache = step_fn(params, cache, current, config)
+        logits, cache = step_fn(params, cache, current, config,
+                                **_rank_kw(tp))
         pick_from = logits
         if corrupt is not None:
             logits = logits.masked_fill(corrupt[:, None], float("nan"))
             pick_from = logits.masked_fill(corrupt[:, None], 0.0)
         if health:
             bad = bad | (live & ~torch.isfinite(logits).all(dim=-1))
-        nxt = _pick(pick_from, key, temperature, top_k, top_p)
+        nxt = _pick(pick_from, key, temperature, top_k, top_p, draw)
         emitted.append(torch.where(live, nxt, pad))
         if eos_id is not None:
             done = done | (live & (nxt == eos_id))
@@ -884,6 +962,8 @@ def gang_block_decode(
     eos_id: int | None = None,
     poison: torch.Tensor | None = None,
     wedge: torch.Tensor | None = None,
+    tp=None,
+    draw: tuple[int, int] | None = None,
 ):
     """Advance ``shards`` engine shards of ``B = rows / shards`` slots
     each with one :func:`block_decode` of ``step_fn`` over the flat
@@ -906,7 +986,8 @@ def gang_block_decode(
     counts [S*B], free [S], bad [S])``: ``free[s]`` counts shard ``s``'s
     rows that are done or out of budget (0 for an inactive shard) and
     ``bad[s]`` says a live row of shard ``s`` saw non-finite logits.
-    Both are reduced on the device, for the caller's one settle copy."""
+    Both are reduced on the device, for the caller's one settle copy.
+    ``tp`` and ``draw`` pass to :func:`block_decode`."""
     rows = current.shape[0]
     if rows % shards:
         raise ValueError(f"{rows} rows not divisible by {shards} shards")
@@ -920,8 +1001,211 @@ def gang_block_decode(
         params, cache, current, done, remaining, keys, config, step_fn,
         temperature=temperature, top_k=top_k, top_p=top_p, eos_id=eos_id,
         freeze=per_row(wedge), corrupt=per_row(poison), health=True,
+        tp=tp, draw=draw,
     )
     spent = (done | (remaining <= 0)).view(shards, slots).sum(dim=1)
     free = torch.where(shard_active, spent, torch.zeros_like(spent))
     bad = bad_rows.view(shards, slots).any(dim=1)
     return cache, current, done, remaining, tokens, counts, free, bad
+
+
+# ---------------------------------------------------------------------------
+# Serving over a (data, model) mesh
+# ---------------------------------------------------------------------------
+#
+# The reference compiles its serving functions over a GSPMD mesh.  Here each
+# rank is a process (:mod:`.distributed`) that holds its slices of the
+# weights (:func:`.train.shard_params`), its batch rows over ``data`` and its
+# heads over ``model``, in the reference's layout (``decode.py:1159``):
+# positions whole, the vocabulary over ``model``.  A rank runs the family's
+# entry points with ``tp`` (the Megatron collectives around each block, the
+# vocabulary-parallel lookup, the readout's logits all-gathered over
+# ``model``), so every rank of a model group picks the same token.  What
+# the caller sees is global, as the reference's arrays are: every rank gets
+# the whole batch in and the whole batch back (an all-gather over ``data``).
+
+
+def require_serving_mesh(mesh) -> None:
+    """The one serving-mesh contract check: decode needs a ``(data,
+    model)`` mesh — ring/sequence parallelism applies to training and
+    prefill, not token-by-token decode.  Shared by every sharded serving
+    factory (generate, beams, continuous slots)."""
+    if mesh.shape.get("seq", 1) != 1:
+        raise ValueError(
+            "serving uses a (data, model) mesh; got seq="
+            f"{mesh.shape['seq']} (ring/sequence parallelism applies to "
+            "training and prefill, not token-by-token decode)"
+        )
+
+
+def rank_rows(mesh, batch: int) -> slice:
+    """This rank's rows of a ``batch``-row global batch over ``data``."""
+    ax = mesh.axis("data")
+    if batch % ax.size:
+        raise ValueError(
+            f"batch {batch} not divisible by the mesh's data axis "
+            f"({ax.size})"
+        )
+    rows = batch // ax.size
+    return slice(ax.index * rows, (ax.index + 1) * rows)
+
+
+def _rank_heads(mesh, heads: int) -> slice:
+    ax = mesh.axis("model")
+    if heads % ax.size:
+        raise ValueError(
+            f"{heads} cache heads not divisible by the mesh's model axis "
+            f"({ax.size})"
+        )
+    per = heads // ax.size
+    return slice(ax.index * per, (ax.index + 1) * per)
+
+
+def gather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The global batch from every data rank's rows (all-gather over
+    ``data``, concatenated on dim 0 in rank order)."""
+    ax = mesh.axis("data")
+    if ax.size == 1:
+        return x
+    return torch.cat(mesh.transport.all_gather(x, ax.group, ax.size), dim=0)
+
+
+def prefix_cache_shardings(mesh, prefix_cache: dict) -> dict:
+    """A rank's shard of a batch-1 prefix cache: its heads over ``model``
+    (both layouts: bf16 ``k``/``v`` ``[1, H, S, D]``, int8 codes with
+    scales ``[1, H, S]``), the batch whole: the one shared row that
+    :func:`broadcast_prefix` expands to the rank's rows.  (The reference's
+    ``cache_shardings`` has no counterpart: a rank's own cache is built at
+    its rows and heads, :func:`init_cache` and
+    :func:`init_quantized_cache` with ``tp``.)"""
+
+    def shard(leaf):
+        return leaf[:, _rank_heads(mesh, leaf.shape[1])].to(
+            mesh.device).contiguous()
+
+    return {
+        "layers": [{name: shard(leaf) for name, leaf in layer.items()}
+                   for layer in prefix_cache["layers"]],
+        "length": prefix_cache["length"].to(mesh.device).clone(),
+    }
+
+
+def compile_serving_fns(
+    mesh,
+    prefill_fn,
+    decode_fn,
+    generate_fn,
+    prefix_cache: dict | None = None,
+):
+    """The family-agnostic serving wiring over a mesh (one implementation
+    for the gpt and llama families; only the family ops differ).
+
+    Requires a serving mesh (:func:`require_serving_mesh`).  Family ops
+    (config bound) take the rank's rows and ``tp``:
+    ``prefill_fn(params, tokens, tp)``, ``decode_fn(params, cache, token,
+    tp)`` and ``generate_fn(params, prompt, num_tokens, temperature,
+    generator, lengths, top_k, top_p, eos_id, prefix_cache, tp, draw)``.
+    ``prefix_cache`` (a full batch-1 cache from the family's
+    ``prefill_prefix``, in the decode layout) is placed once as the rank's
+    heads (:func:`prefix_cache_shardings`) and every prompt row continues
+    from it.
+
+    Returns ``(prefill, decode_step, generate)``, the reference's
+    contract on global inputs: ``prefill(params, tokens)`` -> (logits
+    ``[B, V]``, the rank's cache), ``decode_step(params, cache, tokens)``
+    -> (logits ``[B, V]``, the cache advanced), and ``generate(params,
+    prompt, rng, lengths, num_tokens, temperature=0.0, top_k=0, top_p=1.0,
+    eos_id=None)`` -> tokens ``[B, num_tokens]``, all positional as in the
+    reference (``rng`` a :class:`torch.Generator`, ignored under greedy;
+    ``lengths`` each row's real prompt length).  Every rank calls each
+    with the same arguments; each computes its rows and heads, and the
+    results are all-gathered over ``data``.  Sampled tokens equal one
+    process's for the same generator seed (:func:`_pick`'s ``draw``)."""
+    from .train import tensor_parallel
+
+    require_serving_mesh(mesh)
+    tp = tensor_parallel(mesh)
+    placed = (None if prefix_cache is None
+              else prefix_cache_shardings(mesh, prefix_cache))
+    device = mesh.device
+
+    def prefill_mesh(params, tokens):
+        tokens = torch.as_tensor(tokens, device=device)
+        rows = rank_rows(mesh, tokens.shape[0])
+        logits, cache = prefill_fn(params, tokens[rows], tp)
+        return gather_rows(mesh, logits), cache
+
+    def decode_mesh(params, cache, tokens):
+        tokens = torch.as_tensor(tokens, device=device)
+        rows = rank_rows(mesh, tokens.shape[0])
+        logits, cache = decode_fn(params, cache, tokens[rows], tp)
+        return gather_rows(mesh, logits), cache
+
+    def generate_mesh(params, prompt, rng, lengths, num_tokens,
+                      temperature=0.0, top_k=0, top_p=1.0, eos_id=None):
+        prompt = torch.as_tensor(prompt, device=device)
+        batch = prompt.shape[0]
+        rows = rank_rows(mesh, batch)
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, device=device)[rows]
+        out = generate_fn(params, prompt[rows], num_tokens, temperature,
+                          rng if temperature > 0.0 else None, lengths,
+                          top_k, top_p, eos_id, placed, tp,
+                          (rows.start, batch))
+        return gather_rows(mesh, out)
+
+    return prefill_mesh, decode_mesh, generate_mesh
+
+
+def make_serving_fns(
+    mesh,
+    config: ModelConfig,
+    params: dict,
+    *,
+    quantized_cache: bool = False,
+    prefix_cache: dict | None = None,
+):
+    """``(prefill, decode_step, generate)`` over the mesh for the gpt
+    family (:func:`compile_serving_fns`'s contract; the llama counterpart
+    is ``llama.make_llama_serving_fns``); the config's heads, vocabulary
+    and ``d_ff`` must divide by the mesh's ``model`` axis.  ``params``
+    stays in the reference's signature; each call takes the rank's
+    weights (:func:`.train.shard_params`).  The prompt pass runs the flash
+    forward on the card at the rank's heads.  ``quantized_cache=True`` serves through the int8 KV
+    cache, whose codes and scales split by head like the bf16 cache;
+    ``prefix_cache`` (from :func:`prefill_prefix` /
+    :func:`quantized_prefill_prefix`, layout matching) pins a shared
+    prompt prefix; both compose."""
+    from .flash import attention_fn_for
+    from .train import _check_divisible
+
+    require_serving_mesh(mesh)
+    _check_divisible(mesh, config)
+    if prefix_cache is not None:
+        _check_prefix_layout(prefix_cache, quantized_cache)
+    pf = quantized_prefill if quantized_cache else prefill
+    step = quantized_decode_step if quantized_cache else decode_step
+    device = mesh.device
+
+    def attention(tokens):
+        return attention_fn_for(tokens.shape[1], device, config.head_dim)
+
+    def prefill_fn(params, tokens, tp):
+        return pf(params, tokens, config, attention(tokens), tp=tp)
+
+    def decode_fn(params, cache, tokens, tp):
+        return step(params, cache, tokens, config, tp=tp)
+
+    def generate_fn(params, prompt, num_tokens, temperature, generator,
+                    lengths, top_k, top_p, eos_id, prefix, tp, draw):
+        return generate(
+            params, prompt, num_tokens, config, temperature=temperature,
+            generator=generator,
+            attention_fn=None if prefix is not None else attention(prompt),
+            lengths=lengths, top_k=top_k, top_p=top_p, eos_id=eos_id,
+            quantized_cache=quantized_cache, prefix_cache=prefix, tp=tp,
+            draw=draw,
+        )
+
+    return compile_serving_fns(mesh, prefill_fn, decode_fn, generate_fn,
+                               prefix_cache=prefix_cache)

@@ -579,3 +579,66 @@ def reduce_from_model(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     ax = mesh.axis("model")
     return x if ax.size == 1 else _ReduceFromGroup.apply(mesh.transport, ax,
                                                          x)
+
+
+# ---------------------------------------------------------------------------
+# The host side of serving over ranks
+# ---------------------------------------------------------------------------
+
+
+def _broadcast_from_lead(value):
+    """World rank 0's ``value`` on every rank (one object broadcast over
+    the world group; ``value`` itself in a lone process)."""
+    if not dist.is_initialized():
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def is_lead() -> bool:
+    """Whether this process is world rank 0 (True without a process
+    group)."""
+    return _world()[0] == 0
+
+
+class RankQueue:
+    """A message queue that world rank 0 owns, for a worker that every
+    rank of a serving mesh runs: rank 0 receives, replies and deletes; its
+    reads (``receive_messages``, ``get_queue_attributes``) are broadcast,
+    so every rank runs its host logic on the same messages; every other
+    rank's writes are no-ops.  The reference is one controller process, so
+    it needs none of this."""
+
+    _READS = ("receive_messages", "get_queue_attributes")
+
+    def __init__(self, queue) -> None:
+        self.queue = queue
+        self.lead = is_lead()
+
+    def __getattr__(self, name: str):
+        method = getattr(self.queue, name)
+        if not callable(method):
+            return method
+        if name in self._READS:
+            def read(*args, **kwargs):
+                value = method(*args, **kwargs) if self.lead else None
+                return _broadcast_from_lead(value)
+
+            return read
+
+        def write(*args, **kwargs):
+            return method(*args, **kwargs) if self.lead else None
+
+        return write
+
+
+def rank_clock(now_fn):
+    """``now_fn`` read on world rank 0 and broadcast: the clock of every
+    host decision a serving mesh's ranks take (request TTLs, deadlines),
+    so they take it alike.  Every rank calls it at the same points."""
+
+    def now():
+        return _broadcast_from_lead(now_fn() if is_lead() else None)
+
+    return now

@@ -10,7 +10,8 @@ attention), the sharded plane and the worker binary all read a
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
+from functools import partial
 from typing import Callable
 
 import torch
@@ -80,8 +81,8 @@ def _gpt_attention_fn_for(config: ModelConfig, seq_len: int,
     return attention_fn_for(seq_len, device, config.head_dim)
 
 
-def _gpt_quantized_cache(config, batch, device="cuda"):
-    return decode.init_quantized_cache(config, batch, device=device)
+def _gpt_quantized_cache(config, batch, device="cuda", tp=None):
+    return decode.init_quantized_cache(config, batch, device=device, tp=tp)
 
 
 FAMILIES = {
@@ -136,3 +137,51 @@ def family_of(config, name: str | None = None) -> ModelFamily:
             f"{type(config).__name__}"
         )
     return family
+
+
+def rank_layout(layout: CacheLayout, tp) -> CacheLayout:
+    """``layout``'s entry points on a tensor-parallel rank of a serving
+    mesh, ``tp`` (:class:`.train.TensorParallel`) bound into each: the
+    caches hold the rank's heads, the logits are gathered over ``model``.
+    ``layout`` itself without a model axis (``tp`` ``None``)."""
+    if tp is None:
+        return layout
+    return CacheLayout(*(partial(getattr(layout, f.name), tp=tp)
+                         for f in fields(CacheLayout)))
+
+
+def split_rows(step_fn, mesh):
+    """A step over a batch of cache rows (``step_fn(params, cache, tokens,
+    config)``, a decode step or a chunk decode of a :func:`rank_layout`)
+    on a cache whose layers hold this rank's rows over the mesh's
+    ``data`` axis and whose lengths hold every row's (the engines' cache
+    on a mesh): it runs ``step_fn`` on the rank's rows of the tokens and
+    lengths, writing the layers in place, then all-gathers the logits and
+    the advanced lengths over ``data``, so every rank returns the whole
+    batch's.  ``step_fn`` itself on a mesh without a data axis."""
+    from .decode import gather_rows, rank_rows
+
+    if mesh.shape["data"] == 1:
+        return step_fn
+
+    def step(params, cache, tokens, config):
+        rows = rank_rows(mesh, tokens.shape[0])
+        view = {"layers": cache["layers"], "length": cache["length"][rows]}
+        logits, view = step_fn(params, view, tokens[rows], config)
+        cache["layers"] = view["layers"]
+        cache["length"] = gather_rows(mesh, view["length"])
+        return gather_rows(mesh, logits), cache
+
+    return step
+
+
+def split_rows_layout(layout: CacheLayout, mesh) -> CacheLayout:
+    """A :func:`rank_layout` whose decode step and chunk decode compute
+    the rank's rows of the batch (:func:`split_rows`): the layout of the
+    steps that advance every slot row (decode steps, blocks, speculative
+    rounds), where admissions keep the whole-batch entry points."""
+    return CacheLayout(
+        layout.init_cache, layout.prefill,
+        split_rows(layout.decode_step, mesh),
+        split_rows(layout.chunk_decode, mesh),
+        layout.prefill_prefix, layout.prefill_with_prefix)

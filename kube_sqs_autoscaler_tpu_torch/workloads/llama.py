@@ -48,7 +48,9 @@ The trainer branch (:func:`llama_loss_fn`, :func:`make_llama_train_step`)
 runs through :func:`.train.make_train_step`'s seams; its attention is the
 GQA-native flash forward and backward on the card; on a mesh its
 objective is :func:`llama_mesh_loss`'s (RoPE at the rank's positions, the
-ring over compact k/v).  Mesh serving waits for ROADMAP Queue 1 item 5c.
+ring over compact k/v).  Over a serving mesh every cached entry point
+takes ``tp`` (a rank's ``n_kv_heads / tp`` kv heads, its logits gathered
+over ``model``), wired by :func:`make_llama_serving_fns`.
 """
 
 from __future__ import annotations
@@ -344,11 +346,15 @@ def llama_forward(
     config: LlamaConfig,
     attention_fn=None,
     mlp=None,
+    tp=None,
 ) -> torch.Tensor:
-    """Logits ``[B, S, vocab]`` (fp32 results of model-dtype operands)."""
+    """Logits ``[B, S, vocab]`` (fp32 results of model-dtype operands);
+    ``tp`` runs a tensor-parallel rank's slices (the logits gathered over
+    ``model``)."""
     return unembed(
-        llama_forward_hidden(params, tokens, config, attention_fn, mlp=mlp),
-        readout_weights(params),
+        llama_forward_hidden(params, tokens, config, attention_fn, mlp=mlp,
+                             tp=tp),
+        readout_weights(params), tp,
     )
 
 
@@ -431,8 +437,19 @@ def make_llama_train_step(config: LlamaConfig, train_config,
 # ---------------------------------------------------------------------------
 
 
-def _kv_cache(config: LlamaConfig, batch: int, slots: int, device) -> dict:
-    shape = (batch, config.n_kv_heads, slots, config.head_dim)
+def _embed_ids(params: dict, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """The token embeddings (the vocabulary-parallel lookup on a
+    tensor-parallel rank)."""
+    if tp is None:
+        return embed_tokens(params["embed"], tokens)
+    return tp.embed(params["embed"], tokens)
+
+
+def _kv_cache(config: LlamaConfig, batch: int, slots: int, device,
+              tp=None) -> dict:
+    heads = (config.n_kv_heads if tp is None
+             else tp.heads(config.n_kv_heads))
+    shape = (batch, heads, slots, config.head_dim)
     return {
         "layers": [
             {"k": torch.zeros(shape, dtype=config.dtype, device=device),
@@ -444,11 +461,14 @@ def _kv_cache(config: LlamaConfig, batch: int, slots: int, device) -> dict:
 
 
 def init_llama_cache(
-    config: LlamaConfig, batch: int, device: str | torch.device = "cuda"
+    config: LlamaConfig, batch: int, device: str | torch.device = "cuda",
+    tp=None,
 ) -> dict:
     """Empty cache of ``n_kv_heads`` heads: per layer ``[B, H_kv,
-    max_seq_len, head_dim]``, plus per-row ``length``."""
-    return _kv_cache(config, batch, config.max_seq_len, device)
+    max_seq_len, head_dim]``, plus per-row ``length``; ``tp`` holds a
+    tensor-parallel rank's ``H_kv / tp`` kv heads (every cached entry
+    point of this family takes ``tp`` as :func:`.decode.prefill` does)."""
+    return _kv_cache(config, batch, config.max_seq_len, device, tp)
 
 
 def init_llama_rolling_cache(
@@ -490,6 +510,7 @@ def _final_logits(
     eps: float,
     dtype: torch.dtype,
     last_pos: torch.Tensor | None = None,
+    tp=None,
 ) -> torch.Tensor:
     """Readout logits ``[B, vocab]`` (fp32) at each row's ``last_pos``
     (``None``: position -1) of the last block's unrounded output ``x32``,
@@ -500,7 +521,7 @@ def _final_logits(
     else:
         x32 = x32[torch.arange(x32.shape[0], device=x32.device), last_pos]
     x = _rms_norm(x32, params["final_norm"], eps, dtype)
-    return unembed(x, readout_weights(params))
+    return unembed(x, readout_weights(params), tp)
 
 
 def _prefill_forward(
@@ -509,6 +530,7 @@ def _prefill_forward(
     config: LlamaConfig,
     prompt_attention,
     lengths: torch.Tensor | None,
+    tp=None,
 ):
     """The prompt pass both cache layouts share: the forward with each
     layer's compact k/v captured, and the ragged readout.  Returns
@@ -528,18 +550,18 @@ def _prefill_forward(
 
     rope = rope_angles(torch.arange(prompt_len, device=tokens.device),
                        config.head_dim, config.rope_theta)
-    x = embed_tokens(params["embed"], tokens)
+    x = _embed_ids(params, tokens, tp)
     x32 = None
     for layer in params["layers"]:
-        x, x32 = _llama_block(x, layer, config, rope, attend, x32)
+        x, x32 = _llama_block(x, layer, config, rope, attend, x32, tp=tp)
     if lengths is None:
         row_lengths = torch.full((batch,), prompt_len, dtype=torch.long,
                                  device=tokens.device)
-        logits = _final_logits(params, x32, config.rms_eps, x.dtype)
+        logits = _final_logits(params, x32, config.rms_eps, x.dtype, tp=tp)
     else:
         row_lengths = lengths.long()
         logits = _final_logits(params, x32, config.rms_eps, x.dtype,
-                               last_pos=row_lengths - 1)
+                               last_pos=row_lengths - 1, tp=tp)
     return logits, row_lengths, captured
 
 
@@ -549,6 +571,7 @@ def llama_prefill(
     config: LlamaConfig,
     prompt_attention=None,
     lengths: torch.Tensor | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """Run the prompt, filling a fresh GQA cache (the contract of
     :func:`.decode.prefill`, ragged right-padded prompts included).
@@ -556,9 +579,9 @@ def llama_prefill(
     carries the sliding window; the default is window-aware dense."""
     batch, prompt_len = tokens.shape
     logits, row_lengths, captured = _prefill_forward(
-        params, tokens, config, prompt_attention, lengths
+        params, tokens, config, prompt_attention, lengths, tp
     )
-    cache = init_llama_cache(config, batch, tokens.device)
+    cache = init_llama_cache(config, batch, tokens.device, tp)
     for layer_cache, (k, v) in zip(cache["layers"], captured):
         layer_cache["k"][:, :, :prompt_len] = k
         layer_cache["v"][:, :, :prompt_len] = v
@@ -606,6 +629,7 @@ def _decode_step_impl(
     tokens: torch.Tensor,
     config: LlamaConfig,
     write_and_attend,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """The decode-step skeleton of both cache layouts: embed, RoPE at each
     row's position (``[B, 1, 1]`` against ``[B, H, 1, D/2]``), per layer
@@ -614,15 +638,15 @@ def _decode_step_impl(
     pos = cache["length"]
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     rope = rope_angles(pos[:, None, None], config.head_dim, config.rope_theta)
-    x = embed_tokens(params["embed"], tokens)[:, None, :]
+    x = _embed_ids(params, tokens, tp)[:, None, :]
     x32 = None
     for layer, layer_cache in zip(params["layers"], cache["layers"]):
 
         def attend(q, k, v, _lc=layer_cache):
             return write_and_attend(q, k, v, _lc, rows, pos)
 
-        x, x32 = _llama_block(x, layer, config, rope, attend, x32)
-    logits = _final_logits(params, x32, config.rms_eps, x.dtype)
+        x, x32 = _llama_block(x, layer, config, rope, attend, x32, tp=tp)
+    logits = _final_logits(params, x32, config.rms_eps, x.dtype, tp=tp)
     cache["length"] = pos + 1
     return logits, cache
 
@@ -643,7 +667,8 @@ def _full_cache_write_and_attend(write_slot_of, cached_attention):
 
 
 def llama_decode_step(
-    params: dict, cache: dict, tokens: torch.Tensor, config: LlamaConfig
+    params: dict, cache: dict, tokens: torch.Tensor, config: LlamaConfig,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One token per row (int ``[batch]``) against the GQA cache: the
     contract of :func:`.decode.decode_step`, the sliding window
@@ -655,7 +680,7 @@ def llama_decode_step(
 
     return _decode_step_impl(
         params, cache, tokens, config,
-        _full_cache_write_and_attend(lambda pos: pos, attend_cache),
+        _full_cache_write_and_attend(lambda pos: pos, attend_cache), tp,
     )
 
 
@@ -694,32 +719,36 @@ def llama_quantized_prefill(
     config: LlamaConfig,
     prompt_attention=None,
     lengths: torch.Tensor | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """:func:`llama_prefill` with the filled GQA cache quantized to int8
     (:func:`.decode.quantize_cache`): the compact kv heads and the int8
     bytes compose."""
     logits, cache = llama_prefill(params, tokens, config, prompt_attention,
-                                  lengths=lengths)
+                                  lengths=lengths, tp=tp)
     return logits, quantize_cache(cache)
 
 
 def init_llama_quantized_cache(
-    config: LlamaConfig, batch: int, device: str | torch.device = "cuda"
+    config: LlamaConfig, batch: int, device: str | torch.device = "cuda",
+    tp=None,
 ) -> dict:
-    """An empty int8 GQA cache (``n_kv_heads`` heads)."""
+    """An empty int8 GQA cache (``n_kv_heads`` heads, a rank's share with
+    ``tp``)."""
     return init_quantized_cache(config, batch, kv_heads=config.n_kv_heads,
-                                device=device)
+                                device=device, tp=tp)
 
 
 def llama_quantized_decode_step(
-    params: dict, cache: dict, tokens: torch.Tensor, config: LlamaConfig
+    params: dict, cache: dict, tokens: torch.Tensor, config: LlamaConfig,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """:func:`llama_decode_step` against the int8 GQA cache: quantize the
     new compact k/v vectors, write codes and scales, attend with the
     scales factored out (the sliding window included)."""
     return _decode_step_impl(
         params, cache, tokens, config,
-        _quantized_write_and_attend(window=config.sliding_window),
+        _quantized_write_and_attend(window=config.sliding_window), tp,
     )
 
 
@@ -729,6 +758,7 @@ def _llama_chunk_decode_impl(
     tokens: torch.Tensor,
     config: LlamaConfig,
     write_and_attend,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """The llama chunk-decode skeleton both cache layouts share: embed,
     RoPE at each row's chunk positions (``[B, 1, T]``), per layer
@@ -736,47 +766,50 @@ def _llama_chunk_decode_impl(
     logits at every position; advances ``cache["length"]`` by ``T``."""
     start, rows, cols = _chunk_positions(cache, tokens)
     rope = rope_angles(cols[:, None, :], config.head_dim, config.rope_theta)
-    x = embed_tokens(params["embed"], tokens)
+    x = _embed_ids(params, tokens, tp)
     x32 = None
     for layer, layer_cache in zip(params["layers"], cache["layers"]):
 
         def attend(q, k, v, _lc=layer_cache):
             return write_and_attend(q, k, v, _lc, rows, cols, start)
 
-        x, x32 = _llama_block(x, layer, config, rope, attend, x32)
+        x, x32 = _llama_block(x, layer, config, rope, attend, x32, tp=tp)
     x = _rms_norm(x32, params["final_norm"], config.rms_eps, x.dtype)
     cache["length"] = start + tokens.shape[1]
-    return unembed(x, readout_weights(params)), cache
+    return unembed(x, readout_weights(params), tp), cache
 
 
 def llama_chunk_decode(
-    params: dict, cache: dict, tokens: torch.Tensor, config: LlamaConfig
+    params: dict, cache: dict, tokens: torch.Tensor, config: LlamaConfig,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """Decode a ``T``-token chunk a row in one forward against the GQA
     cache (the contract of :func:`.decode.chunk_decode`; RoPE at each
     row's chunk positions, the sliding window included)."""
     return _llama_chunk_decode_impl(
         params, cache, tokens, config,
-        _full_chunk_write_and_attend(config.sliding_window))
+        _full_chunk_write_and_attend(config.sliding_window), tp)
 
 
 def llama_quantized_chunk_decode(
-    params: dict, cache: dict, tokens: torch.Tensor, config: LlamaConfig
+    params: dict, cache: dict, tokens: torch.Tensor, config: LlamaConfig,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """:func:`llama_chunk_decode` against the int8 GQA cache."""
     return _llama_chunk_decode_impl(
         params, cache, tokens, config,
-        _quantized_chunk_write_and_attend(config.sliding_window))
+        _quantized_chunk_write_and_attend(config.sliding_window), tp)
 
 
 def llama_prefill_prefix(
-    params: dict, prefix, config: LlamaConfig, prompt_attention=None
+    params: dict, prefix, config: LlamaConfig, prompt_attention=None,
+    tp=None,
 ) -> dict:
     """The GQA cache of a shared prompt prefix, computed once (RoPE is
     position-absolute, so the cached keys are rotated for their slots);
     ``prompt_attention`` is :func:`llama_attention_fn_for`'s pick."""
     return _prefill_prefix_impl(llama_prefill, params, prefix, config,
-                                prompt_attention)
+                                prompt_attention, tp)
 
 
 def llama_prefill_with_prefix(
@@ -785,20 +818,23 @@ def llama_prefill_with_prefix(
     tokens: torch.Tensor,
     config: LlamaConfig,
     lengths: torch.Tensor | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """Per-request suffixes continued from a shared prefix's cache in one
     :func:`llama_chunk_decode` (the contract of
     :func:`.decode.prefill_with_prefix`)."""
     return _prefill_with_prefix_impl(llama_chunk_decode, params,
-                                     prefix_cache, tokens, config, lengths)
+                                     prefix_cache, tokens, config, lengths,
+                                     tp)
 
 
 def llama_quantized_prefill_prefix(
-    params: dict, prefix, config: LlamaConfig, prompt_attention=None
+    params: dict, prefix, config: LlamaConfig, prompt_attention=None,
+    tp=None,
 ) -> dict:
     """:func:`llama_prefill_prefix` in the int8 GQA layout."""
     return _prefill_prefix_impl(llama_quantized_prefill, params, prefix,
-                                config, prompt_attention)
+                                config, prompt_attention, tp)
 
 
 def llama_quantized_prefill_with_prefix(
@@ -807,10 +843,12 @@ def llama_quantized_prefill_with_prefix(
     tokens: torch.Tensor,
     config: LlamaConfig,
     lengths: torch.Tensor | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """:func:`llama_prefill_with_prefix` over the int8 GQA layout."""
     return _prefill_with_prefix_impl(llama_quantized_chunk_decode, params,
-                                     prefix_cache, tokens, config, lengths)
+                                     prefix_cache, tokens, config, lengths,
+                                     tp)
 
 
 def llama_generate(
@@ -829,9 +867,12 @@ def llama_generate(
     eos_id: int | None = None,
     quantized_cache: bool = False,
     prefix_cache: dict | None = None,
+    tp=None,
+    draw: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """``num_tokens`` continuation tokens per prompt (int64 ``[batch,
-    num_tokens]``), the contract of :func:`.decode.generate`:
+    num_tokens]``), the contract of :func:`.decode.generate` (``tp`` and
+    ``draw`` a mesh rank's, as there):
     ``prompt_attention`` picks the prefill's attention
     (:func:`llama_attention_fn_for`), ``lengths`` marks ragged prompts,
     rows that emit ``eos_id`` pad with it.  ``rolling=True`` decodes
@@ -873,9 +914,66 @@ def llama_generate(
         pf = (llama_quantized_prefill_with_prefix if quantized_cache
               else llama_prefill_with_prefix)
         logits, cache = pf(params, prefix_cache, prompt, config,
-                           lengths=lengths)
+                           lengths=lengths, tp=tp)
     else:
+        prefill_kw = {} if tp is None else {"tp": tp}
         logits, cache = prefill_fn(params, prompt, config, prompt_attention,
-                                   lengths=lengths)
+                                   lengths=lengths, **prefill_kw)
     return _generate_loop(step_fn, params, cache, logits, num_tokens, config,
-                          generator, temperature, top_k, top_p, eos_id)
+                          generator, temperature, top_k, top_p, eos_id, tp,
+                          draw)
+
+
+def make_llama_serving_fns(
+    mesh,
+    config: LlamaConfig,
+    params: dict,
+    *,
+    quantized_cache: bool = False,
+    prefix_cache: dict | None = None,
+):
+    """``(prefill, decode_step, generate)`` over a ``(data, model)`` mesh:
+    the contract of :func:`.decode.make_serving_fns` (the shared wiring of
+    :func:`.decode.compile_serving_fns`), with the compact GQA cache split
+    by *kv* head over ``model`` (``n_kv_heads % model_parallel == 0``), so
+    a rank's prompt pass hands the GQA kernel ``n_kv_heads / tp`` kv heads
+    (one at ``tp = n_kv_heads``), the sliding window included.
+    ``quantized_cache=True`` serves through the int8 GQA cache;
+    ``prefix_cache`` (from :func:`llama_prefill_prefix` /
+    :func:`llama_quantized_prefill_prefix`) pins a shared prompt prefix.
+    Both compose."""
+    from .decode import (
+        _check_prefix_layout, compile_serving_fns, require_serving_mesh,
+    )
+    from .train import _check_divisible
+
+    require_serving_mesh(mesh)
+    _check_divisible(mesh, config)
+    if prefix_cache is not None:
+        _check_prefix_layout(prefix_cache, quantized_cache)
+    pf = llama_quantized_prefill if quantized_cache else llama_prefill
+    step = llama_quantized_decode_step if quantized_cache else llama_decode_step
+    device = mesh.device
+
+    def attention(tokens):
+        return llama_attention_fn_for(config, tokens.shape[1], device)
+
+    def prefill_fn(params, tokens, tp):
+        return pf(params, tokens, config, attention(tokens), tp=tp)
+
+    def decode_fn(params, cache, tokens, tp):
+        return step(params, cache, tokens, config, tp=tp)
+
+    def generate_fn(params, prompt, num_tokens, temperature, generator,
+                    lengths, top_k, top_p, eos_id, prefix, tp, draw):
+        return llama_generate(
+            params, prompt, num_tokens, config, temperature=temperature,
+            generator=generator,
+            prompt_attention=None if prefix is not None else attention(prompt),
+            lengths=lengths, top_k=top_k, top_p=top_p, eos_id=eos_id,
+            quantized_cache=quantized_cache, prefix_cache=prefix, tp=tp,
+            draw=draw,
+        )
+
+    return compile_serving_fns(mesh, prefill_fn, decode_fn, generate_fn,
+                               prefix_cache=prefix_cache)

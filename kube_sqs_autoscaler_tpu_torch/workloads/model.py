@@ -301,9 +301,14 @@ def forward_hidden(
                        x.dtype)
 
 
-def unembed(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
-    """Tied-embedding readout: fp32 logits from working-dtype operands."""
-    return torch.matmul(x.float(), embed.float().t())
+def unembed(x: torch.Tensor, embed: torch.Tensor, tp=None) -> torch.Tensor:
+    """Tied-embedding readout: fp32 logits from working-dtype operands.
+    ``tp`` (:class:`.train.TensorParallel`) reads a vocabulary-parallel
+    table ``[V / tp, d]`` and all-gathers the rank's logits over ``model``
+    into the full vocabulary, so every rank of a model group picks from
+    the same row."""
+    logits = torch.matmul(x.float(), embed.float().t())
+    return logits if tp is None else tp.gather(logits)
 
 
 def forward(
@@ -312,14 +317,17 @@ def forward(
     config: ModelConfig,
     attention_fn=None,
     mlp=None,
+    tp=None,
 ) -> torch.Tensor:
     """Logits ``[batch, seq, vocab]`` (fp32) for int ``[batch, seq]``
     tokens.  ``attention_fn`` replaces the attention inner op
     (``[B,H,S,D]^3 -> out``; dense by default, the flash kernel on the
-    card via :func:`.flash.attention_fn_for`); ``mlp`` the MLP."""
+    card via :func:`.flash.attention_fn_for`); ``mlp`` the MLP; ``tp``
+    runs a tensor-parallel rank's slices (the logits gathered over
+    ``model``)."""
     return unembed(
-        forward_hidden(params, tokens, config, attention_fn, mlp=mlp),
-        params["embed"],
+        forward_hidden(params, tokens, config, attention_fn, mlp=mlp, tp=tp),
+        params["embed"], tp,
     )
 
 

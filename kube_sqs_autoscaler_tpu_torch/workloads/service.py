@@ -314,7 +314,9 @@ class QueueWorker:
     ``prefix_cache`` (the family's ``prefill_prefix`` in that layout),
     continues each body from the shared prefix.  A ``tokenizer`` (HF-shaped
     ``encode`` / ``decode``) encodes text bodies and adds the decoded
-    ``text`` to generate-mode replies."""
+    ``text`` to generate-mode replies.  On a serving ``mesh`` every rank
+    runs this worker with the mesh's ``forward_fn`` / ``generate_fn``, and
+    world rank 0 owns the queues (:class:`.distributed.RankQueue`)."""
 
     def __init__(
         self,
@@ -328,7 +330,14 @@ class QueueWorker:
         device: str | torch.device = "cuda",
         prefix_cache: dict | None = None,
         tokenizer=None,
+        mesh=None,
     ) -> None:
+        if mesh is not None:
+            from .distributed import RankQueue
+
+            queue = RankQueue(queue)
+            if result_queue is not None:
+                result_queue = RankQueue(result_queue)
         self.queue = queue
         self.params = params
         self.tokenizer = tokenizer

@@ -1,7 +1,9 @@
 """The sharded serving plane: engine shards gang-stepped in one dispatch.
 
 Counterpart of ``kube_sqs_autoscaler_tpu/workloads/shard_plane.py``
-without the comms and lifecycle hooks and the mesh.  A
+without the comms and lifecycle hooks.  On a serving mesh (``mesh=``, the
+batcher's) each data rank steps whole shards of the rows (``shards`` must
+divide by the ``data`` axis) at its heads over ``model``.  A
 fleet of independent :class:`~.continuous.ContinuousWorker` replicas
 steps its engines one after another from one Python thread; this plane
 runs the whole fleet's decode as one call over a shard axis:
@@ -116,6 +118,14 @@ class ShardedBatcher(ContinuousBatcher):
             raise ValueError(
                 "the sharded plane applies to the plain continuous decode "
                 "path (not beams / speculative slots)"
+            )
+        mesh = kwargs.get("mesh")
+        if mesh is not None and shards % mesh.shape["data"]:
+            # each data rank steps WHOLE shards of the [S*B] rows; checked
+            # before the base constructor allocates the cache
+            raise ValueError(
+                f"shards ({shards}) not divisible by the mesh's data "
+                f"axis ({mesh.shape['data']})"
             )
         self.shards = shards
         self.shard_slots = shard_slots

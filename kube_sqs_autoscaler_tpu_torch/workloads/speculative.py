@@ -1,8 +1,8 @@
 """Speculative decoding: draft-and-verify generation, greedy or sampled.
 
-Counterpart of ``kube_sqs_autoscaler_tpu/workloads/speculative.py``
-(without its mesh functions, ROADMAP Queue 1 item 5c), held against it by
-``tests/test_torch_speculative.py``.  A small *draft* model proposes ``k``
+Counterpart of ``kube_sqs_autoscaler_tpu/workloads/speculative.py``, its
+mesh function :func:`make_speculative_serving_fn` included, held against it
+by ``tests/test_torch_speculative.py`` and ``tests/test_torch_serve_mesh.py``.  A small *draft* model proposes ``k``
 tokens one decode step at a time, then the *target* scores all ``k + 1``
 positions in one chunk-wide forward (the family's chunk decoder).  Per
 round, with pending token ``p`` and proposals ``d_1..d_k``:
@@ -39,7 +39,8 @@ from __future__ import annotations
 import torch
 
 from .decode import (
-    _check_prefix_budget, _check_prefix_layout, _pick, warp_logits,
+    _check_prefix_budget, _check_prefix_layout, _pick, _rank_kw, sample_rows,
+    uniform_rows, warp_logits,
 )
 from .family import family_of
 
@@ -71,15 +72,16 @@ def _warp(logits, temperature: float, top_k: int, top_p: float):
     return warp_logits(logits, temperature, top_k, top_p)
 
 
-def _sample(warped: torch.Tensor, generator) -> torch.Tensor:
-    """One draw a row from the softmax of warped logits ``[B, V]``."""
-    probs = torch.softmax(warped, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+def _sample(warped: torch.Tensor, generator, draw=None) -> torch.Tensor:
+    """One draw a row from the softmax of warped logits ``[B, V]`` (a mesh
+    rank's share of the batch's draw with ``draw``,
+    :func:`.decode._pick`)."""
+    return sample_rows(torch.softmax(warped, dim=-1), generator, draw)
 
 
 def _accept_and_fixup(
     generator, drafts: torch.Tensor, draft_warped: torch.Tensor,
-    target_warped: torch.Tensor,
+    target_warped: torch.Tensor, draw=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One round of the speculative-sampling rule: accept draft ``d_i ~
     p_i`` with probability ``min(1, q_{i-1}(d_i) / p_i(d_i))`` while every
@@ -99,7 +101,7 @@ def _accept_and_fixup(
     vocab = q.shape[-1]
     p_chosen = p_d.gather(-1, drafts[..., None])[..., 0]  # [B, k]
     q_chosen = q[:, :k].gather(-1, drafts[..., None])[..., 0]
-    u = torch.rand((batch, k), generator=generator, device=q.device)
+    u = uniform_rows((batch, k), generator, q.device, draw)
     # accept iff u < q / p, i.e. u * p < q (p > 0: d was drawn from p)
     accept = (u * p_chosen < q_chosen).long()
     n = torch.cumprod(accept, dim=1).sum(dim=1)  # [B] in [0, k]
@@ -113,7 +115,7 @@ def _accept_and_fixup(
     z = residual.sum(dim=-1, keepdim=True)
     resid_dist = torch.where(z > 1e-9, residual / z.clamp(min=1e-9), q_n)
     dist = torch.where((n < k)[:, None], resid_dist, q_n)
-    fixup = torch.multinomial(dist, 1, generator=generator)[:, 0]
+    fixup = sample_rows(dist, generator, draw)
     return n, fixup
 
 
@@ -122,6 +124,7 @@ def speculative_round(
     t_cache: dict, d_cache: dict, pending: torch.Tensor,
     active: torch.Tensor, draft_tokens: int, generator=None,
     temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+    tp=None, draw=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One draft-and-verify round over every row: ``draft_tokens`` (k)
     draft steps from ``pending``, the extra draft consume of ``d_k``, one
@@ -133,19 +136,21 @@ def speculative_round(
     masked.  Sets both caches' lengths in place and returns ``(pending
     [B], round_tokens [B, k + 1], n [B])``: position ``j`` of
     ``round_tokens`` is draft ``j`` while ``j < n`` and the bonus from
-    ``j == n`` on; ``n`` is 0 on inactive rows."""
+    ``j == n`` on; ``n`` is 0 on inactive rows.  ``tp`` and ``draw`` are a
+    mesh rank's (its heads, its rows' place in the batch's draws)."""
     k = draft_tokens
+    kw = _rank_kw(tp)
     sampled = temperature > 0.0
     t_len, d_len = t_cache["length"], d_cache["length"]
     proposals, warped_all = [], []
     token = pending
     for _ in range(k):
         logits, d_cache = draft.decode_step(params_draft, d_cache, token,
-                                            config_draft)
+                                            config_draft, **kw)
         if sampled:
             warped = _warp(logits, temperature, top_k, top_p)
             warped_all.append(warped)
-            token = _sample(warped, generator)
+            token = _sample(warped, generator, draw)
         else:
             token = torch.argmax(logits, dim=-1)
         proposals.append(token)
@@ -153,14 +158,14 @@ def speculative_round(
     # the extra consume of d_k: the draft cache holds every accepted input
     # even when all k are accepted (masked by length otherwise)
     _, d_cache = draft.decode_step(params_draft, d_cache, drafts[:, -1],
-                                   config_draft)
+                                   config_draft, **kw)
     chunk = torch.cat([pending[:, None], drafts], dim=1)
     logits, t_cache = target.chunk_decode(params_target, t_cache, chunk,
-                                          config_target)
+                                          config_target, **kw)
     if sampled:
         n, bonus = _accept_and_fixup(
             generator, drafts, torch.stack(warped_all, dim=1),
-            _warp(logits, temperature, top_k, top_p))
+            _warp(logits, temperature, top_k, top_p), draw)
     else:
         greedy = torch.argmax(logits, dim=-1)  # [B, k + 1]
         matches = (drafts == greedy[:, :k]).long()
@@ -197,6 +202,9 @@ def speculative_generate(
     quantized_cache: bool = False,
     prefix_cache: dict | None = None,
     draft_prefix_cache: dict | None = None,
+    tp=None,
+    draw=None,
+    all_done=None,
 ):
     """``num_tokens`` tokens a prompt (int64 ``[batch, num_tokens]``)
     through draft-and-verify rounds of ``draft_tokens`` (k) proposals.
@@ -211,7 +219,13 @@ def speculative_generate(
     self-draft's from :func:`draft_prefix_from_target`) continue the
     prompts as suffixes of a shared prefix.  ``return_stats=True`` also
     returns ``{"rounds": [B], "acceptance_rate": [B]}``, each row's target
-    passes and mean fraction of drafts accepted."""
+    passes and mean fraction of drafts accepted.
+
+    On a mesh rank (:func:`make_speculative_serving_fn`) ``tp`` runs its
+    heads, ``draw`` places its rows in the batch's draws and
+    ``all_done(done)`` says whether every row of the whole batch is done,
+    so every rank runs the same rounds and draws what one process
+    would."""
     if config_target.vocab_size != config_draft.vocab_size:
         raise ValueError(
             f"target vocab {config_target.vocab_size} != draft vocab "
@@ -254,21 +268,22 @@ def speculative_generate(
     device = prompt.device
     target = family_of(config_target).layout(quantized_cache)
     draft = family_of(config_draft).layout(quantized_cache)
+    kw = _rank_kw(tp)
     if prefix_cache is not None:
         t_logits, t_cache = target.prefill_with_prefix(
             params_target, prefix_cache, prompt, config_target,
-            lengths=lengths)
+            lengths=lengths, **kw)
         _, d_cache = draft.prefill_with_prefix(
             params_draft, draft_prefix_cache, prompt, config_draft,
-            lengths=lengths)
+            lengths=lengths, **kw)
     else:
         t_logits, t_cache = target.prefill(
             params_target, prompt, config_target, attention_fn,
-            lengths=lengths)
+            lengths=lengths, **kw)
         _, d_cache = draft.prefill(
             params_draft, prompt, config_draft, attention_fn,
-            lengths=lengths)
-    pending = _pick(t_logits, generator, temperature, top_k, top_p)
+            lengths=lengths, **kw)
+    pending = _pick(t_logits, generator, temperature, top_k, top_p, draw)
 
     # one full round past num_tokens, so the fixed-width write never clips
     out = torch.zeros((batch, num_tokens + k + 1), dtype=torch.long,
@@ -284,12 +299,13 @@ def speculative_generate(
         # rows at num_tokens or past their eos freeze: no emission, no
         # cache or count advance
         done = (count >= num_tokens) | eos_seen
-        if bool(done.all()):  # the round's one device-to-host read
+        finished = done.all() if all_done is None else all_done(done)
+        if bool(finished):  # the round's one device-to-host read
             break
         pending, round_tokens, n = speculative_round(
             target, draft, params_target, params_draft, config_target,
             config_draft, t_cache, d_cache, pending, ~done, k, generator,
-            temperature, top_k, top_p)
+            temperature, top_k, top_p, tp, draw)
         idx = (count[:, None] + j).clamp(max=out.shape[1] - 1)
         keep = (j <= n[:, None]) & ~done[:, None]
         out.scatter_(1, idx, torch.where(keep, round_tokens,
@@ -313,3 +329,74 @@ def speculative_generate(
             "acceptance_rate": accepted_total.float() / proposed.float(),
         }
     return result
+
+
+def make_speculative_serving_fn(
+    mesh,
+    config_target,
+    params_target: dict,
+    config_draft,
+    *,
+    draft_tokens: int = 4,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    eos_id: int | None = None,
+    prefix_cache: dict | None = None,
+    quantized_cache: bool = False,
+):
+    """The draft-and-verify loop over a ``(data, model)`` serving mesh:
+    batch rows over ``data``, both models' weights and caches at the
+    rank's heads over ``model`` (verify, draft steps and the per-row
+    rollback are row-local).  Every rank runs a round while any row of
+    the whole batch is live (one all-reduce of the done flags over
+    ``data`` a round), so sampled rounds draw what one process would.
+    ``prefix_cache`` (a full batch-1 cache) is placed once as the rank's
+    heads, the self-draft's prefix derived by
+    :func:`draft_prefix_from_target`; ``quantized_cache`` runs both
+    caches as int8.  Returns ``run(params_target, params_draft, prompt,
+    lengths, rng, num_tokens) -> [B, num_tokens]`` on the global batch
+    (``rng`` a :class:`torch.Generator`, ignored under greedy)."""
+    import torch.distributed as dist
+
+    from .decode import (
+        gather_rows, prefix_cache_shardings, rank_rows, require_serving_mesh,
+    )
+    from .train import _check_divisible, tensor_parallel
+
+    require_serving_mesh(mesh)
+    _check_divisible(mesh, config_target)
+    placed_t = placed_d = None
+    if prefix_cache is not None:
+        _check_prefix_layout(prefix_cache, quantized_cache)
+        placed_t = prefix_cache_shardings(mesh, prefix_cache)
+        placed_d = draft_prefix_from_target(placed_t, config_draft.n_layers)
+    tp = tensor_parallel(mesh)
+    data = mesh.axis("data")
+    family = family_of(config_target)
+
+    def all_done(done):
+        flag = done.all().to(torch.int32).reshape(1)
+        return mesh.transport.all_reduce(flag, data.group,
+                                         dist.ReduceOp.MIN)[0]
+
+    def run(params_t, params_d, prompt, lengths, rng, num_tokens):
+        prompt = torch.as_tensor(prompt, device=mesh.device)
+        batch = prompt.shape[0]
+        rows = rank_rows(mesh, batch)
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, device=mesh.device)[rows]
+        attention = (None if placed_t is not None else family.attention_fn_for(
+            config_target, prompt.shape[1], mesh.device))
+        out = speculative_generate(
+            params_t, config_target, params_d, config_draft, prompt[rows],
+            num_tokens, draft_tokens=draft_tokens, attention_fn=attention,
+            lengths=lengths, temperature=temperature,
+            generator=rng if temperature > 0.0 else None, top_k=top_k,
+            top_p=top_p, eos_id=eos_id, quantized_cache=quantized_cache,
+            prefix_cache=placed_t, draft_prefix_cache=placed_d, tp=tp,
+            draw=(rows.start, batch), all_done=all_done,
+        )
+        return gather_rows(mesh, out)
+
+    return run

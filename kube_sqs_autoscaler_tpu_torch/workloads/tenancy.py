@@ -1239,11 +1239,12 @@ class PrefixPool:
         family: "str | None" = None,
         quantized_kv: bool = False,
         device: Any = "cuda",
+        mesh: Any = None,
     ) -> None:
         import torch
 
         from ..device import resolve_device
-        from .family import family_of
+        from .family import family_of, rank_layout
 
         if entries < 1:
             raise ValueError(f"entries={entries} must be >= 1")
@@ -1264,8 +1265,18 @@ class PrefixPool:
         self.shards = shards
         self.family = model_family.name
         self.quantized_kv = quantized_kv
-        self.device = resolve_device(device)
+        # mesh-sharded pool rows: a rank holds its heads over "model" of
+        # every entry (the entry axis whole; the reference's
+        # layer_shardings), and the install prefill runs at those heads on
+        # every data rank
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self._layout = model_family.layout(quantized_kv)
+        if mesh is not None:
+            from .train import tensor_parallel
+
+            self._layout = rank_layout(self._layout, tensor_parallel(mesh))
         # the install prefill's prompt pass (the flash forward on the card)
         self._attention_fn = model_family.attention_fn_for(
             config, prefix_len, self.device)

@@ -40,7 +40,8 @@ from typing import Callable
 
 import torch
 
-from .model import ModelConfig, forward_hidden, init_params, unembed
+from .model import ModelConfig, forward, forward_hidden, init_params, unembed
+from .quantize import QuantizedTensor
 
 
 @dataclass(frozen=True)
@@ -133,7 +134,7 @@ def _unflatten(params, leaves):
     leaves = iter(leaves)
 
     def build(tree):
-        if isinstance(tree, torch.Tensor):
+        if isinstance(tree, (torch.Tensor, QuantizedTensor)):
             return next(leaves)
         if isinstance(tree, dict):
             return {key: build(tree[key]) for key in _keys(tree)}
@@ -486,6 +487,38 @@ def mesh_attention_fn(mesh, window: int | None = None):
     return make_sharded_attention(window)
 
 
+def make_forward_step(mesh, model_config, params, forward_fn=None):
+    """Sharded batch inference over a ``(data, model)`` mesh (the classify
+    path the serving workers run; the reference's ``make_forward_step``).
+
+    ``forward_fn(params, tokens, config, attention_fn, tp=)`` defaults to
+    the gpt's :func:`.model.forward`; the llama family passes
+    ``llama.llama_forward`` (the per-rank attention is GQA-native, so the
+    same wiring serves both).  A ``sliding_window`` on the config is read
+    off it and threaded through the attention.  ``params`` are the
+    rank's.  Returns ``forward_step(params, tokens)``: every rank passes
+    the global ``[B, S]`` batch, runs its rows over ``data`` and its
+    heads over ``model`` (the flash forward on the card), and gets the
+    global fp32 logits ``[B, S, V]`` back."""
+    from .decode import gather_rows, rank_rows, require_serving_mesh
+
+    require_serving_mesh(mesh)
+    _check_divisible(mesh, model_config)
+    attention_fn = mesh_attention_fn(
+        mesh, window=getattr(model_config, "sliding_window", None))
+    tp = tensor_parallel(mesh)
+    forward_fn = forward_fn or forward
+
+    def forward_step(params, tokens):
+        tokens = torch.as_tensor(tokens, device=mesh.device)
+        rows = rank_rows(mesh, tokens.shape[0])
+        logits = forward_fn(params, tokens[rows], model_config, attention_fn,
+                            tp=tp)
+        return gather_rows(mesh, logits)
+
+    return forward_step
+
+
 def param_spec(name: str, axis: str = "model") -> tuple[int, int] | None:
     """``(dim, fused)`` of a parameter that slices over mesh ``axis``: the
     dimension and how many projections it fuses; ``None`` when it
@@ -529,8 +562,9 @@ def gather_for_rank(name: str, t: torch.Tensor, mesh) -> torch.Tensor:
 
 def named_leaves(params, name: str = "") -> list[tuple[str, torch.Tensor]]:
     """:func:`param_leaves` with each tensor's parameter name (its
-    innermost dict key)."""
-    if isinstance(params, torch.Tensor):
+    innermost dict key); an int8 :class:`.quantize.QuantizedTensor` is one
+    leaf."""
+    if isinstance(params, (torch.Tensor, QuantizedTensor)):
         return [(name, params)]
     if isinstance(params, dict):
         return [leaf for key in _keys(params)
@@ -539,9 +573,19 @@ def named_leaves(params, name: str = "") -> list[tuple[str, torch.Tensor]]:
 
 
 def slice_param(t: torch.Tensor, spec, parts: int, index: int):
-    """Rank ``index`` of ``parts``'s slice of a full parameter."""
+    """Rank ``index`` of ``parts``'s slice of a full parameter.  An int8
+    :class:`.quantize.QuantizedTensor` slices its codes as the weight and
+    its per-output-column scales with them when the slice cuts the output
+    axis (a column-parallel weight); a row-parallel weight keeps every
+    scale."""
     if spec is None or parts == 1:
         return t
+    if isinstance(t, QuantizedTensor):
+        dim, fused = spec
+        scale = (slice_param(t.scale, (0, fused), parts, index) if dim == 1
+                 else t.scale)
+        return QuantizedTensor(slice_param(t.codes, spec, parts, index),
+                               scale, t.dtype)
     dim, fused = spec
     n = t.shape[dim]
     if n % (fused * parts):
@@ -588,11 +632,20 @@ def _check_divisible(mesh, model_config, n_experts: int | None = None):
                              f"model_parallel={tp}")
 
 
+def _own_leaf(t, device):
+    """A rank's slice as a leaf of its own on ``device`` (an int8
+    weight's codes and scales each)."""
+    if isinstance(t, QuantizedTensor):
+        return QuantizedTensor(_own_leaf(t.codes, device),
+                               _own_leaf(t.scale, device), t.dtype)
+    return t.detach().to(device).contiguous().clone()
+
+
 def shard_params(params, mesh):
     """This rank's slices of a full parameter tree, on the mesh's device,
-    each a leaf of its own."""
-    leaves = [slice_for_rank(name, t.detach(), mesh).to(mesh.device)
-              .contiguous().clone() for name, t in named_leaves(params)]
+    each a leaf of its own (int8 serving weights included)."""
+    leaves = [_own_leaf(slice_for_rank(name, t, mesh), mesh.device)
+              for name, t in named_leaves(params)]
     return _unflatten(params, leaves)
 
 
@@ -692,6 +745,22 @@ class TensorParallel:
         from .distributed import reduce_from_model
 
         return reduce_from_model(self.mesh, x)
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape["model"]
+
+    def heads(self, n: int) -> int:
+        """This rank's share of ``n`` heads (a cache's head count)."""
+        return n // self.size
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The full last axis from every rank's slice of it, in rank order
+        (all-gather over ``model``): the vocabulary-parallel readout's
+        logits."""
+        ax = self.mesh.axis("model")
+        return torch.cat(self.mesh.transport.all_gather(x, ax.group, ax.size),
+                         dim=-1)
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor):
         """``embed_tokens`` of the full table from this rank's rows

@@ -14,6 +14,7 @@ import json
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -432,17 +433,23 @@ def test_sampled_run_terminates_in_vocab_and_reproduces(decode_block):
 
 @pytest.mark.parametrize("knobs,match", [
     (dict(family="llama"), "serves a LlamaConfig"),
-    (dict(mesh=object()), "not yet ported"),
+    # a mesh is ported: what is left to refuse is the reference's own
+    # checks, a seq axis and a batch the data axis does not divide
+    (dict(mesh=SimpleNamespace(shape={"data": 1, "seq": 2, "model": 1})),
+     r"serving uses a \(data, model\) mesh"),
     # int8 slots and the shared prefix are ported (test_torch_int8_cache,
     # test_torch_prefix): what is left to refuse is a prefix of the other
     # layout, and a budget that only the prefix pushes past the context
     (dict(quantized_kv=True, prefix_cache="full"), "layout mismatch"),
     (dict(prefix_cache="full", generate_tokens=80), "exceeds max_seq_len"),
     # speculative and beam slots are ported (test_torch_spec_beam_serving),
-    # and tenancy (test_torch_tenant_serving): what is left to refuse is
-    # either slot kind over a mesh or with tenancy, and a prefix pool with
+    # and tenancy (test_torch_tenant_serving), on a mesh too
+    # (test_torch_serve_mesh): what is left to refuse is slots the mesh's
+    # data axis does not divide, beams with tenancy, and a prefix pool with
     # fewer entries than the slots
-    (dict(draft_layers=1, mesh=object()), "not yet ported"),
+    (dict(draft_layers=1,
+          mesh=SimpleNamespace(shape={"data": 4, "seq": 1, "model": 1})),
+     "not divisible by the mesh's data axis"),
     (dict(beams=2, tenancy=TenancyConfig(tenants=("a",))),
      "plain continuous decode path"),
     (dict(tenancy=TenancyConfig(tenants=("a",), prefix_pool=1,

@@ -20,6 +20,8 @@ Every greedy comparison first checks that the reference's top-two logit
 margin exceeds 1e-4 (``reference_greedy``), so a flipped token is a bug.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -351,10 +353,14 @@ def test_plane_adopts_a_sharded_donor_only(weights):
         shard_plane.ShardedBatcher(tp, tcfg, shards=0, shard_slots=2,
                                    prompt_len=PROMPT, generate_tokens=2,
                                    device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        shard_plane.ShardedBatcher(tp, tcfg, shards=2, shard_slots=2,
-                                   prompt_len=PROMPT, generate_tokens=2,
-                                   mesh=object(), device="cpu")
+    # a mesh is ported: the reference's refusal of shards its data axis
+    # does not divide
+    with pytest.raises(ValueError, match="not divisible by the mesh's "
+                       "data axis"):
+        shard_plane.ShardedBatcher(
+            tp, tcfg, shards=2, shard_slots=2, prompt_len=PROMPT,
+            generate_tokens=2, device="cpu",
+            mesh=SimpleNamespace(shape={"data": 4, "seq": 1, "model": 1}))
 
 
 # ---------------------------------------------------------------------------

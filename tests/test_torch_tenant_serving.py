@@ -525,8 +525,11 @@ def test_binary_tenancy_flag_checks_fail_as_the_reference(args, message):
     # directory only and refuses a path that is none before any model is
     # built (a reference given a hub id would try to download it)
     (["--tokenizer", "some/dir"], "is not a directory", False),
-    # still unported: the port's binary exits naming the ROADMAP item
-    (["--model-parallel", "2"], "ROADMAP Queue 1 item 5", False),
+    # --model-parallel is ported: what is left to refuse is the
+    # reference's own check, speculative on the decode plane over a mesh
+    (["--model-parallel", "2", "--continuous", "--shards", "2",
+      "--speculative-draft-layers", "1"],
+     "runs on the single-chip decode plane", True),
 ], ids=["shards", "admission-shards", "speculative", "scheduler", "knobs",
         "topology", "journal-path", "unknown-knob", "knob-without-pool",
         "tokenizer", "model-parallel"])

@@ -485,9 +485,17 @@ def case_pipe_mesh(payload):
     return {"meshes": out, "refused": refused}
 
 
+def case_serve(payload):
+    """The serving-mesh jobs of ``torch_serve_ranks.py``."""
+    from tests.torch_serve_ranks import case_serve as serve
+
+    return serve(payload)
+
+
 CASES = {"attention": case_attention, "train": case_train,
          "trainer": case_trainer, "mesh": case_mesh,
-         "pipeline": case_pipeline, "pipe_mesh": case_pipe_mesh}
+         "pipeline": case_pipeline, "pipe_mesh": case_pipe_mesh,
+         "serve": case_serve}
 
 
 def main() -> None:
