@@ -79,7 +79,14 @@ Phases (any failure makes the run exit non-zero and print no result):
    replicas every 0.5 s over the same wire.  The controller is killed with
    SIGKILL after its first scale-up and started again with the same
    command (``--state-path``); after the drain the double answers the
-   first scale-down's PUTs 503 for 3 s.  Gates: every body answered once,
+   first scale-down's PUTs 503 for 3 s; then (b) ``--policy predictive
+   --forecaster holt`` and ``--policy learned --policy-checkpoint
+   LEARNED_POLICY.json`` (``--device cuda``), each a closed loop of its
+   own over 200 bodies, the two side by side: each body answered once, the
+   journal's policy block, ``build_info``'s policy label and the durable
+   section of each, forecasts past the warm-up and a scale-up, the
+   network's up, down or hold depths, each tick's decide span beside the
+   reactive loop's.  Gates of the first loop: every body answered once,
    the journal's replica trajectory 1 -> >= 2 -> 1, no scale-up inside its
    cooldown (across the restart too), ``flash_fwd`` launches = 4 x prompt
    batches and no lse, the ``ControllerMetrics`` families on ``/metrics``,
@@ -87,6 +94,13 @@ Phases (any failure makes the run exit non-zero and print no result):
    ``controller_restarts_total 1``, the breaker closed -> open -> a
    half-open probe -> closed; printed: the drain's time and msgs/s, the
    trajectory, the tick p50s and the kernel's share of the drain;
+9b. policies: the forecasters (EWMA, Holt, least squares) on the card
+   against their CPU runs on seeded histories (empty to wrapped, at
+   epoch-scale clocks) within 1e-5 / 1e-4; ``LEARNED_POLICY.json`` on the
+   card (its hash the CPU load's, logits within 1e-5 of the CPU's, the
+   same decisions and knob deltas on seeded states); ``SERVING_POLICY.json``
+   refused by ``LearnedPolicy``; the host time of one tick of each policy
+   and the device work it issues;
 10. shards: the sharded serving plane at the generate cell's width, 8
    slots a shard: a one-shard plane (``sharded=True``) whose 64 bf16
    replies must equal the block-8 worker's byte for byte; the binary's
@@ -237,6 +251,10 @@ Phases (any failure makes the run exit non-zero and print no result):
    ``--profile-dir`` (the trace names ``flash_bwd_dq``) and
    ``--metrics-port`` (a mid-run scrape has the train gauges);
 22. mesh: sequence and tensor parallelism, 2-4 ranks sharing the card
+   (its launch runs beside the ``pipe`` and ``serve mesh`` launches, whose
+   ranks also wait on gloo, so their step times and rates are not those of
+   a launch alone; the MoE runs take the card one at a time, and the
+   kernels are timed once every launch is done)
    (``python -m torch.distributed.run --standalone``, gloo, each hop's and
    collective's tensors staged through pinned host memory, so its times
    are not multi-card numbers): (a) ring and zig-zag attention at ``sp =
@@ -269,6 +287,11 @@ Phases (any failure makes the run exit non-zero and print no result):
    at tp 2 (one kv head a rank, 24), one batch of ``--beams 2``, and one
    batch of 8 tokens a reply each of ``--quantize-kv``, ``--prefix-ids``,
    speculative, ``--tenants --prefix-pool``, ``--shards 4`` and classify;
+   the fleet: the binary's ``--fleet-max-replicas 3`` over dp 2 x tp 2 (64
+   bodies of 8 tokens), the ``fleet`` phase's ``FakeClock`` episode (64
+   bodies of 16 tokens, a busy replica killed and another hung) and a
+   ``ShardedWorkerPool`` of 4 shards (40 bodies), every rank's trajectory
+   and pool events equal one process's;
    every body answered once, by rank 0 alone; bf16 replies against one
    process's, each difference at a near-tie of one process's (top-two
    margin below 2e-2); each rank's exact forward launches; the f32
@@ -2009,6 +2032,15 @@ FLEET_KILL = (8, 1)
 FLEET_HANG = (11, 2)
 
 
+def fleet_gates():
+    """The binary's fleet gates: poll 0.1 s, up at 2 x 8 messages, down at
+    8, cooldowns 0.2 and 0.4 s."""
+    from kube_sqs_autoscaler_tpu_torch.core import PolicyConfig
+
+    return PolicyConfig(scale_up_messages=2 * 8, scale_down_messages=8,
+                        scale_up_cooldown=0.2, scale_down_cooldown=0.4)
+
+
 def flat_params(params) -> list:
     if isinstance(params, dict):
         return [t for v in params.values() for t in flat_params(v)]
@@ -2018,7 +2050,10 @@ def flat_params(params) -> list:
 
 
 def fleet_episode(torch, params, config, device="cuda", driver_cls=None,
-                  observer=None, knobs=None, on_cycle=None) -> dict:
+                  observer=None, knobs=None, on_cycle=None, mesh=None,
+                  bodies=64, tokens=32, depth_policy=None,
+                  knob_policy=None, kill=FLEET_KILL,
+                  hang=FLEET_HANG) -> dict:
     """The deterministic fleet episode on one ``FakeClock``: the
     ``--demo 64`` traffic, ``WorkerPool.serving(min=1, max=3)`` at
     ``--batch-size 8 --seq-len 512 --generate-tokens 32 --decode-block
@@ -2030,9 +2065,14 @@ def fleet_episode(torch, params, config, device="cuda", driver_cls=None,
     scheduler's ``ScheduledFleetDriver``), ``observer`` sees the loop's
     tick records, ``knobs(pool, clock)`` returns a ``KnobActuator`` armed
     on the pool, and ``on_cycle(cycle, pool, actuator)`` runs with the
-    fault plan, before the cycle's knob safe point."""
+    fault plan, before the cycle's knob safe point.  On a serving ``mesh``
+    (the rank's) the pool's replicas are mesh workers and the loop reads
+    the depth of world rank 0's queue; ``bodies`` and ``tokens`` cut the
+    traffic; ``depth_policy`` (also the loop's tick observer) and
+    ``knob_policy`` (``knob_policy(actuator)``, for the event scheduler's
+    driver) put a learned brain on the loop and the knobs."""
     from kube_sqs_autoscaler_tpu_torch.core import (
-        ControlLoop, FakeClock, LoopConfig, PolicyConfig,
+        ControlLoop, FakeClock, LoopConfig,
     )
     from kube_sqs_autoscaler_tpu_torch.fleet import (
         DRAINING, FleetDriver, WorkerPool,
@@ -2046,21 +2086,33 @@ def fleet_episode(torch, params, config, device="cuda", driver_cls=None,
     queue = FakeMessageQueue(visibility_timeout=30.0, now_fn=clock.now)
     results = FakeMessageQueue(now_fn=clock.now)
     sent = [queue.send_message(FLEET_QUEUE, body)
-            for body in demo_bodies(64, config.vocab_size)]
+            for body in demo_bodies(bodies, config.vocab_size)]
     service_config = ServiceConfig(
-        queue_url=FLEET_QUEUE, batch_size=8, seq_len=512, generate_tokens=32,
-        decode_block=8, result_queue_url=FLEET_RESULTS)
+        queue_url=FLEET_QUEUE, batch_size=8, seq_len=512,
+        generate_tokens=tokens, decode_block=8,
+        result_queue_url=FLEET_RESULTS)
     pool = WorkerPool.serving(queue, params, config, service_config,
                               result_queue=results, min=1, max=3,
-                              clock=clock, device=device)
+                              clock=clock, device=device, mesh=mesh)
+    depth = queue
+    if mesh is not None:
+        from kube_sqs_autoscaler_tpu_torch.workloads.distributed import (
+            RankQueue,
+        )
+
+        depth = RankQueue(queue)
+    if depth_policy is not None:
+        from kube_sqs_autoscaler_tpu_torch.core.events import MultiObserver
+
+        observer = (depth_policy if observer is None
+                    else MultiObserver([depth_policy, observer]))
     loop = ControlLoop(
         pool,
-        QueueMetricSource(queue, FLEET_QUEUE, ("ApproximateNumberOfMessages",)),
-        LoopConfig(poll_interval=0.1, policy=PolicyConfig(
-            scale_up_messages=2 * 8, scale_down_messages=8,
-            scale_up_cooldown=0.2, scale_down_cooldown=0.4)),
-        clock=clock, observer=observer)
-    plan = FleetFaultPlan(kills=(FLEET_KILL,), hangs=(FLEET_HANG,))
+        QueueMetricSource(depth, FLEET_QUEUE, ("ApproximateNumberOfMessages",)),
+        LoopConfig(poll_interval=0.1, policy=fleet_gates()),
+        clock=clock, observer=observer, depth_policy=depth_policy)
+    plan = FleetFaultPlan(kills=(kill,) if kill else (),
+                          hangs=(hang,) if hang else ())
     actuator = knobs(pool, clock) if knobs is not None else None
     busy_at_fault = {}
 
@@ -2069,7 +2121,7 @@ def fleet_episode(torch, params, config, device="cuda", driver_cls=None,
         fault lands."""
 
         def apply(self, cycle, target):
-            for at, index in (FLEET_KILL, FLEET_HANG):
+            for at, index in (f for f in (kill, hang) if f):
                 if at == cycle:
                     busy_at_fault[index] = \
                         target._member(index).worker.batcher.active
@@ -2078,6 +2130,8 @@ def fleet_episode(torch, params, config, device="cuda", driver_cls=None,
                 on_cycle(cycle, target, actuator)
 
     extra = {} if actuator is None else {"knobs": actuator}
+    if knob_policy is not None:
+        extra["knob_policy"] = knob_policy(actuator)
     driver = (driver_cls or FleetDriver)(
         pool, loop, cycle_dt=0.05, fault_plan=Recorded(), **extra)
     stats = driver.run(max_cycles=3000, until=lambda: (
@@ -2818,12 +2872,409 @@ def controller_phase(torch, flash, smoke: Smoke, kern) -> dict:
           f"{'not measured' if busy is None else f'{100 * busy:.3f}%'} "
           f"(launches x the kernel's timed ms at {MAIN_SHAPES[0]} over the "
           f"drain's wall)", flush=True)
+    start = time.perf_counter()
+    policies = controller_policies(torch, flash, smoke, config, params,
+                                   p50["decide"])
+    print(f"-- controller policies: {time.perf_counter() - start:.3f} s",
+          flush=True)
     return {"launches": launched["flash_fwd"], "batches": batches,
+            "policies": policies,
             "drain_s": drain_s, "msgs_per_s": rate, "tick_p50_ms": p50,
             "trajectory": [(t - t0, r) for t, r in writes],
             "journal_trajectory": trajectory, "busy_share": busy,
             "kill_t": kill_t, "health": health[:3] + health[-1:],
             "restart_gap_s": restart_gap}
+
+
+# The controller's other policies (controller (b)), each a closed loop of
+# its own on the same doubles, the two side by side: POLICY_BODIES bodies,
+# the gates of CONTROLLER_ARGS, until the queue is drained and two more
+# ticks have run
+POLICY_BODIES = 200
+CONTROLLER_POLICIES = {
+    "predictive": ["--policy", "predictive", "--forecaster", "holt",
+                   "--forecast-horizon", "10s"],
+    "learned": ["--policy", "learned", "--policy-checkpoint",
+                str(ROOT / "LEARNED_POLICY.json")],
+}
+
+
+def policy_loop(torch, config, params, name: str, flags: list[str],
+                n: int, device: str = "cuda") -> dict:
+    """One closed loop of the controller binary with ``flags`` (``--policy
+    ...``, on the card) against its own SQS emulator and apiserver double,
+    an ``ElasticWorkerPool`` of batch workers reconciling to it; stops two
+    ticks after the drain.  Returns what the gates read."""
+    from kube_sqs_autoscaler_tpu_torch.metrics.sqs_aws import AwsSqsService
+    from kube_sqs_autoscaler_tpu_torch.obs.journal import (
+        read_journal_episodes,
+    )
+    from kube_sqs_autoscaler_tpu_torch.scale.kube import (
+        ClusterConfig, KubeDeploymentAPI,
+    )
+    from kube_sqs_autoscaler_tpu_torch.utils.sigv4 import Credentials
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import (
+        ElasticWorkerPool, QueueWorker, ServiceConfig,
+    )
+
+    work = ROOT / "build" / "chip_smoke" / f"controller-{name}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    emulator = SqsEmulator()
+    jobs_url, jobs = emulator.queue("000000000000/jobs")
+    replies_url, replies = emulator.queue("000000000000/replies")
+    sent = [jobs.send_message(jobs_url, body)
+            for body in demo_bodies(POLICY_BODIES)]
+    double = DeploymentDouble(replicas=1, outage_s=0.0)
+    kubeconfig = work / "kubeconfig.json"
+    kubeconfig.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "chip",
+        "contexts": [{"name": "chip",
+                      "context": {"cluster": "double", "user": "smoke"}}],
+        "clusters": [{"name": "double", "cluster": {"server": double.url}}],
+        "users": [{"name": "smoke", "user": {"token": "smoke-token"}}],
+    }))
+    journal, state, port = work / "journal.jsonl", work / "state.json", \
+        free_port()
+    argv = [*CONTROLLER_ARGS, "--sqs-queue-url", jobs_url, "--aws-region",
+            "us-east-1", "--kubernetes-deployment", CONTROLLER_DEPLOYMENT,
+            "--metrics-port", str(port), "--journal-path", str(journal),
+            "--state-path", str(state), *flags, "--device", device]
+    credentials = Credentials(LOCAL_AWS_ENV["AWS_ACCESS_KEY_ID"],
+                              LOCAL_AWS_ENV["AWS_SECRET_ACCESS_KEY"])
+    built: list = []
+
+    def factory():
+        client = AwsSqsService(region="us-east-1", credentials=credentials)
+        worker = QueueWorker(client, params, config, ServiceConfig(
+            queue_url=jobs_url, batch_size=8, seq_len=512,
+            generate_tokens=32, result_queue_url=replies_url,
+            idle_sleep_s=0.05), result_queue=client, device=device)
+        built.append(worker)
+        return worker
+
+    pool = ElasticWorkerPool(KubeDeploymentAPI(
+        "default", config=ClusterConfig(server=double.url)),
+        CONTROLLER_DEPLOYMENT, factory)
+    done = threading.Event()
+
+    def reconcile():
+        while not done.is_set():
+            try:
+                pool.reconcile()
+            except Exception as err:
+                print(f"reconcile failed: {err}", flush=True)
+            done.wait(0.5)
+
+    def answered() -> int:
+        return int(replies.get_queue_attributes(
+            replies_url, ())["ApproximateNumberOfMessages"])
+
+    t0 = time.monotonic()
+    boot = ControllerRun(argv, {**os.environ, **LOCAL_AWS_ENV,
+                                "KUBE_CONFIG_PATH": str(kubeconfig)}, n)
+    kubelet = threading.Thread(target=reconcile, daemon=True)
+
+    def ticked() -> bool:
+        try:
+            return any(records for _, records in
+                       read_journal_episodes(str(journal)))
+        except (OSError, ValueError):
+            return False
+
+    try:
+        # the workers start once the controller has ticked: its start-up
+        # (torch and the card's context) must not drain the backlog first
+        started = wait_for(ticked, 60, every=0.1)
+        kubelet.start()
+        drained = started and wait_for(
+            lambda: answered() >= POLICY_BODIES, 120)
+        drain_s = time.monotonic() - t0
+        time.sleep(2.2)  # two more ticks
+        _, scrape = http_get(f"http://127.0.0.1:{port}/metrics")
+    finally:
+        done.set()
+        if kubelet.is_alive():
+            kubelet.join(timeout=10)
+        stopped = boot.stop()
+        pool.stop_all()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        attrs = jobs.get_queue_attributes(jobs_url, ())
+        got = drain_raw(replies, replies_url)
+        emulator.close()
+        double.close()
+    return {"sent": sent, "got": got, "attrs": attrs, "drained": drained,
+            "drain_s": drain_s, "stopped": stopped, "scrape": scrape,
+            "episodes": read_journal_episodes(str(journal)),
+            "state": json.loads(state.read_text()) if state.exists() else {},
+            "writes": [(t - t0, r) for t, r in double.writes()],
+            "workers": len(built), "log": boot}
+
+
+def controller_policies(torch, flash, smoke: Smoke, config, params,
+                        reactive_decide_ms, device: str = "cuda") -> dict:
+    """(b) ``--policy predictive --forecaster holt`` and ``--policy
+    learned --policy-checkpoint LEARNED_POLICY.json``, side by side, each
+    its own closed loop: every body answered once; the journal's policy
+    block, ``build_info``'s policy label and the durable section of each;
+    the predictive loop forecasts past its warm-up and scales up, the
+    learned one thresholds on its network's up, down or hold depth; the
+    decide span of a tick (the policy's forecast or forward on the card)
+    beside the reactive loop's."""
+    from kube_sqs_autoscaler_tpu_torch.learn import load_checkpoint
+
+    learned = load_checkpoint(str(ROOT / "LEARNED_POLICY.json"),
+                              device=device)
+    runs: dict = {}
+    zero_counts(flash)
+
+    def run(name, n):
+        runs[name] = policy_loop(torch, config, params, name,
+                                 CONTROLLER_POLICIES[name], n, device)
+
+    threads = [threading.Thread(target=run, args=(name, 3 + i))
+               for i, name in enumerate(CONTROLLER_POLICIES)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    launched = counts(flash)
+    out = {"launches": launched["flash_fwd"]}
+    labels = {"predictive": ('policy="predictive"', 'forecaster="holt"'),
+              "learned": (f'policy="learned@{learned.hash}"',)}
+    sections = {"predictive": "forecast-history",
+                "learned": "learned-mirror"}
+    hold = (100 + 10) // 2
+    for name, r in runs.items():
+        duplicates = sum(len(b) - 1 for b in r["got"].values())
+        smoke.check(
+            r["drained"] and sorted(r["got"]) == sorted(r["sent"])
+            and duplicates == 0 and r["stopped"] == 0
+            and r["attrs"]["ApproximateNumberOfMessages"] == "0",
+            f"controller --policy {name}: {len(r['got'])} of {len(r['sent'])}"
+            f" answered once in {r['drain_s']:.3f} s, exit {r['stopped']} on"
+            f" SIGTERM (log {r['log'].log.relative_to(ROOT)})")
+        meta = r["episodes"][0][0] if r["episodes"] else {}
+        records = [x for _, rs in r["episodes"] for x in rs]
+        trajectory = journal_trajectory(r["episodes"])
+        block = (meta.get("forecast") if name == "predictive"
+                 else meta.get("learn", {}))
+        smoke.check(
+            meta.get("policy") == name
+            and all(label in r["scrape"] for label in labels[name])
+            and sections[name] in r["state"].get("sections", {})
+            and (block == {"forecaster": "holt", "horizon": 10.0,
+                           "history": 128} if name == "predictive"
+                 else block.get("checkpoint_hash") == learned.hash),
+            f"controller --policy {name}: journal policy block {block}, "
+            f"build_info {labels[name]}, durable section {sections[name]}")
+        if name == "predictive":
+            forecasts = [x.predicted_messages for x in records
+                         if x.predicted_messages is not None]
+            smoke.check(bool(forecasts) and max(trajectory, default=1) >= 2,
+                        f"controller --policy predictive: {len(forecasts)} of "
+                        f"{len(records)} ticks forecast ({forecasts[:6]}...); "
+                        f"replicas at most {max(trajectory, default=1)}")
+        else:
+            warm = [x.decision_messages for x in records[3:]]
+            smoke.check(bool(warm) and set(warm) <= {100, 10, hold},
+                        f"controller --policy learned: the network's depths "
+                        f"after the warm-up {sorted(set(warm))} (up 100, down "
+                        f"10, hold {hold}); replicas at most "
+                        f"{max(trajectory, default=1)}")
+        decide = [x.decide_s for x in records[3:] if x.decide_s is not None]
+        p50 = float(np.median(decide)) * 1e3 if decide else None
+        out[name] = {"writes": r["writes"], "drain_s": r["drain_s"],
+                     "decide_p50_ms": p50, "ticks": len(records)}
+        print(f"controller --policy {name}: decide span p50 {p50} ms over "
+              f"{len(decide)} warm ticks (the reactive loop's "
+              f"{reactive_decide_ms} ms; two loops side by side on the "
+              f"card); replica writes (t s, replicas) "
+              f"{[(round(t, 3), n) for t, n in r['writes']]}", flush=True)
+    smoke.check(launched["flash_fwd"] > 0 and launched["flash_fwd_lse"] == 0,
+                f"controller policies: flash_fwd launches "
+                f"{launched['flash_fwd']} over both loops' prompt batches, "
+                f"lse {launched['flash_fwd_lse']}")
+    return out
+
+
+# the policies phase: seeded ring histories (capacity, samples, clock
+# epoch): empty, one and two samples, partly filled, full, wrapped twice at
+# the monotonic clock of a host up for years
+POLICY_HISTORIES = [(128, 0, 0.0), (128, 1, 0.0), (128, 2, 3e5),
+                    (128, 77, 3e5), (128, 128, 0.0), (128, 300, 2.7e8),
+                    (64, 200, 2.7e8)]
+POLICY_RTOL, POLICY_ATOL = 1e-5, 1e-4  # tests/test_torch_forecast.py's
+POLICY_LOGIT_TOL = 1e-5  # tests/test_torch_learn.py's
+POLICY_TICKS = 50
+
+
+def policy_history(capacity: int, samples: int, epoch: float, seed: int):
+    """A seeded queue-depth walk (drift, noise, the poll's jitter) in a
+    ``DepthHistory``."""
+    from kube_sqs_autoscaler_tpu_torch.forecast import DepthHistory
+
+    rng = np.random.default_rng(seed)
+    history = DepthHistory(capacity)
+    t, depth = epoch, float(rng.integers(0, 2000))
+    drift = float(rng.normal(0.0, 10.0))
+    for _ in range(samples):
+        t += float(rng.uniform(4.5, 5.5))
+        depth = max(0.0, depth + drift + float(rng.normal(0.0, 20.0)))
+        history.observe(t, float(round(depth)))
+    return history
+
+
+def tick_cost(torch, tick, device: str) -> dict:
+    """One tick's cost: host ms a tick (median of :data:`POLICY_TICKS`,
+    each ending in the read of its result), and the device work a tick
+    issues (kernels and copies, from ``torch.profiler`` over ten ticks: a
+    profile can miss a few of its first events, so one tick alone would
+    undercount)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        tick()
+    times = []
+    for _ in range(POLICY_TICKS):
+        start = time.perf_counter()
+        tick()
+        times.append((time.perf_counter() - start) * 1e3)
+    launches = None
+    if device == "cuda":
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                tick()
+            torch.cuda.synchronize()
+        kernels, copies = device_breakdown(prof)
+        launches = {"kernels": sum(c for _, c, _ in kernels) / 10,
+                    "copies": sum(c for _, c, _ in copies) / 10,
+                    "device_ms": sum(ms for ms, _, _ in kernels + copies)
+                    / 10}
+    return {"ms": float(np.median(times)), "launches": launches}
+
+
+def policy_phase(torch, smoke: Smoke, power: str, device="cuda") -> dict:
+    """The controller's forecasting and learned policies on the card
+    (``forecast/``, ``learn/``): (a) each forecaster on the card against
+    its CPU run on seeded histories (empty to wrapped, epoch-scale clocks)
+    within the tests' tolerance; (b) ``LEARNED_POLICY.json`` on the card:
+    its hash the CPU load's, ``policy_logits`` within 1e-5 of the CPU's
+    and the same decisions on seeded states, a knob-headed network's knob
+    deltas too; ``SERVING_POLICY.json`` refused by ``LearnedPolicy`` (a
+    serving-twin checkpoint); (c) a tick of each policy (reactive, each
+    forecaster at a full ring of 128, the learned network at its ring of
+    64, with and without the knob head): host ms and the device work it
+    issues."""
+    from kube_sqs_autoscaler_tpu_torch.core.policy import PolicyConfig
+    from kube_sqs_autoscaler_tpu_torch.forecast import (
+        DepthHistory, PredictivePolicy, ReactivePolicy, make_forecaster,
+    )
+    from kube_sqs_autoscaler_tpu_torch.forecast.forecasters import (
+        snapshot_tensors,
+    )
+    from kube_sqs_autoscaler_tpu_torch.learn import (
+        CheckpointError, LearnedPolicy, PolicyCheckpoint, init_params,
+        load_checkpoint,
+    )
+    from kube_sqs_autoscaler_tpu_torch.learn.network import (
+        learned_decision, policy_features, policy_logits,
+    )
+
+    out: dict = {}
+    worst = 0.0
+    for name in ("ewma", "holt", "lstsq"):
+        card, cpu = (make_forecaster(name, device=device),
+                     make_forecaster(name, device="cpu"))
+        for seed, (capacity, samples, epoch) in enumerate(POLICY_HISTORIES):
+            snap = policy_history(capacity, samples, epoch, seed).snapshot()
+            for horizon in (0.0, 30.0, 117.0):
+                got, want = (card.predict(*snap, horizon),
+                             cpu.predict(*snap, horizon))
+                worst = max(worst, abs(got - want)
+                            / (POLICY_ATOL + POLICY_RTOL * abs(want)))
+    smoke.check(worst <= 1.0,
+                f"policies (a): ewma, holt and lstsq on the {device} "
+                f"against their CPU runs over {len(POLICY_HISTORIES)} "
+                f"histories x 3 horizons: worst |d| {worst:.3f} of rtol "
+                f"{POLICY_RTOL:g} / atol {POLICY_ATOL:g}")
+    out["forecast_worst"] = worst
+    path = str(ROOT / "LEARNED_POLICY.json")
+    card, cpu = (load_checkpoint(path, device=device),
+                 load_checkpoint(path, device="cpu"))
+    knob = PolicyCheckpoint(theta=init_params(9, 16, knob_head=True),
+                            hidden=16, knob_head=True)
+    knob_card = PolicyCheckpoint(theta=knob.theta.to(device), hidden=16,
+                                 knob_head=True)
+    rng = np.random.default_rng(0)
+    logit_err, same, states = 0.0, 0, 64
+    for i in range(states):
+        history = policy_history(64, int(rng.integers(3, 200)), 2.7e8, i)
+        times, depths, n = history.snapshot()
+        state = (n, int(rng.integers(0, 400)), int(rng.integers(1, 6)),
+                 float(rng.uniform()), float(rng.uniform()), 100)
+        for ck, ck_cpu in ((card, cpu), (knob_card, knob)):
+            got, want = [], []
+            for theta, dev, out_list in ((ck.theta, device, got),
+                                         (ck_cpu.theta, "cpu", want)):
+                t, d = snapshot_tensors(times, depths, n, dev)
+                features = policy_features(t, d, *state, 5, 5.0, 0.3, 12)
+                out_list.append(policy_logits(theta, features, ck.hidden,
+                                              ck.knob_head).cpu())
+                out_list.append(learned_decision(
+                    theta, t, d, *state, 10, 55, 3, 5, 5.0, 0.3, 12,
+                    hidden=ck.hidden, knob_head=ck.knob_head))
+            logit_err = max(logit_err,
+                            float((got[0] - want[0]).abs().max()))
+            same += got[1] == want[1] and bool(
+                got[0].argmax() == want[0].argmax()) and bool(
+                got[0][3:].argmax() == want[0][3:].argmax()
+                if ck.knob_head else True)
+    smoke.check(card.hash == cpu.hash and logit_err <= POLICY_LOGIT_TOL
+                and same == 2 * states,
+                f"policies (b): LEARNED_POLICY.json on the {device} (hash "
+                f"{card.hash}, the CPU load's {cpu.hash}) and a knob-headed "
+                f"network: logits within {logit_err:.3e} of the CPU's (tol "
+                f"{POLICY_LOGIT_TOL:g}), decisions and knob deltas equal on "
+                f"{same} of {2 * states} seeded states")
+    serving = load_checkpoint(str(ROOT / "SERVING_POLICY.json"),
+                              device=device)
+    try:
+        LearnedPolicy(serving, policy=PolicyConfig(), poll_interval=5.0,
+                      max_pods=5)
+        refused = None
+    except CheckpointError as err:
+        refused = str(err)
+    smoke.check(refused is not None and "'serving' twin" in refused,
+                f"policies (b): SERVING_POLICY.json ({serving.hash}, a "
+                f"serving-twin checkpoint without a knob head) refused by "
+                f"LearnedPolicy: {refused}")
+    config = PolicyConfig()
+
+    def ticker(policy):
+        history = policy_history(policy.history.capacity, 300, 2.7e8, 5)
+        policy.history = history
+        now = history.snapshot()[0][-1] + 5.0
+        return lambda: policy.effective_messages(now, 150)
+
+    ticks = {"reactive": lambda: ReactivePolicy().effective_messages(0.0,
+                                                                     150)}
+    for name in ("ewma", "holt", "lstsq"):
+        ticks[f"predictive-{name}"] = ticker(PredictivePolicy(
+            make_forecaster(name, device=device), DepthHistory(128)))
+    for label, ck in (("learned", card), ("learned-knob-head", knob_card)):
+        ticks[label] = ticker(LearnedPolicy(
+            ck, policy=config, poll_interval=5.0, max_pods=5,
+            history=DepthHistory(64)))
+    out["ticks"] = {}
+    for label, tick in ticks.items():
+        cost = out["ticks"][label] = tick_cost(torch, tick, device)
+        print(f"policies (c) tick {label}: {cost['ms']:.4f} ms on the host "
+              f"(median of {POLICY_TICKS}, result read back), device work a "
+              f"tick {cost['launches']} ({power})", flush=True)
+    return out
 
 
 # The sharded plane (shards phase): 4 engine shards of 8 slots behind one
@@ -3081,7 +3532,7 @@ def chaos_episode(torch, flash, params, config) -> dict:
     until every request is answered, no shard is quarantined or probing
     and the plane is back at min."""
     from kube_sqs_autoscaler_tpu_torch.core import (
-        ControlLoop, FakeClock, LoopConfig, PolicyConfig,
+        ControlLoop, FakeClock, LoopConfig,
     )
     from kube_sqs_autoscaler_tpu_torch.fleet import (
         PROBING, QUARANTINED, FleetDriver, ShardedWorkerPool,
@@ -3108,10 +3559,7 @@ def chaos_episode(torch, flash, params, config) -> dict:
     loop = ControlLoop(
         pool,
         QueueMetricSource(queue, CHAOS_QUEUE, ("ApproximateNumberOfMessages",)),
-        LoopConfig(poll_interval=0.1, policy=PolicyConfig(
-            scale_up_messages=2 * 8, scale_down_messages=8,
-            scale_up_cooldown=0.2, scale_down_cooldown=0.4)),
-        clock=clock)
+        LoopConfig(poll_interval=0.1, policy=fleet_gates()), clock=clock)
     faults = FleetFaultPlan(shard_poisons=(CHAOS_POISON,),
                             shard_wedges=(CHAOS_WEDGE,),
                             shard_mask_corruptions=(CHAOS_MASK,))
@@ -6796,6 +7244,9 @@ def orch_fleet(torch, flash, smoke, power: str, device="cuda") -> dict:
                 f"near-tie: mismatched {bad}; near-ties {ties}")
     del still["pool"], swap["pool"], params
     out["knobs"] = {"applied": applied, "identical": identical}
+    learned = orch_learned_knobs(torch, flash, smoke, device)
+    launches += learned.pop("launches")
+    out["learned knobs"] = learned
     # the disaggregated pool: plane_ratio and speculative
     config, params = plane_model(torch, "gpt")
     plane_journal = work / "plane-knobs.jsonl"
@@ -6836,6 +7287,93 @@ def orch_fleet(torch, flash, smoke, power: str, device="cuda") -> dict:
         torch.cuda.empty_cache()
     out["launches"] = launches
     return out
+
+
+ORCH_KNOB_LADDER = (2, 4, 8)
+
+
+def orch_learned_knobs(torch, flash, smoke, device="cuda") -> dict:
+    """The learned knob head on the fleet: the ``fleet`` phase's
+    ``FakeClock`` episode (bf16 GPT) under the event scheduler, its loop
+    thresholding on a knob-headed ``LearnedPolicy`` on the card (the
+    reference's seeded ``init_params(9, knob_head=True)``: the repo's
+    ``SERVING_POLICY.json`` is a serving-twin checkpoint without a knob
+    head, which ``LearnedPolicy`` refuses, the ``policies`` phase), and a
+    ``LearnedKnobPolicy`` walking ``decode_block`` over
+    :data:`ORCH_KNOB_LADDER` by the network's deltas: exactly once, each
+    delta stepped once at the scheduler's safe point, the ladder walk
+    the deltas', every change journaled."""
+    from collections import Counter
+
+    from kube_sqs_autoscaler_tpu_torch.forecast import DepthHistory
+    from kube_sqs_autoscaler_tpu_torch.learn import (
+        LearnedPolicy, PolicyCheckpoint, init_params,
+    )
+    from kube_sqs_autoscaler_tpu_torch.obs import TickJournal
+    from kube_sqs_autoscaler_tpu_torch.obs.journal import read_journal_events
+    from kube_sqs_autoscaler_tpu_torch.sched import (
+        KnobActuator, LearnedKnobPolicy, ScheduledFleetDriver,
+    )
+
+    config, params = plane_model(torch, "gpt")
+    checkpoint = PolicyCheckpoint(
+        theta=torch.as_tensor(init_params(9, 16, knob_head=True),
+                              device=device), hidden=16, knob_head=True)
+    brain = LearnedPolicy(checkpoint, policy=fleet_gates(),
+                          poll_interval=0.1, max_pods=3,
+                          history=DepthHistory(64))
+    taken: list = []
+    take = brain.take_knob_delta
+
+    def recorded_take():
+        delta = take()
+        taken.append(delta)
+        return delta
+
+    brain.take_knob_delta = recorded_take
+    work = Path(os.environ.get("TMPDIR", "/tmp")) / f"orch-{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    journal_path = work / "learned-knobs.jsonl"
+
+    def knobs(pool, clock):
+        return KnobActuator(pool, armed=("decode_block",), clock=clock,
+                            journal=TickJournal(str(journal_path), meta={}))
+
+    zero_counts(flash)
+    run = fleet_episode(
+        torch, params, config, device=device,
+        driver_cls=ScheduledFleetDriver, knobs=knobs, depth_policy=brain,
+        knob_policy=lambda actuator: LearnedKnobPolicy(
+            actuator, brain, ladder=ORCH_KNOB_LADDER), kill=None, hang=None)
+    launched = counts(flash)["flash_fwd"]
+    actuator = run["actuator"]
+    actuator.journal.close()
+    lines = read_journal_events(str(journal_path), "knob")
+    block, want = 8, []
+    for delta in taken:
+        if delta:
+            idx = max(i for i, rung in enumerate(ORCH_KNOB_LADDER)
+                      if rung <= block)
+            idx = max(0, min(len(ORCH_KNOB_LADDER) - 1, idx + delta))
+            if ORCH_KNOB_LADDER[idx] != block:
+                block = ORCH_KNOB_LADDER[idx]
+                want.append(block)
+    applied = [c["value"] for c in actuator.changes]
+    smoke.check(
+        answered_once({**run, "queue": run["queue"].get_queue_attributes(
+            FLEET_QUEUE, ())})
+        and applied == want
+        and [e["value"] for e in lines] == applied
+        and any(d is not None for d in taken),
+        f"orchestration (c) learned knobs: {len(run['replies'])} answered "
+        f"once; the network's deltas over {len(taken)} ticks (count by "
+        f"delta {dict(sorted(Counter(taken).items(), key=str))}) walked "
+        f"decode_block over {ORCH_KNOB_LADDER}: applied {applied}, "
+        f"journaled {len(lines)}; replicas "
+        f"{run['stats']['replica_trajectory'][:12]}...")
+    del run["pool"], params
+    return {"launches": launched, "applied": applied,
+            "trajectory": run["stats"]["replica_trajectory"]}
 
 
 def orch_binary(torch, flash, smoke, power: str) -> dict:
@@ -6937,8 +7475,10 @@ def orchestration_phase(torch, flash, smoke: Smoke, power: str) -> dict:
     ``decode_block`` knob steps 8 -> 2 -> 8 and ``slot_limit`` 6 -> 0
     mid-drain (each change journaled and applied at its safe point;
     greedy replies equal the no-swap run's up to the first near-tie);
-    ``plane_ratio`` and ``speculative`` on the disaggregated pool; then
-    the worker binary with ``--scheduler --knobs`` beside it without."""
+    ``plane_ratio`` and ``speculative`` on the disaggregated pool; the
+    fleet episode's loop on a knob-headed ``LearnedPolicy`` whose deltas a
+    ``LearnedKnobPolicy`` walks over ``decode_block``'s ladder; then the
+    worker binary with ``--scheduler --knobs`` beside it without."""
     out = {"launches": {}}
     for part, fn in (("lifecycle", orch_lifecycle), ("comms", orch_comms),
                      ("knobs", orch_fleet), ("binary", orch_binary)):
@@ -7448,7 +7988,9 @@ def training_phase(torch, flash, smoke: Smoke, power: str,
 # ---------------------------------------------------------------------------
 
 MESH_RANKS = 4
-MESH_TIMEOUT = 300  # seconds a launch of ranks may take, build included
+# seconds a launch of ranks may take, build included (the three launches
+# run side by side)
+MESH_TIMEOUT = 420
 MESH_HOP_CASES = [
     # (label, ring | zigzag, (B, H, H_kv, S, D), dtype, window)
     ("ring-bf16", "ring", (4, 16, 16, 8192, 64), "bfloat16", None),
@@ -7564,6 +8106,98 @@ def torchrun(nproc: int, args: list[str]) -> list[str]:
             f"--nproc-per-node={nproc}", *args]
 
 
+class Launch:
+    """One launch of ranks (:func:`run_group`) on a thread of its own, so
+    that launches run side by side and this process goes on meanwhile;
+    :meth:`wait` starts it if nothing has, and returns ``(rc, wall_s)``."""
+
+    def __init__(self, name: str, cmd: list[str], timeout: float,
+                 log: Path) -> None:
+        self.name, self.cmd, self.timeout, self.log = name, cmd, timeout, log
+        self.thread = None
+        self.rc = self.wall = None
+
+    def start(self) -> "Launch":
+        if self.thread is None:
+            started = time.perf_counter()
+
+            def run() -> None:
+                try:
+                    self.rc = run_group(self.cmd, self.timeout, self.log)
+                finally:
+                    self.wall = time.perf_counter() - started
+
+            self.thread = threading.Thread(target=run, daemon=True)
+            self.thread.start()
+        return self
+
+    def wait(self) -> tuple:
+        self.start().thread.join()
+        return self.rc, self.wall
+
+
+class RankLaunches:
+    """The three launches of ranks (``mesh``, ``pipe``, ``serve mesh``),
+    run side by side: their ranks wait on gloo with the card mostly idle,
+    so one launch's wait is another's turn (their step times and rates are
+    therefore not those of a launch alone).  Each phase checks its own
+    launch's results; the kernels are timed once every launch is done."""
+
+    def __init__(self) -> None:
+        self.launches: dict[str, Launch] = {}
+        self.one_process: dict = {}
+
+    def add(self, name: str, ranks: int, out: Path, flag: str,
+            timeout: float, log: Path) -> Launch:
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        self.launches[name] = Launch(name, torchrun(ranks, [
+            str(ROOT / "chip_smoke.py"), flag, str(out)]), timeout, log)
+        return self.launches[name]
+
+    def start_all(self) -> None:
+        for launch in self.launches.values():
+            launch.start()
+
+    def wait_all(self) -> None:
+        for launch in self.launches.values():
+            launch.wait()
+
+
+def card_lock(torch, dist, held: bool):
+    """Across concurrent launches, one trainer run at a time that may hold
+    a large share of the card (the MoE runs: 9 GiB a rank): rank 0 of the
+    launch takes an exclusive lock on a file of the run, the other ranks
+    wait at a barrier.  A context manager; a no-op when not ``held``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def section():
+        if not held:
+            yield
+            return
+        lock = None
+        if dist.get_rank() == 0:
+            import fcntl
+
+            path = ROOT / "build" / "chip_smoke" / "card.lock"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            lock = open(path, "w")
+            fcntl.flock(lock, fcntl.LOCK_EX)
+        dist.barrier()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+            if lock is not None:
+                lock.close()
+
+    return section()
+
+
 def mesh_hops_rank(torch, out: Path, mesh) -> None:
     """The hop checks on one rank: each case's ring or zig-zag attention
     on this rank's shards, its output and q, k, v gradients against one
@@ -7671,8 +8305,9 @@ def mesh_train_rank(torch, out: Path, label: str, argv: list[str],
     torch.cuda.reset_peak_memory_stats()
     dist.barrier()
     zero_counts(flash)
-    summary = trainer.main(argv)
-    torch.cuda.synchronize()
+    with card_lock(torch, dist, "--moe" in argv):
+        summary = trainer.main(argv)
+        torch.cuda.synchronize()
     rank = dist.get_rank()
     if rank == 0 and keep_params:
         torch.save(summary["params"], out / f"{label}-params.pt")
@@ -7881,19 +8516,19 @@ def mesh_one_process(torch, flash) -> dict:
     return out
 
 
-def mesh_ranks(torch, flash, smoke: Smoke, power: str) -> dict:
+def mesh_ranks(torch, flash, smoke: Smoke, power: str,
+               launches: RankLaunches) -> dict:
     """(a) and (b): one launch of :data:`MESH_RANKS` ranks runs the hop
-    checks and every trainer run; this process checks what they wrote."""
+    checks and every trainer run; this process checks what they wrote.
+    The one-process runs of this phase and of ``pipe`` go first, alone on
+    the card; then the ``mesh``, ``pipe`` and ``serve mesh`` launches
+    start side by side."""
     one = mesh_one_process(torch, flash)
+    launches.one_process["pipe"] = pipe_one_process(torch, flash)
     out = MESH_DIR / "ranks"
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
     log = MESH_DIR / "ranks.log"
-    start = time.perf_counter()
-    rc = run_group(torchrun(MESH_RANKS, [str(ROOT / "chip_smoke.py"),
-                                         "--mesh-rank", str(out)]),
-                   MESH_TIMEOUT, log)
-    wall = time.perf_counter() - start
+    launches.start_all()
+    rc, wall = launches.launches["mesh"].wait()
     files = [out / f"hops-rank{r}.json" for r in range(MESH_RANKS)]
     ok = rc == 0 and all(f.exists() for f in files)
     smoke.check(ok, f"mesh: {MESH_RANKS} ranks exited "
@@ -8113,14 +8748,23 @@ def hop_bound_ms(b, h, hkv, sq, sk, d, causal, shift, window, kind):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def mesh_phase(torch, flash, smoke: Smoke, power: str) -> dict:
+def mesh_phase(torch, flash, smoke: Smoke, power: str,
+               launches: RankLaunches) -> dict:
     """Sequence and tensor parallelism on the card: (a) the hops and (b)
-    the trainer over ranks, in one launch; (d) the orbax refusal; then the
-    kernels at the hop shapes, timed alone."""
+    the trainer over ranks, in one launch (beside the ``pipe`` and ``serve
+    mesh`` launches); (d) the orbax refusal; then, once every launch is
+    done, the kernels at the hop shapes, timed alone."""
     out = {"launches": {}}
+
+    def beside() -> dict:
+        launches.wait_all()
+        return {name: launch.wall
+                for name, launch in launches.launches.items()}
+
     for part, fn in (("ranks", lambda: mesh_ranks(torch, flash, smoke,
-                                                  power)),
+                                                  power, launches)),
                      ("orbax", lambda: mesh_orbax(torch, smoke)),
+                     ("launches beside", beside),
                      ("hop timing", lambda: mesh_hop_timing(torch, flash,
                                                            smoke))):
         start = time.perf_counter()
@@ -8393,19 +9037,17 @@ def check_pipe_training(torch, smoke: Smoke, out: Path, power: str,
     return result
 
 
-def pipe_ranks(torch, flash, smoke: Smoke, power: str) -> dict:
+def pipe_ranks(torch, flash, smoke: Smoke, power: str,
+               launches: RankLaunches) -> dict:
     """(a) and (b): one launch of :data:`PIPE_RANKS` ranks runs every
-    trainer run; this process checks what they wrote."""
-    one = pipe_one_process(torch, flash)
+    trainer run (started by the ``mesh`` phase, beside its own); this
+    process checks what they wrote."""
+    if "pipe" not in launches.one_process:
+        launches.one_process["pipe"] = pipe_one_process(torch, flash)
+    one = launches.one_process["pipe"]
     out = PIPE_DIR / "ranks"
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
     log = PIPE_DIR / "ranks.log"
-    start = time.perf_counter()
-    rc = run_group(torchrun(PIPE_RANKS, [str(ROOT / "chip_smoke.py"),
-                                         "--pipe-rank", str(out)]),
-                   PIPE_TIMEOUT, log)
-    wall = time.perf_counter() - start
+    rc, wall = launches.launches["pipe"].wait()
     smoke.check(rc == 0, f"pipe: {PIPE_RANKS} ranks exited "
                 f"{'on a timeout' if rc is None else rc} after {wall:.1f} s")
     if rc != 0:
@@ -8418,13 +9060,14 @@ def pipe_ranks(torch, flash, smoke: Smoke, power: str) -> dict:
     return result
 
 
-def pipe_phase(torch, flash, smoke: Smoke, power: str) -> dict:
+def pipe_phase(torch, flash, smoke: Smoke, power: str,
+               launches: RankLaunches) -> dict:
     """Pipeline parallelism on the card: (a) and (b) the trainer over
     ranks through GPipe and 1F1B, in one launch; (c) the training kernels
     at the stage shapes, checked and timed alone."""
     out = {"launches": {}}
     for part, fn in (("ranks", lambda: pipe_ranks(torch, flash, smoke,
-                                                  power)),
+                                                  power, launches)),
                      ("stage timing", lambda: hop_timing(
                          torch, flash, smoke, PIPE_STAGE_SHAPES, 400))):
         start = time.perf_counter()
@@ -8484,6 +9127,10 @@ SERVE_MESH_RUNS = [
                                         "--shards", "4"]), 2,
      SERVE_MESH_FEW),
     ("gpt-mp2-classify", CLASSIFY_ARGS, 2, SERVE_MESH_FEW),
+    # the fleet over the mesh: 64 bodies, so that replicas spawn, turn
+    # their slots over and drain (8 tokens a reply, for the time limit)
+    ("gpt-mp2-fleet", serve_mesh_few([*GENERATE_ARGS, *SERVE_MESH_B8,
+                                      "--fleet-max-replicas", "3"]), 2, 64),
 ]
 # bf16 replies of the mesh that differ from one process's must first differ
 # at a near-tie: one process's top-two margin there below this
@@ -8568,6 +9215,105 @@ def serve_mesh_f32(torch, mesh=None) -> dict:
                                    for buf in layer.values())}}
 
 
+# the fleet over the mesh, beside the binary's --fleet-max-replicas run of
+# SERVE_MESH_RUNS: the fleet phase's FakeClock episode and a
+# ShardedWorkerPool's 4-shard plane under the same control loop, the
+# built-in GPT at full width, bf16; (bodies, tokens a reply, kill, hang).
+# The pool's faults land on busy replicas at 16 tokens a reply (cut from
+# 32 for the run's time limit): replica 1 killed at cycle 5, replica 2 hung
+# at cycle 10, each holding 8 requests (host dynamics: the same at any
+# width, rehearsed on the CPU)
+SERVE_MESH_FLEET = {"pool": (64, 16, (5, 1), (10, 2)),
+                    "sharded": (40, 8, None, None)}
+
+
+def sharded_fleet_episode(torch, params, config, device="cuda", mesh=None,
+                          bodies=24, tokens=8) -> dict:
+    """``ShardedWorkerPool.serving(min=1, max=4)``: 4 shards of 8 slots
+    behind one admission plane, under the binary's fleet loop on a
+    ``FakeClock`` (two cycles a poll), every body queued at the start;
+    until every body is answered and the plane is back at one shard.  On
+    a ``mesh`` the plane holds the rank's rows and heads and the loop
+    reads world rank 0's queue."""
+    from kube_sqs_autoscaler_tpu_torch.core import (
+        ControlLoop, FakeClock, LoopConfig,
+    )
+    from kube_sqs_autoscaler_tpu_torch.fleet import (
+        FleetDriver, ShardedWorkerPool,
+    )
+    from kube_sqs_autoscaler_tpu_torch.metrics import QueueMetricSource
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import ServiceConfig
+
+    clock = FakeClock()
+    queue = FakeMessageQueue(visibility_timeout=30.0, now_fn=clock.now)
+    results = FakeMessageQueue(now_fn=clock.now)
+    sent = [queue.send_message(FLEET_QUEUE, body)
+            for body in demo_bodies(bodies, config.vocab_size)]
+    service_config = ServiceConfig(
+        queue_url=FLEET_QUEUE, batch_size=8, seq_len=512,
+        generate_tokens=tokens, decode_block=8,
+        result_queue_url=FLEET_RESULTS, shards=4)
+    pool = ShardedWorkerPool.serving(
+        queue, params, config, service_config, result_queue=results, min=1,
+        max=4, clock=clock, now_fn=clock.now, device=device, mesh=mesh)
+    depth = queue
+    if mesh is not None:
+        from kube_sqs_autoscaler_tpu_torch.workloads.distributed import (
+            RankQueue,
+        )
+
+        depth = RankQueue(queue)
+    loop = ControlLoop(
+        pool,
+        QueueMetricSource(depth, FLEET_QUEUE, ("ApproximateNumberOfMessages",)),
+        LoopConfig(poll_interval=0.1, policy=fleet_gates()), clock=clock)
+    stats = FleetDriver(pool, loop, cycle_dt=0.05).run(
+        max_cycles=3000, until=lambda: (
+            pool.processed >= len(sent) and pool.idle
+            and pool.replicas == pool.min))
+    return {"pool": pool, "stats": stats, "sent": sent, "queue": queue,
+            "replies": drain_raw(results, FLEET_RESULTS)}
+
+
+def serve_mesh_fleet(torch, flash, mesh=None, device="cuda") -> dict:
+    """The episodes of :data:`SERVE_MESH_FLEET` over ``mesh`` (or by one
+    process): each one's sent ids, replies (world rank 0's), replica
+    trajectory, pool events (times on its ``FakeClock``), this rank's
+    forward launches and its replicas' inserts."""
+    from kube_sqs_autoscaler_tpu_torch.workloads import train
+
+    config, params, _ = demo_setup(torch, GENERATE_ARGS)
+    if mesh is not None:
+        params = train.shard_params(params, mesh)
+    out = {}
+    for name, (bodies, tokens, kill, hang) in SERVE_MESH_FLEET.items():
+        zero_counts(flash)
+        if name == "pool":
+            run = fleet_episode(torch, params, config, device=device,
+                                mesh=mesh, bodies=bodies, tokens=tokens,
+                                kill=kill, hang=hang)
+        else:
+            run = sharded_fleet_episode(torch, params, config, device=device,
+                                        mesh=mesh, bodies=bodies,
+                                        tokens=tokens)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        pool = run["pool"]
+        out[name] = {
+            "sent": run["sent"], "replies": run["replies"],
+            "trajectory": run["stats"]["replica_trajectory"],
+            "events": [[e.name, e.t, e.args] for e in pool.events],
+            "launches": counts(flash)["flash_fwd"],
+            "inserts": sum(w.batcher.insert_dispatches for w in (
+                [r.worker for r in pool.members] if name == "pool"
+                else [pool.worker])),
+            "queue": run["queue"].get_queue_attributes(FLEET_QUEUE, ())}
+        del run, pool
+        gc.collect()
+    return out
+
+
 def serve_mesh_rank_main(argv: list[str]) -> int:
     """``chip_smoke.py --serve-mesh-rank OUT``: the rank side of the
     ``serve mesh`` phase, under ``torch.distributed.run``: each worker
@@ -8608,10 +9354,15 @@ def serve_mesh_rank_main(argv: list[str]) -> int:
             "summary": {key: summary.get(key) for key in (
                 "processed", "replies", "duplicate_replies", "msgs_per_s",
                 "tokens_per_s", "elapsed_s", "generated_tokens",
-                "insert_dispatches", "decode_dispatches", "mesh")}}))
+                "insert_dispatches", "decode_dispatches", "mesh",
+                "replica_trajectory")}}))
         del summary
-    f32 = serve_mesh_f32(torch, distributed.make_mesh(model_parallel=2,
-                                                      device="cuda"))
+    serving = distributed.make_mesh(model_parallel=2, device="cuda")
+    start = time.perf_counter()
+    fleet = serve_mesh_fleet(torch, flash, serving)
+    (out / f"fleet-rank{rank}.json").write_text(json.dumps({
+        **fleet, "wall_s": time.perf_counter() - start}))
+    f32 = serve_mesh_f32(torch, serving)
     if rank == 0:
         torch.save(f32, out / "f32.pt")
     (out / f"f32-cache-rank{rank}.json").write_text(json.dumps(f32["cache"]))
@@ -8636,7 +9387,7 @@ def serve_mesh_one_process(torch, flash) -> dict:
                       "launches": counts(flash)["flash_fwd"],
                       **{key: summary.get(key) for key in (
                           "msgs_per_s", "tokens_per_s", "elapsed_s",
-                          "generated_tokens")}}
+                          "generated_tokens", "replica_trajectory")}}
         del summary
         gc.collect()
         torch.cuda.empty_cache()
@@ -8699,6 +9450,16 @@ def check_serve_mesh(torch, smoke: Smoke, out: Path, one: dict,
             f"serve mesh {label} (--model-parallel {tp}, mesh "
             f"{lead['mesh']}): {len(lead['replies'])} of {bodies} bodies "
             f"answered once, by rank 0 alone")
+        if "--fleet-max-replicas" in flags:
+            trajectories = [r["summary"]["replica_trajectory"]
+                            for r in ranks]
+            smoke.check(
+                all(t == trajectories[0] for t in trajectories)
+                and max(trajectories[0], default=0) >= 2,
+                f"serve mesh {label}: every rank took the same scaling "
+                f"decisions on rank 0's clock and queue depth, replicas "
+                f"{trajectories[0]} (one process on its own clock: "
+                f"{one[label].get('replica_trajectory')})")
         want = one[label]["replies"]
         bodies_of = demo_bodies(bodies, seq_len=int(
             flags[flags.index("--seq-len") + 1]))
@@ -8762,6 +9523,94 @@ def check_serve_mesh(torch, smoke: Smoke, out: Path, one: dict,
     return result
 
 
+def check_serve_mesh_fleet(torch, smoke: Smoke, out: Path, one: dict,
+                           power: str) -> dict:
+    """The fleet episodes over the mesh against one process's
+    (:data:`SERVE_MESH_FLEET`): every body answered once, by rank 0;
+    every rank's replica trajectory and pool events (their times on the
+    ``FakeClock``, kills and hangs with their re-dispatch) those of one
+    process; bf16 replies equal one process's up to near-ties; each
+    rank's forward launches 4 x its replicas' inserts."""
+    files = [out / f"fleet-rank{r}.json" for r in range(SERVE_MESH_RANKS)]
+    if not all(f.exists() for f in files):
+        smoke.check(False, "serve mesh fleet: every rank wrote its result")
+        return {"launches": {}}
+    ranks = [json.loads(f.read_text()) for f in files]
+    result, launches, models = {}, {}, {}
+    for name, (bodies, tokens, kill, hang) in SERVE_MESH_FLEET.items():
+        got = [r[name] for r in ranks]
+        base = one[name]
+        lead = got[0]
+        duplicates = sum(len(v) - 1 for v in lead["replies"].values())
+        smoke.check(
+            sorted(lead["replies"]) == sorted(lead["sent"])
+            == sorted(base["sent"]) and duplicates == 0
+            and all(not g["replies"] for g in got[1:])
+            and lead["queue"]["ApproximateNumberOfMessages"] == "0"
+            and lead["queue"]["ApproximateNumberOfMessagesNotVisible"] == "0",
+            f"serve mesh fleet {name}: {len(lead['replies'])} of {bodies} "
+            f"bodies answered once, by rank 0 alone; its queue at the end "
+            f"{lead['queue']}")
+        events = [[e[0], e[1], e[2]] for e in base["events"]]
+        smoke.check(
+            all(g["events"] == events and g["trajectory"]
+                == base["trajectory"] for g in got),
+            f"serve mesh fleet {name}: every rank's trajectory "
+            f"{lead['trajectory']} and its {len(lead['events'])} pool "
+            f"events (times on the FakeClock, args) equal one process's")
+        if kill is not None:
+            kills = {e[2]["replica"]: e[2] for e in lead["events"]
+                     if e[0] == "replica-kill"}
+            smoke.check(
+                kills.get(kill[1], {}).get("cause") == "killed"
+                and kills[kill[1]].get("redispatched", 0) > 0
+                and kills.get(hang[1], {}).get("cause") == "hung"
+                and max(lead["trajectory"]) >= 3,
+                f"serve mesh fleet {name}: replica {kill[1]} killed at "
+                f"cycle {kill[0]} and replica {hang[1]} hung at cycle "
+                f"{hang[0]}, their requests re-dispatched: {kills}")
+        else:
+            smoke.check(max(lead["trajectory"]) >= 2
+                        and lead["trajectory"][-1] == 1,
+                        f"serve mesh fleet {name}: the plane scaled its "
+                        f"shards {lead['trajectory']}")
+        prompts = dict(zip(base["sent"], demo_bodies(bodies)))
+        same, near, far = 0, [], []
+        for rid, (reply,) in lead["replies"].items():
+            (want,) = base["replies"].get(rid, [None])
+            if reply == want:
+                same += 1
+                continue
+            got_t, want_t = (json.loads(reply)["tokens"],
+                             json.loads(want)["tokens"])
+            at = next(i for i, (a, b) in enumerate(zip(got_t, want_t))
+                      if a != b)
+            margin = serve_mesh_margin(torch, "fleet", GENERATE_ARGS,
+                                       prompts[rid], want_t, at, models)
+            (near if margin < SERVE_MESH_TIE else far).append(
+                (rid, at, margin))
+        smoke.check(not far, f"serve mesh fleet {name}: {same} of {bodies} "
+                    f"bf16 replies equal one process's; {len(near)} differ, "
+                    f"each first at a near-tie (< {SERVE_MESH_TIE:g}): "
+                    f"{near[:4]}; beyond a near-tie: {far[:4]}")
+        smoke.check(
+            all(g["launches"] == SERVE_LAYERS * g["inserts"] for g in got)
+            and base["launches"] == SERVE_LAYERS * base["inserts"],
+            f"serve mesh fleet {name}: each rank launched flash_fwd "
+            f"{[g['launches'] for g in got]} times = {SERVE_LAYERS} x its "
+            f"replicas' inserts {[g['inserts'] for g in got]}; one process "
+            f"{base['launches']} = {SERVE_LAYERS} x {base['inserts']}")
+        launches[f"serve-mesh-fleet-{name}"] = sum(g["launches"]
+                                                   for g in got)
+        result[name] = {"trajectory": lead["trajectory"], "same": same,
+                        "near_ties": near}
+    print(f"serve mesh fleet episodes: rank 0's {ranks[0]['wall_s']:.3f} s "
+          f"of wall ({power}; beside the mesh and pipe launches)",
+          flush=True)
+    result["launches"] = launches
+    return result
+
+
 def serve_mesh_kernels(torch, flash, smoke: Smoke) -> dict:
     """The forward kernel at every rank shape of :data:`SERVE_MESH_SHAPES`
     against its plain version in bf16 and f32, then timed beside its plain
@@ -8788,33 +9637,33 @@ def serve_mesh_kernels(torch, flash, smoke: Smoke) -> dict:
     return {"timings": timings, "err": err}
 
 
-def serve_mesh_phase(torch, flash, smoke: Smoke, power: str) -> dict:
+def serve_mesh_phase(torch, flash, smoke: Smoke, power: str,
+                     launches: RankLaunches) -> dict:
     """Serving over a ``(data, model)`` mesh: one launch of
-    :data:`SERVE_MESH_RANKS` ranks sharing the card over gloo runs the
-    worker binary with ``--model-parallel`` in every mode of
-    :data:`SERVE_MESH_RUNS` and the f32 serving functions; this process
-    runs the same flags alone and checks what the ranks wrote; then the
-    forward kernel at the ranks' shapes."""
+    :data:`SERVE_MESH_RANKS` ranks sharing the card over gloo (started by
+    the ``mesh`` phase, beside its own) runs the worker binary with
+    ``--model-parallel`` in every mode of :data:`SERVE_MESH_RUNS`, the
+    fleet episodes and the f32 serving functions; this process runs the
+    same flags and episodes alone and checks what the ranks wrote; then
+    the forward kernel at the ranks' shapes."""
+    out = SERVE_MESH_DIR / "ranks"
+    log = SERVE_MESH_DIR / "ranks.log"
+    rc, wall = launches.launches["serve mesh"].wait()
     start = time.perf_counter()
     one = serve_mesh_one_process(torch, flash)
+    fleet_one = serve_mesh_fleet(torch, flash)
     f32_one = serve_mesh_f32(torch)
     print(f"-- serve mesh one process: {time.perf_counter() - start:.3f} s",
           flush=True)
-    out = SERVE_MESH_DIR / "ranks"
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
-    log = SERVE_MESH_DIR / "ranks.log"
-    start = time.perf_counter()
-    rc = run_group(torchrun(SERVE_MESH_RANKS, [
-        str(ROOT / "chip_smoke.py"), "--serve-mesh-rank", str(out)]),
-        SERVE_MESH_TIMEOUT, log)
-    wall = time.perf_counter() - start
     smoke.check(rc == 0, f"serve mesh: {SERVE_MESH_RANKS} ranks exited "
                 f"{'on a timeout' if rc is None else rc} after {wall:.1f} s")
     if rc != 0:
         print(log.read_text()[-6000:], flush=True)
     result = {"wall_s": wall}
     result.update(check_serve_mesh(torch, smoke, out, one, power))
+    fleet = check_serve_mesh_fleet(torch, smoke, out, fleet_one, power)
+    result["launches"].update(fleet.pop("launches"))
+    result["fleet"] = fleet
     if (out / "f32.pt").exists():
         f32 = torch.load(out / "f32.pt")
         for part in ("generate", "continuous"):
@@ -8902,6 +9751,7 @@ def main() -> int:
                                   serve)
     ctrl = smoke.phase("controller", controller_phase, torch, flash, smoke,
                        kern)
+    policies = smoke.phase("policies", policy_phase, torch, smoke, power)
     shards = serve and stagger and smoke.phase(
         "shards", shards_phase, torch, flash, smoke, serve, stagger, fleet)
     llama = smoke.phase("llama", llama_phase, torch, flash, smoke)
@@ -8925,15 +9775,25 @@ def main() -> int:
     train_prof = smoke.phase("train profile", train_profile_phase, torch)
     training = smoke.phase("training", training_phase, torch, flash, smoke,
                            power)
-    mesh = smoke.phase("mesh", mesh_phase, torch, flash, smoke, power)
-    pipe = smoke.phase("pipe", pipe_phase, torch, flash, smoke, power)
+    launches = RankLaunches()
+    for name, ranks, out, flag, timeout in (
+            ("mesh", MESH_RANKS, MESH_DIR, "--mesh-rank", MESH_TIMEOUT),
+            ("pipe", PIPE_RANKS, PIPE_DIR, "--pipe-rank", PIPE_TIMEOUT),
+            ("serve mesh", SERVE_MESH_RANKS, SERVE_MESH_DIR,
+             "--serve-mesh-rank", SERVE_MESH_TIMEOUT)):
+        launches.add(name, ranks, out / "ranks", flag, timeout,
+                     out / "ranks.log")
+    mesh = smoke.phase("mesh", mesh_phase, torch, flash, smoke, power,
+                       launches)
+    pipe = smoke.phase("pipe", pipe_phase, torch, flash, smoke, power,
+                       launches)
     serve_mesh = smoke.phase("serve mesh", serve_mesh_phase, torch, flash,
-                             smoke, power)
+                             smoke, power, launches)
     if smoke.failures or not (info and sass and resources and kern
                               and train_kern and path and serve and cycles
                               and stagger and rates and prof
                               and serve_prof and sqs and fleet and ctrl
-                              and shards
+                              and policies and shards
                               and llama and int8 and prefix and spec
                               and beams and slice_prof and sync and gelu
                               and tenancy and planes and orch and odd
@@ -8954,8 +9814,10 @@ def main() -> int:
         # the bf16 fleet episode and the binary's --fleet-max-replicas
         "serve-fleet": fleet["bf16"]["launches"]
         + fleet["binary"]["launches"],
-        # the controller binary scaling an ElasticWorkerPool of batch workers
+        # the controller binary scaling an ElasticWorkerPool of batch
+        # workers, reactive, then predictive and learned side by side
         "serve-controller": ctrl["launches"],
+        "serve-controller-policies": ctrl["policies"]["launches"],
         # the sharded plane: S = 1, the binary's --shards 4, the bf16
         # chaos episode (its resume inserts included)
         "serve-shards": shards["s1"]["launches"]
@@ -9059,6 +9921,8 @@ def main() -> int:
         entry["registers"] = used["registers"]
         entry["spill_bytes"] = used["local_bytes"]
         entry["hmma_instructions"] = sass[f"{kernel} bf16 {TRAIN_SHAPE[3]}"]
+    print(f"-- total: {time.perf_counter() - smoke.start:.3f} s",
+          flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"],

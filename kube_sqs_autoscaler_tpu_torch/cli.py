@@ -8,12 +8,16 @@ and ``--max-pods`` through :class:`~.core.loop.ControlLoop`, with the
 opt-in resilience layer (``--metric-retries`` … ``--stale-depth-ttl``),
 the durable state (``--state-path``, ``--state-max-age``), the flight
 journal (``--journal-path`` …), request-lifecycle tracing
-(``--request-trace``) and the metrics server (``--metrics-port``,
-``--healthz-stale-after``).  The controller process imports no torch.
-
-Flags whose paths are not ported yet parse with the reference's names and
-defaults, then exit with status 2 naming their ROADMAP item:
-``--policy predictive`` and ``--policy learned`` (Queue 1 item 6).
+(``--request-trace``), the metrics server (``--metrics-port``,
+``--healthz-stale-after``) and the three scaling policies: ``reactive``
+(the reference's), ``predictive`` (:mod:`.forecast`: ``--forecaster``,
+``--forecast-horizon``, ``--forecast-history``) and ``learned``
+(:mod:`.learn`: ``--policy-checkpoint``, the reference's JSON
+checkpoints).  The reactive controller imports no torch; the predictive
+and learned policies run their forecasts and network on ``--device``
+(``cuda`` by default, as the worker's; a missing card is an error, never
+a quiet CPU run), the one flag the reference does not have (it picks its
+platform from ``JAX_PLATFORMS``).
 
 Env vars: ``KUBE_CONFIG_PATH`` selects a kubeconfig file (in-cluster
 config when unset or empty); AWS credentials come from the standard AWS
@@ -23,6 +27,7 @@ environment chain.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import signal
 from typing import Sequence
@@ -41,7 +46,8 @@ from .utils.logging import configure_logging
 log = logging.getLogger(__name__)
 
 #: Wall-clock TTL of every registered durable-state section: an hour-old
-#: snapshot's breaker verdicts describe a world that no longer exists.
+#: snapshot's forecaster history, breaker verdicts and learned mirror
+#: describe a world that no longer exists.
 _STATE_SECTION_TTL_S = 3600.0
 
 
@@ -154,9 +160,10 @@ def build_parser() -> argparse.ArgumentParser:
             "ride the durable snapshot across restarts"
         ),
     )
-    # The scaling policy: 'reactive' is the reference's behavior; the
-    # predictive and learned policies parse with the reference's names and
-    # defaults and exit naming their ROADMAP item (check_unported).
+    # The scaling policy: 'reactive' is the reference's behavior;
+    # --policy=predictive thresholds the forecasted depth at now +
+    # --forecast-horizon, --policy=learned a trained network's decision,
+    # both through the same gates.
     parser.add_argument(
         "--policy", choices=("reactive", "predictive", "learned"),
         default="reactive",
@@ -165,15 +172,16 @@ def build_parser() -> argparse.ArgumentParser:
             "(reference behavior); 'predictive' thresholds the forecasted "
             "depth at now + --forecast-horizon; 'learned' thresholds a "
             "trained network's up/hold/down decision (requires "
-            "--policy-checkpoint); predictive and learned are not yet "
-            "ported and exit naming ROADMAP Queue 1 item 6"
+            "--policy-checkpoint)"
         ),
     )
     parser.add_argument(
         "--policy-checkpoint", default="", metavar="PATH",
         help=(
             "Trained learned-policy checkpoint (versioned JSON from "
-            "the learned-policy trainer); requires --policy=learned"
+            "the learned-policy trainer, e.g. LEARNED_POLICY.json); "
+            "validated at startup — a missing/corrupt/incompatible file is "
+            "rejected before the loop starts. Requires --policy=learned"
         ),
     )
     parser.add_argument(
@@ -283,6 +291,16 @@ def build_parser() -> argparse.ArgumentParser:
             "limit — per-section TTLs still apply)"
         ),
     )
+    # The port's counterpart of the reference's JAX_PLATFORMS: where the
+    # predictive and learned policies compute (the worker's --device).
+    parser.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help=(
+            "Device of the predictive policy's forecasts and the learned "
+            "policy's network: cuda (the default; no usable card is an "
+            "error) or cpu"
+        ),
+    )
     return parser
 
 
@@ -367,15 +385,43 @@ def validate_flag_interactions(parser: argparse.ArgumentParser,
         )
 
 
-def check_unported(parser: argparse.ArgumentParser,
-                   args: argparse.Namespace) -> None:
-    """Reference flags whose paths are not ported yet exit with status 2
-    naming the ROADMAP item that ports them."""
-    if args.policy in ("predictive", "learned"):
-        parser.error(
-            f"--policy {args.policy} needs the port of forecast/ and learn/, "
-            "not yet ported (ROADMAP Queue 1 item 6)"
-        )
+def policy_device(parser: argparse.ArgumentParser,
+                  args: argparse.Namespace):
+    """The predictive or learned policy's device (``--device``); no
+    usable card for ``cuda`` is an error before anything is wired."""
+    from .device import resolve_device
+
+    try:
+        return resolve_device(args.device)
+    except RuntimeError as err:
+        parser.exit(1, f"{parser.prog}: error: {err}\n")
+
+
+def load_learned_checkpoint(parser: argparse.ArgumentParser,
+                            args: argparse.Namespace):
+    """Load + validate the learned checkpoint, or ``None`` when not learned.
+
+    Runs at startup, after :func:`validate_flag_interactions` and before
+    any client wiring: a missing, corrupt, wrong-kind, future-schema,
+    geometry-mismatched or serving-twin checkpoint is a *usage error*
+    (exit 2 with the loader's message, the reference's words), never a
+    mid-tick traceback.  Its weights land on ``--device``.
+    """
+    if args.policy != "learned":
+        return None
+    from .learn import CheckpointError, load_checkpoint
+    from .learn.checkpoint import TWIN_FLUID, require_twin
+
+    try:
+        checkpoint = load_checkpoint(args.policy_checkpoint, device="cpu")
+        # deployment seam: this binary drives the fluid control loop, so
+        # a SERVING-twin checkpoint (tokens/s reward, shard-count
+        # actuation) is a usage error here, not garbage decisions later
+        require_twin(checkpoint, TWIN_FLUID, "--policy learned")
+    except CheckpointError as err:
+        parser.error(str(err))
+    device = policy_device(parser, args)
+    return dataclasses.replace(checkpoint, theta=checkpoint.theta.to(device))
 
 
 def main(argv: Sequence[str] | None = None) -> None:
@@ -383,8 +429,11 @@ def main(argv: Sequence[str] | None = None) -> None:
     configure_logging()
     parser = build_parser()
     args = parser.parse_args(argv)
-    check_unported(parser, args)
     validate_flag_interactions(parser, args)
+    # Learned policy: reject a bad checkpoint NOW, not mid-tick.
+    checkpoint = load_learned_checkpoint(parser, args)
+    device = (policy_device(parser, args)
+              if args.policy == "predictive" else None)
 
     # Imports deferred so the pure control-plane modules (policy, loop,
     # fakes) never pull in the real-client stacks.
@@ -439,7 +488,19 @@ def main(argv: Sequence[str] | None = None) -> None:
         from . import __version__
         from .obs import ControllerMetrics, ObservabilityServer, TickRing
 
-        metrics = ControllerMetrics(version=__version__, policy=args.policy)
+        metrics = ControllerMetrics(
+            version=__version__,
+            # build_info{policy}: the learned label carries the checkpoint
+            # content hash, so a scrape names exactly which weights run
+            policy=(
+                f"learned@{checkpoint.hash}"
+                if checkpoint is not None
+                else args.policy
+            ),
+            forecaster=(
+                args.forecaster if args.policy == "predictive" else ""
+            ),
+        )
         observers.append(metrics)
         if store is not None:
             # /healthz answers 503 ("rehydrating") until the first
@@ -463,12 +524,67 @@ def main(argv: Sequence[str] | None = None) -> None:
         )
         server.start()
 
+    # Predictive/learned policies: imported only when asked for, so the
+    # reactive controller never imports torch.
+    depth_policy = None
+    if args.policy == "predictive":
+        from .forecast import DepthHistory, PredictivePolicy, make_forecaster
+
+        history = DepthHistory(capacity=args.forecast_history)
+        depth_policy = PredictivePolicy(
+            make_forecaster(args.forecaster, device=str(device)),
+            history,
+            horizon=args.forecast_horizon,
+        )
+        observers.append(history)  # fed from the tick-record observer hook
+        if store is not None:
+            store.register("forecast-history", history,
+                           ttl_s=_STATE_SECTION_TTL_S)
+    elif checkpoint is not None:
+        from .forecast import DepthHistory
+        from .learn import LearnedPolicy
+        from .learn.checkpoint import checkpoint_history
+
+        # The feature window is part of what the weights mean: it comes
+        # from the checkpoint (stamped at training time), not from
+        # --forecast-history.
+        history_size, min_samples = checkpoint_history(checkpoint)
+        depth_policy = LearnedPolicy(
+            checkpoint,
+            policy=config_from_args(args).policy,
+            poll_interval=args.poll_period,
+            max_pods=args.max_pods,
+            min_pods=args.min_pods,
+            scale_up_pods=args.scale_up_pods,
+            scale_down_pods=args.scale_down_pods,
+            # The controller never reads the deployment's size; the
+            # mirror starts at min_pods (the training worlds all start at
+            # or above it, and a mirror below it would jump UP on the
+            # first scale-DOWN clamp).
+            initial_replicas=args.min_pods,
+            history=DepthHistory(capacity=history_size),
+            min_samples=min_samples,
+        )
+        # the policy is its own observer: the tick-record hook feeds both
+        # the depth history and the replica/cooldown mirror
+        observers.append(depth_policy)
+        if store is not None:
+            store.register("learned-mirror", depth_policy,
+                           ttl_s=_STATE_SECTION_TTL_S)
+        log.info(
+            "Loaded learned policy checkpoint %s (hash %s, hidden %d)",
+            args.policy_checkpoint,
+            checkpoint.hash,
+            checkpoint.hidden,
+        )
+
     loop = ControlLoop(
         autoscaler,
         metric_source,
         config_from_args(args),
         resilience=resilience_from_args(args),
         durable=store,
+        depth_policy=depth_policy,
     )
     if store is not None:
         if loop.resilience is not None:
@@ -476,7 +592,8 @@ def main(argv: Sequence[str] | None = None) -> None:
                            ttl_s=_STATE_SECTION_TTL_S)
         # Trust the observed world: one deployment GET at boot (only with
         # --state-path; the reference path stays RPC-free at startup).  A
-        # dead apiserver degrades to no reconciliation, never a crash.
+        # dead apiserver degrades to no reconciliation, never a crash;
+        # the learned mirror reconciles against the observed count.
         observed = None
         try:
             observed = autoscaler.client.get(
@@ -500,7 +617,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     if args.journal_path:
         from .obs import TickJournal
 
-        meta = _journal_meta(args)
+        meta = _journal_meta(args, checkpoint)
         if store is not None:
             # idempotent: the rehydrate above already ran; this stamps the
             # restart block and pins the order (rehydrate precedes reopen)
@@ -548,7 +665,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     log.info("kube-sqs-autoscaler stopped")
 
 
-def _journal_meta(args: argparse.Namespace) -> dict:
+def _journal_meta(args: argparse.Namespace, checkpoint=None) -> dict:
     """The flight journal's header meta for a live run, the reference's
     layout: the controller config replay re-drives decisions from, plus
     the scaler world bounds (no ``initial_replicas``: the controller does
@@ -569,9 +686,20 @@ def _journal_meta(args: argparse.Namespace) -> dict:
             "scale_up_pods": args.scale_up_pods,
             "scale_down_pods": args.scale_down_pods,
         },
-        # the reactive policy carries no forecaster and no checkpoint
-        "forecast": {},
-        "learn": {},
+        "forecast": (
+            {
+                "forecaster": args.forecaster,
+                "horizon": args.forecast_horizon,
+                "history": args.forecast_history,
+            }
+            if args.policy == "predictive"
+            else {}
+        ),
+        # learned policy: the content hash names which weights ran, so
+        # replay can demand (and verify) the matching checkpoint
+        "learn": (
+            _learn_meta(args, checkpoint) if checkpoint is not None else {}
+        ),
         # enabled resilience knobs only (empty = reference failure handling)
         "resilience": (
             {
@@ -589,6 +717,19 @@ def _journal_meta(args: argparse.Namespace) -> dict:
         "deployment": args.kubernetes_deployment,
         "namespace": args.kubernetes_namespace,
         "queue_url": args.sqs_queue_url,
+    }
+
+
+def _learn_meta(args: argparse.Namespace, checkpoint) -> dict:
+    from .learn.checkpoint import checkpoint_history
+
+    history, min_samples = checkpoint_history(checkpoint)
+    return {
+        "checkpoint_hash": checkpoint.hash,
+        "checkpoint_path": args.policy_checkpoint,
+        "hidden": int(checkpoint.hidden),
+        "history": history,
+        "min_samples": min_samples,
     }
 
 

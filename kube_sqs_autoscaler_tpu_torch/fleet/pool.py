@@ -29,6 +29,9 @@ a failure raises :class:`~..core.types.ScaleError` and changes nothing.
 Everything is synchronous and deterministic, and every replica steps in
 this one thread on the one CUDA stream: replica B's settle waits behind
 replica A's block, and stream order keeps each replica's work in order.
+Over a serving mesh every rank runs the pool the same way, so the
+replicas' collectives reach the process group in one order on every
+rank (:meth:`WorkerPool.serving`).
 The supervisor reads host counters only, never a device tensor.  Faults
 are flag flips at known cycles (:class:`~..sim.faults.FleetFaultPlan`).
 Importing this module imports no torch: the replica class is imported
@@ -728,16 +731,19 @@ class WorkerPool(FleetPoolBase):
         replica's text encoding and reply decoding.
 
         Sampled serving: each replica gets ``sample_seed + spawn
-        ordinal``, so the fleet draws independent streams.  A ``mesh`` is
-        refused (ROADMAP Queue 1 item 5c-ii)."""
-        if mesh is not None:
-            # replicas stepping on one process group would interleave
-            # their collectives
-            raise ValueError(
-                "a fleet pool over a serving mesh is not yet ported "
-                "(ROADMAP Queue 1 item 5c-ii): replicas stepping on one "
-                "process group would interleave their collectives"
-            )
+        ordinal``, so the fleet draws independent streams.
+
+        On a ``(data, model)`` serving ``mesh`` (a rank's
+        :class:`~..workloads.distributed.Mesh`) every rank builds this
+        pool and runs the same cycles: each replica is a mesh worker
+        (world rank 0 owns the queue, the others read what it
+        broadcasts), its engine cache holds the rank's rows and heads,
+        and replicas step one after another in this thread, so their
+        collectives reach the process group in one order on every rank.
+        The host decisions (spawns, drains, kills, re-dispatch) read only
+        what every rank shares; pass a clock every rank reads alike
+        (:class:`~..workloads.distributed.RankClock`, or a
+        :class:`~..core.clock.FakeClock` advanced by the driver)."""
 
         def factory(pool: "WorkerPool"):
             from .worker import FleetWorker
@@ -760,6 +766,7 @@ class WorkerPool(FleetPoolBase):
                 family=family, result_queue=result_queue, device=device,
                 prefix_cache=prefix_cache, pool=pool,
                 engine_source=donor, tenancy=tenancy, tokenizer=tokenizer,
+                mesh=mesh,
             )
             if block is not None:
                 worker.batcher.request_decode_block(block)

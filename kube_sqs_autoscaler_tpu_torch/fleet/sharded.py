@@ -454,15 +454,9 @@ class ShardedWorkerPool(FleetPoolBase):
         ``tenancy`` gives the plane's worker fair-admission staging (the
         sharded admission plane with ``admission_shards > 1``), sticky
         tenant homes and, with ``prefix_pool > 0``, per-shard pools.
-        A ``mesh`` is refused (ROADMAP Queue 1 item 5c-ii)."""
-        if mesh is not None:
-            # replicas stepping on one process group would interleave
-            # their collectives
-            raise ValueError(
-                "a fleet pool over a serving mesh is not yet ported "
-                "(ROADMAP Queue 1 item 5c-ii): replicas stepping on one "
-                "process group would interleave their collectives"
-            )
+        On a serving ``mesh`` every rank builds the pool and the plane
+        holds the rank's rows and heads (the plane's ``shards % data``
+        rule applies), as :meth:`~.pool.WorkerPool.serving` describes."""
         if shards is None:
             shards = (service_config.shards if service_config.shards > 1
                       else (max or service_config.shards))
@@ -478,6 +472,7 @@ class ShardedWorkerPool(FleetPoolBase):
                 result_queue=result_queue, now_fn=now_fn, device=device,
                 prefix_cache=prefix_cache, pool=pool,
                 engine_source=engine_source, sharded=True, tenancy=tenancy,
+                mesh=mesh,
             )
 
         return cls(factory, min=min, max=max, **pool_kwargs)

@@ -10,8 +10,9 @@ the engine-knob actuation seam (the port's copy of
   knob safe point;
 - :mod:`.knobs` — :class:`~.knobs.KnobActuator` (journaled,
   snapshotted, gauge-exported live knob changes) and the reactive
-  :class:`~.knobs.ReactiveKnobPolicy`.  The learned knob policy waits
-  for ``learn/`` (ROADMAP Queue 1 item 6) and raises naming it.
+  :class:`~.knobs.ReactiveKnobPolicy` and the learned
+  :class:`~.knobs.LearnedKnobPolicy`, which walks the decode-block ladder
+  by a knob-headed :class:`~..learn.policy.LearnedPolicy`'s deltas.
 """
 
 from .knobs import (  # noqa: F401
@@ -24,6 +25,7 @@ from .knobs import (  # noqa: F401
     KNOB_SPECULATIVE,
     KnobActuator,
     KnobError,
+    LearnedKnobPolicy,
     ReactiveKnobPolicy,
     parse_knob_names,
 )
@@ -48,6 +50,7 @@ __all__ = [
     "KNOB_SPECULATIVE",
     "KnobActuator",
     "KnobError",
+    "LearnedKnobPolicy",
     "PRIORITY_CONTROL",
     "PRIORITY_CYCLE",
     "PRIORITY_KNOB",
@@ -67,8 +70,4 @@ def __getattr__(name):
         from .fleet import ScheduledFleetDriver
 
         return ScheduledFleetDriver
-    if name == "LearnedKnobPolicy":
-        from .knobs import LEARNED_KNOB_REFUSAL
-
-        raise NotImplementedError(LEARNED_KNOB_REFUSAL)
     raise AttributeError(name)

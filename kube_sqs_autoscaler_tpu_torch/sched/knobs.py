@@ -713,17 +713,58 @@ class ReactiveKnobPolicy:
 
 
 class LearnedKnobPolicy:
-    """The learned knob head on the knob seam.  Not ported: it reads its
-    decode-block deltas from a knob-headed learned policy, and the port
-    has no ``learn/`` yet (ROADMAP Queue 1 item 6)."""
+    """The learned knob head on the knob seam: a knob-headed
+    :class:`~..learn.policy.LearnedPolicy` emits a ladder delta in
+    {-1, 0, +1} each tick (``last_knob_delta``, from
+    :func:`~..learn.network.knob_delta_decision`); this adapter walks
+    the decode-block ladder by it and stages the result on the
+    actuator.  The same ``evaluate()`` surface as
+    :class:`ReactiveKnobPolicy`, so the scheduler wires either without
+    caring which brain decided."""
 
-    def __init__(self, *args, **kwargs) -> None:
-        del args, kwargs
-        raise NotImplementedError(LEARNED_KNOB_REFUSAL)
+    def __init__(self, actuator: KnobActuator, policy, *,
+                 ladder: tuple[int, ...] = (1, 2, 4, 8, 16, 32)) -> None:
+        if not ladder or list(ladder) != sorted(set(ladder)):
+            raise KnobError(
+                f"ladder must be strictly increasing, got {ladder}"
+            )
+        self.actuator = actuator
+        self.policy = policy
+        self.ladder = tuple(int(b) for b in ladder)
+        self.decisions = 0
 
+    def rebind(self, policy) -> None:
+        """Point the adapter at a fresh brain — a controller restart
+        rebuilds the LearnedPolicy; reading the dead one's frozen delta
+        forever would walk the ladder to an extreme.
+        :class:`~.fleet.ScheduledFleetDriver` calls this from its
+        crash-restart path."""
+        self.policy = policy
 
-#: Why :class:`LearnedKnobPolicy` refuses.
-LEARNED_KNOB_REFUSAL = (
-    "LearnedKnobPolicy needs the learned policy's knob head (learn/), "
-    "not yet ported (ROADMAP Queue 1 item 6)"
-)
+    def evaluate(self) -> None:
+        self.decisions += 1
+        try:
+            # CONSUME the delta (take_knob_delta clears it): the
+            # adapter runs every tick, including metric-failure ticks
+            # where the policy made no new decision — a stale delta
+            # must step the ladder at most once
+            take = getattr(self.policy, "take_knob_delta", None)
+            delta = (
+                take() if take is not None
+                else getattr(self.policy, "last_knob_delta", None)
+            )
+            if not delta:  # None (no tick yet / headless) or hold
+                return
+            current = self.actuator._read(KNOB_DECODE_BLOCK)
+            # the highest rung <= current anchors the walk (a knob
+            # value set off-ladder still steps sanely)
+            idx = 0
+            for i, rung in enumerate(self.ladder):
+                if rung <= current:
+                    idx = i
+            idx = max(0, min(len(self.ladder) - 1, idx + int(delta)))
+            self.actuator.set(KNOB_DECODE_BLOCK, self.ladder[idx])
+        except Exception as err:
+            # whole-fleet outage / broken brain: skip the decision,
+            # never kill the fleet (same contract as ReactiveKnobPolicy)
+            log.warning("knob decision skipped: %s", err)

@@ -77,8 +77,9 @@ and the sharded plane on the mesh).  World rank 0 owns the queue: it
 receives, replies and deletes, and broadcasts what it received to the
 other ranks, which run the same host logic (:class:`.distributed.
 RankQueue`).  In one process without a launcher a ``TP`` above 1 is a
-usage error (exit 2), as the trainer's mesh flags are; the fleet demo over
-a mesh is refused naming ROADMAP item 5c-ii.
+usage error (exit 2), as the trainer's mesh flags are.  The fleet demo
+(``--fleet-max-replicas``) runs over the mesh too: every rank runs the
+control loop and the pool on rank 0's clock and queue depth.
 """
 
 from __future__ import annotations
@@ -753,6 +754,7 @@ def run_fleet_demo(
     knob_names: tuple = (),
     journal_path: str = "",
     tokenizer=None,
+    mesh=None,
 ) -> dict:
     """The closed loop in one process, on the real clock: a
     :class:`~..core.loop.ControlLoop` autoscales a
@@ -762,7 +764,13 @@ def run_fleet_demo(
     ``scheduler`` runs the interleave on the event scheduler
     (:class:`~..sched.fleet.ScheduledFleetDriver`), with ``knob_names``
     armed on a :class:`~..sched.knobs.KnobActuator`; ``journal_path``
-    records the loop's ticks (and the knob changes)."""
+    records the loop's ticks (and the knob changes).  With ``tenancy``
+    the gates threshold on the SLO-weighted per-tenant staged backlog
+    (:class:`~..forecast.tenants.TenantAwareDepth`), never below the
+    observed depth.  On a serving ``mesh`` every rank runs the loop and
+    the pool: the depth is world rank 0's queue's, the clock rank 0's
+    (:class:`~.distributed.RankClock`), and rank 0 alone writes the
+    journal and serves ``/metrics``."""
     from ..core.loop import ControlLoop, LoopConfig
     from ..core.policy import PolicyConfig
     from ..fleet import FleetDriver, WorkerPool
@@ -770,14 +778,23 @@ def run_fleet_demo(
 
     queue = demo_queue(demo, model_config, service_config)
     result_queue = FakeMessageQueue() if service_config.result_queue_url else None
+    clock, depth_queue, lead = None, queue, True
+    if mesh is not None:
+        from ..core.clock import SystemClock
+        from .distributed import RankClock, RankQueue, is_lead
+
+        # every rank takes the loop's and the pool's decisions alike: on
+        # rank 0's clock and its queue's depth (only its queue drains)
+        clock, depth_queue, lead = (RankClock(SystemClock()),
+                                    RankQueue(queue), is_lead())
     pool = WorkerPool.serving(
         queue, params, model_config, service_config,
         result_queue=result_queue, min=min_replicas, max=max_replicas,
         device=device, prefix_cache=prefix_cache, tenancy=tenancy,
-        tokenizer=tokenizer,
+        tokenizer=tokenizer, mesh=mesh, clock=clock,
     )
     journal = None
-    if journal_path:
+    if journal_path and lead:
         from ..obs import TickJournal
 
         journal = TickJournal(journal_path, meta=fleet_journal_meta(
@@ -810,7 +827,15 @@ def run_fleet_demo(
             return self.last
 
     metric_source = _LastDepthSource(QueueMetricSource(
-        queue, service_config.queue_url, ("ApproximateNumberOfMessages",)))
+        depth_queue, service_config.queue_url,
+        ("ApproximateNumberOfMessages",)))
+    depth_policy = None
+    if tenancy is not None:
+        # who is arriving: a tight-SLO tenant's staged requests move the
+        # autoscaler harder than a batch tenant's
+        from ..forecast.tenants import TenantAwareDepth
+
+        depth_policy = TenantAwareDepth(pool.staged_by_tenant, tenancy)
     loop = ControlLoop(
         pool,
         metric_source,
@@ -821,7 +846,9 @@ def run_fleet_demo(
                 scale_up_cooldown=0.2, scale_down_cooldown=0.4,
             ),
         ),
+        clock=clock,
         observer=journal,
+        depth_policy=depth_policy,
     )
     actuator = None
     if scheduler:
@@ -1055,12 +1082,6 @@ def main(argv=None) -> dict | None:
                 "queue; SQS-backed fleets are one process per replica, "
                 "scaled by the autoscaler itself)"
             )
-        if args.model_parallel:
-            raise SystemExit(
-                "--fleet-max-replicas with --model-parallel is not yet "
-                "ported (ROADMAP Queue 1 item 5c-ii): the pool's replicas "
-                "would interleave the mesh's collectives"
-            )
     if not args.demo and not args.sqs_queue_url:
         raise SystemExit(
             "error: pass --sqs-queue-url URL to serve a queue, or --demo N "
@@ -1142,7 +1163,7 @@ def main(argv=None) -> dict | None:
             args.fleet_min_replicas, args.fleet_max_replicas,
             metrics_port=args.metrics_port, prefix_cache=prefix_cache,
             tenancy=tenancy, scheduler=args.scheduler, knob_names=knob_names,
-            journal_path=args.journal_path, tokenizer=tokenizer,
+            journal_path=args.journal_path, tokenizer=tokenizer, mesh=mesh,
         )
     else:
         summary = run_demo(args.demo, params, model_config, service_config,

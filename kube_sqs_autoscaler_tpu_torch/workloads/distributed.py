@@ -642,3 +642,18 @@ def rank_clock(now_fn):
         return _broadcast_from_lead(now_fn() if is_lead() else None)
 
     return now
+
+
+class RankClock:
+    """A :class:`~..core.clock.Clock` that every rank of a serving mesh
+    reads alike: ``now`` is world rank 0's ``clock.now()``, broadcast
+    (:func:`rank_clock`); ``sleep`` is this rank's own.  A fleet's control
+    loop over the mesh ticks on it, so every rank ticks at the same cycle
+    and takes the same scaling decisions."""
+
+    def __init__(self, clock) -> None:
+        self.clock = clock
+        self.now = rank_clock(clock.now)
+
+    def sleep(self, seconds: float) -> None:
+        self.clock.sleep(seconds)

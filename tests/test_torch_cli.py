@@ -2,7 +2,8 @@
 
 - ``build_parser()``: every reference flag with its name, default,
   choices and parsed value; the same usage errors with exit 2;
-- the flags whose paths are not ported exit 2 naming their ROADMAP item;
+- ``--policy predictive|learned``: the reference's checks and messages
+  (``tests/test_torch_controller_e2e.py`` runs both policies end to end);
 - ``config_from_args``, ``resilience_from_args`` and the journal header
   meta equal the reference's;
 - Go durations parse as the reference parses them;
@@ -60,7 +61,10 @@ SAMPLES = {
 
 
 def test_the_port_has_every_reference_flag():
-    assert list(PORT_ACTIONS) == list(REF_ACTIONS)
+    # and --device, the port's counterpart of the reference's
+    # JAX_PLATFORMS: where the predictive and learned policies compute
+    assert list(PORT_ACTIONS) == [*REF_ACTIONS, "device"]
+    assert PORT_ACTIONS["device"].default == "cuda"
     assert set(SAMPLES) == set(REF_ACTIONS)
     assert len(REF_ACTIONS) == 34
 
@@ -112,32 +116,35 @@ def test_usage_errors_match_reference(argv, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--policy=predictive"], "item 6"),
-    (["--policy=learned"], "item 6"),
-    (["--policy=learned", "--policy-checkpoint=ck.json"], "item 6"),
+    (["--policy=predictive"], None),
+    (["--policy=learned"], "requires --policy-checkpoint"),
+    (["--policy=learned", "--policy-checkpoint=ck.json"], "does not exist"),
     (["--request-trace=1"], None),
     (["--request-trace=x"], "invalid int value"),
 ])
 def test_unported_flags_exit_naming_their_item(argv, item, capsys):
-    """The predictive and learned policies exit naming item 6.
-    ``--request-trace`` is accepted (and parses as the reference's does);
-    a value that is not an integer is a usage error on both binaries."""
+    """Every reference flag is ported: ``--policy predictive`` and
+    ``--request-trace`` are accepted and parse as the reference's do;
+    ``--policy learned`` without a checkpoint, or with one that does not
+    exist, and a ``--request-trace`` that is not an integer, exit 2 with
+    the reference binary's message."""
     if item is None:
         parser = cli.build_parser()
         args = parser.parse_args(argv)
-        cli.check_unported(parser, args)
-        assert args.request_trace == ref_cli.build_parser().parse_args(
-            argv).request_trace == 1
+        cli.validate_flag_interactions(parser, args)
+        assert cli.load_learned_checkpoint(parser, args) is None
+        ref = vars(ref_cli.build_parser().parse_args(argv))
+        assert {k: v for k, v in vars(args).items() if k != "device"} == ref
         return
-    with pytest.raises(SystemExit) as info:
-        cli.main(argv)
-    assert info.value.code == 2
-    err = capsys.readouterr().err
-    if item.startswith("item"):
-        assert f"ROADMAP Queue 1 {item}" in err
-        return
-    assert item in err
-    assert usage_error(ref_cli.build_parser(), argv, capsys)[0] == 2
+    errors = []
+    for main in (ref_cli.main, cli.main):
+        with pytest.raises(SystemExit) as info:
+            main(argv)
+        assert info.value.code == 2
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert item in errors[1]
+    assert errors[1].split(" error: ", 1)[1] == errors[0].split(
+        " error: ", 1)[1]
 
 
 ARGV = ["--poll-period=2s", "--scale-up-cool-down=4s",
@@ -148,11 +155,28 @@ ARGV = ["--poll-period=2s", "--scale-up-cool-down=4s",
         "--sqs-queue-url=https://sqs.x/q"]
 
 
-@pytest.mark.parametrize("argv", [[], ARGV], ids=["defaults", "set"])
+LEARNED = ["--policy=learned",
+           f"--policy-checkpoint={ROOT / 'LEARNED_POLICY.json'}"]
+
+
+@pytest.mark.parametrize("argv", [
+    [], ARGV, ["--policy=predictive", "--forecaster=lstsq",
+               "--forecast-horizon=90s", "--forecast-history=32"], LEARNED,
+], ids=["defaults", "set", "predictive", "learned"])
 def test_configs_and_journal_meta_match_reference(argv):
     ref_args = ref_cli.build_parser().parse_args(argv)
-    args = cli.build_parser().parse_args(argv)
-    assert vars(args) == vars(ref_args)
+    args = cli.build_parser().parse_args([*argv, "--device", "cpu"])
+    assert {k: v for k, v in vars(args).items() if k != "device"} == \
+        vars(ref_args)
+    if argv is LEARNED:
+        # the learned policy's meta names the checkpoint's hash and its
+        # feature window, the reference's
+        ref_ck = ref_cli.load_learned_checkpoint(ref_cli.build_parser(),
+                                                 ref_args)
+        ck = cli.load_learned_checkpoint(cli.build_parser(), args)
+        assert cli._journal_meta(args, ck) == ref_cli._journal_meta(
+            ref_args, ref_ck)
+        return
     ref_config, config = ref_cli.config_from_args(ref_args), \
         cli.config_from_args(args)
     assert config.poll_interval == ref_config.poll_interval

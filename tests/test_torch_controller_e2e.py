@@ -10,7 +10,9 @@ first boot scales up and is killed with SIGKILL; the second boot, the same
 command with ``--state-path``, answers ``/healthz`` 503 "rehydrating"
 before its first tick and 200 after; the workers start, drain the queue,
 and the controller scales back down to one replica.  Every message is
-answered once.  The whole episode has its own 30 s budget.
+answered once.  The whole episode has its own 30 s budget.  A second test
+runs the predictive and the learned controller against the same doubles,
+30 s for both.
 """
 
 from __future__ import annotations
@@ -199,3 +201,87 @@ def test_controller_scales_port_workers_through_a_restart(tmp_path):
     # double saw the scale-up either way
     assert episodes[0][1]
     assert any(r.scaled("down") for r in episodes[1][1])
+
+
+def test_predictive_and_learned_controllers_close_the_loop(tmp_path):
+    """``--policy predictive --forecaster holt`` and ``--policy learned``
+    with the repo's ``LEARNED_POLICY.json``, each a child on the CPU
+    (``--device cpu``) against the same doubles: the predictive one
+    forecasts past its warm-up and scales up, the learned one thresholds
+    on its network's hold/up/down depths; both journal their policy
+    block, label ``build_info`` with it and snapshot their durable
+    section."""
+    from kube_sqs_autoscaler_tpu_torch.learn import load_checkpoint
+
+    deadline = time.monotonic() + BUDGET_S
+    learned = load_checkpoint(str(ROOT / "LEARNED_POLICY.json"),
+                              device="cpu")
+    for policy, extra, section, label in (
+            ("predictive", ["--forecaster", "holt",
+                            "--forecast-horizon", "5s"],
+             "forecast-history", 'policy="predictive"'),
+            ("learned", ["--policy-checkpoint",
+                         str(ROOT / "LEARNED_POLICY.json")],
+             "learned-mirror", f'policy="learned@{learned.hash}"')):
+        api_double = FakeApiServer({"workers": deployment_body(
+            name="workers", namespace="default", replicas=1)})
+        emulator = SqsEmulator()
+        with LocalHttpServer(api_double) as apiserver, \
+                LocalHttpServer(emulator) as sqs:
+            jobs_url = f"{sqs.url}/000000000000/jobs"
+            jobs = emulator.queue(jobs_url)
+            for i in range(BODIES):
+                jobs.send_message(jobs_url, json.dumps([i % 60, 3, 5, 7]))
+            kubeconfig = tmp_path / f"{policy}.kubeconfig.json"
+            kubeconfig.write_text(json.dumps({
+                "current-context": "c",
+                "contexts": [{"name": "c",
+                              "context": {"cluster": "d", "user": "u"}}],
+                "clusters": [{"name": "d",
+                              "cluster": {"server": apiserver.url}}],
+                "users": [{"name": "u", "user": {"token": "t"}}]}))
+            port = free_port()
+            journal = tmp_path / f"{policy}.jsonl"
+            state = tmp_path / f"{policy}.state.json"
+            child = subprocess.Popen(
+                [sys.executable, "-m", "kube_sqs_autoscaler_tpu_torch",
+                 "--poll-period=500ms", "--scale-up-cool-down=1s",
+                 "--scale-down-cool-down=1s", "--scale-up-messages=20",
+                 "--scale-down-messages=2", "--max-pods=3",
+                 "--attribute-names=ApproximateNumberOfMessages",
+                 "--sqs-queue-url", jobs_url, "--aws-region", "us-east-1",
+                 "--kubernetes-deployment", "workers",
+                 "--metrics-port", str(port), "--journal-path",
+                 str(journal), "--state-path", str(state),
+                 "--policy", policy, *extra, "--device", "cpu"],
+                cwd=ROOT, env={**os.environ, **ENV,
+                               "KUBE_CONFIG_PATH": str(kubeconfig)},
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            try:
+                while time.monotonic() < deadline:
+                    episodes = (read_journal_episodes(str(journal))
+                                if journal.exists() else [])
+                    ticks = episodes[0][1] if episodes else []
+                    if len(ticks) >= 6:
+                        break
+                    time.sleep(0.05)
+                metrics = status(f"http://127.0.0.1:{port}/metrics")[1]
+                child.terminate()
+                assert child.wait(10) == 0, child.stdout.read()
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                child.wait(10)
+        meta = episodes[0][0]
+        assert meta["policy"] == policy and label in metrics
+        assert section in json.loads(state.read_text())["sections"]
+        replicas = api_double.deployments["workers"]["spec"]["replicas"]
+        if policy == "predictive":
+            assert meta["forecast"]["forecaster"] == "holt"
+            assert any(r.predicted_messages is not None for r in ticks)
+            assert replicas >= 2  # the backlog of 60 > 20 scaled it up
+        else:
+            assert meta["learn"]["checkpoint_hash"] == learned.hash
+            warm = [r.decision_messages for r in ticks[3:]]
+            assert set(warm) <= {20, 2, 11}  # up, down, hold depths
+    assert time.monotonic() < deadline

@@ -1,7 +1,8 @@
 """The port stands alone: no ``jax`` and nothing of the JAX package.
 
 An AST scan of every module of ``kube_sqs_autoscaler_tpu_torch`` (its
-``comms``, ``core``, ``fleet``, ``metrics``, ``native``, ``obs``
+``comms``, ``core``, ``fleet``, ``forecast``, ``learn``, ``metrics``,
+``native``, ``obs``
 (``obs/lifecycle.py`` included), ``planes``, ``scale``, ``sched``, ``sim``, ``utils`` and
 ``workloads`` subpackages, ``cli.py`` and ``__main__.py``) and
 of
@@ -19,7 +20,8 @@ disaggregated prefill/decode pool with its KV handoff, traced and with a
 routed collective scheduler attached, and train step on the CPU, then the
 rest of training: a windowed llama step, a llama MoE step, a LoRA step, a
 checkpoint saved and restored with its manifest, the HF state dicts and the
-native corpus reader (``transformers`` never imported; a separate scan
+native corpus reader, and a predictive and a learned control loop
+(``transformers`` never imported; a separate scan
 finds it imported only inside the two HF directory functions and the
 worker's tokenizer path).  The control-plane subpackages (and the ``planes`` package, whose
 engines import lazily) import no torch at all, so importing the fleet
@@ -54,8 +56,9 @@ def absolute_imports(path: Path) -> list[str]:
     return names
 
 
-SUBPACKAGES = ("comms", "core", "fleet", "metrics", "native", "obs",
-               "planes", "scale", "sched", "sim", "utils", "workloads")
+SUBPACKAGES = ("comms", "core", "fleet", "forecast", "learn", "metrics",
+               "native", "obs", "planes", "scale", "sched", "sim", "utils",
+               "workloads")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -80,6 +83,11 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
         assert PORT / "workloads" / name in files
     for name in ("__init__.py", "tokenreader.py"):
         assert PORT / "native" / name in files
+    for name in ("forecasters.py", "history.py", "predictive.py",
+                 "tenants.py"):
+        assert PORT / "forecast" / name in files
+    for name in ("network.py", "checkpoint.py", "policy.py"):
+        assert PORT / "learn" / name in files
     offenders = {
         str(path.relative_to(ROOT)): name
         for path in files for name in absolute_imports(path) if banned(name)
@@ -387,6 +395,28 @@ back = hf_convert.llama_params_from_hf(
     hf_convert.hf_state_dict_from_llama(lparams, lcfg), lcfg, device="cpu")
 assert all(torch.equal(a, b) for a, b in zip(train.param_leaves(back),
                                              train.param_leaves(lparams)))
+# forecasting and the learned policy: a predictive and a learned tick of
+# the real loop, the learned one on the reference's checkpoint file
+from kube_sqs_autoscaler_tpu_torch import forecast, learn
+from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeQueueService
+from kube_sqs_autoscaler_tpu_torch.scale import FakeDeploymentAPI, PodAutoScaler
+checkpoint = learn.load_checkpoint("LEARNED_POLICY.json", device="cpu")
+for depth_policy in (
+        forecast.PredictivePolicy(forecast.make_forecaster("holt",
+                                                           device="cpu")),
+        learn.LearnedPolicy(checkpoint, policy=core.PolicyConfig(),
+                            poll_interval=5.0, max_pods=3)):
+    api = FakeDeploymentAPI.with_deployments("ns", 1, "d")
+    loop = core.ControlLoop(
+        PodAutoScaler(client=api, max=3, min=1, scale_up_pods=1,
+                      scale_down_pods=1, deployment="d", namespace="ns"),
+        metrics.QueueMetricSource(client=FakeQueueService.with_depths(500),
+                                  queue_url="q"),
+        core.LoopConfig(poll_interval=5.0), clock=core.FakeClock(),
+        observer=getattr(depth_policy, "history", depth_policy),
+        depth_policy=depth_policy)
+    loop.run(max_ticks=4)
+    assert depth_policy.last_prediction is not None
 assert "transformers" not in sys.modules
 assert not any(n.split(".")[0] in {banned} and sys.modules[n] is not None
                for n in sys.modules)

@@ -543,8 +543,8 @@ def test_orchestration_hooks_name_their_roadmap_item(tiny):
     """The three hooks the pool refused until item 3b now attach and
     serve: a traced, comms-attached pool answers every request once with
     a valid chain carrying its handoff, and the control loop runs on the
-    event scheduler.  The learned knob policy still refuses, naming item
-    6."""
+    event scheduler.  The learned knob policy walks a knob's ladder on the
+    pool."""
     from kube_sqs_autoscaler_tpu_torch.comms import (
         HANDOFF_KV, CollectiveScheduler, topology_from_geometry,
     )
@@ -579,8 +579,25 @@ def test_orchestration_hooks_name_their_roadmap_item(tiny):
         "num_messages": staticmethod(lambda: 0)})(), clock=clock)
     loop.run(2, scheduler=True)
     assert loop.ticks == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        LearnedKnobPolicy(None, None)
+    # the learned knob policy is ported: on this pool's actuator it walks
+    # the decode-block ladder by its brain's deltas, consumed once
+    from kube_sqs_autoscaler_tpu_torch.sched.knobs import KnobActuator
+
+    actuator = KnobActuator(pool, armed=("decode_block",))
+
+    class _Brain:
+        delta = 1
+
+        def take_knob_delta(self):
+            delta, self.delta = self.delta, None
+            return delta
+
+    knob = LearnedKnobPolicy(actuator, _Brain(), ladder=(2, 4, 8))
+    before = actuator._read("decode_block")
+    knob.evaluate()
+    knob.evaluate()  # consumed: no second step
+    assert actuator.pending == {"decode_block": {2: 4, 4: 8, 8: 8}[
+        before]}
 
 
 def test_knobs_route_to_the_right_plane(tiny):

@@ -12,9 +12,9 @@ to the first position whose reference top-two margin is under
 ``BF16_GUARD``.
 
 The reference's ``tests/test_sched.py`` is mirrored by name, except its
-two bench tests and the six tests of the learned knob head, which need
-``learn/`` (ROADMAP Queue 1 item 6); a request for ``LearnedKnobPolicy``
-raises naming that item.
+two bench tests; the learned knob head's tests (the network, the
+checkpoint and ``LearnedKnobPolicy``) are mirrored in
+``tests/test_torch_learn.py``.
 """
 
 from __future__ import annotations
@@ -426,13 +426,19 @@ def test_parse_knob_names(csv):
 
 
 def test_learned_knob_policy_names_its_roadmap_item():
+    # ported (learn/): exported as the reference exports it, with the
+    # reference's ladder check
     from kube_sqs_autoscaler_tpu_torch.sched.knobs import LearnedKnobPolicy
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        LearnedKnobPolicy(None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        sched.LearnedKnobPolicy  # noqa: B018
-    assert "LearnedKnobPolicy" not in sched.__all__
+    assert sched.LearnedKnobPolicy is LearnedKnobPolicy
+    assert "LearnedKnobPolicy" in sched.__all__
+    assert sorted(sched.__all__) == sorted(jax_sched.__all__)
+    for ladder in ((), (4, 2), (2, 2, 4)):
+        with pytest.raises(KnobError) as got:
+            LearnedKnobPolicy(None, None, ladder=ladder)
+        with pytest.raises(jax_knobs.KnobError) as want:
+            jax_knobs.LearnedKnobPolicy(None, None, ladder=ladder)
+        assert str(got.value) == str(want.value)
 
 
 def test_prune_skips_members_scan_while_under_keep():

@@ -27,6 +27,9 @@ from kube_sqs_autoscaler_tpu.workloads import continuous as jax_continuous
 from kube_sqs_autoscaler_tpu.workloads import model as jax_model
 from kube_sqs_autoscaler_tpu.workloads import shard_plane as jax_plane
 from kube_sqs_autoscaler_tpu.workloads import tenancy as jax_tenancy
+from kube_sqs_autoscaler_tpu.workloads.service import (
+    ServiceConfig as jax_service,
+)
 from kube_sqs_autoscaler_tpu_torch.workloads import continuous, tenancy
 from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
     builtin_config, main as binary,
@@ -198,6 +201,9 @@ def port(name: str):
             jobs.append(dict(kind="worker", argv=[
                 "--device", "cpu", *WORKER_ARGS, "--checkpoint-dir", ckpt]))
             names.append(f"checkpoint-{family}")
+        _, _, tcfg, tp = weights("gpt")
+        jobs.append(dict(kind="refused_pools", config=tcfg, params=tp))
+        names.append("refused-pools")
         results = run_ranks("serve", 4, {"jobs": jobs}, timeout=500)
         _done.update({key: [r[i] for r in results]
                       for i, key in enumerate(names)})
@@ -364,19 +370,25 @@ def test_lone_process_model_parallel_one_serves_as_one_device(extra):
 
 @pytest.mark.parametrize("make", ["WorkerPool", "ShardedWorkerPool"])
 def test_fleet_pools_refuse_a_mesh_naming_their_item(make):
-    from kube_sqs_autoscaler_tpu_torch.fleet import (
-        ShardedWorkerPool, WorkerPool,
-    )
-    from kube_sqs_autoscaler_tpu_torch.workloads.service import (
-        ServiceConfig,
-    )
+    # the pools serve over a mesh now (tests/test_torch_fleet_mesh.py);
+    # what the mesh's engines refuse they refuse, in the reference's
+    # words: slots, or the plane's shards, that do not divide over the
+    # data axis
+    got = port("refused-pools")[0][make]
+    from kube_sqs_autoscaler_tpu.fleet import ShardedWorkerPool, WorkerPool
 
-    pool = {"WorkerPool": WorkerPool,
-            "ShardedWorkerPool": ShardedWorkerPool}[make]
-    _, _, tcfg, tp = weights("gpt")
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 5c-ii"):
-        pool.serving(None, tp, tcfg, ServiceConfig(queue_url="q", generate_tokens=2),
-                     min=1, max=2, device="cpu", mesh=object())
+    jcfg, jp, _, _ = weights("gpt")
+    service = jax_service(queue_url="q", batch_size=3, seq_len=4,
+                          generate_tokens=2)
+    with pytest.raises(ValueError) as want:
+        if make == "WorkerPool":
+            WorkerPool.serving(JaxQueue(), jp, jcfg, service, min=1, max=2,
+                               mesh=jax_mesh(1))
+        else:
+            service.batch_size = 2
+            ShardedWorkerPool.serving(JaxQueue(), jp, jcfg, service, min=1,
+                                      max=3, shards=3, mesh=jax_mesh(1))
+    assert got == str(want.value)
 
 
 def one_process_replies(argv: list[str], f32: bool = False) -> dict:

@@ -222,6 +222,32 @@ def job_refused_batcher(job):
     }
 
 
+def job_refused_pools(job):
+    """The fleet pools over a mesh refuse what the mesh's engines refuse:
+    slots or shards that do not divide over the data axis (4 ranks at tp
+    1: data 4), with the engines' words."""
+    import dataclasses
+
+    from kube_sqs_autoscaler_tpu_torch.fleet import (
+        ShardedWorkerPool, WorkerPool,
+    )
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import ServiceConfig
+
+    config, params = job["config"], job["params"]
+    service = ServiceConfig(queue_url="q", batch_size=3, seq_len=4,
+                            generate_tokens=2)
+    return {
+        "WorkerPool": _refusal(lambda: WorkerPool.serving(
+            FakeMessageQueue(), params, config, service, min=1, max=2,
+            device="cpu", mesh=mesh(1))),
+        "ShardedWorkerPool": _refusal(lambda: ShardedWorkerPool.serving(
+            FakeMessageQueue(), params, config,
+            dataclasses.replace(service, batch_size=2), min=1, max=3,
+            shards=3, device="cpu", mesh=mesh(1))),
+    }
+
+
 def job_worker(job):
     """The worker binary over the ranks, serving ``job["params"]`` (the
     full weights every rank starts from) in place of the built-in seeded
@@ -234,22 +260,30 @@ def job_worker(job):
 def worker_summary(argv, params=None, f32=False):
     """The port's binary on ``argv`` with its weights replaced by
     ``params`` (``None``: the binary's own), its built-in models in f32
-    with ``f32``: the summary's counts and replies."""
+    with ``f32``: the summary's counts and replies, whether this rank
+    served ``/metrics`` and how many flight journals it opened."""
     import dataclasses
 
     from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary
     from kube_sqs_autoscaler_tpu_torch.workloads.checkpoint import _to_device
 
+    from kube_sqs_autoscaler_tpu_torch import obs
+
     original = (binary.served_params, dict(binary.BUILTIN_CONFIGS),
-                binary.serve_metrics)
-    servers = []
+                binary.serve_metrics, obs.TickJournal)
+    servers, journals = [], []
 
     def serve_metrics(*args, **kwargs):
         server = original[2](*args, **kwargs)
         servers.append(server is not None)
         return server
 
+    def tick_journal(*args, **kwargs):
+        journals.append(args[0] if args else kwargs.get("path"))
+        return original[3](*args, **kwargs)
+
     binary.serve_metrics = serve_metrics
+    obs.TickJournal = tick_journal
     if params is not None:
         binary.served_params = (
             lambda args, config, layout, given, device: _to_device(params,
@@ -265,15 +299,109 @@ def worker_summary(argv, params=None, f32=False):
         binary.served_params = original[0]
         binary.BUILTIN_CONFIGS.update(original[1])
         binary.serve_metrics = original[2]
-    return {"metrics_served": any(servers),
+        obs.TickJournal = original[3]
+    return {"metrics_served": any(servers), "journals": len(journals),
             **{key: summary.get(key) for key in (
-                "processed", "replies", "duplicate_replies", "mesh")}}
+                "processed", "replies", "duplicate_replies", "mesh",
+                "replica_trajectory", "completed_by_tenant")}}
+
+
+FLEET_QUEUE, FLEET_RESULTS = "fleet-mesh://q", "fleet-mesh://r"
+
+
+def fleet_episode(params, config, *, bodies, mesh=None, sharded=False,
+                  tenancy=None, kill=None, batch=2, seq_len=8, tokens=5,
+                  block=2, shards=2):
+    """One deterministic fleet episode of the port: the real
+    ``ControlLoop`` scaling ``WorkerPool.serving`` (``ShardedWorkerPool``
+    with ``sharded``) over ``bodies`` on a ``FakeClock`` advanced half a
+    second a cycle, replica ``kill[1]`` killed at cycle ``kill[0]``, the
+    gates on the SLO-weighted tenant backlog with ``tenancy`` (the
+    binary's wiring).  On a ``mesh`` the depth is read through
+    ``RankQueue``, as the binary reads it.  Returns what a test compares:
+    the sent ids, the replies (rank 0's), the trajectory and the pool's
+    events."""
+    import json
+
+    from kube_sqs_autoscaler_tpu_torch.core.clock import FakeClock
+    from kube_sqs_autoscaler_tpu_torch.core.loop import (
+        ControlLoop, LoopConfig,
+    )
+    from kube_sqs_autoscaler_tpu_torch.core.policy import PolicyConfig
+    from kube_sqs_autoscaler_tpu_torch.fleet import (
+        FleetDriver, ShardedWorkerPool, WorkerPool,
+    )
+    from kube_sqs_autoscaler_tpu_torch.forecast.tenants import (
+        TenantAwareDepth,
+    )
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.metrics.queue import QueueMetricSource
+    from kube_sqs_autoscaler_tpu_torch.sim.faults import FleetFaultPlan
+    from kube_sqs_autoscaler_tpu_torch.workloads.distributed import RankQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.service import (
+        ServiceConfig, collect_replies,
+    )
+
+    clock = FakeClock()
+    queue = FakeMessageQueue(visibility_timeout=30.0, now_fn=clock.now)
+    results = FakeMessageQueue(now_fn=clock.now)
+    sent = [queue.send_message(FLEET_QUEUE, json.dumps(body))
+            for body in bodies]
+    service = ServiceConfig(queue_url=FLEET_QUEUE, batch_size=batch,
+                            seq_len=seq_len, generate_tokens=tokens,
+                            decode_block=block,
+                            result_queue_url=FLEET_RESULTS)
+    common = dict(result_queue=results, min=1, clock=clock, device="cpu",
+                  mesh=mesh, tenancy=tenancy)
+    if sharded:
+        pool = ShardedWorkerPool.serving(queue, params, config, service,
+                                         max=shards, shards=shards,
+                                         now_fn=clock.now, **common)
+    else:
+        pool = WorkerPool.serving(queue, params, config, service, max=3,
+                                  drain_timeout_cycles=200, **common)
+    depth = RankQueue(queue) if mesh is not None else queue
+    loop = ControlLoop(
+        pool,
+        QueueMetricSource(depth, FLEET_QUEUE,
+                          ("ApproximateNumberOfMessages",)),
+        LoopConfig(poll_interval=1.0, policy=PolicyConfig(
+            scale_up_messages=4, scale_down_messages=1,
+            scale_up_cooldown=1.0, scale_down_cooldown=2.0)),
+        clock=clock,
+        depth_policy=(TenantAwareDepth(pool.staged_by_tenant, tenancy)
+                      if tenancy is not None else None),
+    )
+    plan = FleetFaultPlan(kills=(kill,) if kill else ())
+    driver = FleetDriver(pool, loop, cycle_dt=0.5, fault_plan=plan)
+    stats = driver.run(max_cycles=400, until=lambda: (
+        pool.processed >= len(bodies) and pool.idle
+        and pool.replicas == pool.min))
+    replies, duplicates = collect_replies(results, FLEET_RESULTS)
+    return {"sent": sent, "replies": replies, "duplicates": duplicates,
+            "processed": pool.processed,
+            "trajectory": stats["replica_trajectory"],
+            "events": [(e.name, e.t, e.args) for e in pool.events]}
+
+
+def job_fleet(job):
+    """:func:`fleet_episode` on the mesh, every rank keeping its slices of
+    ``job["params"]``."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.tenancy import TenancyConfig
+
+    m = mesh(job["tp"])
+    tenancy = job["episode"].get("tenancy")
+    episode = dict(job["episode"],
+                   tenancy=TenancyConfig(**tenancy) if tenancy else None)
+    return fleet_episode(_rank_params(job, m), job["config"], mesh=m,
+                         **episode)
 
 
 JOBS = {"generate": job_generate, "refusals": job_refusals,
         "beam": job_beam, "speculative": job_speculative,
         "forward": job_forward, "batcher": job_batcher,
-        "refused_batcher": job_refused_batcher, "worker": job_worker}
+        "refused_batcher": job_refused_batcher, "worker": job_worker,
+        "fleet": job_fleet, "refused_pools": job_refused_pools}
 
 
 def case_serve(payload):
