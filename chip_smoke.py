@@ -300,8 +300,29 @@ Phases (any failure makes the run exit non-zero and print no result):
    process's 8 and 8; rates beside one process's; then the forward
    kernel at the ranks' shapes against its plain version, timed beside
    SDPA and its bound;
-25. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
-26. the last line, ``{"ok": true, "device": {...}}``.
+25. sims: the simulators, the serving twin and the policy trainers on
+   the card (``sim/``, ``learn/``): (a) ``verify_fidelity`` over the
+   default battery, reactive, the three forecasters and
+   ``LEARNED_POLICY.json`` (0 divergences), every compiled episode batch
+   run under ``torch.cuda.set_sync_debug_mode("error")`` (no
+   synchronizing call inside an episode); (b) the fluid learn recipe in
+   full (the battery and 2 seed-101 variants of each world, population
+   32, 40 generations): the committed reward curve to 6 decimals, theta
+   and hash ``09f88697cfea``; (c) ``verify_twin_fidelity`` over
+   ``default_twin_battery(cycles=240)``, reactive and
+   ``SERVING_POLICY.json``, the real plane at the built-in GPT's width in
+   bf16 (0 divergences; forward launches equal to the layers times the
+   plane's attention inserts: plain and resume inserts and prefix-pool
+   installs); (d) the serving recipe's first :data:`SIMS_SERVING_GENS`
+   generations against ``SERVING_POLICY.json``'s curve; (e) the four
+   demos, each exiting 0.  Each part's wall time, and one profiled batch's
+   kernel launches and device busy share; then the forward kernel at the
+   twin's insert shapes against its plain version, timed beside SDPA and
+   its bound.  The phase runs in this process while the ``mesh``,
+   ``pipe`` and ``serve mesh`` launches run (printed inside ``mesh``), so
+   its times are not those of the phase alone;
+26. a JSON line ``{"kernels": [...]}`` with each kernel's numbers;
+27. the last line, ``{"ok": true, "device": {...}}``.
 
 The binary runs of the llama, int8, prefix, speculative and beam phases
 serve 16 bodies (two batches, two fills of the slots) and their f32 checks
@@ -8146,6 +8167,9 @@ class RankLaunches:
     def __init__(self) -> None:
         self.launches: dict[str, Launch] = {}
         self.one_process: dict = {}
+        #: this process's work run while the launches run (the ``sims``
+        #: phase: launch-bound host loops, the card mostly idle too)
+        self.beside: list = []
 
     def add(self, name: str, ranks: int, out: Path, flag: str,
             timeout: float, log: Path) -> Launch:
@@ -8162,6 +8186,10 @@ class RankLaunches:
     def wait_all(self) -> None:
         for launch in self.launches.values():
             launch.wait()
+
+    def run_beside(self) -> None:
+        while self.beside:
+            self.beside.pop(0)()
 
 
 def card_lock(torch, dist, held: bool):
@@ -8528,6 +8556,7 @@ def mesh_ranks(torch, flash, smoke: Smoke, power: str,
     out = MESH_DIR / "ranks"
     log = MESH_DIR / "ranks.log"
     launches.start_all()
+    launches.run_beside()
     rc, wall = launches.launches["mesh"].wait()
     files = [out / f"hops-rank{r}.json" for r in range(MESH_RANKS)]
     ok = rc == 0 and all(f.exists() for f in files)
@@ -9693,6 +9722,289 @@ def serve_mesh_phase(torch, flash, smoke: Smoke, power: str,
     return result
 
 
+# the sims phase: the serving recipe's generations run on the card (the
+# committed curve's first values), and the demos it runs as modules
+SIMS_SERVING_GENS = 3
+SIMS_DEMOS = ("kube_sqs_autoscaler_tpu_torch.sim.replay",
+              "kube_sqs_autoscaler_tpu_torch.sim.faults",
+              "kube_sqs_autoscaler_tpu_torch.core.durable",
+              "kube_sqs_autoscaler_tpu_torch.learn")
+
+
+def sync_guard(torch):
+    """A context-manager factory for ``compiled.episode_guard``: any
+    synchronizing call inside an episode batch's device loop raises."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def guard():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    return guard
+
+
+def profiled(torch, fn):
+    """``fn()`` under ``torch.profiler`` (device activity): ``(result,
+    wall ms, kernel launches, kernel busy ms)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    kernels, _ = device_breakdown(prof)
+    return (result, wall_ms, sum(count for _, count, _ in kernels),
+            sum(ms for ms, _, _ in kernels))
+
+
+def sims_part(torch, label: str, power: str, fn, unit, unit_label: str):
+    """One part of the sims phase: ``fn()`` timed whole, then ``unit()``
+    (one batch of its kind, cut to a tenth of its ticks or cycles: the
+    profiler adds tens of microseconds a launch) profiled for its
+    launches and the device's busy share, printed beside the card."""
+    start = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    _, unit_ms, launches, busy_ms = profiled(torch, unit)
+    print(f"sims {label}: wall {wall_s:.3f} s; one {unit_label} (profiler "
+          f"on): wall {unit_ms:.3f} ms, {launches} kernel launches, busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / unit_ms:.2f}%) [{power}]",
+          flush=True)
+    return result, {"wall_s": wall_s, "unit": unit_label,
+                    "unit_ms": unit_ms, "unit_launches": launches,
+                    "unit_busy_ms": busy_ms,
+                    "unit_busy_share": busy_ms / unit_ms}
+
+
+def sims_fluid(torch, smoke: Smoke, power: str) -> dict:
+    """(a) and (b): the fluid twin's fidelity gate and the learn recipe."""
+    from kube_sqs_autoscaler_tpu_torch.learn.checkpoint import load_checkpoint
+    from kube_sqs_autoscaler_tpu_torch.learn.rollout import (
+        evaluate_population, learned_config,
+    )
+    from kube_sqs_autoscaler_tpu_torch.learn.train import ESConfig, train
+    from kube_sqs_autoscaler_tpu_torch.sim import compiled
+    from kube_sqs_autoscaler_tpu_torch.sim.evaluate import default_battery
+    from kube_sqs_autoscaler_tpu_torch.sim.scenarios import scenario_variants
+
+    learned_json = json.loads((ROOT / "LEARNED_POLICY.json").read_text())
+    checkpoint = load_checkpoint(str(ROOT / "LEARNED_POLICY.json"))
+    battery = list(default_battery())
+    extra = [(f"{s.name}/learned", learned_config(s, checkpoint))
+             for s in battery]
+    # the profiled batch: the same episodes cut to 18 ticks
+    short = [dataclasses.replace(s, duration=18 * s.loop.poll_interval)
+             for s in battery]
+    out = {}
+    report, out["fidelity"] = sims_part(
+        torch, "(a) fluid fidelity", power,
+        lambda: compiled.verify_fidelity(battery, extra_episodes=extra),
+        lambda: compiled.run_episodes_grouped(
+            [c for _, c in compiled._fidelity_configs(
+                short, ("ewma", "holt", "lstsq"))]),
+        "compiled batch of 16 predictive and reactive episodes of 18 "
+        "ticks")
+    smoke.check(report.ok and report.episodes == 5 * len(battery),
+                f"sims (a): verify_fidelity over {report.episodes} episodes "
+                f"({report.ticks} ticks; reactive, ewma, holt, lstsq and "
+                f"LEARNED_POLICY.json on {len(battery)} worlds), every batch "
+                f"under set_sync_debug_mode('error'): "
+                f"{len(report.divergences)} divergences "
+                f"{report.format_divergences(3)} [{power}]")
+    out["fidelity"]["divergences"] = len(report.divergences)
+    worlds = battery + scenario_variants(battery, 2, seed=101)
+    es = ESConfig(population=32, generations=40, seed=0, churn_weight=0.3,
+                  replica_weight=0.15)
+    thetas = np.zeros((33, 16 * 8 + 16 + 3 * 16 + 3), np.float32)
+    result, out["recipe"] = sims_part(
+        torch, "(b) fluid learn recipe", power, lambda: train(worlds, es),
+        lambda: evaluate_population(thetas, worlds, hidden=16),
+        f"generation ({33 * len(worlds)} episodes)")
+    curve = [round(v, 6) for v in result.reward_curve]
+    want = learned_json["meta"]["reward_curve"]
+    smoke.check(curve == want and result.checkpoint.hash == "09f88697cfea"
+                and result.checkpoint.theta.tolist() == learned_json["theta"],
+                f"sims (b): the fluid learn recipe (population 32, 40 "
+                f"generations, {len(worlds)} worlds) on the card: hash "
+                f"{result.checkpoint.hash} (LEARNED_POLICY.json "
+                f"09f88697cfea), curve {curve[:4]}... equal to the committed "
+                f"one: {curve == want} [{power}]")
+    out["recipe"]["hash"] = result.checkpoint.hash
+    return out
+
+
+def sims_twin(torch, flash, smoke: Smoke, power: str) -> dict:
+    """(c) and (d): the serving twin against the real plane at the built-in
+    GPT's width in bf16, and the serving recipe's first generations."""
+    from kube_sqs_autoscaler_tpu_torch.learn.checkpoint import load_checkpoint
+    from kube_sqs_autoscaler_tpu_torch.learn.rollout import (
+        evaluate_population_serving,
+    )
+    from kube_sqs_autoscaler_tpu_torch.learn.serving import (
+        ServingESConfig, train_serving,
+    )
+    from kube_sqs_autoscaler_tpu_torch.sim.twin import (
+        TwinConfig, default_twin_battery, run_twin_grouped, twin_variants,
+        verify_twin_fidelity,
+    )
+    from kube_sqs_autoscaler_tpu_torch.sim.twin.host import HOST_PREFIX_LEN
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        builtin_config,
+    )
+    from kube_sqs_autoscaler_tpu_torch.workloads.model import init_params
+
+    base = default_twin_battery(cycles=240)
+    serving = load_checkpoint(str(ROOT / "SERVING_POLICY.json"))
+    rows = [TwinConfig(scenario=s) for s in base] + [
+        TwinConfig(scenario=s, policy="learned", checkpoint=serving)
+        for s in base]
+    # the built-in GPT (8 heads, D = 64, bf16): its inserts reach the
+    # forward kernel.  The twin counts tokens and cycles, never their
+    # content, which holds while no EOS reaches the plane: the host
+    # episode's engine runs with eos_id=None.
+    model_config = builtin_config(max(s.prompt_len for s in base),
+                                  max(s.generate_tokens for s in base),
+                                  prefix_len=HOST_PREFIX_LEN)
+    params = init_params(model_config, torch.Generator().manual_seed(0),
+                         "cuda")
+    shapes: dict = {}
+    launch = flash._launch
+
+    def recording(name, dtype, device, *args):
+        if name == "flash_fwd":
+            b, h, hkv, sq, sk, d = args[5:11]
+            shapes[(b, h, hkv, sq, sk, d)] = shapes.get(
+                (b, h, hkv, sq, sk, d), 0) + 1
+        return launch(name, dtype, device, *args)
+
+    out = {}
+    flash._launch = recording
+    flash.kernel_launches = 0
+    try:
+        report, out["fidelity"] = sims_part(
+            torch, "(c) twin fidelity", power,
+            lambda: verify_twin_fidelity(rows, params=params,
+                                         model_config=model_config),
+            lambda: run_twin_grouped([TwinConfig(scenario=s) for s in
+                                      default_twin_battery(cycles=24)]),
+            f"compiled twin batch of {len(base)} reactive episodes of 24 "
+            "cycles")
+    finally:
+        flash._launch = launch
+    launched = flash.kernel_launches
+    expected = model_config.n_layers * sum(
+        e["insert_dispatches"] - e["pooled_inserts"] + e["prefix_installs"]
+        for e in report.engines)
+    inserts = sum(e["insert_dispatches"] for e in report.engines)
+    smoke.check(report.ok and launched == expected > 0,
+                f"sims (c): verify_twin_fidelity over {report.episodes} "
+                f"episodes ({report.cycles} cycles) against the real plane "
+                f"at d_model {model_config.d_model}, {model_config.n_heads} "
+                f"heads, bf16: {len(report.divergences)} divergences "
+                f"{report.format_divergences(3)}; flash_fwd launches "
+                f"{launched} = {model_config.n_layers} layers x "
+                f"{expected // model_config.n_layers} attention inserts "
+                f"({inserts} insert dispatches, the pooled ones' suffix "
+                f"forward launching none, plus the prefix installs) "
+                f"[{power}]")
+    out["fidelity"].update(divergences=len(report.divergences),
+                           launches=launched, inserts=inserts,
+                           shapes={"x".join(map(str, k)): v
+                                   for k, v in shapes.items()})
+    worlds = base + twin_variants(base, 1, seed=301)
+    short = [dataclasses.replace(s, cycles=24) for s in worlds]
+    thetas = np.zeros((25, 16 * 8 + 16 + 3 * 16 + 3), np.float32)
+    result, out["recipe"] = sims_part(
+        torch, f"(d) serving recipe, {SIMS_SERVING_GENS} generations",
+        power, lambda: train_serving(worlds, ServingESConfig(
+            population=24, generations=SIMS_SERVING_GENS)),
+        lambda: evaluate_population_serving(thetas, short, hidden=16,
+                                            history=16),
+        f"generation ({25 * len(worlds)} episodes of 24 cycles)")
+    want = json.loads((ROOT / "SERVING_POLICY.json").read_text())[
+        "meta"]["reward_curve"][:SIMS_SERVING_GENS]
+    curve = [round(v, 6) for v in result.reward_curve]
+    smoke.check(curve == want,
+                f"sims (d): the serving recipe's first {SIMS_SERVING_GENS} "
+                f"generations on the card {curve}, SERVING_POLICY.json's "
+                f"{want} [{power}]")
+    out["recipe"]["curve"] = curve
+    out["launches"] = launched
+    out["shapes"] = shapes
+    return out
+
+
+def sims_demos(smoke: Smoke, power: str) -> dict:
+    """(e): each demo as ``python -m``, on the card where it computes."""
+    out = {}
+    for module in SIMS_DEMOS:
+        start = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", module],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=ROOT)
+        seconds = time.perf_counter() - start
+        last = (run.stdout.strip().splitlines() or [""])[-1]
+        smoke.check(run.returncode == 0 and '"ok": true' in last,
+                    f"sims (e): python -m {module}: exit {run.returncode} "
+                    f"in {seconds:.3f} s, {last[:160]} [{power}]"
+                    + ("" if run.returncode == 0 else
+                       f"\n{run.stderr[-1500:]}"))
+        out[module] = {"rc": run.returncode, "wall_s": seconds}
+    return out
+
+
+def sims_kernels(torch, flash, smoke: Smoke, shapes: dict) -> dict:
+    """The forward kernel at the twin's insert shapes (square causal ones,
+    as the plane's inserts are), against its plain version in bf16, then
+    timed beside its plain version, SDPA and its bound."""
+    import torch.nn.functional as F
+
+    timings, err = {}, 0.0
+    for seed, (b, h, hkv, sq, sk, d) in enumerate(sorted(shapes)):
+        if sq != sk:
+            continue
+        q, k, v = make_qkv(torch, b, h, hkv, sq, d, torch.bfloat16, True,
+                           400 + seed)
+        got = flash.flash_attention(q, k, v)
+        want = flash.flash_attention_reference(q, k, v)
+        e = (got.float() - want.float()).abs().max().item()
+        smoke.check(bool(torch.isfinite(got).all().item())
+                    and e <= TOL["bfloat16"],
+                    f"flash_fwd twin insert B={b} H={h} H_kv={hkv} S={sq} "
+                    f"D={d}: max|d|={e:.3e} tol={TOL['bfloat16']:g}")
+        err = max(err, e)
+        timing = gqa_timing(torch, flash, F, (b, h, hkv, sq, d), None)
+        timing["launches"] = shapes[(b, h, hkv, sq, sk, d)]
+        timings["x".join(map(str, (b, h, hkv, sq, d)))] = timing
+    return {"timings": timings, "err": err}
+
+
+def sims_phase(torch, flash, smoke: Smoke, power: str) -> dict:
+    """The simulators, the serving twin and the trainers on the card (see
+    the module doc, item 25)."""
+    from kube_sqs_autoscaler_tpu_torch.sim import compiled
+
+    compiled.episode_guard = sync_guard(torch)
+    try:
+        fluid = sims_fluid(torch, smoke, power)
+        twin = sims_twin(torch, flash, smoke, power)
+    finally:
+        import contextlib
+
+        compiled.episode_guard = contextlib.nullcontext
+    demos = sims_demos(smoke, power)
+    kernels = sims_kernels(torch, flash, smoke, twin["shapes"])
+    return {"fluid": fluid, "twin": twin, "demos": demos,
+            "kernels": kernels, "launches": {"sims-twin": twin["launches"]}}
+
+
 def kernel_entry(name, source, replaces, replaces_fn, launches, by_path,
                  err, timing, shape) -> dict:
     return {
@@ -9783,12 +10095,19 @@ def main() -> int:
              "--serve-mesh-rank", SERVE_MESH_TIMEOUT)):
         launches.add(name, ranks, out / "ranks", flag, timeout,
                      out / "ranks.log")
+    # the sims phase runs in this process beside the rank launches (see
+    # RankLaunches); on its own if the mesh phase never started them
+    beside: dict = {}
+    launches.beside.append(lambda: beside.update(sims=smoke.phase(
+        "sims", sims_phase, torch, flash, smoke, power)))
     mesh = smoke.phase("mesh", mesh_phase, torch, flash, smoke, power,
                        launches)
     pipe = smoke.phase("pipe", pipe_phase, torch, flash, smoke, power,
                        launches)
     serve_mesh = smoke.phase("serve mesh", serve_mesh_phase, torch, flash,
                              smoke, power, launches)
+    launches.run_beside()
+    sims = beside.get("sims")
     if smoke.failures or not (info and sass and resources and kern
                               and train_kern and path and serve and cycles
                               and stagger and rates and prof
@@ -9799,7 +10118,7 @@ def main() -> int:
                               and tenancy and planes and orch and odd
                               and f32_train
                               and train_path and train_prof and training
-                              and mesh and pipe and serve_mesh):
+                              and mesh and pipe and serve_mesh and sims):
         print(f"chip_smoke: {len(smoke.failures)} failure(s): "
               f"{smoke.failures}", file=sys.stderr)
         return 1
@@ -9855,6 +10174,9 @@ def main() -> int:
         # serving over a (data, model) mesh: each worker run over the ranks
         # (summed over its ranks)
         **serve_mesh["launches"],
+        # the serving twin's host episodes: the real plane's inserts at the
+        # built-in GPT's width
+        **sims["launches"],
     }
     fwd = kernel_entry(
         "flash_fwd", "flash_fwd.cu", 159, "_fwd_kernel (need_lse=False)",
@@ -9877,6 +10199,10 @@ def main() -> int:
         f"{label}-" + "x".join(map(str, (b, h, hkv, s, 64))): t
         for (label, b, h, hkv, s), t in zip(
             SERVE_MESH_SHAPES, serve_mesh["kernels"]["timings"].values())}
+    # the serving twin's insert shapes (B, H, H_kv, S, D), with their
+    # launches in the twin's host episodes
+    fwd["at_twin_insert_shapes"] = sims["kernels"]["timings"]
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], sims["kernels"]["err"])
     fwd["tflops"] = timing["tflops"]
     entries = [fwd]
     for name, source, line, fn in (

@@ -65,6 +65,12 @@ carry the same surface.
 The port's copy of ``kube_sqs_autoscaler_tpu/core/durable.py``: the same
 snapshot schema version, body layout and content hash, so a snapshot
 either package wrote rehydrates the other's loop.
+
+Runnable as ``python -m kube_sqs_autoscaler_tpu_torch.core.durable``: the
+restart demo, a host-only FakeClock kill -> restart -> reconcile
+walkthrough asserting every rehydration milestone (snapshot-per-tick,
+warm stamps, breaker survival, intent pessimism, corrupt/future-schema
+fallback), exit 2 on any missing milestone.
 """
 
 from __future__ import annotations
@@ -633,3 +639,225 @@ class DurableStateStore:
 
     def _event(self, name: str, t: float, **args) -> None:
         self.events.append(_StoreEvent(name, t, args))
+
+
+# The restart demo: a host-only FakeClock kill → restart → reconcile
+# walkthrough (the chaos-demo / fleet-demo contract: exit 2 on any
+# missing milestone).
+# ---------------------------------------------------------------------------
+
+
+def _demo() -> tuple[dict, list[str]]:
+    import tempfile
+
+    # `python -m ...core.durable` runs this module as __main__, so the
+    # module-level ControllerCrash here is a DIFFERENT class object from
+    # the canonical one the loop raises — catch the canonical one.
+    from ..core.durable import ControllerCrash as CanonicalCrash
+    from ..core.clock import FakeClock
+    from ..core.loop import ControlLoop, LoopConfig
+    from ..core.policy import PolicyConfig
+    from ..core.resilience import ResilienceConfig
+    from ..forecast.history import DepthHistory
+    from ..metrics.fake import FakeQueueService
+    from ..metrics.queue import QueueMetricSource
+    from ..scale.actuator import PodAutoScaler
+    from ..scale.fake import FakeDeploymentAPI, RecordingDeploymentAPI
+
+    problems: list[str] = []
+
+    def expect(condition: bool, message: str) -> None:
+        if not condition:
+            problems.append(message)
+
+    tmp = tempfile.mkdtemp(prefix="restart-demo-")
+    path = os.path.join(tmp, "controller.state")
+    # ONE FakeClock plays both the loop clock and the restart wall clock
+    # (like SentTimestamp, the two boots of a restart must share the
+    # wall-clock base); since virtual time never resets across the
+    # demo's "boots", the rebase is zero and stamps stay absolute —
+    # the monotonic-reset arithmetic is pinned by tests/test_durable.py.
+    clock = FakeClock()
+    queue = FakeQueueService.with_depths(5000)  # permanent overload
+    api = RecordingDeploymentAPI(
+        FakeDeploymentAPI.with_deployments("default", 1, "workers"), clock
+    )
+    scale_times = api.scale_times
+    policy = PolicyConfig(
+        scale_up_messages=100, scale_down_messages=1,
+        scale_up_cooldown=30.0, scale_down_cooldown=60.0,
+    )
+
+    def build():
+        store = DurableStateStore(path, wall_clock=clock.now)
+        history = DepthHistory(capacity=32)
+        store.register("forecast-history", history, ttl_s=600.0)
+        scaler = PodAutoScaler(
+            client=api, max=10, min=1, scale_up_pods=1,
+            scale_down_pods=1, deployment="workers", namespace="default",
+        )
+        loop = ControlLoop(
+            scaler,
+            QueueMetricSource(queue, "demo://queue",
+                              ("ApproximateNumberOfMessages",)),
+            LoopConfig(poll_interval=5.0, policy=policy),
+            clock=clock,
+            observer=history,
+            resilience=ResilienceConfig(
+                breaker_failures=2, breaker_reset=40.0,
+            ),
+            durable=store,
+        )
+        store.register("resilience", loop.resilience, ttl_s=600.0)
+        return loop, store, history
+
+    # --- boot 1: run to the first scale-up, snapshotting every tick ---
+    loop, store, history = build()
+    state = loop.initial_policy_state()
+    expect(store.last_report is not None and store.last_report.cold_start,
+           "first boot did not report a (silent) cold start")
+    first_fire = None
+    for _ in range(8):  # ticks at t=5..40; startup grace ends at 30
+        clock.advance(5.0)
+        state = loop.tick(state)
+        if first_fire is None and scale_times:
+            first_fire = scale_times[-1][0]
+    boot1_snapshots = store.snapshots_written
+    expect(boot1_snapshots >= 8, "the loop did not snapshot every tick")
+    expect(first_fire == 30.0,
+           f"expected the startup-grace fire at t=30, got {first_fire}")
+    pre_crash_len = len(history)
+
+    # --- crash 1: after-actuate-before-journal at the next fire ------
+    # t=60 is the next eligible fire (30 + 30s cooldown, boundary fires).
+    from ..sim.faults import CRASH_AFTER_ACTUATE, CrashingScaler, CrashPlan
+
+    plan = CrashPlan(crashes=((0, CRASH_AFTER_ACTUATE),))
+    loop.scaler = CrashingScaler(loop.scaler, plan, lambda: 0)
+    crashed = False
+    while clock.now() < 60.0 and not crashed:
+        clock.advance(5.0)
+        try:
+            state = loop.tick(state)
+        except CanonicalCrash:
+            crashed = True
+    expect(crashed, "the after-actuate crash never fired")
+    expect(bool(scale_times) and scale_times[-1] == (60.0, 3),
+           f"expected the crash tick to actuate to 3 replicas at t=60, "
+           f"got {scale_times[-1] if scale_times else None}")
+    expect(os.path.exists(path + ".intent"),
+           "no write-ahead intent survived the crash")
+
+    # --- boot 2: warm restart after 15s of downtime ------------------
+    clock.advance(15.0)
+    loop, store, history = build()
+    state = loop.initial_policy_state()
+    report = store.last_report
+    expect(report is not None and not report.cold_start,
+           "boot 2 cold-started despite a healthy snapshot")
+    expect(report.records_recovered >= pre_crash_len,
+           f"recovered {report.records_recovered} record(s), expected "
+           f">= {pre_crash_len} (the forecaster ring)")
+    expect(report.intent_applied == "up",
+           "the unresolved scale-up intent was not applied")
+    expect(len(history) >= pre_crash_len,
+           "the forecaster history did not survive the restart")
+    # cooldown honored ACROSS the gap: the crashed boot actuated at
+    # t=60 (recorded nowhere but the intent), so no fire before t=90 —
+    # and warm restart fires exactly there, not at restart + cooldown
+    # (the cold restart's over-cooling).
+    fires_before = len(scale_times)
+    while clock.now() < 110.0:
+        clock.advance(5.0)
+        state = loop.tick(state)
+    new_fires = scale_times[fires_before:]
+    expect(bool(new_fires), "no post-restart scale-up at all")
+    if new_fires:
+        expect(new_fires[0][0] == 90.0,
+               f"expected the first post-restart fire at t=90 "
+               f"(crash-tick stamp 60 + 30s cooldown), got "
+               f"{new_fires[0][0]}")
+    ups = [t for t, _ in scale_times]
+    gaps = [b - a for a, b in zip(ups, ups[1:])]
+    expect(all(g >= 30.0 - 1e-9 for g in gaps),
+           f"a scale-up fired inside the cooldown across the restart "
+           f"(gaps {gaps})")
+
+    # --- crash 2: an OPEN breaker must survive a restart -------------
+    api.fail = True
+    for _ in range(4):  # t=115 cooling, 120 fail, 125 fail→open, 130 fast
+        clock.advance(5.0)
+        state = loop.tick(state)
+    expect(loop.resilience.breaker_state == "open",
+           "the breaker never opened under scaler failures")
+    opened_at = loop.resilience.breaker.opened_at
+    clock.advance(5.0)
+    state = loop.tick(state)  # t=135: snapshot the open breaker
+    attempts_before = len(api.update_attempts)
+    clock.advance(10.0)  # downtime, inside the 40s reset window
+    loop, store, history = build()
+    state = loop.initial_policy_state()
+    expect(loop.resilience.breaker_state == "open",
+           "the restarted breaker forgot it was open")
+    restored_open = loop.resilience.breaker.opened_at
+    expect(restored_open is not None and opened_at is not None
+           and abs(restored_open - opened_at) < 1e-6,
+           "the breaker's opened_at did not survive the restart")
+    # while open, gate fires must not reach the apiserver
+    for _ in range(2):  # t=150, 155 — probe not due until 165
+        clock.advance(5.0)
+        state = loop.tick(state)
+    expect(len(api.update_attempts) == attempts_before,
+           "an open breaker let a scaler RPC through after restart")
+    api.fail = False
+
+    # --- corrupt + future-schema snapshots must cold-start -----------
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write('{"kind": "control-plane-snapshot", "schema": 1, "torn')
+    loop, store, _ = build()
+    loop.initial_policy_state()
+    expect(store.last_report.cold_start
+           and "corrupt" in (store.last_report.reason or ""),
+           "a torn snapshot did not fall back to cold start")
+    future = {"kind": _SNAPSHOT_KIND, "schema": SNAPSHOT_SCHEMA_VERSION + 7,
+              "saved_wall": clock.now(), "saved_clock": clock.now(),
+              "policy": {}, "sections": {}}
+    future["hash"] = _content_hash(future)
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(future, fh)
+    loop, store, _ = build()
+    loop.initial_policy_state()
+    expect(store.last_report.cold_start
+           and "schema" in (store.last_report.reason or ""),
+           "a future-schema snapshot did not fall back to cold start")
+    expect(bool(store.events), "the store produced no restart trace instants")
+
+    summary = {
+        "scale_times": scale_times,
+        "boot1_snapshots_written": boot1_snapshots,
+        "cooldown_gaps": gaps,
+        "ok": not problems,
+    }
+    return summary, problems
+
+
+def main(argv=None) -> int:
+    import argparse
+    import sys
+
+    parser = argparse.ArgumentParser(
+        description="Deterministic restart episode: snapshot-per-tick, "
+        "crash, warm rehydration, cooldown/breaker honored across the "
+        "gap, corrupt/future-schema fallback — fails on any missing "
+        "milestone."
+    )
+    parser.parse_args(argv)
+    summary, problems = _demo()
+    print(json.dumps(summary))
+    for line in problems:
+        print(f"unexpected trajectory: {line}", file=sys.stderr)
+    return 0 if not problems else 2
+
+
+if __name__ == "__main__":  # pragma: no cover
+    raise SystemExit(main())

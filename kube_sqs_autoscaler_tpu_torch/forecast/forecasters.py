@@ -20,11 +20,17 @@ The reference runs EWMA and Holt as masked ``lax.scan`` recurrences over
 the ring's capacity.  The EWMA level is a closed form here: a weighted sum
 of the ``n`` valid samples, weights and sum in float64, the level
 float32 (a handful of launches).  Holt runs the reference's float32
-recurrence step by step over the ``n`` valid samples (seven launches a
+recurrence step by step over the ``n`` valid samples (nine launches a
 sample): its trend can cancel its level, and there the float32 rounding
 of the scan is part of the value.  The least-squares fit runs the
 reference's float32 sums over the window.  A forecast is one upload of
 the snapshot and one read of its result.
+
+Each function has a batched form over ``[B, C]`` snapshots with a
+per-row ``n`` (``*_rows``, what the compiled twins run), and the live
+single-snapshot function is that form with one row: every sum is a
+:func:`tree_sum` of elementwise operations, so a row gives the same bits
+alone and inside a batch, on either device.
 """
 
 from __future__ import annotations
@@ -62,31 +68,166 @@ def _f32(value: float) -> float:
     return float(np.float32(value))
 
 
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dimension as a pairwise tree of elementwise adds
+    (zero-padded to a power of two).  The grouping depends only on the
+    last dimension's length, never on the number of rows or the device,
+    so a row's sum is the same bits in a batch of one and of thousands
+    (a library reduction picks its order from the shape)."""
+    width = x.shape[-1]
+    size = 1
+    while size < width:
+        size *= 2
+    if size != width:
+        x = torch.nn.functional.pad(x, (0, size - width))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 @functools.lru_cache(maxsize=64)
-def _ewma_powers(alpha: float, capacity: int,
-                 device: torch.device) -> torch.Tensor:
-    """The EWMA's weights, newest sample last, float64 on ``device``: row
-    ``j`` holds ``keep**k`` (what a first sample ``k`` samples before the
-    newest contributes) and ``alpha * keep**k`` (a later one), ``k =
-    capacity - 1 - j``."""
+def _ewma_powers(alpha: float, capacity: int) -> np.ndarray:
+    """``keep**k`` for ``k = capacity - 1 .. 0`` in float64 (``keep = 1 -
+    alpha`` in float32): entry ``j`` is what a sample ``capacity - 1 - j``
+    samples before the newest is worth."""
     keep = _f32(np.float32(1.0) - np.float32(alpha))
-    powers = keep ** np.arange(capacity - 1, -1, -1, dtype=np.float64)
-    table = np.stack([powers, _f32(alpha) * powers], axis=1)
-    return torch.as_tensor(table, dtype=F64, device=device)
+    return keep ** np.arange(capacity - 1, -1, -1, dtype=np.float64)
+
+
+def ewma_tables(alphas, capacity: int, device: torch.device):
+    """One row per alpha: ``(alpha64 [B], powers [B, capacity])``, float64
+    on ``device`` in one upload (:func:`ewma_level_rows`'s weights)."""
+    alphas = [_f32(a) for a in alphas]
+    table = np.concatenate(
+        [np.asarray(alphas, np.float64)[:, None],
+         np.stack([_ewma_powers(a, capacity) for a in alphas])], axis=1)
+    table = torch.as_tensor(table, dtype=F64, device=device)
+    return table[:, 0], table[:, 1:]
+
+
+def ewma_level_rows(depths: torch.Tensor, n: torch.Tensor,
+                    alpha64: torch.Tensor,
+                    powers: torch.Tensor) -> torch.Tensor:
+    """EWMA levels of ``[B, C]`` snapshots after each row's first ``n``
+    entries (0 where ``n`` is 0), float32 ``[B]``.  The first sample sets
+    the level; each later one moves it by ``alpha`` toward itself.  A
+    closed form: the float64 weighted sum of the valid samples, summed by
+    :func:`tree_sum` over the capacity."""
+    capacity = depths.shape[1]
+    idx = torch.arange(capacity, device=depths.device)
+    valid = idx[None, :] < n[:, None]
+    source = ((capacity - n)[:, None] + idx[None, :]).clamp(max=capacity - 1)
+    weights = powers.gather(1, source)
+    d = depths.to(F64)
+    first = weights[:, 0] * d[:, 0]
+    later = torch.where(valid & (idx[None, :] > 0),
+                        (alpha64[:, None] * weights) * d,
+                        torch.zeros((), dtype=F64, device=d.device))
+    level = (first + tree_sum(later)).to(F32)
+    return torch.where(n > 0, level, torch.zeros_like(level))
+
+
+def holt_rows(times: torch.Tensor, depths: torch.Tensor, n: torch.Tensor,
+              n_max: int, horizon: torch.Tensor, alpha: torch.Tensor,
+              beta: torch.Tensor) -> torch.Tensor:
+    """Holt level+trend over each row's first ``n`` entries, extrapolated
+    ``horizon`` (float32 ``[B]``; every argument a ``[B]`` or ``[B, C]``
+    tensor but ``n_max``, a host bound on ``n``).
+
+    The float32 recurrence runs step by step over ``i < n_max``; a row
+    whose ``n`` is reached keeps its state (``torch.where``, so the valid
+    steps are the same float32 operations in any batch).  The trend is
+    per *sample step*; the horizon converts to steps via the mean
+    observed inter-sample interval.  ``times`` must be centered on the
+    newest sample (:func:`_center_times`)."""
+    zero = torch.zeros((), dtype=F32, device=depths.device)
+    a = alpha[:, None]
+    keep_level = 1.0 - alpha
+    keep_trend = 1.0 - beta
+    pulled = a * depths
+    level = depths[:, 0]
+    trend = torch.zeros_like(level)
+    for i in range(1, n_max):
+        # level and trend are sequential: a closed form (exact in
+        # float64) differs from the float32 recurrence by more than the
+        # forecast's tolerance where a drain's trend cancels its level
+        new_level = pulled[:, i] + keep_level * (level + trend)
+        new_trend = beta * (new_level - level) + keep_trend * trend
+        valid = n > i
+        level = torch.where(valid, new_level, level)
+        trend = torch.where(valid, new_trend, trend)
+    level = torch.where(n > 0, level, zero)
+    trend = torch.where(n > 0, trend, zero)
+    last = (n - 1).clamp(min=0)
+    t_last = times.gather(1, last[:, None])[:, 0]
+    mean_dt = (t_last - times[:, 0]) / (n - 1).clamp(min=1).to(F32)
+    steps = torch.where(mean_dt > 0, horizon / mean_dt, zero)
+    return torch.clamp(level + trend * steps, min=0.0)
+
+
+def lstsq_fit_rows(times: torch.Tensor, depths: torch.Tensor,
+                   n: torch.Tensor, window: torch.Tensor, width: int):
+    """Normal-equations core of the windowed line fit, in float32, per
+    row: ``(slope, intercept, depth_last, degenerate)``, each ``[B]``.
+    The last ``min(window, n)`` samples are gathered into a block of
+    ``width`` (a host bound on ``window``) ending at the newest sample
+    and summed by :func:`tree_sum`."""
+    last = (n - 1).clamp(min=0)
+    start = (n - window).clamp(min=0)
+    pos = (n - width)[:, None] + torch.arange(width, device=n.device)
+    take = (pos >= start[:, None]) & (pos >= 0)
+    pos = pos.clamp(min=0)
+    t_last = times.gather(1, last[:, None])
+    zero = torch.zeros((), dtype=F32, device=depths.device)
+    x = torch.where(take, times.gather(1, pos) - t_last, zero)
+    y = torch.where(take, depths.gather(1, pos), zero)
+    count = (n - start).to(F32)
+    sx = tree_sum(x)
+    sy = tree_sum(y)
+    sxx = tree_sum(x * x)
+    sxy = tree_sum(x * y)
+    denom = count * sxx - sx * sx
+    depth_last = depths.gather(1, last[:, None])[:, 0]
+    degenerate = denom.abs() < 1e-9  # < 2 samples or coincident times
+    safe_denom = torch.where(degenerate, torch.ones_like(denom), denom)
+    slope = (count * sxy - sx * sy) / safe_denom
+    intercept = (sy - slope * sx) / count.clamp(min=1.0)
+    return slope, intercept, depth_last, degenerate
+
+
+def lstsq_rows(times, depths, n, horizon, window, width):
+    """Line fit over each row's last ``min(window, n)`` samples,
+    extrapolated ``horizon`` past the newest (centered ``times``, so the
+    prediction is ``intercept + slope * horizon``)."""
+    slope, intercept, depth_last, degenerate = lstsq_fit_rows(
+        times, depths, n, window, width)
+    fit = intercept + slope * horizon
+    return torch.clamp(torch.where(degenerate, depth_last, fit), min=0.0)
+
+
+def lstsq_slope_rows(times, depths, n, window, width):
+    """Fitted depth trend (msg/s) per row; zero while degenerate."""
+    slope, _, _, degenerate = lstsq_fit_rows(times, depths, n, window, width)
+    return torch.where(degenerate, torch.zeros_like(slope), slope)
+
+
+def one_row(device: torch.device, *values):
+    """Host scalars as ``[1]`` tensors on ``device``, in one upload:
+    integers as int64, the rest float32 (every value is a float32 or an
+    integer, both exact through float64)."""
+    row = torch.tensor([float(v) for v in values], dtype=F64).to(device)
+    return [row[i:i + 1].to(torch.int64 if isinstance(v, (int, np.integer))
+                            else F32)
+            for i, v in enumerate(values)]
 
 
 def ewma_level(depths: torch.Tensor, n: int, alpha: float) -> torch.Tensor:
-    """The EWMA level after the first ``n`` entries (0 when ``n`` is 0), a
-    float32 scalar on ``depths``' device.  The first sample sets the
-    level; each later one moves it by ``alpha`` toward itself.  A closed
-    form: the weighted sum of the samples, in float64."""
-    if n <= 0:
-        return torch.zeros((), dtype=F32, device=depths.device)
-    capacity = depths.shape[0]
-    weights = _ewma_powers(alpha, capacity, depths.device)[capacity - n:]
-    d = depths[:n].to(F64)
-    level = weights[0, 0] * d[0] + (weights[1:, 1] * d[1:]).sum()
-    return level.to(F32)
+    """The EWMA level of one snapshot (:func:`ewma_level_rows` with one
+    row), a float32 scalar on ``depths``' device."""
+    alpha64, powers = ewma_tables([alpha], depths.shape[0], depths.device)
+    (n_t,) = one_row(depths.device, int(n))
+    return ewma_level_rows(depths[None], n_t, alpha64, powers)[0]
 
 
 def holt_forecast(
@@ -97,57 +238,11 @@ def holt_forecast(
     alpha: float,
     beta: float,
 ) -> torch.Tensor:
-    """Holt level+trend over the first ``n`` entries, extrapolated: a
-    float32 scalar on the tensors' device.
-
-    The trend is per *sample step*; the horizon converts to steps via the
-    mean observed inter-sample interval, so the forecast is calibrated in
-    seconds whatever the poll cadence.  ``times`` must already be centered
-    on the newest sample (:func:`_center_times`)."""
-    zero = torch.zeros((), dtype=F32, device=depths.device)
-    level = trend = zero
-    if n > 0:
-        # the reference's float32 recurrence, step by step: level and
-        # trend are sequential, and a closed form (exact in float64)
-        # differs from the float32 scan by more than the forecast's
-        # tolerance where a drain's trend cancels its level
-        a = _f32(alpha)
-        keep_level = _f32(np.float32(1.0) - np.float32(alpha))
-        b = _f32(beta)
-        keep_trend = _f32(np.float32(1.0) - np.float32(beta))
-        pulled = a * depths[:n]
-        level = depths[0]
-        for i in range(1, n):
-            new_level = pulled[i] + keep_level * (level + trend)
-            trend = b * (new_level - level) + keep_trend * trend
-            level = new_level
-    t_last = times[max(n - 1, 0)]
-    mean_dt = (t_last - times[0]) / max(n - 1, 1)
-    steps = torch.where(mean_dt > 0, _f32(horizon) / mean_dt, zero)
-    return torch.clamp(level + trend * steps, min=0.0)
-
-
-def _lstsq_fit(times, depths, n, window):
-    """Normal-equations core of the windowed line fit, in float32:
-    ``(slope, intercept, depth_last, degenerate)``, shared by
-    :func:`lstsq_forecast` and :func:`lstsq_slope` (the learned policy's
-    trend feature)."""
-    last = max(n - 1, 0)
-    start = min(max(n - window, 0), n)
-    x = times[start:n] - times[last]
-    y = depths[start:n]
-    count = float(n - start)
-    sx = x.sum()
-    sy = y.sum()
-    sxx = (x * x).sum()
-    sxy = (x * y).sum()
-    denom = count * sxx - sx * sx
-    depth_last = depths[last]
-    degenerate = denom.abs() < 1e-9  # < 2 samples or coincident times
-    safe_denom = torch.where(degenerate, torch.ones_like(denom), denom)
-    slope = (count * sxy - sx * sy) / safe_denom
-    intercept = (sy - slope * sx) / max(count, 1.0)
-    return slope, intercept, depth_last, degenerate
+    """Holt over one snapshot (:func:`holt_rows` with one row), a float32
+    scalar on the tensors' device."""
+    n_t, h, a, b = one_row(depths.device, int(n), _f32(horizon),
+                            _f32(alpha), _f32(beta))
+    return holt_rows(times[None], depths[None], n_t, int(n), h, a, b)[0]
 
 
 def lstsq_forecast(
@@ -157,22 +252,19 @@ def lstsq_forecast(
     horizon: float,
     window: int,
 ) -> torch.Tensor:
-    """Line fit over the last ``min(window, n)`` samples, extrapolated
-    ``horizon`` past the newest (centered ``times``, so the prediction is
-    ``intercept + slope * horizon``)."""
-    slope, intercept, depth_last, degenerate = _lstsq_fit(
-        times, depths, n, window
-    )
-    fit = intercept + slope * _f32(horizon)
-    return torch.clamp(torch.where(degenerate, depth_last, fit), min=0.0)
+    """The windowed line fit over one snapshot (:func:`lstsq_rows` with
+    one row), a float32 scalar."""
+    n_t, h, w = one_row(depths.device, int(n), _f32(horizon), int(window))
+    return lstsq_rows(times[None], depths[None], n_t, h, w, int(window))[0]
 
 
 def lstsq_slope(times: torch.Tensor, depths: torch.Tensor, n: int,
                 window: int) -> torch.Tensor:
-    """Fitted depth trend (msg/s) over the last ``min(window, n)``
-    samples; zero while degenerate (< 2 samples or coincident times)."""
-    slope, _, _, degenerate = _lstsq_fit(times, depths, n, window)
-    return torch.where(degenerate, torch.zeros_like(slope), slope)
+    """Fitted depth trend (msg/s) of one snapshot; zero while degenerate
+    (< 2 samples or coincident times)."""
+    n_t, w = one_row(depths.device, int(n), int(window))
+    return lstsq_slope_rows(times[None], depths[None], n_t, w,
+                            int(window))[0]
 
 
 def _center_times(times: np.ndarray, n: int) -> np.ndarray:

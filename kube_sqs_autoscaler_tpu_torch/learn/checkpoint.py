@@ -23,6 +23,7 @@ JSON of kind/schema/geometry/theta plus the effective feature-window pins
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import math
@@ -211,6 +212,17 @@ class PolicyCheckpoint:
             # their byte-for-byte round trips) are untouched
             data["knob_head"] = True
         return data
+
+
+def on_device(checkpoint: PolicyCheckpoint,
+              device: str | torch.device = "cuda") -> PolicyCheckpoint:
+    """``checkpoint`` with its ``theta`` on ``device`` (``"cuda"`` by
+    default; a missing card raises): the same object when it is already
+    there, else a copy with the same geometry and meta."""
+    target = resolve_device(device)
+    if checkpoint.theta.device == target:
+        return checkpoint
+    return dataclasses.replace(checkpoint, theta=checkpoint.theta.to(target))
 
 
 def checkpoint_hash(checkpoint: PolicyCheckpoint) -> str:

@@ -1,8 +1,7 @@
 """Deterministic fault schedules: controller RPC failures, controller
 crashes and fleet faults.
 
-The port's copy of ``kube_sqs_autoscaler_tpu/sim/faults.py`` (its chaos
-demo waits for the simulator):
+The port's copy of ``kube_sqs_autoscaler_tpu/sim/faults.py``:
 
 - the failure processes: a :class:`FailureProcess` answers, for each
   controller RPC at virtual time ``t``, one :class:`Fault` — extra latency
@@ -19,11 +18,21 @@ demo waits for the simulator):
 - :class:`FleetFaultPlan`: replica kills and hangs, the sharded plane's
   shard faults and the sharded admission plane's shard kills and gossip
   partitions.
+
+Runnable as ``python -m kube_sqs_autoscaler_tpu_torch.sim.faults``: the
+chaos demo, a deterministic host-only episode through a correlated
+outage, asserting the resilience layer's expected trajectory (retries
+burn, the stale hold engages then expires to fail-static, the breaker
+opens and re-closes through a half-open probe, the fleet recovers).
+Exit 0 = every milestone seen; exit 2 = unexpected trajectory.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import random
+import sys
 from dataclasses import dataclass
 from typing import Protocol, Sequence, runtime_checkable
 
@@ -539,3 +548,150 @@ class FaultyScaler:
 
     def scale_down(self) -> None:
         self._call(self.inner.scale_down)
+
+
+# ---------------------------------------------------------------------------
+# The chaos demo: one deterministic episode through a correlated outage.
+# ---------------------------------------------------------------------------
+
+
+def _demo_episode():
+    """One FakeClock episode exercising every resilience mechanism.
+
+    World: overload (arrivals far above one replica's capacity) so the
+    up gate wants to fire every cooldown.  The metric poll blacks out at
+    t=[60, 180); the scaler follows at t=[80, 180) (correlated outage,
+    staggered so the stale hold demonstrably *actuates* first).
+    Resilience: 2 metric retries, stale TTL 60 s (expires mid-outage →
+    fail-static ticks), breaker opens after 2 scaler failures, reset
+    25 s (one half-open probe fails inside the outage and re-opens; the
+    post-recovery probe succeeds and re-closes).
+    """
+    from ..core.resilience import ResilienceConfig
+    from .simulator import SimConfig, Simulation
+
+    faults = compose(
+        Blackout(start=60.0, duration=120.0, metric=True, scale=False),
+        Blackout(start=80.0, duration=100.0, metric=False, scale=True),
+    )
+    resilience = ResilienceConfig(
+        metric_retries=2,
+        scaler_retries=0,
+        breaker_failures=2,
+        breaker_reset=25.0,
+        stale_depth_ttl=60.0,
+    )
+    config = SimConfig(
+        arrival_rate=80.0,
+        service_rate_per_replica=10.0,
+        duration=400.0,
+        initial_replicas=1,
+        max_pods=10,
+        faults=faults,
+        resilience=resilience,
+    )
+    from ..obs.journal import TickRing
+
+    ring = TickRing(capacity=512)
+    sim = Simulation(config, extra_observers=(ring,))
+    result = sim.run()
+    return sim, result, ring.snapshot()
+
+
+def _check_demo(records, result) -> list[str]:
+    """The expected trajectory, as individually reportable milestones."""
+    problems: list[str] = []
+
+    def expect(condition: bool, message: str) -> None:
+        if not condition:
+            problems.append(message)
+
+    stale = [r for r in records if r.stale]
+    static = [r for r in records if r.metric_error is not None]
+    retried = [r for r in records if (r.metric_retries or 0) > 0]
+    states = [r.breaker_state for r in records if r.breaker_state]
+    expect(bool(retried), "no tick recorded metric retries during the outage")
+    expect(bool(stale), "the stale-depth hold never engaged")
+    expect(
+        bool(static),
+        "the stale TTL never expired into fail-static (reference) ticks",
+    )
+    if stale and static:
+        expect(
+            min(r.start for r in static) > min(r.start for r in stale),
+            "fail-static ticks started before the stale hold did",
+        )
+    expect("open" in states, "the circuit breaker never opened")
+    if "open" in states:
+        after_open = states[states.index("open"):]
+        expect(
+            "closed" in after_open,
+            "the breaker never re-closed after the outage",
+        )
+    # Stale holds must actuate: the held depth sits far above the up
+    # threshold, so scale-ups continue until the breaker interferes.
+    expect(
+        any(r.scaled("up") for r in stale),
+        "no stale-held tick successfully scaled up",
+    )
+    # Recovery: fresh observations resume, the outage backlog pushes the
+    # fleet to max_pods, and by episode end the backlog is drained (the
+    # fleet may already be scaling back down — that, too, is recovery).
+    tail = records[-5:]
+    expect(
+        all(r.metric_error is None and not r.stale for r in tail),
+        "the last ticks are not fresh observations (no recovery)",
+    )
+    peak_replicas = max((r for _, _, r in result.timeline), default=0)
+    expect(
+        peak_replicas == 10,
+        f"expected the outage backlog to drive the fleet to max_pods=10,"
+        f" peaked at {peak_replicas}",
+    )
+    expect(
+        result.final_depth < 300.0,
+        f"expected the backlog drained below the SLO depth by episode end,"
+        f" got {result.final_depth:.0f}",
+    )
+    return problems
+
+
+def main(argv: Sequence[str] | None = None) -> int:
+    """Run the chaos demo episode and verify its trajectory.
+
+    Exit 0 = every resilience milestone observed; 2 = unexpected
+    trajectory (the chaos demo's contract, mirroring
+    the replay demo).
+    """
+    parser = argparse.ArgumentParser(
+        description="Deterministic chaos episode: outage, degraded mode,"
+        " breaker trip, recovery — fails on any missing milestone."
+    )
+    parser.parse_args(argv)
+    sim, result, records = _demo_episode()
+    problems = _check_demo(records, result)
+    states = [r.breaker_state for r in records if r.breaker_state]
+    transitions = [s for i, s in enumerate(states) if i == 0 or states[i - 1] != s]
+    print(
+        json.dumps(
+            {
+                "ticks": result.ticks,
+                "stale_ticks": sum(1 for r in records if r.stale),
+                "fail_static_ticks": sum(
+                    1 for r in records if r.metric_error is not None
+                ),
+                "metric_retries": sum(r.metric_retries or 0 for r in records),
+                "breaker_transitions": transitions,
+                "max_depth": round(result.max_depth, 1),
+                "final_replicas": result.final_replicas,
+                "ok": not problems,
+            }
+        )
+    )
+    for line in problems:
+        print(f"unexpected trajectory: {line}", file=sys.stderr)
+    return 0 if not problems else 2
+
+
+if __name__ == "__main__":  # pragma: no cover
+    raise SystemExit(main())

@@ -183,10 +183,11 @@ def test_forecasters_match_the_reference(name, capacity, samples, epoch):
 def test_least_squares_cancellation_is_bounded_by_float32(seed, horizon):
     # windows of pure noise, where the extrapolated line nearly cancels
     # its intercept: the two float32 fits sum the window in their own
-    # order and differ by the rounding of the cancelled terms, more than
-    # the forecast-level tolerance above (these seeds are 4 of the 8 such
-    # cases among 800 noise histories); each fit stays within 16 float32
-    # ulps of those terms of the exact float64 fit
+    # order and may differ by the rounding of the cancelled terms, more
+    # than the forecast-level tolerance above (these seeds were 4 of the 8
+    # such cases among 800 noise histories for a library sum; the port's
+    # pairwise tree sum agrees on 3 of them); each fit stays within 16
+    # float32 ulps of those terms of the exact float64 fit
     rng = np.random.default_rng(seed)
     h, hr = DepthHistory(64), ref.DepthHistory(64)
     t = 2.7e8
@@ -202,7 +203,6 @@ def test_least_squares_cancellation_is_bounded_by_float32(seed, horizon):
     ulp = np.finfo(np.float32).eps * (abs(intercept) + abs(slope * horizon))
     got = cpu("lstsq").predict(times, depths, n, horizon)
     want = ref.make_forecaster("lstsq").predict(*hr.snapshot(), horizon)
-    assert abs(got - want) > ATOL + RTOL * abs(want)
     assert abs(got - exact) <= 16 * ulp and abs(want - exact) <= 16 * ulp
 
 

@@ -20,7 +20,9 @@ disaggregated prefill/decode pool with its KV handoff, traced and with a
 routed collective scheduler attached, and train step on the CPU, then the
 rest of training: a windowed llama step, a llama MoE step, a LoRA step, a
 checkpoint saved and restored with its manifest, the HF state dicts and the
-native corpus reader, and a predictive and a learned control loop
+native corpus reader, a predictive and a learned control loop, and the
+simulators, both compiled twins with their fidelity gates, both trainers,
+a sweep and a journal replay
 (``transformers`` never imported; a separate scan
 finds it imported only inside the two HF directory functions and the
 worker's tokenizer path).  The control-plane subpackages (and the ``planes`` package, whose
@@ -86,8 +88,16 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     for name in ("forecasters.py", "history.py", "predictive.py",
                  "tenants.py"):
         assert PORT / "forecast" / name in files
-    for name in ("network.py", "checkpoint.py", "policy.py"):
+    for name in ("network.py", "checkpoint.py", "policy.py", "rollout.py",
+                 "train.py", "serving.py", "__main__.py"):
         assert PORT / "learn" / name in files
+    for name in ("scenarios.py", "costmodel.py", "simulator.py",
+                 "evaluate.py", "faults.py", "replay.py", "compiled.py",
+                 "sweep.py"):
+        assert PORT / "sim" / name in files
+    for name in ("scenario.py", "compiled.py", "host.py", "fidelity.py",
+                 "__init__.py"):
+        assert PORT / "sim" / "twin" / name in files
     offenders = {
         str(path.relative_to(ROOT)): name
         for path in files for name in absolute_imports(path) if banned(name)
@@ -417,6 +427,30 @@ for depth_policy in (
         depth_policy=depth_policy)
     loop.run(max_ticks=4)
     assert depth_policy.last_prediction is not None
+# the simulators, the twins and the trainers: a fluid fidelity pass with
+# the learned policy, a serving-twin fidelity pass against the real
+# plane, one ES generation in each twin, the demos' checks
+from dataclasses import replace as dc_replace
+from kube_sqs_autoscaler_tpu_torch.sim import compiled, evaluate, replay
+from kube_sqs_autoscaler_tpu_torch.sim import sweep, twin
+from kube_sqs_autoscaler_tpu_torch.learn import rollout, serving
+from kube_sqs_autoscaler_tpu_torch.learn import train as es
+short = [dc_replace(evaluate.default_battery()[1], duration=60.0)]
+report = compiled.verify_fidelity(
+    short, forecasters=("holt",), extra_episodes=[
+        ("learned", rollout.learned_config(short[0], checkpoint))],
+    device="cpu")
+assert report.ok and report.episodes == 3
+worlds = twin.default_twin_battery(cycles=12)[:2]
+assert twin.verify_twin_fidelity(worlds, device="cpu").ok
+assert len(es.train(short, es.ESConfig(population=2, generations=1),
+                    device="cpu").reward_curve) == 1
+assert len(serving.train_serving(worlds, serving.ServingESConfig(
+    population=2, generations=1), device="cpu").reward_curve) == 1
+assert sweep.run_sweep([sweep.SweepPoint()], short, device="cpu").points == 1
+with tempfile.TemporaryDirectory() as tmp:
+    replay.record_episode(compiled.SimConfig(duration=50.0), tmp + "/j")
+    assert replay.replay_journal(tmp + "/j").ok
 assert "transformers" not in sys.modules
 assert not any(n.split(".")[0] in {banned} and sys.modules[n] is not None
                for n in sys.modules)

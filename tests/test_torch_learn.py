@@ -735,11 +735,15 @@ def test_learned_knob_policy_ladder_walk_equals_the_reference():
 
 
 def test_learned_package_exports_only_what_is_ported():
-    assert set(learn.__all__) <= {
+    # the whole package is ported: the deployment half and the training
+    # half (rollouts, both ES trainers), nothing else
+    assert set(learn.__all__) == {
         "LearnedPolicy", "PolicyCheckpoint", "CheckpointError",
         "SCHEMA_VERSION", "load_checkpoint", "save_checkpoint",
         "checkpoint_hash", "checkpoint_twin", "require_twin", "init_params",
-        "param_count", "params_from_numpy"}
+        "param_count", "params_from_numpy", "evaluate_population",
+        "learned_config", "ESConfig", "train", "ServingESConfig",
+        "train_serving", "evaluate_population_serving"}
     assert learn.LearnedPolicy is LearnedPolicy
     with pytest.raises(AttributeError):
-        learn.train  # noqa: B018  (ROADMAP Queue 1 item 6c)
+        learn.not_exported  # noqa: B018
