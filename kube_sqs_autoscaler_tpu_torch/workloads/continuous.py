@@ -47,7 +47,12 @@ stream, which would also wait for the block dispatched after it.
 
 The worker reports its serving gauges and TTFT histogram to a
 :class:`~..obs.prometheus.WorkloadMetrics` registry
-(:meth:`ContinuousWorker.attach_metrics`), from host counters only.
+(:meth:`ContinuousWorker.attach_metrics`), from host counters only.  With
+:meth:`ContinuousWorker.attach_spans` the worker and its engine record
+each cycle's phases (``cycle``, ``receive``, ``insert``, ``step``,
+``reply`` and the plain engines' launches, waits and emits inside them)
+into a :class:`~..utils.profiling.SpanTimer`, on the clock device traces
+use; off, each site costs one attribute test.
 
 The slots hold either cache layout (``quantized_kv``: int8 codes with
 per-position scales) and may start past a shared prompt prefix
@@ -158,7 +163,10 @@ class _HostCopy:
     """Device results on their way to the host.  On the card each tensor
     is copied into pinned host memory when it is produced, and an event is
     recorded behind the copies; :meth:`wait` waits for that event alone.
-    CPU tensors are copied plainly."""
+    CPU tensors are copied plainly.  ``span`` is the id of the phase span
+    that launched the copy, when the engine records spans."""
+
+    span: int | None = None
 
     def __init__(self, *tensors: torch.Tensor) -> None:
         device = tensors[0].device
@@ -460,7 +468,8 @@ class ContinuousBatcher:
     raises).  Counters: ``insert_dispatches`` and ``decode_dispatches``
     (device work launched), ``host_transfers`` (host waits for a device
     result), ``tokens_emitted``, ``block_tokens`` / ``block_capacity``
-    (kept tokens / dispatched block positions of busy slots), and
+    (kept tokens / dispatched block positions of busy slots; a single
+    step adds its tokens and no capacity), and
     ``overlapped_settles`` / ``block_settles`` (settles at which the block
     dispatched that cycle was still running).
 
@@ -655,8 +664,6 @@ class ContinuousBatcher:
         self.tokens_emitted = 0
         self.ttft_sum = 0.0
         self.ttft_count = 0
-        self.last_ttft_s: float | None = None
-        self.ttft_samples: deque[float] = deque(maxlen=4096)
         # (tenant or None, seconds) TTFT samples not yet in a metrics
         # registry's histograms (drain_ttft_histograms); None is
         # engine-wide.  Bounded, so a batcher nobody drains cannot grow
@@ -692,6 +699,19 @@ class ContinuousBatcher:
         self.decode_dispatches = 0
         self.insert_dispatches = 0
         self.host_transfers = 0
+        # the plain slots' work: rows admitted by batched inserts, their
+        # real prompt tokens and the tokens of the bucket they padded to;
+        # decode steps dispatched (decode_block a block, 1 a single step)
+        # and the slot rows stepped, busy or not, counted when the step
+        # settles as block_tokens is (a single step adds its tokens there)
+        self.insert_rows = 0
+        self.insert_prompt_tokens = 0
+        self.insert_padded_tokens = 0
+        self.decode_steps = 0
+        self.decode_row_steps = 0
+        # phase spans (a utils.profiling.SpanTimer): None = off = one
+        # attribute test a site; the worker's attach_spans wires it
+        self.spans = None
         # request-lifecycle tracing (obs/lifecycle.py): None = off = the
         # engine path byte for byte; the worker's attach_lifecycle wires it
         self.lifecycle = None
@@ -1106,9 +1126,18 @@ class ContinuousBatcher:
         insert; returns their slot indices in order.  The first tokens
         stay on the device until the next :meth:`step`.  Beam and
         speculative slots admit one request an insert (each seeds its
-        slot's search or draft state), as in the reference."""
+        slot's search or draft state), as in the reference.  Recorded as
+        the ``insert`` span, with ``insert.stage`` (padding, stacking,
+        uploads) and ``insert.launch`` inside it on the plain path."""
         if not requests:
             return []
+        spans = self.spans
+        if spans is None:
+            return self._submit_many(requests)
+        with spans.span("insert"):
+            return self._submit_many(requests)
+
+    def _submit_many(self, requests: list[tuple[Any, Any]]) -> list[int]:
         free = self.free_slots
         if len(requests) > len(free):
             raise RuntimeError(
@@ -1124,21 +1153,33 @@ class ContinuousBatcher:
             for row, (token_ids, payload) in zip(rows, requests):
                 self._submit_one(row, token_ids, payload, now)
             return rows
+        spans = self.spans
+        stage = spans.begin("insert.stage") if spans is not None else None
         padded = [self._pad_prompt(ids) for ids, _ in requests]
         prompts = np.stack([ids for ids, _ in padded])
         lengths = np.asarray([n for _, n in padded], np.int64)
         with torch.inference_mode():
+            rows_dev = _to_device(np.asarray(rows), self.device)
+            prompts_dev = _to_device(prompts, self.device)
+            lengths_dev = _to_device(lengths, self.device)
+            if spans is not None:
+                spans.end(stage)
+                launch = spans.begin("insert.launch")
             firsts = self._insert_many(
                 self.params, self.cache, self._current, self._done,
-                self._remaining, _to_device(np.asarray(rows), self.device),
-                _to_device(prompts, self.device),
-                _to_device(lengths, self.device), next(self._keys),
-                self.config, self.generate_tokens, self._attention_fn,
-                self.temperature, self.top_k, self.top_p, self.eos_id,
-                held=self._held(rows), **self._insert_layout(),
+                self._remaining, rows_dev, prompts_dev, lengths_dev,
+                next(self._keys), self.config, self.generate_tokens,
+                self._attention_fn, self.temperature, self.top_k,
+                self.top_p, self.eos_id, held=self._held(rows),
+                **self._insert_layout(),
             )
             self._defer_firsts(firsts, rows)
+            if spans is not None:
+                spans.end(launch)
         self.insert_dispatches += 1
+        self.insert_rows += len(rows)
+        self.insert_prompt_tokens += int(lengths.sum())
+        self.insert_padded_tokens += len(rows) * self.prompt_len
         for row, (_, payload) in zip(rows, requests):
             self.slots[row] = _Slot(
                 busy=True, budget=self.generate_tokens, payload=payload,
@@ -1321,8 +1362,12 @@ class ContinuousBatcher:
     def _defer_firsts(self, firsts: torch.Tensor, rows: list[int]) -> None:
         """Hold an insert's first tokens until the next :meth:`step`: here
         each insert's are copied to the host at once, behind their own
-        event (the sharded plane copies a cycle's together)."""
-        self._pending_firsts.append((_HostCopy(firsts), list(rows)))
+        event (the sharded plane copies a cycle's together), tagged with
+        the launch span open around it when spans are recorded."""
+        copy = _HostCopy(firsts)
+        if self.spans is not None:
+            copy.span = self.spans.current()
+        self._pending_firsts.append((copy, list(rows)))
 
     @property
     def resume_len(self) -> int:
@@ -1437,7 +1482,15 @@ class ContinuousBatcher:
             else:
                 blocking += 1
         self.host_transfers += blocking
-        self._record_firsts([(copy.wait()[0], rows) for copy, rows in pending])
+        spans = self.spans
+        host = []
+        for copy, rows in pending:
+            wait = (spans.begin("wait.first", copy.span)
+                    if spans is not None else None)
+            host.append((copy.wait()[0], rows))
+            if wait is not None:
+                spans.end(wait)
+        self._record_firsts(host)
 
     def _record_firsts(self, pending_host: list) -> None:
         now = time.perf_counter()
@@ -1460,8 +1513,6 @@ class ContinuousBatcher:
                                  tenant=slot.tenant or None)
         self.ttft_sum += ttft
         self.ttft_count += 1
-        self.last_ttft_s = ttft
-        self.ttft_samples.append(ttft)
         self._pending_ttft_obs.append((None, ttft))
         if slot.tenant:
             self._record_tenant_ttft(slot, ttft)
@@ -1520,9 +1571,19 @@ class ContinuousBatcher:
         """Advance every busy slot (one token, or up to ``decode_block``
         per dispatch); returns the finished requests as ``(payload,
         continuation_tokens)`` pairs, whose slots are free again.  A no-op
-        when nothing is busy and no quiesced row waits for its block."""
+        when nothing is busy and no quiesced row waits for its block.
+        Recorded as the ``step`` span; the plain engines record
+        ``block.launch``, ``wait.first`` / ``wait.block`` and ``emit``
+        inside it (a single step is a block of one)."""
         if self.active == 0 and not self._tainted:
             return []
+        spans = self.spans
+        if spans is None:
+            return self._step()
+        with spans.span("step"):
+            return self._step()
+
+    def _step(self) -> list[tuple[Any, np.ndarray]]:
         if self.beams > 1:
             return self._step_beam()
         if self.draft_layers:
@@ -1537,9 +1598,13 @@ class ContinuousBatcher:
         """One token per dispatch, read by the host at once: the
         reference's baseline engine."""
         self._settle_pending_firsts()
+        spans = self.spans
         # rows whose budget is one token (or that hit eos) need no step
         needs = [self._needs_decode(s) for s in self.slots]
+        nxt_host = None
         if any(needs):
+            launch = spans.begin("block.launch") if spans is not None \
+                else None
             with torch.inference_mode():
                 logits, self.cache = self._decode(
                     self.params, self.cache, self._current, self.config
@@ -1548,13 +1613,28 @@ class ContinuousBatcher:
                             self.top_k, self.top_p)
                 copy = _HostCopy(nxt)
             self.decode_dispatches += 1
+            self.decode_steps += 1
+            self.decode_row_steps += len(self.slots)
+            self.block_tokens += sum(needs)
+            if launch is not None:
+                copy.span = launch[0]
+                spans.end(launch)
+            wait = (spans.begin("wait.block", copy.span)
+                    if spans is not None else None)
             nxt_host = copy.wait()[0]
+            if wait is not None:
+                spans.end(wait)
             self.host_transfers += 1
+        emit = spans.begin("emit") if spans is not None else None
+        if nxt_host is not None:
             for row, slot in enumerate(self.slots):
                 if needs[row]:
                     self._emit(slot, int(nxt_host[row]))
             self._current = nxt
-        return self._finish_ready()
+        finished = self._finish_ready()
+        if emit is not None:
+            spans.end(emit)
+        return finished
 
     def _block_keys(self) -> list:
         return [next(self._keys) for _ in range(self.decode_block)]
@@ -1571,9 +1651,12 @@ class ContinuousBatcher:
         their wait covers it.  A staged decode-block change skips the
         dispatch: the block in flight settles at the old size and the
         change lands."""
+        spans = self.spans
         new_block = None
         busy = self.active
         if busy and self._pending_decode_block is None:
+            launch = spans.begin("block.launch") if spans is not None \
+                else None
             with torch.inference_mode():
                 (self.cache, self._current, self._done, self._remaining,
                  tokens, counts) = self._block_fn(
@@ -1584,6 +1667,10 @@ class ContinuousBatcher:
                 )
                 new_block = (_HostCopy(tokens, counts), busy)
             self.decode_dispatches += 1
+            self.decode_steps += self.decode_block
+            if launch is not None:
+                new_block[0].span = launch[0]
+                spans.end(launch)
         if self.comms is not None:
             # the dispatch-ahead window: the block dispatched above (or
             # the one in flight) occupies the card while the pulls run
@@ -1594,6 +1681,7 @@ class ContinuousBatcher:
             )
         self._settle_pending_firsts()
         pending, self._pending_block = self._pending_block, new_block
+        host = None
         if pending is not None:
             copy, dispatched_busy = pending
             block_op, self._block_op = self._block_op, None
@@ -1603,9 +1691,18 @@ class ContinuousBatcher:
                 self.comms.finish(block_op)
             else:
                 self.host_transfers += 1
-            toks_host, counts_host = copy.wait()
+            wait = (spans.begin("wait.block", copy.span)
+                    if spans is not None else None)
+            host = copy.wait()
+            if wait is not None:
+                spans.end(wait)
+        emit = spans.begin("emit") if spans is not None else None
+        if host is not None:
+            toks_host, counts_host = host
             self.block_capacity += self.decode_block * dispatched_busy
             self.block_tokens += int(counts_host.sum())
+            # counted as it settles, beside the tokens it kept
+            self.decode_row_steps += len(toks_host) * len(self.slots)
             for row, slot in enumerate(self.slots):
                 if not slot.busy:
                     continue
@@ -1625,7 +1722,10 @@ class ContinuousBatcher:
             self._tainted.clear()
         if self._pending_block is None:
             self._apply_pending_decode_block()
-        return self._finish_ready()
+        finished = self._finish_ready()
+        if emit is not None:
+            spans.end(emit)
+        return finished
 
 
     def _dispatch_spec_round(self, mask: list[bool]) -> _HostCopy:
@@ -1994,6 +2094,8 @@ class ContinuousWorker:
         # optional request-lifecycle registry (attach_lifecycle); None =
         # tracing off = the serving path byte for byte
         self.lifecycle = None
+        # optional phase-span recorder (attach_spans); None = off
+        self.spans = None
 
     @property
     def shed(self) -> int:
@@ -2107,11 +2209,15 @@ class ContinuousWorker:
         if self._poll_backoff > 0:
             self._poll_backoff -= 1
             return 0
+        spans = self.spans
+        receive = spans.begin("receive") if spans is not None else None
         messages = self.queue.receive_messages(
             self.config.queue_url, max_messages=free,
             wait_time_s=0 if self.batcher.active else
             self.config.receive_wait_s,
         )
+        if receive is not None:
+            spans.end(receive)
         if not messages and self.batcher.active:
             self._poll_backoff = self.POLL_BACKOFF_CYCLES
         self._admit(messages)
@@ -2552,6 +2658,21 @@ class ContinuousWorker:
         if self._fair is not None:
             self._fair.lifecycle = registry
 
+    def attach_spans(self, timer) -> None:
+        """Record every cycle's phase spans into ``timer``, a
+        :class:`~..utils.profiling.SpanTimer` of its own: ``cycle`` (each
+        :meth:`run_once`) around ``receive``, the batcher's ``insert`` and
+        ``step`` and ``reply``, on the epoch clock device traces use.
+        The worker's ``timer`` keeps :meth:`run_forever`'s ``cycle`` for
+        ``--metrics-port``, and cannot take the phases too (its ``cycle``
+        would count twice).  ``None`` detaches."""
+        if timer is not None and timer is self.timer:
+            raise ValueError(
+                "attach_spans needs a SpanTimer of its own: the worker's "
+                "timer already records run_forever's cycle")
+        self.spans = timer
+        self.batcher.spans = timer
+
     def _update_metrics(self) -> None:
         """Write this cycle's numbers into the registry.  Host counters
         only: the registry renders on a server thread, which must never
@@ -2706,13 +2827,23 @@ class ContinuousWorker:
 
     def run_once(self) -> int:
         """One engine cycle: refill free slots, advance the batch, settle
-        finished requests.  Returns the messages completed."""
+        finished requests.  Returns the messages completed.  Recorded as
+        the ``cycle`` span when spans are attached."""
+        spans = self.spans
+        if spans is None:
+            return self._run_cycle()
+        with spans.span("cycle"):
+            return self._run_cycle()
+
+    def _run_cycle(self) -> int:
         if self._served_since is None:
             self._served_since = time.perf_counter()
         self._refill()
         if self.tenancy is not None and self.tenancy.decode_slo_s > 0:
             self._enforce_decode_deadlines()
         done = self.batcher.step()
+        spans = self.spans
+        reply = spans.begin("reply") if spans is not None else None
         completed = 0
         for message, tokens in done:
             if message is None:
@@ -2720,6 +2851,8 @@ class ContinuousWorker:
                 continue
             self._settle(message, tokens)
             completed += 1
+        if reply is not None:
+            spans.end(reply)
         if done:
             self._poll_backoff = 0  # a slot just freed: poll right away
         self.processed += completed
