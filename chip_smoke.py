@@ -294,8 +294,10 @@ Phases (any failure makes the run exit non-zero and print no result):
    and pool events equal one process's;
    every body answered once, by rank 0 alone; bf16 replies against one
    process's, each difference at a near-tie of one process's (top-two
-   margin below 2e-2); each rank's exact forward launches; the f32
-   serving functions and block-8 engine at full width equal to one
+   margin below 2e-2; a beam search's: one process's search, replayed,
+   drops or ranks the mesh's reply below its own by less than 2e-2 in
+   joint log-probability); each rank's exact forward launches;
+   the f32 serving functions and block-8 engine at full width equal to one
    process's, the engine's cache on a rank its 4 rows and 4 heads of one
    process's 8 and 8; rates beside one process's; then the forward
    kernel at the ranks' shapes against its plain version, timed beside
@@ -342,10 +344,22 @@ this one, in the order parent, this, this, parent, each in a process of
 its own, the operators a decode step of 8 rows dispatches, the GPT decode
 step's time, and the flagship trainer's steady step time and peak
 memory.
+
+The whole run's ``decode attn`` phase holds the cached decode attention
+kernel (``csrc/decode_attn.cu``) to its plain version in f32 at the
+benchmark cells' shapes and others, each row of each head to its own
+scale, beside a control the same limit must refuse (the answer with one
+key off); times it; and runs each family's drain, and beam, speculative
+and sharded-plane replies, through it against the plain path.  Every
+serving path decodes through it, and the kernels line gives its launches
+by phase (and by run of the serving mesh's ranks).
+``python3 chip_smoke.py --decode-attn`` runs the device and build phases
+and that phase alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -453,10 +467,23 @@ LLAMA_LAYERS = 4
 LLAMA_CACHE_MIB = 8.5
 
 
+def decode_attention_count() -> int:
+    """The cached decode attention kernel's launches in this process so far
+    (0 before its module is imported)."""
+    module = sys.modules.get(
+        "kube_sqs_autoscaler_tpu_torch.workloads.decode_attn")
+    return 0 if module is None else module.decode_attention_launches
+
+
 class Smoke:
     def __init__(self) -> None:
         self.failures: list[str] = []
         self.start = time.perf_counter()
+        #: the decode attention kernel's launches in this process by phase,
+        #: counted from just before the phase; a nested phase's launches
+        #: count in its own entry only
+        self.decode_launches: dict[str, int] = {}
+        self._nested: list[int] = []
 
     def check(self, ok: bool, what: str) -> None:
         print(("ok    " if ok else "FAIL  ") + what, flush=True)
@@ -474,6 +501,8 @@ class Smoke:
                        f"{start - self.start:.1f} s of the run's "
                        f"{RUN_LIMIT_S} s gone")
             return None
+        before = decode_attention_count()
+        self._nested.append(0)
         try:
             return fn(*args)
         except Exception:
@@ -481,6 +510,12 @@ class Smoke:
             self.failures.append(f"phase {name} raised")
             return None
         finally:
+            launched = decode_attention_count() - before
+            own = launched - self._nested.pop()
+            if self._nested:
+                self._nested[-1] += launched
+            if own:
+                self.decode_launches[name] = own
             print(f"-- {name}: {time.perf_counter() - start:.3f} s",
                   flush=True)
 
@@ -9139,8 +9174,8 @@ SERVE_MESH_RUNS = [
     ("gpt-mp4-batch", GENERATE_ARGS, 4, 24),
     ("gpt-mp4-continuous-b8", [*GENERATE_ARGS, *SERVE_MESH_B8], 4, 24),
     ("llama-mp2-continuous-b8", [*LLAMA_ARGS, *SERVE_MESH_B8], 2, 24),
-    # reduced: one batch of bodies each, 8 tokens a reply (beams 32: the
-    # near-tie gate reads one process's greedy margins, not its beams')
+    # reduced: one batch of bodies each, 8 tokens a reply (the beam run
+    # 32)
     ("gpt-mp2-quantize-kv", serve_mesh_few([*GENERATE_ARGS, *SERVE_MESH_B8,
                                             "--quantize-kv"]), 2,
      SERVE_MESH_FEW),
@@ -9162,7 +9197,8 @@ SERVE_MESH_RUNS = [
                                       "--fleet-max-replicas", "3"]), 2, 64),
 ]
 # bf16 replies of the mesh that differ from one process's must first differ
-# at a near-tie: one process's top-two margin there below this
+# at a near-tie: one process's top-two margin there below this (a beam
+# search's: its margin over the mesh's reply, :func:`beam_drop_margin`)
 SERVE_MESH_TIE = 2e-2
 # the forward kernel at the ranks' shapes: (label, B, H, H_kv, S); the
 # GPT's 8 heads over tp 2 or 4, its batch of 8 over dp 2 (a generate
@@ -9370,12 +9406,15 @@ def serve_mesh_rank_main(argv: list[str]) -> int:
         torch.cuda.empty_cache()
         dist.barrier()
         zero_counts(flash)
+        decoded = decode_attention_count()
         start = time.perf_counter()
         summary = worker_main([*serve_mesh_argv(flags, bodies),
                                "--model-parallel", str(tp)])
         torch.cuda.synchronize()
         (out / f"{label}-rank{rank}.json").write_text(json.dumps({
             "rank": rank, "launches": counts(flash),
+            # the cached decode attention kernel, at this rank's heads
+            "decode_attention": decode_attention_count() - decoded,
             # the run's wall time, the binary's start-up included, and
             # this process's since it joined the group
             "wall_s": time.perf_counter() - start,
@@ -9424,10 +9463,14 @@ def serve_mesh_one_process(torch, flash) -> dict:
 
 
 def serve_mesh_margin(torch, label: str, flags: list[str], body: str,
-                      tokens: list[int], at: int, models: dict) -> float:
-    """One process's top-two margin where a reply first differs (position
-    ``at`` of its tokens): the family's dense forward over the prompt (the
-    shared prefix first, where there is one) and the tokens before it."""
+                      tokens: list[int], at: int, models: dict,
+                      mesh_tokens: list[int] | None = None) -> float:
+    """One process's margin where the mesh's reply (``mesh_tokens``) first
+    differs from its own (position ``at`` of its ``tokens``), on the
+    family's dense forward over the prompt (the shared prefix first, where
+    there is one): greedy decoding's top-two margin there, given the
+    tokens before it; for a beam search, :func:`beam_drop_margin` of the
+    mesh's reply."""
     from kube_sqs_autoscaler_tpu_torch.workloads import __main__ as binary
     from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
 
@@ -9446,13 +9489,43 @@ def serve_mesh_margin(torch, label: str, flags: list[str], body: str,
     prompt = json.loads(body)
     if "--prefix-ids" in flags:
         prompt = PREFIX_IDS + prompt
+    forward = family_of(config).forward
+    if "--beams" in flags:
+        assert "--length-penalty" not in flags and "--eos-id" not in flags
+        with torch.inference_mode():
+            return beam_drop_margin(
+                torch, forward, params, config, prompt, mesh_tokens,
+                int(flags[flags.index("--beams") + 1]))
     ids = torch.tensor(prompt + tokens[:at], device="cuda")
     with torch.inference_mode():
         margins = greedy_margins(
             torch, params, config, ids[:len(prompt)],
-            torch.tensor(tokens[:at + 1], device="cuda"),
-            family_of(config).forward)
+            torch.tensor(tokens[:at + 1], device="cuda"), forward)
     return float(margins[at])
+
+
+def beam_drop_margin(torch, forward, params, config, prompt: list[int],
+                     reply: list[int], width: int,
+                     device: str = "cuda") -> float:
+    """How narrowly one process's beam search of ``width`` beams (no eos,
+    no length penalty), replayed on the dense ``forward``, passes over
+    ``reply``: at the step where it drops a prefix of ``reply``, the
+    joint log-probability of the last candidate it keeps less that
+    prefix's; if it keeps ``reply`` to the end, the best final beam's less
+    ``reply``'s (0 when ``reply`` is its answer)."""
+    beams, scores = [[]], torch.zeros(1, device=device)
+    for t in range(len(reply)):
+        seqs = torch.tensor([prompt + b for b in beams], device=device)
+        logp = forward(params, seqs, config)[:, -1].float().log_softmax(-1)
+        vocab = logp.shape[-1]
+        candidates = (scores[:, None] + logp).flatten()
+        top = candidates.topk(width)
+        mine = candidates[beams.index(reply[:t]) * vocab + reply[t]]
+        kept = [beams[i // vocab] + [i % vocab] for i in top.indices.tolist()]
+        if reply[:t + 1] not in kept:
+            return float(top.values[-1] - mine)
+        beams, scores = kept, top.values
+    return float(scores[0] - scores[beams.index(reply)])
 
 
 def check_serve_mesh(torch, smoke: Smoke, out: Path, one: dict,
@@ -9461,7 +9534,7 @@ def check_serve_mesh(torch, smoke: Smoke, out: Path, one: dict,
     process's up to near-ties; each rank's exact forward launches; the
     rates beside one process's (not gated: the ranks' collectives go
     through host memory)."""
-    result, launches, models = {}, {}, {}
+    result, launches, decode_launches, models = {}, {}, {}, {}
     for label, flags, tp, bodies in SERVE_MESH_RUNS:
         files = [out / f"{label}-rank{r}.json"
                  for r in range(SERVE_MESH_RANKS)]
@@ -9504,12 +9577,14 @@ def check_serve_mesh(torch, smoke: Smoke, out: Path, one: dict,
                       if a != b)
             margin = serve_mesh_margin(
                 torch, label, flags, bodies_of[int(rid.split("-")[1]) - 1],
-                want_t, at, models)
+                want_t, at, models, got_t)
             (near if margin < SERVE_MESH_TIE else far).append(
                 (rid, at, margin))
+        measure = ("beam drop margin" if "--beams" in flags
+                   else "top-two margin")
         smoke.check(not far, f"serve mesh {label}: {same} of {bodies} bf16 "
                     f"replies equal one process's; {len(near)} differ, each "
-                    f"first at a near-tie of one process's (top-two margin "
+                    f"first at a near-tie of one process's ({measure} "
                     f"< {SERVE_MESH_TIE:g}): {near[:4]}; beyond a near-tie: "
                     f"{far[:4]}")
         expected = serve_mesh_expected(label, flags, bodies, lead)
@@ -9523,6 +9598,8 @@ def check_serve_mesh(torch, smoke: Smoke, out: Path, one: dict,
             f"{SERVE_LAYERS} layers a prompt pass) and no training kernel; "
             f"one process {one[label]['launches']}")
         launches[f"serve-mesh-{label}"] = sum(g["flash_fwd"] for g in got)
+        decode_launches[f"serve-mesh-{label}"] = sum(
+            r["decode_attention"] for r in ranks)
         step_ms = (1e3 * lead["elapsed_s"] / (lead["generated_tokens"] / 8)
                    if lead.get("generated_tokens") else None)
         print(f"serve mesh {label}: rank 0's run {ranks[0]['wall_s']:.3f} s "
@@ -9549,6 +9626,7 @@ def check_serve_mesh(torch, smoke: Smoke, out: Path, one: dict,
               "(gloo stages every collective through host memory)",
               flush=True)
     result["launches"] = launches
+    result["decode_launches"] = decode_launches
     return result
 
 
@@ -10005,6 +10083,396 @@ def sims_phase(torch, flash, smoke: Smoke, power: str) -> dict:
             "kernels": kernels, "launches": {"sims-twin": twin["launches"]}}
 
 
+# the cached decode attention (csrc/decode_attn.cu) at the benchmark
+# cells' shapes, (B, H, H_kv, S, D, window), and at shapes that reach its
+# other paths: both dtypes and head dims, query groups of 1, 2, 4, 8 and
+# 16 (two blocks a kv head), a window, a split over chunks, and a cache
+# whose batch dim is not contiguous (a view of a larger one)
+DECODE_ATTN_CELLS = {
+    "gpt2-xl.chat-backlog": (224, 25, 25, 1024, 64, None),
+    "mistral-7b.rag-backlog": (80, 32, 8, 4109, 128, 4096),
+}
+DECODE_ATTN_CASES = [
+    # (label, (B, H, H_kv, S, D, window), dtype name, strided)
+    *((cell, shape, "bfloat16", False)
+      for cell, shape in DECODE_ATTN_CELLS.items()),
+    ("mha-f32-d64", (16, 8, 8, 544, 64, None), "float32", False),
+    ("gqa-f32-d128-w128", (16, 32, 8, 1100, 128, 128), "float32", False),
+    ("gqa-g2-d64-strided", (8, 8, 4, 700, 64, None), "bfloat16", True),
+    ("gqa-g16-d128-w512", (4, 32, 2, 2000, 128, 512), "bfloat16", False),
+    ("mqa-g8-f32-d64", (6, 8, 1, 3000, 64, None), "float32", True),
+]
+# the kernel is held, element by element, to the plain version run in f32
+# on the same inputs upcast (fp32 probabilities, the kernel's arithmetic):
+# one rounding of the output to its dtype (unit roundoff 2^-8 bf16, 2^-24
+# f32) of |want|, plus 2^-12 of the largest |want| in its (row, head) for
+# fp32 sums taken in another order (~1e-7 absolute; 2^-12 of a row's
+# largest output is ~1.6e-5 at rag's lengths)
+DECODE_ATTN_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float32": 2.0 ** -24}
+DECODE_ATTN_SUM_ORDER = 2.0 ** -12
+
+
+def decode_attn_limit(want, dtype_name: str):
+    """Each output element's limit against the f32 plain version ``want``
+    (``[B, H, 1, D]``): each row of each head held to its own scale."""
+    size = want.abs()
+    return (DECODE_ATTN_ROUNDOFF[dtype_name] * size
+            + DECODE_ATTN_SUM_ORDER * size.amax(dim=-1, keepdim=True))
+
+
+def decode_attn_check(torch, got, q, k, v, length, window,
+                      dtype_name: str) -> dict:
+    """``got`` (the kernel's output) against the plain version in f32 on
+    the same inputs, ``k`` and ``v`` zero outside the valid keys: the
+    largest |err| over its limit (must be at most 1), and the control: the
+    plain answer over each row's keys moved back by one (its last valid
+    key dropped; with a window, one more taken in at the front), rounded
+    to the output dtype, against the same limits: the least over the rows
+    whose keys it changes of the largest |err| over the limit (must pass
+    1, so a kernel that lost a key at an edge would be refused)."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.decode import (
+        _chunk_cached_attention,
+    )
+
+    s = k.shape[2]
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    want = _chunk_cached_attention(q32, k32, v32, length, window)
+    limit = decode_attn_limit(want, dtype_name)
+    ratio = ((got.float() - want).abs() / limit).amax().item()
+    moved = (length >= 1) & (length <= s - 1)
+    off = _chunk_cached_attention(q32, k32, v32, (length - 1).clamp(min=0),
+                                  window).to(got.dtype).float()
+    per_row = ((off - want).abs() / limit).amax(dim=(1, 2, 3))
+    control = per_row[moved].min().item()
+    return {"err": (got.float() - want).abs().max().item(),
+            "ratio": ratio, "control": control,
+            "control_rows": int(moved.sum().item())}
+
+
+def decode_attn_lengths(rng, batch: int, keys: int, window) -> np.ndarray:
+    """Ragged lengths over every kind of row: a never-used slot (0), the
+    cache's last position, an idle slot stepping on past the end, a freed
+    slot holding its last length, one inside the first window, and the
+    rest drawn over the whole cache."""
+    special = [0, keys - 1, keys + 5, 37, min(keys - 1, (window or 64) - 1)]
+    drawn = rng.integers(0, keys + 3, size=max(0, batch - len(special)))
+    return np.array((special + drawn.tolist())[:batch], np.int64)
+
+
+def decode_attn_inputs(torch, shape, dtype, strided, lengths, seed):
+    """q, a cache filled everywhere, the same cache with NaN at every
+    position outside each row's valid keys, and the lengths, on the card.
+    ``strided`` takes q as a head view of a fused projection and the cache
+    as every other row of one twice as large."""
+    b, h, hkv, s, d, window = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if strided:
+        q = torch.randn((b, 1, 3 * h * d), generator=g, device="cuda",
+                        dtype=dtype)[..., :h * d]
+        q = q.view(b, 1, h, d).transpose(1, 2)
+        k, v = (torch.randn((2 * b, hkv, s, d), generator=g, device="cuda",
+                            dtype=dtype)[::2] for _ in range(2))
+    else:
+        q = torch.randn((b, h, 1, d), generator=g, device="cuda", dtype=dtype)
+        k, v = (torch.randn((b, hkv, s, d), generator=g, device="cuda",
+                            dtype=dtype) for _ in range(2))
+    length = torch.from_numpy(lengths).cuda()
+    hi = length.clamp(max=s - 1)
+    lo = (hi - window + 1).clamp(min=0) if window else torch.zeros_like(hi)
+    pos = torch.arange(s, device="cuda")
+    outside = ((pos < lo[:, None]) | (pos > hi[:, None]))[:, None, :, None]
+    k_nan, v_nan = (t.masked_fill(outside, float("nan")) for t in (k, v))
+    return q, k, v, k_nan, v_nan, length
+
+
+def decode_attn_bound_ms(shape, lengths, dtype_name) -> float:
+    """The least time for the kernel's bytes: each row's valid keys of K
+    and V read once, q read and the output written once, at 3.35 TB/s (the
+    operations, 4 * D flops a valid (query head, key), take at most 2 * G
+    flops a byte: never the bound)."""
+    b, h, hkv, s, d, window = shape
+    size = 2 if dtype_name == "bfloat16" else 4
+    hi = np.minimum(lengths, s - 1)
+    lo = np.maximum(0, hi - window + 1) if window else np.zeros_like(hi)
+    moved = (int((hi - lo + 1).sum()) * hkv * d * 2 * size
+             + 2 * b * h * d * size)
+    return moved / PEAK_BYTES_PER_S * 1e3
+
+
+def cell_lengths(rng, cell: str) -> np.ndarray:
+    """The lengths a cell's slots hold mid-drain: its mix's prompts (the
+    traffic file's log-normal, median and bounds) plus the tokens decoded
+    so far."""
+    mix = json.loads((Path(__file__).resolve().parent / "portbench"
+                      / "traffic" / f"{cell.split('.', 1)[1]}.json")
+                     .read_text())
+    b = DECODE_ATTN_CELLS[cell][0]
+    p = mix["prompt"]
+    prompts = np.clip(np.exp(rng.normal(np.log(p["median"]), p["sigma"], b)),
+                      p["min"], p["max"]).astype(np.int64)
+    return prompts + rng.integers(0, mix["generate_tokens"], b)
+
+
+def decode_attn_timing(torch, F, da, cell: str) -> dict:
+    """The kernel at a cell's shape with the lengths its slots hold, timed
+    beside its bytes bound, the plain version and one SDPA call over the
+    whole cache with the valid keys as its mask (the yardstick; the port
+    never calls it)."""
+    b, h, hkv, s, d, window = shape = DECODE_ATTN_CELLS[cell]
+    lengths = cell_lengths(np.random.default_rng(24), cell)
+    q, k, v, _, _, length = decode_attn_inputs(
+        torch, shape, torch.bfloat16, False, lengths, 2424)
+    from kube_sqs_autoscaler_tpu_torch.workloads.decode import (
+        _chunk_cached_attention,
+    )
+
+    kernel_ms = time_ms(torch, lambda: da.decode_attention(
+        q, k, v, length, window), iters=50)
+    plain_ms = time_ms(torch, lambda: _chunk_cached_attention(
+        q, k, v, length, window), iters=10)
+    hi = length.clamp(max=s - 1)
+    lo = (hi - window + 1).clamp(min=0) if window else torch.zeros_like(hi)
+    pos = torch.arange(s, device="cuda")
+    mask = ((pos >= lo[:, None]) & (pos <= hi[:, None]))[:, None, None, :]
+    extra = dict(enable_gqa=True) if hkv != h else {}
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, **extra), iters=10)
+    bound_ms = decode_attn_bound_ms(shape, lengths, "bfloat16")
+    whole_ms = decode_attn_bound_ms(
+        shape, np.full(b, s - 1 if window is None else window - 1),
+        "bfloat16")
+    chunks, chunk_len = da.split(
+        s, b * hkv, torch.cuda.get_device_properties(0).multi_processor_count)
+    out = dict(shape=list(shape), mean_length=float(lengths.mean()),
+               kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               library_call="F.scaled_dot_product_attention forward with the "
+                            "valid keys as a mask" +
+                            (" (enable_gqa=True)" if extra else ""),
+               bound_ms=bound_ms, bound_by="bytes",
+               bound_share=bound_ms / kernel_ms,
+               whole_cache_bound_ms=whole_ms, chunks=chunks,
+               chunk_len=chunk_len)
+    print(f"time decode_attn {cell} {shape} (mean length "
+          f"{out['mean_length']:.1f}, {chunks} chunks of {chunk_len}): "
+          f"kernel {kernel_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes, "
+          f"{100 * out['bound_share']:.1f}% of it), plain {plain_ms:.4f} ms, "
+          f"SDPA {library_ms:.4f} ms; the whole cache's bytes "
+          f"{whole_ms:.4f} ms", flush=True)
+    return out
+
+
+def decode_attn_drains(torch, da, smoke: Smoke) -> dict:
+    """Each family's continuous drain at decode block 8 (the built-in
+    models, 16 demo bodies) goes through the kernel once a layer a decode
+    step."""
+    from kube_sqs_autoscaler_tpu_torch.metrics.fake import FakeMessageQueue
+    from kube_sqs_autoscaler_tpu_torch.workloads.continuous import (
+        ContinuousWorker,
+    )
+
+    out = {}
+    for family in ("gpt", "llama"):
+        config, params, service_config = demo_setup(
+            torch, [*GENERATE_ARGS, "--family", family], 8)
+        service_config.queue_url = "demo://queue"
+        service_config.result_queue_url = ""
+        queue = FakeMessageQueue()
+        for body in demo_bodies(GATE_BODIES):
+            queue.send_message(service_config.queue_url, body)
+        worker = ContinuousWorker(queue, params, config, service_config,
+                                  device="cuda")
+        before = da.decode_attention_launches
+        worker.drain(total=GATE_BODIES)
+        torch.cuda.synchronize()
+        steps = worker.batcher.decode_steps
+        launches = da.decode_attention_launches - before
+        smoke.check(worker.processed == GATE_BODIES and steps > 0
+                    and launches == config.n_layers * steps,
+                    f"decode attn {family} continuous drain: "
+                    f"{worker.processed} of {GATE_BODIES} answered, "
+                    f"decode_attention launches {launches} = "
+                    f"{config.n_layers} layers x {steps} decode steps")
+        out[family] = {"launches": launches, "decode_steps": steps}
+    return out
+
+
+class plain_decode_attention:
+    """Within the block the cached decode attention takes its plain path
+    on the card too (the routing predicate answers no)."""
+
+    def __enter__(self):
+        from kube_sqs_autoscaler_tpu_torch.workloads import decode_attn
+
+        self.module = decode_attn
+        self.kept = decode_attn.takes_kernel
+        decode_attn.takes_kernel = lambda *args: False
+        return self
+
+    def __exit__(self, *exc):
+        self.module.takes_kernel = self.kept
+
+
+class f32_builtins:
+    """Within the block the worker binary's built-in models are f32."""
+
+    def __enter__(self):
+        import torch
+        from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+            BUILTIN_CONFIGS,
+        )
+
+        self.configs = BUILTIN_CONFIGS
+        self.kept = dict(BUILTIN_CONFIGS)
+        for family, build in self.kept.items():
+            BUILTIN_CONFIGS[family] = partial(
+                lambda build, *a: dataclasses.replace(
+                    build(*a), dtype=torch.float32), build)
+        return self
+
+    def __exit__(self, *exc):
+        self.configs.update(self.kept)
+
+
+def decode_attn_modes(torch, flash, da, smoke: Smoke) -> dict:
+    """Beam search, speculative decoding and the sharded plane through the
+    worker binary (``--demo 16``), with the kernel and with the plain path
+    on the same weights: in f32, where both compute the same function, the
+    replies must be identical; in bf16 they are counted (the kernel keeps
+    the probabilities fp32)."""
+    from kube_sqs_autoscaler_tpu_torch.workloads.__main__ import (
+        main as worker,
+    )
+
+    modes = {
+        "beam": [*GENERATE_ARGS, *BEAM_ARGS],
+        "speculative": [*GENERATE_ARGS, *SPEC_ARGS, "--continuous"],
+        "sharded-plane": SHARDS_ARGS,
+    }
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for mode, args in modes.items():
+            runs = {}
+            for path in ("plain", "kernel"):
+                before = da.decode_attention_launches
+                with contextlib.ExitStack() as stack:
+                    if dtype == "float32":
+                        stack.enter_context(f32_builtins())
+                    if path == "plain":
+                        stack.enter_context(plain_decode_attention())
+                    summary, _, _, _ = run_binary(torch, flash, worker, args)
+                check_served(smoke, f"decode attn {mode} {dtype} {path}",
+                             summary)
+                runs[path] = (replies_of(summary),
+                              da.decode_attention_launches - before)
+            same = count_same(runs["kernel"][0], runs["plain"][0])
+            label = (f"decode attn {mode} {dtype}: replies through the "
+                     f"kernel ({runs['kernel'][1]} launches) equal to the "
+                     f"plain path's ({runs['plain'][1]} launches), "
+                     f"{same} of {GATE_BODIES}")
+            if dtype == "float32":
+                smoke.check(same == GATE_BODIES and runs["kernel"][1] > 0
+                            and runs["plain"][1] == 0, label)
+            else:
+                print(label + " (bf16, counted, not gated)", flush=True)
+            out[f"{mode}-{dtype}"] = same
+    return out
+
+
+def decode_attn_phase(torch, flash, smoke: Smoke) -> dict:
+    """The cached decode attention kernel (``csrc/decode_attn.cu``): its
+    registers and spills; against its plain version in f32
+    (:func:`decode_attn_check`) at the benchmark cells' shapes and at
+    :data:`DECODE_ATTN_CASES`, over ragged lengths, with NaN at every cache
+    position outside each row's valid keys (the kernel must never read
+    one; the plain version gets zeros there, which its mask hides); timed
+    at both cells' shapes; each family's drain through it once a layer a
+    step; beam, speculative and sharded-plane replies against the plain
+    path."""
+    import torch.nn.functional as F
+
+    from kube_sqs_autoscaler_tpu_torch.workloads import decode_attn as da
+
+    out = {"resources": {}, "checks": {}, "timings": {}}
+    for r in flash.kernel_resources("decode_attn"):
+        out["resources"][f"{r['kernel']} {r['dtype']} {r['head_dim']}"] = r
+        print(f"resources {r['kernel']} {r['dtype']} D={r['head_dim']}: "
+              f"{r['registers']} registers, {r['local_bytes']} bytes local "
+              f"(spills), {r['static_smem_bytes']} static bytes shared",
+              flush=True)
+    for key in ("decode_attn_g1 bf16 64", "decode_attn_g4 bf16 128"):
+        r = out["resources"].get(key)
+        smoke.check(r is not None and r["local_bytes"] == 0,
+                    f"{key} (a cell's instantiation) uses no local memory: "
+                    f"{None if r is None else r['local_bytes']} bytes")
+    rng = np.random.default_rng(24)
+    for label, shape, dtype_name, strided in DECODE_ATTN_CASES:
+        dtype = getattr(torch, dtype_name)
+        b, h, hkv, s, d, window = shape
+        lengths = decode_attn_lengths(rng, b, s, window)
+        q, k, v, k_nan, v_nan, length = decode_attn_inputs(
+            torch, shape, dtype, strided, lengths, 2400 + b)
+        before = da.decode_attention_launches
+        got = da.decode_attention(q, k_nan, v_nan, length, window)
+        torch.cuda.synchronize()
+        launched = da.decode_attention_launches - before
+        del k, v
+        finite = bool(torch.isfinite(got).all())
+        check = decode_attn_check(
+            torch, got, q, torch.nan_to_num(k_nan, nan=0.0),
+            torch.nan_to_num(v_nan, nan=0.0), length, window, dtype_name)
+        smoke.check(
+            finite and check["ratio"] <= 1 and check["control"] > 1
+            and launched == 1,
+            f"decode_attn {label} {dtype_name} {shape}: against the plain "
+            f"version in f32, max |err| {check['err']:.3e}, at most "
+            f"{check['ratio']:.3f} of its limit (one output rounding of "
+            f"|want| + 2^-12 of its row's largest); the control (one key "
+            f"off) at least {check['control']:.2f} of it over "
+            f"{check['control_rows']} rows; finite with NaN outside the "
+            f"valid keys ({finite}), {launched} launch")
+        out["checks"][label] = check
+        del q, k_nan, v_nan, got
+    for cell in DECODE_ATTN_CELLS:
+        out["timings"][cell] = decode_attn_timing(torch, F, da, cell)
+    out["drains"] = decode_attn_drains(torch, da, smoke)
+    out["modes"] = decode_attn_modes(torch, flash, da, smoke)
+    return out
+
+
+def decode_attn_main() -> int:
+    """``--decode-attn``: the device, the build and the decode attention
+    phase alone; exits 1 on any failure."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    from kube_sqs_autoscaler_tpu_torch.workloads import flash, kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smoke = Smoke()
+    smoke.phase("device", device_phase, torch)
+    smoke.phase("build", build_phase, kernels)
+    result = smoke.phase("decode attn", decode_attn_phase, torch, flash,
+                         smoke)
+    if smoke.failures or result is None:
+        print(json.dumps({"ok": False, "failures": smoke.failures}),
+              flush=True)
+        return 1
+    print(json.dumps({"decode_attn": {
+        "checks": result["checks"], "timings": result["timings"],
+        "drains": result["drains"], "modes": result["modes"],
+        "resources": {k: {f: r[f] for f in ("registers", "local_bytes",
+                                            "static_smem_bytes")}
+                      for k, r in result["resources"].items()},
+    }}), flush=True)
+    print(json.dumps({"ok": True}), flush=True)
+    return 0
+
+
 def kernel_entry(name, source, replaces, replaces_fn, launches, by_path,
                  err, timing, shape) -> dict:
     return {
@@ -10029,6 +10497,43 @@ def kernel_entry(name, source, replaces, replaces_fn, launches, by_path,
     }
 
 
+def decode_attn_entry(result: dict, by_path: dict) -> dict:
+    """The kernels line's entry of the cached decode attention kernel: it
+    replaces no TPU kernel (the JAX package's is plain ``jnp``); timed at
+    rag's shape, with chat's beside it."""
+    rag, chat = (result["timings"][cell] for cell in (
+        "mistral-7b.rag-backlog", "gpt2-xl.chat-backlog"))
+    checks = result["checks"]
+    used = {key: result["resources"][key] for key in (
+        "decode_attn_g1 bf16 64", "decode_attn_g4 bf16 128")}
+    return {
+        "name": "decode_attn",
+        "route": "cuda",
+        "source": "kube_sqs_autoscaler_tpu_torch/csrc/decode_attn.cu",
+        "replaces": None,
+        "replaces_fn": "none: kube_sqs_autoscaler_tpu/workloads/decode.py "
+                       "_cached_attention is plain jnp",
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": max(c["err"] for c in checks.values()),
+        "max_err_over_limit": max(c["ratio"] for c in checks.values()),
+        "control_over_limit": min(c["control"] for c in checks.values()),
+        "tol": "one output rounding of |want| + 2^-12 of its row's largest, "
+               "against the plain version in f32",
+        "shape": rag["shape"],
+        "ms": rag["kernel_ms"],
+        "kernel_ms": rag["kernel_ms"],
+        "plain_ms": rag["plain_ms"],
+        "library_ms": rag["library_ms"],
+        "library_call": rag["library_call"],
+        "bound_ms": rag["bound_ms"],
+        "bound_by": rag["bound_by"],
+        "at_other_shapes": {"x".join(map(str, chat["shape"][:5])): chat},
+        "registers": {k: r["registers"] for k, r in used.items()},
+        "spill_bytes": {k: r["local_bytes"] for k, r in used.items()},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -10049,6 +10554,8 @@ def main() -> int:
     kern = smoke.phase("kernels", kernel_phase, torch, flash, smoke)
     train_kern = smoke.phase("train kernels", train_kernel_phase, torch,
                              flash, smoke)
+    dattn = smoke.phase("decode attn", decode_attn_phase, torch, flash,
+                        smoke)
     path = smoke.phase("main path", main_path_phase, torch, flash, smoke)
     serve = smoke.phase("continuous", continuous_phase, torch, flash, smoke)
     cycles = smoke.phase("block cycles", block_cycles_phase, torch, smoke)
@@ -10108,8 +10615,22 @@ def main() -> int:
                              smoke, power, launches)
     launches.run_beside()
     sims = beside.get("sims")
+    # every serving path decodes through the cached decode attention
+    # kernel: its launches in this process by phase, and by run of the
+    # serving mesh's ranks (the worker binaries run as processes of their
+    # own are not counted)
+    decode_by_path = {**{f"phase-{name}": n for name, n in
+                         smoke.decode_launches.items()},
+                      **(serve_mesh or {}).get("decode_launches", {})}
+    print(f"decode_attn launches by path: {decode_by_path}", flush=True)
+    smoke.check(
+        sum(n for name, n in decode_by_path.items()
+            if name != "phase-decode attn") > 0,
+        f"the serving paths outside the decode attn phase launched the "
+        f"decode attention kernel: {decode_by_path}")
     if smoke.failures or not (info and sass and resources and kern
-                              and train_kern and path and serve and cycles
+                              and train_kern and dattn and path and serve
+                              and cycles
                               and stagger and rates and prof
                               and serve_prof and sqs and fleet and ctrl
                               and policies and shards
@@ -10247,6 +10768,7 @@ def main() -> int:
         entry["registers"] = used["registers"]
         entry["spill_bytes"] = used["local_bytes"]
         entry["hmma_instructions"] = sass[f"{kernel} bf16 {TRAIN_SHAPE[3]}"]
+    entries.append(decode_attn_entry(dattn, decode_by_path))
     print(f"-- total: {time.perf_counter() - smoke.start:.3f} s",
           flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
@@ -10289,4 +10811,6 @@ if __name__ == "__main__":
         sys.exit(pipe_rank_main(sys.argv[2:]))
     if len(sys.argv) == 3 and sys.argv[1] == "--serve-mesh-rank":
         sys.exit(serve_mesh_rank_main(sys.argv[2:]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--decode-attn":
+        sys.exit(decode_attn_main())
     sys.exit(run())

@@ -29,8 +29,11 @@ same cache object with its ``length`` advanced.  A caller that needs the
 old cache must clone it first.  This saves a copy of every layer's cache
 per generated token.
 
-The cached decode attention is plain PyTorch, as it is plain ``jnp`` in
-the reference (not a Pallas kernel).  Sampling draws from a
+The cached decode attention is plain ``jnp`` in the reference (not a
+Pallas kernel).  Here its one-position case runs, on the card, the
+hand-written kernel of :mod:`.decode_attn` over the cache in place; the
+chunk (``T > 1``), int8 and rolling attentions, and every CPU tensor, keep
+the plain PyTorch path.  Sampling draws from a
 ``torch.Generator`` where the reference splits ``jax.random`` keys: the
 same seed gives a reproducible run, not the reference's draws.
 """
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from . import decode_attn
 from .model import (
     ModelConfig, _block, _dense_attention, _embed, _layer_norm, unembed,
 )
@@ -207,7 +211,17 @@ def _cached_attention(
     window: int | None = None,
 ) -> torch.Tensor:
     """One query position per row (``[B, H, 1, D]``) against the cache:
-    the ``T = 1`` case of :func:`_chunk_cached_attention`."""
+    the ``T = 1`` case of :func:`_chunk_cached_attention`.  Where the
+    inputs are what :func:`.decode_attn.takes_kernel` accepts (a CUDA
+    tensor, a bf16 or fp32 cache of q's dtype, a head dim the kernel
+    takes) the hand-written kernel computes it
+    (:func:`.decode_attn.decode_attention`), reading each row's valid
+    positions of the cache in place; everything else keeps the plain
+    path."""
+    if decode_attn.takes_kernel(q.device, q.shape[2], q.dtype, k_cache.dtype,
+                                q.shape[-1]):
+        return decode_attn.decode_attention(q, k_cache, v_cache, length,
+                                            window)
     return _chunk_cached_attention(q, k_cache, v_cache, length, window)
 
 

@@ -460,7 +460,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal=True, window=None,
 
 def kernel_resources(source: str) -> list[dict]:
     """What the compiler gave every kernel instantiation of
-    ``csrc/<source>.cu`` (``flash_fwd`` or ``flash_bwd``;
+    ``csrc/<source>.cu`` (``flash_fwd``, ``flash_bwd`` or ``decode_attn``;
     ``cudaFuncGetAttributes``): one dict per kernel, dtype and head dim
     with ``registers`` a thread, ``local_bytes`` a thread (above 0 means
     spills), ``static_smem_bytes`` and the ``dynamic_smem_bytes`` its

@@ -9,7 +9,9 @@ flags, so an edited source or header is never served from a stale build.
 
 Nothing is built when this module is imported: :func:`load` builds on
 first use, and :func:`build_all` builds every source at once, one
-``nvcc`` process per source, all started together.
+``nvcc`` process per source, all started together (a first :func:`load`
+calls it, so the serving path's first run builds its flash and decode
+kernels side by side).
 """
 
 from __future__ import annotations
@@ -93,11 +95,13 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use: a
+    first use builds every source without a current build at once
+    (:func:`build_all`), so the others' builds run beside this one's."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            path = build_all([name])[name]
+            path = build_all()[name]
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from kube_sqs_autoscaler_tpu.workloads import beam as jax_beam
 from kube_sqs_autoscaler_tpu_torch.workloads import beam, flash
 from kube_sqs_autoscaler_tpu_torch.workloads.family import family_of
@@ -125,6 +126,30 @@ def test_single_beam_is_greedy_and_wider_beams_score_no_worse(family):
         return np.asarray(total)
 
     assert (logprob(wide) >= logprob(greedy) - 1e-3).all()
+
+
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+def test_chip_smoke_beam_replay_passes_over_each_reply_by_its_margin(family):
+    # chip_smoke's near-tie gate for a mesh's beam replies replays the
+    # search on the dense forward: 0 for the answer, the final score gap
+    # for the other kept beam, a positive margin for a dropped reply
+    _, _, tcfg, tp = weights(family)
+    model = family_of(tcfg)
+    prompt = tokens(family, 1, 16, seed=34)[0].tolist()
+    seqs, scores = beam.beam_search(tp, tcfg, torch.tensor([prompt]), STEPS,
+                                    beams=2, return_all=True)
+    best, second = seqs[0].tolist()
+
+    def margin(reply):
+        return chip_smoke.beam_drop_margin(
+            torch, model.forward, tp, tcfg, prompt, reply, 2, device="cpu")
+
+    assert margin(best) == 0.0
+    assert margin(second) == pytest.approx(
+        float(scores[0, 0] - scores[0, 1]), abs=1e-4)
+    logits = model.forward(tp, torch.tensor([prompt + best[:1]]), tcfg)
+    worst = int(logits[0, -1].argmin())
+    assert margin(best[:1] + [worst] + best[2:]) > 1.0
 
 
 def test_top_k_ties_resolve_like_jax_lax_top_k():
